@@ -1,0 +1,114 @@
+"""Per-algorithm option factories: defaults + validation.
+
+Copy of ``buffalo_tpu.models.options`` for the PyTorch port, with the
+algorithms this port has so far (``AlgoOption``, ``ALSOption``): same
+hyperparameter names and defaults, so configurations port over
+unchanged.  One key is the port's own: ``device`` ("cuda" by default;
+"cpu" runs the plain PyTorch versions of the kernels).  The reference's
+device keys (``num_devices``, ``sharding``, ``resident_mb``,
+``range_layout``, ``epoch_dispatch``, ``vals_dtype``) keep their
+defaults; settings the port does not run yet raise
+``NotImplementedError`` at ``train``.
+"""
+from __future__ import annotations
+
+from buffalo_tpu_torch.utils import Option
+from buffalo_tpu_torch.utils.option import InputOptions
+
+
+class AlgoOption(InputOptions):
+    def get_default_option(self) -> Option:
+        """Common options (reference options.py:8-30).
+
+        :ivar bool evaluation_on_learning: run evaluation during training.
+        :ivar bool compute_loss_on_training: compute loss during training.
+        :ivar int early_stopping_rounds: epochs of patience after minimum
+            loss (0 disables).
+        :ivar bool save_best: save the model whenever loss improves.
+        :ivar int evaluation_period: evaluation cadence in epochs.
+        :ivar int save_period: save_best cadence in epochs.
+        :ivar int random_seed: seed for factor init and sampling.
+        :ivar dict validation: validation options (topk, batch, eval_samples).
+        :ivar str device: torch device the model trains and serves on
+            ("cuda" or "cpu"); a CUDA device without a card raises.
+
+        Reference device keys (same defaults): ``num_devices`` (the port
+        runs on one card; > 1 raises), ``sharding``, ``resident_mb``
+        (budget for keeping the epoch's batches on the device),
+        ``range_layout`` (False raises), ``epoch_dispatch`` (accepted;
+        the port launches per batch either way) and ``vals_dtype``
+        (resolving to bfloat16 raises).
+        """
+        return Option({
+            "evaluation_on_learning": True,
+            "compute_loss_on_training": True,
+            "early_stopping_rounds": 0,
+            "save_best": False,
+            "evaluation_period": 1,
+            "save_period": 10,
+            "random_seed": 0,
+            "validation": {},
+            "device": "cuda",
+            "num_devices": 0,
+            "sharding": "dp",
+            "resident_mb": 4096,
+            "range_layout": True,
+            "epoch_dispatch": "auto",
+            "vals_dtype": "auto",
+        })
+
+    def is_valid_option(self, opt) -> bool:
+        b = super().is_valid_option(opt)
+        for f in ["num_workers"]:
+            if f not in opt:
+                raise RuntimeError(f"{f} not defined")
+        return b
+
+
+class ALSOption(AlgoOption):
+    def get_default_option(self) -> Option:
+        """Alternating Least Squares (reference options.py:40-86).
+
+        :ivar bool adaptive_reg: scale L2 by per-row interaction count.
+        :ivar int d: latent dimension.
+        :ivar float reg_u / reg_i: L2 coefficients.
+        :ivar float alpha: implicit-feedback confidence coefficient.
+        :ivar str optimizer: llt | ldlt | manual_cg | eigen_cg | eigen_bicg |
+            eigen_gmres | eigen_dgmres | eigen_minres | ialspp.
+        :ivar int num_cg_max_iters: CG iteration cap.
+        :ivar int block_size: iALS++ subspace block size.
+        :ivar int stored_width: accepted for parity; the reference's
+            zero-padding rule is a TPU tuning, so the port stores at d
+            (padding is exact, so results do not depend on it).
+        """
+        opt = super().get_default_option()
+        opt.update({
+            "adaptive_reg": False,
+            "save_factors": False,
+            "accelerator": False,
+            "stored_width": 0,
+            "d": 20,
+            "num_iters": 10,
+            "num_workers": 1,
+            "hyper_threads": 256,
+            "num_cg_max_iters": 3,
+            "reg_u": 0.1,
+            "reg_i": 0.1,
+            "alpha": 8.0,
+            "optimizer": "manual_cg",
+            "cg_tolerance": 1e-10,
+            "block_size": 32,
+            "eps": 1e-10,
+            "model_path": "",
+            "data_opt": {},
+        })
+        return Option(opt)
+
+    def is_valid_option(self, opt) -> bool:
+        b = super().is_valid_option(opt)
+        possible = ["llt", "ldlt", "manual_cg", "eigen_cg", "eigen_bicg",
+                    "eigen_gmres", "eigen_dgmres", "eigen_minres", "ialspp"]
+        if opt.optimizer not in possible:
+            raise RuntimeError(
+                f"optimizer ({opt.optimizer}) should be in {possible}")
+        return b

@@ -1,0 +1,204 @@
+"""The port's ALS batch paths against the reference's, on the CPU.
+
+On CPU tensors each kernel wrapper runs its plain PyTorch version, so
+K1 (matrix-free CG), K2 + K3 (dense normal equations + batched CG, for
+long range rows and for segment rows) and the whole range-layout epoch
+are held here to ``buffalo_tpu.ops.als_kernels`` on the same numpy
+inputs.  Tolerance rtol 1e-4 / atol 1e-5: float32, different summation
+orders, three warm-started CG steps on well-conditioned systems.  The
+kernels themselves are held to these plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from buffalo_tpu.data import batching as ref_batching
+from buffalo_tpu.ops import als_kernels as ref
+from buffalo_tpu_torch.data import batching as port_batching
+from buffalo_tpu_torch.ops import als_kernels as port
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+D = 8
+
+
+def _tables(n, m, seed):
+    rng = np.random.default_rng(seed)
+    table = (rng.normal(size=(n, D)) * 0.3).astype(np.float32)
+    Bf = (rng.normal(size=(m, D)) * 0.3).astype(np.float32)
+    return table, Bf, (Bf.T @ Bf).astype(np.float32)
+
+
+def _padded(B, L, m, seed, max_len=None):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, max_len or L, size=B).astype(np.int32)
+    lens[[1, -1]] = 0  # padding rows keep p
+    cols = rng.integers(0, m, size=(B, L)).astype(np.int32)
+    vals = (1.0 + rng.random((B, L))).astype(np.float32)
+    mask = np.arange(L)[None, :] < lens[:, None]
+    return lens, np.where(mask, cols, 0), np.where(mask, vals, 0.0)
+
+
+def _kw(adaptive_reg, item_axis):
+    return dict(alpha=4.0, reg=0.05, adaptive_reg=adaptive_reg,
+                item_axis=item_axis, num_fixed_rows=123, compute_loss=True)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+FLAGS = pytest.mark.parametrize("adaptive_reg,item_axis",
+                                [(False, False), (False, True),
+                                 (True, False), (True, True)])
+
+
+@FLAGS
+@pytest.mark.parametrize("L", [24, 104])
+def test_range_batch_matches_als_solve_batch(L, adaptive_reg, item_axis):
+    """L <= 96: K1; L > 96: K2 + K3 — both against ``als_solve_batch``."""
+    table, Bf, FF = _tables(50, 30, seed=L)
+    B, rs = 16, 7
+    lens, cols, vals = _padded(B, L, 30, seed=L + 1)
+    kw = _kw(adaptive_reg, item_axis)
+    x, nume, deno = ref.als_solve_batch(
+        jnp.asarray(table[rs:rs + B]), jnp.asarray(Bf[cols]),
+        jnp.asarray(FF), jnp.asarray(lens), jnp.asarray(vals),
+        optimizer="manual_cg", cg_iters=3, cg_tol=1e-10, **kw)
+
+    T, Bft, FFt, lt, ct, vt = _t(table, Bf, FF, lens, cols, vals)
+    if L <= port.MATRIX_FREE_MAX_L:
+        n_rows, d_rows = port.als_cg_matrix_free(
+            T, Bft, FFt, rs, lt, ct, vt, cg_iters=3, cg_tol=1e-10, **kw)
+    else:
+        A, y, n_rows, d_rows = port.als_normal_equations(
+            T, Bft, FFt, lt, ct, vt, row_start=rs, **kw)
+        port.batched_cg_dense(A, y, T, lt, row_start=rs, cg_iters=3,
+                              cg_tol=1e-10)
+    np.testing.assert_allclose(T[rs:rs + B].numpy(), np.asarray(x), **TOL)
+    untouched = np.r_[0:rs, rs + B:len(table)]
+    assert np.array_equal(T.numpy()[untouched], table[untouched])
+    np.testing.assert_allclose(float(n_rows.sum()), float(nume), rtol=1e-5)
+    np.testing.assert_allclose(float(d_rows.sum()), float(deno), rtol=1e-5)
+
+
+@FLAGS
+def test_segment_batch_matches_als_solve_segment_batch(adaptive_reg,
+                                                        item_axis):
+    table, Bf, FF = _tables(20, 40, seed=11)
+    rng = np.random.default_rng(12)
+    degs = rng.integers(0, 30, size=20)
+    degs[[3, 9, 14]] = [70, 33, 101]
+    indptr = np.zeros(21, dtype=np.int64)
+    np.cumsum(degs, out=indptr[1:])
+    key = rng.integers(0, 40, int(indptr[-1])).astype(np.int32)
+    val = (1.0 + rng.random(int(indptr[-1]))).astype(np.float32)
+    sb = port_batching.build_segment_batch(indptr, key, val, [14, 3, 9],
+                                           16, 20)
+    # the range layout's remap: padding rows point far past the table
+    rows = np.where(sb.lens > 0, sb.rows, 1 << 30).astype(np.int32)
+    kw = _kw(adaptive_reg, item_axis)
+
+    p = table[np.minimum(rows, len(table) - 1)]
+    x, nume, deno = ref.als_solve_segment_batch(
+        jnp.asarray(p), jnp.asarray(Bf), jnp.asarray(FF),
+        jnp.asarray(sb.lens), jnp.asarray(sb.seg_ids),
+        jnp.asarray(sb.chunk_lens), jnp.asarray(sb.cols),
+        jnp.asarray(sb.vals), optimizer="manual_cg", cg_iters=3,
+        cg_tol=1e-10, **kw)
+    expected = table.copy()
+    real = sb.lens > 0
+    expected[rows[real]] = np.asarray(x)[real]
+
+    staged = port_batching.stage_batch(sb._replace(rows=rows), "cpu")
+    T, Bft, FFt = _t(table, Bf, FF)
+    A, y, n_rows, d_rows = port.als_normal_equations(
+        T, Bft, FFt, staged.lens, staged.cols, staged.vals,
+        rows=staged.rows, chunk_ptr=staged.chunk_ptr,
+        chunk_lens=staged.chunk_lens, **kw)
+    port.batched_cg_dense(A, y, T, staged.lens, rows=staged.rows,
+                          cg_iters=3, cg_tol=1e-10)
+    np.testing.assert_allclose(T.numpy(), expected, **TOL)
+    np.testing.assert_allclose(float(n_rows.sum()), float(nume), rtol=1e-5)
+    np.testing.assert_allclose(float(d_rows.sum()), float(deno), rtol=1e-5)
+
+
+def _epoch_fixture():
+    """test_als_epoch.py:151-205's data: a CSR with degree-0 rows and one
+    long row (the remapped segment path), both orientations."""
+    num_users, num_items = 70, 40
+    rng = np.random.default_rng(11)
+    degs = rng.integers(0, 40, size=num_users)
+    degs[-1] = 60
+    indptr = np.zeros(num_users + 1, dtype=np.int64)
+    np.cumsum(degs, out=indptr[1:])
+    key = rng.integers(0, num_items, int(indptr[-1])).astype(np.int32)
+    val = (1.0 + rng.random(int(indptr[-1]))).astype(np.float32)
+    rows = np.repeat(np.arange(num_users, dtype=np.int32), degs)
+    order = np.argsort(key, kind="stable")
+    cindptr = np.zeros(num_items + 1, dtype=np.int64)
+    np.cumsum(np.bincount(key, minlength=num_items), out=cindptr[1:])
+    P0 = (rng.normal(size=(num_users, D)) * 0.1).astype(np.float32)
+    Q0 = (rng.normal(size=(num_items, D)) * 0.1).astype(np.float32)
+    return (indptr, key, val), (cindptr, rows[order], val[order]), P0, Q0
+
+
+@pytest.mark.parametrize("optimizer", ["manual_cg", "llt"])
+@pytest.mark.parametrize("stacked", [False, True])
+def test_range_epoch_matches_reference(optimizer, stacked):
+    (indptr, key, val), (cindptr, ckey, cval), P0, Q0 = _epoch_fixture()
+    kw = dict(optimizer=optimizer, alpha=4.0, reg_u=0.05, reg_i=0.05,
+              adaptive_reg=False, cg_iters=3, cg_tol=1e-10, block_size=8,
+              compute_loss=True, num_p_rows=len(P0), num_q_rows=len(Q0))
+    plan = dict(entries_per_batch=256, max_len=32)
+
+    rp = ref_batching.BatchPlanner(indptr, **plan)
+    cp = ref_batching.BatchPlanner(cindptr, **plan)
+    row_b, col_b, u_pos, i_pos, u_pad, i_pad = \
+        ref_batching.build_range_layout(rp, cp, key, val, ckey, cval)
+    assert any(isinstance(b, ref_batching.SegmentBatch) for b in row_b)
+    Pp = ref_batching.permute_table(P0, u_pos, u_pad)
+    Qp = ref_batching.permute_table(Q0, i_pos, i_pad)
+    P1, Q1, n1, d1 = ref.als_epoch(jnp.asarray(Pp), jnp.asarray(Qp),
+                                   tuple(row_b), tuple(col_b), **kw)
+
+    tp = port_batching.BatchPlanner(indptr, **plan)
+    tc = port_batching.BatchPlanner(cindptr, **plan)
+    t_row, t_col = port_batching.build_range_layout(
+        tp, tc, key, val, ckey, cval)[:2]
+
+    def staged(batches):
+        ranges = [b for b in batches
+                  if isinstance(b, port_batching.RangeBatch)]
+        segs = [b for b in batches
+                if isinstance(b, port_batching.SegmentBatch)]
+        if stacked:  # the stacked groups the reference scans over
+            ranges = port_batching.stack_batches(ranges)
+        return [port_batching.stage_batch(b, "cpu") for b in ranges + segs]
+
+    P2, Q2, n2, d2 = port.als_epoch(*_t(Pp, Qp), staged(t_row),
+                                    staged(t_col), **kw)
+    np.testing.assert_allclose(P2.numpy()[u_pos], np.asarray(P1)[u_pos],
+                               **TOL)
+    np.testing.assert_allclose(Q2.numpy()[i_pos], np.asarray(Q1)[i_pos],
+                               **TOL)
+    np.testing.assert_allclose(float(n2), float(n1), rtol=1e-4)
+    np.testing.assert_allclose(float(d2), float(d1), rtol=1e-5)
+    assert all(k.launches == 0 for k in port.KERNELS), \
+        "CPU tensors must never launch a kernel"
+
+
+def test_ialspp_is_not_ported():
+    (indptr, key, val), _, P0, Q0 = _epoch_fixture()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.als_epoch(*_t(P0, Q0), [], [], optimizer="ialspp", alpha=1.0,
+                       reg_u=0.1, reg_i=0.1, adaptive_reg=False, cg_iters=3,
+                       cg_tol=1e-10, block_size=8, compute_loss=True)
+
+
+def test_gramian_matches_reference():
+    X = np.random.default_rng(0).normal(size=(1037, 12)).astype(np.float32)
+    np.testing.assert_allclose(port.gramian(torch.from_numpy(X)).numpy(),
+                               np.asarray(ref.gramian(jnp.asarray(X))),
+                               rtol=1e-5, atol=1e-4)

@@ -1,0 +1,143 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Each kernel of ``buffalo_tpu_torch.ops.als_kernels`` has no CPU mode, so
+these tests need an NVIDIA card and ``nvcc`` and skip without one; run
+them there with ``python -m pytest --noconftest tests/test_torch_cuda.py
+-m cuda`` (the suite's conftest pins JAX, which a card-only machine need
+not have).
+The plain versions are held to the JAX reference on the CPU in
+``test_torch_als_kernels.py``.  Tolerance: float32 in another summation
+order, rtol 1e-4 / atol 1e-5 on the solved rows, 1e-4 relative on
+the loss terms.
+"""
+import numpy as np
+import pytest
+import torch
+
+from buffalo_tpu_torch.data import batching
+from buffalo_tpu_torch.ops import als_kernels as K
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _case(dev, d, L, B=64, n=300, m=200, seed=0):
+    rng = np.random.default_rng(seed)
+    table = torch.tensor(rng.normal(size=(n, d)) * 0.3, dtype=torch.float32,
+                         device=dev)
+    Bf = torch.tensor(rng.normal(size=(m, d)) * 0.3, dtype=torch.float32,
+                      device=dev)
+    lens = rng.integers(1, L + 1, size=B).astype(np.int32)
+    lens[[0, B // 2]] = 0
+    cols = rng.integers(0, m, size=(B, L)).astype(np.int32)
+    vals = (1.0 + rng.random((B, L))).astype(np.float32)
+    mask = np.arange(L)[None, :] < lens[:, None]
+    batch = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+             (lens, np.where(mask, cols, 0), np.where(mask, vals, 0.0))]
+    return table, Bf, Bf.T @ Bf, batch
+
+
+def _kw(item_axis, adaptive_reg=False):
+    return dict(alpha=8.0, reg=0.1, adaptive_reg=adaptive_reg,
+                item_axis=item_axis, num_fixed_rows=1000, compute_loss=True)
+
+
+@pytest.mark.parametrize("d", [8, 40])
+@pytest.mark.parametrize("item_axis", [False, True])
+def test_matrix_free_kernel_matches_plain(dev, d, item_axis):
+    table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=96)
+    expect = table.clone()
+    n_ref, d_ref = K.als_cg_matrix_free_plain(
+        expect, Bf, FF, 17, lens, cols, vals, cg_iters=3, cg_tol=1e-10,
+        **_kw(item_axis))
+    before = K.als_cg_matrix_free.launches
+    n_got, d_got = K.als_cg_matrix_free(
+        table, Bf, FF, 17, lens, cols, vals, cg_iters=3, cg_tol=1e-10,
+        **_kw(item_axis))
+    torch.cuda.synchronize()
+    assert K.als_cg_matrix_free.launches == before + 1
+    torch.testing.assert_close(table, expect, **TOL)
+    torch.testing.assert_close(n_got, n_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(d_got, d_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [8, 40, 64])
+@pytest.mark.parametrize("L", [104, 1000])
+def test_normal_equations_and_cg_match_plain(dev, d, L):
+    table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=L, B=32)
+    A_ref, y_ref, n_ref, d_ref = K.als_normal_equations_plain(
+        table, Bf, FF, lens, cols, vals, row_start=5, **_kw(True))
+    A, y, n_got, d_got = K.als_normal_equations(
+        table, Bf, FF, lens, cols, vals, row_start=5, **_kw(True))
+    torch.testing.assert_close(A, A_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(n_got, n_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(d_got, d_ref, rtol=1e-4, atol=1e-3)
+
+    expect = table.clone()
+    K.batched_cg_dense_plain(A_ref, y_ref, expect, lens, row_start=5,
+                             cg_iters=3, cg_tol=1e-10)
+    K.batched_cg_dense(A_ref, y_ref, table, lens, row_start=5, cg_iters=3,
+                       cg_tol=1e-10)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(table, expect, **TOL)
+
+
+@pytest.mark.parametrize("item_axis,adaptive_reg", [(True, False),
+                                                    (False, True)])
+def test_segment_kernels_skip_padding_ids(dev, item_axis, adaptive_reg):
+    d, n, m = 40, 50, 400
+    rng = np.random.default_rng(3)
+    degs = rng.integers(1, 5, size=n)
+    degs[[4, 20]] = [9000, 17000]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(degs, out=indptr[1:])
+    key = rng.integers(0, m, int(indptr[-1])).astype(np.int32)
+    val = (1.0 + rng.random(int(indptr[-1]))).astype(np.float32)
+    sb = batching.build_segment_batch(indptr, key, val, [20, 4], 8192, n)
+    sb = sb._replace(rows=np.where(sb.lens > 0, sb.rows, 1 << 30)
+                     .astype(np.int32))
+    s = batching.stage_batch(sb, dev)
+    table = torch.tensor(rng.normal(size=(n, d)) * 0.3, dtype=torch.float32,
+                         device=dev)
+    Bf = torch.tensor(rng.normal(size=(m, d)) * 0.1, dtype=torch.float32,
+                      device=dev)
+    FF = Bf.T @ Bf
+    seg = dict(rows=s.rows, chunk_ptr=s.chunk_ptr, chunk_lens=s.chunk_lens)
+    kw = _kw(item_axis, adaptive_reg)
+    A_ref, y_ref, n_ref, d_ref = K.als_normal_equations_plain(
+        table, Bf, FF, s.lens, s.cols, s.vals, **seg, **kw)
+    A, y, n_got, d_got = K.als_normal_equations(
+        table, Bf, FF, s.lens, s.cols, s.vals, **seg, **kw)
+    torch.testing.assert_close(A, A_ref, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(n_got, n_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(d_got, d_ref, rtol=1e-4, atol=1e-3)
+    expect = table.clone()
+    K.batched_cg_dense_plain(A_ref, y_ref, expect, s.lens, rows=s.rows,
+                             cg_iters=3, cg_tol=1e-10)
+    K.batched_cg_dense(A_ref, y_ref, table, s.lens, rows=s.rows, cg_iters=3,
+                       cg_tol=1e-10)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(table, expect, **TOL)
+
+
+def test_wrappers_reject_what_kernels_do_not_take(dev):
+    table, Bf, FF, (lens, cols, vals) = _case(dev, 8, L=24)
+    with pytest.raises(TypeError):
+        K.als_cg_matrix_free(table, Bf, FF, 0, lens.long(), cols, vals,
+                             cg_iters=3, cg_tol=1e-10, **_kw(False))
+    with pytest.raises(ValueError):
+        K.als_cg_matrix_free(table, Bf, FF, 290, lens, cols, vals,
+                             cg_iters=3, cg_tol=1e-10, **_kw(False))
+    with pytest.raises(ValueError):
+        K.als_cg_matrix_free(table, Bf.cpu(), FF, 0, lens, cols, vals,
+                             cg_iters=3, cg_tol=1e-10, **_kw(False))

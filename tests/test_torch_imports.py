@@ -1,0 +1,86 @@
+"""The PyTorch port stands alone: no JAX, nothing of ``buffalo_tpu``.
+
+``buffalo_tpu_torch`` and ``chip_smoke.py`` must import neither ``jax``
+nor the reference package (``buffalo_tpu`` / ``buffalo_tpu.*``), so the
+port runs on a machine that has neither; and its entry points never
+fall back from a requested CUDA device to the CPU.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(ROOT.glob("buffalo_tpu_torch/**/*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    """jax / jax.*, buffalo_tpu / buffalo_tpu.* — but not the port's own
+    ``buffalo_tpu_torch``, which merely shares the prefix."""
+    return any(module == top or module.startswith(top + ".")
+               for top in ("jax", "buffalo_tpu"))
+
+
+def test_forbidden_prefix_rule():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("buffalo_tpu") and _forbidden("buffalo_tpu.ops.topk")
+    assert not _forbidden("buffalo_tpu_torch")
+    assert not _forbidden("buffalo_tpu_torch.ops.als_kernels")
+    assert not _forbidden("jaxlib_like") and not _forbidden("numpy")
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_loads_neither_jax_nor_reference():
+    code = ("import sys, buffalo_tpu_torch, buffalo_tpu_torch.convert; "
+            "import buffalo_tpu_torch.ops.als_kernels; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'buffalo_tpu' "
+            "or m.startswith('buffalo_tpu.')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_cuda_default_without_card_raises(monkeypatch):
+    from buffalo_tpu_torch import ALS, ALSOption
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = ALSOption().get_default_option()
+    assert opt.device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ALS(opt)
+    opt.device = "cpu"
+    assert ALS(opt).device.type == "cpu"
+
+
+def test_retrieval_default_without_card_raises(monkeypatch):
+    import numpy as np
+
+    from buffalo_tpu_torch.ops.topk import matmul_topk, topk
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scores = np.arange(12, dtype=np.float32).reshape(3, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        topk(scores, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        matmul_topk(scores, scores, 2)
+    assert topk(scores, 2, device="cpu").tolist() == [[3, 2]] * 3
+    assert matmul_topk(scores, scores, 2, device="cpu")[1].device.type == \
+        "cpu"
