@@ -2,204 +2,427 @@
 //
 // Replaces buffalo_tpu/ops/als_kernels.py: _row_stats (:65) + the A assembly
 // of als_solve_batch (:164-167) for range batches with L > 96, and the
-// per-chunk statistics + segment_sum of als_solve_segment_batch (:268-282)
+// per-chunk statistics + segment_sum of als_solve_segment_batch (:268-297)
 // for segment batches of head rows, with the loss terms of _loss_terms (:77)
 // and (:284-297).  Per row r it writes
 //   A[r] = FF + F^T diag(w) F + reg*ada*I,   y[r] = F^T (1 + w),
 //   nume[r], deno[r]   (the reference's loss accumulators, pre-update p)
 // where F = Bf[cols] over the row's entries and w = alpha * vals.
 //
-// Range mode (chunk_ptr == NULL): one block per row r, whose entries are
-// cols[r, :lens[r]], with p = table[row_start + r].
+// Range mode (als_normal_equations_range): one block per row r, whose
+// entries are cols[r, :lens[r]], with p = table[row_start + r].
 // Segment mode: row r owns chunks [chunk_ptr[r], chunk_ptr[r+1]) of width C,
 // chunk c holding chunk_lens[c] entries, and p = table[rows[r]].  A head
-// row can hold a million entries, so one block per row would leave the card
-// idle behind the longest row; instead one block per chunk writes the
-// chunk's partial statistics (the reference's A_chunk / y_chunk), and a
-// second kernel adds each row's chunk partials in chunk order and finishes
-// A, y and the loss (the reference's segment_sum).  No atomics: every
-// launch sums in the same order.
+// row can hold a million entries, so one block per chunk
+// (als_normal_equations_chunks) writes the chunk's partial statistics (the
+// reference's A_chunk / y_chunk), and als_segment_reduce_kernel adds each
+// row's chunk partials in chunk order and finishes A, y and the loss (the
+// reference's segment_sum).  No atomics: every launch sums in the same order.
 //
-// What bounds it on the card: 2 d^2 FLOPs per entry (the rank-1 update of
-// A), which at d = 40 outweighs the 4 d bytes gathered per entry, plus one
-// d x d write per row.  Design: a tile of 64 gathered entries sits in
-// shared memory (F padded to a multiple of 4 columns) and each thread owns
-// a 4 x 4 register tile of A, reading its 8 operands per entry as two
-// float4 loads; when A has fewer than 256 tiles, G groups of threads split
-// the entries of a tile and their totals are added in group order at the
-// end.  Sums are two-level, so thousands of entries do not pile into one
-// float32 running sum: registers hold the sum of a few tiles, which is then
-// added to a running total in shared memory (y's per-thread sum is formed
-// per tile).
+// What bounds it on the card: not the bytes (the gathered rows of Bf sit in
+// L2; both tables of the ML-20M layout fit in its 50 MB) and not the tensor
+// cores' rate, but instruction issue: each m16n8k8 product of the 3xTF32
+// split comes with about nine other instructions (fragment loads, the
+// split, the weights, the float32 sum), then per-row set-up and the A
+// write.  Design:
+// * Gather ring: the entries' Bf rows go to a ring of kStages shared-memory
+//   stages of kTL entries with cp.async (16-byte, L2-only copies when rows
+//   are 16-byte multiples, else 4-byte), the stage's cols loaded a stage
+//   ahead, so one stage is multiplied while the next lands; one barrier per
+//   stage.
+// * Tensor cores at float32 accuracy: mma.sync m16n8k8 TF32 with a 3xTF32
+//   split (x = big + small, big*big + big*small + small*big, float32
+//   accumulation).  M and N are features, K is entries; only the upper block
+//   triangle of A is accumulated and it is mirrored on write.  Two all-ones
+//   feature columns ride in the padding, so the same products give F^T w,
+//   F^T 1 and sum(w) (y and deno).  The row stride is 8 or 24 (mod 32) words,
+//   so fragment loads are free of bank conflicts.
+// * Warps split the product's 16 x 16 units (two m16n8 tiles sharing their
+//   A fragment) and, where A is small, the k-steps of a stage; their totals
+//   are added in a fixed order at the end.  Sums are
+//   two-level, so thousands of entries do not pile into one float32 running
+//   sum: registers hold a few stages (each k-step's products summed from
+//   zero), and a running total sits in shared memory.
+// * y, sum(w) and the item-axis loss come out of the same products: the
+//   loss sum over entries of -(p.f)^2 + (p.f - 1)^2 (1 + w) is
+//   p^T F^T diag(w) F p - 2 p.y + n + sum(w), finished from A and y.
 #include "als_common.cuh"
 
 namespace {
 
-constexpr int kTL = 64;    // entries per shared-memory tile
-constexpr int kFlush = 4;  // tiles summed in registers between flushes
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTL = 64;         // entries per ring stage (8 MMA k-steps)
+constexpr int kStages = 2;      // ring depth
+constexpr int kFlush = 4;       // stages summed in registers between flushes
+
+struct Params {
+  const float* table;
+  const float* Bf;
+  const float* FF;
+  const int32_t* lens;
+  const int32_t* rows;
+  const int32_t* chunk_ptr;
+  const int32_t* chunk_lens;
+  const int32_t* cols;
+  const float* vals;
+  float* A;  // range mode: the outputs; chunk mode: the chunk partials
+  float* y;
+  float* nume;
+  float* deno;
+  int64_t row_start, n_table_rows;
+  int R, C, d;
+  float alpha, reg, num_fixed_rows;
+  int adaptive_reg, item_axis, compute_loss;
+  // tiling (set by the launcher)
+  int NP;       // features padded to 16, with the two ones columns
+  int S;        // shared row stride, 8 or 24 (mod 32) words
+  int NTn;      // n8 tiles across; the upper block triangle has NT tiles
+  int NT;
+  int MT;       // m16 tiles down; the upper block triangle has NU 16 x 16 units
+  int NU;
+  int EG;       // entry groups: warp w takes the k-steps w % EG (mod EG)
+  int UPW;      // units per warp (the kernel's kUPW)
+  int vec;      // 16-byte copies
+  int nchunk;   // copies per entry row
+  uint32_t magic;  // q / nchunk == __umulhi(q, magic) for q < kTL * nchunk
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = big + small for 3xTF32.  The tensor core reads a TF32 operand from
+// the top 19 bits of its register.  big is x with the low 13 bits cleared;
+// small = x - big is exact in float32, and adding half of the dropped
+// bits' range rounds it to the nearest TF32 value as the tensor core reads
+// it, so big + small keeps x to 2^-21 relative without a cvt.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c = a * b with c starting from zero
+__device__ __forceinline__ void mma_tf32_first(float (&c)[4], const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// (m16 row, 16-column block) of unit `unit` of the upper block triangle,
+// row-major
+__device__ __forceinline__ void unit_mn(int unit, int MT, int& mi, int& nj) {
+  mi = 0;
+  while (unit >= MT - mi) unit -= MT - mi++;
+  nj = mi + unit;
+}
+
+// (m16 row, n8 column) of tile `tile` of the upper block triangle, row-major
+__device__ __forceinline__ void tile_mn(int tile, int NTn, int& mi, int& ni) {
+  mi = 0;
+  while (tile >= NTn - 2 * mi) tile -= NTn - 2 * mi++;
+  ni = 2 * mi + tile;
+}
 
 // Statistics of one block's entries.  Range mode: block r is row r.  Chunk
-// mode (chunk_ptr != NULL): block c is chunk c of the row found in
-// chunk_ptr, and only the entry sums are written (A without FF and reg,
-// nume = sum of the entries' loss terms, deno = sum of w).
-__global__ void __launch_bounds__(1024)
-als_normal_equations_kernel(const float* __restrict__ table, const float* __restrict__ Bf,
-                            const float* __restrict__ FF, const int32_t* __restrict__ lens,
-                            const int32_t* __restrict__ rows, int64_t row_start,
-                            const int32_t* __restrict__ chunk_ptr, int R,
-                            const int32_t* __restrict__ chunk_lens,
-                            const int32_t* __restrict__ cols, const float* __restrict__ vals,
-                            int C, float* __restrict__ A_out, float* __restrict__ y_out,
-                            float* __restrict__ nume, float* __restrict__ deno,
-                            int64_t n_table_rows, int d, int DP, int G, float alpha,
-                            float reg, int adaptive_reg, int item_axis,
-                            float num_fixed_rows, int compute_loss) {
+// mode: block c is chunk c of the row found in chunk_ptr, and only the entry
+// sums are written (A without FF and reg, nume = sum of the entries' loss
+// terms, deno = sum of w).
+template <bool kChunks, int kUPW>
+__device__ __forceinline__ void normal_equations_body(const Params& p) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
-  const int nq = DP / 4, nt = nq * nq;
-  float* Fs = smem;                                  // [kTL][DP]
-  float* tot = Fs + kTL * DP;                        // [G][nt][16] totals
-  float* ws = tot + G * nt * 16;                     // [kTL]
-  int32_t* cs = reinterpret_cast<int32_t*>(ws + kTL);  // [kTL]
-  float* ps = reinterpret_cast<float*>(cs + kTL);    // [DP] current row
-  float* scratch = ps + DP;                          // [33]
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = p.d, S = p.S;
+  float* Fs = smem;                                // [kStages][kTL][S]
+  float* vs = Fs + kStages * kTL * S;              // [kStages][kTL] vals
+  int32_t* cs = reinterpret_cast<int32_t*>(vs + kStages * kTL);  // [kStages][kTL]
+  float* tot = reinterpret_cast<float*>(cs + kStages * kTL);     // [EG][NT][128]
+  float* ps = tot + p.EG * p.NT * 128;             // [NP] current row
+  float* yw = ps + p.NP;                           // [NP][2] F^T w, F^T 1
+  float* scratch = yw + 2 * p.NP;                  // [33]
 
-  const bool partial = chunk_ptr != nullptr;
-  int n;          // entries of this block
-  int64_t src;    // table row of p
+  int n;        // entries of this block
+  int64_t src;  // table row of p
   bool real;
-  if (partial) {
+  if (kChunks) {
     // the row owning chunk b: the last r with chunk_ptr[r] <= b
-    int lo = 0, hi = R;
+    int lo = 0, hi = p.R;
     while (lo < hi) {
       const int mid = (lo + hi + 1) >> 1;
-      if (chunk_ptr[mid] <= b) lo = mid; else hi = mid - 1;
+      if (p.chunk_ptr[mid] <= b) lo = mid; else hi = mid - 1;
     }
-    n = chunk_lens[b];
-    src = lo < R ? rows[lo] : -1;
-    real = b < chunk_ptr[R] && lens[lo] > 0 && n > 0 && src >= 0 && src < n_table_rows;
+    n = p.chunk_lens[b];
+    src = lo < p.R ? p.rows[lo] : -1;
+    real = b < p.chunk_ptr[p.R] && p.lens[lo] > 0 && n > 0 && src >= 0 &&
+           src < p.n_table_rows;
   } else {
-    n = lens[b];
-    src = row_start + b;
-    real = n > 0 && src < n_table_rows;
+    n = p.lens[b];
+    src = p.row_start + b;
+    real = n > 0 && src < p.n_table_rows;
   }
   if (!real) n = 0;
-  for (int j = tid; j < DP; j += T) ps[j] = (real && j < d) ? table[src * d + j] : 0.f;
+  for (int j = tid; j < p.NP; j += kThreads) ps[j] = (real && j < d) ? p.table[src * d + j] : 0.f;
+  for (int i = tid; i < p.EG * p.NT * 128; i += kThreads) tot[i] = 0.f;
+  // columns past d, never written by the gather: two ones columns (d and
+  // d + 1), then zeros
+  const int extra = S - d;
+  for (int i = tid; i < kStages * kTL * extra; i += kThreads) {
+    const int r = i / extra, c = d + (i - r * extra);
+    Fs[r * S + c] = c <= d + 1 ? 1.f : 0.f;
+  }
 
-  const int t = tid % nt, g = tid / nt;
-  const bool owns_tile = tid < nt * G;
-  float* my_tot = tot + (g * nt + t) * 16;
-  if (owns_tile)
-    for (int e = 0; e < 16; ++e) my_tot[e] = 0.f;
-  const int j0 = (t / nq) * 4, k0 = (t % nq) * 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[i][k] = 0.f;
-  float yacc = 0.f, pos = 0.f, wsum = 0.f;
-  int tiles = 0;
-  auto flush = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        my_tot[i * 4 + k] += acc[i][k];
-        acc[i][k] = 0.f;
+  const int32_t* cb = p.cols + (int64_t)b * p.C;
+  const float* vb = p.vals + (int64_t)b * p.C;
+  const int ntiles = (n + kTL - 1) / kTL;
+  auto col_of = [&](int tile) {
+    const int e = tile * kTL + tid;
+    return (tid < kTL && e < n) ? __ldg(cb + e) : -1;
+  };
+  // cp.async the Bf rows and vals of `tile` into its stage (zeros past n);
+  // every call commits one group, empty past the last tile
+  const int W = p.vec ? 4 : 1, ncopy = kTL * p.nchunk;
+  auto issue = [&](int tile) {
+    if (tile < ntiles) {
+      const int st = tile % kStages;
+      float* Fst = Fs + st * kTL * S;
+      const int32_t* cst = cs + st * kTL;
+      for (int q = tid; q < ncopy; q += kThreads) {
+        const int l = __umulhi((unsigned)q, p.magic), c = (q - l * p.nchunk) * W;
+        const int col = cst[l];
+        const float* from = col >= 0 ? p.Bf + (int64_t)col * d + c : p.Bf;
+        if (p.vec) cp_async16(Fst + l * S + c, from, col >= 0);
+        else cp_async4(Fst + l * S + c, from, col >= 0);
       }
+      if (tid < kTL) {
+        const int e = tile * kTL + tid;
+        cp_async4(vs + st * kTL + tid, e < n ? vb + e : p.vals, e < n);
+      }
+    }
+    cp_async_commit();
   };
 
-  const int32_t* cb = cols + (int64_t)b * C;
-  const float* vb = vals + (int64_t)b * C;
-  for (int base = 0; base < n; base += kTL) {
-    const int tl = min(kTL, n - base);
-    __syncthreads();  // the previous tile is consumed
-    for (int l = tid; l < tl; l += T) {
-      cs[l] = cb[base + l];
-      ws[l] = vb[base + l] * alpha;
-    }
-    __syncthreads();
-    for (int i = tid; i < tl * DP; i += T) {
-      const int l = i / DP, k = i - l * DP;
-      Fs[i] = k < d ? Bf[(int64_t)cs[l] * d + k] : 0.f;
-    }
-    __syncthreads();
-    if (owns_tile) {
-      for (int l = g; l < tl; l += G) {
-        const float wl = ws[l];
-        const float4 a = *reinterpret_cast<const float4*>(Fs + l * DP + j0);
-        const float4 bq = *reinterpret_cast<const float4*>(Fs + l * DP + k0);
-        const float av[4] = {a.x * wl, a.y * wl, a.z * wl, a.w * wl};
-        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+  // prologue: the cols of the first kStages tiles, the gathers of the first
+  // kStages - 1
+  for (int s = 0; s < kStages; ++s)
+    if (tid < kTL) cs[s * kTL + tid] = col_of(s);
+  int col_next = col_of(kStages);
+  __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  // this warp's units and k-steps.  A unit is a 16 x 16 block (mi, nj) of
+  // the upper block triangle: two m16n8 tiles that share their A fragment.
+  // A warp holds kUPW units from u0 (slots past the triangle compute unit 0
+  // again and are never stored), so the unit loop has no branch and its
+  // loads and products interleave.
+  const int eg = warp % p.EG, u0 = (warp / p.EG) * kUPW;
+  const int g = lane >> 2, t = lane & 3;
+  int aoff[kUPW], boff[kUPW], tile0[kUPW];  // fragment columns, first tile
+  bool unweighted[kUPW][2];  // B column d + 1 carries F^T 1: no w
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+  for (int uu = 0; uu < kUPW; ++uu) {
+    int mi = 0, nj = 0;
+    if (u0 + uu < p.NU) unit_mn(u0 + uu, p.MT, mi, nj);
+    aoff[uu] = mi * 16;
+    boff[uu] = nj * 16;
+    tile0[uu] = mi * p.NTn - mi * (mi - 1) + 2 * (nj - mi);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) acc[i][k] += av[i] * bv[k];
+    for (int h = 0; h < 2; ++h) unweighted[uu][h] = nj * 16 + h * 8 + g == d + 1;
+  }
+  float acc[kUPW][2][4];
+#pragma unroll
+  for (int uu = 0; uu < kUPW; ++uu)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[uu][e >> 2][e & 3] = 0.f;
+  auto flush = [&]() {
+#pragma unroll
+    for (int uu = 0; uu < kUPW; ++uu) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (u0 + uu < p.NU) {
+          float4* to = reinterpret_cast<float4*>(
+              tot + ((eg * p.NT + tile0[uu] + h) * 128 + lane * 4));
+          float4 v = *to;
+          v.x += acc[uu][h][0]; v.y += acc[uu][h][1];
+          v.z += acc[uu][h][2]; v.w += acc[uu][h][3];
+          *to = v;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[uu][h][e] = 0.f;
       }
-      if (++tiles % kFlush == 0) flush();
     }
-    if (tid < d) {
-      float s = 0.f;
-      for (int l = 0; l < tl; ++l) s += Fs[l * DP + tid] * (1.f + ws[l]);
-      yacc += s;
+  };
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile i landed
+    __syncthreads();               // everyone's did; stage i-1 is consumed
+    issue(i + kStages - 1);
+    if (tid < kTL) cs[(i % kStages) * kTL + tid] = col_next;  // tile i + kStages
+    col_next = col_of(i + kStages + 1);
+
+    const int st = i % kStages, tl = min(kTL, n - i * kTL);
+    const float* Fst = Fs + st * kTL * S;
+    const float* vst = vs + st * kTL;
+    for (int ks = eg; ks * 8 < tl; ks += p.EG) {
+      const int l0 = ks * 8;
+      const float w0 = p.alpha * vst[l0 + t], w1 = p.alpha * vst[l0 + t + 4];
+      const float* r0 = Fst + (l0 + t) * S + g;  // entry l0 + t, feature g
+      const float* r1 = r0 + 4 * S;               // entry l0 + t + 4
+#pragma unroll
+      for (int uu = 0; uu < kUPW; ++uu) {
+        // A operand: features (rows of A) x entries
+        uint32_t ab[4], as[4];
+        split_tf32(r0[aoff[uu]], ab[0], as[0]);
+        split_tf32(r0[aoff[uu] + 8], ab[1], as[1]);
+        split_tf32(r1[aoff[uu]], ab[2], as[2]);
+        split_tf32(r1[aoff[uu] + 8], ab[3], as[3]);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // B operand: entries x features, weighted by w
+          const int c = boff[uu] + 8 * h;
+          uint32_t bb[2], bs[2];
+          split_tf32(r0[c] * (unweighted[uu][h] ? 1.f : w0), bb[0], bs[0]);
+          split_tf32(r1[c] * (unweighted[uu][h] ? 1.f : w1), bb[1], bs[1]);
+          // the k-step's sum starts from 0 and is added to the registers
+          // in float32: the tensor core's own accumulation would round a
+          // large running sum once per product
+          float step[4];
+          mma_tf32_first(step, as, bb);
+          mma_tf32(step, ab, bs);
+          mma_tf32(step, ab, bb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[uu][h][e] += step[e];
+        }
+      }
     }
-    if (compute_loss && item_axis) {
-      for (int l = tid; l < tl; l += T) {
-        float dot = 0.f;
-        for (int k = 0; k < d; ++k) dot += ps[k] * Fs[l * DP + k];
-        pos += -dot * dot + (dot - 1.f) * (dot - 1.f) * (1.f + ws[l]);
-        wsum += ws[l];
+    if ((i + 1) % kFlush == 0) flush();
+  }
+  flush();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // entry groups added in group order into shared memory (the ring is
+  // free now), A mirrored from its upper triangle; the row stride d + 1
+  // spreads the mirrored writes over the banks
+  const int AS = d + 1;
+  float* As = Fs;  // [d][d + 1]: F^T diag(w) F
+  for (int tile = warp; tile < p.NT; tile += kWarps) {
+    int mi, ni;
+    tile_mn(tile, p.NTn, mi, ni);
+    float4 v = *reinterpret_cast<const float4*>(tot + tile * 128 + lane * 4);
+    for (int gg = 1; gg < p.EG; ++gg) {
+      const float4 u = *reinterpret_cast<const float4*>(tot + (gg * p.NT + tile) * 128 + lane * 4);
+      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+    }
+    const float vr[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = mi * 16 + g + (r >= 2 ? 8 : 0), k = ni * 8 + 2 * t + (r & 1);
+      if (j > k || j > d || k > d + 1) continue;
+      if (k < d) {
+        As[j * AS + k] = vr[r];
+        As[k * AS + j] = vr[r];
+      } else {
+        yw[2 * j + (k - d)] = vr[r];  // F^T w, F^T 1; row d: sum(w)
       }
     }
   }
   __syncthreads();
 
-  if (owns_tile) flush();
-  __syncthreads();
-  const float reg_ada = partial ? 0.f : reg * (adaptive_reg ? (float)lens[b] : 1.f);
-  if (tid < nt) {  // group 0 adds the groups' totals in group order
-    float* Ab = A_out + (int64_t)b * d * d;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float s = 0.f;
-        for (int gg = 0; gg < G; ++gg) s += tot[(gg * nt + tid) * 16 + i * 4 + k];
-        const int j = j0 + i, kk = k0 + k;
-        if (j < d && kk < d)
-          Ab[j * d + kk] = partial ? s : FF[j * d + kk] + s + (j == kk ? reg_ada : 0.f);
-      }
+  // A written row by row.  The item-axis loss of the pre-update row is
+  // sum_l [-(p.f_l)^2 + (p.f_l - 1)^2 (1 + w_l)]
+  //   = p^T F^T diag(w) F p - 2 p.y + n + sum(w),
+  // so it comes from A and y here, not from the entries; with
+  // p^T FF p (range mode) it is p^T (FF + F^T diag(w) F) p - 2 p.y + ...
+  const float reg_ada = kChunks ? 0.f : p.reg * (p.adaptive_reg ? (float)p.lens[b] : 1.f);
+  float* Ab = p.A + (int64_t)b * d * d;
+  float quad = 0.f;
+  for (int j = warp; j < d; j += kWarps)
+    for (int k = lane; k < d; k += 32) {
+      const int e = j * d + k;
+      const float m = As[j * AS + k], ff = kChunks ? 0.f : p.FF[e];
+      Ab[e] = kChunks ? m : ff + m + (j == k ? reg_ada : 0.f);
+      quad += ps[j] * (ff + m) * ps[k];
     }
+  for (int j = tid; j < d; j += kThreads) {
+    const float yj = yw[2 * j] + yw[2 * j + 1];
+    p.y[(int64_t)b * d + j] = yj;
+    quad -= 2.f * ps[j] * yj;
   }
-  if (tid < d) y_out[(int64_t)b * d + tid] = yacc;
 
-  if (compute_loss) {
+  if (p.compute_loss) {
     float nu = 0.f, de = 0.f;
-    if (!partial) {
+    if (!kChunks) {
       float part = 0.f;
-      for (int j = tid; j < d; j += T) part += ps[j] * ps[j];
+      for (int j = tid; j < d; j += kThreads) part += ps[j] * ps[j];
       nu = reg_ada * als::block_sum(part, scratch);
     }
-    if (item_axis) {
-      if (!partial) {
-        float part = 0.f;
-        for (int j = tid; j < d; j += T) {
-          float s = 0.f;
-          for (int k = 0; k < d; ++k) s += FF[j * d + k] * ps[k];
-          part += ps[j] * s;
-        }
-        nu += als::block_sum(part, scratch);
-        de = num_fixed_rows;
-      }
-      nu += als::block_sum(pos, scratch);
-      de += als::block_sum(wsum, scratch);
+    if (p.item_axis) {
+      nu += als::block_sum(quad, scratch) + (float)n + yw[2 * d];
+      de = (kChunks ? 0.f : p.num_fixed_rows) + yw[2 * d];
     }
     if (tid == 0) {
-      nume[b] = real ? nu : 0.f;
-      deno[b] = real ? de : 0.f;
+      p.nume[b] = real ? nu : 0.f;
+      p.deno[b] = real ? de : 0.f;
     }
   }
 }
+
+// Two kernels, so that a profile names the range and segment modes apart;
+// kUPW units (two m16n8 accumulator tiles each) per warp
+template <int kUPW>
+__global__ void __launch_bounds__(kThreads, kUPW <= 3 ? 3 : kUPW <= 4 ? 2 : 1)
+    als_normal_equations_range(const Params p) {
+  normal_equations_body<false, kUPW>(p);
+}
+
+template <int kUPW>
+__global__ void __launch_bounds__(kThreads, kUPW <= 3 ? 3 : kUPW <= 4 ? 2 : 1)
+    als_normal_equations_chunks(const Params p) {
+  normal_equations_body<true, kUPW>(p);
+}
+
+template <int kUPW>
+cudaError_t launch_statistics(const Params& p, int blocks, size_t smem, cudaStream_t s) {
+  const bool chunks = p.chunk_ptr != nullptr;
+  cudaError_t err = chunks ? als::allow_smem(als_normal_equations_chunks<kUPW>, smem)
+                           : als::allow_smem(als_normal_equations_range<kUPW>, smem);
+  if (err != cudaSuccess) return err;
+  if (chunks) als_normal_equations_chunks<kUPW><<<blocks, kThreads, smem, s>>>(p);
+  else als_normal_equations_range<kUPW><<<blocks, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+constexpr int kUnitCounts[] = {1, 2, 3, 4, 6};  // instantiated kUPW
 
 // Segment mode, second pass: row r adds its chunks' partials in chunk order
 // (the reference's segment_sum) and finishes A = FF + sum + reg*ada*I, y and
@@ -280,28 +503,54 @@ extern "C" int als_normal_equations(const float* table, const float* Bf, const f
                                     float reg, int adaptive_reg, int item_axis,
                                     float num_fixed_rows, int compute_loss, void* stream) {
   if (R == 0) return 0;
-  const int DP = (d + 3) / 4 * 4, nq = DP / 4, nt = nq * nq;
-  if (nt > 1024) return (int)cudaErrorInvalidValue;
-  const int G = nt >= 256 ? 1 : 256 / nt;
-  const int T = (nt * G + 31) / 32 * 32;
-  const size_t smem =
-      sizeof(float) * ((size_t)kTL * DP + (size_t)G * nt * 16 + 2 * kTL + DP + 33);
-  cudaError_t err = als::allow_smem(als_normal_equations_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (chunk_ptr == nullptr) {
-    als_normal_equations_kernel<<<R, T, smem, s>>>(
-        table, Bf, FF, lens, rows, row_start, nullptr, R, nullptr, cols, vals, C, A_out,
-        y_out, nume, deno, n_table_rows, d, DP, G, alpha, reg, adaptive_reg, item_axis,
-        num_fixed_rows, compute_loss);
-    return (int)cudaGetLastError();
+  Params p{table, Bf, FF, lens, rows, chunk_ptr, chunk_lens, cols, vals,
+           A_out, y_out, nume, deno, row_start, n_table_rows, R, C, d,
+           alpha, reg, num_fixed_rows, adaptive_reg, item_axis, compute_loss};
+  p.NP = (d + 2 + 15) / 16 * 16;
+  p.S = p.NP + 8;  // NP is 0 or 16 (mod 32)
+  p.NTn = p.NP / 8;
+  p.NT = 0;
+  p.MT = p.NP / 16;
+  for (int mi = 0; mi < p.MT; ++mi) p.NT += p.NTn - 2 * mi;
+  p.NU = p.MT * (p.MT + 1) / 2;
+  // the fewest entry groups (least shared memory and final summing) that
+  // leave at most an eighth of the warps' unit slots empty; else one group
+  auto units_per_warp = [&](int eg) {
+    const int need = (p.NU + kWarps / eg - 1) / (kWarps / eg);
+    for (int c : kUnitCounts)
+      if (c >= need) return c;
+    return 0;
+  };
+  p.EG = 0;
+  for (int eg = 1; eg <= kWarps && !p.EG; eg *= 2) {
+    const int upw = units_per_warp(eg);
+    if (upw && 8 * (upw * (kWarps / eg) - p.NU) <= p.NU) p.EG = eg;
   }
+  if (!p.EG) p.EG = 1;
+  p.UPW = units_per_warp(p.EG);
+  if (p.UPW == 0) return (int)cudaErrorInvalidValue;
+  p.vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(Bf) & 15) == 0;
+  p.nchunk = p.vec ? d / 4 : d;
+  p.magic = 0xffffffffu / (uint32_t)p.nchunk + 1u;
+  const size_t smem = sizeof(float) * ((size_t)kStages * kTL * (p.S + 2) +
+                                       (size_t)p.EG * p.NT * 128 + 3 * p.NP + 33);
+  cudaStream_t s = (cudaStream_t)stream;
+  auto launch = [&](int blocks) {
+    switch (p.UPW) {
+      case 1: return launch_statistics<1>(p, blocks, smem, s);
+      case 2: return launch_statistics<2>(p, blocks, smem, s);
+      case 3: return launch_statistics<3>(p, blocks, smem, s);
+      case 4: return launch_statistics<4>(p, blocks, smem, s);
+      default: return launch_statistics<6>(p, blocks, smem, s);
+    }
+  };
+  if (chunk_ptr == nullptr) return (int)launch(R);
   if (Nc > 0) {
-    als_normal_equations_kernel<<<Nc, T, smem, s>>>(
-        table, Bf, FF, lens, rows, row_start, chunk_ptr, R, chunk_lens, cols, vals, C,
-        A_part, y_part, pos_part, w_part, n_table_rows, d, DP, G, alpha, reg,
-        adaptive_reg, item_axis, num_fixed_rows, compute_loss);
-    err = cudaGetLastError();
+    p.A = A_part;
+    p.y = y_part;
+    p.nume = pos_part;
+    p.deno = w_part;
+    const cudaError_t err = launch(Nc);
     if (err != cudaSuccess) return (int)err;
   }
   als_segment_reduce_kernel<<<R, 256, sizeof(float) * (d + 33), s>>>(

@@ -7,7 +7,8 @@ at the full width of the ML-20M configuration (138,493 x 26,744,
 seed), builds every CUDA kernel of that path from ``buffalo_tpu_torch/
 csrc``, holds each kernel against its plain PyTorch version on real
 batches of the ML-20M layout, and checks that training went through the
-kernels.  Phases, one line each: device, build, kernels, path, plain
+kernels.  Phases, one line each: device, build, layout, kernels (K2 also
+at d = 13 and 128 on small random batches), epoch profile, path, plain
 path, text path.  Every phase that fails ends the run with a non-zero
 exit; without a card it exits 1 and prints no result.
 
@@ -17,7 +18,9 @@ The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON object with each kernel's launches on the main
 path, its error against the plain version and its times (CUDA events,
 median of 20 runs, batches L2-warm as in the epoch loop) beside the
-bound computed from this run's inputs; the last line is
+bound computed from this run's inputs (K2's kernel line also gives the
+segment batch's bound and both bounds at the tensor cores' TF32 rate);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -38,10 +41,13 @@ D = 40
 # the plain-path epoch: kernels against plain versions at a reduced size
 SMALL_USERS, SMALL_ITEMS, SMALL_NNZ = 20_000, 5_000, 2_000_000
 ALPHA, REG, CG_ITERS, CG_TOL = 8.0, 0.1, 3, 1e-10
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and dense FP32 (non-tensor)
-# rate; the kernels and the plain versions run float32 on CUDA cores
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense FP32 (non-tensor) rate
+# and dense TF32 tensor-core rate.  The kernels' work is float32; K2 runs
+# its product on tensor cores as 3xTF32 (three TF32 products per float32
+# one), so it also gets a second bound: 3x its operations at the TF32 rate
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_TF32_S = 495e12
 # tolerances against the plain version (float32, other summation order):
 # solved rows 1e-4 relative to the largest magnitude, loss terms 1e-3.
 # Where the CG steps amplify float32 rounding (a head item's 1M-entry
@@ -50,11 +56,11 @@ PEAK_FP32_S = 67e12
 # instead: its error against a float64 run of the plain code may be at
 # most NOISE_FACTOR times the plain float32 version's, plus TOL_X
 # relative.  Two float32 summation orders land independently in that
-# noise; the readings on the H100 were 1.20x (K3 on the head-item
-# systems) and 1.24x (Q after the plain-path epoch), the same in every
-# run.  Each such check is shown to have power: the plain version with
-# one CG step fewer must fail it (it read 4.8x and 11.6x).  K3's scatter
-# mode is also held to TOL_X on the dense batch's systems.
+# noise; the readings on the H100 stay well inside the factor (K3 on the
+# head-item systems, Q after the plain-path epoch; PERF.md has them).
+# Each such check is shown to have power: the plain version with one CG
+# step fewer must fail it.  K3's scatter mode is also held to TOL_X on the
+# dense batch's systems.
 TOL_X, TOL_LOSS, NOISE_FACTOR = 1e-4, 1e-3, 2.0
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
@@ -194,6 +200,28 @@ def bound_ms(nbytes, flops):
                                        else "operations")
 
 
+def bound_tf32_ms(nbytes, flops):
+    """The bound of work done as 3xTF32 on the tensor cores: the larger of
+    the bytes over HBM bandwidth and 3x the operations over the TF32 peak."""
+    return 1e3 * max(nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_S)
+
+
+def k2_work(cols_valid, real, R, d, item_axis, index_bytes):
+    """(bytes, operations) K2's function needs on one batch: the index
+    arrays, cols/vals and the distinct gathered rows read once, p of the
+    real rows and FF read, A, y and the loss terms written once.  A is
+    symmetric, so d(d+1) operations per entry (upper triangle) plus 2d for
+    y; per row FF + reg I added once and, on the item axis, the loss from
+    A and y (p^T A p - 2 p.y + ...: 2d^2 + 4d)."""
+    n = int(cols_valid.numel())
+    nbytes = (index_bytes + 8 * n + gathered_bytes(cols_valid, d)
+              + 4 * real * d + 4 * d * d + 4 * R * d * (d + 1) + 8 * R)
+    flops = (n * (d * (d + 1) + 2 * d)
+             + real * (d * (d + 1) // 2
+                       + (2 * d * d + 4 * d if item_axis else 0)))
+    return nbytes, flops
+
+
 def gathered_bytes(cols_valid, d):
     """Bytes of the distinct fixed-side rows a batch reads, once each."""
     import torch
@@ -220,6 +248,15 @@ def layout_stats(batches):
             for k, v in out.items()}
 
 
+def kernel_name(key):
+    """A profiler key without return type, anonymous namespace and
+    arguments, cut to 60 characters."""
+    key = key.replace("(anonymous namespace)::", "")
+    if key.startswith("void "):
+        key = key[5:]
+    return key.split("(")[0][:60]
+
+
 def profile_epoch(torch, K, P, Q, row_s, col_s, epoch_kw):
     """Device time of one training epoch by kernel name (torch.profiler
     over CUPTI), its sum, the epoch's wall time and the device's idle
@@ -239,13 +276,71 @@ def profile_epoch(torch, K, P, Q, row_s, col_s, epoch_kw):
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us > 0:
-            by_name[evt.key[:60]] = by_name.get(evt.key[:60], 0.0) + us / 1e3
+            name = kernel_name(evt.key)
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3
     busy_ms = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return dict(wall_ms=wall_ms,
                 device_busy_ms=busy_ms if busy_ms else "not measured",
                 idle_share=(1 - busy_ms / wall_ms) if busy_ms
                 else "not measured", device_ms_by_name=top)
+
+
+def k2_widths(torch, K, dev):
+    """K2 against its plain version at the narrowest and widest widths the
+    tests cover (d = 13: 4-byte gather and feature padding; d = 128: the
+    wrapper's maximum), on one range batch (B 128, 97 <= len <= 1000) and
+    one segment batch (head rows of 20,000 and 9,000 entries in 8192-entry
+    chunks) of random rows; A and y to TOL_X, loss terms to TOL_LOSS."""
+    from buffalo_tpu_torch.data.batching import (build_segment_batch,
+                                                 stage_batch)
+
+    out = {}
+    for d in (13, 128):
+        rng = np.random.default_rng(d)
+        n, m, B, L = 2000, 5000, 128, 1000
+
+        def tensor(a, dtype=torch.float32):
+            return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=dev)
+
+        table = tensor(np.abs(rng.normal(size=(n, d))) / d)
+        Bf = tensor(np.abs(rng.normal(size=(m, d))) / d)
+        FF = Bf.T @ Bf
+        kw = dict(alpha=ALPHA, reg=REG, adaptive_reg=False, item_axis=True,
+                  num_fixed_rows=m, compute_loss=True)
+        lens = rng.integers(97, L + 1, size=B)
+        mask = np.arange(L)[None, :] < lens[:, None]
+        cols = np.where(mask, rng.integers(0, m, size=(B, L)), 0)
+        vals = np.where(mask, 1.0 + rng.integers(0, 5, size=(B, L)), 0.0)
+        batch = (tensor(lens, torch.int32), tensor(cols, torch.int32),
+                 tensor(vals))
+        degs = rng.integers(1, 5, size=n)
+        degs[[7, 1500]] = [20_000, 9_000]
+        indptr = np.concatenate([[0], np.cumsum(degs)])
+        key = rng.integers(0, m, size=int(indptr[-1])).astype(np.int32)
+        val = (1.0 + rng.integers(0, 5, size=key.size)).astype(np.float32)
+        sg = stage_batch(build_segment_batch(indptr, key, val, [7, 1500],
+                                             8192, n), dev)
+        seg = dict(rows=sg.rows, chunk_ptr=sg.chunk_ptr,
+                   chunk_lens=sg.chunk_lens)
+        res = {}
+        for mode, args, where in (
+                ("range", batch, dict(row_start=0)),
+                ("segment", (sg.lens, sg.cols, sg.vals), seg)):
+            ref = K.als_normal_equations_plain(table, Bf, FF, *args, **where,
+                                               **kw)
+            got = K.als_normal_equations(table, Bf, FF, *args, **where, **kw)
+            rel = max(rel_err(got[0], ref[0])[1], rel_err(got[1], ref[1])[1])
+            loss = max(rel_err(got[2].sum(), ref[2].sum())[1],
+                       rel_err(got[3].sum(), ref[3].sum())[1])
+            check(rel <= TOL_X and loss <= TOL_LOSS,
+                  f"K2 at d = {d} ({mode}) disagrees with its plain version: "
+                  f"A/y {rel:.3g}, loss {loss:.3g}")
+            res[mode] = dict(rel_err_Ay=rel, loss_rel_err=loss)
+        out[f"d{d}"] = res
+    torch.cuda.synchronize()
+    return out
 
 
 def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
@@ -373,14 +468,16 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
     lens = dn.lens.long()
     real, nnz = int((lens > 0).sum()), int(lens.sum())
     valid = torch.arange(L, device=lens.device)[None, :] < lens[:, None]
-    nbytes = (4 * B + 8 * nnz + gathered_bytes(dn.cols[valid], d)
-              + 4 * real * d + 4 * d * d + 4 * B * d * (d + 1) + 8 * B)
-    # A is symmetric: the function needs the upper triangle only,
-    # d(d+1)/2 multiply-adds per entry, and FF + reg I added once per row
-    flops = (nnz * (d * (d + 1) + 2 * d
-                    + (2 * d + 8 if kw["item_axis"] else 0))
-             + real * d * (d + 1) // 2)
+    nbytes, flops = k2_work(dn.cols[valid], real, B, d, kw["item_axis"],
+                            4 * B)
     bms, by = bound_ms(nbytes, flops)
+    Rs, (Nc, Cs) = len(sg.lens), sg.cols.shape
+    svalid = (torch.arange(Cs, device=sg.cols.device)[None, :]
+              < sg.chunk_lens.long()[:, None])
+    s_bytes, s_flops = k2_work(sg.cols[svalid], int((sg.lens > 0).sum()), Rs,
+                               d, sg_kw["item_axis"], 12 * Rs + 4 + 4 * Nc)
+    seg_bms, seg_by = bound_ms(s_bytes, s_flops)
+    widths = k2_widths(torch, K, Bf.device)
     entries["als_normal_equations"] = dict(
         route="cuda", source="buffalo_tpu_torch/csrc/als_normal_equations.cu",
         replaces="buffalo_tpu/ops/als_kernels.py:65",
@@ -390,11 +487,14 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
           real_rows=real, entries=nnz, rel_err_A=rel_A, rel_err_y=rel_y,
           loss_rel_err=loss_rel, tol=TOL_X, ms=ms, plain_ms=plain_ms,
           library_ms=library_ms, bound_ms=bms, bound_by=by,
+          bound_tf32_ms=bound_tf32_ms(nbytes, flops),
           segment=dict(half=sg_half, rows=int((sg.lens > 0).sum()),
                        chunks=int(sg.cols.shape[0]),
                        entries=int(sg.chunk_lens.sum()), rel_err_A=rel_sA,
                        rel_err_y=rel_sy, loss_rel_err=loss_rel_s,
-                       ms=seg_ms))
+                       ms=seg_ms, bound_ms=seg_bms, bound_by=seg_by,
+                       bound_tf32_ms=bound_tf32_ms(s_bytes, s_flops)),
+          widths=widths)
 
     # ---- K3 on the dense batch's systems (range write) and the segment
     # batch's (scatter write, padding ids skipped)

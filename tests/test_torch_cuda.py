@@ -30,11 +30,17 @@ def dev():
 
 
 def _case(dev, d, L, B=64, n=300, m=200, seed=0):
+    """A RangeBatch of B rows of up to L entries over a table of n rows and
+    a fixed side of m rows.  Past L = 1000 the fixed side shrinks as 1/L,
+    so that y and A stay at the magnitudes the tolerances are set for:
+    unscaled, 8192 entries over 200 fixed rows sum y into the thousands,
+    where float32's spacing (2^-11 from 4096 up) exceeds atol, and entries
+    near zero differ between any two summation orders."""
     rng = np.random.default_rng(seed)
     table = torch.tensor(rng.normal(size=(n, d)) * 0.3, dtype=torch.float32,
                          device=dev)
-    Bf = torch.tensor(rng.normal(size=(m, d)) * 0.3, dtype=torch.float32,
-                      device=dev)
+    Bf = torch.tensor(rng.normal(size=(m, d)) * 0.3 * min(1.0, 1000 / L),
+                      dtype=torch.float32, device=dev)
     lens = rng.integers(1, L + 1, size=B).astype(np.int32)
     lens[[0, B // 2]] = 0
     cols = rng.integers(0, m, size=(B, L)).astype(np.int32)
@@ -69,8 +75,11 @@ def test_matrix_free_kernel_matches_plain(dev, d, item_axis):
     torch.testing.assert_close(d_got, d_ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("d", [8, 40, 64])
-@pytest.mark.parametrize("L", [104, 1000])
+# d = 13 takes the 4-byte gather and feature padding, 128 is the widest
+# the kernel takes; L = 97 and 104 end inside a stage of the gather ring,
+# 1000 and 8192 wrap the ring many times and end in a partial stage
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 128])
+@pytest.mark.parametrize("L", [97, 104, 1000, 8192])
 def test_normal_equations_and_cg_match_plain(dev, d, L):
     table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=L, B=32)
     A_ref, y_ref, n_ref, d_ref = K.als_normal_equations_plain(
@@ -91,13 +100,12 @@ def test_normal_equations_and_cg_match_plain(dev, d, L):
     torch.testing.assert_close(table, expect, **TOL)
 
 
-@pytest.mark.parametrize("item_axis,adaptive_reg", [(True, False),
-                                                    (False, True)])
-def test_segment_kernels_skip_padding_ids(dev, item_axis, adaptive_reg):
-    d, n, m = 40, 50, 400
+def _segment_case(dev, d, heads, n=50, m=400):
+    """A SegmentBatch of the head rows 20 and 4 (degrees ``heads``) in
+    8192-entry chunks, padding rows carrying the id ``1 << 30``."""
     rng = np.random.default_rng(3)
     degs = rng.integers(1, 5, size=n)
-    degs[[4, 20]] = [9000, 17000]
+    degs[[4, 20]] = heads
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(degs, out=indptr[1:])
     key = rng.integers(0, m, int(indptr[-1])).astype(np.int32)
@@ -110,8 +118,19 @@ def test_segment_kernels_skip_padding_ids(dev, item_axis, adaptive_reg):
                          device=dev)
     Bf = torch.tensor(rng.normal(size=(m, d)) * 0.1, dtype=torch.float32,
                       device=dev)
-    FF = Bf.T @ Bf
     seg = dict(rows=s.rows, chunk_ptr=s.chunk_ptr, chunk_lens=s.chunk_lens)
+    return table, Bf, Bf.T @ Bf, s, seg
+
+
+# chunk lengths 8192 and 808 / 8192, 8192 and 616 end mid-stage; the d = 13
+# case's 8192, 69 / 8192, 8192, 1 leave a short and a one-entry chunk
+@pytest.mark.parametrize("d,heads", [(40, (9000, 17000)),
+                                     (13, (8261, 16385))])
+@pytest.mark.parametrize("item_axis,adaptive_reg", [(True, False),
+                                                    (False, True)])
+def test_segment_kernels_skip_padding_ids(dev, item_axis, adaptive_reg, d,
+                                          heads):
+    table, Bf, FF, s, seg = _segment_case(dev, d, heads)
     kw = _kw(item_axis, adaptive_reg)
     A_ref, y_ref, n_ref, d_ref = K.als_normal_equations_plain(
         table, Bf, FF, s.lens, s.cols, s.vals, **seg, **kw)
@@ -128,6 +147,23 @@ def test_segment_kernels_skip_padding_ids(dev, item_axis, adaptive_reg):
                        cg_tol=1e-10)
     torch.cuda.synchronize()
     torch.testing.assert_close(table, expect, **TOL)
+
+
+@pytest.mark.parametrize("mode", ["range", "segment"])
+def test_normal_equations_kernel_is_deterministic(dev, mode):
+    """Two launches on the same inputs give bitwise-equal results: every
+    sum runs in a fixed order, with no atomics."""
+    if mode == "range":
+        table, Bf, FF, (lens, cols, vals) = _case(dev, 40, L=1000, B=32)
+        args, kw = (table, Bf, FF, lens, cols, vals), dict(row_start=5)
+    else:
+        table, Bf, FF, s, kw = _segment_case(dev, 40, (9000, 17000))
+        args = (table, Bf, FF, s.lens, s.cols, s.vals)
+    first = K.als_normal_equations(*args, **kw, **_kw(True))
+    second = K.als_normal_equations(*args, **kw, **_kw(True))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_reject_what_kernels_do_not_take(dev):
