@@ -10,59 +10,115 @@
 // mode="drop") are skipped, since a write there would fault.
 //
 // What bounds it on the card: reading A (4 d^2 bytes per system, 6.4 KB at
-// d = 40) once; the (cg_iters + 1) matvecs re-read it from shared memory,
-// and the chain of block reductions sets the latency per system.
-// Design: one block per system, A in shared memory with an odd row stride,
-// CG vectors in shared memory, fixed-order reductions (no atomics).
+// d = 40) once is ~2 us for a whole batch; what is left is the latency of
+// one system's chain (the load of A, cg_iters + 1 matvecs, ~10 reductions)
+// and the launch.  Design: one warp per system, several systems per block,
+// no block barrier anywhere.  Lane i owns rows i, i + 32, ... of A and
+// entries i, i + 32, ... of every CG vector, so a matvec needs no
+// reduction: the vector is broadcast through the warp's own slice of shared
+// memory (__syncwarp) and read as float4.  Dot products are xor-butterfly
+// warp sums, the same bits on every lane.  For d <= 64 the lane's rows of A
+// sit in registers, loaded once with 16-byte loads when rows are 16-byte
+// aligned; wider A is copied into the warp's shared memory (rows at a
+// stride that keeps float4 row reads free of bank conflicts) and read from
+// there in every matvec.
 #include "als_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
+// systems per block, one warp each (chosen on the card with
+// tools/cg_bench.py, PERF.md); fewer where a wide A's shared memory does not fit
+constexpr int kWarps = 2;
 
-__global__ void __launch_bounds__(kThreads)
+template <int DW, bool kReg>
+__global__ void __launch_bounds__(kWarps * 32, 1)
 batched_cg_dense_kernel(const float* __restrict__ A, const float* __restrict__ y,
                         float* __restrict__ table, const int32_t* __restrict__ lens,
                         const int32_t* __restrict__ rows, int64_t row_start,
-                        int64_t n_table_rows, int d, int cg_iters, float cg_tol) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  if (lens[b] <= 0) return;
+                        int64_t n_table_rows, int R, int d, int cg_iters, float cg_tol,
+                        int vec) {
+  constexpr int N = als::round32(DW), M = N / 32, KC = DW / 4;
+  constexpr int LDA = als::lane_row_stride(DW);
+  constexpr int kWarpFloats = N + (kReg ? 0 : N * LDA);
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= R || lens[b] <= 0) return;
   const int64_t dst = rows ? (int64_t)rows[b] : row_start + b;
   if (dst < 0 || dst >= n_table_rows) return;
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int lda = d | 1;
-  float* As = smem;           // [d][lda]
-  float* x0 = As + d * lda;   // [d] current row
-  float* ys = x0 + d;
-  float* x = ys + d;
-  float* r = x + d;
-  float* p = r + d;
-  float* Ap = p + d;
-  float* scratch = Ap + d;    // [33]
-
+  float* vs = reinterpret_cast<float*>(smem4) + warp * kWarpFloats;  // [N]
+  float* As = vs + N;                                                 // [N][LDA]
   const float* Ab = A + (int64_t)b * d * d;
-  float* row = table + dst * d;
-  for (int i = tid; i < d * d; i += T) {
-    const int j = i / d;
-    As[j * lda + (i - j * d)] = Ab[i];
-  }
-  for (int j = tid; j < d; j += T) {
-    x0[j] = row[j];
-    ys[j] = y[(int64_t)b * d + j];
-  }
-  __syncthreads();
 
-  auto matvec = [&](const float* v, float* out) {
-    for (int i = tid; i < d; i += T) {
-      float s = 0.f;
-      for (int j = 0; j < d; ++j) s += As[i * lda + j] * v[j];
-      out[i] = s;
-    }
-    __syncthreads();
+  // A's rows: registers (lane's rows, zeros past d) or the warp's shared slice
+  float4 a[kReg ? M : 1][kReg ? KC : 1];
+  auto load4 = [&](int i, int c) {  // A[i][4c .. 4c + 4), zeros past d
+    const float* src = Ab + (int64_t)i * d + 4 * c;
+    if (vec && 4 * c < d) return __ldg(reinterpret_cast<const float4*>(src));
+    float4 t;
+    t.x = 4 * c + 0 < d ? __ldg(src + 0) : 0.f;
+    t.y = 4 * c + 1 < d ? __ldg(src + 1) : 0.f;
+    t.z = 4 * c + 2 < d ? __ldg(src + 2) : 0.f;
+    t.w = 4 * c + 3 < d ? __ldg(src + 3) : 0.f;
+    return t;
   };
-  als::warm_cg(matvec, x0, ys, x, r, p, Ap, scratch, d, cg_iters, cg_tol);
-  for (int j = tid; j < d; j += T) row[j] = x[j];
+  if constexpr (kReg) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int i = lane + 32 * m;
+#pragma unroll
+      for (int c = 0; c < KC; ++c)
+        a[m][c] = i < d ? load4(i, c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = 0; i < d; ++i)
+      for (int c = lane; c < KC; c += 32)
+        reinterpret_cast<float4*>(As + i * LDA)[c] = load4(i, c);
+    __syncwarp();
+  }
+  auto getA = [&](int m, int c) -> float4 {
+    if constexpr (kReg) return a[m][c];
+    else return reinterpret_cast<const float4*>(As + (lane + 32 * m) * LDA)[c];
+  };
+
+  float* row = table + dst * d;
+  float x0[M], ys[M], Ax0[M], x[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int i = lane + 32 * m;
+    x0[m] = i < d ? row[i] : 0.f;
+    ys[m] = i < d ? y[(int64_t)b * d + i] : 0.f;
+  }
+  // out = A v, row by row: lane i's entry is A[i] . v, summed in column order
+  auto matvec = [&](const float (&v)[M], float (&out)[M]) {
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < M; ++m) vs[lane + 32 * m] = v[m];
+    __syncwarp();
+    float acc[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc[m] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const float4 v4 = reinterpret_cast<const float4*>(vs)[c];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (!kReg && lane + 32 * m >= d) continue;  // no such row in As
+        const float4 t = getA(m, c);
+        acc[m] = fmaf(t.x, v4.x, acc[m]);
+        acc[m] = fmaf(t.y, v4.y, acc[m]);
+        acc[m] = fmaf(t.z, v4.z, acc[m]);
+        acc[m] = fmaf(t.w, v4.w, acc[m]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) out[m] = acc[m];
+  };
+  matvec(x0, Ax0);
+  als::warp_cg<M>(matvec, x0, ys, Ax0, x, cg_iters, cg_tol);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    if (lane + 32 * m < d) row[lane + 32 * m] = x[m];
 }
 
 }  // namespace
@@ -72,10 +128,20 @@ extern "C" int batched_cg_dense(const float* A, const float* y, float* table,
                                 int64_t row_start, int64_t n_table_rows, int R, int d,
                                 int cg_iters, float cg_tol, void* stream) {
   if (R == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)d * (d | 1) + 6 * d + 33);
-  cudaError_t err = als::allow_smem(batched_cg_dense_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  batched_cg_dense_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
-      A, y, table, lens, rows, row_start, n_table_rows, d, cg_iters, cg_tol);
-  return (int)cudaGetLastError();
+  const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  return als::with_width(d, [&](auto width) {
+    constexpr int DW = decltype(width)::value;
+    constexpr bool kReg = DW <= 64;
+    constexpr int N = als::round32(DW);
+    const size_t per_warp =
+        sizeof(float) * (N + (kReg ? 0 : (size_t)N * als::lane_row_stride(DW)));
+    int W = kWarps;
+    while (W > 1 && W * per_warp > als::kMaxSmem) --W;
+    auto kernel = batched_cg_dense_kernel<DW, kReg>;
+    cudaError_t err = als::allow_smem(kernel, W * per_warp);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(R + W - 1) / W, W * 32, W * per_warp, (cudaStream_t)stream>>>(
+        A, y, table, lens, rows, row_start, n_table_rows, R, d, cg_iters, cg_tol, vec);
+    return (int)cudaGetLastError();
+  });
 }

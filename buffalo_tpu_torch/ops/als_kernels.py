@@ -51,6 +51,8 @@ _SIGNATURES = {
     "batched_cg_dense": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                          _F32, _P],
 }
+# the widest rows the kernels take
+MAX_D = 128
 
 
 _launchers = {}
@@ -275,6 +277,8 @@ def als_cg_matrix_free(table, Bf, FF, row_start, lens, cols, vals, *,
             num_fixed_rows=num_fixed_rows, compute_loss=compute_loss)
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
+    if d > MAX_D:
+        raise ValueError(f"als_cg_matrix_free supports d <= {MAX_D}, got {d}")
     _check("lens", lens, torch.int32, dev, 1)
     _check("cols", cols, torch.int32, dev, 2)
     _check("vals", vals, torch.float32, dev, 2)
@@ -322,8 +326,9 @@ def als_normal_equations(table, Bf, FF, lens, cols, vals, *, row_start=0,
                                           **kw)
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
-    if d > 128:
-        raise ValueError(f"als_normal_equations supports d <= 128, got {d}")
+    if d > MAX_D:
+        raise ValueError(f"als_normal_equations supports d <= {MAX_D}, "
+                         f"got {d}")
     _check("lens", lens, torch.int32, dev, 1)
     _check("cols", cols, torch.int32, dev, 2)
     _check("vals", vals, torch.float32, dev, 2)
@@ -386,6 +391,8 @@ def batched_cg_dense(A, y, table, lens, *, row_start=0, rows=None,
     if tuple(A.shape) != (R, d, d) or table.shape[1] != d \
             or lens.shape[0] != R:
         raise ValueError("shape mismatch in batched_cg_dense")
+    if d > MAX_D:
+        raise ValueError(f"batched_cg_dense supports d <= {MAX_D}, got {d}")
     if rows is None:
         if row_start < 0 or row_start + R > table.shape[0]:
             raise ValueError("row range past the table")

@@ -7,8 +7,9 @@ at the full width of the ML-20M configuration (138,493 x 26,744,
 seed), builds every CUDA kernel of that path from ``buffalo_tpu_torch/
 csrc``, holds each kernel against its plain PyTorch version on real
 batches of the ML-20M layout, and checks that training went through the
-kernels.  Phases, one line each: device, build, layout, kernels (K2 also
-at d = 13 and 128 on small random batches), epoch profile, path, plain
+kernels.  Phases, one line each: device, build, layout, kernels (K1 on
+the largest and on the short matrix-free batch; K1, K2 and K3 also at
+d = 13 and 128 on small random batches), epoch profile, path, plain
 path, text path.  Every phase that fails ends the run with a non-zero
 exit; without a card it exits 1 and prints no result.
 
@@ -18,7 +19,10 @@ The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON object with each kernel's launches on the main
 path, its error against the plain version and its times (CUDA events,
 median of 20 runs, batches L2-warm as in the epoch loop) beside the
-bound computed from this run's inputs (K2's kernel line also gives the
+bound computed from this run's inputs; the kernel lines of K1 and K3
+also give the kernel's device time alone (CUPTI through torch.profiler,
+median of 20-22 launches), since events around a short launch also catch
+the wrapper's host work (K2's kernel line also gives the
 segment batch's bound and both bounds at the tensor cores' TF32 rate);
 the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,8 +60,8 @@ PEAK_TF32_S = 495e12
 # instead: its error against a float64 run of the plain code may be at
 # most NOISE_FACTOR times the plain float32 version's, plus TOL_X
 # relative.  Two float32 summation orders land independently in that
-# noise; the readings on the H100 stay well inside the factor (K3 on the
-# head-item systems, Q after the plain-path epoch; PERF.md has them).
+# noise; PERF.md has the readings on the H100 (K3 on the head-item
+# systems, K1 at d = 128 on all-positive factors, the plain-path epoch).
 # Each such check is shown to have power: the plain version with one CG
 # step fewer must fail it.  K3's scatter mode is also held to TOL_X on the
 # dense batch's systems.
@@ -102,6 +106,69 @@ class ArrayData:
 
     def get_group(self, g):
         return self.groups[g]
+
+
+def epoch_kw(num_users, num_items):
+    """``als_epoch``'s options for this script's training (d = D)."""
+    return dict(optimizer="manual_cg", alpha=ALPHA, reg_u=REG, reg_i=REG,
+                adaptive_reg=False, cg_iters=CG_ITERS, cg_tol=CG_TOL,
+                block_size=32, compute_loss=True, num_p_rows=num_users,
+                num_q_rows=num_items)
+
+
+def range_layout(data, num_users, num_items, seed):
+    """``data``'s range layout (host batches of the user and the item
+    half) and random factor tables in its row order, |N(0, 1/D^2)| from
+    ``seed``, users first: (row batches, col batches, P, Q), numpy."""
+    from buffalo_tpu_torch.data.batching import (DeviceBatcher,
+                                                 build_range_layout,
+                                                 permute_table)
+
+    b = {g: DeviceBatcher(data, g, batch_mb=1024, d=D)
+         for g in ("rowwise", "colwise")}
+    row_b, col_b, u_pos, i_pos, u_pad, i_pad = build_range_layout(
+        b["rowwise"].planner, b["colwise"].planner, b["rowwise"].key,
+        b["rowwise"].val, b["colwise"].key, b["colwise"].val)
+    rng = np.random.default_rng(seed)
+
+    def table(n, pos, pad):
+        t = np.abs(rng.normal(scale=1.0 / D ** 2, size=(n, D)))
+        return permute_table(t.astype(np.float32), pos, pad)
+
+    P = table(num_users, u_pos, u_pad)
+    return row_b, col_b, P, table(num_items, i_pos, i_pad)
+
+
+def pick_batches(row_b, col_b):
+    """The batches of the kernel lines, {kind: (half, index)}: K1's
+    ``largest`` matrix-free batch (most padded entries) and its ``short``
+    one (L <= 32: one entry slot per lane, the most rows), the ``dense``
+    batch nearest L = 1024 and the ``segment`` batch with the most padded
+    entries (K2 and K3)."""
+    from buffalo_tpu_torch.data.batching import MATRIX_FREE_MAX_L, RangeBatch
+
+    def is_range(b, lo, hi):
+        return isinstance(b, RangeBatch) and lo < b.cols.shape[1] <= hi
+
+    kinds = {
+        "largest": (lambda b: is_range(b, 0, MATRIX_FREE_MAX_L),
+                    lambda b: b.cols.shape[0] * b.cols.shape[1]),
+        "short": (lambda b: is_range(b, 0, 32), lambda b: b.cols.shape[0]),
+        "dense": (lambda b: is_range(b, MATRIX_FREE_MAX_L, 1 << 30),
+                  lambda b: -abs(b.cols.shape[1] - 1024)),
+        "segment": (lambda b: not isinstance(b, RangeBatch),
+                    lambda b: int(np.prod(b.cols.shape))),
+    }
+    out = {}
+    for kind, (pred, score) in kinds.items():
+        best = None
+        for half, batches in (("rowwise", row_b), ("colwise", col_b)):
+            for i, b in enumerate(batches):
+                if pred(b) and (best is None or score(b) > best[0]):
+                    best = (score(b), half, i)
+        check(best is not None, f"the layout lacks a {kind} batch")
+        out[kind] = best[1:]
+    return out
 
 
 def write_compiled(groups, num_users, num_items, path, num_vali, seed):
@@ -175,6 +242,26 @@ def noise_floor_check(got, plain32, plain64):
                     plain_rel_err_vs_f64=floor64 / scale)
 
 
+def floor_check(kernel, plain, base, idx):
+    """A kernel's solve held to the noise floor, and the check's power:
+    ``kernel(t)`` and ``plain(t, cg_iters)`` solve into copies of table
+    ``base`` (``plain`` casting its inputs to ``t``'s dtype); rows ``idx``
+    of the kernel's result are held to the plain float32 and float64 ones
+    (``noise_floor_check``), and so are those of the plain float32 version
+    with one CG step fewer.  Returns (kernel passes, its fields with the
+    shorter solve's distance from float64, shorter solve passes)."""
+    outs = [base.clone(), base.clone(), base.double(), base.clone()]
+    kernel(outs[0])
+    plain(outs[1], CG_ITERS)
+    plain(outs[2], CG_ITERS)
+    plain(outs[3], CG_ITERS - 1)
+    got, p32, p64, short = [o[idx] for o in outs]
+    ok, fields = noise_floor_check(got, p32, p64)
+    short_ok, short_fields = noise_floor_check(short, p32, p64)
+    fields["one_step_fewer_rel_err_vs_f64"] = short_fields["rel_err_vs_f64"]
+    return ok, fields, short_ok
+
+
 def time_ms(fn, reps=20, warmup=3):
     """Median milliseconds of ``fn`` on the card (CUDA events)."""
     import torch
@@ -190,6 +277,31 @@ def time_ms(fn, reps=20, warmup=3):
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def device_ms(fn, name, reps=20, warmup=3):
+    """Median device milliseconds of the kernel ``name`` launched by
+    ``fn``, over the ``reps`` or more calls traced by torch.profiler
+    (CUPTI): the kernel's own time, without the wrapper's host work that
+    CUDA events around the call also catch.  The trace can miss a
+    launch of a few-µs kernel (on the H100 it once held 19 of 20 of K3's),
+    so it holds two calls more than the median needs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps + 2):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name in e.name]
+    check(reps <= len(us) <= reps + 2, f"profiler saw {len(us)} launches "
+          f"of {name}, expected {reps} to {reps + 2}")
+    return float(np.median(us)) / 1e3
 
 
 def bound_ms(nbytes, flops):
@@ -229,6 +341,26 @@ def gathered_bytes(cols_valid, d):
     return int(torch.unique(cols_valid).numel()) * d * 4
 
 
+def k1_work(batch, d):
+    """(bytes, operations) K1's function needs on one RangeBatch: lens,
+    cols/vals and the distinct gathered rows read once, p read and x
+    written for the real rows, FF read, the loss terms written; y, then
+    (1 + CG_ITERS) matvecs of 4 n d (F x and F^T g) + 2 d^2 + 2 d per row,
+    and the CG vector work."""
+    import torch
+
+    B, L = batch.cols.shape
+    lens = batch.lens.long()
+    real, nnz = int((lens > 0).sum()), int(lens.sum())
+    valid = torch.arange(L, device=lens.device)[None, :] < lens[:, None]
+    nbytes = (4 * B + 8 * nnz + gathered_bytes(batch.cols[valid], d)
+              + 8 * real * d + 4 * d * d + 8 * B)
+    flops = (2 * nnz * d
+             + (1 + CG_ITERS) * (4 * nnz * d + real * (2 * d * d + 2 * d))
+             + real * CG_ITERS * 10 * d)
+    return real, nnz, nbytes, flops
+
+
 def layout_stats(batches):
     """Rows, padded entries and batches of each solve path of one half."""
     from buffalo_tpu_torch.data.batching import MATRIX_FREE_MAX_L, RangeBatch
@@ -257,7 +389,7 @@ def kernel_name(key):
     return key.split("(")[0][:60]
 
 
-def profile_epoch(torch, K, P, Q, row_s, col_s, epoch_kw):
+def profile_epoch(torch, K, P, Q, row_s, col_s, kw):
     """Device time of one training epoch by kernel name (torch.profiler
     over CUPTI), its sum, the epoch's wall time and the device's idle
     share of it."""
@@ -267,7 +399,7 @@ def profile_epoch(torch, K, P, Q, row_s, col_s, epoch_kw):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         st = time.perf_counter()
-        K.als_epoch(P, Q, row_s, col_s, **epoch_kw)
+        K.als_epoch(P, Q, row_s, col_s, **kw)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - st)
     by_name = {}
@@ -343,87 +475,170 @@ def k2_widths(torch, K, dev):
     return out
 
 
+def cg_widths(torch, K, dev):
+    """K1 and K3 against their plain versions at d = 13 (a width that is
+    no multiple of 4: 4-byte gather and loads, padded rows) and d = 128
+    (the widest: F and A read from shared memory): K1 on a RangeBatch of
+    B 257 rows of up to 96 entries with empty and one-entry rows, both
+    halves; K3 on K2's systems of a 300-entry batch, range and scatter
+    writes.  Rows to TOL_X, loss terms to TOL_LOSS, on signed random
+    factors.  At d = 128 K1 also runs on all-positive factors, as the main
+    path's are (|N| / d, as ``k2_widths`` uses): FF is then dominated by one
+    direction and three CG steps amplify float32 rounding, so there its
+    rows are held to the noise floor against a float64 run of the plain
+    version, which the plain version with one CG step fewer must fail."""
+    out = {}
+    for d in (13, 128):
+        rng = np.random.default_rng(100 + d)
+        n, m, B = 2000, 5000, 257
+
+        def tensor(a, dtype=torch.float32):
+            return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=dev)
+
+        def batch(L):
+            lens = rng.integers(1, L + 1, size=B)
+            lens[[0, 100]] = 0
+            lens[1] = 1
+            mask = np.arange(L)[None, :] < lens[:, None]
+            cols = np.where(mask, rng.integers(0, m, size=(B, L)), 0)
+            vals = np.where(mask, 1.0 + rng.integers(0, 5, (B, L)), 0.0)
+            return (tensor(lens, torch.int32), tensor(cols, torch.int32),
+                    tensor(vals))
+
+        table = tensor(rng.normal(size=(n, d)) * 0.3)
+        Bf = tensor(rng.normal(size=(m, d)) * 0.3 / np.sqrt(m / 200))
+        FF = Bf.T @ Bf
+        cg = dict(cg_iters=CG_ITERS, cg_tol=CG_TOL)
+        res = {}
+        lens, cols, vals = batch(96)
+        for item_axis in (False, True):
+            kw = dict(alpha=ALPHA, reg=REG, adaptive_reg=False,
+                      item_axis=item_axis, num_fixed_rows=m,
+                      compute_loss=True)
+            half = "items" if item_axis else "users"
+            ref, got = table.clone(), table.clone()
+            n_ref, d_ref = K.als_cg_matrix_free_plain(
+                ref, Bf, FF, 7, lens, cols, vals, **cg, **kw)
+            n_got, d_got = K.als_cg_matrix_free(
+                got, Bf, FF, 7, lens, cols, vals, **cg, **kw)
+            rel = rel_err(got, ref)[1]
+            loss = max(rel_err(n_got.sum(), n_ref.sum())[1],
+                       rel_err(d_got.sum(), d_ref.sum())[1])
+            check(rel <= TOL_X and loss <= TOL_LOSS,
+                  f"K1 at d = {d} ({half}) disagrees with its plain "
+                  f"version: x {rel:.3g}, loss {loss:.3g}")
+            res[f"K1_{half}"] = dict(rel_err=rel, loss_rel_err=loss)
+        if d == 128:  # all-positive factors (the half changes no row)
+            prng = np.random.default_rng(1000 + d)
+            ptab = tensor(np.abs(prng.normal(size=(n, d))) / d)
+            pBf = tensor(np.abs(prng.normal(size=(m, d))) / d)
+            pFF = pBf.T @ pBf
+
+            def plain(t, iters):
+                K.als_cg_matrix_free_plain(
+                    t, pBf.to(t.dtype), pFF.to(t.dtype), 7, lens, cols, vals,
+                    cg_iters=iters, cg_tol=CG_TOL, **kw)
+
+            ok, fields, weak = floor_check(
+                lambda t: K.als_cg_matrix_free(t, pBf, pFF, 7, lens, cols,
+                                               vals, **cg, **kw),
+                plain, ptab, slice(7, 7 + B))
+            check(ok, f"K1 at d = {d} on all-positive factors misses the "
+                  f"noise floor: {fields}")
+            check(not weak, f"K1's check at d = {d} on all-positive factors "
+                  f"passes one CG step fewer: {fields}")
+            res["K1_positive"] = fields
+        lens, cols, vals = batch(300)
+        A, y, _, _ = K.als_normal_equations_plain(
+            table, Bf, FF, lens, cols, vals, row_start=7, alpha=ALPHA,
+            reg=REG, adaptive_reg=False, item_axis=True, num_fixed_rows=m,
+            compute_loss=False)
+        rows = torch.arange(B + 6, 6, -1, dtype=torch.int32, device=dev)
+        rows[::31] = 1 << 30
+        for mode, where in (("range", dict(row_start=7)),
+                            ("scatter", dict(rows=rows))):
+            ref, got = table.clone(), table.clone()
+            K.batched_cg_dense_plain(A, y, ref, lens, **where, **cg)
+            K.batched_cg_dense(A, y, got, lens, **where, **cg)
+            rel = rel_err(got, ref)[1]
+            check(rel <= TOL_X, f"K3 at d = {d} ({mode}) disagrees with its "
+                  f"plain version: {rel:.3g}")
+            res[f"K3_{mode}"] = dict(rel_err=rel)
+        out[f"d{d}"] = res
+    torch.cuda.synchronize()
+    return out
+
+
 def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
                  num_items):
     """Each kernel against its plain version on ML-20M layout batches;
     returns the kernels' JSON entries (launches filled in later)."""
-    from buffalo_tpu_torch.data.batching import (MATRIX_FREE_MAX_L,
-                                                 RangeBatch,
-                                                 StagedSegmentBatch)
+    from buffalo_tpu_torch.data.batching import StagedSegmentBatch
 
     d = P.shape[1]
-    halves = {"rowwise": (P, Q, row_b, row_s, False, num_items),
-              "colwise": (Q, P, col_b, col_s, True, num_users)}
-
-    def pick(pred, score):
-        best = None
-        for half, (_, _, host, staged, _, _) in halves.items():
-            for hb, sb in zip(host, staged):
-                if pred(hb) and (best is None or score(hb) > best[0]):
-                    best = (score(hb), half, hb, sb)
-        check(best is not None, "the layout lacks a batch kind")
-        return best[1:]
-
-    def is_range(b, lo, hi):
-        return isinstance(b, RangeBatch) and lo < b.cols.shape[1] <= hi
-
-    mf_half, _, mf = pick(lambda b: is_range(b, 0, MATRIX_FREE_MAX_L),
-                          lambda b: b.cols.shape[0] * b.cols.shape[1])
-    dn_half, _, dn = pick(lambda b: is_range(b, MATRIX_FREE_MAX_L, 1 << 30),
-                          lambda b: -abs(b.cols.shape[1] - 1024))
-    sg_half, _, sg = pick(lambda b: not isinstance(b, RangeBatch),
-                          lambda b: int(np.prod(b.cols.shape)))
+    halves = {"rowwise": (P, Q, row_s, False, num_items),
+              "colwise": (Q, P, col_s, True, num_users)}
+    picked = {kind: (half, halves[half][2][i])
+              for kind, (half, i) in pick_batches(row_b, col_b).items()}
+    mf_half, mf = picked["largest"]
+    sh_half, sh = picked["short"]
+    dn_half, dn = picked["dense"]
+    sg_half, sg = picked["segment"]
     check(isinstance(sg, StagedSegmentBatch), "segment batch not staged")
 
     def args(half):
-        table, Bf, _, _, item_axis, n_fixed = halves[half]
+        table, Bf, _, item_axis, n_fixed = halves[half]
         return table, Bf, Bf.T @ Bf, dict(
             alpha=ALPHA, reg=REG, adaptive_reg=False, item_axis=item_axis,
             num_fixed_rows=n_fixed, compute_loss=True)
 
     entries = {}
-    # ---- K1 on the largest matrix-free batch
-    table, Bf, FF, kw = args(mf_half)
     cg = dict(cg_iters=CG_ITERS, cg_tol=CG_TOL)
-    B, L = mf.cols.shape
-    t_ref, t_got = table.clone(), table.clone()
-    n_ref, d_ref = K.als_cg_matrix_free_plain(t_ref, Bf, FF, mf.row_start,
-                                              mf.lens, mf.cols, mf.vals,
-                                              **cg, **kw)
-    n_got, d_got = K.als_cg_matrix_free(t_got, Bf, FF, mf.row_start,
-                                        mf.lens, mf.cols, mf.vals, **cg, **kw)
-    rows = slice(mf.row_start, mf.row_start + B)
-    err, rel = rel_err(t_got[rows], t_ref[rows])
-    loss_rel = max(rel_err(n_got.sum(), n_ref.sum())[1],
-                   rel_err(d_got.sum(), d_ref.sum())[1])
-    check(rel <= TOL_X and loss_rel <= TOL_LOSS,
-          f"K1 disagrees with its plain version: x {rel:.3g}, "
-          f"loss {loss_rel:.3g}")
-    scratch = table.clone()
-    ms = time_ms(lambda: K.als_cg_matrix_free(
-        scratch, Bf, FF, mf.row_start, mf.lens, mf.cols, mf.vals, **cg,
-        **kw))
-    plain_ms = time_ms(lambda: K.als_cg_matrix_free_plain(
-        scratch, Bf, FF, mf.row_start, mf.lens, mf.cols, mf.vals, **cg,
-        **kw))
-    lens = mf.lens.long()
-    real, nnz = int((lens > 0).sum()), int(lens.sum())
-    valid = torch.arange(L, device=lens.device)[None, :] < lens[:, None]
-    nbytes = (4 * B + 8 * nnz + gathered_bytes(mf.cols[valid], d)
-              + 8 * real * d + 4 * d * d + 8 * B)
-    flops = (2 * nnz * d                                   # y
-             + (1 + CG_ITERS) * (4 * nnz * d + real * (2 * d * d + 2 * d))
-             + real * CG_ITERS * 10 * d)                   # CG vector ops
-    bms, by = bound_ms(nbytes, flops)
+
+    def k1_batch(half, mb):
+        """K1 against its plain version on one batch, and its times."""
+        table, Bf, FF, kw = args(half)
+        B, L = mb.cols.shape
+        t_ref, t_got = table.clone(), table.clone()
+        batch = (Bf, FF, mb.row_start, mb.lens, mb.cols, mb.vals)
+        n_ref, d_ref = K.als_cg_matrix_free_plain(t_ref, *batch, **cg, **kw)
+        n_got, d_got = K.als_cg_matrix_free(t_got, *batch, **cg, **kw)
+        rows = slice(mb.row_start, mb.row_start + B)
+        err, rel = rel_err(t_got[rows], t_ref[rows])
+        loss_rel = max(rel_err(n_got.sum(), n_ref.sum())[1],
+                       rel_err(d_got.sum(), d_ref.sum())[1])
+        check(rel <= TOL_X and loss_rel <= TOL_LOSS,
+              f"K1 disagrees with its plain version (L = {L}): x {rel:.3g}, "
+              f"loss {loss_rel:.3g}")
+        scratch = table.clone()
+
+        def run():
+            K.als_cg_matrix_free(scratch, *batch, **cg, **kw)
+
+        ms = time_ms(run)
+        dev_ms = device_ms(run, "als_cg_matrix_free")
+        plain_ms = time_ms(lambda: K.als_cg_matrix_free_plain(
+            scratch, *batch, **cg, **kw))
+        real, nnz, nbytes, flops = k1_work(mb, d)
+        bms, by = bound_ms(nbytes, flops)
+        return dict(half=half, B=B, L=L, real_rows=real, entries=nnz,
+                    max_abs_err=err, rel_err=rel, loss_rel_err=loss_rel,
+                    tol=TOL_X, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by)
+
+    # ---- K1 on the largest matrix-free batch and on the short one
+    k1 = k1_batch(mf_half, mf)
+    k1_short = k1_batch(sh_half, sh)
+    cg_w = cg_widths(torch, K, P.device)
     entries["als_cg_matrix_free"] = dict(
         route="cuda", source="buffalo_tpu_torch/csrc/als_cg_matrix_free.cu",
         replaces="buffalo_tpu/ops/als_kernels.py:103",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=None)
-    phase("kernel", name="als_cg_matrix_free", half=mf_half, B=B, L=L,
-          real_rows=real, entries=nnz, max_abs_err=err, rel_err=rel,
-          loss_rel_err=loss_rel, tol=TOL_X, ms=ms, plain_ms=plain_ms,
-          bound_ms=bms, bound_by=by)
+        max_abs_err=max(k1["max_abs_err"], k1_short["max_abs_err"]),
+        ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+        bound_by=k1["bound_by"], library_ms=None)
+    phase("kernel", name="als_cg_matrix_free", **k1, short=k1_short,
+          widths=cg_w)
 
     # ---- K2 on the dense batch nearest L = 1024, and on a segment batch
     table, Bf, FF, kw = args(dn_half)
@@ -499,27 +714,18 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
     # ---- K3 on the dense batch's systems (range write) and the segment
     # batch's (scatter write, padding ids skipped)
     def k3_check(A, y, base, lens, **where):
-        """K3 on (A, y) from ``base`` vs the plain version in float32 and
-        float64; compares the written rows only.  Also whether the plain
-        float32 version with one CG step fewer passes the same check (it
-        must not)."""
-        outs = [base.clone(), base.clone(), base.double(), base.clone()]
-        K.batched_cg_dense(A, y, outs[0], lens, **where, **cg)
-        K.batched_cg_dense_plain(A, y, outs[1], lens, **where, **cg)
-        K.batched_cg_dense_plain(A.double(), y.double(), outs[2], lens,
-                                 **where, **cg)
-        K.batched_cg_dense_plain(A, y, outs[3], lens, **where, cg_tol=CG_TOL,
-                                 cg_iters=CG_ITERS - 1)
+        """K3 on (A, y) from ``base`` held to the noise floor
+        (``floor_check``) on the written rows only."""
         idx = (torch.arange(where["row_start"], where["row_start"] + len(lens),
                             device=lens.device) if "row_start" in where
                else where["rows"].long())
         keep = (lens > 0) & (idx < base.shape[0])
-        got, p32, p64, short = [o[idx[keep]] for o in outs]
-        ok, fields = noise_floor_check(got, p32, p64)
-        short_ok, short_fields = noise_floor_check(short, p32, p64)
-        fields["one_step_fewer_rel_err_vs_f64"] = \
-            short_fields["rel_err_vs_f64"]
-        return ok, fields, short_ok
+        return floor_check(
+            lambda t: K.batched_cg_dense(A, y, t, lens, **where, **cg),
+            lambda t, iters: K.batched_cg_dense_plain(
+                A.to(t.dtype), y.to(t.dtype), t, lens, **where,
+                cg_iters=iters, cg_tol=CG_TOL),
+            base, idx[keep])
 
     A, y = ref[0], ref[1]
     ok, k3, weak = k3_check(A, y, table, dn.lens, row_start=dn.row_start)
@@ -547,8 +753,13 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
           f"K3 scatter mode disagrees with its plain version: {rel_sc:.3g}")
     del outs
     scratch = table.clone()
-    ms = time_ms(lambda: K.batched_cg_dense(
-        A, y, scratch, dn.lens, row_start=dn.row_start, **cg))
+
+    def run_k3():
+        K.batched_cg_dense(A, y, scratch, dn.lens, row_start=dn.row_start,
+                           **cg)
+
+    ms = time_ms(run_k3)
+    dev_ms = device_ms(run_k3, "batched_cg_dense")
     plain_ms = time_ms(lambda: K.batched_cg_dense_plain(
         A, y, scratch, dn.lens, row_start=dn.row_start, **cg))
     nbytes = 4 * B + real * (4 * d * d + 4 * d + 8 * d)
@@ -563,10 +774,67 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
     phase("kernel", name="batched_cg_dense", half=dn_half, B=B,
           real_rows=real, **k3, segment=k3_s,
           scatter=dict(max_abs_err=err_sc, rel_err=rel_sc), tol=TOL_X,
-          noise_factor=NOISE_FACTOR, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-          bound_by=by)
+          noise_factor=NOISE_FACTOR, ms=ms, device_ms=dev_ms,
+          plain_ms=plain_ms, bound_ms=bms, bound_by=by)
     torch.cuda.synchronize()
     return entries
+
+
+class PlainPath:
+    """The plain-path configuration (SMALL_*, data from seed 3, tables
+    from seed 11) one kernel epoch from its random start, and the next
+    epoch from there through the plain versions on the CPU: in float32,
+    in float64, and in float32 with one CG step fewer (segments keep 3).
+    ``kernel_epoch`` runs that epoch through the kernels and ``readings``
+    holds a result to the plain ones."""
+
+    def __init__(self, torch, K, dev):
+        from buffalo_tpu_torch.data.batching import stage_batch
+
+        groups, self.nnz = synth_ml20m(SMALL_USERS, SMALL_ITEMS, SMALL_NNZ,
+                                       seed=3)
+        r2, c2, P0, Q0 = range_layout(ArrayData(groups), SMALL_USERS,
+                                      SMALL_ITEMS, seed=11)
+        self.torch, self.K = torch, K
+        self.kw = epoch_kw(SMALL_USERS, SMALL_ITEMS)
+        self.cuda_b = ([stage_batch(b, dev) for b in r2],
+                       [stage_batch(b, dev) for b in c2])
+        self.cpu_b = ([stage_batch(b, "cpu") for b in r2],
+                      [stage_batch(b, "cpu") for b in c2])
+        self.P1, self.Q1, _, _ = K.als_epoch(
+            torch.from_numpy(P0).to(dev), torch.from_numpy(Q0).to(dev),
+            *self.cuda_b, **self.kw)
+        Pc, Qc = self.P1.cpu(), self.Q1.cpu()
+        st = time.perf_counter()
+        self.plain = K.als_epoch(Pc.clone(), Qc.clone(), *self.cpu_b,
+                                 **self.kw)
+        self.plain_s = time.perf_counter() - st
+        self.plain_loss = (float(self.plain[2]), float(self.plain[3]))
+        self.f64 = K.als_epoch(Pc.double(), Qc.double(), *self.cpu_b,
+                               **self.kw)[:2]
+        self.short = K.als_epoch(Pc.clone(), Qc.clone(), *self.cpu_b,
+                                 **dict(self.kw, cg_iters=CG_ITERS - 1))[:2]
+
+    def kernel_epoch(self):
+        """((P, Q on the CPU, nume, deno), seconds) of the epoch through
+        the kernels, from the same state."""
+        torch = self.torch
+        P, Q = self.P1.clone(), self.Q1.clone()
+        torch.cuda.synchronize()
+        st = time.perf_counter()
+        P, Q, nume, deno = self.K.als_epoch(P, Q, *self.cuda_b, **self.kw)
+        nume, deno = float(nume), float(deno)
+        return (P.cpu(), Q.cpu(), nume, deno), time.perf_counter() - st
+
+    def readings(self, P, Q, nume, deno):
+        """(passes, fields): P and Q held to the plain epoch's by
+        ``noise_floor_check``, the loss terms to TOL_LOSS."""
+        (okP, eP), (okQ, eQ) = (noise_floor_check(t, t32, t64) for t, t32, t64
+                                in zip((P, Q), self.plain, self.f64))
+        e_loss = max(abs(nume / self.plain_loss[0] - 1),
+                     abs(deno / self.plain_loss[1] - 1))
+        return (okP and okQ and e_loss <= TOL_LOSS,
+                dict(P=eP, Q=eQ, loss_rel_err=e_loss))
 
 
 def main() -> int:
@@ -577,9 +845,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     import buffalo_tpu_torch as bt
-    from buffalo_tpu_torch.data.batching import (DeviceBatcher,
-                                                 build_range_layout,
-                                                 permute_table, stage_batch)
+    from buffalo_tpu_torch.data.batching import stage_batch
     from buffalo_tpu_torch.data.mm import MatrixMarket, MatrixMarketOptions
     from buffalo_tpu_torch.ops import _build
     from buffalo_tpu_torch.ops import als_kernels as K
@@ -623,29 +889,18 @@ def main() -> int:
         header = data.get_header()
         data_s = time.perf_counter() - st
 
-        # ---- kernels: the main path's layout, one epoch to a trained
-        # state, then each kernel against its plain version
+        # ---- kernels: the main path's layout (and random tables), one
+        # epoch to a trained state, then each kernel against its plain
+        # version
         st = time.perf_counter()
-        batchers = {g: DeviceBatcher(data, g, batch_mb=1024, d=D)
-                    for g in ("rowwise", "colwise")}
-        rb, cb = batchers["rowwise"], batchers["colwise"]
-        row_b, col_b, u_pos, i_pos, u_pad, i_pad = build_range_layout(
-            rb.planner, cb.planner, rb.key, rb.val, cb.key, cb.val)
+        row_b, col_b, P, Q = range_layout(data, ML20M_USERS, ML20M_ITEMS,
+                                          seed=7)
         layout_s = time.perf_counter() - st
         row_s = [stage_batch(b, dev) for b in row_b]
         col_s = [stage_batch(b, dev) for b in col_b]
-        rng = np.random.default_rng(7)
-        P = torch.from_numpy(permute_table(np.abs(rng.normal(
-            scale=1.0 / D ** 2, size=(ML20M_USERS, D))).astype(np.float32),
-            u_pos, u_pad)).to(dev)
-        Q = torch.from_numpy(permute_table(np.abs(rng.normal(
-            scale=1.0 / D ** 2, size=(ML20M_ITEMS, D))).astype(np.float32),
-            i_pos, i_pad)).to(dev)
-        epoch_kw = dict(optimizer="manual_cg", alpha=ALPHA, reg_u=REG,
-                        reg_i=REG, adaptive_reg=False, cg_iters=CG_ITERS,
-                        cg_tol=CG_TOL, block_size=32, compute_loss=True,
-                        num_p_rows=ML20M_USERS, num_q_rows=ML20M_ITEMS)
-        K.als_epoch(P, Q, row_s, col_s, **epoch_kw)
+        P, Q = torch.from_numpy(P).to(dev), torch.from_numpy(Q).to(dev)
+        kw = epoch_kw(ML20M_USERS, ML20M_ITEMS)
+        K.als_epoch(P, Q, row_s, col_s, **kw)
         torch.cuda.synchronize()
         phase("layout", users=header["num_users"], items=header["num_items"],
               nnz=header["num_nnz"], data_seconds=data_s,
@@ -653,8 +908,13 @@ def main() -> int:
               colwise=layout_stats(col_b))
         entries = kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s,
                                ML20M_USERS, ML20M_ITEMS)
+        # the gramian's bound, both halves: 2 n d^2 operations and the
+        # table's n d floats read (its d x d output is negligible)
+        gram_bound = sum(bound_ms(4 * len(t) * D, 2 * len(t) * D * D)[0]
+                         for t in (P, Q))
         phase("epoch_profile", **profile_epoch(torch, K, P, Q, row_s, col_s,
-                                               epoch_kw))
+                                               kw),
+              gramian_bound_ms=gram_bound)
         del P, Q, row_s, col_s, row_b, col_b
         torch.cuda.empty_cache()
 
@@ -704,64 +964,32 @@ def main() -> int:
               median_epoch_seconds_2_4=float(np.median(
                   als.iteration_times[1:])),
               train_seconds=train_s, launches=launches,
+              launches_per_epoch={k: v / len(losses)
+                                  for k, v in launches.items()},
               max_memory_allocated_mb=peak_mb, topk_users=1000, topk_k=10,
-              topk_ms=topk_ms, topk_same_as_numpy=same)
+              topk_ms=topk_ms, topk_same_as_numpy=same,
+              # scores for every user and item, and the item table read
+              topk_bound_ms=bound_ms(4 * ML20M_ITEMS * D,
+                                     2 * len(users) * ML20M_ITEMS * D)[0])
         del als, data
 
         # ---- plain path: one epoch at 20k x 5k, 2M nnz from a trained
-        # state (after one epoch), through the kernels on the card and
-        # through the plain versions (CPU tensors)
-        groups, small_nnz = synth_ml20m(SMALL_USERS, SMALL_ITEMS, SMALL_NNZ,
-                                        seed=3)
-        small = ArrayData(groups)
-        sb = {g: DeviceBatcher(small, g, batch_mb=1024, d=D)
-              for g in ("rowwise", "colwise")}
-        r2, c2, up, ip, upad, ipad = build_range_layout(
-            sb["rowwise"].planner, sb["colwise"].planner,
-            sb["rowwise"].key, sb["rowwise"].val, sb["colwise"].key,
-            sb["colwise"].val)
-        rng = np.random.default_rng(11)
-        P0 = permute_table(np.abs(rng.normal(scale=1.0 / D ** 2, size=(
-            SMALL_USERS, D))).astype(np.float32), up, upad)
-        Q0 = permute_table(np.abs(rng.normal(scale=1.0 / D ** 2, size=(
-            SMALL_ITEMS, D))).astype(np.float32), ip, ipad)
-        kw2 = dict(epoch_kw, num_p_rows=SMALL_USERS, num_q_rows=SMALL_ITEMS)
-        cuda_b = ([stage_batch(b, dev) for b in r2],
-                  [stage_batch(b, dev) for b in c2])
-        cpu_b = ([stage_batch(b, "cpu") for b in r2],
-                 [stage_batch(b, "cpu") for b in c2])
-        P1, Q1, _, _ = K.als_epoch(torch.from_numpy(P0).to(dev),
-                                   torch.from_numpy(Q0).to(dev), *cuda_b,
-                                   **kw2)
-        Pc, Qc = P1.to("cpu", copy=True), Q1.to("cpu", copy=True)
-        st = time.perf_counter()
-        Pk, Qk, nk, dk = K.als_epoch(P1, Q1, *cuda_b, **kw2)
-        nk, dk = float(nk), float(dk)
-        kernel_s = time.perf_counter() - st
-        P64, Q64 = Pc.double(), Qc.double()
-        Ps, Qs = Pc.clone(), Qc.clone()
-        st = time.perf_counter()
-        Pp, Qp, npl, dpl = K.als_epoch(Pc, Qc, *cpu_b, **kw2)
-        plain_s = time.perf_counter() - st
-        K.als_epoch(P64, Q64, *cpu_b, **kw2)
+        # state, through the kernels and through the plain versions
+        pp = PlainPath(torch, K, dev)
+        (Pk, Qk, nk, dk), kernel_s = pp.kernel_epoch()
+        ok, fields = pp.readings(Pk, Qk, nk, dk)
         # the check's power: one CG step fewer (segments keep 3) fails it
-        K.als_epoch(Ps, Qs, *cpu_b, **dict(kw2, cg_iters=CG_ITERS - 1))
-        okP, eP = noise_floor_check(Pk.cpu(), Pp, P64)
-        okQ, eQ = noise_floor_check(Qk.cpu(), Qp, Q64)
-        weak = [noise_floor_check(Ps, Pp, P64), noise_floor_check(Qs, Qp, Q64)]
-        e_loss = max(abs(nk / float(npl) - 1), abs(dk / float(dpl) - 1))
-        check(okP and okQ and e_loss <= TOL_LOSS,
-              f"kernel epoch vs plain epoch: P {eP}, Q {eQ}, "
-              f"loss {e_loss:.3g}")
-        check(not (weak[0][0] and weak[1][0]), "the epoch check passes an "
-              f"epoch with one CG step fewer: {weak}")
+        weak, weak_fields = pp.readings(*pp.short, *pp.plain_loss)
+        check(ok, f"kernel epoch vs plain epoch: {fields}")
+        check(not weak, "the epoch check passes an epoch with one CG step "
+              f"fewer: {weak_fields}")
         phase("plain_path", users=SMALL_USERS, items=SMALL_ITEMS,
-              nnz=small_nnz, P=eP, Q=eQ, loss_rel_err=e_loss, tol=TOL_X,
-              one_step_fewer_rel_err_vs_f64=[w[1]["rel_err_vs_f64"]
-                                             for w in weak],
+              nnz=pp.nnz, **fields, tol=TOL_X,
+              one_step_fewer_rel_err_vs_f64=[weak_fields[t]["rel_err_vs_f64"]
+                                             for t in "PQ"],
               noise_factor=NOISE_FACTOR, kernel_epoch_seconds=kernel_s,
-              plain_cpu_epoch_seconds=plain_s)
-        del cuda_b, P1, Q1, Pk, Qk
+              plain_cpu_epoch_seconds=pp.plain_s)
+        del pp
 
         # ---- text path: MatrixMarket -> ALS -> save -> load
         mm = os.path.join(WORK, "tiny.mtx")

@@ -202,3 +202,58 @@ def test_gramian_matches_reference():
     np.testing.assert_allclose(port.gramian(torch.from_numpy(X)).numpy(),
                                np.asarray(ref.gramian(jnp.asarray(X))),
                                rtol=1e-5, atol=1e-4)
+
+
+def _warm_residuals(table, Bf, FF, lens, cols, vals, rs, kw):
+    """float64 squared residual of each row's system after the reference's
+    warm start (the quantity its freeze rule compares with cg_tol)."""
+    B, L = cols.shape
+    mask = np.arange(L)[None, :] < lens[:, None]
+    w = np.where(mask, vals * kw["alpha"], 0.0)
+    F = Bf[cols].astype(np.float64) * mask[:, :, None]
+    ada = lens if kw["adaptive_reg"] else np.ones(B)
+    A = (FF[None] + np.einsum("bld,bl,ble->bde", F, w, F)
+         + (kw["reg"] * ada)[:, None, None] * np.eye(FF.shape[0])[None])
+    y = np.einsum("bld,bl->bd", F, 1.0 + w)
+    p = table[rs:rs + B].astype(np.float64)
+    r = y - np.einsum("bde,be->bd", A, p)
+    return np.minimum((y * y).sum(-1), (r * r).sum(-1))[lens > 0]
+
+
+# the widths and lengths the card tests give K1: d = 13 and 33 are padded
+# on the card, 64 its widest width with F in registers; L = 1 (all rows of
+# one entry), 8 and 96 (one and three entry slots per lane); "freeze" sets
+# cg_tol between the 30th and 70th percentile of the warm-start
+# residuals, so some rows stop before any step and some mid-loop
+@pytest.mark.parametrize("d", [13, 33, 64])
+@pytest.mark.parametrize("L", [1, 8, 96])
+@pytest.mark.parametrize("tol", ["tight", "freeze"])
+def test_matrix_free_widths_match_als_solve_batch(d, L, tol):
+    rng = np.random.default_rng(d * 1000 + L)
+    n, m, B, rs = 60, 40, 24, 9
+    table = (rng.normal(size=(n, d)) * 0.3).astype(np.float32)
+    Bf = (rng.normal(size=(m, d)) * 0.3).astype(np.float32)
+    FF = (Bf.T @ Bf).astype(np.float32)
+    lens = rng.integers(1, L + 1, size=B).astype(np.int32)
+    lens[[2, 5]] = [0, 1]
+    mask = np.arange(L)[None, :] < lens[:, None]
+    cols = np.where(mask, rng.integers(0, m, size=(B, L)), 0).astype(np.int32)
+    vals = np.where(mask, 1.0 + rng.random((B, L)), 0.0).astype(np.float32)
+    kw = _kw(adaptive_reg=d == 33, item_axis=L != 8)
+    cg_tol = 1e-10
+    if tol == "freeze":
+        res = _warm_residuals(table, Bf, FF, lens, cols, vals, rs, kw)
+        cg_tol = float(np.sqrt(np.quantile(res, 0.3) * np.quantile(res, 0.7)))
+        assert (res < cg_tol).any() and (res >= cg_tol).any()
+    x, nume, deno = ref.als_solve_batch(
+        jnp.asarray(table[rs:rs + B]), jnp.asarray(Bf[cols]),
+        jnp.asarray(FF), jnp.asarray(lens), jnp.asarray(vals),
+        optimizer="manual_cg", cg_iters=3, cg_tol=cg_tol, **kw)
+    T, Bft, FFt, lt, ct, vt = _t(table, Bf, FF, lens, cols, vals)
+    n_rows, d_rows = port.als_cg_matrix_free_plain(
+        T, Bft, FFt, rs, lt, ct, vt, cg_iters=3, cg_tol=cg_tol, **kw)
+    np.testing.assert_allclose(T[rs:rs + B].numpy(), np.asarray(x), **TOL)
+    untouched = np.r_[0:rs, rs + B:n]
+    assert np.array_equal(T.numpy()[untouched], table[untouched])
+    np.testing.assert_allclose(float(n_rows.sum()), float(nume), rtol=1e-5)
+    np.testing.assert_allclose(float(d_rows.sum()), float(deno), rtol=1e-5)

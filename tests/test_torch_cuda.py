@@ -31,7 +31,8 @@ def dev():
 
 def _case(dev, d, L, B=64, n=300, m=200, seed=0):
     """A RangeBatch of B rows of up to L entries over a table of n rows and
-    a fixed side of m rows.  Past L = 1000 the fixed side shrinks as 1/L,
+    a fixed side of m rows (rows 0 and B // 2 empty, row 1 of one entry).
+    Past L = 1000 the fixed side shrinks as 1/L,
     so that y and A stay at the magnitudes the tolerances are set for:
     unscaled, 8192 entries over 200 fixed rows sum y into the thousands,
     where float32's spacing (2^-11 from 4096 up) exceeds atol, and entries
@@ -43,6 +44,7 @@ def _case(dev, d, L, B=64, n=300, m=200, seed=0):
                       dtype=torch.float32, device=dev)
     lens = rng.integers(1, L + 1, size=B).astype(np.int32)
     lens[[0, B // 2]] = 0
+    lens[1] = 1
     cols = rng.integers(0, m, size=(B, L)).astype(np.int32)
     vals = (1.0 + rng.random((B, L))).astype(np.float32)
     mask = np.arange(L)[None, :] < lens[:, None]
@@ -56,23 +58,121 @@ def _kw(item_axis, adaptive_reg=False):
                 item_axis=item_axis, num_fixed_rows=1000, compute_loss=True)
 
 
-@pytest.mark.parametrize("d", [8, 40])
+# d = 13 and 33 take the 4-byte gather and a padded width, 128 is the
+# widest the kernels take (F read back from shared memory); L = 1 and 8 are
+# one entry slot per lane, 33 two, 96 three; B = 61 is no multiple of the
+# rows a block holds, and rows of 0 and 1 entries are in every batch
+@pytest.mark.parametrize("d", [8, 13, 32, 33, 40, 64, 128])
+@pytest.mark.parametrize("L", [1, 8, 33, 96])
 @pytest.mark.parametrize("item_axis", [False, True])
-def test_matrix_free_kernel_matches_plain(dev, d, item_axis):
-    table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=96)
+def test_matrix_free_kernel_matches_plain(dev, d, L, item_axis):
+    adaptive = d == 33 and L == 33
+    table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=L, B=61)
     expect = table.clone()
     n_ref, d_ref = K.als_cg_matrix_free_plain(
         expect, Bf, FF, 17, lens, cols, vals, cg_iters=3, cg_tol=1e-10,
-        **_kw(item_axis))
+        **_kw(item_axis, adaptive))
     before = K.als_cg_matrix_free.launches
     n_got, d_got = K.als_cg_matrix_free(
         table, Bf, FF, 17, lens, cols, vals, cg_iters=3, cg_tol=1e-10,
-        **_kw(item_axis))
+        **_kw(item_axis, adaptive))
     torch.cuda.synchronize()
     assert K.als_cg_matrix_free.launches == before + 1
     torch.testing.assert_close(table, expect, **TOL)
     torch.testing.assert_close(n_got, n_ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(d_got, d_ref, rtol=1e-4, atol=1e-4)
+
+
+def _warm_residuals(A, y, p):
+    """Squared residual of each system after the reference's warm start,
+    in float64: the rows a tolerance above it freezes before any step."""
+    A, y, p = A.double(), y.double(), p.double()
+    r = y - torch.einsum("bij,bj->bi", A, p)
+    use_zero = (y * y).sum(-1) < (r * r).sum(-1)
+    return torch.where(use_zero, (y * y).sum(-1), (r * r).sum(-1))
+
+
+def _freezing_tol(A, y, p, lens):
+    """A tolerance between the 30th and 70th percentile of the warm-start
+    residuals of the real rows: some rows freeze at once, the others step
+    and some of them freeze mid-loop."""
+    rs = _warm_residuals(A, y, p)[lens > 0]
+    lo, hi = torch.quantile(rs, 0.3), torch.quantile(rs, 0.7)
+    tol = float((lo * hi).sqrt())
+    assert bool((rs < tol).any()) and bool((rs >= tol).any())
+    return tol
+
+
+@pytest.mark.parametrize("kernel", ["matrix_free", "dense"])
+def test_cg_kernels_freeze_like_plain(dev, kernel):
+    """A tolerance that some rows meet after the warm start and others
+    mid-loop: frozen warps leave, the rest keep stepping."""
+    table, Bf, FF, (lens, cols, vals) = _case(dev, 40, L=96, B=61, seed=4)
+    A, y, _, _ = K.als_normal_equations_plain(
+        table, Bf, FF, lens, cols, vals, row_start=17, **_kw(True))
+    tol = _freezing_tol(A, y, table[17:17 + 61], lens)
+    expect = table.clone()
+    if kernel == "matrix_free":
+        args = (Bf, FF, 17, lens, cols, vals)
+        kw = dict(cg_iters=3, cg_tol=tol, **_kw(True))
+        K.als_cg_matrix_free_plain(expect, *args, **kw)
+        K.als_cg_matrix_free(table, *args, **kw)
+    else:
+        kw = dict(row_start=17, cg_iters=3, cg_tol=tol)
+        K.batched_cg_dense_plain(A, y, expect, lens, **kw)
+        K.batched_cg_dense(A, y, table, lens, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(table, expect, **TOL)
+
+
+# d = 13 and 65 are no multiple of 4 (scalar loads of A), 65 and 128 keep
+# A in the warp's shared memory, the others in registers; the scatter mode
+# writes through a reversed row list holding padding ids past the table
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 65, 128])
+@pytest.mark.parametrize("mode", ["range", "scatter"])
+def test_dense_cg_kernel_matches_plain(dev, d, mode):
+    table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=200, B=61, seed=d)
+    A, y, _, _ = K.als_normal_equations_plain(
+        table, Bf, FF, lens, cols, vals, row_start=5, **_kw(True))
+    if mode == "range":
+        where = dict(row_start=5)
+    else:
+        rows = torch.arange(65, 4, -1, dtype=torch.int32, device=dev)
+        rows[::7] = 1 << 30
+        rows[1::7] = table.shape[0]
+        where = dict(rows=rows)
+    expect = table.clone()
+    K.batched_cg_dense_plain(A, y, expect, lens, cg_iters=3, cg_tol=1e-10,
+                             **where)
+    before = K.batched_cg_dense.launches
+    K.batched_cg_dense(A, y, table, lens, cg_iters=3, cg_tol=1e-10, **where)
+    torch.cuda.synchronize()
+    assert K.batched_cg_dense.launches == before + 1
+    torch.testing.assert_close(table, expect, **TOL)
+
+
+@pytest.mark.parametrize("kernel", ["matrix_free", "dense"])
+def test_cg_kernels_are_deterministic(dev, kernel):
+    """Two launches on the same inputs give bitwise-equal results: every
+    reduction is a warp shuffle tree in a fixed order, with no atomics."""
+    table, Bf, FF, (lens, cols, vals) = _case(dev, 40, L=96, B=61)
+    outs = [table.clone(), table.clone()]
+    losses = []
+    for out in outs:
+        if kernel == "matrix_free":
+            losses.append(K.als_cg_matrix_free(
+                out, Bf, FF, 17, lens, cols, vals, cg_iters=3, cg_tol=1e-10,
+                **_kw(True)))
+        else:
+            A, y, _, _ = K.als_normal_equations_plain(
+                table, Bf, FF, lens, cols, vals, row_start=17, **_kw(True))
+            K.batched_cg_dense(A, y, out, lens, row_start=17, cg_iters=3,
+                               cg_tol=1e-10)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], table)
+    for a, b in zip(*losses):
+        assert torch.equal(a, b)
 
 
 # d = 13 takes the 4-byte gather and feature padding, 128 is the widest
@@ -177,3 +277,14 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         K.als_cg_matrix_free(table, Bf.cpu(), FF, 0, lens, cols, vals,
                              cg_iters=3, cg_tol=1e-10, **_kw(False))
+    # K1 and K3 take rows of at most 128 floats, as K2 does
+    wide = torch.zeros(300, 129, device=dev)
+    with pytest.raises(ValueError, match="d <= 128"):
+        K.als_cg_matrix_free(wide, wide[:200].contiguous(),
+                             torch.zeros(129, 129, device=dev), 0, lens,
+                             cols, vals, cg_iters=3, cg_tol=1e-10,
+                             **_kw(False))
+    with pytest.raises(ValueError, match="d <= 128"):
+        K.batched_cg_dense(torch.zeros(64, 129, 129, device=dev),
+                           torch.zeros(64, 129, device=dev), wide, lens,
+                           cg_iters=3, cg_tol=1e-10)

@@ -70,3 +70,30 @@ def test_solve_dispatch(optimizer):
     np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         port.solve(*map(torch.from_numpy, (A, y, x0)), "bogus")
+
+
+# the widths the card tests give K3: d = 13 and 65 are no multiple of 4,
+# 65 and 128 keep A in shared memory on the card; systems are written to a
+# row range, rows with len 0 keep their value
+@pytest.mark.parametrize("d", [13, 65, 128])
+def test_dense_cg_plain_matches_solve_cg(d):
+    from buffalo_tpu_torch.ops import als_kernels
+
+    rng = np.random.default_rng(d)
+    B, n, rs = 16, 40, 11
+    M = rng.normal(size=(B, d, d)) / np.sqrt(d)
+    A = (M @ np.swapaxes(M, 1, 2) + np.eye(d)).astype(np.float32)
+    y = rng.normal(size=(B, d)).astype(np.float32)
+    table = (rng.normal(size=(n, d)) * 0.3).astype(np.float32)
+    lens = rng.integers(1, 50, size=B).astype(np.int32)
+    lens[[3, 8]] = 0
+    x = np.asarray(ref.solve_cg(jnp.asarray(A), jnp.asarray(y),
+                                jnp.asarray(table[rs:rs + B]), num_iters=3,
+                                tolerance=1e-10))
+    expected = table.copy()
+    expected[rs:rs + B][lens > 0] = x[lens > 0]
+    T = torch.from_numpy(table.copy())
+    als_kernels.batched_cg_dense_plain(
+        torch.from_numpy(A), torch.from_numpy(y), T, torch.from_numpy(lens),
+        row_start=rs, cg_iters=3, cg_tol=1e-10)
+    np.testing.assert_allclose(T.numpy(), expected, rtol=1e-5, atol=1e-5)

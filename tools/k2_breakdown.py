@@ -16,9 +16,12 @@ allocations are timed):
 * ``neither``: both, leaving per-row set-up, the stage loop's barriers and
   index loads, and the A write;
 * ``setup_only``: no stage loop at all;
-* ``one_tf32``: one TF32 product per tile instead of the three of 3xTF32.
+* ``one_tf32``: one TF32 product per tile instead of the three of 3xTF32;
+* ``l1_copies``: the gather's 16-byte copies through L1 (``cp.async.ca``)
+  instead of L2 only (``cp.async.cg``), as K1's are.
 
-Only ``kernel`` is right; the others show the share of the part they cut.
+Only ``kernel`` and ``l1_copies`` are right; the others show the share of
+the part they cut.
 Each line printed is one batch: its shape and, per variant, milliseconds.
 The edits match the source text exactly and fail loudly when it changes.
 """
@@ -47,6 +50,7 @@ STAGES = "  for (int i = 0; i < ntiles; ++i) {"
 THREE = """          mma_tf32_first(step, as, bb);
           mma_tf32(step, ab, bs);
           mma_tf32(step, ab, bb);"""
+L2ONLY = "cp.async.cg.shared.global [%0], [%1], 16, %2;"
 NO_GATHER = [(COPY16, COPY16.replace("if (p.vec)", "if (false)")),
              (COPY4, COPY4.replace("else ", "else if (false) "))]
 NO_PRODUCT = [(LOOP, LOOP.replace("ks * 8 < tl", "ks * 8 < tl && tl < 0"))]
@@ -57,11 +61,17 @@ VARIANTS = {
     "neither": NO_GATHER + NO_PRODUCT,
     "setup_only": [(STAGES, STAGES.replace("i < ntiles", "i < 0"))],
     "one_tf32": [(THREE, "          mma_tf32_first(step, ab, bb);")],
+    "l1_copies": [(L2ONLY, L2ONLY.replace(".cg.", ".ca."))],
 }
-# (d, rows, padded length, fixed-side rows, item axis): the ML-20M dense
-# batch shape of both halves at d = 40, and the widest d the kernel takes
-CASES = [(40, 1128, 944, 26_744, False), (40, 1128, 944, 138_493, True),
-         (128, 512, 944, 26_744, True)]
+# (d, rows, padded length, fixed-side rows, item axis, power-law ids): the
+# ML-20M dense batch shape of both halves at d = 40, the widest d the
+# kernel takes, and the user half again with item ids drawn from the
+# ML-20M synthetic's power-law popularity (chip_smoke.synth_ml20m) instead
+# of uniformly, so that popular rows repeat as they do in training
+CASES = [(40, 1128, 944, 26_744, False, False),
+         (40, 1128, 944, 138_493, True, False),
+         (128, 512, 944, 26_744, True, False),
+         (40, 1128, 944, 26_744, False, True)]
 
 
 def build(out):
@@ -105,7 +115,7 @@ def main():
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     rng = np.random.default_rng(0)
     print(json.dumps({"device": torch.cuda.get_device_name(0)}))
-    for d, B, L, m, item_axis in CASES:
+    for d, B, L, m, item_axis, zipf in CASES:
         def tensor(a, dtype=torch.float32):
             return torch.tensor(a, dtype=dtype, device=dev)
 
@@ -115,8 +125,13 @@ def main():
         lens = rng.integers(int(0.8 * L), L + 1, size=B)
         mask = np.arange(L)[None, :] < lens[:, None]
         lens = tensor(lens, torch.int32)
-        cols = tensor(np.where(mask, rng.integers(0, m, (B, L)), 0),
-                      torch.int32)
+        if zipf:
+            cum = np.cumsum(1.0 / np.arange(1, m + 1) ** 0.9)
+            ids = np.minimum(np.searchsorted(cum / cum[-1],
+                                             rng.random((B, L))), m - 1)
+        else:
+            ids = rng.integers(0, m, (B, L))
+        cols = tensor(np.where(mask, ids, 0), torch.int32)
         vals = tensor(np.where(mask, 1.0 + rng.integers(0, 5, (B, L)), 0.0))
         outs = [torch.empty(B, d, d, device=dev), torch.empty(B, d, device=dev),
                 torch.empty(B, device=dev), torch.empty(B, device=dev)]
@@ -143,7 +158,7 @@ def main():
             torch.cuda.synchronize()
             ms[name] = start.elapsed_time(end) / 20
         print(json.dumps({"d": d, "rows": B, "L": L, "fixed_rows": m,
-                          "item_axis": item_axis,
+                          "item_axis": item_axis, "power_law_ids": zipf,
                           "entries": int(lens.sum()), "ms": ms}), flush=True)
 
 
