@@ -1,13 +1,17 @@
-// K1: fused matrix-free row CG for ALS range batches with padded length
-// L <= 96 (MATRIX_FREE_MAX_L).
+// K1: fused matrix-free row CG for ALS batches with padded length L <= 96
+// (MATRIX_FREE_MAX_L), range or scatter (PaddedBatch) rows.
 //
 // Replaces buffalo_tpu/ops/als_kernels.py: _solve_cg_matrix_free (:103), the
 // CG branch of als_solve_batch (:157-162), _loss_terms (:77) and the
-// RangeBatch gather/write of _apply_batch (:337-353), with solve.py's
-// cg_warm_start (:37) + cg_loop (:49).  Per row u of the batch it solves
+// gather/write of _apply_batch (:337-353 range, :354-372 scatter), with
+// solve.py's cg_warm_start (:37) + cg_loop (:49).  Per row u of the batch it
+// solves
 //   (FF + reg*ada*I + F^T diag(w) F) x = F^T (1 + w),   F = Bf[cols[u]]
 // by a warm start from the current row and cg_iters CG steps, without ever
-// forming the d x d system, and writes x over table[row_start + u].
+// forming the d x d system, and writes x over table[row_start + u] (range
+// mode) or table[rows[u]] (rows mode; ids outside the table, the padding
+// rows of a PaddedBatch, are skipped as the JAX package drops them).  The
+// values are float32 or bfloat16 (read as float32).
 //
 // What bounds it on the card: the arithmetic is ~(cg_iters + 1) (4 n d +
 // 2 d^2) operations per row, the bytes the gather of F (n rows of d floats
@@ -37,7 +41,8 @@
 //   tree, the same bits on every lane, so a frozen warp simply leaves.
 // * The loss terms come from the warm-start product A x0: F x0 before the
 //   weights gives the dots p.F[l], x0 FF gives pFFp.
-// Rows with len 0 (padding) are skipped: the table keeps p.
+// Rows with len 0 (padding) and rows-mode ids outside the table are
+// skipped: the table keeps p and the loss terms stay 0.
 #include <algorithm>
 
 #include "als_common.cuh"
@@ -57,18 +62,19 @@ struct Params {
   const float* Bf;
   const float* FF;
   const int32_t* lens;
+  const int32_t* rows;  // rows mode: table row of each batch row; else null
   const int32_t* cols;
-  const float* vals;
+  const void* vals;     // float32, or bfloat16 with vals_bf16
   float* nume;
   float* deno;
-  int64_t row_start;
+  int64_t row_start, n_table_rows;
   int B, L, d;
   float alpha, reg;
   int adaptive_reg, cg_iters;
   float cg_tol;
   int item_axis;
   float num_fixed_rows;
-  int compute_loss, vec;
+  int compute_loss, vec, vals_bf16;
 };
 
 // (one block per SM is enough: ptxas may use up to 255 registers a thread)
@@ -97,14 +103,16 @@ als_cg_matrix_free_kernel(const Params p) {
   if (b >= p.B) return;
 
   // ---- per-row entry metadata and the gather into the slot
+  // (a rows-mode row outside the table gets n = 0: skipped like padding)
   auto load_meta = [&](int r, int& n, int (&c)[NE], float (&w)[NE]) {
     n = min(p.lens[r], L);
+    if (p.rows && (p.rows[r] < 0 || p.rows[r] >= p.n_table_rows)) n = 0;
 #pragma unroll
     for (int e = 0; e < NE; ++e) {
       const int l = lane + 32 * e;
       const bool ok = l < n;
       c[e] = ok ? p.cols[(int64_t)r * L + l] : -1;
-      w[e] = ok ? p.vals[(int64_t)r * L + l] * p.alpha : 0.f;
+      w[e] = ok ? als::load_val(p.vals, (int64_t)r * L + l, p.vals_bf16) * p.alpha : 0.f;
     }
   };
   // lanes copy consecutive 16-byte pieces (or floats) of the flattened
@@ -163,7 +171,7 @@ als_cg_matrix_free_kernel(const Params p) {
     }
 
     if (n > 0) {
-      float* row = p.table + (p.row_start + b) * (int64_t)d;
+      float* row = p.table + (p.rows ? (int64_t)p.rows[b] : p.row_start + b) * d;
       const float reg_ada = p.reg * (p.adaptive_reg ? (float)n : 1.f);
       // entry slots e that hold any entry of this row (warp-uniform)
       auto live = [&](int e) { return 32 * e < n; };
@@ -323,22 +331,25 @@ int launch(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
+// Range mode: rows == NULL, batch row u is table row row_start + u.  Rows
+// mode: rows != NULL, batch row u is table row rows[u].
 extern "C" int als_cg_matrix_free(float* table, const float* Bf, const float* FF,
-                                  const int32_t* lens, const int32_t* cols,
-                                  const float* vals, float* nume, float* deno,
-                                  int64_t row_start, int B, int L, int d, float alpha,
+                                  const int32_t* lens, const int32_t* rows,
+                                  const int32_t* cols, const void* vals, int vals_bf16,
+                                  float* nume, float* deno, int64_t row_start,
+                                  int64_t n_table_rows, int B, int L, int d, float alpha,
                                   float reg, int adaptive_reg, int cg_iters, float cg_tol,
                                   int item_axis, float num_fixed_rows, int compute_loss,
                                   void* stream) {
   if (B == 0) return 0;
   if (L < 1 || L > 96) return (int)cudaErrorInvalidValue;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(Bf) % 16 == 0;
-  const Params p{table,   Bf,       FF,     lens,           cols,         vals,
-                 nume,    deno,     row_start, B,           L,            d,
-                 alpha,   reg,      adaptive_reg, cg_iters, cg_tol,       item_axis,
-                 num_fixed_rows, compute_loss, vec};
+  const Params p{table,        Bf,           FF,        lens,     rows,           cols,
+                 vals,         nume,         deno,      row_start, n_table_rows, B,
+                 L,            d,            alpha,     reg,      adaptive_reg,   cg_iters,
+                 cg_tol,       item_axis,    num_fixed_rows, compute_loss, vec, vals_bf16};
   const cudaStream_t s = (cudaStream_t)stream;
-  return als::with_width(d, [&](auto width) {
+  return als::with_width<128>(d, [&](auto width) {
     constexpr int DW = decltype(width)::value;
     if (L <= 32) return launch<DW, 1>(p, s);
     if (L <= 64) return launch<DW, 2>(p, s);

@@ -1,6 +1,7 @@
 // Helpers shared by the ALS row-solve kernels (als_*.cu, batched_cg_dense.cu).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -161,16 +162,28 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Calls f(std::integral_constant<int, DW>{}) with the compiled width DW
-// that covers d (the kernels hold rows of DW floats, zeros past d):
-// the main path's 40, the narrow 16, and 64 and 128 for wider rows, each
-// width padded up to the next; widths past 128 are refused.
-template <typename F>
+// that covers d (the kernels hold rows of DW floats, zeros past d): the main
+// path's 40, the narrow 16, 64 and 128, and for kernels that take wider rows
+// (kMaxDW = 256) 160, the iALS++ path's, and 256, each width padded up to
+// the next; widths past kMaxDW are refused.
+template <int kMaxDW, typename F>
 inline int with_width(int d, F&& f) {
   if (d <= 16) return f(std::integral_constant<int, 16>{});
   if (d <= 40) return f(std::integral_constant<int, 40>{});
   if (d <= 64) return f(std::integral_constant<int, 64>{});
   if (d <= 128) return f(std::integral_constant<int, 128>{});
+  if constexpr (kMaxDW >= 256) {
+    if (d <= 160) return f(std::integral_constant<int, 160>{});
+    if (d <= 256) return f(std::integral_constant<int, 256>{});
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// Entry i of a values array of float32 or, with bf16 set, bfloat16 (the
+// JAX package's vals.astype(float32) on bfloat16 values is exact)
+__device__ __forceinline__ float load_val(const void* vals, int64_t i, bool bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(vals)[i])
+              : static_cast<const float*>(vals)[i];
 }
 
 // Opt in to more than 48 KB of dynamic shared memory when a launch needs it.

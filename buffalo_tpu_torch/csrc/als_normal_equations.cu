@@ -10,7 +10,10 @@
 // where F = Bf[cols] over the row's entries and w = alpha * vals.
 //
 // Range mode (als_normal_equations_range): one block per row r, whose
-// entries are cols[r, :lens[r]], with p = table[row_start + r].
+// entries are cols[r, :lens[r]], with p = table[row_start + r], or
+// p = table[rows[r]] in rows mode (a PaddedBatch of the scatter layout,
+// whose padding ids lie outside the table: such rows get zero loss terms
+// and their systems are never solved).  Values are float32 or bfloat16.
 // Segment mode: row r owns chunks [chunk_ptr[r], chunk_ptr[r+1]) of width C,
 // chunk c holding chunk_lens[c] entries, and p = table[rows[r]].  A head
 // row can hold a million entries, so one block per chunk
@@ -46,6 +49,10 @@
 // * y, sum(w) and the item-axis loss come out of the same products: the
 //   loss sum over entries of -(p.f)^2 + (p.f - 1)^2 (1 + w) is
 //   p^T F^T diag(w) F p - 2 p.y + n + sum(w), finished from A and y.
+// * Wide rows (d = 160 on the iALS++ path, up to 256): 8 warps of at most
+//   6 units cover 48 units (d <= 142); past that the entries are streamed
+//   once per pass of 48 units, and the data part of A is assembled in the
+//   output itself (global memory, L2) instead of over the ring.
 #include "als_common.cuh"
 
 namespace {
@@ -65,7 +72,7 @@ struct Params {
   const int32_t* chunk_ptr;
   const int32_t* chunk_lens;
   const int32_t* cols;
-  const float* vals;
+  const void* vals;  // float32, or bfloat16 with vals_bf16
   float* A;  // range mode: the outputs; chunk mode: the chunk partials
   float* y;
   float* nume;
@@ -73,7 +80,7 @@ struct Params {
   int64_t row_start, n_table_rows;
   int R, C, d;
   float alpha, reg, num_fixed_rows;
-  int adaptive_reg, item_axis, compute_loss;
+  int adaptive_reg, item_axis, compute_loss, vals_bf16;
   // tiling (set by the launcher)
   int NP;       // features padded to 16, with the two ones columns
   int S;        // shared row stride, 8 or 24 (mod 32) words
@@ -83,6 +90,10 @@ struct Params {
   int NU;
   int EG;       // entry groups: warp w takes the k-steps w % EG (mod EG)
   int UPW;      // units per warp (the kernel's kUPW)
+  int UPP;      // units per pass over the entries, (kWarps / EG) * UPW
+  int passes;   // passes over the entries, NU / UPP rounded up
+  int TT;       // n8 tiles of one pass's running totals
+  int a_global; // A's data part assembled in the output, not over the ring
   int vec;      // 16-byte copies
   int nchunk;   // copies per entry row
   uint32_t magic;  // q / nchunk == __umulhi(q, magic) for q < kTL * nchunk
@@ -166,8 +177,8 @@ __device__ __forceinline__ void normal_equations_body(const Params& p) {
   float* Fs = smem;                                // [kStages][kTL][S]
   float* vs = Fs + kStages * kTL * S;              // [kStages][kTL] vals
   int32_t* cs = reinterpret_cast<int32_t*>(vs + kStages * kTL);  // [kStages][kTL]
-  float* tot = reinterpret_cast<float*>(cs + kStages * kTL);     // [EG][NT][128]
-  float* ps = tot + p.EG * p.NT * 128;             // [NP] current row
+  float* tot = reinterpret_cast<float*>(cs + kStages * kTL);     // [EG][TT][128]
+  float* ps = tot + p.EG * p.TT * 128;             // [NP] current row
   float* yw = ps + p.NP;                           // [NP][2] F^T w, F^T 1
   float* scratch = yw + 2 * p.NP;                  // [33]
 
@@ -187,12 +198,11 @@ __device__ __forceinline__ void normal_equations_body(const Params& p) {
            src < p.n_table_rows;
   } else {
     n = p.lens[b];
-    src = p.row_start + b;
-    real = n > 0 && src < p.n_table_rows;
+    src = p.rows ? (int64_t)p.rows[b] : p.row_start + b;
+    real = n > 0 && src >= 0 && src < p.n_table_rows;
   }
   if (!real) n = 0;
   for (int j = tid; j < p.NP; j += kThreads) ps[j] = (real && j < d) ? p.table[src * d + j] : 0.f;
-  for (int i = tid; i < p.EG * p.NT * 128; i += kThreads) tot[i] = 0.f;
   // columns past d, never written by the gather: two ones columns (d and
   // d + 1), then zeros
   const int extra = S - d;
@@ -202,14 +212,16 @@ __device__ __forceinline__ void normal_equations_body(const Params& p) {
   }
 
   const int32_t* cb = p.cols + (int64_t)b * p.C;
-  const float* vb = p.vals + (int64_t)b * p.C;
+  const float* vb = static_cast<const float*>(p.vals) + (int64_t)b * p.C;
   const int ntiles = (n + kTL - 1) / kTL;
   auto col_of = [&](int tile) {
     const int e = tile * kTL + tid;
     return (tid < kTL && e < n) ? __ldg(cb + e) : -1;
   };
   // cp.async the Bf rows and vals of `tile` into its stage (zeros past n);
-  // every call commits one group, empty past the last tile
+  // every call commits one group, empty past the last tile.  bfloat16 values
+  // are converted by a plain load (cp.async copies 4 bytes or more), which
+  // the barrier before the stage is read makes visible like the copies.
   const int W = p.vec ? 4 : 1, ncopy = kTL * p.nchunk;
   auto issue = [&](int tile) {
     if (tile < ntiles) {
@@ -225,144 +237,156 @@ __device__ __forceinline__ void normal_equations_body(const Params& p) {
       }
       if (tid < kTL) {
         const int e = tile * kTL + tid;
-        cp_async4(vs + st * kTL + tid, e < n ? vb + e : p.vals, e < n);
+        if (p.vals_bf16)
+          vs[st * kTL + tid] = e < n ? als::load_val(p.vals, (int64_t)b * p.C + e, true) : 0.f;
+        else
+          cp_async4(vs + st * kTL + tid, e < n ? vb + e : vb, e < n);
       }
     }
     cp_async_commit();
   };
 
-  // prologue: the cols of the first kStages tiles, the gathers of the first
-  // kStages - 1
-  for (int s = 0; s < kStages; ++s)
-    if (tid < kTL) cs[s * kTL + tid] = col_of(s);
-  int col_next = col_of(kStages);
-  __syncthreads();
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
-
-  // this warp's units and k-steps.  A unit is a 16 x 16 block (mi, nj) of
-  // the upper block triangle: two m16n8 tiles that share their A fragment.
-  // A warp holds kUPW units from u0 (slots past the triangle compute unit 0
-  // again and are never stored), so the unit loop has no branch and its
-  // loads and products interleave.
-  const int eg = warp % p.EG, u0 = (warp / p.EG) * kUPW;
+  // A's data part (F^T diag(w) F): over the ring once the entries are
+  // consumed (one pass), else in the output row by row
+  const int AS = p.a_global ? d : d + 1;
+  float* As = p.a_global ? p.A + (int64_t)b * d * d : Fs;
+  const int eg = warp % p.EG;
   const int g = lane >> 2, t = lane & 3;
-  int aoff[kUPW], boff[kUPW], tile0[kUPW];  // fragment columns, first tile
-  bool unweighted[kUPW][2];  // B column d + 1 carries F^T 1: no w
-#pragma unroll
-  for (int uu = 0; uu < kUPW; ++uu) {
-    int mi = 0, nj = 0;
-    if (u0 + uu < p.NU) unit_mn(u0 + uu, p.MT, mi, nj);
-    aoff[uu] = mi * 16;
-    boff[uu] = nj * 16;
-    tile0[uu] = mi * p.NTn - mi * (mi - 1) + 2 * (nj - mi);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) unweighted[uu][h] = nj * 16 + h * 8 + g == d + 1;
-  }
-  float acc[kUPW][2][4];
-#pragma unroll
-  for (int uu = 0; uu < kUPW; ++uu)
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[uu][e >> 2][e & 3] = 0.f;
-  auto flush = [&]() {
+  for (int pass = 0; pass < p.passes; ++pass) {
+    const int pu0 = pass * p.UPP;  // the pass's first unit; its tiles start at 2 pu0
+    for (int i = tid; i < p.EG * p.TT * 128; i += kThreads) tot[i] = 0.f;
+    // prologue: the cols of the first kStages tiles, the gathers of the first
+    // kStages - 1
+    for (int s = 0; s < kStages; ++s)
+      if (tid < kTL) cs[s * kTL + tid] = col_of(s);
+    int col_next = col_of(kStages);
+    __syncthreads();
+    for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+    // this warp's units and k-steps.  A unit is a 16 x 16 block (mi, nj) of
+    // the upper block triangle: two m16n8 tiles that share their A fragment.
+    // A warp holds kUPW units from u0 (slots past the triangle compute unit 0
+    // again and are never stored), so the unit loop has no branch and its
+    // loads and products interleave.
+    const int u0 = pu0 + (warp / p.EG) * kUPW;
+    int aoff[kUPW], boff[kUPW], tile0[kUPW];  // fragment columns, first tile in the pass
+    bool unweighted[kUPW][2];  // B column d + 1 carries F^T 1: no w
 #pragma unroll
     for (int uu = 0; uu < kUPW; ++uu) {
+      int mi = 0, nj = 0;
+      if (u0 + uu < p.NU) unit_mn(u0 + uu, p.MT, mi, nj);
+      aoff[uu] = mi * 16;
+      boff[uu] = nj * 16;
+      tile0[uu] = mi * p.NTn - mi * (mi - 1) + 2 * (nj - mi) - 2 * pu0;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (u0 + uu < p.NU) {
-          float4* to = reinterpret_cast<float4*>(
-              tot + ((eg * p.NT + tile0[uu] + h) * 128 + lane * 4));
-          float4 v = *to;
-          v.x += acc[uu][h][0]; v.y += acc[uu][h][1];
-          v.z += acc[uu][h][2]; v.w += acc[uu][h][3];
-          *to = v;
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[uu][h][e] = 0.f;
-      }
+      for (int h = 0; h < 2; ++h) unweighted[uu][h] = nj * 16 + h * 8 + g == d + 1;
     }
-  };
-
-  for (int i = 0; i < ntiles; ++i) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of tile i landed
-    __syncthreads();               // everyone's did; stage i-1 is consumed
-    issue(i + kStages - 1);
-    if (tid < kTL) cs[(i % kStages) * kTL + tid] = col_next;  // tile i + kStages
-    col_next = col_of(i + kStages + 1);
-
-    const int st = i % kStages, tl = min(kTL, n - i * kTL);
-    const float* Fst = Fs + st * kTL * S;
-    const float* vst = vs + st * kTL;
-    for (int ks = eg; ks * 8 < tl; ks += p.EG) {
-      const int l0 = ks * 8;
-      const float w0 = p.alpha * vst[l0 + t], w1 = p.alpha * vst[l0 + t + 4];
-      const float* r0 = Fst + (l0 + t) * S + g;  // entry l0 + t, feature g
-      const float* r1 = r0 + 4 * S;               // entry l0 + t + 4
+    float acc[kUPW][2][4];
+#pragma unroll
+    for (int uu = 0; uu < kUPW; ++uu)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[uu][e >> 2][e & 3] = 0.f;
+    auto flush = [&]() {
 #pragma unroll
       for (int uu = 0; uu < kUPW; ++uu) {
-        // A operand: features (rows of A) x entries
-        uint32_t ab[4], as[4];
-        split_tf32(r0[aoff[uu]], ab[0], as[0]);
-        split_tf32(r0[aoff[uu] + 8], ab[1], as[1]);
-        split_tf32(r1[aoff[uu]], ab[2], as[2]);
-        split_tf32(r1[aoff[uu] + 8], ab[3], as[3]);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          // B operand: entries x features, weighted by w
-          const int c = boff[uu] + 8 * h;
-          uint32_t bb[2], bs[2];
-          split_tf32(r0[c] * (unweighted[uu][h] ? 1.f : w0), bb[0], bs[0]);
-          split_tf32(r1[c] * (unweighted[uu][h] ? 1.f : w1), bb[1], bs[1]);
-          // the k-step's sum starts from 0 and is added to the registers
-          // in float32: the tensor core's own accumulation would round a
-          // large running sum once per product
-          float step[4];
-          mma_tf32_first(step, as, bb);
-          mma_tf32(step, ab, bs);
-          mma_tf32(step, ab, bb);
+          if (u0 + uu < p.NU) {
+            float4* to = reinterpret_cast<float4*>(
+                tot + ((eg * p.TT + tile0[uu] + h) * 128 + lane * 4));
+            float4 v = *to;
+            v.x += acc[uu][h][0]; v.y += acc[uu][h][1];
+            v.z += acc[uu][h][2]; v.w += acc[uu][h][3];
+            *to = v;
+          }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[uu][h][e] += step[e];
+          for (int e = 0; e < 4; ++e) acc[uu][h][e] = 0.f;
+        }
+      }
+    };
+
+    for (int i = 0; i < ntiles; ++i) {
+      cp_async_wait<kStages - 2>();  // this thread's copies of tile i landed
+      __syncthreads();               // everyone's did; stage i-1 is consumed
+      issue(i + kStages - 1);
+      if (tid < kTL) cs[(i % kStages) * kTL + tid] = col_next;  // tile i + kStages
+      col_next = col_of(i + kStages + 1);
+
+      const int st = i % kStages, tl = min(kTL, n - i * kTL);
+      const float* Fst = Fs + st * kTL * S;
+      const float* vst = vs + st * kTL;
+      for (int ks = eg; ks * 8 < tl; ks += p.EG) {
+        const int l0 = ks * 8;
+        const float w0 = p.alpha * vst[l0 + t], w1 = p.alpha * vst[l0 + t + 4];
+        const float* r0 = Fst + (l0 + t) * S + g;  // entry l0 + t, feature g
+        const float* r1 = r0 + 4 * S;               // entry l0 + t + 4
+#pragma unroll
+        for (int uu = 0; uu < kUPW; ++uu) {
+          // A operand: features (rows of A) x entries
+          uint32_t ab[4], as[4];
+          split_tf32(r0[aoff[uu]], ab[0], as[0]);
+          split_tf32(r0[aoff[uu] + 8], ab[1], as[1]);
+          split_tf32(r1[aoff[uu]], ab[2], as[2]);
+          split_tf32(r1[aoff[uu] + 8], ab[3], as[3]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // B operand: entries x features, weighted by w
+            const int c = boff[uu] + 8 * h;
+            uint32_t bb[2], bs[2];
+            split_tf32(r0[c] * (unweighted[uu][h] ? 1.f : w0), bb[0], bs[0]);
+            split_tf32(r1[c] * (unweighted[uu][h] ? 1.f : w1), bb[1], bs[1]);
+            // the k-step's sum starts from 0 and is added to the registers
+            // in float32: the tensor core's own accumulation would round a
+            // large running sum once per product
+            float step[4];
+            mma_tf32_first(step, as, bb);
+            mma_tf32(step, ab, bs);
+            mma_tf32(step, ab, bb);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[uu][h][e] += step[e];
+          }
+        }
+      }
+      if ((i + 1) % kFlush == 0) flush();
+    }
+    flush();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // entry groups added in group order, A mirrored from its upper triangle;
+    // in shared memory the row stride d + 1 spreads the mirrored writes over
+    // the banks
+    const int ntile = 2 * min(p.UPP, p.NU - pu0);
+    for (int lt = warp; lt < ntile; lt += kWarps) {
+      int mi, ni;
+      tile_mn(2 * pu0 + lt, p.NTn, mi, ni);
+      float4 v = *reinterpret_cast<const float4*>(tot + lt * 128 + lane * 4);
+      for (int gg = 1; gg < p.EG; ++gg) {
+        const float4 u = *reinterpret_cast<const float4*>(tot + (gg * p.TT + lt) * 128 + lane * 4);
+        v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
+      }
+      const float vr[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = mi * 16 + g + (r >= 2 ? 8 : 0), k = ni * 8 + 2 * t + (r & 1);
+        if (j > k || j > d || k > d + 1) continue;
+        if (k < d) {
+          As[j * AS + k] = vr[r];
+          As[k * AS + j] = vr[r];
+        } else {
+          yw[2 * j + (k - d)] = vr[r];  // F^T w, F^T 1; row d: sum(w)
         }
       }
     }
-    if ((i + 1) % kFlush == 0) flush();
+    __syncthreads();  // the totals are read before the next pass clears them
   }
-  flush();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // entry groups added in group order into shared memory (the ring is
-  // free now), A mirrored from its upper triangle; the row stride d + 1
-  // spreads the mirrored writes over the banks
-  const int AS = d + 1;
-  float* As = Fs;  // [d][d + 1]: F^T diag(w) F
-  for (int tile = warp; tile < p.NT; tile += kWarps) {
-    int mi, ni;
-    tile_mn(tile, p.NTn, mi, ni);
-    float4 v = *reinterpret_cast<const float4*>(tot + tile * 128 + lane * 4);
-    for (int gg = 1; gg < p.EG; ++gg) {
-      const float4 u = *reinterpret_cast<const float4*>(tot + (gg * p.NT + tile) * 128 + lane * 4);
-      v.x += u.x; v.y += u.y; v.z += u.z; v.w += u.w;
-    }
-    const float vr[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = mi * 16 + g + (r >= 2 ? 8 : 0), k = ni * 8 + 2 * t + (r & 1);
-      if (j > k || j > d || k > d + 1) continue;
-      if (k < d) {
-        As[j * AS + k] = vr[r];
-        As[k * AS + j] = vr[r];
-      } else {
-        yw[2 * j + (k - d)] = vr[r];  // F^T w, F^T 1; row d: sum(w)
-      }
-    }
-  }
-  __syncthreads();
 
   // A written row by row.  The item-axis loss of the pre-update row is
   // sum_l [-(p.f_l)^2 + (p.f_l - 1)^2 (1 + w_l)]
   //   = p^T F^T diag(w) F p - 2 p.y + n + sum(w),
   // so it comes from A and y here, not from the entries; with
   // p^T FF p (range mode) it is p^T (FF + F^T diag(w) F) p - 2 p.y + ...
+  // Each element of A is read and written by one thread, so As may be Ab.
   const float reg_ada = kChunks ? 0.f : p.reg * (p.adaptive_reg ? (float)p.lens[b] : 1.f);
   float* Ab = p.A + (int64_t)b * d * d;
   float quad = 0.f;
@@ -496,7 +520,8 @@ extern "C" int als_normal_equations(const float* table, const float* Bf, const f
                                     const int32_t* lens, const int32_t* rows,
                                     int64_t row_start, const int32_t* chunk_ptr,
                                     const int32_t* chunk_lens, const int32_t* cols,
-                                    const float* vals, int C, int Nc, float* A_part,
+                                    const void* vals, int vals_bf16, int C, int Nc,
+                                    float* A_part,
                                     float* y_part, float* pos_part, float* w_part,
                                     float* A_out, float* y_out, float* nume, float* deno,
                                     int64_t n_table_rows, int R, int d, float alpha,
@@ -505,7 +530,7 @@ extern "C" int als_normal_equations(const float* table, const float* Bf, const f
   if (R == 0) return 0;
   Params p{table, Bf, FF, lens, rows, chunk_ptr, chunk_lens, cols, vals,
            A_out, y_out, nume, deno, row_start, n_table_rows, R, C, d,
-           alpha, reg, num_fixed_rows, adaptive_reg, item_axis, compute_loss};
+           alpha, reg, num_fixed_rows, adaptive_reg, item_axis, compute_loss, vals_bf16};
   p.NP = (d + 2 + 15) / 16 * 16;
   p.S = p.NP + 8;  // NP is 0 or 16 (mod 32)
   p.NTn = p.NP / 8;
@@ -528,12 +553,16 @@ extern "C" int als_normal_equations(const float* table, const float* Bf, const f
   }
   if (!p.EG) p.EG = 1;
   p.UPW = units_per_warp(p.EG);
-  if (p.UPW == 0) return (int)cudaErrorInvalidValue;
+  if (p.UPW == 0) p.UPW = kUnitCounts[sizeof(kUnitCounts) / sizeof(int) - 1];  // passes
+  p.UPP = (kWarps / p.EG) * p.UPW;
+  p.passes = (p.NU + p.UPP - 1) / p.UPP;
+  p.TT = p.NT < 2 * p.UPP ? p.NT : 2 * p.UPP;
+  p.a_global = p.passes > 1 || (size_t)d * (d + 1) > (size_t)kStages * kTL * (p.S + 2);
   p.vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(Bf) & 15) == 0;
   p.nchunk = p.vec ? d / 4 : d;
   p.magic = 0xffffffffu / (uint32_t)p.nchunk + 1u;
   const size_t smem = sizeof(float) * ((size_t)kStages * kTL * (p.S + 2) +
-                                       (size_t)p.EG * p.NT * 128 + 3 * p.NP + 33);
+                                       (size_t)p.EG * p.TT * 128 + 3 * p.NP + 33);
   cudaStream_t s = (cudaStream_t)stream;
   auto launch = [&](int blocks) {
     switch (p.UPW) {

@@ -21,7 +21,9 @@
 // sit in registers, loaded once with 16-byte loads when rows are 16-byte
 // aligned; wider A is copied into the warp's shared memory (rows at a
 // stride that keeps float4 row reads free of bank conflicts) and read from
-// there in every matvec.
+// there in every matvec, two warps per block at d = 160 (105 KB each).  At
+// d = 256 one system's A (266 KB) exceeds a block's 227 KB, so each matvec
+// reads it again from L2 (global mode, still two warps per block).
 #include "als_common.cuh"
 
 namespace {
@@ -30,7 +32,10 @@ namespace {
 // tools/cg_bench.py, PERF.md); fewer where a wide A's shared memory does not fit
 constexpr int kWarps = 2;
 
-template <int DW, bool kReg>
+// where a warp keeps its system's A
+enum Mode { kRegisters, kShared, kGlobal };
+
+template <int DW, int kMode>
 __global__ void __launch_bounds__(kWarps * 32, 1)
 batched_cg_dense_kernel(const float* __restrict__ A, const float* __restrict__ y,
                         float* __restrict__ table, const int32_t* __restrict__ lens,
@@ -39,7 +44,8 @@ batched_cg_dense_kernel(const float* __restrict__ A, const float* __restrict__ y
                         int vec) {
   constexpr int N = als::round32(DW), M = N / 32, KC = DW / 4;
   constexpr int LDA = als::lane_row_stride(DW);
-  constexpr int kWarpFloats = N + (kReg ? 0 : N * LDA);
+  constexpr bool kReg = kMode == kRegisters;
+  constexpr int kWarpFloats = N + (kMode == kShared ? N * LDA : 0);
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -70,7 +76,7 @@ batched_cg_dense_kernel(const float* __restrict__ A, const float* __restrict__ y
       for (int c = 0; c < KC; ++c)
         a[m][c] = i < d ? load4(i, c) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-  } else {
+  } else if constexpr (kMode == kShared) {
     for (int i = 0; i < d; ++i)
       for (int c = lane; c < KC; c += 32)
         reinterpret_cast<float4*>(As + i * LDA)[c] = load4(i, c);
@@ -78,7 +84,9 @@ batched_cg_dense_kernel(const float* __restrict__ A, const float* __restrict__ y
   }
   auto getA = [&](int m, int c) -> float4 {
     if constexpr (kReg) return a[m][c];
-    else return reinterpret_cast<const float4*>(As + (lane + 32 * m) * LDA)[c];
+    else if constexpr (kMode == kShared)
+      return reinterpret_cast<const float4*>(As + (lane + 32 * m) * LDA)[c];
+    else return load4(lane + 32 * m, c);  // only for rows < d
   };
 
   float* row = table + dst * d;
@@ -129,15 +137,17 @@ extern "C" int batched_cg_dense(const float* A, const float* y, float* table,
                                 int cg_iters, float cg_tol, void* stream) {
   if (R == 0) return 0;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
-  return als::with_width(d, [&](auto width) {
+  return als::with_width<256>(d, [&](auto width) {
     constexpr int DW = decltype(width)::value;
-    constexpr bool kReg = DW <= 64;
     constexpr int N = als::round32(DW);
-    const size_t per_warp =
-        sizeof(float) * (N + (kReg ? 0 : (size_t)N * als::lane_row_stride(DW)));
+    constexpr size_t kSharedA = sizeof(float) * N * als::lane_row_stride(DW);
+    constexpr int kMode = DW <= 64                                   ? kRegisters
+                          : sizeof(float) * N + kSharedA <= als::kMaxSmem ? kShared
+                                                                        : kGlobal;
+    const size_t per_warp = sizeof(float) * N + (kMode == kShared ? kSharedA : 0);
     int W = kWarps;
     while (W > 1 && W * per_warp > als::kMaxSmem) --W;
-    auto kernel = batched_cg_dense_kernel<DW, kReg>;
+    auto kernel = batched_cg_dense_kernel<DW, kMode>;
     cudaError_t err = als::allow_smem(kernel, W * per_warp);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(R + W - 1) / W, W * 32, W * per_warp, (cudaStream_t)stream>>>(

@@ -11,8 +11,10 @@ holds ``B`` rows padded to ``(B, L)`` with ``B*L`` bounded by the
 parity until the card has its own measurements.
 
 Batches are host numpy; ``stage_batch`` moves one onto a torch device
-(pinned host memory, ``non_blocking`` copies on a card) and
-``DeviceBatcher`` decides whether the whole epoch stays resident.
+(pinned host memory, ``non_blocking`` copies on a card, bfloat16 values
+rounded there when asked for) and ``DeviceBatcher`` keeps the whole
+epoch resident or, past ``resident_mb``, streams it batch by batch
+through a ring of reused pinned buffers.
 """
 from __future__ import annotations
 
@@ -514,24 +516,31 @@ def segment_chunk_ptr(seg_ids: np.ndarray, num_rows: int) -> np.ndarray:
                            side="left").astype(np.int32)
 
 
-def _to_tensor(a, device):
+def _to_tensor(a, device, dtype=None):
+    """``a`` as a tensor on ``device``; ``dtype`` (bfloat16 values) is
+    applied on the host, rounding to nearest even as ``ml_dtypes`` does
+    for the reference."""
     import torch
 
     t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
 
 
-def stage_batch(batch, device):
+def stage_batch(batch, device, vals_dtype=None):
     """Move one host batch onto ``device``, field by field.
 
     The counterpart of ``DeviceBatcher._to_device`` in the reference
     (``jax.device_put``): array fields become tensors, copied from
-    pinned host memory with ``non_blocking=True`` on a card.  A
-    RangeBatch's ``row_start`` stays a host integer (or an int64 array
-    for a stacked group), since the epoch loop slices with it on the
-    host.  A SegmentBatch becomes a ``StagedSegmentBatch``.
+    pinned host memory with ``non_blocking=True`` on a card; the values
+    are converted to ``vals_dtype`` (``torch.bfloat16`` for the
+    reference's bfloat16 range layout) when it is given.  A RangeBatch's
+    ``row_start`` stays a host integer (or an int64 array for a stacked
+    group), since the epoch loop slices with it on the host.  A
+    SegmentBatch becomes a ``StagedSegmentBatch``.
     """
     import torch
 
@@ -542,7 +551,10 @@ def stage_batch(batch, device):
             row_start=int(rs) if rs.ndim == 0 else rs.astype(np.int64),
             lens=_to_tensor(batch.lens, device),
             cols=_to_tensor(batch.cols, device),
-            vals=_to_tensor(batch.vals, device))
+            vals=_to_tensor(batch.vals, device, vals_dtype))
+    if isinstance(batch, PaddedBatch):
+        return PaddedBatch(*[_to_tensor(a, device) for a in batch[:3]],
+                           _to_tensor(batch.vals, device, vals_dtype))
     if isinstance(batch, SegmentBatch):
         seg_ids = np.asarray(batch.seg_ids)
         if seg_ids.ndim != 1:
@@ -550,25 +562,130 @@ def stage_batch(batch, device):
                              "not stacked")
         ptr = segment_chunk_ptr(seg_ids, len(batch.rows))
         return StagedSegmentBatch(
-            *[_to_tensor(a, device) for a in batch], _to_tensor(ptr, device))
+            *[_to_tensor(a, device) for a in batch[:5]],
+            _to_tensor(batch.vals, device, vals_dtype),
+            _to_tensor(ptr, device))
     raise TypeError(f"cannot stage {type(batch).__name__}")
 
 
+class _StagingRing:
+    """Host batches staged onto a card one ahead of the kernels.
+
+    Two slots, each a set of pinned host buffers and device buffers per
+    field, reused from batch to batch and epoch to epoch (grown when a
+    batch needs more).  ``put`` copies a batch into a slot and on to the
+    card on a side stream; ``take`` makes the current stream wait for
+    that copy before the kernels read the batch.  Slot ``s`` is reused
+    by the batch two later: its pinned buffers after the host has seen
+    its last copy finish, its device buffers after the kernels of the
+    batch that read them were enqueued (the side stream waits for them).
+    """
+
+    def __init__(self, device):
+        import torch
+
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.buffers = [{}, {}]   # slot -> field -> (pinned, device), flat
+        self.copied = [None, None]  # slot -> event of its last copy
+        self.bytes = 0            # bytes copied to the card, running total
+
+    def _buffer(self, slot, name, numel, dtype):
+        import torch
+
+        bufs = self.buffers[slot].get(name)
+        if bufs is None or bufs[0].numel() < numel or bufs[0].dtype != dtype:
+            # device memory comes from the current stream, whose kernels
+            # are the only other users of a slot's buffers
+            bufs = (torch.empty(numel, dtype=dtype, pin_memory=True),
+                    torch.empty(numel, dtype=dtype, device=self.device))
+            self.buffers[slot][name] = bufs
+        return bufs
+
+    def put(self, slot, batch):
+        """Stage host ``batch`` (PaddedBatch or SegmentBatch) into
+        ``slot``; returns (fields on the card, copy event)."""
+        import torch
+
+        if self.copied[slot] is not None:
+            self.copied[slot].synchronize()
+        fields = dict(zip(batch._fields, batch))
+        if isinstance(batch, SegmentBatch):
+            fields["chunk_ptr"] = segment_chunk_ptr(batch.seg_ids,
+                                                    len(batch.rows))
+        host = {k: torch.from_numpy(np.ascontiguousarray(a))
+                for k, a in fields.items()}
+        bufs = {k: self._buffer(slot, k, t.numel(), t.dtype)
+                for k, t in host.items()}
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for k, t in host.items():
+                pin, dev = bufs[k]
+                pin[:t.numel()].copy_(t.reshape(-1))
+                out[k] = dev[:t.numel()].view(t.shape)
+                out[k].copy_(pin[:t.numel()].view(t.shape), non_blocking=True)
+                self.bytes += t.numel() * t.element_size()
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self.copied[slot] = event
+        return out, event
+
+    def take(self, staged):
+        """A staged batch, ready for kernels on the current stream."""
+        import torch
+
+        out, event = staged
+        torch.cuda.current_stream(self.device).wait_event(event)
+        if "chunk_ptr" in out:
+            return StagedSegmentBatch(**out)
+        return PaddedBatch(**out)
+
+
+# past this many padded entries a single fused epoch program OOMs on
+# XLA temporaries in the reference (its 730M lesson), which then
+# dispatches per group; the port launches per batch either way
+GROUP_DISPATCH_ENTRIES = 100 << 20
+
+
+def padded_entry_count(batches: Sequence) -> int:
+    """Total padded (cols) entries across a list of staged batches."""
+    return sum(int(np.prod(np.asarray(b.cols).shape)) for b in batches)
+
+
+def choose_group_dispatch(opt, padded_entries: int) -> bool:
+    """Resolve the shared ``epoch_dispatch`` option (auto|fused|group).
+    The port validates it and reports the reference's choice; its
+    arithmetic is the same either way (the reference's two dispatches
+    train to the same loss, ``tests/models/test_als.py``)."""
+    dispatch = str(opt.get("epoch_dispatch", "auto") or "auto")
+    if dispatch not in ("auto", "fused", "group"):
+        raise ValueError(
+            f"epoch_dispatch must be auto|fused|group, got {dispatch!r}")
+    return dispatch == "group" or (
+        dispatch == "auto" and padded_entries > GROUP_DISPATCH_ENTRIES)
+
+
 class DeviceBatcher:
-    """Plans one CSR orientation's batches and decides residency.
+    """Plans one CSR orientation's batches and feeds them to a device.
 
     The counterpart of the reference's ``DeviceBatcher``
     (``buffalo_tpu/data/batching.py:691``) with the same planner inputs:
     the ``batch_mb`` entry budget sized for the gathered fixed-side rows,
-    and the ``max_rows`` cap on direct-solve buckets.  Staging is
-    ``stage_batch``; the port trains only when the padded epoch fits
-    ``resident_mb`` (``resident``), so there is no streaming iterator.
+    and the ``max_rows`` cap on direct-solve buckets.  When the padded
+    epoch fits ``resident_mb`` (``resident``), every batch is staged
+    once and kept on the device; otherwise each iteration builds the
+    batches on the host (``planner.iter_batches``) and stages them one
+    ahead of the kernels through a ``_StagingRing`` (the reference's
+    streaming path).  Iterating yields staged ``PaddedBatch`` /
+    ``StagedSegmentBatch`` tuples in the planner's order.
     """
 
     def __init__(self, data, axis: str = "rowwise", batch_mb: int = 1024,
                  resident_mb: int = 4096, row_multiple: int = 1,
                  max_len: int = DEFAULT_MAX_L,
-                 d: Optional[int] = None, matrix_free: bool = True):
+                 d: Optional[int] = None, matrix_free: bool = True,
+                 device="cuda"):
         self.data = data
         self.axis = axis
         group = data.get_group(axis)
@@ -592,3 +709,46 @@ class DeviceBatcher:
         # 8 bytes per padded entry (int32 col + f32 val) on device
         self.resident = (self.padded_entries * 8) <= \
             resident_mb * 1024 * 1024
+        self.device = device
+        self._device_cache: Optional[List] = None
+        self._ring: Optional[_StagingRing] = None
+
+    def device_batches(self) -> List:
+        """The full epoch staged on the device, once (resident mode)."""
+        if self._device_cache is None:
+            self._device_cache = [
+                stage_batch(b, self.device)
+                for b in self.planner.iter_batches(self.key, self.val)]
+        return self._device_cache
+
+    @property
+    def h2d_bytes(self) -> int:
+        """Bytes the streaming iterations have copied to the card."""
+        return 0 if self._ring is None else self._ring.bytes
+
+    def __iter__(self):
+        if self.resident:
+            yield from self.device_batches()
+            return
+        import torch
+
+        device = torch.device(self.device)
+        batches = self.planner.iter_batches(self.key, self.val)
+        if device.type != "cuda":
+            for b in batches:
+                yield stage_batch(b, device)
+            return
+        if self._ring is None:
+            self._ring = _StagingRing(device)
+        pending = None
+        for i, b in enumerate(batches):
+            staged = self._ring.put(i % 2, b)
+            if pending is not None:
+                yield self._ring.take(pending)
+            pending = staged
+        if pending is not None:
+            yield self._ring.take(pending)
+
+    @property
+    def num_batches(self) -> int:
+        return self.planner.num_batches

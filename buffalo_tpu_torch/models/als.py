@@ -3,17 +3,17 @@
 PyTorch counterpart of ``buffalo_tpu.models.als`` — same epoch structure
 (gramian → rowwise half → colwise half → RMSE from (nume, deno) →
 validation → save-best/early-stop), same hyperparameters, batches and
-solver set, for the single-device, device-resident, bucket-order range
-layout path.  Each batch runs on the hand-written CUDA kernels of
-``ops/als_kernels.py`` (their plain PyTorch versions on the CPU).
-
-Not ported yet, each raising ``NotImplementedError`` at ``train``: more
-than one device, the streaming (non-resident) path, the scatter layout
-(``range_layout=False``), iALS++ (``optimizer="ialspp"``, auto at
-d >= 128) and bfloat16 staged values.
+solver set (iALS++ chosen at d >= 128, ``als.cc:46``) on one device:
+the device-resident bucket-order range layout (bfloat16 values past
+100M padded entries), the resident scatter layout
+(``range_layout=False``) and, when the padded epoch exceeds
+``resident_mb``, the streaming path.  Each batch runs on the
+hand-written CUDA kernels of ``ops/als_kernels.py`` (their plain
+PyTorch versions on the CPU).  More than one device is not ported yet
+and raises ``NotImplementedError`` at ``train``.
 
 Reference: Hu, Koren, Volinsky — Collaborative Filtering for Implicit
-Feedback Datasets.
+Feedback Datasets; iALS++ (arXiv 2110.14044).
 """
 from __future__ import annotations
 
@@ -25,11 +25,17 @@ import torch
 
 from buffalo_tpu_torch.data.base import Data
 from buffalo_tpu_torch.data.batching import (DeviceBatcher, build_range_layout,
+                                             choose_group_dispatch,
+                                             padded_entry_count,
                                              permute_table, stage_batch)
 from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import ALSOption
-from buffalo_tpu_torch.ops.als_kernels import IALSPP_TODO, als_epoch
+from buffalo_tpu_torch.ops.als_kernels import MAX_D, als_epoch
+
+# values of the range layout past this many padded entries are staged as
+# bfloat16 (the reference's rule, models/als.py:358-366)
+BF16_ENTRIES = 100 << 20
 
 
 class ALS(Algo, ALSOption, Evaluable, Serializable):
@@ -96,9 +102,17 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
 
     # -------------------------------------------------------------- training
     def _resolve_optimizer(self) -> str:
-        if self.opt.d >= 128 or self.opt.optimizer == "ialspp":
-            raise NotImplementedError(IALSPP_TODO)
-        return self.opt.optimizer
+        """The reference's rule (``models/als.py:99-113``): iALS++ at
+        d >= 128 (``als.cc:46``), and under iALS++ at d >= 128 a
+        ``block_size`` left at its default of 32 becomes d (the option is
+        updated, so a saved model shows it)."""
+        optimizer = self.opt.optimizer
+        if self.opt.d >= 128:
+            optimizer = "ialspp"
+        if optimizer == "ialspp" and self.opt.d >= 128 \
+                and int(self.opt.block_size) == 32:
+            self.opt.block_size = int(self.opt.d)
+        return optimizer
 
     def _epoch_kwargs(self):
         opt = self.opt
@@ -110,37 +124,37 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
             block_size=min(int(opt.block_size), int(opt.d)),
             compute_loss=bool(opt.compute_loss_on_training))
 
-    def _check_supported(self, batchers):
-        """Raise for the reference's paths this port does not run yet
-        (ROADMAP queue 1 names each item)."""
+    def _check_supported(self):
+        """Raise for what this port does not run yet (ROADMAP queue 1
+        names each item)."""
         opt = self.opt
         if int(opt.get("num_devices") or 0) > 1:
             raise NotImplementedError(
                 "num_devices > 1 is not ported yet: ROADMAP queue 1 item 13 "
                 "(multi-device epochs over NCCL)")
-        if not all(b.resident for b in batchers.values()):
+        if self.device.type == "cuda" and int(opt.d) > MAX_D:
             raise NotImplementedError(
-                "the padded epoch exceeds resident_mb: the streaming path "
-                "is not ported yet (ROADMAP queue 1 item 4)")
-        if not bool(opt.get("range_layout", True)):
-            raise NotImplementedError(
-                "range_layout=False (scatter updates) is not ported yet "
-                "(ROADMAP queue 1 item 4)")
-        choice = str(opt.get("vals_dtype", "auto"))
+                f"d = {opt.d}: the kernels take rows of at most {MAX_D} "
+                "floats (ROADMAP queue 1 item 4, d > 256)")
+
+    def _vals_dtype(self, padded_entries: int):
+        """The range layout's staged value type (the reference's
+        ``pick_vals_dtype``): bfloat16 past ``BF16_ENTRIES`` padded
+        entries under "auto"; None keeps float32."""
+        choice = str(self.opt.get("vals_dtype", "auto"))
         if choice == "auto":
-            # the reference's rule (models/als.py:358-366)
-            entries = sum(b.planner.padded_entries()
-                          for b in batchers.values())
-            choice = "bfloat16" if entries > (100 << 20) else "float32"
-        if choice != "float32":
-            raise NotImplementedError(
-                f"vals_dtype={choice} is not ported yet: the kernels read "
-                "float32 values (ROADMAP queue 1 item 4)")
+            choice = ("bfloat16" if padded_entries > BF16_ENTRIES
+                      else "float32")
+        if choice not in ("float32", "bfloat16"):
+            raise ValueError("vals_dtype must be auto, float32 or bfloat16, "
+                             f"got {choice!r}")
+        return torch.bfloat16 if choice == "bfloat16" else None
 
     def train(self, training_callback: Optional[
             Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
         assert self.data, "Data is not set"
         self._optimizer = self._resolve_optimizer()
+        self._check_supported()
         device = self.device
         batchers = {group: DeviceBatcher(
             self.data, group,
@@ -149,26 +163,51 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
             d=int(self.opt.d),
             # llt/ldlt materialize the (B, d, d) system at every
             # bucket length; cap rows-per-batch everywhere for them
-            matrix_free=self._optimizer not in ("llt", "ldlt"))
+            matrix_free=self._optimizer not in ("llt", "ldlt"),
+            device=device)
             for group in ("rowwise", "colwise")}
-        self._check_supported(batchers)
-
-        # bucket-order range layout: both tables are permuted once so
-        # every batch updates a contiguous row range; the permuted,
-        # padded tables are locals, so self.P/self.Q stay unpadded even
-        # if training stops with an exception
         rb, cb = batchers["rowwise"], batchers["colwise"]
-        row_b, col_b, u_pos, i_pos, u_pad, i_pad = build_range_layout(
-            rb.planner, cb.planner, rb.key, rb.val, cb.key, cb.val)
-        row_batches = [stage_batch(b, device) for b in row_b]
-        col_batches = [stage_batch(b, device) for b in col_b]
-        P = torch.from_numpy(permute_table(self.P, u_pos, u_pad)).to(device)
-        Q = torch.from_numpy(permute_table(self.Q, i_pos, i_pad)).to(device)
+        # buckets and segment chunks, the count the reference's budget
+        # rules share
+        entries = rb.planner.padded_entries() + cb.planner.padded_entries()
+
+        # the reference's epoch_dispatch choice (from these counts, as it
+        # makes it) is validated; it changes no arithmetic here
+        if rb.resident and cb.resident and \
+                bool(self.opt.get("range_layout", True)):
+            # bucket-order range layout: both tables are permuted once so
+            # every batch updates a contiguous row range; the permuted,
+            # padded tables are locals, so self.P/self.Q stay unpadded even
+            # if training stops with an exception
+            row_b, col_b, u_pos, i_pos, u_pad, i_pad = build_range_layout(
+                rb.planner, cb.planner, rb.key, rb.val, cb.key, cb.val)
+            choose_group_dispatch(self.opt, padded_entry_count(row_b + col_b))
+            vals_dtype = self._vals_dtype(entries)
+            row_batches = [stage_batch(b, device, vals_dtype) for b in row_b]
+            col_batches = [stage_batch(b, device, vals_dtype) for b in col_b]
+            P = torch.from_numpy(permute_table(self.P, u_pos, u_pad)).to(device)
+            Q = torch.from_numpy(permute_table(self.Q, i_pos, i_pad)).to(device)
+            order = (u_pos, i_pos)
+        else:
+            # scatter layout: batches carry row ids and float32 values (as
+            # in the reference), staged here once when resident, else
+            # streamed through the batchers' staging ring every epoch
+            row_batches, col_batches = rb, cb
+            choose_group_dispatch(self.opt, entries)
+            if rb.resident and cb.resident:
+                rb.device_batches()
+                cb.device_batches()
+            P = torch.from_numpy(self.P).to(device, copy=True)
+            Q = torch.from_numpy(self.Q).to(device, copy=True)
+            order = None
         num_users, num_items = int(self.P.shape[0]), int(self.Q.shape[0])
         kw = self._epoch_kwargs()
 
         def to_host():
-            return (P.cpu().numpy()[u_pos], Q.cpu().numpy()[i_pos])
+            Ph, Qh = P.cpu().numpy(), Q.cpu().numpy()
+            if order is not None:
+                Ph, Qh = Ph[order[0]], Qh[order[1]]
+            return Ph, Qh
 
         def _sync_host():
             self.P, self.Q = to_host()
@@ -210,6 +249,8 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
                 break
         self.P, self.Q = to_host()
         self._sync_host_factors = None
+        # bytes the streaming path copied to the card (0 when resident)
+        self.h2d_bytes = rb.h2d_bytes + cb.h2d_bytes
         self.logger.info(
             f"elapsed for full epochs: {time.time() - full_st:.2f} sec")
         ret = {"train_loss": rmse}

@@ -7,8 +7,8 @@ unchanged.  One key is the port's own: ``device`` ("cuda" by default;
 "cpu" runs the plain PyTorch versions of the kernels).  The reference's
 device keys (``num_devices``, ``sharding``, ``resident_mb``,
 ``range_layout``, ``epoch_dispatch``, ``vals_dtype``) keep their
-defaults; settings the port does not run yet raise
-``NotImplementedError`` at ``train``.
+defaults; more than one device raises ``NotImplementedError`` at
+``train``.
 """
 from __future__ import annotations
 
@@ -34,10 +34,11 @@ class AlgoOption(InputOptions):
 
         Reference device keys (same defaults): ``num_devices`` (the port
         runs on one card; > 1 raises), ``sharding``, ``resident_mb``
-        (budget for keeping the epoch's batches on the device),
-        ``range_layout`` (False raises), ``epoch_dispatch`` (accepted;
-        the port launches per batch either way) and ``vals_dtype``
-        (resolving to bfloat16 raises).
+        (budget for keeping the epoch's batches on the device; past it
+        they stream), ``range_layout`` (False: the scatter layout),
+        ``epoch_dispatch`` (validated; the port launches per batch
+        either way) and ``vals_dtype`` (auto, float32 or bfloat16, for
+        the range layout's values).
         """
         return Option({
             "evaluation_on_learning": True,

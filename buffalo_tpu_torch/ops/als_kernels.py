@@ -1,18 +1,29 @@
 """ALS batch update math: per-row normal equations over padded batches.
 
-PyTorch counterpart of ``buffalo_tpu.ops.als_kernels`` for the
-single-device, bucket-order range layout.  Each batch of an epoch goes
-through hand-written CUDA kernels on the card (``csrc/*.cu``):
+PyTorch counterpart of ``buffalo_tpu.ops.als_kernels`` on one device:
+the bucket-order range layout (``RangeBatch``), the scatter layout and
+the streaming path (``PaddedBatch``), and ``SegmentBatch`` head rows of
+either.  Each batch of an epoch goes through hand-written CUDA kernels on
+the card (``csrc/*.cu``):
 
-* **K1** ``als_cg_matrix_free`` — RangeBatch rows with padded length
-  ``L <= MATRIX_FREE_MAX_L``: gather, loss terms, warm start and CG
-  without forming the d x d system, result written in place.
-* **K2** ``als_normal_equations`` — RangeBatch rows with ``L > 96`` and
-  SegmentBatch head rows: the dense system ``A = FF + Fw^T F + reg I``,
-  ``y = F^T (1 + w)`` and the loss terms; one block per range row, or
-  per segment chunk followed by an ordered per-row reduction.
+* **K1** ``als_cg_matrix_free`` — rows with padded length
+  ``L <= MATRIX_FREE_MAX_L`` under a CG optimizer: gather, loss terms,
+  warm start and CG without forming the d x d system, result written in
+  place (range or rows mode).
+* **K2** ``als_normal_equations`` — longer rows and SegmentBatch head
+  rows: the dense system ``A = FF + Fw^T F + reg I``, ``y = F^T (1 + w)``
+  and the loss terms; one block per row, or per segment chunk followed
+  by an ordered per-row reduction.
 * **K3** ``batched_cg_dense`` — warm-started CG on K2's systems, result
   written to the row range, or scattered with padding ids skipped.
+* **K4** ``ialspp_solve_batch`` — iALS++ (``optimizer="ialspp"``, auto
+  at d >= 128) on every range and padded batch: block subspace CG with
+  the residual cache, loss terms, result written in place.  iALS++
+  segment rows take K2 + K3, as the reference's ``manual_cg`` there.
+
+Values are float32 or bfloat16 (the range layout's at scale); the
+kernels and plain versions read them as float32.  Rows are at most
+``MAX_D`` floats wide (K1: ``K1_MAX_D``).
 
 Each wrapper runs its plain PyTorch version (same module, ``*_plain``)
 when given CPU tensors, and launches its kernel (or raises) for CUDA
@@ -27,32 +38,35 @@ from typing import Iterator, Optional
 
 import torch
 
-from buffalo_tpu_torch.data.batching import (MATRIX_FREE_MAX_L, RangeBatch,
-                                             StagedSegmentBatch)
+from buffalo_tpu_torch.data.batching import (MATRIX_FREE_MAX_L, PaddedBatch,
+                                             RangeBatch, StagedSegmentBatch)
 from buffalo_tpu_torch.ops.solve import (CG_SOLVERS, CHOLESKY_SOLVERS,
                                          cg_loop, cg_warm_start, solve_cg,
                                          solve_cholesky)
-
-IALSPP_TODO = ("optimizer='ialspp' (auto-selected at d >= 128) is not "
-               "ported yet: ROADMAP queue 1 item 2 (iALS++ kernel K4)")
 
 _P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
 # C signatures of the kernels' launch functions (csrc/*.cu); every one
 # returns the cudaError_t of its launch
 _SIGNATURES = {
-    "als_cg_matrix_free": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
-                           _I32, _I32, _F32, _F32, _I32, _I32, _F32, _I32,
-                           _F32, _I32, _P],
-    "als_normal_equations": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P,
+    "als_cg_matrix_free": [_P, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _I64,
+                           _I64, _I32, _I32, _I32, _F32, _F32, _I32, _I32,
+                           _F32, _I32, _F32, _I32, _P],
+    "als_normal_equations": [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _I32,
                              _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I64, _I32, _I32, _F32, _F32, _I32, _I32, _F32,
                              _I32, _P],
     "batched_cg_dense": [_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
                          _F32, _P],
+    "ialspp_solve": [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _P, _P, _I64,
+                     _I32, _I32, _I32, _I32, _F32, _F32, _I32, _F32, _I32,
+                     _F32, _I32, _P],
 }
-# the widest rows the kernels take
-MAX_D = 128
+# the widest rows K2, K3 and K4 take (compiled widths up to 256; wider rows
+# are ROADMAP queue 1's open item), and K1's (F and FF^T in shared memory)
+MAX_D = 256
+K1_MAX_D = 128
+VALS_DTYPES = (torch.float32, torch.bfloat16)
 
 
 _launchers = {}
@@ -88,6 +102,37 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
     if t.dim() != ndim or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous {ndim}-d tensor, "
                          f"got shape {tuple(t.shape)}")
+
+
+def _check_vals(vals, device, ndim=2):
+    """vals' dtype flag for a kernel: float32 (0) or bfloat16 (1)."""
+    if vals.dtype not in VALS_DTYPES:
+        raise TypeError(f"vals must be float32 or bfloat16, got {vals.dtype}")
+    _check("vals", vals, vals.dtype, device, ndim)
+    return int(vals.dtype == torch.bfloat16)
+
+
+def _check_width(name, d, limit):
+    if d > limit:
+        raise NotImplementedError(
+            f"{name} takes rows of at most {limit} floats, got d = {d}: "
+            "wider rows are an open item of ROADMAP queue 1")
+
+
+def _check_rows(lens, cols, row_start, rows, table, device):
+    """A batch's rows: a range of the table, or (rows mode) one int32 id
+    per row, ids outside the table being padding."""
+    B = lens.shape[0]
+    if cols.shape[0] != B:
+        raise ValueError("lens and cols disagree on the batch's rows")
+    if rows is None:
+        if row_start < 0 or row_start + B > table.shape[0]:
+            raise ValueError(f"rows [{row_start}, {row_start + B}) past a "
+                             f"table of {table.shape[0]}")
+    else:
+        _check("rows", rows, torch.int32, device, 1)
+        if rows.shape[0] != B:
+            raise ValueError("rows and lens disagree on the batch's rows")
 
 
 def _raise_on(rc: int, name: str):
@@ -137,14 +182,16 @@ def _row_weights(lens, adaptive_reg, dtype):
 
 
 def als_cg_matrix_free_plain(table, Bf, FF, row_start, lens, cols, vals, *,
-                             alpha, reg, adaptive_reg, cg_iters, cg_tol,
-                             item_axis, num_fixed_rows, compute_loss):
+                             rows=None, alpha, reg, adaptive_reg, cg_iters,
+                             cg_tol, item_axis, num_fixed_rows, compute_loss):
     """Plain version of K1: ``als_solve_batch``'s matrix-free branch
-    (``als_kernels.py:157-162``) on ``table[row_start:row_start+B]``,
+    (``als_kernels.py:157-162``) on ``table[row_start:row_start+B]`` or,
+    in rows mode, ``table[rows]`` (ids outside the table skipped),
     written back in place.  Returns per-row (nume, deno)."""
     B, L = cols.shape
     dt = table.dtype
-    p = table[row_start:row_start + B]
+    idx, write = _target_rows(table, lens, row_start, rows)
+    p = table[idx.clamp(0, table.shape[0] - 1)]
     F = Bf[cols.long()]
     mask = _entry_mask(lens, L, dt)
     row_mask, ada = _row_weights(lens, adaptive_reg, dt)
@@ -165,8 +212,14 @@ def als_cg_matrix_free_plain(table, Bf, FF, row_start, lens, cols, vals, *,
 
     x, r = cg_warm_start(matvec, y, p)
     x = cg_loop(matvec, x, r, cg_iters, cg_tol)
-    table[row_start:row_start + B] = torch.where(row_mask[:, None] > 0, x, p)
-    return nume, deno
+    table[idx[write]] = x[write]
+    return _skipped_zero(nume, write, lens), _skipped_zero(deno, write, lens)
+
+
+def _skipped_zero(terms, write, lens):
+    """Loss terms of the rows a kernel skips (ids outside the table) set
+    to 0, as the kernels leave them; rows with len 0 have 0 already."""
+    return torch.where(write | (lens <= 0), terms, torch.zeros_like(terms))
 
 
 def _segment_ids(chunk_ptr, num_chunks):
@@ -184,29 +237,31 @@ def als_normal_equations_plain(table, Bf, FF, lens, cols, vals, *,
                                row_start=0, rows=None, chunk_ptr=None,
                                chunk_lens=None, alpha, reg, adaptive_reg,
                                item_axis, num_fixed_rows, compute_loss):
-    """Plain version of K2.  Range mode (``rows is None``): the dense
+    """Plain version of K2.  Range mode (``chunk_ptr is None``): the dense
     branch of ``als_solve_batch`` (``_row_stats`` + A assembly,
-    ``als_kernels.py:164-167``) for ``table[row_start:row_start+R]``.
-    Segment mode: ``als_solve_segment_batch``'s per-chunk statistics and
-    ``segment_sum`` (``:268-297``), chunks of row r at
-    ``[chunk_ptr[r], chunk_ptr[r+1])``.  Returns (A (R, d, d), y (R, d),
-    nume (R,), deno (R,))."""
+    ``als_kernels.py:164-167``) for ``table[row_start:row_start+R]`` or,
+    with ``rows``, ``table[rows]`` (a PaddedBatch: ids outside the table
+    get zero loss terms).  Segment mode: ``als_solve_segment_batch``'s
+    per-chunk statistics and ``segment_sum`` (``:268-297``), chunks of
+    row r at ``[chunk_ptr[r], chunk_ptr[r+1])``.  Returns (A (R, d, d),
+    y (R, d), nume (R,), deno (R,))."""
     R = lens.shape[0]
     n, d = table.shape
     dt = table.dtype
     F = Bf[cols.long()]
     row_mask, ada = _row_weights(lens, adaptive_reg, dt)
     nume = deno = table.new_zeros(R)
-    if rows is None:
-        p = table[row_start:row_start + R]
+    if chunk_ptr is None:
+        idx, write = _target_rows(table, lens, row_start, rows)
+        p = table[idx.clamp(0, n - 1)]
         mask = _entry_mask(lens, cols.shape[1], dt)
         w = vals.to(dt) * alpha * mask
         A_data = torch.einsum("bld,ble->bde", F * w[:, :, None], F)
         y = torch.einsum("bld,bl->bd", F, (1.0 + w) * mask)
         if compute_loss:
-            nume, deno = _loss_rows(p, F, FF, w, mask, row_mask, ada,
-                                    reg=reg, item_axis=item_axis,
-                                    num_fixed_rows=num_fixed_rows)
+            nume, deno = (_skipped_zero(t, write, lens) for t in _loss_rows(
+                p, F, FF, w, mask, row_mask, ada, reg=reg,
+                item_axis=item_axis, num_fixed_rows=num_fixed_rows))
     else:
         p = table[rows.long().clamp(max=n - 1)]
         Nc, C = cols.shape
@@ -257,41 +312,97 @@ def batched_cg_dense_plain(A, y, table, lens, *, row_start=0, rows=None,
     table[idx[write]] = x[write]
 
 
+def ialspp_solve_batch_plain(table, Bf, FF, lens, cols, vals, *, row_start=0,
+                            rows=None, alpha, reg, adaptive_reg, block_size,
+                            cg_tol, item_axis, num_fixed_rows, compute_loss,
+                            steps=3):
+    """Plain version of K4: ``ialspp_solve_batch`` (``als_kernels.py:
+    174-238``) on ``table[row_start:row_start+B]`` or, in rows mode,
+    ``table[rows]`` (ids outside the table skipped), written back in
+    place.  The solve uses plain ``reg`` (``adaptive_reg`` scales only the
+    loss's regularization term), ``steps`` CG steps from zero per block of
+    ``block_size`` features (3, the reference's; a check's power is shown
+    with fewer), and the loss terms of the pre-update rows.  Returns
+    per-row (nume, deno)."""
+    B, L = cols.shape
+    n, d = table.shape
+    dt = table.dtype
+    idx, write = _target_rows(table, lens, row_start, rows)
+    p = table[idx.clamp(0, n - 1)]
+    F = Bf[cols.long()]
+    mask = _entry_mask(lens, L, dt)
+    row_mask, ada = _row_weights(lens, adaptive_reg, dt)
+    w = vals.to(dt) * alpha * mask
+    if compute_loss:
+        nume, deno = (_skipped_zero(t, write, lens) for t in _loss_rows(
+            p, F, FF, w, mask, row_mask, ada, reg=reg, item_axis=item_axis,
+            num_fixed_rows=num_fixed_rows))
+    else:
+        nume = deno = table.new_zeros(B)
+    Yui = torch.einsum("bd,bld->bl", p, F)
+    for beg in range(0, d, block_size):
+        end = min(beg + block_size, d)
+        Fb = F[:, :, beg:end]
+        gram_cols = FF[:, beg:end]
+        A = gram_cols[beg:end] + reg * torch.eye(end - beg, dtype=dt,
+                                                 device=table.device)
+        p_blk = p[:, beg:end]
+        b = (p @ gram_cols + reg * p_blk
+             + torch.einsum("bl,bld->bd", (Yui - 1.0) * w, Fb))
+
+        def matvec(v):
+            data = torch.einsum(
+                "bl,bld->bd", torch.einsum("bld,bd->bl", Fb, v) * w, Fb)
+            return v @ A.T + data
+
+        # 3-step CG from zero start (als.cc:322-345)
+        x = cg_loop(matvec, torch.zeros_like(b), b, steps, cg_tol)
+        x = x * row_mask[:, None]
+        p = torch.cat([p[:, :beg], p_blk - x, p[:, end:]], dim=1)
+        Yui = Yui - torch.einsum("bld,bd->bl", Fb, x)
+    table[idx[write]] = p[write]
+    return nume, deno
+
+
 # ------------------------------------------------------------- wrappers
 def als_cg_matrix_free(table, Bf, FF, row_start, lens, cols, vals, *,
-                       alpha, reg, adaptive_reg, cg_iters, cg_tol,
+                       rows=None, alpha, reg, adaptive_reg, cg_iters, cg_tol,
                        item_axis, num_fixed_rows, compute_loss):
-    """K1: fused matrix-free row CG for a RangeBatch (L <= 96).
+    """K1: fused matrix-free row CG for rows of at most 96 entries.
 
     Replaces ``_solve_cg_matrix_free`` + the CG branch of
-    ``als_solve_batch`` + ``_loss_terms`` + the RangeBatch gather/write
-    (``buffalo_tpu/ops/als_kernels.py:103,157-162,77,337-353``).
-    Updates ``table[row_start:row_start+B]`` in place and returns the
-    per-row (nume, deno), zeros when ``compute_loss`` is off.
+    ``als_solve_batch`` + ``_loss_terms`` + the batch gather/write
+    (``buffalo_tpu/ops/als_kernels.py:103,157-162,77,337-372``).
+    Updates ``table[row_start:row_start+B]`` (a RangeBatch) or, in rows
+    mode, ``table[rows]`` (a PaddedBatch; ids outside the table are
+    skipped) in place and returns the per-row (nume, deno), zeros when
+    ``compute_loss`` is off.
     """
     if table.device.type == "cpu":
         return als_cg_matrix_free_plain(
-            table, Bf, FF, row_start, lens, cols, vals, alpha=alpha,
-            reg=reg, adaptive_reg=adaptive_reg, cg_iters=cg_iters,
-            cg_tol=cg_tol, item_axis=item_axis,
+            table, Bf, FF, row_start, lens, cols, vals, rows=rows,
+            alpha=alpha, reg=reg, adaptive_reg=adaptive_reg,
+            cg_iters=cg_iters, cg_tol=cg_tol, item_axis=item_axis,
             num_fixed_rows=num_fixed_rows, compute_loss=compute_loss)
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
-    if d > MAX_D:
-        raise ValueError(f"als_cg_matrix_free supports d <= {MAX_D}, got {d}")
+    if d > K1_MAX_D:
+        raise ValueError(f"als_cg_matrix_free supports d <= {K1_MAX_D}, "
+                         f"got {d}")
     _check("lens", lens, torch.int32, dev, 1)
     _check("cols", cols, torch.int32, dev, 2)
-    _check("vals", vals, torch.float32, dev, 2)
+    bf16 = _check_vals(vals, dev)
     B, L = cols.shape
-    if L > MATRIX_FREE_MAX_L or row_start < 0 \
-            or row_start + B > table.shape[0]:
-        raise ValueError(f"bad RangeBatch: L={L}, rows [{row_start}, "
-                         f"{row_start + B}) of {table.shape[0]}")
+    if L > MATRIX_FREE_MAX_L:
+        raise ValueError(f"als_cg_matrix_free takes L <= "
+                         f"{MATRIX_FREE_MAX_L}, got {L}")
+    _check_rows(lens, cols, row_start, rows, table, dev)
     nume = torch.zeros(B, device=dev)
     deno = torch.zeros(B, device=dev)
     rc = _kernel("als_cg_matrix_free")(
-        _ptr(table), _ptr(Bf), _ptr(FF), _ptr(lens), _ptr(cols),
-        _ptr(vals), _ptr(nume), _ptr(deno), int(row_start), B, L, d,
+        _ptr(table), _ptr(Bf), _ptr(FF), _ptr(lens), _ptr(rows), _ptr(cols),
+        _ptr(vals), bf16, _ptr(nume), _ptr(deno),
+        0 if rows is not None else int(row_start), table.shape[0], B, L, d,
         float(alpha), float(reg), int(bool(adaptive_reg)), int(cg_iters),
         float(cg_tol), int(bool(item_axis)), float(num_fixed_rows),
         int(bool(compute_loss)), _stream(dev))
@@ -310,12 +421,13 @@ def als_normal_equations(table, Bf, FF, lens, cols, vals, *, row_start=0,
     """K2: per-row dense normal equations and loss terms.
 
     Replaces ``_row_stats`` + the A assembly (``als_kernels.py:65,
-    164-167``) for RangeBatch rows with L > 96, and the per-chunk
-    statistics + ``segment_sum`` of ``als_solve_segment_batch``
-    (``:268-282``) for SegmentBatch rows, plus ``_loss_terms`` (``:77``,
-    ``:284-297``).  Returns (A, y, nume, deno) for K3.  Segment mode runs
-    as two kernels of one launch call: per-chunk statistics, then an
-    ordered per-row reduction (counted as one launch).
+    164-167``) for rows with L > 96 (a RangeBatch's range, or a
+    PaddedBatch's ``rows``), and the per-chunk statistics +
+    ``segment_sum`` of ``als_solve_segment_batch`` (``:268-282``) for
+    SegmentBatch rows (``chunk_ptr`` given), plus ``_loss_terms``
+    (``:77``, ``:284-297``).  Returns (A, y, nume, deno) for K3.  Segment
+    mode runs as two kernels of one launch call: per-chunk statistics,
+    then an ordered per-row reduction (counted as one launch).
     """
     kw = dict(row_start=row_start, rows=rows, chunk_ptr=chunk_ptr,
               chunk_lens=chunk_lens, alpha=alpha, reg=reg,
@@ -326,17 +438,13 @@ def als_normal_equations(table, Bf, FF, lens, cols, vals, *, row_start=0,
                                           **kw)
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
-    if d > MAX_D:
-        raise ValueError(f"als_normal_equations supports d <= {MAX_D}, "
-                         f"got {d}")
+    _check_width("als_normal_equations", d, MAX_D)
     _check("lens", lens, torch.int32, dev, 1)
     _check("cols", cols, torch.int32, dev, 2)
-    _check("vals", vals, torch.float32, dev, 2)
+    bf16 = _check_vals(vals, dev)
     R = lens.shape[0]
-    if rows is None:
-        if cols.shape[0] != R or row_start < 0 \
-                or row_start + R > table.shape[0]:
-            raise ValueError("bad RangeBatch for als_normal_equations")
+    if chunk_ptr is None:
+        _check_rows(lens, cols, row_start, rows, table, dev)
     else:
         _check("rows", rows, torch.int32, dev, 1)
         _check("chunk_ptr", chunk_ptr, torch.int32, dev, 1)
@@ -348,18 +456,19 @@ def als_normal_equations(table, Bf, FF, lens, cols, vals, *, row_start=0,
     y = torch.empty(R, d, device=dev)
     nume = torch.zeros(R, device=dev)
     deno = torch.zeros(R, device=dev)
-    Nc = 0 if rows is None else cols.shape[0]
+    Nc = 0 if chunk_ptr is None else cols.shape[0]
     # chunk partials of the segment mode: A, y, loss terms, sum of w
     part = [torch.empty(Nc, d, d, device=dev), torch.empty(Nc, d, device=dev),
             torch.empty(Nc, device=dev), torch.empty(Nc, device=dev)] \
         if Nc else [None] * 4
     rc = _kernel("als_normal_equations")(
         _ptr(table), _ptr(Bf), _ptr(FF), _ptr(lens), _ptr(rows),
-        int(row_start), _ptr(chunk_ptr), _ptr(chunk_lens), _ptr(cols),
-        _ptr(vals), cols.shape[1], Nc, *map(_ptr, part), _ptr(A), _ptr(y),
-        _ptr(nume), _ptr(deno), table.shape[0], R, d, float(alpha),
-        float(reg), int(bool(adaptive_reg)), int(bool(item_axis)),
-        float(num_fixed_rows), int(bool(compute_loss)), _stream(dev))
+        0 if rows is not None else int(row_start), _ptr(chunk_ptr),
+        _ptr(chunk_lens), _ptr(cols), _ptr(vals), bf16, cols.shape[1], Nc,
+        *map(_ptr, part), _ptr(A), _ptr(y), _ptr(nume), _ptr(deno),
+        table.shape[0], R, d, float(alpha), float(reg),
+        int(bool(adaptive_reg)), int(bool(item_axis)), float(num_fixed_rows),
+        int(bool(compute_loss)), _stream(dev))
     _raise_on(rc, "als_normal_equations")
     als_normal_equations.launches += 1
     return A, y, nume, deno
@@ -391,8 +500,7 @@ def batched_cg_dense(A, y, table, lens, *, row_start=0, rows=None,
     if tuple(A.shape) != (R, d, d) or table.shape[1] != d \
             or lens.shape[0] != R:
         raise ValueError("shape mismatch in batched_cg_dense")
-    if d > MAX_D:
-        raise ValueError(f"batched_cg_dense supports d <= {MAX_D}, got {d}")
+    _check_width("batched_cg_dense", d, MAX_D)
     if rows is None:
         if row_start < 0 or row_start + R > table.shape[0]:
             raise ValueError("row range past the table")
@@ -408,7 +516,53 @@ def batched_cg_dense(A, y, table, lens, *, row_start=0, rows=None,
 
 batched_cg_dense.launches = 0
 
-KERNELS = (als_cg_matrix_free, als_normal_equations, batched_cg_dense)
+
+def ialspp_solve_batch(table, Bf, FF, lens, cols, vals, *, row_start=0,
+                       rows=None, alpha, reg, adaptive_reg, block_size,
+                       cg_tol, item_axis, num_fixed_rows, compute_loss):
+    """K4: iALS++ block subspace CG for a RangeBatch or PaddedBatch.
+
+    Replaces ``ialspp_solve_batch`` + ``_loss_terms`` + the batch
+    gather/write (``buffalo_tpu/ops/als_kernels.py:174-238,77,343-372``).
+    Updates ``table[row_start:row_start+B]`` or, in rows mode,
+    ``table[rows]`` (ids outside the table skipped) in place and returns
+    the per-row (nume, deno), zeros when ``compute_loss`` is off.
+    """
+    kw = dict(row_start=row_start, rows=rows, alpha=alpha, reg=reg,
+              adaptive_reg=adaptive_reg, block_size=block_size,
+              cg_tol=cg_tol, item_axis=item_axis,
+              num_fixed_rows=num_fixed_rows, compute_loss=compute_loss)
+    if table.device.type == "cpu":
+        return ialspp_solve_batch_plain(table, Bf, FF, lens, cols, vals, **kw)
+    dev = table.device
+    d = _check_tables(table, Bf, FF, dev)
+    _check_width("ialspp_solve_batch", d, MAX_D)
+    if block_size < 1:
+        raise ValueError(f"block_size must be at least 1, got {block_size}")
+    _check("lens", lens, torch.int32, dev, 1)
+    _check("cols", cols, torch.int32, dev, 2)
+    bf16 = _check_vals(vals, dev)
+    _check_rows(lens, cols, row_start, rows, table, dev)
+    B, L = cols.shape
+    nume = torch.zeros(B, device=dev)
+    deno = torch.zeros(B, device=dev)
+    rc = _kernel("ialspp_solve")(
+        _ptr(table), _ptr(Bf), _ptr(FF), _ptr(lens), _ptr(rows),
+        0 if rows is not None else int(row_start), _ptr(cols), _ptr(vals),
+        bf16, _ptr(nume), _ptr(deno), table.shape[0], B, L, d,
+        min(int(block_size), d), float(alpha), float(reg),
+        int(bool(adaptive_reg)),
+        float(cg_tol), int(bool(item_axis)), float(num_fixed_rows),
+        int(bool(compute_loss)), _stream(dev))
+    _raise_on(rc, "ialspp_solve")
+    ialspp_solve_batch.launches += 1
+    return nume, deno
+
+
+ialspp_solve_batch.launches = 0
+
+KERNELS = (als_cg_matrix_free, als_normal_equations, batched_cg_dense,
+           ialspp_solve_batch)
 
 
 # --------------------------------------------------------------- epoch
@@ -430,32 +584,44 @@ def _solve_into(table, A, y, lens, *, optimizer, cg_iters, cg_tol,
         raise ValueError(f"Unknown optimizer: {optimizer}")
 
 
-def _apply_batch(A, Bf, FF, batch, *, optimizer, cg_iters, cg_tol, **common):
-    """Update table ``A`` with one staged batch; per-row (nume, deno)."""
-    if isinstance(batch, RangeBatch):
-        B, L = batch.cols.shape
-        if optimizer in CG_SOLVERS and L <= MATRIX_FREE_MAX_L:
-            return als_cg_matrix_free(
-                A, Bf, FF, batch.row_start, batch.lens, batch.cols,
-                batch.vals, cg_iters=cg_iters, cg_tol=cg_tol, **common)
-        Asys, y, nume, deno = als_normal_equations(
-            A, Bf, FF, batch.lens, batch.cols, batch.vals,
-            row_start=batch.row_start, **common)
-        _solve_into(A, Asys, y, batch.lens, optimizer=optimizer,
-                    cg_iters=cg_iters, cg_tol=cg_tol,
-                    row_start=batch.row_start)
-        return nume, deno
+def _apply_batch(A, Bf, FF, batch, *, optimizer, cg_iters, cg_tol,
+                 block_size, **common):
+    """Update table ``A`` with one staged batch (``data.batching.
+    stage_batch``): a RangeBatch's row range, or a PaddedBatch's or
+    SegmentBatch's rows.  Returns per-row (nume, deno)."""
     if isinstance(batch, StagedSegmentBatch):
+        # iALS++ solves head rows as manual_cg does (als_kernels.py:299)
         Asys, y, nume, deno = als_normal_equations(
             A, Bf, FF, batch.lens, batch.cols, batch.vals, rows=batch.rows,
             chunk_ptr=batch.chunk_ptr, chunk_lens=batch.chunk_lens,
             **common)
-        _solve_into(A, Asys, y, batch.lens, optimizer=optimizer,
+        _solve_into(A, Asys, y, batch.lens,
+                    optimizer="manual_cg" if optimizer == "ialspp"
+                    else optimizer,
                     cg_iters=max(cg_iters, 3), cg_tol=cg_tol,
                     rows=batch.rows)
         return nume, deno
-    raise TypeError(f"unexpected batch type {type(batch).__name__}; "
-                    "stage batches with data.batching.stage_batch")
+    if isinstance(batch, RangeBatch):
+        where = dict(row_start=batch.row_start)
+    elif isinstance(batch, PaddedBatch):
+        where = dict(rows=batch.rows)
+    else:
+        raise TypeError(f"unexpected batch type {type(batch).__name__}; "
+                        "stage batches with data.batching.stage_batch")
+    if optimizer == "ialspp":
+        return ialspp_solve_batch(A, Bf, FF, batch.lens, batch.cols,
+                                  batch.vals, block_size=block_size,
+                                  cg_tol=cg_tol, **where, **common)
+    if optimizer in CG_SOLVERS and batch.cols.shape[1] <= MATRIX_FREE_MAX_L:
+        return als_cg_matrix_free(
+            A, Bf, FF, where.get("row_start", 0), batch.lens, batch.cols,
+            batch.vals, rows=where.get("rows"), cg_iters=cg_iters,
+            cg_tol=cg_tol, **common)
+    Asys, y, nume, deno = als_normal_equations(
+        A, Bf, FF, batch.lens, batch.cols, batch.vals, **where, **common)
+    _solve_into(A, Asys, y, batch.lens, optimizer=optimizer,
+                cg_iters=cg_iters, cg_tol=cg_tol, **where)
+    return nume, deno
 
 
 def _flat(batches) -> Iterator:
@@ -470,36 +636,47 @@ def _flat(batches) -> Iterator:
             yield b
 
 
+def als_half_epoch(A, Bf, batches, *, reg, item_axis, num_fixed_rows,
+                   **common):
+    """One half of an epoch: ``FF = Bf^T Bf``, then every batch of
+    ``batches`` (a list, or an iterable that stages them as it goes, the
+    streaming path) updates its rows of ``A`` in place.  The counterpart
+    of the reference's ``gramian_step`` + ``als_group_step`` loop and of
+    its streaming loop over ``als_batch_step`` (``models/als.py:
+    161-170,212-238``).  Returns the per-row (nume, deno) of every batch,
+    concatenated."""
+    FF = gramian(Bf)
+    numes, denos = [], []
+    for batch in _flat(batches):
+        n, dn = _apply_batch(A, Bf, FF, batch, reg=reg, item_axis=item_axis,
+                             num_fixed_rows=num_fixed_rows, **common)
+        numes.append(n)
+        denos.append(dn)
+    return numes, denos
+
+
 def als_epoch(P, Q, row_batches, col_batches, *, optimizer, alpha, reg_u,
               reg_i, adaptive_reg, cg_iters, cg_tol, block_size,
               compute_loss, num_p_rows=None, num_q_rows=None):
     """One full ALS epoch: gramian + rowwise half + colwise half.
 
     Counterpart of ``buffalo_tpu.ops.als_kernels.als_epoch`` over staged
-    batches (``data.batching.stage_batch``).  P and Q are updated in
-    place (and returned); ``block_size`` belongs to iALS++, which is not
-    ported yet.  Returns (P, Q, nume, deno) with 0-d tensors.
+    batches (``data.batching.stage_batch``) of any layout, or iterables
+    that stage them (``data.batching.DeviceBatcher``).  P and Q are
+    updated in place (and returned).  Returns (P, Q, nume, deno) with 0-d
+    tensors.
     """
-    if optimizer == "ialspp":
-        raise NotImplementedError(IALSPP_TODO)
     common = dict(optimizer=optimizer, alpha=alpha,
                   adaptive_reg=adaptive_reg, cg_iters=cg_iters,
-                  cg_tol=cg_tol, compute_loss=compute_loss)
-    numes, denos = [], []
-    FF = gramian(Q)
-    for batch in _flat(row_batches):
-        n, dn = _apply_batch(P, Q, FF, batch, reg=reg_u, item_axis=False,
-                             num_fixed_rows=num_q_rows or Q.shape[0],
-                             **common)
-        numes.append(n)
-        denos.append(dn)
-    FF = gramian(P)
-    for batch in _flat(col_batches):
-        n, dn = _apply_batch(Q, P, FF, batch, reg=reg_i, item_axis=True,
-                             num_fixed_rows=num_p_rows or P.shape[0],
-                             **common)
-        numes.append(n)
-        denos.append(dn)
+                  cg_tol=cg_tol, block_size=block_size,
+                  compute_loss=compute_loss)
+    numes, denos = als_half_epoch(
+        P, Q, row_batches, reg=reg_u, item_axis=False,
+        num_fixed_rows=num_q_rows or Q.shape[0], **common)
+    n2, d2 = als_half_epoch(
+        Q, P, col_batches, reg=reg_i, item_axis=True,
+        num_fixed_rows=num_p_rows or P.shape[0], **common)
+    numes, denos = numes + n2, denos + d2
     if not numes:
         zero = P.new_zeros(())
         return P, Q, zero, zero

@@ -2,16 +2,21 @@
 
 Drives ``buffalo_tpu_torch`` the way a user would — compiled data,
 ``ALS.initialize/train``, ``topk_recommendation``, ``save``/``load`` —
-at the full width of the ML-20M configuration (138,493 x 26,744,
-~20M interactions, d = 40; synthetic, power-law popularity, made from a
-seed), builds every CUDA kernel of that path from ``buffalo_tpu_torch/
-csrc``, holds each kernel against its plain PyTorch version on real
-batches of the ML-20M layout, and checks that training went through the
-kernels.  Phases, one line each: device, build, layout, kernels (K1 on
-the largest and on the short matrix-free batch; K1, K2 and K3 also at
-d = 13 and 128 on small random batches), epoch profile, path, plain
-path, text path.  Every phase that fails ends the run with a non-zero
-exit; without a card it exits 1 and prints no result.
+on the ML-20M configuration (138,493 x 26,744, ~20M interactions;
+synthetic, power-law popularity, made from a seed) at d = 40 and, on
+iALS++ (chosen at d >= 128), at d = 160; builds every CUDA kernel from
+``buffalo_tpu_torch/csrc``, holds each against its plain PyTorch
+version on real batches of the ML-20M layout, and checks that training
+went through the kernels.  Phases, one line each: device, build, layout,
+kernels (K1 on the largest and the short matrix-free batch, K1 and K2
+in rows mode and on bfloat16 values, K1, K2 and K3 at d = 13 and 128 on
+small random batches), epoch profile, path (d = 40), bf16 path, scatter
+path and stream path (one epoch each against the range layout), plain
+path, ialspp kernels (K4 at d = 160 on three batches, range and rows
+modes, bfloat16, and small random widths up to 256), kernel wide (K2
+and K3 at d = 160), ialspp path (d = 160), text path.  Every phase that
+fails ends the run with a non-zero exit; without a card it exits 1 and
+prints no result.
 
     python3 chip_smoke.py
 
@@ -19,13 +24,13 @@ The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON object with each kernel's launches on the main
 path, its error against the plain version and its times (CUDA events,
 median of 20 runs, batches L2-warm as in the epoch loop) beside the
-bound computed from this run's inputs; the kernel lines of K1 and K3
+bound computed from this run's inputs (K1–K3's launches are the d = 40
+path's, K4's the d = 160 path's); the kernel lines of K1, K3 and K4
 also give the kernel's device time alone (CUPTI through torch.profiler,
-median of 20-22 launches), since events around a short launch also catch
-the wrapper's host work (K2's kernel line also gives the
-segment batch's bound and both bounds at the tensor cores' TF32 rate);
-the last line is
-``{"ok": true, "device": {...}}``.
+median of the 11-22 of 22 launches the trace holds), since events around
+a short launch also catch the wrapper's host work (K2's kernel line also
+gives the segment batch's bound and both bounds at the tensor cores'
+TF32 rate); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,13 @@ ML20M_USERS = 138_493
 ML20M_ITEMS = 26_744
 ML20M_NNZ = 20_000_000
 D = 40
+# the iALS++ path's width: ALS at d >= 128 runs iALS++ with block d (the
+# JAX package's benchmark sweeps ML-20M up to d = 160)
+D_WIDE = 160
+# the streaming path: a device budget the padded epoch (~360 MB of cols
+# and values at d = 40) exceeds, and batches of 256 MB of working set
+# (~0.8M entries, some 30 per half)
+STREAM_RESIDENT_MB, STREAM_BATCH_MB = 64, 256
 # the plain-path epoch: kernels against plain versions at a reduced size
 SMALL_USERS, SMALL_ITEMS, SMALL_NNZ = 20_000, 5_000, 2_000_000
 ALPHA, REG, CG_ITERS, CG_TOL = 8.0, 0.1, 3, 1e-10
@@ -66,6 +78,18 @@ PEAK_TF32_S = 495e12
 # step fewer must fail it.  K3's scatter mode is also held to TOL_X on the
 # dense batch's systems.
 TOL_X, TOL_LOSS, NOISE_FACTOR = 1e-4, 1e-3, 2.0
+# the scatter and streaming layouts against the range layout after one
+# epoch from the same trained factors: the same rows meet the same
+# kernels, and only the gramians' summation order differs (the range
+# layout's tables are permuted and padded), which three CG steps amplify
+# to float32's noise: factors within 1e-3 (relative Frobenius norm), the
+# loss terms (of the shared starting factors) within 1e-5.  From the
+# |N(0, 1/d^2)| start the warm start's choice flips on rounding, and two
+# float32 orders there differ by tens of percent (float64 agrees)
+TOL_LAYOUT_X, TOL_LAYOUT_LOSS = 1e-3, 1e-5
+# bfloat16 values against float32 after 4 epochs: the JAX package's own
+# tolerance on the final loss (tests/models/test_als.py:215-223)
+TOL_BF16_LOSS = 5e-3
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -116,15 +140,16 @@ def epoch_kw(num_users, num_items):
                 num_q_rows=num_items)
 
 
-def range_layout(data, num_users, num_items, seed):
-    """``data``'s range layout (host batches of the user and the item
-    half) and random factor tables in its row order, |N(0, 1/D^2)| from
-    ``seed``, users first: (row batches, col batches, P, Q), numpy."""
+def range_layout(data, num_users, num_items, seed, d=D):
+    """``data``'s range layout at width ``d`` (host batches of the user and
+    the item half) and random factor tables in its row order,
+    |N(0, 1/d^2)| from ``seed``, users first: (row batches, col batches,
+    P, Q), numpy."""
     from buffalo_tpu_torch.data.batching import (DeviceBatcher,
                                                  build_range_layout,
                                                  permute_table)
 
-    b = {g: DeviceBatcher(data, g, batch_mb=1024, d=D)
+    b = {g: DeviceBatcher(data, g, batch_mb=1024, d=d)
          for g in ("rowwise", "colwise")}
     row_b, col_b, u_pos, i_pos, u_pad, i_pad = build_range_layout(
         b["rowwise"].planner, b["colwise"].planner, b["rowwise"].key,
@@ -132,7 +157,7 @@ def range_layout(data, num_users, num_items, seed):
     rng = np.random.default_rng(seed)
 
     def table(n, pos, pad):
-        t = np.abs(rng.normal(scale=1.0 / D ** 2, size=(n, D)))
+        t = np.abs(rng.normal(scale=1.0 / d ** 2, size=(n, d)))
         return permute_table(t.astype(np.float32), pos, pad)
 
     P = table(num_users, u_pos, u_pad)
@@ -143,8 +168,9 @@ def pick_batches(row_b, col_b):
     """The batches of the kernel lines, {kind: (half, index)}: K1's
     ``largest`` matrix-free batch (most padded entries) and its ``short``
     one (L <= 32: one entry slot per lane, the most rows), the ``dense``
-    batch nearest L = 1024 and the ``segment`` batch with the most padded
-    entries (K2 and K3)."""
+    batch nearest L = 1024, the ``longest`` range batch and the
+    ``segment`` batch with the most padded entries (K2 and K3; K4 takes
+    the range batches)."""
     from buffalo_tpu_torch.data.batching import MATRIX_FREE_MAX_L, RangeBatch
 
     def is_range(b, lo, hi):
@@ -156,6 +182,8 @@ def pick_batches(row_b, col_b):
         "short": (lambda b: is_range(b, 0, 32), lambda b: b.cols.shape[0]),
         "dense": (lambda b: is_range(b, MATRIX_FREE_MAX_L, 1 << 30),
                   lambda b: -abs(b.cols.shape[1] - 1024)),
+        "longest": (lambda b: is_range(b, MATRIX_FREE_MAX_L, 1 << 30),
+                    lambda b: b.cols.shape[1]),
         "segment": (lambda b: not isinstance(b, RangeBatch),
                     lambda b: int(np.prod(b.cols.shape))),
     }
@@ -283,9 +311,10 @@ def device_ms(fn, name, reps=20, warmup=3):
     """Median device milliseconds of the kernel ``name`` launched by
     ``fn``, over the ``reps`` or more calls traced by torch.profiler
     (CUPTI): the kernel's own time, without the wrapper's host work that
-    CUDA events around the call also catch.  The trace can miss a
-    launch of a few-µs kernel (on the H100 it once held 19 of 20 of K3's),
-    so it holds two calls more than the median needs."""
+    CUDA events around the call also catch.  The trace can miss launches
+    of a short kernel (on the H100 it has held 19 of 20 and 19 of 22 of
+    K3's), so it holds two calls more than the median needs and takes the
+    median of those it saw, at least half of them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -299,8 +328,8 @@ def device_ms(fn, name, reps=20, warmup=3):
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and name in e.name]
-    check(reps <= len(us) <= reps + 2, f"profiler saw {len(us)} launches "
-          f"of {name}, expected {reps} to {reps + 2}")
+    check(reps // 2 <= len(us) <= reps + 2, f"profiler saw {len(us)} "
+          f"launches of {name}, expected {reps // 2} to {reps + 2}")
     return float(np.median(us)) / 1e3
 
 
@@ -361,6 +390,46 @@ def k1_work(batch, d):
     return real, nnz, nbytes, flops
 
 
+def ialspp_work(batch, vals, d, block_size, item_axis):
+    """(real rows, entries, bytes, operations) K4's function needs on one
+    batch: lens, cols, vals and the distinct gathered rows read once, p
+    read and written for the real rows, FF read, the loss terms written;
+    per row Yui (2 n d) and, on the item axis, p FF p (2 d^2); per block
+    of width w, b (2 d w + 2 n w), CG_ITERS steps of a matvec (2 w^2 +
+    4 n w) and the vector work (10 w), and the Yui update (2 n w) except
+    after the last block."""
+    import torch
+
+    B, L = batch.cols.shape
+    lens = batch.lens.long()
+    real, nnz = int((lens > 0).sum()), int(lens.sum())
+    valid = torch.arange(L, device=lens.device)[None, :] < lens[:, None]
+    nbytes = (4 * B + (4 + vals.element_size()) * nnz
+              + gathered_bytes(batch.cols[valid], d) + 8 * real * d
+              + 4 * d * d + 8 * B)
+    flops = 2 * nnz * d + (2 * real * d * d if item_axis else 0)
+    for beg in range(0, d, block_size):
+        w = min(block_size, d - beg)
+        flops += (2 * d * w * real + 2 * nnz * w
+                  + CG_ITERS * (2 * w * w * real + 4 * nnz * w + 10 * w * real)
+                  + (2 * nnz * w if beg + w < d else 0))
+    return real, nnz, nbytes, flops
+
+
+def rows_mode(torch, lens, row_start, n):
+    """A PaddedBatch's view of a range batch's rows: the ids in reverse,
+    two of every 97 replaced by a padding id (``n``, the table's row count, or
+    ``1 << 30``) whose row is emptied, as the planner pads: (rows, lens,
+    table rows written)."""
+    R = len(lens)
+    rows = torch.arange(row_start + R - 1, row_start - 1, -1,
+                        dtype=torch.int32, device=lens.device)
+    rows[1::97] = n
+    rows[2::97] = 1 << 30
+    lens = torch.where(rows >= n, torch.zeros_like(lens), lens)
+    return rows, lens, rows.long()[(lens > 0)]
+
+
 def layout_stats(batches):
     """Rows, padded entries and batches of each solve path of one half."""
     from buffalo_tpu_torch.data.batching import MATRIX_FREE_MAX_L, RangeBatch
@@ -391,8 +460,9 @@ def kernel_name(key):
 
 def profile_epoch(torch, K, P, Q, row_s, col_s, kw):
     """Device time of one training epoch by kernel name (torch.profiler
-    over CUPTI), its sum, the epoch's wall time and the device's idle
-    share of it."""
+    over CUPTI), the device's busy time (the union of its activities'
+    intervals: kernels, copies and fills, overlapping ones counted once),
+    the epoch's wall time and the device's idle share of it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -402,15 +472,18 @@ def profile_epoch(torch, K, P, Q, row_s, col_s, kw):
         K.als_epoch(P, Q, row_s, col_s, **kw)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - st)
-    by_name = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0:
-            name = kernel_name(evt.key)
-            by_name[name] = by_name.get(name, 0.0) + us / 1e3
-    busy_ms = sum(by_name.values())
+    by_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = kernel_name(e.name)
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        spans.append((e.time_range.start, e.time_range.end))
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    busy_ms = busy_us / 1e3
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return dict(wall_ms=wall_ms,
                 device_busy_ms=busy_ms if busy_ms else "not measured",
@@ -572,8 +645,11 @@ def cg_widths(torch, K, dev):
 
 def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
                  num_items):
-    """Each kernel against its plain version on ML-20M layout batches;
-    returns the kernels' JSON entries (launches filled in later)."""
+    """Each kernel against its plain version on ML-20M layout batches, K1
+    and K2 also in rows mode (a PaddedBatch's reversed ids with padding)
+    and on bfloat16 values; returns the kernels' JSON entries (launches
+    filled in later) and K1's and K2's device ms on float32 and bfloat16
+    values."""
     from buffalo_tpu_torch.data.batching import StagedSegmentBatch
 
     d = P.shape[1]
@@ -627,18 +703,62 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
                     tol=TOL_X, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by)
 
-    # ---- K1 on the largest matrix-free batch and on the short one
+    def variants(mb, run, name, n_table):
+        """``run(lens, vals, where, plain)`` -> (outputs, nume, deno) of K1
+        (the table after the solve) or K2 (A and y) on batch ``mb``, in
+        rows mode and on bfloat16 values, against the plain version: the
+        outputs to TOL_X, the loss terms to TOL_LOSS; the kernel
+        ``name``'s device ms on float32 and bfloat16 values and in rows
+        mode."""
+        out = {}
+        rows, lens_r, _ = rows_mode(torch, mb.lens, mb.row_start, n_table)
+        vals16 = mb.vals.to(torch.bfloat16)
+        for tag, lens, vals, where in (
+                ("rows", lens_r, mb.vals, dict(rows=rows)),
+                ("bf16", mb.lens, vals16, dict(row_start=mb.row_start))):
+            ref, n_ref, d_ref = run(lens, vals, where, True)
+            got, n_got, d_got = run(lens, vals, where, False)
+            errs = [rel_err(g, r) for g, r in zip(got, ref)]
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            loss = max(rel_err(n_got.sum(), n_ref.sum())[1],
+                       rel_err(d_got.sum(), d_ref.sum())[1])
+            check(rel <= TOL_X and loss <= TOL_LOSS,
+                  f"{name} ({tag}) disagrees with its plain version: "
+                  f"{rel:.3g}, loss {loss:.3g}")
+            out[tag] = dict(max_abs_err=err, rel_err=rel, loss_rel_err=loss)
+        where = dict(row_start=mb.row_start)
+        out["device_ms_f32"] = device_ms(
+            lambda: run(mb.lens, mb.vals, where, False), name)
+        out["device_ms_bf16"] = device_ms(
+            lambda: run(mb.lens, vals16, where, False), name)
+        out["device_ms_rows"] = device_ms(
+            lambda: run(lens_r, mb.vals, dict(rows=rows), False), name)
+        return out
+
+    # ---- K1 on the largest matrix-free batch and on the short one, and
+    # in rows mode and on bfloat16 values on the largest
     k1 = k1_batch(mf_half, mf)
     k1_short = k1_batch(sh_half, sh)
     cg_w = cg_widths(torch, K, P.device)
+    table, Bf, FF, kw = args(mf_half)
+
+    def run_k1(lens, vals, where, plain):
+        t = table.clone()
+        fn = K.als_cg_matrix_free_plain if plain else K.als_cg_matrix_free
+        nume, deno = fn(t, Bf, FF, where.get("row_start", 0), lens, mf.cols,
+                        vals, rows=where.get("rows"), **cg, **kw)
+        return [t], nume, deno
+    k1_modes = variants(mf, run_k1, "als_cg_matrix_free", table.shape[0])
     entries["als_cg_matrix_free"] = dict(
         route="cuda", source="buffalo_tpu_torch/csrc/als_cg_matrix_free.cu",
         replaces="buffalo_tpu/ops/als_kernels.py:103",
-        max_abs_err=max(k1["max_abs_err"], k1_short["max_abs_err"]),
+        max_abs_err=max(k1["max_abs_err"], k1_short["max_abs_err"],
+                        k1_modes["rows"]["max_abs_err"],
+                        k1_modes["bf16"]["max_abs_err"]),
         ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=None)
     phase("kernel", name="als_cg_matrix_free", **k1, short=k1_short,
-          widths=cg_w)
+          widths=cg_w, modes=k1_modes)
 
     # ---- K2 on the dense batch nearest L = 1024, and on a segment batch
     table, Bf, FF, kw = args(dn_half)
@@ -693,6 +813,14 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
                                d, sg_kw["item_axis"], 12 * Rs + 4 + 4 * Nc)
     seg_bms, seg_by = bound_ms(s_bytes, s_flops)
     widths = k2_widths(torch, K, Bf.device)
+
+    def run_k2(lens, vals, where, plain):
+        A, y, nume, deno = (K.als_normal_equations_plain if plain
+                            else K.als_normal_equations)(
+            table, Bf, FF, lens, dn.cols, vals, **where, **kw)
+        return [A, y], nume, deno
+    k2_modes = variants(dn, run_k2, "als_normal_equations_range",
+                        table.shape[0])
     entries["als_normal_equations"] = dict(
         route="cuda", source="buffalo_tpu_torch/csrc/als_normal_equations.cu",
         replaces="buffalo_tpu/ops/als_kernels.py:65",
@@ -709,7 +837,7 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
                        rel_err_y=rel_sy, loss_rel_err=loss_rel_s,
                        ms=seg_ms, bound_ms=seg_bms, bound_by=seg_by,
                        bound_tf32_ms=bound_tf32_ms(s_bytes, s_flops)),
-          widths=widths)
+          widths=widths, modes=k2_modes)
 
     # ---- K3 on the dense batch's systems (range write) and the segment
     # batch's (scatter write, padding ids skipped)
@@ -751,6 +879,8 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
     err_sc, rel_sc = rel_err(outs[0], outs[1])
     check(rel_sc <= TOL_X and bool((outs[0] != table).any()),
           f"K3 scatter mode disagrees with its plain version: {rel_sc:.3g}")
+    scatter_dev_ms = device_ms(lambda: K.batched_cg_dense(
+        A, y, outs[0], dn.lens, rows=rows, **cg), "batched_cg_dense")
     del outs
     scratch = table.clone()
 
@@ -765,6 +895,12 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
     nbytes = 4 * B + real * (4 * d * d + 4 * d + 8 * d)
     flops = real * ((1 + CG_ITERS) * 2 * d * d + CG_ITERS * 10 * d)
     bms, by = bound_ms(nbytes, flops)
+    # the llt / ldlt path's solve of the same systems (torch.linalg, so a
+    # library call, no hand kernel): A and y read, x written; d^3 / 3
+    # operations to factor and 2 d^2 for the two triangular solves
+    chol = dict(ms=time_ms(lambda: K.solve_cholesky(A, y)))
+    chol["bound_ms"], chol["bound_by"] = bound_ms(
+        B * 4 * (d * d + 2 * d), B * (d ** 3 / 3 + 2 * d * d))
     entries["batched_cg_dense"] = dict(
         route="cuda", source="buffalo_tpu_torch/csrc/batched_cg_dense.cu",
         replaces="buffalo_tpu/ops/solve.py:83",
@@ -773,11 +909,247 @@ def kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s, num_users,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
     phase("kernel", name="batched_cg_dense", half=dn_half, B=B,
           real_rows=real, **k3, segment=k3_s,
-          scatter=dict(max_abs_err=err_sc, rel_err=rel_sc), tol=TOL_X,
+          scatter=dict(max_abs_err=err_sc, rel_err=rel_sc,
+                       device_ms=scatter_dev_ms), tol=TOL_X,
           noise_factor=NOISE_FACTOR, ms=ms, device_ms=dev_ms,
-          plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+          plain_ms=plain_ms, bound_ms=bms, bound_by=by, cholesky=chol)
     torch.cuda.synchronize()
-    return entries
+    bf16_ms = {name: {k: v for k, v in modes.items()
+                      if k in ("device_ms_f32", "device_ms_bf16")}
+               for name, modes in (("K1", k1_modes), ("K2", k2_modes))}
+    return entries, bf16_ms
+
+
+def ialspp_widths(torch, K, dev):
+    """K4 against its plain version on small random batches (B 257 rows of
+    up to 300 entries with empty and one-entry rows, item half, signed
+    factors): d = 13 (one block, 4-byte gather), 64 in blocks of 32 (two
+    blocks), 150 in blocks of 32 (a 22-wide tail block) and 256 (the
+    widest, F streamed through the tile); each held by ``floor_check``,
+    which the plain solve with one CG step fewer must fail, and its loss
+    terms to TOL_LOSS."""
+    out = {}
+    for d, block in ((13, 13), (64, 32), (150, 32), (256, 256)):
+        rng = np.random.default_rng(200 + d)
+        n, m, B, L = 2000, 5000, 257, 300
+
+        def tensor(a, dtype=torch.float32):
+            return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                device=dev)
+
+        table = tensor(rng.normal(size=(n, d)) * 0.3)
+        Bf = tensor(rng.normal(size=(m, d)) * 0.3 / np.sqrt(m / 200))
+        FF = Bf.T @ Bf
+        lens = rng.integers(1, L + 1, size=B)
+        lens[[0, 100]] = 0
+        lens[1] = 1
+        mask = np.arange(L)[None, :] < lens[:, None]
+        lens_t = tensor(lens, torch.int32)
+        cols = tensor(np.where(mask, rng.integers(0, m, size=(B, L)), 0),
+                      torch.int32)
+        vals = tensor(np.where(mask, 1.0 + rng.integers(0, 5, (B, L)), 0.0))
+        kw = dict(alpha=ALPHA, reg=REG, adaptive_reg=False, item_axis=True,
+                  num_fixed_rows=m, compute_loss=True, block_size=block,
+                  cg_tol=CG_TOL, row_start=7)
+        out[f"d{d}_block{block}"] = k4_check(
+            K, table, Bf, FF, lens_t, cols, vals,
+            torch.arange(7, 7 + B, device=dev)[lens_t > 0],
+            f"d = {d}, block {block}", **kw)
+    torch.cuda.synchronize()
+    return out
+
+
+def k4_check(K, table, Bf, FF, lens, cols, vals, written, what, **kw):
+    """K4 against its plain version on one batch: the rows ``written``
+    held by ``floor_check`` (which the plain solve with one CG step fewer
+    must fail), the loss terms to TOL_LOSS.  Returns the readings."""
+    ok, fields, weak = floor_check(
+        lambda t: K.ialspp_solve_batch(t, Bf, FF, lens, cols, vals, **kw),
+        lambda t, steps: K.ialspp_solve_batch_plain(
+            t, Bf.to(t.dtype), FF.to(t.dtype), lens, cols, vals,
+            steps=steps, **kw),
+        table, written)
+    n_ref, d_ref = K.ialspp_solve_batch_plain(table.clone(), Bf, FF, lens,
+                                              cols, vals, **kw)
+    n_got, d_got = K.ialspp_solve_batch(table.clone(), Bf, FF, lens, cols,
+                                        vals, **kw)
+    loss = max(rel_err(n_got.sum(), n_ref.sum())[1],
+               rel_err(d_got.sum(), d_ref.sum())[1])
+    check(ok and loss <= TOL_LOSS, f"K4 ({what}) disagrees with its plain "
+          f"version: {fields}, loss {loss:.3g}")
+    check(not weak, f"K4's check ({what}) passes one CG step fewer: "
+          f"{fields}")
+    return dict(fields, loss_rel_err=loss)
+
+
+def wide_kernel_phase(torch, K, data, dev):
+    """iALS++ at d = D_WIDE on the ML-20M layout (random |N(0, 1/d^2)|
+    tables, seed 17, then one iALS++ epoch: from the random start A is
+    nearly reg I plus a rank-one term, where 2 CG steps are exact and no
+    check could show its power; the next epoch is profiled): K4 against
+    its plain version on the largest
+    matrix-free batch, the dense batch nearest L = 1024 and the longest
+    range batch, each in range mode, in rows mode and on bfloat16 values,
+    held by ``floor_check`` (which the plain solve with one CG step fewer
+    must fail) and its loss terms to TOL_LOSS, with its times and bound;
+    the small random cases of ``ialspp_widths``; then K2 and K3 at
+    d = D_WIDE on the dense and segment batches (``wide_k2_k3``).  Returns
+    K4's kernel-line entry."""
+    from buffalo_tpu_torch.data.batching import stage_batch
+
+    d = D_WIDE
+    st = time.perf_counter()
+    row_b, col_b, P, Q = range_layout(data, ML20M_USERS, ML20M_ITEMS,
+                                      seed=17, d=d)
+    layout_s = time.perf_counter() - st
+    picked = pick_batches(row_b, col_b)
+    P, Q = torch.from_numpy(P).to(dev), torch.from_numpy(Q).to(dev)
+    row_s = [stage_batch(b, dev) for b in row_b]
+    col_s = [stage_batch(b, dev) for b in col_b]
+    kw_w = dict(epoch_kw(ML20M_USERS, ML20M_ITEMS), optimizer="ialspp",
+                block_size=d)
+    st = time.perf_counter()
+    K.als_epoch(P, Q, row_s, col_s, **kw_w)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - st
+    # the next epoch profiled, from a copy of the trained tables
+    profile = profile_epoch(torch, K, P.clone(), Q.clone(), row_s, col_s,
+                            kw_w)
+    halves = {"rowwise": (P, Q, row_s, False, ML20M_ITEMS),
+              "colwise": (Q, P, col_s, True, ML20M_USERS)}
+
+    def args(half):
+        table, Bf, _, item_axis, n_fixed = halves[half]
+        return table, Bf, Bf.T @ Bf, dict(
+            alpha=ALPHA, reg=REG, adaptive_reg=False, item_axis=item_axis,
+            num_fixed_rows=n_fixed, compute_loss=True)
+
+    out, worst = {}, 0.0
+    for kind in ("largest", "dense", "longest"):
+        half, i = picked[kind]
+        mb = halves[half][2][i]
+        table, Bf, FF, kw = args(half)
+        B, L = mb.cols.shape
+        res = dict(half=half, B=B, L=L)
+        for mode, bf16 in (("range", False), ("rows", False),
+                           ("range", True)):
+            vals = mb.vals.to(torch.bfloat16) if bf16 else mb.vals
+            if mode == "rows":
+                rows, lens, written = rows_mode(torch, mb.lens, mb.row_start,
+                                                table.shape[0])
+                where = dict(rows=rows)
+            else:
+                lens, where = mb.lens, dict(row_start=mb.row_start)
+                written = torch.arange(mb.row_start, mb.row_start + B,
+                                       device=dev)[lens > 0]
+            tag = mode + ("_bf16" if bf16 else "")
+            res[tag] = k4_check(K, table, Bf, FF, lens, mb.cols, vals,
+                                written, f"{kind}, {tag}", block_size=d,
+                                cg_tol=CG_TOL, **where, **kw)
+            worst = max(worst, res[tag]["max_abs_err"])
+        scratch = table.clone()
+        vals16 = mb.vals.to(torch.bfloat16)
+
+        def run(vals=mb.vals):
+            K.ialspp_solve_batch(scratch, Bf, FF, mb.lens, mb.cols, vals,
+                                 row_start=mb.row_start, block_size=d,
+                                 cg_tol=CG_TOL, **kw)
+
+        res["ms"] = time_ms(run)
+        res["device_ms"] = device_ms(run, "ialspp_solve_kernel")
+        res["device_ms_bf16"] = device_ms(lambda: run(vals16),
+                                          "ialspp_solve_kernel")
+        res["plain_ms"] = time_ms(lambda: K.ialspp_solve_batch_plain(
+            scratch, Bf, FF, mb.lens, mb.cols, mb.vals,
+            row_start=mb.row_start, block_size=d, cg_tol=CG_TOL, **kw),
+            reps=5, warmup=1)
+        real, nnz, nbytes, flops = ialspp_work(mb, mb.vals, d, d,
+                                               kw["item_axis"])
+        res.update(real_rows=real, entries=nnz)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+        out[kind] = res
+        del mb, scratch
+    phase("ialspp_kernels", d=d, block_size=d, layout_seconds=layout_s,
+          first_epoch_seconds=epoch_s, epoch_profile=profile,
+          tol=TOL_X, noise_factor=NOISE_FACTOR, **out,
+          widths=ialspp_widths(torch, K, dev))
+    wide_k2_k3(torch, K, picked, halves, args, dev)
+    dense = out["dense"]
+    return dict(route="cuda", source="buffalo_tpu_torch/csrc/ialspp_solve.cu",
+                replaces="buffalo_tpu/ops/als_kernels.py:174",
+                max_abs_err=worst, ms=dense["ms"],
+                plain_ms=dense["plain_ms"], bound_ms=dense["bound_ms"],
+                bound_by=dense["bound_by"], library_ms=None)
+
+
+def wide_k2_k3(torch, K, picked, halves, args, dev):
+    """K2 and K3 at d = D_WIDE, where K2 passes over the entries twice and
+    builds A in its output: K2 on the dense and segment batches against
+    its plain version (A and y to TOL_X, loss terms to TOL_LOSS), K3 on
+    their systems held by ``floor_check``; K2's and K3's times on the
+    dense batch."""
+    cg = dict(cg_iters=CG_ITERS, cg_tol=CG_TOL)
+    res = {}
+    for kind in ("dense", "segment"):
+        half, i = picked[kind]
+        b = halves[half][2][i]
+        table, Bf, FF, kw = args(half)
+        if kind == "dense":
+            where = dict(row_start=b.row_start)
+            idx = torch.arange(b.row_start, b.row_start + len(b.lens),
+                               device=dev)
+        else:
+            where = dict(rows=b.rows, chunk_ptr=b.chunk_ptr,
+                         chunk_lens=b.chunk_lens)
+            idx = b.rows.long()
+        ref = K.als_normal_equations_plain(table, Bf, FF, b.lens, b.cols,
+                                           b.vals, **where, **kw)
+        got = K.als_normal_equations(table, Bf, FF, b.lens, b.cols, b.vals,
+                                     **where, **kw)
+        rel = max(rel_err(got[0], ref[0])[1], rel_err(got[1], ref[1])[1])
+        loss = max(rel_err(got[2].sum(), ref[2].sum())[1],
+                   rel_err(got[3].sum(), ref[3].sum())[1])
+        check(rel <= TOL_X and loss <= TOL_LOSS, f"K2 at d = {D_WIDE} "
+              f"({kind}) disagrees with its plain version: A/y {rel:.3g}, "
+              f"loss {loss:.3g}")
+        # K3 on the kernel's systems (the plain segment sum adds with
+        # atomics on the card), rows with entries and ids in the table
+        A, y = got[0], got[1]
+        solve_at = {k: v for k, v in where.items() if k in ("row_start",
+                                                             "rows")}
+        keep = (b.lens > 0) & (idx < table.shape[0])
+        ok, k3, weak = floor_check(
+            lambda t: K.batched_cg_dense(A, y, t, b.lens, **solve_at, **cg),
+            lambda t, iters: K.batched_cg_dense_plain(
+                A.to(t.dtype), y.to(t.dtype), t, b.lens, **solve_at,
+                cg_iters=iters, cg_tol=CG_TOL),
+            table, idx[keep])
+        check(ok, f"K3 at d = {D_WIDE} ({kind}) disagrees with its plain "
+              f"version: {k3}")
+        check(not weak, f"K3's check at d = {D_WIDE} ({kind}) passes one "
+              f"CG step fewer: {k3}")
+        res[kind] = dict(half=half, rows=int((b.lens > 0).sum()),
+                         shape=list(b.cols.shape), k2_rel_err_Ay=rel,
+                         k2_loss_rel_err=loss, k3=k3)
+        if kind == "dense":
+            scratch = table.clone()
+            res[kind].update(
+                k2_ms=time_ms(lambda: K.als_normal_equations(
+                    table, Bf, FF, b.lens, b.cols, b.vals, **where, **kw)),
+                k2_device_ms=device_ms(lambda: K.als_normal_equations(
+                    table, Bf, FF, b.lens, b.cols, b.vals, **where, **kw),
+                    "als_normal_equations_range"),
+                k3_device_ms=device_ms(lambda: K.batched_cg_dense(
+                    A, y, scratch, b.lens, **solve_at, **cg),
+                    "batched_cg_dense"))
+        else:
+            res[kind]["k2_ms"] = time_ms(lambda: K.als_normal_equations(
+                table, Bf, FF, b.lens, b.cols, b.vals, **where, **kw),
+                reps=5, warmup=1)
+        del b, A, y, ref, got
+    phase("kernel_wide", d=D_WIDE, tol=TOL_X, noise_factor=NOISE_FACTOR,
+          **res)
+    torch.cuda.synchronize()
 
 
 class PlainPath:
@@ -837,6 +1209,164 @@ class PlainPath:
                 dict(P=eP, Q=eQ, loss_rel_err=e_loss))
 
 
+def als_opt(bt, **kw):
+    """ALS options of this script's runs (``manual_cg``, chosen as iALS++
+    at d >= 128), on the card, with ``kw`` on top."""
+    opt = bt.ALSOption().get_default_option()
+    opt.update(optimizer="manual_cg", alpha=ALPHA, reg_u=REG, reg_i=REG,
+               num_cg_max_iters=CG_ITERS, compute_loss_on_training=True,
+               device="cuda")
+    opt.update(kw)
+    return opt
+
+
+def train_path(bt, K, torch, data, opt, start=None):
+    """A model of ``opt`` on ``data`` from the factors of seed 0 (or the
+    copies of ``start``'s (P, Q)), trained with every kernel's count set
+    to 0 just before: (model, per-epoch metrics, launches, peak device
+    MB, train seconds)."""
+    als = bt.ALS(opt, data=data)
+    np.random.seed(0)
+    als.initialize()
+    if start is not None:
+        als.P, als.Q = start[0].copy(), start[1].copy()
+    epochs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in K.KERNELS:
+        kern.launches = 0
+    st = time.perf_counter()
+    res = als.train(training_callback=lambda i, m: epochs.append(m))
+    train_s = time.perf_counter() - st
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    if not epochs:  # no validation: the result holds the last loss
+        epochs = [{"train_loss": res["train_loss"]}]
+    return (als, epochs, launches,
+            torch.cuda.max_memory_allocated() / 2 ** 20, train_s)
+
+
+def check_training(als, epochs, launches, kernels, num_epochs, d):
+    """Losses finite and falling, the path's kernels launched, factors of
+    the data's shape and finite."""
+    losses = [m["train_loss"] for m in epochs]
+    check(len(losses) == num_epochs and all(np.isfinite(losses)),
+          f"train_loss not finite: {losses}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"train_loss not falling after epoch 1: {losses}")
+    check(all(launches[k.__name__] > 0 for k in kernels),
+          f"a kernel of the path never launched: {launches}")
+    check(als.P.shape == (ML20M_USERS, d) and np.isfinite(als.P).all()
+          and np.isfinite(als.Q).all(), "trained factors not finite")
+    return losses
+
+
+def topk_check(als):
+    """Top-10 for 1,000 users through the entry point: (host ms, share of
+    users whose top-10 equals numpy's)."""
+    users = [str(u) for u in range(1000)]
+    als.topk_recommendation(users[:10], topk=10)  # warm
+    st = time.perf_counter()
+    recs = als.topk_recommendation(users, topk=10)
+    topk_ms = 1e3 * (time.perf_counter() - st)
+    check(len(recs) == 1000 and all(
+        len(set(v)) == 10 and all(0 <= int(i) < ML20M_ITEMS for i in v)
+        for v in recs.values()), "top-10 recommendations malformed")
+    p, q = als.P[:1000], als.Q
+    best = np.argsort(-(p @ q.T), axis=1, kind="stable")[:, :10]
+    same = float(np.mean([set(map(int, recs[str(u)])) == set(best[u])
+                          for u in range(1000)]))
+    check(same >= 0.99, f"top-10 differs from numpy for {1 - same:.3f}")
+    return topk_ms, same
+
+
+def per_epoch(launches, epochs):
+    return {k: v / epochs for k, v in launches.items()}
+
+
+def layout_paths(bt, K, torch, data, dev, start):
+    """One epoch at d = D from the same trained factors ``start`` in the
+    range layout, the scatter layout (``range_layout=False``) and the streaming
+    path (``resident_mb`` STREAM_RESIDENT_MB, ``batch_mb``
+    STREAM_BATCH_MB), the last two held to the first (factors to
+    TOL_LAYOUT_X, relative Frobenius norm; loss to TOL_LAYOUT_LOSS); then
+    one streaming epoch from the trained factors, profiled (device idle
+    share, bytes copied to the card)."""
+    from buffalo_tpu_torch.data.batching import DeviceBatcher
+
+    runs = {}
+    data_opt = data.opt.data
+    had = "batch_mb" in data_opt
+    saved = data_opt.get("batch_mb")
+    try:
+        for name, extra in (("range", {}),
+                            ("scatter", dict(range_layout=False)),
+                            ("stream", dict(resident_mb=STREAM_RESIDENT_MB))):
+            if name == "stream":
+                data_opt["batch_mb"] = STREAM_BATCH_MB
+            als, epochs, launches, peak_mb, train_s = train_path(
+                bt, K, torch, data, als_opt(bt, d=D, num_iters=1, **extra),
+                start=start)
+            runs[name] = dict(P=als.P, Q=als.Q,
+                              loss=epochs[-1]["train_loss"],
+                              epoch_seconds=als.iteration_times[0],
+                              h2d_bytes=als.h2d_bytes, launches=launches,
+                              max_memory_allocated_mb=peak_mb)
+            del als
+    finally:
+        if had:
+            data_opt["batch_mb"] = saved
+        else:
+            data_opt.pop("batch_mb", None)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a.astype(np.float64) - b)
+                     / np.linalg.norm(b.astype(np.float64)))
+
+    base = runs["range"]
+    out = {}
+    for name in ("scatter", "stream"):
+        r = runs[name]
+        fields = dict(P_rel=rel(r["P"], base["P"]), Q_rel=rel(r["Q"], base["Q"]),
+                      loss=r["loss"], range_loss=base["loss"],
+                      loss_rel=abs(r["loss"] / base["loss"] - 1))
+        check(fields["P_rel"] <= TOL_LAYOUT_X
+              and fields["Q_rel"] <= TOL_LAYOUT_X
+              and fields["loss_rel"] <= TOL_LAYOUT_LOSS,
+              f"the {name} layout's epoch differs from the range layout's: "
+              f"{fields}")
+        check(all(r["launches"][k.__name__] > 0 for k in
+                  (K.als_cg_matrix_free, K.als_normal_equations,
+                   K.batched_cg_dense)),
+              f"a kernel of the {name} path never launched: {r['launches']}")
+        out[name] = dict(fields, epoch_seconds=r["epoch_seconds"],
+                         range_epoch_seconds=base["epoch_seconds"],
+                         launches=r["launches"],
+                         max_memory_allocated_mb=r["max_memory_allocated_mb"])
+    check(runs["stream"]["h2d_bytes"] > 0, "the stream path staged nothing")
+    out["stream"]["h2d_bytes_first_epoch"] = runs["stream"]["h2d_bytes"]
+
+    # one more streaming epoch from the trained factors, profiled
+    rb, cb = (DeviceBatcher(data, g, batch_mb=STREAM_BATCH_MB,
+                            resident_mb=STREAM_RESIDENT_MB, d=D, device=dev)
+              for g in ("rowwise", "colwise"))
+    check(not rb.resident and not cb.resident,
+          "the streaming batchers hold the epoch resident")
+    P = torch.from_numpy(runs["stream"]["P"]).to(dev)
+    Q = torch.from_numpy(runs["stream"]["Q"]).to(dev)
+    prof = profile_epoch(torch, K, P, Q, rb, cb,
+                         epoch_kw(ML20M_USERS, ML20M_ITEMS))
+    out["stream"].update(profiled_epoch=prof,
+                         h2d_bytes_per_epoch=rb.h2d_bytes + cb.h2d_bytes,
+                         batches_per_half=[rb.num_batches, cb.num_batches],
+                         resident_mb=STREAM_RESIDENT_MB,
+                         batch_mb=STREAM_BATCH_MB)
+    tol = dict(tol_factors=TOL_LAYOUT_X, tol_loss=TOL_LAYOUT_LOSS)
+    phase("scatter_path", d=D, epochs=1, **out["scatter"], **tol)
+    phase("stream_path", d=D, epochs=1, **out["stream"], **tol)
+    del P, Q
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -871,6 +1401,8 @@ def main() -> int:
                           for ln in fh if "registers" in ln or "spill" in ln]
     phase("build", seconds=time.perf_counter() - st, dir=out, ptxas=regs)
 
+    narrow = (K.als_cg_matrix_free, K.als_normal_equations,
+              K.batched_cg_dense)
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
@@ -906,8 +1438,8 @@ def main() -> int:
               nnz=header["num_nnz"], data_seconds=data_s,
               layout_seconds=layout_s, rowwise=layout_stats(row_b),
               colwise=layout_stats(col_b))
-        entries = kernel_phase(torch, K, P, Q, row_b, col_b, row_s, col_s,
-                               ML20M_USERS, ML20M_ITEMS)
+        entries, bf16_ms = kernel_phase(torch, K, P, Q, row_b, col_b, row_s,
+                                        col_s, ML20M_USERS, ML20M_ITEMS)
         # the gramian's bound, both halves: 2 n d^2 operations and the
         # table's n d floats read (its d x d output is negligible)
         gram_bound = sum(bound_ms(4 * len(t) * D, 2 * len(t) * D * D)[0]
@@ -918,60 +1450,49 @@ def main() -> int:
         del P, Q, row_s, col_s, row_b, col_b
         torch.cuda.empty_cache()
 
-        # ---- path: the user's entry points at ML-20M width, d = 40
-        opt = bt.ALSOption().get_default_option()
-        opt.update(d=D, num_iters=4, optimizer="manual_cg", alpha=ALPHA,
-                   reg_u=REG, reg_i=REG, num_cg_max_iters=CG_ITERS,
-                   compute_loss_on_training=True, validation={"topk": 10},
-                   device="cuda")
-        als = bt.ALS(opt, data=data)
-        np.random.seed(0)
-        als.initialize()
-        epochs = []
-        torch.cuda.reset_peak_memory_stats()
-        for kern in K.KERNELS:
-            kern.launches = 0
-        st = time.perf_counter()
-        als.train(training_callback=lambda i, m: epochs.append(m))
-        train_s = time.perf_counter() - st
-        launches = {k.__name__: k.launches for k in K.KERNELS}
-        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-        losses = [m["train_loss"] for m in epochs]
-        check(len(losses) == 4 and all(np.isfinite(losses)),
-              f"train_loss not finite: {losses}")
-        check(all(b < a for a, b in zip(losses, losses[1:])),
-              f"train_loss not falling after epoch 1: {losses}")
-        check(all(v > 0 for v in launches.values()),
-              f"a kernel of the path never launched: {launches}")
-        check(als.P.shape == (ML20M_USERS, D) and np.isfinite(als.P).all()
-              and np.isfinite(als.Q).all(), "trained factors not finite")
-        users = [str(u) for u in range(1000)]
-        als.topk_recommendation(users[:10], topk=10)  # warm
-        st = time.perf_counter()
-        recs = als.topk_recommendation(users, topk=10)
-        topk_ms = 1e3 * (time.perf_counter() - st)
-        check(len(recs) == 1000 and all(
-            len(set(v)) == 10 and all(0 <= int(i) < ML20M_ITEMS for i in v)
-            for v in recs.values()), "top-10 recommendations malformed")
-        p, q = als.P[:1000], als.Q
-        best = np.argsort(-(p @ q.T), axis=1, kind="stable")[:, :10]
-        same = np.mean([set(map(int, recs[str(u)])) == set(best[u])
-                        for u in range(1000)])
-        check(same >= 0.99, f"top-10 differs from numpy for {1 - same:.3f}")
+        # ---- path: the user's entry points at ML-20M width, d = D
+        als, epochs, launches, peak_mb, train_s = train_path(
+            bt, K, torch, data, als_opt(bt, d=D, num_iters=4,
+                                        validation={"topk": 10}))
+        path_launches = launches
+        losses = check_training(als, epochs, launches, narrow, 4, D)
+        trained = (als.P, als.Q)
+        topk_ms, same = topk_check(als)
         phase("path", epochs=len(losses), train_loss=losses,
               val_ndcg=[m.get("val_ndcg") for m in epochs],
               epoch_seconds=als.iteration_times,
               median_epoch_seconds_2_4=float(np.median(
                   als.iteration_times[1:])),
               train_seconds=train_s, launches=launches,
-              launches_per_epoch={k: v / len(losses)
-                                  for k, v in launches.items()},
+              launches_per_epoch=per_epoch(launches, len(losses)),
               max_memory_allocated_mb=peak_mb, topk_users=1000, topk_k=10,
               topk_ms=topk_ms, topk_same_as_numpy=same,
               # scores for every user and item, and the item table read
               topk_bound_ms=bound_ms(4 * ML20M_ITEMS * D,
-                                     2 * len(users) * ML20M_ITEMS * D)[0])
-        del als, data
+                                     2 * 1000 * ML20M_ITEMS * D)[0])
+        del als
+
+        # ---- bf16 path: the same run on bfloat16 values
+        als, epochs, launches, peak_mb, train_s = train_path(
+            bt, K, torch, data, als_opt(bt, d=D, num_iters=4,
+                                        validation={"topk": 10},
+                                        vals_dtype="bfloat16"))
+        losses16 = check_training(als, epochs, launches, narrow, 4, D)
+        diff = abs(losses16[-1] - losses[-1])
+        check(diff <= TOL_BF16_LOSS, f"bfloat16 values end {diff:.3g} from "
+              f"the float32 run's loss: {losses16} vs {losses}")
+        phase("bf16_path", epochs=4, train_loss=losses16,
+              float32_train_loss=losses, final_loss_diff=diff,
+              tol=TOL_BF16_LOSS, epoch_seconds=als.iteration_times,
+              median_epoch_seconds_2_4=float(np.median(
+                  als.iteration_times[1:])),
+              launches_per_epoch=per_epoch(launches, 4),
+              max_memory_allocated_mb=peak_mb, device_ms=bf16_ms)
+        del als
+
+        # ---- scatter and streaming paths against the range layout
+        layout_paths(bt, K, torch, data, dev, trained)
+        del trained
 
         # ---- plain path: one epoch at 20k x 5k, 2M nnz from a trained
         # state, through the kernels and through the plain versions
@@ -990,6 +1511,38 @@ def main() -> int:
               noise_factor=NOISE_FACTOR, kernel_epoch_seconds=kernel_s,
               plain_cpu_epoch_seconds=pp.plain_s)
         del pp
+        torch.cuda.empty_cache()
+
+        # ---- iALS++: K4 (and K2, K3) at d = D_WIDE on the ML-20M layout,
+        # then the user's entry points at that width
+        entries["ialspp_solve_batch"] = wide_kernel_phase(torch, K, data,
+                                                          dev)
+        torch.cuda.empty_cache()
+        als, epochs, launches, peak_mb, train_s = train_path(
+            bt, K, torch, data, als_opt(bt, d=D_WIDE, num_iters=4,
+                                        validation={"topk": 10}))
+        check(als._optimizer == "ialspp" and int(als.opt.block_size) == D_WIDE,
+              f"d = {D_WIDE} trained {als._optimizer} with block "
+              f"{als.opt.block_size}")
+        losses_w = check_training(
+            als, epochs, launches,
+            (K.ialspp_solve_batch, K.als_normal_equations, K.batched_cg_dense),
+            4, D_WIDE)
+        path_launches["ialspp_solve_batch"] = launches["ialspp_solve_batch"]
+        topk_ms, same = topk_check(als)
+        phase("ialspp_path", d=D_WIDE, optimizer=als._optimizer,
+              block_size=int(als.opt.block_size), epochs=len(losses_w),
+              train_loss=losses_w,
+              val_ndcg=[m.get("val_ndcg") for m in epochs],
+              epoch_seconds=als.iteration_times,
+              median_epoch_seconds_2_4=float(np.median(
+                  als.iteration_times[1:])),
+              train_seconds=train_s, launches=launches,
+              launches_per_epoch=per_epoch(launches, len(losses_w)),
+              max_memory_allocated_mb=peak_mb, topk_ms=topk_ms,
+              topk_same_as_numpy=same)
+        del als, data
+        torch.cuda.empty_cache()
 
         # ---- text path: MatrixMarket -> ALS -> save -> load
         mm = os.path.join(WORK, "tiny.mtx")
@@ -1031,7 +1584,7 @@ def main() -> int:
         kernels.append({"name": name, "route": entry["route"],
                         "source": entry["source"],
                         "replaces": entry["replaces"],
-                        "launches": launches[name],
+                        "launches": path_launches[name],
                         "max_abs_err": entry["max_abs_err"],
                         "ms": entry["ms"], "plain_ms": entry["plain_ms"],
                         "bound_ms": entry["bound_ms"],

@@ -23,6 +23,20 @@ at d=16: P 6.06e-3 apart with the port 4.02e-3 from float64 (ratio
 1.51); Q 5.21e-3 and 3.63e-3 (1.43); val_ndcg port 9e-5 from float64.
 Top-k and save/load run
 on the ``llt`` models.
+
+The same holds for the other single-device paths, each one case against
+the reference under the same setting: iALS++ (chosen at d = 128, where
+both packages raise ``block_size`` to 128, and asked for with block 8
+at d = 16), the scatter layout (``range_layout=False``), the streaming
+path (``resident_mb=0``) and bfloat16 values; iALS++ and the CG solves
+are held as ``manual_cg`` is.  iALS++ at d = 128 from that init is the
+noisiest: three CG steps from zero on each 128-wide block leave both
+packages' float32 factors far from float64 after 3 epochs (readings: P
+3.0e-2 for the port, 3.1e-2 for the reference; Q 1.06e-1 and 1.08e-1;
+the packages 4.0e-2 and 1.27e-1 apart, ratios 1.32 and 1.21; losses up
+to 1.4% from float64's and 1.03e-3 relative from each other).  So there
+the losses are held to 2x the port's distance from float64's, the
+factors' own float32 error to 0.2 and val_ndcg to 1e-2 of both.
 """
 import numpy as np
 import pytest
@@ -87,21 +101,36 @@ def test_identical_initial_factors(datasets):
     assert np.array_equal(a.P, b.P) and np.array_equal(a.Q, b.Q)
 
 
+# the settings each case trains both packages with; NOISY cases are held
+# to the float64 witness alone (see the module docstring)
+NOISY = {"ialspp_auto_d128"}
+CASES = {
+    "llt": dict(optimizer="llt"),
+    "manual_cg": dict(optimizer="manual_cg"),
+    "ialspp_auto_d128": dict(d=128),
+    "ialspp_block8": dict(optimizer="ialspp", block_size=8),
+    "scatter": dict(range_layout=False),
+    "streaming": dict(resident_mb=0),
+    "bfloat16": dict(vals_dtype="bfloat16"),
+}
+
+
 @pytest.fixture(scope="module")
 def trained(datasets):
-    """optimizer -> ((ref model, result, losses), (port model, ...),
+    """case -> ((ref model, result, losses), (port model, ...),
     (float64 port model, ...)), trained once per module."""
     cache = {}
 
-    def get(optimizer):
-        if optimizer not in cache:
-            a = _model(ref, datasets[0], seed=5, optimizer=optimizer)
-            b = _model(port, datasets[1], seed=5, optimizer=optimizer)
-            c = _model(port, datasets[1], seed=5, optimizer=optimizer)
+    def get(case):
+        if case not in cache:
+            kw = CASES[case]
+            a = _model(ref, datasets[0], seed=5, **kw)
+            b = _model(port, datasets[1], seed=5, **kw)
+            c = _model(port, datasets[1], seed=5, **kw)
             c.P, c.Q = c.P.astype(np.float64), c.Q.astype(np.float64)
-            cache[optimizer] = ((a, *_train(a)), (b, *_train(b)),
-                                (c, *_train(c)))
-        return cache[optimizer]
+            cache[case] = ((a, *_train(a)), (b, *_train(b)),
+                           (c, *_train(c)))
+        return cache[case]
     return get
 
 
@@ -109,23 +138,35 @@ def _rel(x, y):
     return np.linalg.norm(x - y) / np.linalg.norm(y)
 
 
-@pytest.mark.parametrize("optimizer", ["llt", "manual_cg"])
-def test_train_matches_reference(trained, optimizer):
-    (a, res_a, loss_a), (b, res_b, loss_b), (c, res_c, _) = trained(optimizer)
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_matches_reference(trained, case):
+    (a, res_a, loss_a), (b, res_b, loss_b), (c, res_c, loss_c) = \
+        trained(case)
     assert len(loss_a) == len(loss_b) == 3
-    np.testing.assert_allclose(loss_b, loss_a, rtol=1e-3)
+    if case in NOISY:
+        gap, noise = np.subtract(loss_b, loss_a), np.subtract(loss_b, loss_c)
+        assert np.all(np.abs(gap) <= 2.0 * np.abs(noise) + 1e-6)
+    else:
+        np.testing.assert_allclose(loss_b, loss_a, rtol=1e-3)
     assert a.P.shape == b.P.shape and b.P.dtype == np.float32
     assert c.P.dtype == c.Q.dtype == np.float64
-    if optimizer == "llt":
+    assert a._optimizer == b._optimizer
+    assert a.opt.block_size == b.opt.block_size
+    if case == "ialspp_auto_d128":
+        assert b._optimizer == "ialspp" and b.opt.block_size == 128
+    if case == "streaming":
+        assert b.h2d_bytes == 0  # the CPU has nothing to copy
+    if case == "llt":
         assert abs(res_a["val_ndcg"] - res_b["val_ndcg"]) < 1e-3
         np.testing.assert_allclose(b.P, a.P, rtol=1e-3, atol=1e-3)
         np.testing.assert_allclose(b.Q, a.Q, rtol=1e-3, atol=1e-3)
     else:
         for x_ref, x_port, x64 in ((a.P, b.P, c.P), (a.Q, b.Q, c.Q)):
             noise = _rel(x_port, x64)  # the port's own float32 error
-            assert noise < 1e-2
+            assert noise < (0.2 if case in NOISY else 1e-2)
             assert _rel(x_port, x_ref) <= 2.0 * noise
-        assert abs(res_b["val_ndcg"] - res_c["val_ndcg"]) < 1e-3
+        assert abs(res_b["val_ndcg"] - res_c["val_ndcg"]) < \
+            (1e-2 if case in NOISY else 1e-3)
         assert abs(res_b["val_ndcg"] - res_a["val_ndcg"]) < 1e-2
 
 
@@ -174,9 +215,7 @@ def test_save_load_both_directions(trained, tmp_path):
     assert np.array_equal(P.numpy(), a.P) and np.array_equal(Q.numpy(), a.Q)
 
 
-@pytest.mark.parametrize("setting", [
-    {"num_devices": 2}, {"range_layout": False}, {"optimizer": "ialspp"},
-    {"d": 128}, {"vals_dtype": "bfloat16"}, {"resident_mb": 0}])
+@pytest.mark.parametrize("setting", [{"num_devices": 2}])
 def test_unported_paths_raise(datasets, setting):
     model = _model(port, datasets[1], seed=1, num_iters=1, **setting)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,11 +2,13 @@
 
 On CPU tensors each kernel wrapper runs its plain PyTorch version, so
 K1 (matrix-free CG), K2 + K3 (dense normal equations + batched CG, for
-long range rows and for segment rows) and the whole range-layout epoch
-are held here to ``buffalo_tpu.ops.als_kernels`` on the same numpy
-inputs.  Tolerance rtol 1e-4 / atol 1e-5: float32, different summation
-orders, three warm-started CG steps on well-conditioned systems.  The
-kernels themselves are held to these plain versions on the card
+long range rows and for segment rows), K4 (iALS++), the scatter batches
+(PaddedBatch rows with padding ids, SegmentBatch) and the whole
+range-layout epoch are held here to ``buffalo_tpu.ops.als_kernels`` on
+the same numpy inputs, and the bfloat16 values the port stages to the
+reference's bit for bit.  Tolerance rtol 1e-4 / atol 1e-5: float32,
+different summation orders, three CG steps on well-conditioned systems.
+The kernels themselves are held to these plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 import jax.numpy as jnp
@@ -189,14 +191,6 @@ def test_range_epoch_matches_reference(optimizer, stacked):
         "CPU tensors must never launch a kernel"
 
 
-def test_ialspp_is_not_ported():
-    (indptr, key, val), _, P0, Q0 = _epoch_fixture()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.als_epoch(*_t(P0, Q0), [], [], optimizer="ialspp", alpha=1.0,
-                       reg_u=0.1, reg_i=0.1, adaptive_reg=False, cg_iters=3,
-                       cg_tol=1e-10, block_size=8, compute_loss=True)
-
-
 def test_gramian_matches_reference():
     X = np.random.default_rng(0).normal(size=(1037, 12)).astype(np.float32)
     np.testing.assert_allclose(port.gramian(torch.from_numpy(X)).numpy(),
@@ -257,3 +251,117 @@ def test_matrix_free_widths_match_als_solve_batch(d, L, tol):
     assert np.array_equal(T.numpy()[untouched], table[untouched])
     np.testing.assert_allclose(float(n_rows.sum()), float(nume), rtol=1e-5)
     np.testing.assert_allclose(float(d_rows.sum()), float(deno), rtol=1e-5)
+
+
+# d / block: one block, two blocks, and a 4-wide tail block (8, 8, 4); L
+# 24 is matrix-free length, 104 past it (iALS++ takes both); the loss
+# flags on and off, and one case without the loss terms
+@pytest.mark.parametrize("d,block_size", [(16, 16), (16, 8), (20, 8)])
+@pytest.mark.parametrize("L", [24, 104])
+@pytest.mark.parametrize("adaptive_reg,item_axis,compute_loss",
+                         [(False, False, True), (False, True, True),
+                          (True, False, True), (True, True, True),
+                          (True, True, False)])
+def test_ialspp_matches_ialspp_solve_batch(d, block_size, L, adaptive_reg,
+                                           item_axis, compute_loss):
+    rng = np.random.default_rng(d * 100 + L)
+    n, m, B, rs = 50, 30, 16, 7
+    table = (rng.normal(size=(n, d)) * 0.3).astype(np.float32)
+    Bf = (rng.normal(size=(m, d)) * 0.3).astype(np.float32)
+    FF = (Bf.T @ Bf).astype(np.float32)
+    lens, cols, vals = _padded(B, L, m, seed=L + d)
+    kw = dict(_kw(adaptive_reg, item_axis), compute_loss=compute_loss)
+    x, nume, deno = ref.ialspp_solve_batch(
+        jnp.asarray(table[rs:rs + B]), jnp.asarray(Bf[cols]),
+        jnp.asarray(FF), jnp.asarray(lens), jnp.asarray(vals),
+        block_size=block_size, cg_tol=1e-10, **kw)
+    T, Bft, FFt, lt, ct, vt = _t(table.copy(), Bf, FF, lens, cols, vals)
+    n_rows, d_rows = port.ialspp_solve_batch(
+        T, Bft, FFt, lt, ct, vt, row_start=rs, block_size=block_size,
+        cg_tol=1e-10, **kw)
+    np.testing.assert_allclose(T[rs:rs + B].numpy(), np.asarray(x), **TOL)
+    untouched = np.r_[0:rs, rs + B:n]
+    assert np.array_equal(T.numpy()[untouched], table[untouched])
+    np.testing.assert_allclose(float(n_rows.sum()), float(nume), rtol=1e-5)
+    np.testing.assert_allclose(float(d_rows.sum()), float(deno), rtol=1e-5)
+
+
+def _scatter_half():
+    """One half's scatter batches, host numpy from both packages'
+    planners: PaddedBatches of L <= 96 and > 96 whose last batch per
+    bucket carries padding rows (id ``num_rows``, len 0), and a
+    SegmentBatch of the rows past ``max_len``; with the tables."""
+    n, m = 60, 40
+    rng = np.random.default_rng(21)
+    degs = rng.integers(0, 120, size=n)
+    degs[[5, 17]] = [300, 190]
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(degs, out=indptr[1:])
+    key = rng.integers(0, m, int(indptr[-1])).astype(np.int32)
+    val = (1.0 + rng.random(int(indptr[-1]))).astype(np.float32)
+    plan = dict(entries_per_batch=1024, max_len=128)
+    batches = list(ref_batching.BatchPlanner(indptr, **plan)
+                   .iter_batches(key, val))
+    again = list(port_batching.BatchPlanner(indptr, **plan)
+                 .iter_batches(key, val))
+    table = (rng.normal(size=(n, D)) * 0.1).astype(np.float32)
+    Bf = (rng.normal(size=(m, D)) * 0.1).astype(np.float32)
+    return batches, again, table, Bf
+
+
+@pytest.mark.parametrize("optimizer", ["manual_cg", "ialspp", "llt"])
+@pytest.mark.parametrize("item_axis", [False, True])
+def test_scatter_batches_match_apply_batch(optimizer, item_axis):
+    """The scatter layout's batches one after another through the
+    reference's ``_apply_batch`` and the port's, table and loss terms."""
+    batches, again, table, Bf = _scatter_half()
+    kinds = {type(b).__name__ for b in again}
+    assert kinds == {"PaddedBatch", "SegmentBatch"}
+    assert any(b.cols.shape[1] > port.MATRIX_FREE_MAX_L for b in again)
+    assert any((b.rows == len(table)).any() for b in again)
+    FF = (Bf.T @ Bf).astype(np.float32)
+    kw = dict(optimizer=optimizer, alpha=4.0, reg=0.05, adaptive_reg=False,
+              cg_iters=3, cg_tol=1e-10, block_size=3, item_axis=item_axis,
+              num_fixed_rows=40, compute_loss=True)
+    A_ref, nume, deno = jnp.asarray(table), 0.0, 0.0
+    T, Bft, FFt = _t(table.copy(), Bf, FF)
+    n_port, d_port = 0.0, 0.0
+    for b_ref, b_port in zip(batches, again):
+        A_ref, n, dn = ref._apply_batch(
+            A_ref, jnp.asarray(Bf), jnp.asarray(FF),
+            type(b_ref)(*map(jnp.asarray, b_ref)), **kw)
+        nume, deno = nume + float(n), deno + float(dn)
+        n, dn = port._apply_batch(T, Bft, FFt,
+                                  port_batching.stage_batch(b_port, "cpu"),
+                                  **kw)
+        n_port, d_port = n_port + float(n.sum()), d_port + float(dn.sum())
+        np.testing.assert_allclose(T.numpy(), np.asarray(A_ref), **TOL)
+    assert not np.array_equal(T.numpy(), table)
+    np.testing.assert_allclose(n_port, nume, rtol=1e-4)
+    np.testing.assert_allclose(d_port, deno, rtol=1e-5)
+
+
+def test_bf16_staged_values_match_reference_bits():
+    """The port stages float32 values as bfloat16 (round to nearest
+    even); the reference writes them with ``ml_dtypes``: equal bits."""
+    (indptr, key, val), (cindptr, ckey, cval), _, _ = _epoch_fixture()
+    val = val * np.float32(1.0 + 2.0 ** -9)  # most values need rounding
+    cval = cval * np.float32(1.0 + 2.0 ** -9)
+    plan = dict(entries_per_batch=256, max_len=32)
+    bf16 = np.dtype(jnp.bfloat16)
+    r_row = ref_batching.build_range_layout(
+        ref_batching.BatchPlanner(indptr, **plan),
+        ref_batching.BatchPlanner(cindptr, **plan), key, val, ckey, cval,
+        vals_dtype=bf16)[0]
+    t_row = port_batching.build_range_layout(
+        port_batching.BatchPlanner(indptr, **plan),
+        port_batching.BatchPlanner(cindptr, **plan), key, val, ckey, cval)[0]
+    assert len(r_row) == len(t_row)
+    exact = 0
+    for a, b in zip(r_row, t_row):
+        s = port_batching.stage_batch(b, "cpu", vals_dtype=torch.bfloat16)
+        assert s.vals.dtype == torch.bfloat16 and a.vals.dtype == bf16
+        got = s.vals.view(torch.int16).numpy()
+        assert np.array_equal(got, np.asarray(a.vals).view(np.int16))
+        exact += int((s.vals.float().numpy() == b.vals).sum())
+    assert exact < sum(int(np.prod(b.vals.shape)) for b in t_row) // 2

@@ -126,3 +126,52 @@ def test_stage_batch_keeps_fields_and_chunk_ranges():
     assert seen_segment
     with pytest.raises(ValueError):
         port.segment_chunk_ptr(np.array([0, 1, 0], np.int32), 2)
+
+
+@pytest.mark.parametrize("resident_mb", [4096, 0])
+def test_device_batcher_yields_the_planned_batches(resident_mb):
+    """Resident or streamed (the padded epoch past ``resident_mb``), the
+    batcher yields the planner's batches staged, in order, every epoch."""
+    indptr, key, val = _csr(200, 50, seed=9, max_deg=90, long_deg=400)
+
+    class _Data:
+        def get_group(self, g):
+            return {"indptr": indptr, "key": key, "val": val}
+
+    b = port.DeviceBatcher(_Data(), "rowwise", batch_mb=1, d=8, max_len=128,
+                           resident_mb=resident_mb, device="cpu")
+    assert b.resident == (resident_mb > 0)
+    host = list(ref.DeviceBatcher(_Data(), "rowwise", batch_mb=1, d=8,
+                                  max_len=128).planner.iter_batches(key, val))
+    assert len(host) == b.num_batches > 2
+    for _ in range(2):
+        got = list(b)
+        assert len(got) == len(host)
+        for s, h in zip(got, host):
+            assert type(s).__name__ == ("StagedSegmentBatch"
+                                        if type(h).__name__ == "SegmentBatch"
+                                        else "PaddedBatch")
+            for f in h._fields:
+                assert np.array_equal(getattr(s, f).numpy(), getattr(h, f))
+    assert b.h2d_bytes == 0
+
+
+@pytest.mark.parametrize("dispatch,entries", [
+    ("auto", 10), ("auto", (100 << 20) + 1), ("fused", 1 << 30),
+    ("group", 10), ("bogus", 10)])
+def test_group_dispatch_choice_matches_reference(dispatch, entries):
+    opt = {"epoch_dispatch": dispatch}
+
+    class _Opt(dict):
+        get = dict.get
+
+    if dispatch == "bogus":
+        for mod in (ref, port):
+            with pytest.raises(ValueError):
+                mod.choose_group_dispatch(_Opt(opt), entries)
+        return
+    assert port.choose_group_dispatch(_Opt(opt), entries) == \
+        ref.choose_group_dispatch(_Opt(opt), entries)
+    batches = [ref.PaddedBatch(*[np.zeros((3, 5))] * 4)] * 2
+    assert port.padded_entry_count(batches) == \
+        ref.padded_entry_count(batches) == 30

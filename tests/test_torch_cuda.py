@@ -125,10 +125,11 @@ def test_cg_kernels_freeze_like_plain(dev, kernel):
     torch.testing.assert_close(table, expect, **TOL)
 
 
-# d = 13 and 65 are no multiple of 4 (scalar loads of A), 65 and 128 keep
-# A in the warp's shared memory, the others in registers; the scatter mode
-# writes through a reversed row list holding padding ids past the table
-@pytest.mark.parametrize("d", [8, 13, 40, 64, 65, 128])
+# d = 13 and 65 are no multiple of 4 (scalar loads of A), 65, 128 and 160
+# keep A in the warp's shared memory, 256 reads it from L2, the others keep
+# it in registers; the scatter mode writes through a reversed row list
+# holding padding ids past the table
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 65, 128, 160, 256])
 @pytest.mark.parametrize("mode", ["range", "scatter"])
 def test_dense_cg_kernel_matches_plain(dev, d, mode):
     table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=200, B=61, seed=d)
@@ -176,9 +177,10 @@ def test_cg_kernels_are_deterministic(dev, kernel):
 
 
 # d = 13 takes the 4-byte gather and feature padding, 128 is the widest
-# the kernel takes; L = 97 and 104 end inside a stage of the gather ring,
-# 1000 and 8192 wrap the ring many times and end in a partial stage
-@pytest.mark.parametrize("d", [8, 13, 40, 64, 128])
+# with A over the ring, 160 and 256 pass over the entries 2 and 4 times and
+# build A in the output; L = 97 and 104 end inside a stage of the gather
+# ring, 1000 and 8192 wrap the ring many times and end in a partial stage
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 128, 160, 256])
 @pytest.mark.parametrize("L", [97, 104, 1000, 8192])
 def test_normal_equations_and_cg_match_plain(dev, d, L):
     table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=L, B=32)
@@ -223,9 +225,11 @@ def _segment_case(dev, d, heads, n=50, m=400):
 
 
 # chunk lengths 8192 and 808 / 8192, 8192 and 616 end mid-stage; the d = 13
-# case's 8192, 69 / 8192, 8192, 1 leave a short and a one-entry chunk
+# case's 8192, 69 / 8192, 8192, 1 leave a short and a one-entry chunk; d =
+# 160 is the iALS++ path's head rows
 @pytest.mark.parametrize("d,heads", [(40, (9000, 17000)),
-                                     (13, (8261, 16385))])
+                                     (13, (8261, 16385)),
+                                     (160, (9000, 17000))])
 @pytest.mark.parametrize("item_axis,adaptive_reg", [(True, False),
                                                     (False, True)])
 def test_segment_kernels_skip_padding_ids(dev, item_axis, adaptive_reg, d,
@@ -277,14 +281,158 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         K.als_cg_matrix_free(table, Bf.cpu(), FF, 0, lens, cols, vals,
                              cg_iters=3, cg_tol=1e-10, **_kw(False))
-    # K1 and K3 take rows of at most 128 floats, as K2 does
+    # K1 takes rows of at most 128 floats; K2, K3 and K4 of at most 256
     wide = torch.zeros(300, 129, device=dev)
     with pytest.raises(ValueError, match="d <= 128"):
         K.als_cg_matrix_free(wide, wide[:200].contiguous(),
                              torch.zeros(129, 129, device=dev), 0, lens,
                              cols, vals, cg_iters=3, cg_tol=1e-10,
                              **_kw(False))
-    with pytest.raises(ValueError, match="d <= 128"):
-        K.batched_cg_dense(torch.zeros(64, 129, 129, device=dev),
-                           torch.zeros(64, 129, device=dev), wide, lens,
+    wider = torch.zeros(300, 257, device=dev)
+    with pytest.raises(NotImplementedError, match="256"):
+        K.batched_cg_dense(torch.zeros(64, 257, 257, device=dev),
+                           torch.zeros(64, 257, device=dev), wider, lens,
                            cg_iters=3, cg_tol=1e-10)
+    with pytest.raises(NotImplementedError, match="256"):
+        K.ialspp_solve_batch(wider, wider[:200].contiguous(),
+                             torch.zeros(257, 257, device=dev), lens, cols,
+                             vals, block_size=32, cg_tol=1e-10, **_kw(False))
+    with pytest.raises(TypeError):  # values are float32 or bfloat16
+        K.als_cg_matrix_free(table, Bf, FF, 0, lens, cols, vals.half(),
+                             cg_iters=3, cg_tol=1e-10, **_kw(False))
+
+
+def _rows_mode(dev, lens, n):
+    """A PaddedBatch's row ids for a batch of len(lens) rows: table rows
+    in reverse, every 7th a padding id (``n``, the table's row count, or
+    ``1 << 30``) whose row is emptied, as the planner pads."""
+    B = len(lens)
+    rows = torch.arange(n - 1, n - 1 - B, -1, dtype=torch.int32, device=dev)
+    rows[::7] = n
+    rows[3::7] = 1 << 30
+    lens = lens.clone()
+    lens[(rows >= n)] = 0
+    return rows, lens
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("mode", ["range", "rows"])
+@pytest.mark.parametrize("L", [8, 96, 1000])
+def test_k1_k2_rows_mode_and_bf16_match_plain(dev, L, mode, bf16):
+    """K1 (L <= 96) or K2 + K3 (L = 1000) on PaddedBatch rows and on
+    bfloat16 values, against the plain versions on the same inputs."""
+    table, Bf, FF, (lens, cols, vals) = _case(dev, 40, L=L, B=61, seed=L)
+    where = dict(row_start=5)
+    if mode == "rows":
+        rows, lens = _rows_mode(dev, lens, table.shape[0])
+        where = dict(rows=rows)
+    if bf16:
+        vals = vals.to(torch.bfloat16)
+    kw = _kw(True)
+    expect = table.clone()
+    if L <= K.MATRIX_FREE_MAX_L:
+        rs = where.get("row_start", 0)
+        rw = where.get("rows")
+        n_ref, d_ref = K.als_cg_matrix_free_plain(
+            expect, Bf, FF, rs, lens, cols, vals, rows=rw, cg_iters=3,
+            cg_tol=1e-10, **kw)
+        n_got, d_got = K.als_cg_matrix_free(
+            table, Bf, FF, rs, lens, cols, vals, rows=rw, cg_iters=3,
+            cg_tol=1e-10, **kw)
+    else:
+        A_ref, y_ref, n_ref, d_ref = K.als_normal_equations_plain(
+            expect, Bf, FF, lens, cols, vals, **where, **kw)
+        A, y, n_got, d_got = K.als_normal_equations(
+            table, Bf, FF, lens, cols, vals, **where, **kw)
+        torch.testing.assert_close(A, A_ref, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+        K.batched_cg_dense_plain(A_ref, y_ref, expect, lens, cg_iters=3,
+                                 cg_tol=1e-10, **where)
+        K.batched_cg_dense(A_ref, y_ref, table, lens, cg_iters=3,
+                           cg_tol=1e-10, **where)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(table, expect, **TOL)
+    torch.testing.assert_close(n_got, n_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(d_got, d_ref, rtol=1e-4, atol=1e-3)
+
+
+# (d, block): one block, two, a 22-wide tail block (150 = 4 x 32 + 22), the
+# iALS++ path's d = 160 in one block and the widest d; L = 8 and 96 keep
+# the row's F in shared memory for the whole solve, 1000 at d = 256 and
+# 8192 stream it through the tile in every pass
+@pytest.mark.parametrize("d,block_size", [(13, 13), (64, 32), (150, 32),
+                                          (160, 160), (256, 256)])
+@pytest.mark.parametrize("L", [8, 96, 1000, 8192])
+@pytest.mark.parametrize("mode", ["range", "rows"])
+def test_ialspp_kernel_matches_plain(dev, d, block_size, L, mode):
+    table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=L, B=40, seed=d + L)
+    where = dict(row_start=5)
+    if mode == "rows":
+        rows, lens = _rows_mode(dev, lens, table.shape[0])
+        where = dict(rows=rows)
+    bf16 = L == 96  # bfloat16 values on one length
+    if bf16:
+        vals = vals.to(torch.bfloat16)
+    kw = dict(_kw(True, adaptive_reg=d == 64), block_size=block_size,
+              cg_tol=1e-10, **where)
+    expect = table.clone()
+    n_ref, d_ref = K.ialspp_solve_batch_plain(expect, Bf, FF, lens, cols,
+                                              vals, **kw)
+    before = K.ialspp_solve_batch.launches
+    n_got, d_got = K.ialspp_solve_batch(table, Bf, FF, lens, cols, vals, **kw)
+    torch.cuda.synchronize()
+    assert K.ialspp_solve_batch.launches == before + 1
+    torch.testing.assert_close(table, expect, **TOL)
+    torch.testing.assert_close(n_got, n_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(d_got, d_ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("L", [96, 8192])
+def test_ialspp_kernel_is_deterministic(dev, L):
+    """Two launches on the same inputs give bitwise-equal results, with F
+    kept in shared memory (L = 96) and streamed (L = 8192)."""
+    table, Bf, FF, (lens, cols, vals) = _case(dev, 160, L=L, B=40)
+    outs, losses = [table.clone(), table.clone()], []
+    for out in outs:
+        losses.append(K.ialspp_solve_batch(
+            out, Bf, FF, lens, cols, vals, row_start=5, block_size=160,
+            cg_tol=1e-10, **_kw(True)))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], table)
+    for a, b in zip(*losses):
+        assert torch.equal(a, b)
+
+
+def test_streamed_batches_match_host_batches(dev):
+    """The staging ring's batches on the card equal the planner's host
+    batches, epoch after epoch, and its byte count is theirs."""
+    rng = np.random.default_rng(2)
+    degs = rng.integers(0, 200, size=3000)
+    degs[7] = 20_000
+    indptr = np.concatenate([[0], np.cumsum(degs)])
+    key = rng.integers(0, 500, int(indptr[-1])).astype(np.int32)
+    val = (1.0 + rng.random(int(indptr[-1]))).astype(np.float32)
+
+    class _Data:
+        def get_group(self, g):
+            return {"indptr": indptr, "key": key, "val": val}
+
+    b = batching.DeviceBatcher(_Data(), "rowwise", batch_mb=2, d=8,
+                               resident_mb=0, device=dev)
+    host = list(b.planner.iter_batches(key, val))
+    nbytes = sum(a.nbytes for h in host for a in h) + sum(
+        4 * (len(h.rows) + 1) for h in host
+        if isinstance(h, batching.SegmentBatch))
+    assert len(host) > 4
+    for epoch in range(2):
+        seen = 0
+        # a staged batch is read before the next is asked for: its slot
+        # takes the batch two later
+        for s, h in zip(b, host):
+            for f in h._fields:
+                assert np.array_equal(getattr(s, f).cpu().numpy(),
+                                      getattr(h, f)), f
+            seen += 1
+        assert seen == len(host)
+        assert b.h2d_bytes == (epoch + 1) * nbytes

@@ -47,9 +47,9 @@ LOOP = "  for (int ks = eg; ks * 8 < tl; ks += p.EG) {"
 COPY16 = "        if (p.vec) cp_async16(Fst + l * S + c, from, col >= 0);"
 COPY4 = "        else cp_async4(Fst + l * S + c, from, col >= 0);"
 STAGES = "  for (int i = 0; i < ntiles; ++i) {"
-THREE = """          mma_tf32_first(step, as, bb);
-          mma_tf32(step, ab, bs);
-          mma_tf32(step, ab, bb);"""
+THREE = """            mma_tf32_first(step, as, bb);
+            mma_tf32(step, ab, bs);
+            mma_tf32(step, ab, bb);"""
 L2ONLY = "cp.async.cg.shared.global [%0], [%1], 16, %2;"
 NO_GATHER = [(COPY16, COPY16.replace("if (p.vec)", "if (false)")),
              (COPY4, COPY4.replace("else ", "else if (false) "))]
@@ -60,7 +60,7 @@ VARIANTS = {
     "no_product": NO_PRODUCT,
     "neither": NO_GATHER + NO_PRODUCT,
     "setup_only": [(STAGES, STAGES.replace("i < ntiles", "i < 0"))],
-    "one_tf32": [(THREE, "          mma_tf32_first(step, ab, bb);")],
+    "one_tf32": [(THREE, "            mma_tf32_first(step, ab, bb);")],
     "l1_copies": [(L2ONLY, L2ONLY.replace(".cg.", ".ca."))],
 }
 # (d, rows, padded length, fixed-side rows, item axis, power-law ids): the
@@ -139,7 +139,7 @@ def main():
                (table, Bf, FF, lens, cols, vals, *outs)]
 
         def launch(fn):
-            rc = fn(*ptr[:4], None, 0, None, None, ptr[4], ptr[5], L, 0, None,
+            rc = fn(*ptr[:4], None, 0, None, None, ptr[4], ptr[5], 0, L, 0, None,
                     None, None, None, *ptr[6:], B, B, d, 8.0, 0.1, 0,
                     int(item_axis), float(m), 1, stream)
             if rc:
