@@ -89,6 +89,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.c_void_p, ctypes.c_int]
+        lib.fileio_checksum.restype = None
+        lib.fileio_checksum.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
         _lib = lib
         return _lib
 
@@ -150,6 +154,28 @@ def build_csr_native(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
             f"{rc} triples reference rows outside [0, {num_rows}); "
             "the input header row count is wrong")
     return indptr, out_key, out_val
+
+
+def checksum_native(arr: np.ndarray, n_chunks: int = 64):
+    """Exact parallel positional checksum (``fileio_checksum``): the
+    buffer's int64 words split into ``n_chunks`` contiguous ranges, each
+    wrap-around summed, tail bytes into the last.
+
+    Returns int64[n_chunks], or None when the native library is missing
+    or the buffer is non-contiguous, unaligned or shorter than
+    ``n_chunks`` words (the caller, ``ops.topk._fingerprint``, then runs
+    its numpy pass, which gives the same sums).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    if not arr.flags.c_contiguous or arr.ctypes.data % 8 != 0 \
+            or arr.nbytes < 8 * n_chunks:
+        return None
+    out = np.zeros(n_chunks, dtype=np.int64)
+    lib.fileio_checksum(arr.ctypes.data_as(ctypes.c_void_p), arr.nbytes,
+                        _ptr(out, ctypes.c_int64), n_chunks)
+    return out
 
 
 def gather_remapped_native(indptr: np.ndarray, key: np.ndarray,

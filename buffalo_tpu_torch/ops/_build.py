@@ -93,3 +93,18 @@ def load_kernel(name: str) -> ctypes.CDLL:
             for n in sources():
                 _libs[n] = ctypes.CDLL(os.path.join(out, f"lib{n}.so"))
         return _libs[name]
+
+
+_launchers: Dict[str, object] = {}
+
+
+def launcher(name: str, argtypes):
+    """The C launch function ``name`` of library ``name`` with its
+    ``argtypes``; every launch function returns its ``cudaError_t``."""
+    f = _launchers.get(name)
+    if f is None:
+        f = getattr(load_kernel(name), name)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _launchers[name] = f
+    return f

@@ -69,20 +69,11 @@ K1_MAX_D = 128
 VALS_DTYPES = (torch.float32, torch.bfloat16)
 
 
-_launchers = {}
-
-
 def _kernel(name: str):
     """The C launch function of kernel ``name`` (built on first use)."""
-    fn = _launchers.get(name)
-    if fn is None:
-        from buffalo_tpu_torch.ops._build import load_kernel
+    from buffalo_tpu_torch.ops._build import launcher
 
-        fn = getattr(load_kernel(name), name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _launchers[name] = fn
-    return fn
+    return launcher(name, _SIGNATURES[name])
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -1,0 +1,333 @@
+"""Retrieval kernels: scoring + top-k selection and the k-means update.
+
+Hand-written CUDA kernels on the card (``csrc/*.cu``), each beside its
+plain PyTorch version (``*_plain``), as ``ops/als_kernels.py`` pairs
+K1–K4 with theirs:
+
+* **K5** ``score_topk`` — the k best (score, index) pairs of
+  ``p @ Q^T (+ Qb)`` per row of p, never writing the score matrix; the
+  scan of ``batch_topn`` (one launch, whatever the catalog's size) and
+  the assignment steps of
+  ``IVFIndex.build`` (k = 1 and k = spill).
+* **K6** ``ivf_tile_topk`` — ``IVFIndex.search``'s tile scorer: per tile,
+  gathered queries against a contiguous slice of the cell-ordered table,
+  masked, top-kk.
+* **K7** ``kmeans_update`` — the spherical k-means cell update (member
+  mean, normalized; empty cells keep their centroid).
+
+Selection everywhere orders entries by score descending, ties to the
+smaller index, as ``lax.top_k`` and ``jnp.argmax`` do; ``torch.topk``
+promises no order among ties, so the plain versions select on 64-bit keys
+(the score's bits mapped to an ordered integer, then the index reversed),
+which are distinct.  -inf is a valid, lowest score.  Limits: k <= 1024 and
+d <= 256 (``NotImplementedError`` past them, ROADMAP queue 1).
+
+Each wrapper runs its plain version for CPU tensors and launches its
+kernel (or raises) for CUDA tensors; ``launches`` on each wrapper counts
+the calls that launched it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from buffalo_tpu_torch.ops.als_kernels import _check, _ptr, _raise_on, _stream
+
+_P, _I32 = ctypes.c_void_p, ctypes.c_int
+# C signatures of the launch functions (csrc/*.cu), each returning the
+# cudaError_t of its launches
+_SIGNATURES = {
+    "score_topk": [_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P,
+                   _P],
+    "ivf_tile_topk": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
+                      _P],
+    "kmeans_update": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P],
+}
+MAX_K = 1024
+MAX_D = 256
+# IVF tile caps the kernel takes (the reference's largest, parallel/ann.py)
+MAX_BQ_CAP, MAX_L_CAP = 256, 1024
+QUERY_DTYPES = (torch.float32, torch.bfloat16)
+# K5's block shapes (csrc/topk_select.cuh Cfg): (list length KP, queries
+# per block, items per tile) for k <= KP
+_K5_SHAPES = ((32, 64, 128), (128, 32, 128), (1024, 8, 256))
+# K7's rows per histogram block and members per partial sum
+# (csrc/kmeans_update.cu kChunk, kRun)
+_K7_CHUNK, _K7_RUN = 2048, 128
+_U32 = 0xFFFFFFFF
+_SIGN = 0x80000000
+
+
+def _kernel(name: str):
+    from buffalo_tpu_torch.ops._build import launcher
+
+    return launcher(name, _SIGNATURES[name])
+
+
+def _check_limits(name, k, d):
+    if k > MAX_K:
+        raise NotImplementedError(
+            f"{name} selects at most {MAX_K} entries per row, got k = {k} "
+            "(ROADMAP queue 1: top-k past 1024)")
+    if d > MAX_D:
+        raise NotImplementedError(
+            f"{name} takes rows of at most {MAX_D} floats, got d = {d} "
+            "(ROADMAP queue 1: d > 256)")
+
+
+# ---------------------------------------------------------------- plain
+def _keys(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """int64 keys ordered as (score descending, index ascending): a larger
+    key is a better entry.  ``idx`` broadcasts against ``vals``."""
+    b = vals.contiguous().view(torch.int32).to(torch.int64) & _U32
+    o = torch.where(b >= _SIGN, _U32 - b, b | _SIGN)  # order-preserving
+    return (o - _SIGN) * (1 << 32) + (_U32 - idx.to(torch.int64))
+
+
+def _decode(keys: torch.Tensor):
+    """(float32 scores, int32 indices) of ``_keys``' keys."""
+    o = (keys >> 32) + _SIGN
+    b = torch.where(o >= _SIGN, o - _SIGN, _U32 - o)
+    b = torch.where(b >= _SIGN, b - (1 << 32), b).to(torch.int32)
+    return b.view(torch.float32), (_U32 - (keys & _U32)).to(torch.int32)
+
+
+def ordered_topk(scores: torch.Tensor, k: int):
+    """Row-wise top-k of a score matrix by (score descending, column
+    ascending), in row blocks that keep the int64 keys under 1 GiB:
+    (values (B, k) float32, columns (B, k) int32)."""
+    B, N = scores.shape
+    cols = torch.arange(N, device=scores.device)[None, :]
+    rb = max(1, (1 << 27) // max(N, 1))
+    top = [torch.topk(_keys(scores[r0:r0 + rb], cols), k, dim=1).values
+           for r0 in range(0, B, rb)]
+    return _decode(torch.cat(top))
+
+
+def merge_topk(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """The k best of candidate (vals, idx) pairs per row, same order."""
+    return _decode(torch.topk(_keys(vals, idx), k, dim=1).values)
+
+
+def score_topk_plain(p, Q, k, Qb=None):
+    """Plain version of K5: ``torch.matmul`` + ordered selection, in row
+    blocks of at most 2^28 score bytes (the kernel never writes them).
+    ``p`` is float32 or bfloat16 (read as float32, exactly)."""
+    N = Q.shape[0]
+    rb = max(1, (1 << 26) // max(N, 1))
+    vals, idx = [], []
+    for r0 in range(0, p.shape[0], rb):
+        s = torch.matmul(p[r0:r0 + rb].float(), Q.T)
+        if Qb is not None:
+            s = s + Qb[None, :]
+        v, i = ordered_topk(s, k)
+        vals.append(v)
+        idx.append(i)
+    return torch.cat(vals), torch.cat(idx)
+
+
+def tiled_topk_plain(p, Q_tiles, Qb_tiles, k):
+    """Plain version of K5 on a catalog in item tiles (``_chunked_topn_
+    tiled``, ``topk.py:195``): per tile the scores of every row of ``p``
+    and their top-k, merged into the running top-k by one concat + ordered
+    selection.  ``Qb_tiles`` is -inf on padding rows."""
+    ntiles, tile, _ = Q_tiles.shape
+    run = None
+    for t in range(ntiles):
+        v, i = score_topk_plain(p, Q_tiles[t], min(k, tile), Qb_tiles[t])
+        i = i + t * tile
+        if run is None:
+            run = (v, i)
+        else:
+            run = merge_topk(torch.cat([run[0], v], 1),
+                             torch.cat([run[1], i], 1), k)
+    return run
+
+
+def ivf_tile_topk_plain(queries, table, qidx, qmask, lo, ln, kk, l_cap):
+    """Plain version of K6: ``_tiled_score`` (``parallel/ann.py:54``) in
+    blocks of 256 tiles: gather each tile's queries and table rows
+    ``[lo, lo + l_cap)`` (clamped to the table; columns past ``ln`` are
+    masked), score, mask columns >= ln and masked query slots to -inf,
+    ordered top-kk; positions are column + lo."""
+    T, bq = qidx.shape
+    cols = torch.arange(l_cap, device=queries.device)
+    vals, pos = [], []
+    for t0 in range(0, T, 256):
+        q = qidx[t0:t0 + 256].long()
+        lo_b, ln_b = lo[t0:t0 + 256].long(), ln[t0:t0 + 256].long()
+        rows = (lo_b[:, None] + cols[None, :]).clamp(
+            max=max(table.shape[0] - 1, 0))
+        s = torch.bmm(queries[q], table[rows].transpose(1, 2))
+        ok = (cols[None, None, :] < ln_b[:, None, None]) \
+            & qmask[t0:t0 + 256, :, None]
+        s = torch.where(ok, s, torch.full_like(s, float("-inf")))
+        v, c = ordered_topk(s.reshape(-1, l_cap), kk)
+        vals.append(v.reshape(-1, bq, kk))
+        pos.append(c.reshape(-1, bq, kk) + lo[t0:t0 + 256, None, None])
+    return torch.cat(vals), torch.cat(pos).to(torch.int32)
+
+
+def kmeans_update_plain(unit, assign, cent):
+    """Plain version of K7: ``lloyd``'s update (``parallel/ann.py:228-
+    241``) with ``index_add_`` + ``bincount``: rows of zero norm weigh 0,
+    the mean of each cell's rows, the old centroid where a cell has none,
+    normalized with a 1e-12 floor."""
+    C = cent.shape[0]
+    w = ((unit * unit).sum(1) > 0).to(unit.dtype)
+    a = assign.reshape(-1).long()
+    sums = torch.zeros_like(cent).index_add_(0, a, unit * w[:, None])
+    cnt = torch.bincount(a, weights=w, minlength=C).to(unit.dtype)
+    new = torch.where(cnt[:, None] > 0,
+                      sums / torch.clamp(cnt, min=1.0)[:, None], cent)
+    norm = torch.linalg.vector_norm(new, dim=1, keepdim=True)
+    return new / torch.clamp(norm, min=1e-12)
+
+
+# ------------------------------------------------------------- wrappers
+def _k5_splits(B, N, k, device):
+    """K5's item splits: enough blocks for ~8 per SM, each split at least
+    two item tiles, and S k-lists per query that the merge sorts in
+    shared memory."""
+    KP, QB, IT = next(s for s in _K5_SHAPES if k <= s[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = (8 * sms) // max(1, -(-B // QB))
+    return max(1, min(want, -(-N // IT) // 2, 8192 // KP))
+
+
+def score_topk(p, Q, k, Qb=None):
+    """K5: fused score + top-k, (vals (B, k) float32, idx (B, k) int32)
+    sorted by score descending, ties to the smaller index.
+
+    Replaces ``_chunked_topn`` / ``_chunked_topn_tiled`` (``buffalo_tpu/
+    ops/topk.py:171,195``) and ``IVFIndex.build``'s assignments
+    (``parallel/ann.py:220,245``).  ``p`` (B, d) float32 or bfloat16, ``Q``
+    (N, d) float32, ``Qb`` (N,) float32 or None; 1 <= k <= N.
+    """
+    if p.device.type == "cpu":
+        return score_topk_plain(p, Q, k, Qb)
+    dev = p.device
+    if p.dtype not in QUERY_DTYPES:
+        raise TypeError(f"p must be float32 or bfloat16, got {p.dtype}")
+    _check("p", p, p.dtype, dev, 2)
+    _check("Q", Q, torch.float32, dev, 2)
+    (B, d), N = p.shape, Q.shape[0]
+    if Q.shape[1] != d:
+        raise ValueError(f"p is {d} wide, Q {Q.shape[1]}")
+    if Qb is not None:
+        _check("Qb", Qb, torch.float32, dev, 1)
+        if Qb.shape[0] != N:
+            raise ValueError(f"Qb has {Qb.shape[0]} entries for {N} items")
+    if not 1 <= k <= N:
+        raise ValueError(f"k = {k} outside [1, {N}]")
+    _check_limits("score_topk", k, d)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    S = _k5_splits(B, N, k, dev)
+    part = torch.empty(S * B * k if S > 1 else 0, dtype=torch.int64,
+                       device=dev)
+    rc = _kernel("score_topk")(
+        _ptr(p), int(p.dtype == torch.bfloat16), _ptr(Q), _ptr(Qb), B, N, d,
+        int(k), S, _ptr(part), _ptr(vals), _ptr(idx), _stream(dev))
+    _raise_on(rc, "score_topk")
+    score_topk.launches += 1
+    return vals, idx
+
+
+score_topk.launches = 0
+
+
+def ivf_tile_topk(queries, table, qidx, qmask, lo, ln, kk, l_cap):
+    """K6: the IVF tile scorer, (vals (T, bq_cap, kk) float32, pos (T,
+    bq_cap, kk) int32): per tile t, ``queries[qidx[t]]`` against table
+    rows ``[lo[t], lo[t] + ln[t])``, columns >= ln[t] and slots with
+    ``qmask`` False at -inf, ordered top-kk, positions column + lo[t].
+
+    Replaces ``_tiled_score`` (``buffalo_tpu/parallel/ann.py:54``).  No
+    table row past ``lo[t] + ln[t]`` is read (``ln[t] <= l_cap``).
+    """
+    if queries.device.type == "cpu":
+        return ivf_tile_topk_plain(queries, table, qidx, qmask, lo, ln, kk,
+                                   l_cap)
+    dev = queries.device
+    _check("queries", queries, torch.float32, dev, 2)
+    _check("table", table, torch.float32, dev, 2)
+    _check("qidx", qidx, torch.int32, dev, 2)
+    _check("qmask", qmask, torch.bool, dev, 2)
+    _check("lo", lo, torch.int32, dev, 1)
+    _check("ln", ln, torch.int32, dev, 1)
+    T, bq = qidx.shape
+    d = queries.shape[1]
+    if table.shape[1] != d or tuple(qmask.shape) != (T, bq) \
+            or lo.shape[0] != T or ln.shape[0] != T:
+        raise ValueError("shape mismatch in ivf_tile_topk")
+    if bq > MAX_BQ_CAP or l_cap > MAX_L_CAP:
+        raise NotImplementedError(
+            f"ivf_tile_topk takes tiles of at most {MAX_BQ_CAP} queries x "
+            f"{MAX_L_CAP} rows, got {bq} x {l_cap}")
+    if not 1 <= kk <= l_cap:
+        raise ValueError(f"kk = {kk} outside [1, {l_cap}]")
+    _check_limits("ivf_tile_topk", kk, d)
+    vals = torch.empty((T, bq, kk), dtype=torch.float32, device=dev)
+    pos = torch.empty((T, bq, kk), dtype=torch.int32, device=dev)
+    rc = _kernel("ivf_tile_topk")(
+        _ptr(queries), _ptr(table), _ptr(qidx), _ptr(qmask), _ptr(lo),
+        _ptr(ln), T, bq, d, int(kk), _ptr(vals), _ptr(pos), _stream(dev))
+    _raise_on(rc, "ivf_tile_topk")
+    ivf_tile_topk.launches += 1
+    return vals, pos
+
+
+ivf_tile_topk.launches = 0
+
+
+def kmeans_update(unit, assign, cent):
+    """K7: the new centroids (C, D) from unit rows (N, D), their cells
+    (N,) or (N, 1) int32 and the old centroids (C, D): the normalized mean
+    of each cell's rows of nonzero norm, the old centroid where there are
+    none.  Deterministic: no float atomics; a cell's members are summed in
+    row order in runs of 128, the runs' sums added in order.
+
+    Replaces ``lloyd``'s segment sums and epilogue (``buffalo_tpu/parallel/
+    ann.py:228-241``).
+    """
+    if unit.device.type == "cpu":
+        return kmeans_update_plain(unit, assign, cent)
+    dev = unit.device
+    assign = assign.reshape(-1)
+    _check("unit", unit, torch.float32, dev, 2)
+    _check("assign", assign, torch.int32, dev, 1)
+    _check("cent", cent, torch.float32, dev, 2)
+    (N, D), C = unit.shape, cent.shape[0]
+    if cent.shape[1] != D or assign.shape[0] != N:
+        raise ValueError("shape mismatch in kmeans_update")
+    if D > MAX_D + 1:
+        raise NotImplementedError(
+            f"kmeans_update takes rows of at most {MAX_D + 1} floats (d + 1 "
+            f"with the MIPS coordinate), got {D} (ROADMAP queue 1: d > 256)")
+    if 4 * C > 227 * 1024:
+        raise NotImplementedError(
+            f"kmeans_update keeps one counter per cell in shared memory: at "
+            f"most {227 * 1024 // 4} cells, got {C}")
+    nb = -(-N // _K7_CHUNK)
+    i32 = dict(dtype=torch.int32, device=dev)
+    hist, total = torch.empty(nb * C, **i32), torch.empty(C, **i32)
+    start, run_start = torch.empty(C + 1, **i32), torch.empty(C + 1, **i32)
+    perm = torch.empty(N, **i32)
+    member = torch.empty(N, dtype=torch.uint8, device=dev)
+    part = torch.empty((N // _K7_RUN + C + 1) * D, device=dev)
+    out = torch.empty_like(cent)
+    rc = _kernel("kmeans_update")(
+        _ptr(unit), _ptr(assign), _ptr(cent), N, D, C, _ptr(hist),
+        _ptr(total), _ptr(start), _ptr(run_start), _ptr(member), _ptr(perm),
+        _ptr(part), _ptr(out), _stream(dev))
+    _raise_on(rc, "kmeans_update")
+    kmeans_update.launches += 1
+    return out
+
+
+kmeans_update.launches = 0
+
+KERNELS = (score_topk, ivf_tile_topk, kmeans_update)

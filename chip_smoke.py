@@ -6,31 +6,43 @@ on the ML-20M configuration (138,493 x 26,744, ~20M interactions;
 synthetic, power-law popularity, made from a seed) at d = 40 and, on
 iALS++ (chosen at d >= 128), at d = 160; builds every CUDA kernel from
 ``buffalo_tpu_torch/csrc``, holds each against its plain PyTorch
-version on real batches of the ML-20M layout, and checks that training
-went through the kernels.  Phases, one line each: device, build, layout,
-kernels (K1 on the largest and the short matrix-free batch, K1 and K2
-in rows mode and on bfloat16 values, K1, K2 and K3 at d = 13 and 128 on
-small random batches), epoch profile, path (d = 40), bf16 path, scatter
-path and stream path (one epoch each against the range layout), plain
-path, ialspp kernels (K4 at d = 160 on three batches, range and rows
-modes, bfloat16, and small random widths up to 256), kernel wide (K2
-and K3 at d = 160), ialspp path (d = 160), text path.  Every phase that
-fails ends the run with a non-zero exit; without a card it exits 1 and
-prints no result.
+version on real batches of the ML-20M layout (the retrieval kernels on
+the serving path's queries and tables), and checks that training and
+serving went through the kernels.  Phases, one line each: device, build,
+layout, kernels (K1 on the largest and the short matrix-free batch, K1
+and K2 in rows mode and on bfloat16 values, K1, K2 and K3 at d = 13 and
+128 on small random batches), epoch profile, path (d = 40), retrieval path
+(that model served through ``ParALS`` and an ``IVFIndex``, against
+numpy), bf16 path, scatter path and stream path (one epoch each against
+the range layout), plain path, ialspp kernels (K4 at d = 160 on three
+batches, range and rows modes, bfloat16, and small random widths up to
+256), kernel wide (K2 and K3 at d = 160), ialspp path (d = 160), catalog
+path (the README's serving configuration: 10,000 queries over a
+505,840 x 100 KakaoBrunch-shaped catalog through ``batch_topn``, float32
+and bfloat16 queries, its ``IVFIndex`` build and search; K5, K6 and K7
+against their plain versions there, and two calls on a 5M x 64 catalog,
+K5 held to the plain tiled version), retrieval widths (K5 and K6 at d = 13
+to 256 and k = 1 to 1024), text path.  Every phase that fails ends the
+run with a non-zero exit; without a card it exits 1 and prints no result.
 
     python3 chip_smoke.py
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON object with each kernel's launches on the main
 path, its error against the plain version and its times (CUDA events,
-median of 20 runs, batches L2-warm as in the epoch loop) beside the
-bound computed from this run's inputs (K1–K3's launches are the d = 40
-path's, K4's the d = 160 path's); the kernel lines of K1, K3 and K4
-also give the kernel's device time alone (CUPTI through torch.profiler,
-median of the 11-22 of 22 launches the trace holds), since events around
-a short launch also catch the wrapper's host work (K2's kernel line also
-gives the segment batch's bound and both bounds at the tensor cores'
-TF32 rate); the last line is ``{"ok": true, "device": {...}}``.
+median of 20 runs, batches L2-warm as in the epoch loop; K5-K7 median of
+10) beside the bound computed from this run's inputs (K1–K3's launches
+are the d = 40 path's, K4's the d = 160 path's, K5–K7's the catalog
+path's, whose shapes their times are of); the kernel lines of K1, K3 and
+K4 also give the kernel's device time alone (CUPTI through
+torch.profiler, median of the 11-22 of 22 launches the trace holds),
+since events around a short launch also catch the wrapper's host work
+(K2's kernel line also gives the segment batch's bound and both bounds
+at the tensor cores' TF32 rate).  K5-K7 have event times only: late in
+a run the trace held few or none of their launches, so their device
+time is not measured; each of their calls keeps the card busy 0.2 ms or
+more, so the calls queue on it and the events catch little host work.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -90,6 +102,22 @@ TOL_LAYOUT_X, TOL_LAYOUT_LOSS = 1e-3, 1e-5
 # bfloat16 values against float32 after 4 epochs: the JAX package's own
 # tolerance on the final loss (tests/models/test_als.py:215-223)
 TOL_BF16_LOSS = 5e-3
+# retrieval (K5-K7): scores are float32 sums in another order than the
+# plain version's (and numpy's), so within 1e-5 relative (1e-6 absolute
+# near 0); ids equal except where the two scores are that close (ties);
+# K7's centroids within 1e-5.  Top-10 sets equal to numpy's for 99% of
+# queries (near-ties at the 10th place may swap)
+TOL_SCORE, TOL_SCORE_ABS, TOL_CENT, MIN_SAME_TOPK = 1e-5, 1e-6, 1e-5, 0.99
+TOPK = 10
+# retrieval_path: ParALS on the d = 40 ML-20M model
+RETRIEVAL_USERS, RETRIEVAL_ITEMS, RETRIEVAL_PROBE = 10_000, 1_000, 32
+# catalog_path: the README's serving configuration, 10k queries over a
+# KakaoBrunch-shaped catalog (505,840 x 100), its IVF index (sqrt(N) = 711
+# cells, spill 2), and one call on a 5M x 64 catalog
+BRUNCH_ITEMS, BRUNCH_D, BRUNCH_QUERIES = 505_840, 100, 10_000
+BRUNCH_CELLS = 711
+BRUNCH_PROBES = (8, 32)
+BIG_ITEMS, BIG_D, BIG_QUERIES = 5_000_000, 64, 2_048
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -1367,6 +1395,476 @@ def layout_paths(bt, K, torch, data, dev, start):
     torch.cuda.empty_cache()
 
 
+def reset_counts(kernels):
+    for kern in kernels:
+        kern.launches = 0
+
+
+def read_counts(kernels):
+    return {k.__name__: k.launches for k in kernels}
+
+
+def kernel_topk_check(got, ref, what):
+    """A kernel's (scores, ids) against its plain version's: scores within
+    TOL_SCORE relative (TOL_SCORE_ABS near 0, equal infinities), ids equal
+    except where the two scores are that close, and ties in index order.
+    Returns (max abs score error, ids that differ at ties)."""
+    import torch
+
+    (gv, gi), (rv, ri) = got, ref
+    close = torch.isclose(gv, rv, rtol=TOL_SCORE, atol=TOL_SCORE_ABS)
+    check(bool(close.all()), f"{what}: scores differ from the plain version "
+          f"by up to {float((gv - rv).abs().nan_to_num().max()):.3g}")
+    check(bool(((gi == ri) | close).all()),
+          f"{what}: ids differ from the plain version off ties")
+    g2, i2 = gv.reshape(-1, gv.shape[-1]), gi.reshape(-1, gi.shape[-1])
+    same = g2[:, 1:] == g2[:, :-1]
+    check(bool((~same | (i2[:, 1:] > i2[:, :-1])).all()),
+          f"{what}: equal scores not in index order")
+    fin = torch.isfinite(rv)
+    err = float((gv - rv)[fin].abs().max()) if bool(fin.any()) else 0.0
+    return err, int((gi != ri).sum())
+
+
+def numpy_topk(queries, table, k):
+    """float64 top-k by score, ties to the smaller index: (ids, scores)."""
+    s = queries.astype(np.float64) @ table.astype(np.float64).T
+    ids = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return ids, np.take_along_axis(s, ids, axis=1)
+
+
+def agree_with_numpy(ids, scores, ref_ids, ref_scores, what):
+    """Share of queries whose top-k set equals numpy's (at least
+    MIN_SAME_TOPK) and the largest score error (TOL_SCORE relative)."""
+    same = float(np.mean([set(a) == set(b) for a, b in zip(ids, ref_ids)]))
+    ok = np.isclose(scores, ref_scores, rtol=TOL_SCORE, atol=TOL_SCORE_ABS)
+    check(same >= MIN_SAME_TOPK, f"{what}: top-{ids.shape[1]} equals numpy's "
+          f"for only {same:.4f} of queries")
+    check(bool(ok.all()), f"{what}: scores off numpy's by up to "
+          f"{float(np.abs(scores - ref_scores).max()):.3g}")
+    return same, float(np.abs(scores - ref_scores).max())
+
+
+def recall_at(ids, exact_ids):
+    k = exact_ids.shape[1]
+    return float(np.mean([len(set(a) & set(b)) / k
+                          for a, b in zip(ids, exact_ids)]))
+
+
+def wall_ms(fn):
+    """(host milliseconds of ``fn()`` ending in a device sync, result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    st = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - st), out
+
+
+def retrieval_path(bt, R, torch, als):
+    """The d = 40 ML-20M model served through ParALS, with K5-K7's counts
+    set to 0 just before: top-10 for RETRIEVAL_USERS users (first call
+    stages the item table, the second finds it in the cache), most_similar
+    for RETRIEVAL_ITEMS items (after normalize), each against numpy; then
+    an IVFIndex on the normalized items (sqrt(N) cells, spill 2, 10
+    iterations) serving those items at n_probe RETRIEVAL_PROBE (recall@10
+    against the exact scan) and probing every cell (the exact scan up to
+    ties).  Host wall ms for each call; then K5 alone at the top-10 call's
+    shape against its plain version, with its times and bound."""
+    out = {}
+    reset_counts(R.KERNELS)
+    par = bt.ParALS(als)
+    users = [str(u) for u in range(RETRIEVAL_USERS)]
+    ms_first, (keys, ids, scores) = wall_ms(
+        lambda: par.topk_recommendation(users, topk=TOPK))
+    ms_warm, (_, ids2, _) = wall_ms(
+        lambda: par.topk_recommendation(users, topk=TOPK))
+    check(keys == users and ids.shape == (RETRIEVAL_USERS, TOPK)
+          and np.array_equal(ids, ids2), "ParALS top-10 malformed")
+    same, err = agree_with_numpy(ids, scores, *numpy_topk(
+        als.P[:RETRIEVAL_USERS], als.Q, TOPK), "ParALS.topk_recommendation")
+    out["topk_recommendation"] = dict(
+        users=RETRIEVAL_USERS, topk=TOPK, host_ms_first=ms_first,
+        host_ms_warm=ms_warm, same_as_numpy=same, max_abs_score_err=err)
+    users_items = (als.P[:RETRIEVAL_USERS], als.Q)  # before normalize
+
+    items = [str(i) for i in range(RETRIEVAL_ITEMS)]
+    ms_first, (sim_ids, sim_scores) = wall_ms(
+        lambda: par.most_similar(items, topk=TOPK))
+    ms_warm, _ = wall_ms(lambda: par.most_similar(items, topk=TOPK))
+    Qn = als.Q
+    same, err = agree_with_numpy(sim_ids, sim_scores, *numpy_topk(
+        Qn[:RETRIEVAL_ITEMS], Qn, TOPK), "ParALS.most_similar")
+    out["most_similar"] = dict(items=RETRIEVAL_ITEMS, host_ms_first=ms_first,
+                               host_ms_warm=ms_warm, same_as_numpy=same,
+                               max_abs_score_err=err)
+
+    cells = int(np.sqrt(len(Qn)))
+    build_ms, index = wall_ms(lambda: bt.IVFIndex.build(
+        Qn, n_clusters=cells, n_probe=RETRIEVAL_PROBE, spill=2, n_iters=10,
+        device=als.device))
+    par.set_ann_index(index)
+    ms_first, (ann_ids, _) = wall_ms(
+        lambda: par.most_similar(items, topk=TOPK))
+    ms_warm, _ = wall_ms(lambda: par.most_similar(items, topk=TOPK))
+    index.n_probe = cells
+    full_ids, full_scores = par.most_similar(items, topk=TOPK)
+    ok = np.isclose(full_scores, sim_scores, rtol=TOL_SCORE,
+                    atol=TOL_SCORE_ABS)
+    check(bool(ok.all() and ((full_ids == sim_ids) | ok).all()),
+          "probing every cell differs from the exact scan")
+    launches = read_counts(R.KERNELS)
+    check(all(v > 0 for v in launches.values()),
+          f"a retrieval kernel never launched: {launches}")
+    p, Q = (torch.from_numpy(np.ascontiguousarray(a)).to(als.device)
+            for a in users_items)
+    out["k5"] = k5_entry(R, torch, p, Q, TOPK, "K5 (ML-20M users)")
+    out["ivf"] = dict(cells=cells, spill=2, n_iters=10, build_host_ms=build_ms,
+                      n_probe=RETRIEVAL_PROBE, host_ms_first=ms_first,
+                      host_ms_warm=ms_warm,
+                      recall_at_10=recall_at(ann_ids, sim_ids),
+                      full_probe_equals_exact=True)
+    phase("retrieval_path", d=als.Q.shape[1], items=len(Qn), **out,
+          launches=launches)
+
+
+def brunch_tables(rng, n, d, b):
+    """A KakaoBrunch-shaped catalog (rows N(0, 1) scaled by lognormal(0,
+    0.7) norms) and b N(0, 1) queries, float32."""
+    table = rng.standard_normal((n, d), dtype=np.float32)
+    table *= rng.lognormal(0.0, 0.7, n).astype(np.float32)[:, None]
+    return table, rng.standard_normal((b, d), dtype=np.float32)
+
+
+def k5_work(B, N, d, k, bias, p_bytes=4):
+    """(bytes, operations) of K5's function: p, Q (and Qb) read once, the
+    k (score, index) pairs written; 2 d operations per (query, item)
+    score, one more with a bias."""
+    return (p_bytes * B * d + 4 * N * d + (4 * N if bias else 0) + 8 * B * k,
+            B * N * (2 * d + (1 if bias else 0)))
+
+
+def k5_entry(R, torch, p, Q, k, what, Qb=None, plain=None, library=True):
+    """K5 on (p, Q, k) against its plain version (``plain``, else
+    ``score_topk_plain``): its event ms, the plain version's ms and
+    (``library``) one torch.matmul + torch.topk per 2048-query chunk, and
+    the bound."""
+    got = R.score_topk(p, Q, k, Qb)
+    ref = plain() if plain is not None else R.score_topk_plain(p, Q, k, Qb)
+    err, tie_ids = kernel_topk_check(got, ref, what)
+    del got, ref
+    ms = time_ms(lambda: R.score_topk(p, Q, k, Qb), reps=10, warmup=2)
+    splits = R._k5_splits(p.shape[0], Q.shape[0], k, p.device)
+    plain_ms = time_ms(plain or (lambda: R.score_topk_plain(p, Q, k, Qb)),
+                       reps=3, warmup=1)
+    lib_ms = None
+    if library:
+        def lib():
+            for c in range(0, p.shape[0], 2048):
+                s = torch.matmul(p[c:c + 2048].float(), Q.T)
+                torch.topk(s if Qb is None else s + Qb, k, dim=1)
+        lib_ms = time_ms(lib, reps=3, warmup=1)
+    nbytes, flops = k5_work(p.shape[0], Q.shape[0], Q.shape[1], k,
+                            Qb is not None, p.element_size())
+    bms, by = bound_ms(nbytes, flops)
+    return dict(B=p.shape[0], N=Q.shape[0], d=Q.shape[1], k=k,
+                splits=splits, max_abs_err=err,
+                ids_differing_at_ties=tie_ids, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
+def capture_k6(ann, fn):
+    """Run ``fn`` with the IVF search's K6 call recorded: (fn's result,
+    the call's arguments)."""
+    seen = []
+    real = ann.ivf_tile_topk
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+    ann.ivf_tile_topk = spy
+    try:
+        out = fn()
+    finally:
+        ann.ivf_tile_topk = real
+    check(len(seen) == 1, f"search made {len(seen)} K6 calls")
+    return out, seen[0]
+
+
+def k6_entry(R, torch, args):
+    """K6 on one search's tiles against its plain version, with its event
+    ms, the plain version's, the library yardstick (one
+    torch.bmm of the gathered queries against the gathered slices + one
+    torch.topk over all tiles) and the bound: 2 d operations per (live
+    slot, real column) pair; the distinct table rows, the queries and the
+    tile arrays read once, the (score, position) pairs written."""
+    queries, table, qidx, qmask, lo, ln, kk, l_cap = args
+    got = R.ivf_tile_topk(*args)
+    ref = R.ivf_tile_topk_plain(*args)
+    T, bq, _ = ref[0].shape
+    err, tie_ids = kernel_topk_check(got, ref,
+                                     f"K6 (l_cap {l_cap}, bq {bq})")
+    check(not bool(torch.isnan(got[0]).any()), "K6 wrote NaN")
+    del got, ref
+    ms = time_ms(lambda: R.ivf_tile_topk(*args), reps=10, warmup=2)
+    plain_ms = time_ms(lambda: R.ivf_tile_topk_plain(*args), reps=3,
+                       warmup=1)
+    cols = torch.arange(l_cap, device=lo.device)
+
+    def lib():
+        rows = (lo.long()[:, None] + cols[None, :]).clamp(
+            max=table.shape[0] - 1)
+        s = torch.bmm(queries[qidx.long()], table[rows].transpose(1, 2))
+        torch.topk(s, kk, dim=2)
+    lib_ms = time_ms(lib, reps=3, warmup=1)
+    live = qmask.sum(1).long()
+    pairs = int((live * ln.long()).sum())
+    covered = torch.zeros(table.shape[0] + 1, dtype=torch.int32,
+                          device=lo.device)
+    covered.index_add_(0, lo.long(), torch.ones_like(lo))
+    covered.index_add_(0, (lo + ln).long(), -torch.ones_like(lo))
+    rows_read = int((covered.cumsum(0) > 0).sum())
+    d = queries.shape[1]
+    nbytes = (4 * d * (rows_read + queries.shape[0]) + 9 * T * bq + 8 * T
+              + 8 * T * bq * kk)
+    bms, by = bound_ms(nbytes, 2 * d * pairs)
+    return dict(tiles=T, bq_cap=bq, l_cap=l_cap, kk=kk, live_pairs=pairs,
+                table_rows_read=rows_read, max_abs_err=err,
+                ids_differing_at_ties=tie_ids, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+
+
+def k7_entry(R, torch, unit, assign, cent):
+    """K7 on one Lloyd update against its plain version (centroids within
+    TOL_CENT), two launches bitwise equal, its event ms, the plain
+    version's, the library yardstick
+    (index_add_ + bincount) and the bound: the rows, the assignment and the
+    old centroids read once, the new written; one add per row element."""
+    got = R.kmeans_update(unit, assign, cent)
+    again = R.kmeans_update(unit, assign, cent)
+    ref = R.kmeans_update_plain(unit, assign, cent)
+    err = float((got - ref).abs().max())
+    check(err <= TOL_CENT, f"K7 centroids off the plain version by {err:.3g}")
+    check(bool(torch.equal(got, again)), "K7 is not deterministic")
+    ms = time_ms(lambda: R.kmeans_update(unit, assign, cent), reps=10,
+                 warmup=2)
+    plain_ms = time_ms(lambda: R.kmeans_update_plain(unit, assign, cent),
+                       reps=5, warmup=1)
+    a = assign.reshape(-1).long()
+
+    def lib():
+        torch.zeros_like(cent).index_add_(0, a, unit)
+        torch.bincount(a, minlength=cent.shape[0])
+    lib_ms = time_ms(lib, reps=5, warmup=1)
+    (N, D), C = unit.shape, cent.shape[0]
+    bms, by = bound_ms(4 * N * D + 4 * N + 8 * C * D, N * D)
+    return dict(N=N, D=D, cells=C, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+
+
+def ivf_unit(table):
+    """IVFIndex.build's MIPS-augmented unit rows (parallel/ann.py)."""
+    norms = np.linalg.norm(table, axis=1, keepdims=True)
+    M = float(norms.max())
+    aug = np.sqrt(np.maximum(M * M - norms[:, 0] ** 2, 0.0)).astype(np.float32)
+    return np.concatenate([table, aug[:, None]], axis=1) / max(M, 1e-12)
+
+
+def catalog_path(bt, R, torch, dev):
+    """The README's serving configuration on a KakaoBrunch-shaped catalog
+    (BRUNCH_ITEMS x BRUNCH_D, seed 21): with K5-K7's counts set to 0 just
+    before, 10,000 queries through batch_topn (float32, then bfloat16
+    queries), an IVFIndex (BRUNCH_CELLS cells, spill 2, 10 iterations) and
+    its search at each of BRUNCH_PROBES; then each kernel against its
+    plain version at these shapes with its times and bound; and one call
+    on a BIG_ITEMS x BIG_D catalog (the tiled path), held to the plain
+    tiled version.  Returns the kernels line's K5-K7 entries and their
+    launches."""
+    from buffalo_tpu_torch.ops.topk import batch_topn
+    from buffalo_tpu_torch.parallel import ann
+
+    rng = np.random.default_rng(21)
+    table, queries = brunch_tables(rng, BRUNCH_ITEMS, BRUNCH_D,
+                                   BRUNCH_QUERIES)
+    out = {}
+    reset_counts(R.KERNELS)
+    # ---- the user's calls
+    ms_first, (ids, scores) = wall_ms(
+        lambda: batch_topn(queries, table, TOPK, device=dev))
+    ms_warm, (ids2, _) = wall_ms(
+        lambda: batch_topn(queries, table, TOPK, device=dev))
+    ms_bf16, (ids16, scores16) = wall_ms(
+        lambda: batch_topn(queries, table, TOPK, query_dtype="bfloat16",
+                           device=dev))
+    check(np.array_equal(ids, ids2), "two batch_topn calls differ")
+    probe = BRUNCH_QUERIES // 10  # numpy's exact scan on a tenth
+    same, err = agree_with_numpy(ids[:probe], scores[:probe], *numpy_topk(
+        queries[:probe], table, TOPK), "batch_topn (brunch)")
+    out["batch_topn"] = dict(queries=BRUNCH_QUERIES, topk=TOPK,
+                             host_ms_first=ms_first, host_ms_warm=ms_warm,
+                             host_ms_bf16=ms_bf16,
+                             same_as_numpy_first_tenth=same,
+                             max_abs_score_err=err,
+                             bf16_recall_at_10=recall_at(ids16, ids))
+    build_ms, index = wall_ms(lambda: bt.IVFIndex.build(
+        table, n_clusters=BRUNCH_CELLS, spill=2, n_iters=10, device=dev))
+    out["ivf_build"] = dict(cells=BRUNCH_CELLS, spill=2, n_iters=10,
+                            host_ms=build_ms,
+                            inverted_file_rows=int(len(index.ids)))
+    k6_args = {}
+    for n_probe in BRUNCH_PROBES:
+        index.n_probe = n_probe
+        (ms, (aids, _)), k6_args[n_probe] = capture_k6(
+            ann, lambda: wall_ms(lambda: index.search(queries, TOPK)))
+        ms_warm, _ = wall_ms(lambda: index.search(queries, TOPK))
+        out[f"ivf_search_probe{n_probe}"] = dict(
+            host_ms_first=ms, host_ms_warm=ms_warm,
+            recall_at_10=recall_at(aids, ids))
+    launches = read_counts(R.KERNELS)
+    check(all(v > 0 for v in launches.values()),
+          f"a retrieval kernel never launched on the catalog: {launches}")
+
+    # ---- each kernel against its plain version at these shapes
+    p = torch.from_numpy(queries).to(dev)
+    Q = torch.from_numpy(table).to(dev)
+    k5 = k5_entry(R, torch, p, Q, TOPK, "K5 (brunch)")
+    k5["bf16"] = k5_entry(R, torch, p.to(torch.bfloat16), Q, TOPK,
+                          "K5 (brunch, bfloat16 queries)", library=False)
+    unit = torch.from_numpy(np.ascontiguousarray(ivf_unit(table))).to(dev)
+    cent = torch.from_numpy(index.centroids).to(dev)
+    chunk = unit[:1 << 16]
+
+    def assign():
+        return torch.cat([R.score_topk(unit[c:c + (1 << 16)], cent, 1)[1]
+                          for c in range(0, len(unit), 1 << 16)])
+    k5_assign = k5_entry(R, torch, chunk, cent, 1, "K5 (k-means, k = 1)",
+                         library=False)
+    k5_assign["full_assignment_ms"] = time_ms(assign, reps=5, warmup=1)
+    k5_spill = k5_entry(R, torch, chunk, cent, 2, "K5 (spill, k = 2)",
+                        library=False)
+    k7 = k7_entry(R, torch, unit, assign(), cent)
+    k6 = {n: k6_entry(R, torch, k6_args[n]) for n in BRUNCH_PROBES}
+    del unit, cent, chunk, k6_args
+    phase("catalog_path", items=BRUNCH_ITEMS, d=BRUNCH_D, **out,
+          launches=launches, k5=k5, k5_kmeans_assign=k5_assign,
+          k5_spill_assign=k5_spill, k6=k6, k7=k7)
+    del p, Q, index, table, queries
+    torch.cuda.empty_cache()
+
+    # ---- a 5M x 64 catalog: the JAX package's gate would tile it (a
+    # 2048 x 5M score matrix), K5 scans the staged table whole in one
+    # launch; held to the plain tiled version (per-tile top-k + merge over
+    # a padded copy made for it alone)
+    from buffalo_tpu_torch.ops import topk as T
+
+    big, bq = brunch_tables(rng, BIG_ITEMS, BIG_D, BIG_QUERIES)
+    check(min(2048, BIG_QUERIES) * BIG_ITEMS * 4 > T._FLAT_SCORES_BYTES,
+          "the 5M catalog is not past the plain versions' gate")
+    reset_counts(R.KERNELS)
+    ms_big, (bids, bscores) = wall_ms(
+        lambda: batch_topn(bq, big, TOPK, device=dev))
+    ms_big_warm, (bids2, _) = wall_ms(
+        lambda: batch_topn(bq, big, TOPK, device=dev))
+    big_launches = read_counts(R.KERNELS)
+    check(big_launches["score_topk"] == 2, f"the 5M calls: {big_launches}")
+    check(np.array_equal(bids, bids2), "two 5M batch_topn calls differ")
+    same, err = agree_with_numpy(bids[:64], bscores[:64], *numpy_topk(
+        bq[:64], big, TOPK), "batch_topn (5M)")
+    tile = 1 << 20
+    ntiles = -(-BIG_ITEMS // tile)
+    Qg = torch.from_numpy(big).to(dev)
+    Q_t = torch.zeros(ntiles * tile, BIG_D, device=dev)
+    Q_t[:BIG_ITEMS] = Qg
+    Qb_t = torch.full((ntiles * tile,), float("-inf"), device=dev)
+    Qb_t[:BIG_ITEMS] = 0.0
+    pb = torch.from_numpy(bq).to(dev)
+    del big
+    big_entry = k5_entry(
+        R, torch, pb, Qg, TOPK, "K5 (5M)", library=False,
+        plain=lambda: R.tiled_topk_plain(pb, Q_t.reshape(ntiles, tile, -1),
+                                         Qb_t.reshape(ntiles, tile), TOPK))
+    phase("catalog_path_5m", items=BIG_ITEMS, d=BIG_D, queries=BIG_QUERIES,
+          host_ms_first=ms_big, host_ms_warm=ms_big_warm,
+          launches=big_launches, same_as_numpy_first_64=same,
+          max_abs_score_err=err, k5=big_entry)
+    del Qg, Q_t, Qb_t, pb
+    T._stage_cache = None  # the staged 5M table
+    torch.cuda.empty_cache()
+    entries = {
+        "score_topk": dict(
+            route="cuda", source="buffalo_tpu_torch/csrc/score_topk.cu",
+            replaces="buffalo_tpu/ops/topk.py:171",
+            max_abs_err=max(k5["max_abs_err"], k5["bf16"]["max_abs_err"],
+                            k5_assign["max_abs_err"],
+                            k5_spill["max_abs_err"],
+                            big_entry["max_abs_err"]),
+            **{f: k5[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}),
+        "ivf_tile_topk": dict(
+            route="cuda", source="buffalo_tpu_torch/csrc/ivf_tile_topk.cu",
+            replaces="buffalo_tpu/parallel/ann.py:54",
+            max_abs_err=max(e["max_abs_err"] for e in k6.values()),
+            **{f: k6[32][f] for f in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}),
+        "kmeans_update": dict(
+            route="cuda", source="buffalo_tpu_torch/csrc/kmeans_update.cu",
+            replaces="buffalo_tpu/parallel/ann.py:220",
+            **{f: k7[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}),
+    }
+    return entries, launches
+
+
+def retrieval_widths(R, torch, dev):
+    """K5 and K6 against their plain versions on small random inputs at
+    d = 13, 40, 100, 160, 256 and k = 1, 10, 100, 1024, K5 with and without
+    a bias, N = 2,500 (no multiple of an item tile), B = 300 (none of a
+    query block), three rows duplicating a fourth (their equal scores must
+    come back in index order); K6 on 40 tiles with empty, one-row, full and
+    last-rows-of-the-table tiles and 20% of the slots masked."""
+    out = {}
+    for d in (13, 40, 100, 160, 256):
+        rng = np.random.default_rng(d)
+        Q = rng.standard_normal((2500, d), dtype=np.float32)
+        Q[5] *= 10  # the best match of p[0]
+        Q[[17, 400, 1999]] = Q[5]
+        p = rng.standard_normal((300, d), dtype=np.float32)
+        p[:3] = Q[5]
+        Qb = rng.standard_normal(2500, dtype=np.float32)
+        p, Q, Qb = (torch.from_numpy(a).to(dev) for a in (p, Q, Qb))
+        table = rng.standard_normal((3000, d), dtype=np.float32)
+        queries = rng.standard_normal((500, d), dtype=np.float32)
+        for k in (1, 10, 100, 1024):
+            for bias in (None, Qb):
+                got = R.score_topk(p, Q, k, bias)
+                err, _ = kernel_topk_check(
+                    got, R.score_topk_plain(p, Q, k, bias),
+                    f"K5 at d = {d}, k = {k}")
+                if bias is None and k >= 4:
+                    check(got[1][0, :4].tolist() == [5, 17, 400, 1999],
+                          f"K5 at d = {d}: duplicated rows out of order")
+                out[f"K5_d{d}_k{k}" + ("_bias" if bias is not None
+                                        else "")] = err
+            l_cap, bq = (1024, 256) if k == 1024 else (256, 64)
+            ln = rng.integers(0, l_cap + 1, size=40).astype(np.int32)
+            ln[:3] = [0, 1, l_cap]
+            lo = rng.integers(0, 3000 - l_cap, size=40).astype(np.int32)
+            lo[-1], ln[-1] = 3000 - 5, 5
+            args = [torch.from_numpy(a).to(dev) for a in (
+                queries, table,
+                rng.integers(0, 500, size=(40, bq)).astype(np.int32),
+                rng.random((40, bq)) < 0.8, lo, ln)]
+            got = R.ivf_tile_topk(*args, k, l_cap)
+            check(not bool(torch.isnan(got[0]).any()), "K6 wrote NaN")
+            out[f"K6_d{d}_k{k}"], _ = kernel_topk_check(
+                got, R.ivf_tile_topk_plain(*args, k, l_cap),
+                f"K6 at d = {d}, kk = {k}")
+    torch.cuda.synchronize()
+    return dict(max_abs_err=max(out.values()), cases=len(out))
+
+
 def main() -> int:
     import torch
 
@@ -1379,6 +1877,7 @@ def main() -> int:
     from buffalo_tpu_torch.data.mm import MatrixMarket, MatrixMarketOptions
     from buffalo_tpu_torch.ops import _build
     from buffalo_tpu_torch.ops import als_kernels as K
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
 
     bt.set_log_level(1)
     dev = bt.utils.resolve_device("cuda")
@@ -1470,6 +1969,9 @@ def main() -> int:
               # scores for every user and item, and the item table read
               topk_bound_ms=bound_ms(4 * ML20M_ITEMS * D,
                                      2 * 1000 * ML20M_ITEMS * D)[0])
+
+        # ---- retrieval path: the trained model through ParALS + IVF
+        retrieval_path(bt, R, torch, als)
         del als
 
         # ---- bf16 path: the same run on bfloat16 values
@@ -1543,6 +2045,14 @@ def main() -> int:
               topk_same_as_numpy=same)
         del als, data
         torch.cuda.empty_cache()
+
+        # ---- catalog path: the README's serving configuration (K5-K7 at
+        # its shapes), then K5 and K6 at every width
+        ret_entries, ret_launches = catalog_path(bt, R, torch, dev)
+        entries.update(ret_entries)
+        path_launches.update(ret_launches)
+        phase("retrieval_widths", **retrieval_widths(R, torch, dev),
+              tol=TOL_SCORE)
 
         # ---- text path: MatrixMarket -> ALS -> save -> load
         mm = os.path.join(WORK, "tiny.mtx")

@@ -436,3 +436,151 @@ def test_streamed_batches_match_host_batches(dev):
             seen += 1
         assert seen == len(host)
         assert b.h2d_bytes == (epoch + 1) * nbytes
+
+
+# ---------------------------------------------------------------- K5-K7
+def _topk_close(got, ref):
+    """Scores within 1e-5 relative; ids equal except where the two scores
+    are within that too (ties)."""
+    (gv, gi), (rv, ri) = got, ref
+    torch.testing.assert_close(gv, rv, rtol=1e-5, atol=1e-6)
+    tied = torch.isclose(gv, rv, rtol=1e-5, atol=1e-6)
+    assert bool(((gi == ri) | tied).all())
+
+
+def _ties_in_index_order(vals, idx):
+    """Where neighbouring scores are equal, the indices ascend."""
+    same = vals[:, 1:] == vals[:, :-1]
+    assert bool((~same | (idx[:, 1:] > idx[:, :-1])).all())
+
+
+def _score_case(dev, d, N=2500, B=300, seed=0, dup=True):
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(size=(N, d)).astype(np.float32)
+    if dup:  # duplicated rows score equal: they must come back in order
+        Q[5] *= 10  # the best match of p[:3]
+        Q[[17, 400, 1999]] = Q[5]
+    p = rng.normal(size=(B, d)).astype(np.float32)
+    p[:3] = Q[5]
+    Qb = rng.normal(size=N).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (p, Q, Qb)]
+
+
+# d = 13, 40, 100, 160, 256 (no multiple of the 32-feature chunk but 160,
+# 256); k = 1, 10 (list of 32), 100 (128), 1024; N = 2500 is no multiple of
+# the item tile, B = 300 none of the query block
+@pytest.mark.parametrize("d", [13, 40, 100, 160, 256])
+@pytest.mark.parametrize("k", [1, 10, 100, 1024])
+@pytest.mark.parametrize("bias", [False, True])
+def test_score_topk_kernel_matches_plain(dev, d, k, bias):
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    p, Q, Qb = _score_case(dev, d, seed=d + k)
+    Qb = Qb if bias else None
+    before = R.score_topk.launches
+    got = R.score_topk(p, Q, k, Qb)
+    torch.cuda.synchronize()
+    assert R.score_topk.launches == before + 1
+    _topk_close(got, R.score_topk_plain(p, Q, k, Qb))
+    _ties_in_index_order(*got)
+    if not bias and k >= 4:  # the duplicated rows, in index order
+        assert got[1][0, :4].tolist() == [5, 17, 400, 1999]
+
+
+@pytest.mark.parametrize("shape", [(5000, 200, 40, 10), (4096, 711, 101, 1),
+                                   (4096, 711, 101, 2), (70, 9000, 64, 10)])
+def test_score_topk_kernel_shapes(dev, shape):
+    """One split (N under two item tiles), the k-means assignment's shape
+    (unit rows against 711 centroids at k = 1 and 2), and a small B over
+    a wide catalog (many splits); bfloat16 queries against their float32
+    rounding."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    B, N, d, k = shape
+    p, Q, Qb = _score_case(dev, d, N=N, B=B, seed=B, dup=False)
+    _topk_close(R.score_topk(p, Q, k, Qb), R.score_topk_plain(p, Q, k, Qb))
+    p16 = p.to(torch.bfloat16)
+    _topk_close(R.score_topk(p16, Q, k), R.score_topk_plain(p16, Q, k))
+
+
+def test_score_topk_kernel_neg_inf_and_limits(dev):
+    """-inf scores (padding rows' bias) are kept as the lowest entries, in
+    index order; k past 1024 and d past 256 raise NotImplementedError."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    p, Q, Qb = _score_case(dev, 24, N=300, B=70, dup=False)
+    Qb[200:] = float("-inf")
+    vals, idx = R.score_topk(p, Q, 250, Qb)
+    _topk_close((vals, idx), R.score_topk_plain(p, Q, 250, Qb))
+    assert bool(torch.isinf(vals[:, 200:]).all())
+    assert idx[:, 200:].tolist() == [list(range(200, 250))] * 70
+    with pytest.raises(NotImplementedError):
+        R.score_topk(p, torch.zeros(2000, 24, device=dev), 1025)
+    with pytest.raises(NotImplementedError):
+        R.score_topk(torch.zeros(4, 257, device=dev),
+                     torch.zeros(8, 257, device=dev), 2)
+
+
+def _ivf_case(dev, d, T=40, bq=64, l_cap=256, seed=0):
+    rng = np.random.default_rng(seed)
+    B, Nt = 500, 3000
+    queries = rng.normal(size=(B, d)).astype(np.float32)
+    table = rng.normal(size=(Nt, d)).astype(np.float32)
+    ln = rng.integers(0, l_cap + 1, size=T).astype(np.int32)
+    ln[:3] = [0, 1, l_cap]
+    lo = rng.integers(0, Nt - l_cap, size=T).astype(np.int32)
+    lo[-1], ln[-1] = Nt - 5, 5  # the table's last rows, nothing past them
+    qidx = rng.integers(0, B, size=(T, bq)).astype(np.int32)
+    qmask = rng.random((T, bq)) < 0.8
+    return [torch.from_numpy(a).to(dev)
+            for a in (queries, table, qidx, qmask, lo, ln)]
+
+
+@pytest.mark.parametrize("d", [13, 40, 100, 160, 256])
+@pytest.mark.parametrize("kk", [1, 10, 100, 1024])
+def test_ivf_tile_kernel_matches_plain(dev, d, kk):
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    l_cap, bq = (1024, 256) if kk == 1024 else (256, 64)
+    args = _ivf_case(dev, d, bq=bq, l_cap=l_cap, seed=d + kk)
+    before = R.ivf_tile_topk.launches
+    got = R.ivf_tile_topk(*args, kk, l_cap)
+    torch.cuda.synchronize()
+    assert R.ivf_tile_topk.launches == before + 1
+    ref = R.ivf_tile_topk_plain(*args, kk, l_cap)
+    T, bq_, _ = ref[0].shape
+    gv, gp = (x.reshape(T * bq_, kk) for x in got)
+    rv, rp = (x.reshape(T * bq_, kk) for x in ref)
+    _topk_close((gv, gp), (rv, rp))
+    # masked entries are -inf (never NaN) at the first masked columns
+    assert not bool(torch.isnan(gv).any())
+    assert torch.equal(torch.isinf(gv), torch.isinf(rv))
+
+
+@pytest.mark.parametrize("D", [14, 41, 101, 257])
+def test_kmeans_update_kernel_matches_plain(dev, D):
+    """Members' mean normalized, an empty cell keeping its centroid, rows
+    of zero norm weighing nothing; two launches bitwise equal."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    rng = np.random.default_rng(D)
+    N, C = 9000, 97
+    unit = rng.normal(size=(N, D)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    unit[-300:] = 0.0
+    assign = rng.integers(0, C, size=N).astype(np.int32)
+    assign[assign == 7] = 8  # cell 7 is empty
+    assign[:50] = 3          # a large cell
+    cent = rng.normal(size=(C, D)).astype(np.float32)
+    unit, assign, cent = (torch.from_numpy(a).to(dev)
+                          for a in (unit, assign, cent))
+    before = R.kmeans_update.launches
+    got = R.kmeans_update(unit, assign, cent)
+    again = R.kmeans_update(unit, assign, cent)
+    torch.cuda.synchronize()
+    assert R.kmeans_update.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, R.kmeans_update_plain(unit, assign, cent),
+                               rtol=1e-5, atol=1e-5)
+    ref7 = cent[7] / cent[7].norm()
+    torch.testing.assert_close(got[7], ref7, rtol=1e-6, atol=1e-7)

@@ -50,6 +50,9 @@ def test_no_jax_or_reference_import(path):
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, buffalo_tpu_torch, buffalo_tpu_torch.convert; "
             "import buffalo_tpu_torch.ops.als_kernels; "
+            "import buffalo_tpu_torch.ops.retrieval_kernels; "
+            "import buffalo_tpu_torch.parallel.base; "
+            "import buffalo_tpu_torch.parallel.ann; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'buffalo_tpu' "
             "or m.startswith('buffalo_tpu.')]; "
@@ -73,7 +76,8 @@ def test_cuda_default_without_card_raises(monkeypatch):
 def test_retrieval_default_without_card_raises(monkeypatch):
     import numpy as np
 
-    from buffalo_tpu_torch.ops.topk import matmul_topk, topk
+    from buffalo_tpu_torch.ops.topk import batch_topn, matmul_topk, topk
+    from buffalo_tpu_torch.parallel import IVFIndex
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scores = np.arange(12, dtype=np.float32).reshape(3, 4)
@@ -81,6 +85,12 @@ def test_retrieval_default_without_card_raises(monkeypatch):
         topk(scores, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         matmul_topk(scores, scores, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        batch_topn(scores, scores, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        IVFIndex.build(scores, n_clusters=2)
+    assert batch_topn(scores, scores, 2, device="cpu")[0].tolist() == \
+        [[2, 1]] * 3
     assert topk(scores, 2, device="cpu").tolist() == [[3, 2]] * 3
     assert matmul_topk(scores, scores, 2, device="cpu")[1].device.type == \
         "cpu"

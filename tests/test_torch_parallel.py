@@ -1,0 +1,338 @@
+"""The port's ``ParALS`` and ``IVFIndex`` against the JAX package's, on the
+CPU.
+
+The JAX ALS is trained once (d = 16 on the ``ml100k_like`` fixture, as
+``tests/parallel/test_parallel.py`` trains it); each test gets a fresh
+model of each package holding copies of those factors, carried to the
+port with ``convert.from_jax_factors``.  Retrieval is held to the JAX
+package's: scores within rtol 1e-5 (float32 sums in another order), ids
+equal except where the two scores tie within it.  The index builds are
+held to identical inverted files (``ids``, ``cell_ptr``) and centroids
+within 1e-5, on data whose rows lie far from any cell boundary, where
+float32 reordering cannot move a row to another cell.
+"""
+import numpy as np
+import pytest
+
+import buffalo_tpu as ref
+import buffalo_tpu_torch as port
+from buffalo_tpu.data import MatrixMarketOptions as RefMMOptions
+from buffalo_tpu.data import load as ref_load
+from buffalo_tpu.parallel import IVFIndex as RefIVF
+from buffalo_tpu.parallel import ParALS as RefParALS
+from buffalo_tpu.parallel.ann import _merge_host as ref_merge
+from buffalo_tpu.parallel.ann import _pick_cap as ref_pick_cap
+from buffalo_tpu_torch.convert import from_jax_factors
+from buffalo_tpu_torch.data import MatrixMarketOptions as PortMMOptions
+from buffalo_tpu_torch.data import load as port_load
+from buffalo_tpu_torch.parallel import IVFIndex, ParALS
+from buffalo_tpu_torch.parallel.ann import _BQ_CAPS, _L_CAPS, _merge_host, \
+    _pick_cap
+
+RTOL = 1e-5
+
+
+def _build(options, load, fixture, root):
+    opt = options().get_default_option()
+    opt.input.main = fixture["path"]
+    opt.input.uid = fixture["uid"]
+    opt.input.iid = fixture["iid"]
+    opt.data.path = str(root / "ml.bfo")
+    opt.data.tmp_dir = str(root / "tmp")
+    opt.data.validation = {"name": "sample", "p": 0.1, "max_samples": 300}
+    data = load(opt)
+    data.create()
+    return data
+
+
+@pytest.fixture(scope="module")
+def datasets(ml100k_like, tmp_path_factory):
+    return (_build(RefMMOptions, ref_load, ml100k_like,
+                   tmp_path_factory.mktemp("ref_par")),
+            _build(PortMMOptions, port_load, ml100k_like,
+                   tmp_path_factory.mktemp("port_par")))
+
+
+def _model(pkg, data):
+    opt = pkg.ALSOption().get_default_option()
+    opt.d = 16
+    opt.num_iters = 6
+    opt.validation = {}
+    if pkg is port:
+        opt.device = "cpu"
+    return pkg.ALS(opt, data=data)
+
+
+@pytest.fixture(scope="module")
+def factors(datasets):
+    m = _model(ref, datasets[0])
+    np.random.seed(0)
+    m.initialize()
+    m.train()
+    return np.array(m.P), np.array(m.Q)
+
+
+@pytest.fixture
+def pair(datasets, factors):
+    """(JAX ALS, port ALS) holding the same trained factors."""
+    a = _model(ref, datasets[0])
+    a.P, a.Q = factors[0].copy(), factors[1].copy()
+    b = _model(port, datasets[1])
+    P, Q = from_jax_factors(*factors, device="cpu")
+    b.P, b.Q = P.numpy(), Q.numpy()
+    for m in (a, b):
+        m.build_itemid_map()
+        m.build_userid_map()
+    return a, b
+
+
+def _same_up_to_ties(got, want):
+    gk, gs = np.asarray(got[0]), np.asarray(got[1])
+    wk, ws = np.asarray(want[0]), np.asarray(want[1])
+    assert gk.shape == wk.shape
+    np.testing.assert_allclose(gs, ws, rtol=RTOL, atol=1e-6)
+    assert np.all((gk == wk) | np.isclose(gs, ws, rtol=RTOL, atol=1e-6))
+
+
+def test_topk_recommendation_matches_jax(pair):
+    a, b = pair
+    keys = [f"u{i}" for i in range(0, 500, 7)] + ["not-a-user"]
+    ka, ta, sa = RefParALS(a).topk_recommendation(keys, topk=10)
+    kb, tb, sb = ParALS(b).topk_recommendation(keys, topk=10)
+    assert ka == kb == keys[:-1]
+    _same_up_to_ties((tb, sb), (ta, sa))
+    _, ra, _ = RefParALS(a).topk_recommendation(keys[:5], topk=4, repr=True)
+    _, rb, _ = ParALS(b).topk_recommendation(keys[:5], topk=4, repr=True)
+    assert ra == rb and all(isinstance(t, str) for t in rb[0])
+
+
+@pytest.mark.parametrize("group", ["item", "user"])
+def test_most_similar_matches_jax(pair, group):
+    a, b = pair
+    n = 250 if group == "item" else 500
+    pre = "i" if group == "item" else "u"
+    keys = [f"{pre}{i}" for i in range(0, n, 9)]
+    got = ParALS(b).most_similar(keys, topk=6, group=group)
+    _same_up_to_ties(got, RefParALS(a).most_similar(keys, topk=6,
+                                                     group=group))
+    # normalized: the query itself first, at score ~1
+    np.testing.assert_allclose(np.asarray(got[1])[:, 0], 1.0, rtol=1e-5)
+    ra = RefParALS(a).most_similar(keys[:3], topk=3, group=group, repr=True)
+    rb = ParALS(b).most_similar(keys[:3], topk=3, group=group, repr=True)
+    assert ra[0] == rb[0]
+
+
+def test_pool_padding_and_empty_pool(pair):
+    a, b = pair
+    pool = ["i1", "i2", "i3"]
+    kb, tb, sb = ParALS(b).topk_recommendation(["u3"], topk=4, pool=pool)
+    assert (tb[0, 3:] == -1).all() and (sb[0, 3:] == 0).all()
+    _same_up_to_ties((tb, sb), RefParALS(a).topk_recommendation(
+        ["u3"], topk=4, pool=pool)[1:])
+    got = ParALS(b).most_similar(["i1", "i5"], topk=5, pool=pool)
+    _same_up_to_ties(got, RefParALS(a).most_similar(["i1", "i5"], topk=5,
+                                                    pool=pool))
+    assert (np.asarray(got[0])[:, 3:] == -1).all()
+    assert set(np.asarray(got[0])[:, :3].ravel()) == {1, 2, 3}
+    for par in (ParALS(b), RefParALS(a)):
+        with pytest.raises(RuntimeError, match="empty"):
+            par.most_similar(["i1"], topk=5, pool=["nope"])
+
+
+def test_approx_mode_matches_jax(pair):
+    """approx=True: exact selection on bfloat16 queries in both packages
+    on the CPU (the reference's approx_max_k is exact there)."""
+    a, b = pair
+    keys = [f"u{i}" for i in range(40)]
+    pb = ParALS(b, approx=True)
+    assert pb.approx is True
+    got = pb.topk_recommendation(keys, topk=10)
+    want = RefParALS(a, approx=True).topk_recommendation(keys, topk=10)
+    _same_up_to_ties(got[1:], want[1:])
+
+
+def test_normalized_factors_refused(pair):
+    _, b = pair
+    par = ParALS(b)
+    par.most_similar(["i0"], topk=3)  # normalizes Q
+    with pytest.raises(RuntimeError, match="normalized"):
+        par.topk_recommendation(["u0"], topk=3)
+
+
+def test_wrong_algo_and_mesh_rejected(pair):
+    with pytest.raises(ValueError):
+        ParALS(object())
+    for kw in (dict(mesh=object()), dict(num_devices=2)):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            ParALS(pair[1], **kw)
+
+
+# ------------------------------------------------------------------- IVF
+def _clusters(seed, N=3000, d=8, C=12, spread=0.05):
+    """Rows around C well-separated unit directions, with lognormal norms."""
+    rng = np.random.default_rng(seed)
+    basis = np.linalg.qr(rng.standard_normal((d, d)))[0]
+    centers = np.vstack([basis, -basis])[:C]
+    rows = centers[rng.integers(0, C, N)] + spread * rng.standard_normal(
+        (N, d))
+    return (rows * rng.lognormal(0, 0.3, (N, 1))).astype(np.float32)
+
+
+def _same_index(got, want):
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.cell_ptr, want.cell_ptr)
+    np.testing.assert_allclose(got.centroids, want.centroids, rtol=RTOL,
+                               atol=1e-6)
+    assert got.spill == want.spill
+
+
+def test_one_lloyd_step_matches_jax():
+    """From the same seeded centroids, one Lloyd step: the same
+    assignment (the inverted file) and the same updated centroids."""
+    table = _clusters(1)
+    kw = dict(n_clusters=12, n_iters=1, spill=1, seed=3)
+    _same_index(IVFIndex.build(table, device="cpu", **kw),
+                RefIVF.build(table, **kw))
+
+
+@pytest.mark.parametrize("mips_augment", [True, False])
+def test_build_on_separated_clusters_matches_jax(mips_augment):
+    table = _clusters(2)
+    kw = dict(n_clusters=12, n_iters=10, spill=2, seed=0,
+              mips_augment=mips_augment)
+    got = IVFIndex.build(table, device="cpu", **kw)
+    _same_index(got, RefIVF.build(table, **kw))
+    assert got.centroids.shape[1] == 8 + mips_augment
+
+
+def test_search_across_packages_through_npz(tmp_path):
+    """An index built by one package, saved, loaded by the other: both
+    searches agree (ids up to ties, scores within 1e-5)."""
+    rng = np.random.default_rng(17)
+    table = rng.standard_normal((4000, 24)).astype(np.float32)
+    table *= rng.lognormal(0.0, 0.7, 4000).astype(np.float32)[:, None]
+    queries = rng.standard_normal((300, 24)).astype(np.float32)
+    jax_idx = RefIVF.build(table, n_probe=8, spill=2, seed=0)
+    jax_idx.save(str(tmp_path / "jax"))
+    loaded = IVFIndex.load(str(tmp_path / "jax.npz"), device="cpu")
+    _same_up_to_ties(loaded.search(queries, 10), jax_idx.search(queries, 10))
+
+    port_idx = IVFIndex.build(table, n_probe=8, spill=2, seed=0,
+                              device="cpu")
+    port_idx.save(str(tmp_path / "port.npz"))
+    back = RefIVF.load(str(tmp_path / "port"))
+    _same_up_to_ties(port_idx.search(queries, 10), back.search(queries, 10))
+    assert back.spill == 2 and back.n_probe == 8
+
+
+def test_full_probe_is_exact_and_spill_dedups():
+    """Probing every cell equals the exact scan (up to ties), in both
+    spill modes; spill = 2 never returns an item twice."""
+    rng = np.random.default_rng(7)
+    T = rng.standard_normal((3000, 12)).astype(np.float32)
+    T /= np.linalg.norm(T, axis=1, keepdims=True)
+    q = T[rng.integers(0, len(T), 200)]
+    s = q @ T.T
+    ref_i = np.argsort(-s, axis=1, kind="stable")[:, :7]
+    for spill in (1, 2):
+        idx = IVFIndex.build(T, n_clusters=50, n_probe=50, spill=spill,
+                             device="cpu")
+        got_i, got_v = idx.search(q, topk=7)
+        _same_up_to_ties((got_i, got_v),
+                         (ref_i, np.take_along_axis(s, ref_i, axis=1)))
+        for row in got_i:
+            assert len(set(row.tolist())) == len(row)
+
+
+def test_ivf_empty_inputs():
+    """Empty query batches and empty probed cells return -1 padding."""
+    rng = np.random.default_rng(0)
+    T = rng.normal(size=(64, 8)).astype(np.float32)
+    T /= np.linalg.norm(T, axis=1, keepdims=True)
+    for spill in (1, 2):
+        idx = IVFIndex.build(T, n_clusters=8, n_probe=2, spill=spill,
+                             device="cpu")
+        ids, sc = idx.search(np.zeros((0, 8), np.float32), topk=5)
+        assert ids.shape == (0, 5) and sc.shape == (0, 5)
+        empty = IVFIndex.__new__(IVFIndex)
+        empty.device = port.utils.resolve_device("cpu")
+        empty.centroids = np.eye(2, 8, dtype=np.float32)
+        empty.cell_ptr = np.array([0, 0, len(T)], dtype=np.int64)
+        empty.ids = np.arange(len(T), dtype=np.int32)
+        empty.table = T
+        empty.n_probe = 1
+        empty.spill = spill
+        q = -empty.centroids[1][None, :] + 2 * empty.centroids[0][None, :]
+        ids, sc = empty.search(q, topk=5)
+        assert (ids == -1).all() and (sc == 0).all()
+
+
+def test_mips_augment_round_trip_and_coverage(tmp_path):
+    """MIPS-augmented cells (d + 1 centroids) search correctly, survive
+    the .npz round trip, and cover a norm-spread catalog as well as
+    direction-only cells."""
+    rng = np.random.default_rng(17)
+    N, d, B, topk = 4000, 48, 64, 10
+    table = rng.normal(size=(N, d)).astype(np.float32)
+    table *= rng.lognormal(0.0, 0.7, N).astype(np.float32)[:, None]
+    queries = rng.normal(size=(B, d)).astype(np.float32)
+    exact = np.argsort(-(queries @ table.T), axis=1)[:, :topk]
+
+    def recall(idx):
+        ids, _ = idx.search(queries, topk)
+        return np.mean([len(set(ids[b]) & set(exact[b])) / topk
+                        for b in range(B)])
+
+    aug = IVFIndex.build(table, n_probe=16, spill=2, seed=0, device="cpu")
+    plain = IVFIndex.build(table, n_probe=16, spill=2, seed=0,
+                           mips_augment=False, device="cpu")
+    assert aug.centroids.shape[1] == d + 1
+    assert recall(aug) >= recall(plain) - 0.02 and recall(aug) > 0.5
+    aug.save(str(tmp_path / "aug.npz"))
+    loaded = IVFIndex.load(str(tmp_path / "aug.npz"), device="cpu")
+    a, b = aug.search(queries, topk), loaded.search(queries, topk)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_ann_hook_by_path_and_group_scope(pair, tmp_path):
+    """set_ann_index takes a saved index's path; the item index serves
+    item queries only (one index per group)."""
+    a, b = pair
+    par = ParALS(b)
+    ukeys = [f"u{i}" for i in range(6)]
+    exact_u = par.most_similar(ukeys, topk=5, group="user")
+    b.normalize("item")
+    index = IVFIndex.build(b.Q, n_clusters=8, n_probe=8, device="cpu")
+    index.save(str(tmp_path / "ivf"))
+    par.set_ann_index(str(tmp_path / "ivf.npz"))
+    keys = [f"i{i}" for i in range(10)]
+    via_path = par.most_similar(keys, topk=5)
+    par.set_ann_index(index)
+    np.testing.assert_array_equal(via_path[0], par.most_similar(keys, 5)[0])
+    # probing all 8 cells: the exact scan
+    _same_up_to_ties(via_path, ParALS(b).most_similar(keys, topk=5,
+                                                      pool=np.arange(250)))
+    np.testing.assert_array_equal(
+        exact_u[0], par.most_similar(ukeys, topk=5, group="user")[0])
+
+
+def test_pick_cap_and_merge_host_match_jax():
+    rng = np.random.default_rng(3)
+    for lens in (np.full(1000, 150), np.full(10, 5000),
+                 rng.integers(0, 3000, 500), np.array([], np.int64)):
+        assert _pick_cap(lens, _L_CAPS) == ref_pick_cap(lens, _L_CAPS)
+        assert _pick_cap(lens, _BQ_CAPS, 64) == \
+            ref_pick_cap(lens, _BQ_CAPS, 64)
+    T_, bq, kk, B = 30, 16, 5, 40
+    vals = rng.standard_normal((T_, bq, kk)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.2] = -np.inf
+    pos = rng.integers(0, 200, (T_, bq, kk)).astype(np.int32)
+    qidx = rng.integers(0, B, (T_, bq)).astype(np.int32)
+    qmask = rng.random((T_, bq)) < 0.8
+    ids = rng.permutation(np.repeat(np.arange(100, dtype=np.int32), 2))
+    for spill in (1, 2):
+        got = _merge_host(vals, pos, qidx, qmask, ids, B, 7, spill)
+        want = ref_merge(vals, pos, qidx, qmask, ids, B, 7, spill)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])

@@ -141,11 +141,11 @@ def launchers(fns):
     """Inside the block the wrappers launch ``fns`` ({kernel: C launch
     function}) instead of the current build's."""
     old = {name: K._kernel(name) for name in fns}
-    K._launchers.update(fns)
+    _build._launchers.update(fns)
     try:
         yield
     finally:
-        K._launchers.update(old)
+        _build._launchers.update(old)
 
 
 def timing(built, dev):
