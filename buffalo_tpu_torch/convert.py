@@ -1,9 +1,10 @@
 """Carry weights from the JAX package to this port.
 
 ``from_jax_factors`` turns the reference's host factor tables (numpy
-arrays, e.g. a trained ``buffalo_tpu`` ALS's ``.P`` / ``.Q``) into this
-port's float32 tensors on a device; ``load_reference_model`` opens a
-model file that ``buffalo_tpu`` saved, without importing it.
+arrays, e.g. a trained ``buffalo_tpu`` ALS's ``.P`` / ``.Q``, or a BPRMF's
+``.P`` / ``.Q`` / ``.Qb``) into this port's float32 tensors on a device;
+``load_reference_model`` opens a model file that ``buffalo_tpu`` saved,
+without importing it.
 """
 from __future__ import annotations
 
@@ -13,21 +14,25 @@ import torch
 from buffalo_tpu_torch.utils import resolve_device
 
 
-def from_jax_factors(P, Q, *, device="cuda"):
-    """(P, Q) as contiguous float32 tensors on ``device``; values are
-    copied unchanged."""
+def from_jax_factors(*tables, device="cuda"):
+    """The tables (e.g. P, Q or P, Q, Qb) as contiguous float32 tensors on
+    ``device``, in the order given; values are copied unchanged."""
     device = resolve_device(device)
 
     def conv(x):
         return torch.from_numpy(
             np.ascontiguousarray(np.asarray(x), dtype=np.float32)).to(device)
 
-    return conv(P), conv(Q)
+    return tuple(conv(t) for t in tables)
 
 
 def load_reference_model(path, device="cuda"):
-    """A port ``ALS`` holding a model file saved by ``buffalo_tpu``'s ALS
-    (its options, id maps and factors), ready to serve on ``device``."""
+    """The port's model of a file saved by ``buffalo_tpu``'s ALS or BPRMF
+    (a BPRMF file holds a ``Qb`` record): its options, id maps and
+    factors, ready to serve on ``device``."""
     from buffalo_tpu_torch.models.als import ALS
+    from buffalo_tpu_torch.models.base import Serializable
+    from buffalo_tpu_torch.models.bpr import BPRMF
 
-    return ALS.new(path, device=device)
+    cls = BPRMF if "Qb" in Serializable.record_names(path) else ALS
+    return cls.new(path, device=device)

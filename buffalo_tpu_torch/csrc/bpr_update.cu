@@ -1,0 +1,730 @@
+// K9: a BPR chunk's update.  Given the chunk's users and positives (N slots,
+// the first n_valid real) and its negatives (neg_per per slot, >= num_items a
+// sentinel), every sample's logit l = 1 - sigmoid(x) with the reference's
+// +-6 clamps, x = p_u . (q_i - q_j) (+ Qb_i - Qb_j), 0 for a sentinel or a
+// padding slot; then either
+//  * sgd (bpr_update): per user dP = lr (sum l (q_i - q_j) - reg_u neg_per
+//    slots p_u), per item dQ = lr (sum +-l p_u - Q (reg_i neg_per positives
+//    + reg_j negatives)), each clipped by its row L2 norm to max_step_norm
+//    (0: no clip) and added; the item bias moves by its positive side
+//    (clamped) and then by its negative side, whose reg term reads the bias
+//    after the positive side's step; every other term reads the chunk's
+//    snapshot of the tables; or
+//  * the deferred path (bpr_accumulate): the same sums without lr and reg
+//    added into the epoch's gradient tables, and with per-coordinate
+//    normalization the counts (user and positive once per slot, the negative
+//    once per sample);
+// and (bpr_loss) the mean of log(1 + exp(-x)) over fixed triplets.
+//
+// Replaces buffalo_tpu/ops/sgd_kernels.py _bpr_forward (:336), clipped_logit
+// (:272), clip_row_norm (:280), bpr_sgd_step (:390), bpr_accumulate_step
+// (:355), the scan bodies of bpr_epoch (:544-651) and bpr_loss (:859).
+//
+// What bounds it on the card: gathering three rows per sample (p_u, q_i, q_j)
+// and writing the touched rows; at d = 40 about 0.5 KB per sample, so a
+// 524,288-slot chunk moves ~0.25 GB (~0.08 ms at 3.35 TB/s), the operations
+// (~9 d per sample) are far below the FP32 rate.  Design: sums are
+// deterministic, with no float atomics.  A stable LSD radix sort (8-bit
+// digits, integer shared-memory histograms per tile of 2048 entries, their
+// offsets by a three-launch parallel scan, one warp per tile placing its
+// entries in order) groups the user entries (one
+// per slot) and the item entries (one per slot for the positive, one per
+// sample for the negative) by row; each row's entries are summed in entry
+// order in runs of kRun, one warp per run, and one warp per row adds its runs
+// in order, clips and writes.  Padding slots and sentinel negatives are keyed
+// to a dropped row.  The logits are computed once (one warp per sample) and
+// both sides' run sums finish before either epilogue writes, so every term
+// reads the snapshot.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kTile = 2048;  // entries per radix tile
+constexpr int kRun = 128;    // entries per partial sum
+constexpr int kMaxH = 8;     // columns per lane: d <= 256
+constexpr int kScan = 1024;  // threads of a scan block
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float clipped_logit(float x) {
+  return x > 6.f ? 0.f : (x < -6.f ? 1.f : 1.f / (1.f + expf(x)));
+}
+
+// One warp per sample k (slot j = k / neg_per): its masked logit.
+__global__ void __launch_bounds__(kThreads)
+forward_kernel(const int32_t* __restrict__ users, const int32_t* __restrict__ pos,
+               const int32_t* __restrict__ neg, int64_t B, int neg_per, int n_valid,
+               const float* __restrict__ P, const float* __restrict__ Q,
+               const float* __restrict__ Qb, int I, int d, int use_bias,
+               float* __restrict__ logit) {
+  const int lane = threadIdx.x & 31;
+  const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (k >= B) return;
+  const int j = (int)(k / neg_per);
+  const int nk = neg[k];
+  const bool ok = nk >= 0 && nk < I;
+  if (j >= n_valid || !ok) {
+    if (lane == 0) logit[k] = 0.f;
+    return;
+  }
+  const float* p = P + (int64_t)users[j] * d;
+  const float* qi = Q + (int64_t)pos[j] * d;
+  const float* qj = Q + (int64_t)nk * d;
+  float acc = 0.f;
+  for (int c = lane; c < d; c += 32) acc = fmaf(p[c], qi[c] - qj[c], acc);
+  float x = warp_sum(acc);
+  if (use_bias) x += Qb[pos[j]] - Qb[nk];
+  if (lane == 0) logit[k] = clipped_logit(x);
+}
+
+// ----------------------------------------------------------- entries + sort
+// The entries of one side: n keys (row ids; R = dropped) and their ids.
+struct Side {
+  int n, R, nt, W;
+  int64_t max_runs;
+  int32_t *key[2], *idx[2], *hist, *hoff, *cnt, *start, *run_start, *part_i;
+  float* part;
+  int sorted;  // which of key/idx holds the sorted entries
+};
+
+// User side: entry j = slot j, keyed by its user.  Item side: entry e < N the
+// positive of slot e, entry N + k the negative of sample k.
+__global__ void __launch_bounds__(kThreads)
+make_keys(int item_side, const int32_t* __restrict__ users, const int32_t* __restrict__ pos,
+          const int32_t* __restrict__ neg, int N, int neg_per, int n_valid, int R, int n,
+          int32_t* __restrict__ key, int32_t* __restrict__ idx) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  int k;
+  if (!item_side) {
+    k = e < n_valid ? users[e] : R;
+  } else if (e < N) {
+    k = e < n_valid ? pos[e] : R;
+  } else {
+    const int s = e - N, v = neg[s];
+    k = (s / neg_per < n_valid && v >= 0 && v < R) ? v : R;
+  }
+  key[e] = k;
+  idx[e] = e;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_hist(const int32_t* __restrict__ key, int n, int shift, int nt, int32_t* __restrict__ hist) {
+  __shared__ int cnt[256];
+  const int t = blockIdx.x;
+  cnt[threadIdx.x] = 0;
+  __syncthreads();
+  const int e1 = min(n, (t + 1) * kTile);
+  for (int e = t * kTile + threadIdx.x; e < e1; e += kThreads)
+    atomicAdd(&cnt[(key[e] >> shift) & 255], 1);
+  __syncthreads();
+  hist[threadIdx.x * nt + t] = cnt[threadIdx.x];
+}
+
+// Exclusive scan of the block's kScan values, one per thread in thread
+// order: this thread's prefix; *total gets the block's sum.  Integer adds,
+// so the result does not depend on the order.
+__device__ __forceinline__ int block_scan(int v, int* total) {
+  __shared__ int wsum[kScan / 32];
+  __shared__ int tot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = wsum[lane];
+    int y = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int z = __shfl_up_sync(kFull, y, o);
+      if (lane >= o) y += z;
+    }
+    wsum[lane] = y - w;
+    if (lane == 31) tot = y;
+  }
+  __syncthreads();
+  const int r = wsum[warp] + x - v;
+  *total = tot;
+  __syncthreads();  // wsum and tot may be reused as soon as this returns
+  return r;
+}
+
+// A scan of in[0, n) (and, with kRuns, of ceil(in[i] / kRun)) in three
+// launches: per block of kScan values their sums (scan_reduce), the blocks'
+// exclusive offsets in one block (scan_top, kScan at a time with a carry),
+// each block's values scanned from its offset (scan_apply); out[n] (and
+// runs[n]) get the totals.  part holds 2 (nb + 1) ints, nb = ceil(n / kScan).
+template <bool kRuns>
+__device__ __forceinline__ int runs_of(int v) {
+  return kRuns ? (v + kRun - 1) / kRun : 0;
+}
+
+template <bool kRuns>
+__global__ void __launch_bounds__(kScan)
+scan_reduce(const int32_t* __restrict__ in, int n, int nb, int32_t* __restrict__ part) {
+  const int i = blockIdx.x * kScan + threadIdx.x;
+  const int v = i < n ? in[i] : 0;
+  int t0, t1;
+  block_scan(v, &t0);
+  block_scan(runs_of<kRuns>(v), &t1);
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = t0;
+    part[nb + 1 + blockIdx.x] = t1;
+  }
+}
+
+template <bool kRuns>
+__global__ void __launch_bounds__(kScan)
+scan_top(int nb, int32_t* __restrict__ part) {
+  for (int h = 0; h < (kRuns ? 2 : 1); ++h) {
+    int32_t* p = part + h * (nb + 1);
+    int carry = 0;
+    for (int b0 = 0; b0 < nb; b0 += kScan) {
+      const int b = b0 + threadIdx.x;
+      const int v = b < nb ? p[b] : 0;
+      int t;
+      const int r = block_scan(v, &t);
+      if (b < nb) p[b] = carry + r;
+      carry += t;
+    }
+    if (threadIdx.x == 0) p[nb] = carry;
+  }
+}
+
+template <bool kRuns>
+__global__ void __launch_bounds__(kScan)
+scan_apply(const int32_t* __restrict__ in, int n, int nb, const int32_t* __restrict__ part,
+           int32_t* __restrict__ out, int32_t* __restrict__ runs) {
+  const int i = blockIdx.x * kScan + threadIdx.x;
+  const int v = i < n ? in[i] : 0;
+  int t;
+  const int r0 = block_scan(v, &t);
+  const int r1 = block_scan(runs_of<kRuns>(v), &t);
+  if (i < n) {
+    out[i] = part[blockIdx.x] + r0;
+    if (kRuns) runs[i] = part[nb + 1 + blockIdx.x] + r1;
+  }
+  if (i == 0) {
+    out[n] = part[nb];
+    if (kRuns) runs[n] = part[2 * nb + 1];
+  }
+}
+
+// One warp per tile, its entries in order: each goes after the earlier
+// entries of its digit (stable).
+__global__ void __launch_bounds__(32)
+tile_scatter(const int32_t* __restrict__ key, const int32_t* __restrict__ idx, int n, int shift,
+             int nt, const int32_t* __restrict__ hoff, int32_t* __restrict__ key_out,
+             int32_t* __restrict__ idx_out) {
+  __shared__ int seen[256];
+  const int t = blockIdx.x, lane = threadIdx.x;
+  for (int b = lane; b < 256; b += 32) seen[b] = 0;
+  __syncwarp();
+  const int e1 = min(n, (t + 1) * kTile);
+  for (int base = t * kTile; base < e1; base += 32) {
+    const int e = base + lane;
+    const bool in = e < e1;
+    const int kv = in ? key[e] : 0;
+    const int dig = in ? (kv >> shift) & 255 : 256;
+    const unsigned peers = __match_any_sync(kFull, dig);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const int before = in ? seen[dig] : 0;
+    __syncwarp();
+    if (in) {
+      const int dest = hoff[dig * nt + t] + before + rank;
+      key_out[dest] = kv;
+      idx_out[dest] = idx[e];
+      if (rank == 0) seen[dig] = before + __popc(peers);
+    }
+    __syncwarp();
+  }
+}
+
+// Row counts of the sorted keys: the lanes of a warp holding one row add
+// their number once (sorted keys come in long runs; integer atomics).
+__global__ void __launch_bounds__(kThreads)
+count_rows(const int32_t* __restrict__ key, int n, int R, int32_t* __restrict__ cnt) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const int k = e < n ? key[e] : R;
+  const unsigned peers = __match_any_sync(kFull, k);
+  if (k < R && (threadIdx.x & 31) == __ffs(peers) - 1) atomicAdd(&cnt[k], __popc(peers));
+}
+
+// The row of run q (run_start[r] <= q < run_start[r + 1]) and its sorted
+// entries [m0, m1); false past the last run.
+__device__ __forceinline__ bool find_run(int q, int R, const int32_t* __restrict__ start,
+                                         const int32_t* __restrict__ run_start, int& r, int& m0,
+                                         int& m1) {
+  if (q >= run_start[R]) return false;
+  int lo = 0, hi = R;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (run_start[mid] <= q) lo = mid;
+    else hi = mid;
+  }
+  r = lo;
+  m0 = start[lo] + (q - run_start[lo]) * kRun;
+  m1 = min(start[lo + 1], m0 + kRun);
+  return true;
+}
+
+// User runs: part[q] = sum over the run's slots j and their samples k of
+// l_k (q_pos(j) - q_neg(k)).
+__global__ void __launch_bounds__(kThreads)
+user_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
+          const int32_t* __restrict__ run_start, const int32_t* __restrict__ pos,
+          const int32_t* __restrict__ neg, int neg_per, const float* __restrict__ logit,
+          const float* __restrict__ Q, int I, int d, float* __restrict__ part) {
+  const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  int r, m0, m1;
+  if (!find_run(q, R, start, run_start, r, m0, m1)) return;
+  float acc[kMaxH];
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
+  for (int m = m0; m < m1; ++m) {
+    const int j = idx[m];
+    const float* qi = Q + (int64_t)pos[j] * d;
+    for (int n = 0; n < neg_per; ++n) {
+      const int64_t k = (int64_t)j * neg_per + n;
+      const float w = logit[k];
+      const float* qj = Q + (int64_t)min(neg[k], I - 1) * d;
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) {
+        const int c = lane + 32 * h;
+        if (c < d) acc[h] = fmaf(w, qi[c] - qj[c], acc[h]);
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    if (c < d) part[(int64_t)q * d + c] = acc[h];
+  }
+}
+
+// Item runs: part[q] = (sum of c_e p_u, then the positive logit sum, the
+// negative logit sum, the positive and the negative entry counts); c_e is
+// the slot's logit sum for a positive (0 without update_i) and minus the
+// sample's logit for a negative (0 without update_j).
+__global__ void __launch_bounds__(kThreads)
+item_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
+          const int32_t* __restrict__ run_start, const int32_t* __restrict__ users, int N,
+          int neg_per, const float* __restrict__ logit, const float* __restrict__ P, int d,
+          int upd_i, int upd_j, float* __restrict__ part) {
+  const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  int r, m0, m1;
+  if (!find_run(q, R, start, run_start, r, m0, m1)) return;
+  float acc[kMaxH];
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
+  float lpos = 0.f, lneg = 0.f, cpos = 0.f, cneg = 0.f;
+  for (int m = m0; m < m1; ++m) {
+    const int e = idx[m];
+    int u;
+    float coef;
+    if (e < N) {
+      u = users[e];
+      float w = 0.f;
+      for (int n = 0; n < neg_per; ++n) w += logit[(int64_t)e * neg_per + n];
+      lpos += w;
+      cpos += 1.f;
+      coef = upd_i ? w : 0.f;
+    } else {
+      const int64_t k = e - N;
+      u = users[k / neg_per];
+      const float w = logit[k];
+      lneg += w;
+      cneg += 1.f;
+      coef = upd_j ? -w : 0.f;
+    }
+    const float* p = P + (int64_t)u * d;
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = lane + 32 * h;
+      if (c < d) acc[h] = fmaf(coef, p[c], acc[h]);
+    }
+  }
+  float* out = part + (int64_t)q * (d + 4);
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    if (c < d) out[c] = acc[h];
+  }
+  if (lane == 0) {
+    out[d] = lpos;
+    out[d + 1] = lneg;
+    out[d + 2] = cpos;
+    out[d + 3] = cneg;
+  }
+}
+
+// The runs of row r added in order: acc (d columns) and, with W > d, the
+// scalars past them.
+__device__ __forceinline__ int row_sum(int r, const int32_t* __restrict__ run_start,
+                                       const float* __restrict__ part, int d, int W, int lane,
+                                       float (&acc)[kMaxH], float (&sc)[4]) {
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) sc[s] = 0.f;
+  const int q0 = run_start[r], q1 = run_start[r + 1];
+  for (int q = q0; q < q1; ++q) {
+    const float* pr = part + (int64_t)q * W;
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = lane + 32 * h;
+      if (c < d) acc[h] += pr[c];
+    }
+    for (int s = 0; s < W - d; ++s) sc[s] += pr[d + s];
+  }
+  return q1 - q0;
+}
+
+// Scale of a row step clipped to L2 norm cap (cap 0: 1).
+__device__ __forceinline__ float clip_scale(const float (&dl)[kMaxH], int d, int lane, float cap) {
+  if (cap <= 0.f) return 1.f;
+  float ss = 0.f;
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h)
+    if (lane + 32 * h < d) ss = fmaf(dl[h], dl[h], ss);
+  ss = warp_sum(ss);
+  return fminf(1.f, cap / fmaxf(sqrtf(ss), 1e-12f));
+}
+
+// One warp per user row: the sgd step (mode 0) or the accumulation (mode 1).
+__global__ void __launch_bounds__(kThreads)
+user_rows(int mode, int R, const int32_t* __restrict__ start,
+          const int32_t* __restrict__ run_start, const float* __restrict__ part, int d,
+          int neg_per, float lr, float reg_u, float cap, float* __restrict__ P,
+          float* __restrict__ gP, float* __restrict__ cP) {
+  const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int n = start[r + 1] - start[r];
+  if (n == 0) return;
+  float acc[kMaxH], sc[4];
+  row_sum(r, run_start, part, d, d, lane, acc, sc);
+  if (mode == 1) {
+    float* g = gP + (int64_t)r * d;
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = lane + 32 * h;
+      if (c < d) g[c] += acc[h];
+    }
+    if (cP && lane == 0) cP[r] += (float)n;
+    return;
+  }
+  float* p = P + (int64_t)r * d;
+  const float rc = reg_u * (float)(n * neg_per);
+  float dl[kMaxH];
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    dl[h] = c < d ? lr * (acc[h] - rc * p[c]) : 0.f;
+  }
+  const float s = clip_scale(dl, d, lane, cap);
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    if (c < d) p[c] += dl[h] * s;
+  }
+}
+
+// One warp per item row: the sgd step of Q and Qb (mode 0) or the
+// accumulation (mode 1).
+__global__ void __launch_bounds__(kThreads)
+item_rows(int mode, int R, const int32_t* __restrict__ start,
+          const int32_t* __restrict__ run_start, const float* __restrict__ part, int d,
+          int neg_per, float lr, float reg_i, float reg_j, float reg_b, float cap, int use_bias,
+          int upd_i, int upd_j, float* __restrict__ Q, float* __restrict__ Qb,
+          float* __restrict__ gQ, float* __restrict__ gQb, float* __restrict__ cQ) {
+  const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= R) return;
+  if (start[r + 1] == start[r]) return;
+  float acc[kMaxH], sc[4];
+  row_sum(r, run_start, part, d, d + 4, lane, acc, sc);
+  const float lpos = sc[0], lneg = sc[1], cpos = sc[2], cneg = sc[3];
+  if (mode == 1) {
+    float* g = gQ + (int64_t)r * d;
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = lane + 32 * h;
+      if (c < d) g[c] += acc[h];
+    }
+    if (lane == 0) {
+      if (use_bias) gQb[r] += (upd_i ? lpos : 0.f) - (upd_j ? lneg : 0.f);
+      if (cQ) cQ[r] += cpos + cneg;
+    }
+    return;
+  }
+  float* q = Q + (int64_t)r * d;
+  const float rc = (upd_i ? reg_i * (float)neg_per * cpos : 0.f) + (upd_j ? reg_j * cneg : 0.f);
+  float dl[kMaxH];
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    dl[h] = c < d ? lr * (acc[h] - rc * q[c]) : 0.f;
+  }
+  const float s = clip_scale(dl, d, lane, cap);
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    if (c < d) q[c] += dl[h] * s;
+  }
+  if (use_bias && lane == 0) {
+    float b = Qb[r];
+    if (upd_i) {
+      float db = lr * (lpos - reg_b * (float)neg_per * cpos * b);
+      if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
+      b += db;
+    }
+    if (upd_j) {
+      float db = lr * (-lneg - reg_b * cneg * b);
+      if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
+      b += db;
+    }
+    Qb[r] = b;
+  }
+}
+
+// Mean log(1 + exp(-x)) over n triplets: one block, warp w takes triplets w,
+// w + 8, ... in order, the warps' sums added in order.
+__global__ void __launch_bounds__(kThreads)
+loss_kernel(const int32_t* __restrict__ users, const int32_t* __restrict__ pos,
+            const int32_t* __restrict__ neg, int n, const float* __restrict__ P,
+            const float* __restrict__ Q, const float* __restrict__ Qb, int d, int use_bias,
+            float* __restrict__ out) {
+  __shared__ float red[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float sum = 0.f;
+  for (int t = warp; t < n; t += kWarps) {
+    const float* p = P + (int64_t)users[t] * d;
+    const float* qi = Q + (int64_t)pos[t] * d;
+    const float* qj = Q + (int64_t)neg[t] * d;
+    float acc = 0.f;
+    for (int c = lane; c < d; c += 32) acc = fmaf(p[c], qi[c] - qj[c], acc);
+    float x = warp_sum(acc);
+    if (use_bias) x += Qb[pos[t]] - Qb[neg[t]];
+    sum += fmaxf(-x, 0.f) + log1pf(expf(-fabsf(x)));
+  }
+  if (lane == 0) red[warp] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[w];
+    *out = n > 0 ? s / (float)n : 0.f;
+  }
+}
+
+// ------------------------------------------------------------- host side
+int64_t runs_bound(int n, int R) { return (int64_t)n / kRun + (R < n ? R : n) + 1; }
+
+// Carves the workspace: fills the sides and the logits when ibase/fbase are
+// given, returns the int32 and float32 words needed.
+void layout(int N, int neg_per, int U, int I, int d, int32_t* ibase, float* fbase, Side& su,
+            Side& si, float** logit, int64_t* isz, int64_t* fsz) {
+  int64_t io = 0, fo = 0;
+  auto ints = [&](int64_t m) {
+    int32_t* p = ibase ? ibase + io : nullptr;
+    io += m;
+    return p;
+  };
+  auto floats = [&](int64_t m) {
+    float* p = fbase ? fbase + fo : nullptr;
+    fo += m;
+    return p;
+  };
+  const int64_t B = (int64_t)N * neg_per;
+  *logit = floats(B);
+  Side* sides[2] = {&su, &si};
+  for (int s = 0; s < 2; ++s) {
+    Side& x = *sides[s];
+    x.n = s == 0 ? N : (int)(N + B);
+    x.R = s == 0 ? U : I;
+    x.W = s == 0 ? d : d + 4;
+    x.nt = (x.n + kTile - 1) / kTile;
+    x.max_runs = runs_bound(x.n, x.R);
+    for (int b = 0; b < 2; ++b) {
+      x.key[b] = ints(x.n);
+      x.idx[b] = ints(x.n);
+    }
+    x.hist = ints((int64_t)256 * x.nt);
+    x.hoff = ints((int64_t)256 * x.nt + 1);
+    x.cnt = ints((int64_t)x.R + 1);
+    x.start = ints((int64_t)x.R + 1);
+    x.run_start = ints((int64_t)x.R + 1);
+    // the scans' block offsets: 2 (nb + 1) ints for the larger of the
+    // histogram (256 nt) and the rows (R + 1)
+    const int64_t longest = 256 * (int64_t)x.nt > x.R + 1 ? 256 * (int64_t)x.nt : x.R + 1;
+    x.part_i = ints(2 * ((longest + kScan - 1) / kScan + 1));
+    x.part = floats(x.max_runs * x.W);
+    x.sorted = 0;
+  }
+  *isz = io;
+  *fsz = fo;
+}
+
+#define CHECK_LAUNCH()                                        \
+  do {                                                        \
+    const cudaError_t e_ = cudaGetLastError();                \
+    if (e_ != cudaSuccess) return e_;                         \
+  } while (0)
+
+// out[0..n] = the exclusive scan of in[0, n) and its total; with runs, the
+// same of the runs of kRun per value.
+cudaError_t scan(const int32_t* in, int n, int32_t* part, int32_t* out, int32_t* runs,
+                 cudaStream_t st) {
+  const int nb = (n + kScan - 1) / kScan;
+  if (runs) {
+    scan_reduce<true><<<nb, kScan, 0, st>>>(in, n, nb, part);
+    CHECK_LAUNCH();
+    scan_top<true><<<1, kScan, 0, st>>>(nb, part);
+    CHECK_LAUNCH();
+    scan_apply<true><<<nb, kScan, 0, st>>>(in, n, nb, part, out, runs);
+  } else {
+    scan_reduce<false><<<nb, kScan, 0, st>>>(in, n, nb, part);
+    CHECK_LAUNCH();
+    scan_top<false><<<1, kScan, 0, st>>>(nb, part);
+    CHECK_LAUNCH();
+    scan_apply<false><<<nb, kScan, 0, st>>>(in, n, nb, part, out, nullptr);
+  }
+  return cudaGetLastError();
+}
+
+// Keys, the stable sort by row, the row counts and starts of one side.
+cudaError_t group_side(Side& x, int item_side, const int32_t* users, const int32_t* pos,
+                       const int32_t* neg, int N, int neg_per, int n_valid, cudaStream_t st) {
+  x.sorted = 0;
+  if (x.n == 0) return cudaSuccess;
+  cudaError_t err;
+  make_keys<<<(x.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      item_side, users, pos, neg, N, neg_per, n_valid, x.R, x.n, x.key[0], x.idx[0]);
+  CHECK_LAUNCH();
+  for (int shift = 0; shift < 32 && (x.R >> shift) != 0; shift += 8) {
+    const int a = x.sorted, b = 1 - a;
+    tile_hist<<<x.nt, kThreads, 0, st>>>(x.key[a], x.n, shift, x.nt, x.hist);
+    CHECK_LAUNCH();
+    err = scan(x.hist, 256 * x.nt, x.part_i, x.hoff, nullptr, st);
+    if (err != cudaSuccess) return err;
+    tile_scatter<<<x.nt, 32, 0, st>>>(x.key[a], x.idx[a], x.n, shift, x.nt, x.hoff, x.key[b],
+                                       x.idx[b]);
+    CHECK_LAUNCH();
+    x.sorted = b;
+  }
+  err = cudaMemsetAsync(x.cnt, 0, sizeof(int32_t) * (x.R + 1), st);
+  if (err != cudaSuccess) return err;
+  count_rows<<<(x.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(x.key[x.sorted], x.n, x.R,
+                                                                    x.cnt);
+  CHECK_LAUNCH();
+  return scan(x.cnt, x.R, x.part_i, x.start, x.run_start, st);
+}
+
+unsigned warps_grid(int64_t n) { return (unsigned)((n + kWarps - 1) / kWarps); }
+
+// The shared front of both modes: logits, both sides grouped and summed in
+// runs (all reads of the snapshot happen here).
+cudaError_t front(const int32_t* users, const int32_t* pos, const int32_t* neg, const float* P,
+                  const float* Q, const float* Qb, int N, int neg_per, int n_valid, int U, int I,
+                  int d, int use_bias, int upd_i, int upd_j, int32_t* ws_i, float* ws_f,
+                  Side& su, Side& si, cudaStream_t st) {
+  float* logit;
+  int64_t isz, fsz;
+  layout(N, neg_per, U, I, d, ws_i, ws_f, su, si, &logit, &isz, &fsz);
+  const int64_t B = (int64_t)N * neg_per;
+  forward_kernel<<<warps_grid(B), kThreads, 0, st>>>(users, pos, neg, B, neg_per, n_valid, P, Q,
+                                                     Qb, I, d, use_bias, logit);
+  CHECK_LAUNCH();
+  cudaError_t err = group_side(su, 0, users, pos, neg, N, neg_per, n_valid, st);
+  if (err != cudaSuccess) return err;
+  err = group_side(si, 1, users, pos, neg, N, neg_per, n_valid, st);
+  if (err != cudaSuccess) return err;
+  user_runs<<<warps_grid(su.max_runs), kThreads, 0, st>>>(
+      su.idx[su.sorted], su.R, su.start, su.run_start, pos, neg, neg_per, logit, Q, I, d,
+      su.part);
+  CHECK_LAUNCH();
+  item_runs<<<warps_grid(si.max_runs), kThreads, 0, st>>>(
+      si.idx[si.sorted], si.R, si.start, si.run_start, users, N, neg_per, logit, P, d, upd_i,
+      upd_j, si.part);
+  CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+bool bad_args(int N, int neg_per, int U, int I, int d) {
+  return N < 1 || neg_per < 1 || U < 1 || I < 1 || d < 1 || d > 32 * kMaxH ||
+         (int64_t)N * (neg_per + 1) >= (1LL << 31);
+}
+
+}  // namespace
+
+// sizes[0]: int32 words, sizes[1]: float32 words of the workspace.
+extern "C" int bpr_workspace(int N, int neg_per, int U, int I, int d, int64_t* sizes) {
+  Side su, si;
+  float* logit;
+  layout(N, neg_per, U, I, d, nullptr, nullptr, su, si, &logit, &sizes[0], &sizes[1]);
+  return 0;
+}
+
+extern "C" int bpr_update(const int32_t* users, const int32_t* pos, const int32_t* neg, float* P,
+                          float* Q, float* Qb, int N, int neg_per, int n_valid, int U, int I,
+                          int d, float lr, float reg_u, float reg_i, float reg_j, float reg_b,
+                          float cap, int use_bias, int upd_i, int upd_j, int32_t* ws_i,
+                          float* ws_f, void* stream) {
+  if (N == 0) return 0;
+  if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  Side su, si;
+  cudaError_t err = front(users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, use_bias,
+                          upd_i, upd_j, ws_i, ws_f, su, si, st);
+  if (err != cudaSuccess) return (int)err;
+  user_rows<<<warps_grid(U), kThreads, 0, st>>>(0, U, su.start, su.run_start, su.part, d,
+                                                neg_per, lr, reg_u, cap, P, nullptr, nullptr);
+  CHECK_LAUNCH();
+  item_rows<<<warps_grid(I), kThreads, 0, st>>>(0, I, si.start, si.run_start, si.part, d,
+                                                neg_per, lr, reg_i, reg_j, reg_b, cap, use_bias,
+                                                upd_i, upd_j, Q, Qb, nullptr, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bpr_accumulate(const int32_t* users, const int32_t* pos, const int32_t* neg,
+                              const float* P, const float* Q, const float* Qb, int N, int neg_per,
+                              int n_valid, int U, int I, int d, float* gP, float* gQ, float* gQb,
+                              float* cP, float* cQ, int use_bias, int upd_i, int upd_j, int pcn,
+                              int32_t* ws_i, float* ws_f, void* stream) {
+  if (N == 0) return 0;
+  if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  Side su, si;
+  cudaError_t err = front(users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, use_bias,
+                          upd_i, upd_j, ws_i, ws_f, su, si, st);
+  if (err != cudaSuccess) return (int)err;
+  user_rows<<<warps_grid(U), kThreads, 0, st>>>(1, U, su.start, su.run_start, su.part, d,
+                                                neg_per, 0.f, 0.f, 0.f, nullptr, gP,
+                                                pcn ? cP : nullptr);
+  CHECK_LAUNCH();
+  item_rows<<<warps_grid(I), kThreads, 0, st>>>(1, I, si.start, si.run_start, si.part, d,
+                                                neg_per, 0.f, 0.f, 0.f, 0.f, 0.f, use_bias,
+                                                upd_i, upd_j, nullptr, nullptr, gQ, gQb,
+                                                pcn ? cQ : nullptr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bpr_loss(const int32_t* users, const int32_t* pos, const int32_t* neg,
+                        const float* P, const float* Q, const float* Qb, int n, int d,
+                        int use_bias, float* out, void* stream) {
+  if (n < 0 || d < 1) return (int)cudaErrorInvalidValue;
+  loss_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(users, pos, neg, n, P, Q, Qb, d,
+                                                        use_bias, out);
+  return (int)cudaGetLastError();
+}

@@ -752,3 +752,42 @@ class DeviceBatcher:
     @property
     def num_batches(self) -> int:
         return self.planner.num_batches
+
+
+class COOBatcher:
+    """Flat (user, item, value) chunks of fixed size for the SGD family
+    (the JAX package's ``COOBatcher``, ``data/batching.py:793``).
+
+    Positives come from the rowwise CSR expanded to COO, in the order of a
+    seeded ``np.random.default_rng`` permutation per epoch (the same
+    chunks as the JAX package's for the same seed); the tail chunk wraps
+    around to the epoch's head to keep the chunk size.
+    """
+
+    def __init__(self, data, chunk_size: int = 1 << 20, shuffle: bool = True,
+                 seed: int = 0):
+        group = data.get_group("rowwise")
+        indptr = np.asarray(group["indptr"], dtype=np.int64)
+        self.users = np.repeat(
+            np.arange(len(indptr) - 1, dtype=np.int32), np.diff(indptr))
+        self.items = np.asarray(group["key"], dtype=np.int32)
+        self.vals = (np.asarray(group["val"], dtype=np.float32)
+                     if "val" in group else np.ones(len(self.items), np.float32))
+        self.chunk_size = int(chunk_size)
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.nnz = len(self.items)
+
+    def __iter__(self):
+        order = (self.rng.permutation(self.nnz) if self.shuffle
+                 else np.arange(self.nnz))
+        N = self.chunk_size
+        for start in range(0, self.nnz, N):
+            idx = order[start:start + N]
+            if len(idx) < N:  # wrap the tail to keep the chunk size
+                idx = np.concatenate([idx, order[:N - len(idx)]])
+            yield (self.users[idx], self.items[idx], self.vals[idx])
+
+    @property
+    def num_batches(self) -> int:
+        return math.ceil(self.nnz / self.chunk_size)

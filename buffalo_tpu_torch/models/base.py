@@ -385,6 +385,17 @@ class Serializable(abc.ABC):
                     setattr(self, name, _loads(fh.read(size)))
 
     @classmethod
+    def record_names(cls, path):
+        """The names of a saved file's records, in order, unpickling
+        none."""
+        names = []
+        with open(path, "rb") as fh:
+            for _ in range(cls._read_len(fh)):
+                names.append(fh.read(cls._read_len(fh)).decode("utf8"))
+                fh.seek(cls._read_len(fh), 1)
+        return names
+
+    @classmethod
     def instantiate(cls, cls_opt, path, data_fields, device="cuda"):
         opt = cls_opt().get_default_option()
         opt.device = str(device)

@@ -1,7 +1,8 @@
 """Per-algorithm option factories: defaults + validation.
 
 Copy of ``buffalo_tpu.models.options`` for the PyTorch port, with the
-algorithms this port has so far (``AlgoOption``, ``ALSOption``): same
+algorithms this port has so far (``AlgoOption``, ``ALSOption``,
+``BPRMFOption``): same
 hyperparameter names and defaults, so configurations port over
 unchanged.  One key is the port's own: ``device`` ("cuda" by default;
 "cpu" runs the plain PyTorch versions of the kernels).  The reference's
@@ -113,3 +114,68 @@ class ALSOption(AlgoOption):
             raise RuntimeError(
                 f"optimizer ({opt.optimizer}) should be in {possible}")
         return b
+
+
+class BPRMFOption(AlgoOption):
+    def get_default_option(self) -> Option:
+        """Bayesian Personalized Ranking MF (reference options.py:189-253;
+        the JAX package's ``BPRMFOption``, same names and defaults).
+
+        :ivar bool use_bias: item bias term.
+        :ivar str optimizer: sgd | adagrad | adam.
+        :ivar float lr / min_lr: learning rate and its decay floor (sgd
+            decays linearly with progress inside the epoch).
+        :ivar bool per_coordinate_normalize: divide the epoch's
+            accumulated gradients by per-row sample counts (adam/adagrad).
+        :ivar float sampling_power: 0 = uniform negatives, > 0 =
+            popularity^power (alias tables built from the int32 CDF).
+        :ivar bool verify_neg: reject negatives present in the user's
+            positives (a blocked bloom filter; 4 attempts, else a
+            sentinel that trains nothing).
+        :ivar bool random_positive: draw each slot's positive uniformly
+            from the user's list (resident epoch only).
+        :ivar float max_step_norm: per-row L2 cap on each chunk's
+            aggregated sgd update (0 disables).
+        :ivar int batch_size: (user, positive) pairs per chunk; 0 =
+            min(max(nnz // 32, 1024), 2^19).
+        :ivar str epoch_dispatch: auto | fused | split, validated; on the
+            card every choice runs the same sample-then-update launches
+            per chunk (the JAX package's split is bit-identical to its
+            fused epoch).
+        :ivar int stored_width: accepted for parity; the reference pads
+            sub-64 tables on a TPU backend only, so the port stores at d.
+        """
+        opt = super().get_default_option()
+        opt.update({
+            "accelerator": False,
+            "use_bias": True,
+            "evaluation_period": 100,
+            "num_workers": 1,
+            "hyper_threads": 256,
+            "num_iters": 100,
+            "d": 20,
+            "update_i": True,
+            "update_j": True,
+            "reg_u": 0.025,
+            "reg_i": 0.025,
+            "reg_j": 0.025,
+            "reg_b": 0.025,
+            "optimizer": "sgd",
+            "lr": 0.05,
+            "min_lr": 0.0001,
+            "beta1": 0.9,
+            "beta2": 0.999,
+            "eps": 1e-10,
+            "per_coordinate_normalize": False,
+            "num_negative_samples": 1,
+            "sampling_power": 0.0,
+            "verify_neg": True,
+            "random_positive": False,
+            "max_step_norm": 0.1,
+            "batch_size": 0,
+            "epoch_dispatch": "auto",
+            "stored_width": 0,
+            "model_path": "",
+            "data_opt": {},
+        })
+        return Option(opt)

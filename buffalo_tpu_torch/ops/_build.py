@@ -98,12 +98,13 @@ def load_kernel(name: str) -> ctypes.CDLL:
 _launchers: Dict[str, object] = {}
 
 
-def launcher(name: str, argtypes):
-    """The C launch function ``name`` of library ``name`` with its
-    ``argtypes``; every launch function returns its ``cudaError_t``."""
+def launcher(name: str, argtypes, library: str = None):
+    """The C launch function ``name`` of library ``library`` (default:
+    ``name``) with its ``argtypes``; every launch function returns its
+    ``cudaError_t``."""
     f = _launchers.get(name)
     if f is None:
-        f = getattr(load_kernel(name), name)
+        f = getattr(load_kernel(library or name), name)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
         _launchers[name] = f

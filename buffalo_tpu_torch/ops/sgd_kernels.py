@@ -1,0 +1,784 @@
+"""BPR negative sampling and megabatch SGD on one device.
+
+PyTorch counterpart of ``buffalo_tpu.ops.sgd_kernels``'s single-device
+functions.  The host helpers (alias tables, the blocked bloom filter over
+the positives, ``pad_cols``) are numpy copies that give the reference's
+bytes.  Each chunk of an epoch goes through hand-written CUDA kernels on
+the card (``csrc/*.cu``), each beside its plain PyTorch version
+(``*_plain``):
+
+* **K8** ``sample_negatives`` — a chunk's negatives: per slot up to
+  ``NUM_ATTEMPTS`` uniform or alias draws, the first one the bloom filter
+  does not flag as a positive of the user, else the sentinel
+  ``num_items``; optionally each slot's positive drawn from the user's
+  list (``random_positive``).
+* **K9** ``chunk_update`` / ``chunk_accumulate`` / ``triplet_loss`` —
+  the chunk's pairwise logits and either the sgd step (per-row summed
+  deltas, the optional per-row L2 clip, the positive side's bias applied
+  before the negative side reads it) or the deferred path's gradient and
+  count accumulation; and the loss over fixed triplets.
+* **K10** ``deferred_update`` — the epoch barrier's adam or adagrad step
+  on one table.
+
+The random draws are this port's own: a counter-based Philox4x32-10
+function of (seed, epoch, chunk, slot, attempt), computed in uint32 by
+K8 and in int64 torch ops masked to 32 bits by its plain version, which
+agree bit for bit.  JAX's threefry stream cannot be reproduced, so the
+tests inject the JAX package's negatives (``negatives=``) to compare the
+update math exactly.  Sums are deterministic: K9 groups a chunk's slots
+by row with a stable radix sort and adds each row's terms in slot order,
+with no float atomics.  Rows are at most ``MAX_D`` floats wide.
+
+Each wrapper runs its plain version for CPU tensors and launches its
+kernel (or raises) for CUDA tensors; ``launches`` on each wrapper counts
+the calls that launched it.  The update wrappers write the tables in
+place.
+"""
+from __future__ import annotations
+
+import ctypes
+import logging
+
+import numpy as np
+import torch
+
+from buffalo_tpu_torch.ops.als_kernels import _check, _ptr, _raise_on, _stream
+
+MAX_EXP = 6.0
+FEPS = 1e-8
+MAX_D = 256
+NUM_ATTEMPTS = 4
+# the Philox counter word that tells random-positive draws from the
+# negatives' attempts (0 .. NUM_ATTEMPTS - 1)
+POSITIVE_STREAM = 0x80000000
+
+_P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+# C signatures of the launch functions (csrc/bpr_*.cu); each returns the
+# cudaError_t of its launches
+_SIGNATURES = {
+    "bpr_sample": [_P, _I32, _I32, _I32, _I64, _I32, _I32, _P, _I32, _P, _P,
+                   _P, _P, _P, _P, _P],
+    "bpr_workspace": [_I32, _I32, _I32, _I32, _I32, _P],
+    "bpr_update": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                   _I32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _I32,
+                   _I32, _P, _P, _P],
+    "bpr_accumulate": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                       _I32, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P,
+                       _P, _P],
+    "bpr_loss": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P, _P],
+    "bpr_optimizer": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
+                      _F32, _F32, _F32, _F32, _F32, _F32, _P],
+}
+# the library holding each launch function
+_LIBRARY = {"bpr_sample": "bpr_sample", "bpr_workspace": "bpr_update",
+            "bpr_update": "bpr_update", "bpr_accumulate": "bpr_update",
+            "bpr_loss": "bpr_update", "bpr_optimizer": "bpr_optimizer"}
+_U32 = 0xFFFFFFFF
+
+
+def _kernel(name: str):
+    from buffalo_tpu_torch.ops._build import launcher
+
+    return launcher(name, _SIGNATURES[name], library=_LIBRARY[name])
+
+
+def _check_width(name, d):
+    if d > MAX_D:
+        raise NotImplementedError(
+            f"{name} takes rows of at most {MAX_D} floats, got d = {d} "
+            "(ROADMAP queue 2: d > 256)")
+
+
+# ----------------------------------------------------------- host helpers
+def build_alias_table(weights):
+    """Walker/Vose alias tables for O(1) categorical draws (the JAX
+    package's ``build_alias_table``, ``sgd_kernels.py:31``, the same
+    float64 set-up, so the same bytes).  Returns (prob float32[N], alias
+    int32[N])."""
+    w = np.asarray(weights, dtype=np.float64)
+    n = int(w.shape[0])
+    assert n > 0 and (w >= 0).all(), "weights must be non-negative"
+    total = w.sum()
+    assert total > 0, "weights must not all be zero"
+    p = w * (n / total)
+    alias = np.arange(n, dtype=np.int32)
+    prob = np.ones(n, dtype=np.float32)
+    small = list(np.nonzero(p < 1.0)[0][::-1])
+    large = list(np.nonzero(p >= 1.0)[0][::-1])
+    while small and large:
+        s = int(small.pop())
+        big = int(large.pop())
+        prob[s] = p[s]
+        alias[s] = big
+        p[big] -= 1.0 - p[s]
+        (large if p[big] >= 1.0 else small).append(big)
+    return prob, alias
+
+
+_MIX_C1 = np.uint32(0x7feb352d)
+_MIX_C2 = np.uint32(0x846ca68b)
+_SEED_1 = np.uint32(0x9e3779b9)
+_SEED_2 = np.uint32(0x85ebca6b)
+
+
+def _mix32(x):
+    """32-bit finalizer on numpy uint32 (``sgd_kernels.py:106``)."""
+    x = x ^ (x >> 16)
+    x = x * _MIX_C1
+    x = x ^ (x >> 15)
+    x = x * _MIX_C2
+    x = x ^ (x >> 16)
+    return x
+
+
+def _bloom_hashes(u, i, log2_bits):
+    """Blocked-bloom coordinates of pairs (u, i), numpy uint32: one word
+    index and two bit positions in it (``sgd_kernels.py:117``)."""
+    h1 = _mix32(u ^ _mix32(i ^ _SEED_1))
+    h2 = _mix32(i ^ _mix32(u ^ _SEED_2))
+    word = h1 & np.uint32((1 << (log2_bits - 5)) - 1)
+    b1 = h2 & np.uint32(31)
+    b2 = (h2 >> 5) & np.uint32(31)
+    return word, b1, b2
+
+
+def pad_cols(arr: np.ndarray, width: int) -> np.ndarray:
+    """Zero-pad a host (N, d) table to (N, width); no-op if wide enough."""
+    if width <= arr.shape[1]:
+        return arr
+    out = np.zeros((arr.shape[0], width), arr.dtype)
+    out[:, : arr.shape[1]] = arr
+    return out
+
+
+def build_bloom(indptr: np.ndarray, keys: np.ndarray,
+                bits_per_entry: int = 12):
+    """Blocked bloom filter over every (user, item) positive of a CSR
+    (``sgd_kernels.py:184``): both bits of a pair in one uint32 word;
+    never false-negative.  Returns (words uint32[2^(log2_bits - 5)],
+    log2_bits)."""
+    nnz = len(keys)
+    log2_bits = max(16, int(np.ceil(np.log2(max(1, nnz * bits_per_entry)))))
+    log2_bits = min(log2_bits, 32)
+    if nnz * bits_per_entry > (1 << 32):
+        logging.getLogger("buffalo_tpu_torch.sgd_kernels").warning(
+            "bloom filter capped at 2^32 bits for %d positives; "
+            "false-positive rate ~%.1f%%", nnz,
+            100.0 * (2.0 * 32.0 * nnz / (1 << 32) / 32.0) ** 2)
+    users = np.repeat(
+        np.arange(len(indptr) - 1, dtype=np.uint32),
+        np.diff(np.asarray(indptr))).astype(np.uint32)
+    items = np.asarray(keys, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        word, b1, b2 = _bloom_hashes(users, items, log2_bits)
+    words = np.zeros(1 << (log2_bits - 5), dtype=np.uint32)
+    wi = word.astype(np.int64)
+    np.bitwise_or.at(words, wi, np.uint32(1) << b1)
+    np.bitwise_or.at(words, wi, np.uint32(1) << b2)
+    return words, log2_bits
+
+
+# ------------------------------------------------- uint32 math on int64
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for x in [0, 2^32) and a constant c, on int64
+    tensors without overflow (16-bit halves of c)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _U32
+
+
+def _mulhilo(c: int, x):
+    """(high, low) 32-bit words of the 64-bit product c * x."""
+    t1 = x * (c & 0xFFFF)            # < 2^48
+    t2 = x * (c >> 16)               # < 2^48
+    mid = t1 + ((t2 & 0xFFFF) << 16)
+    return (t2 >> 16) + (mid >> 32), mid & _U32
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 (Salmon et al., SC 2011) of the counters ``ctr`` (four
+    int64 tensors, or ints broadcast to them, each in [0, 2^32)) under the
+    key (k0, k1): four int64 tensors of uint32 words, the same bits as
+    ``csrc/bpr_sample.cu``'s ``philox``."""
+    like = next(c for c in ctr if isinstance(c, torch.Tensor))
+    c0, c1, c2, c3 = (c if isinstance(c, torch.Tensor)
+                      else torch.full_like(like, int(c)) for c in ctr)
+    k0, k1 = int(key[0]), int(key[1])
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _seed_key(seed: int):
+    s = int(seed) & ((1 << 64) - 1)
+    return s & _U32, s >> 32
+
+
+def bloom_hashes_plain(u, i, log2_bits):
+    """``_bloom_hashes`` on int64 tensors of uint32 values."""
+    def mix(x):
+        x = x ^ (x >> 16)
+        x = _mul32(x, int(_MIX_C1))
+        x = x ^ (x >> 15)
+        x = _mul32(x, int(_MIX_C2))
+        return x ^ (x >> 16)
+
+    h1 = mix(u ^ mix(i ^ int(_SEED_1)))
+    h2 = mix(i ^ mix(u ^ int(_SEED_2)))
+    return h1 & ((1 << (log2_bits - 5)) - 1), h2 & 31, (h2 >> 5) & 31
+
+
+# ------------------------------------------------------------ K8 plain
+def sample_negatives_plain(users, num_items, *, num_negatives, seed, epoch,
+                           chunk, bloom=None, bloom_log2=0, alias=None,
+                           pos_indptr=None, pos_keys=None):
+    """Plain version of K8.  Slot k = j * num_negatives + n belongs to user
+    ``users[j]``; attempt a draws Philox words x0, x1 of the counter (k,
+    chunk, epoch, a) under the seed's key: the uniform index is
+    mulhi(x0, n), an alias draw keeps it if (x1 >> 8) 2^-24 < prob, else
+    takes its alias.  With a bloom filter (int32 view of its uint32 words)
+    the first attempt not flagged seen wins, else ``num_items``; without,
+    attempt 0.  With ``pos_indptr``/``pos_keys`` (int64 / int32 CSR), slot
+    j's positive is ``keys[lo + (x0 >> 2) % max(deg, 1)]`` from the
+    counter (j, chunk, epoch, POSITIVE_STREAM).  Returns (negatives int32
+    (N * num_negatives,), positives int32 (N,) or None)."""
+    key = _seed_key(seed)
+    N = users.shape[0]
+    slot = torch.arange(N * num_negatives, device=users.device,
+                        dtype=torch.int64)
+    u = users.long().repeat_interleave(num_negatives)
+    out = torch.full_like(slot, num_items)
+    done = torch.zeros_like(slot, dtype=torch.bool)
+    for a in range(NUM_ATTEMPTS if bloom is not None else 1):
+        x0, x1, _, _ = philox4x32((slot, chunk, epoch, a), key)
+        cand = (x0 * num_items) >> 32
+        if alias is not None:
+            prob, al = alias
+            u01 = (x1 >> 8).to(torch.float32) * (2.0 ** -24)
+            cand = torch.where(u01 < prob[cand], cand, al[cand].long())
+        if bloom is None:
+            out = cand
+            break
+        word, b1, b2 = bloom_hashes_plain(u, cand, bloom_log2)
+        w = bloom[word].long() & _U32
+        take = ~done & (((w >> b1) & (w >> b2) & 1) == 0)
+        out = torch.where(take, cand, out)
+        done |= take
+    pos = None
+    if pos_indptr is not None:
+        x0 = philox4x32((slot[:N], chunk, epoch, POSITIVE_STREAM), key)[0]
+        ul = users.long()
+        lo = pos_indptr[ul]
+        deg = pos_indptr[ul + 1] - lo
+        pos = pos_keys[lo + (x0 >> 2) % deg.clamp(min=1)].to(torch.int32)
+    return out.to(torch.int32), pos
+
+
+# ------------------------------------------------------------ K9 plain
+def clipped_logit(x):
+    """1 - sigmoid(x) with the reference's hard clamps: > 6 -> 0,
+    < -6 -> 1 (``sgd_kernels.py:272``)."""
+    base = torch.sigmoid(-x)
+    return torch.where(x > MAX_EXP, torch.zeros_like(x),
+                       torch.where(x < -MAX_EXP, torch.ones_like(x), base))
+
+
+def clip_row_norm(delta, cap):
+    """Per-row L2 cap on an aggregated update table (1-D: elementwise)."""
+    if delta.dim() == 1:
+        return delta.clamp(-cap, cap)
+    n = torch.sqrt((delta * delta).sum(-1, keepdim=True))
+    return delta * torch.clamp(cap / torch.clamp(n, min=1e-12), max=1.0)
+
+
+def _forward(P, Q, Qb, users, positives, negatives, num_negatives, n_valid,
+             use_bias):
+    """``_bpr_forward`` with the chunk's mask (``sgd_kernels.py:336,505-
+    530``): (u, pos, neg, neg_ok, safe neg, mask, p, qi, qj, logit * mask)
+    per sample, samples slot-major."""
+    u = users.long().repeat_interleave(num_negatives)
+    pos = positives.long().repeat_interleave(num_negatives)
+    neg = negatives.long()
+    n_items = Q.shape[0]
+    neg_ok = neg < n_items
+    safe = torch.clamp(neg, max=n_items - 1)
+    p, qi, qj = P[u], Q[pos], Q[safe]
+    x = (p * (qi - qj)).sum(-1)
+    if use_bias:
+        x = x + Qb[pos] - Qb[safe]
+    slot = torch.arange(neg.shape[0], device=neg.device) // num_negatives
+    mask = (slot < n_valid).to(torch.float32)
+    logit = clipped_logit(x) * neg_ok.to(torch.float32)
+    return u, pos, neg, neg_ok, safe, mask, p, qi, qj, logit * mask
+
+
+def chunk_update_plain(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
+                       reg_u, reg_i, reg_j, reg_b, max_step_norm,
+                       num_negatives, use_bias, update_i, update_j):
+    """Plain version of K9's sgd step, in place: the scan body of
+    ``bpr_epoch`` (``sgd_kernels.py:603-651``) for one chunk whose first
+    ``n_valid`` slots are real, every term from the chunk's snapshot of
+    the tables except the negative side's bias reg term, which reads Qb
+    after the positive side's update."""
+    u, pos, neg, ok, safe, mask, p, qi, qj, logit = _forward(
+        P, Q, Qb, users, positives, negatives, num_negatives, n_valid,
+        use_bias)
+    m = mask[:, None]
+    lr_m = lr * m
+    item_deriv = logit[:, None] * p
+    dP = lr_m * (logit[:, None] * (qi - qj) - reg_u * p)
+    dQ_pos = lr_m * (item_deriv - reg_i * qi)
+    dQ_neg = (lr_m * (-item_deriv - reg_j * qj))[ok]
+    cap = float(max_step_norm)
+
+    def capped(d):
+        return clip_row_norm(d, cap) if cap else d
+
+    P += capped(torch.zeros_like(P).index_add_(0, u, dP))
+    dQ = torch.zeros_like(Q)
+    if update_i:
+        dQ.index_add_(0, pos, dQ_pos)
+        if use_bias:
+            Qb += capped(torch.zeros_like(Qb).index_add_(
+                0, pos, lr * mask * (logit - reg_b * Qb[pos])))
+    if update_j:
+        dQ.index_add_(0, neg[ok], dQ_neg)
+        if use_bias:
+            Qb += capped(torch.zeros_like(Qb).index_add_(
+                0, neg[ok], (lr * mask * (-logit - reg_b * Qb[safe]))[ok]))
+    Q += capped(dQ)
+
+
+def chunk_accumulate_plain(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
+                           negatives, *, n_valid, num_negatives, use_bias,
+                           update_i, update_j, per_coordinate_normalize):
+    """Plain version of K9's deferred path, in place into the epoch's
+    accumulators (``sgd_kernels.py:545-572``): gradients, and with
+    ``per_coordinate_normalize`` the counts (the user and the positive
+    once per pair, the negative once per sample)."""
+    u, pos, neg, ok, _, mask, p, qi, qj, logit = _forward(
+        P, Q, Qb, users, positives, negatives, num_negatives, n_valid,
+        use_bias)
+    gP.index_add_(0, u, logit[:, None] * (qi - qj))
+    item_deriv = logit[:, None] * p
+    if update_i:
+        gQ.index_add_(0, pos, item_deriv)
+        if use_bias:
+            gQb.index_add_(0, pos, logit)
+    if update_j:
+        gQ.index_add_(0, neg[ok], -item_deriv[ok])
+        if use_bias:
+            gQb.index_add_(0, neg[ok], -logit[ok])
+    if per_coordinate_normalize:
+        valid1 = mask.reshape(-1, num_negatives)[:, 0]
+        cP.index_add_(0, users.long(), valid1)
+        cQ.index_add_(0, positives.long(), valid1)
+        cQ.index_add_(0, neg[ok], mask[ok])
+
+
+def triplet_loss_plain(P, Q, Qb, users, positives, negatives, *, use_bias):
+    """Plain version of K9's loss: mean log(1 + exp(-x_uij)) over fixed
+    triplets (``bpr_loss``, ``sgd_kernels.py:859``), a 0-d tensor."""
+    u, i, j = users.long(), positives.long(), negatives.long()
+    x = (P[u] * (Q[i] - Q[j])).sum(-1)
+    if use_bias:
+        x = x + Qb[i] - Qb[j]
+    return torch.logaddexp(torch.zeros_like(x), -x).mean()
+
+
+# ----------------------------------------------------------- K10 plain
+def _bias_corrections(optimizer, step, beta1, beta2):
+    """adam's 1 - beta^(step + 1) in float32, as the reference's traced
+    step computes them (1.0 each for adagrad)."""
+    if optimizer != "adam":
+        return 1.0, 1.0
+    f, t = np.float32, np.float32(step + 1)
+    return float(f(1) - f(beta1) ** t), float(f(1) - f(beta2) ** t)
+
+
+def deferred_update_plain(param, grad, m, v, counts, *, step, optimizer, lr,
+                          beta1, beta2, reg, per_coordinate_normalize):
+    """Plain version of K10, in place: ``apply_deferred_update``
+    (``sgd_kernels.py:315``) — the count divide, the L2 term -2 reg param,
+    adam or adagrad, the table moved by the step; the gradient zeroed."""
+    g = grad
+    if per_coordinate_normalize:
+        c = torch.clamp(counts, min=1.0)
+        g = g / (c[:, None] if g.dim() == 2 else c)
+    g = g - 2.0 * reg * param
+    if optimizer == "adam":
+        c1, c2 = _bias_corrections(optimizer, step, beta1, beta2)
+        m.mul_(beta1).add_((1.0 - beta1) * g)
+        v.mul_(beta2).add_((1.0 - beta2) * g * g)
+        delta = lr * (m / c1) / (torch.sqrt(v / c2) + FEPS)
+    else:
+        v.add_(g * g)
+        delta = lr * g / (torch.sqrt(v) + FEPS)
+    param.add_(delta)
+    grad.zero_()
+
+
+# ------------------------------------------------------------- wrappers
+def sample_negatives(users, num_items, *, num_negatives, seed, epoch, chunk,
+                     bloom=None, bloom_log2=0, alias=None, pos_indptr=None,
+                     pos_keys=None):
+    """K8: one chunk's negatives (and, given the CSR, its drawn positives);
+    see ``sample_negatives_plain`` for the function.  Replaces
+    ``draw_from_alias`` :70, ``draw_negatives`` :82, ``bloom_contains``
+    :234, ``sample_verified_negatives`` :243 and the random-positive draw
+    of ``bpr_epoch`` :508-519 (``buffalo_tpu/ops/sgd_kernels.py``).
+    ``users`` (N,) int32; ``bloom`` int32 words; ``alias`` (prob float32,
+    alias int32); ``pos_indptr`` int64, ``pos_keys`` int32."""
+    kw = dict(num_negatives=num_negatives, seed=seed, epoch=epoch,
+              chunk=chunk, bloom=bloom, bloom_log2=bloom_log2, alias=alias,
+              pos_indptr=pos_indptr, pos_keys=pos_keys)
+    if users.device.type == "cpu":
+        return sample_negatives_plain(users, num_items, **kw)
+    dev = users.device
+    _check("users", users, torch.int32, dev, 1)
+    if bloom is not None:
+        _check("bloom", bloom, torch.int32, dev, 1)
+        if bloom.shape[0] != 1 << (bloom_log2 - 5):
+            raise ValueError(f"bloom has {bloom.shape[0]} words for "
+                             f"log2_bits {bloom_log2}")
+    if alias is not None:
+        _check("prob", alias[0], torch.float32, dev, 1)
+        _check("alias", alias[1], torch.int32, dev, 1)
+        if alias[0].shape[0] != num_items or alias[1].shape[0] != num_items:
+            raise ValueError("alias tables must have num_items entries")
+    if pos_indptr is not None:
+        _check("pos_indptr", pos_indptr, torch.int64, dev, 1)
+        _check("pos_keys", pos_keys, torch.int32, dev, 1)
+    if not 1 <= num_items < 1 << 31 or num_negatives < 1:
+        raise ValueError(f"num_items {num_items}, num_negatives "
+                         f"{num_negatives}")
+    N = users.shape[0]
+    neg = torch.empty(N * num_negatives, dtype=torch.int32, device=dev)
+    pos = (torch.empty(N, dtype=torch.int32, device=dev)
+           if pos_indptr is not None else None)
+    k0, k1 = _seed_key(seed)
+    key = (k1 << 32) | k0
+    rc = _kernel("bpr_sample")(
+        _ptr(users), N, num_negatives, num_items,
+        key - (1 << 64) if key >= 1 << 63 else key,
+        int(epoch), int(chunk), _ptr(bloom), int(bloom_log2),
+        _ptr(alias[0] if alias is not None else None),
+        _ptr(alias[1] if alias is not None else None), _ptr(pos_indptr),
+        _ptr(pos_keys), _ptr(neg), _ptr(pos), _stream(dev))
+    _raise_on(rc, "sample_negatives")
+    sample_negatives.launches += 1
+    return neg, pos
+
+
+sample_negatives.launches = 0
+
+
+def _check_chunk(P, Q, Qb, users, positives, negatives, num_negatives):
+    dev = P.device
+    _check("P", P, torch.float32, dev, 2)
+    _check("Q", Q, torch.float32, dev, 2)
+    _check("Qb", Qb, torch.float32, dev, 1)
+    for name, t in (("users", users), ("positives", positives),
+                    ("negatives", negatives)):
+        _check(name, t, torch.int32, dev, 1)
+    d = P.shape[1]
+    if Q.shape[1] != d or Qb.shape[0] != Q.shape[0]:
+        raise ValueError(f"tables disagree: P {tuple(P.shape)}, Q "
+                         f"{tuple(Q.shape)}, Qb {tuple(Qb.shape)}")
+    N = users.shape[0]
+    if positives.shape[0] != N or negatives.shape[0] != N * num_negatives:
+        raise ValueError("users, positives and negatives disagree on the "
+                         "chunk's slots")
+    _check_width("the BPR chunk kernels", d)
+    return dev, N, d
+
+
+def _workspace(dev, N, num_negatives, num_users, num_items, d):
+    """K9's scratch: (int32 words, float32 words), sized by the C
+    interface's own ``bpr_workspace``."""
+    sizes = (ctypes.c_int64 * 2)()
+    rc = _kernel("bpr_workspace")(N, num_negatives, num_users, num_items, d,
+                                  ctypes.cast(sizes, ctypes.c_void_p))
+    _raise_on(rc, "bpr_workspace")
+    return (torch.empty(max(1, sizes[0]), dtype=torch.int32, device=dev),
+            torch.empty(max(1, sizes[1]), dtype=torch.float32, device=dev))
+
+
+def chunk_update(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
+                 reg_u, reg_i, reg_j, reg_b, max_step_norm, num_negatives,
+                 use_bias, update_i, update_j):
+    """K9, sgd: one chunk's update of P, Q and Qb in place (see
+    ``chunk_update_plain``).  Replaces ``_bpr_forward`` :336,
+    ``clipped_logit`` :272, ``clip_row_norm`` :280, ``bpr_sgd_step`` :390
+    and the sgd scan body of ``bpr_epoch`` :600-651
+    (``buffalo_tpu/ops/sgd_kernels.py``).  Negatives >= num_items are
+    sentinels; slots from ``n_valid`` on are padding."""
+    kw = dict(n_valid=n_valid, lr=lr, reg_u=reg_u, reg_i=reg_i, reg_j=reg_j,
+              reg_b=reg_b, max_step_norm=max_step_norm,
+              num_negatives=num_negatives, use_bias=use_bias,
+              update_i=update_i, update_j=update_j)
+    if P.device.type == "cpu":
+        return chunk_update_plain(P, Q, Qb, users, positives, negatives, **kw)
+    dev, N, d = _check_chunk(P, Q, Qb, users, positives, negatives,
+                             num_negatives)
+    ws_i, ws_f = _workspace(dev, N, num_negatives, P.shape[0], Q.shape[0], d)
+    rc = _kernel("bpr_update")(
+        _ptr(users), _ptr(positives), _ptr(negatives), _ptr(P), _ptr(Q),
+        _ptr(Qb), N, num_negatives, int(max(0, min(n_valid, N))), P.shape[0],
+        Q.shape[0], d, float(lr), float(reg_u), float(reg_i), float(reg_j),
+        float(reg_b), float(max_step_norm), int(bool(use_bias)),
+        int(bool(update_i)), int(bool(update_j)), _ptr(ws_i), _ptr(ws_f),
+        _stream(dev))
+    _raise_on(rc, "chunk_update")
+    chunk_update.launches += 1
+
+
+chunk_update.launches = 0
+
+
+def chunk_accumulate(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
+                     negatives, *, n_valid, num_negatives, use_bias, update_i,
+                     update_j, per_coordinate_normalize):
+    """K9, deferred: one chunk's gradients and counts added into the
+    epoch's accumulators (see ``chunk_accumulate_plain``).  Replaces
+    ``bpr_accumulate_step`` :355 and the deferred scan body of
+    ``bpr_epoch`` :545-572."""
+    kw = dict(n_valid=n_valid, num_negatives=num_negatives,
+              use_bias=use_bias, update_i=update_i, update_j=update_j,
+              per_coordinate_normalize=per_coordinate_normalize)
+    if P.device.type == "cpu":
+        return chunk_accumulate_plain(P, Q, Qb, gP, gQ, gQb, cP, cQ, users,
+                                      positives, negatives, **kw)
+    dev, N, d = _check_chunk(P, Q, Qb, users, positives, negatives,
+                             num_negatives)
+    for name, t, like in (("gP", gP, P), ("gQ", gQ, Q), ("gQb", gQb, Qb)):
+        _check(name, t, torch.float32, dev, like.dim())
+        if t.shape != like.shape:
+            raise ValueError(f"{name} must have the shape of its table")
+    for name, t, n in (("cP", cP, P.shape[0]), ("cQ", cQ, Q.shape[0])):
+        _check(name, t, torch.float32, dev, 1)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} must have one count per row")
+    ws_i, ws_f = _workspace(dev, N, num_negatives, P.shape[0], Q.shape[0], d)
+    rc = _kernel("bpr_accumulate")(
+        _ptr(users), _ptr(positives), _ptr(negatives), _ptr(P), _ptr(Q),
+        _ptr(Qb), N, num_negatives, int(max(0, min(n_valid, N))), P.shape[0],
+        Q.shape[0], d, _ptr(gP), _ptr(gQ), _ptr(gQb), _ptr(cP), _ptr(cQ),
+        int(bool(use_bias)), int(bool(update_i)), int(bool(update_j)),
+        int(bool(per_coordinate_normalize)), _ptr(ws_i), _ptr(ws_f),
+        _stream(dev))
+    _raise_on(rc, "chunk_accumulate")
+    chunk_accumulate.launches += 1
+
+
+chunk_accumulate.launches = 0
+
+
+def triplet_loss(P, Q, Qb, users, positives, negatives, *, use_bias):
+    """K9, loss: mean log(1 + exp(-x)) over fixed (u, i, j) triplets in one
+    ordered reduction, a 0-d float32 tensor (``bpr_loss`` :859)."""
+    if P.device.type == "cpu":
+        return triplet_loss_plain(P, Q, Qb, users, positives, negatives,
+                                  use_bias=use_bias)
+    dev, n, d = _check_chunk(P, Q, Qb, users, positives, negatives, 1)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    rc = _kernel("bpr_loss")(
+        _ptr(users), _ptr(positives), _ptr(negatives), _ptr(P), _ptr(Q),
+        _ptr(Qb), n, d, int(bool(use_bias)), _ptr(out), _stream(dev))
+    _raise_on(rc, "triplet_loss")
+    triplet_loss.launches += 1
+    return out
+
+
+triplet_loss.launches = 0
+
+
+def deferred_update(param, grad, m, v, counts, *, step, optimizer, lr, beta1,
+                    beta2, reg, per_coordinate_normalize):
+    """K10: the epoch barrier's optimizer step on one table, in place (see
+    ``deferred_update_plain``).  Replaces ``apply_deferred_update`` :315,
+    ``adam_update`` :295, ``adagrad_update`` :305 and ``bpr_epoch``'s
+    inline step :579-597.  ``m`` is unused (may be None) for adagrad;
+    ``counts`` is read only with ``per_coordinate_normalize``."""
+    if optimizer not in ("adam", "adagrad"):
+        raise ValueError(f"deferred optimizer must be adam or adagrad, got "
+                         f"{optimizer!r}")
+    kw = dict(step=step, optimizer=optimizer, lr=lr, beta1=beta1,
+              beta2=beta2, reg=reg,
+              per_coordinate_normalize=per_coordinate_normalize)
+    if param.device.type == "cpu":
+        return deferred_update_plain(param, grad, m, v, counts, **kw)
+    dev = param.device
+    nd = param.dim()
+    if nd not in (1, 2):
+        raise ValueError("param must be a table (rows, d) or a vector")
+    adam = optimizer == "adam"
+    for name, t in (("param", param), ("grad", grad), ("v", v)) + (
+            (("m", m),) if adam else ()):
+        _check(name, t, torch.float32, dev, nd)
+        if t.shape != param.shape:
+            raise ValueError(f"{name} must have the shape of param")
+    rows = param.shape[0]
+    width = param.shape[1] if nd == 2 else 1
+    _check_width("deferred_update", width)
+    if per_coordinate_normalize:
+        _check("counts", counts, torch.float32, dev, 1)
+        if counts.shape[0] != rows:
+            raise ValueError("counts must have one entry per row")
+    c1, c2 = _bias_corrections(optimizer, step, beta1, beta2)
+    rc = _kernel("bpr_optimizer")(
+        _ptr(param), _ptr(grad), _ptr(m if adam else None), _ptr(v),
+        _ptr(counts if per_coordinate_normalize else None), rows * width,
+        width, int(adam), float(lr), float(beta1), float(beta2),
+        1.0 - beta1, 1.0 - beta2, float(c1), float(c2), float(reg),
+        _stream(dev))
+    _raise_on(rc, "deferred_update")
+    deferred_update.launches += 1
+
+
+deferred_update.launches = 0
+
+KERNELS = (sample_negatives, chunk_update, chunk_accumulate, triplet_loss,
+           deferred_update)
+
+
+# -------------------------------------------------------- composed steps
+def sgd_lr(lr, min_lr, step, num_valid, cidx, N, total_samples):
+    """The resident epoch's decayed rate for chunk ``cidx`` of epoch
+    ``step``, in float32 as the reference's scan computes it
+    (``sgd_kernels.py:606-608``)."""
+    f = np.float32
+    progress = (f(step) * f(num_valid) + f(cidx) * f(N)) / f(total_samples)
+    return float(max(f(lr) - (f(lr) - f(min_lr)) * progress, f(min_lr)))
+
+
+def bpr_sgd_step(P, Q, Qb, users, positives, negatives, lr, *, num_negatives,
+                 use_bias, update_i, update_j, reg_u, reg_i, reg_j, reg_b,
+                 max_step_norm=0.0):
+    """The streaming path's sgd megabatch (``bpr_sgd_step`` :390) on
+    drawn negatives: every slot real, P, Q and Qb updated in place."""
+    chunk_update(P, Q, Qb, users, positives, negatives, n_valid=users.shape[0],
+                 lr=lr, reg_u=reg_u, reg_i=reg_i, reg_j=reg_j, reg_b=reg_b,
+                 max_step_norm=max_step_norm, num_negatives=num_negatives,
+                 use_bias=use_bias, update_i=update_i, update_j=update_j)
+
+
+def bpr_accumulate_step(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
+                        negatives, *, num_negatives, use_bias, update_i,
+                        update_j, per_coordinate_normalize):
+    """The streaming path's deferred megabatch (``bpr_accumulate_step``
+    :355) on drawn negatives, every slot real."""
+    chunk_accumulate(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
+                     negatives, n_valid=users.shape[0],
+                     num_negatives=num_negatives, use_bias=use_bias,
+                     update_i=update_i, update_j=update_j,
+                     per_coordinate_normalize=per_coordinate_normalize)
+
+
+def apply_deferred_update(param, grad, m, v, counts, step, *, optimizer, lr,
+                          beta1, beta2, reg, per_coordinate_normalize):
+    """The epoch barrier on one table (``apply_deferred_update`` :315),
+    through K10, in place."""
+    deferred_update(param, grad, m, v, counts, step=step,
+                    optimizer=optimizer, lr=lr, beta1=beta1, beta2=beta2,
+                    reg=reg,
+                    per_coordinate_normalize=per_coordinate_normalize)
+
+
+def bpr_loss(P, Q, Qb, users, positives, negatives, *, use_bias):
+    """Mean log(1 + exp(-x_uij)) over fixed triplets (``bpr_loss`` :859)."""
+    return triplet_loss(P, Q, Qb, users, positives, negatives,
+                        use_bias=use_bias)
+
+
+def new_opt_state(P, Q, Qb, use_bias):
+    """Zeroed adam/adagrad moments of the three tables."""
+    state = {"mP": torch.zeros_like(P), "vP": torch.zeros_like(P),
+             "mQ": torch.zeros_like(Q), "vQ": torch.zeros_like(Q)}
+    if use_bias:
+        state["mQb"] = torch.zeros_like(Qb)
+        state["vQb"] = torch.zeros_like(Qb)
+    return state
+
+
+def apply_epoch_barrier(P, Q, Qb, grads, opt_state, step, *, optimizer, lr,
+                        beta1, beta2, reg_u, reg_i, reg_b, use_bias,
+                        per_coordinate_normalize):
+    """The deferred step on P, Q and (with the bias) Qb from the epoch's
+    accumulators ``grads`` = (gP, gQ, gQb, cP, cQ); Qb is normalized by
+    the item counts, as in the reference."""
+    gP, gQ, gQb, cP, cQ = grads
+    kw = dict(optimizer=optimizer, lr=lr, beta1=beta1, beta2=beta2,
+              per_coordinate_normalize=per_coordinate_normalize)
+    apply_deferred_update(P, gP, opt_state["mP"], opt_state["vP"], cP, step,
+                          reg=reg_u, **kw)
+    apply_deferred_update(Q, gQ, opt_state["mQ"], opt_state["vQ"], cQ, step,
+                          reg=reg_i, **kw)
+    if use_bias:
+        apply_deferred_update(Qb, gQb, opt_state["mQb"], opt_state["vQb"],
+                              cQ, step, reg=reg_b, **kw)
+
+
+def new_accumulators(P, Q, Qb):
+    """(gP, gQ, gQb, cP, cQ), zeroed."""
+    return (torch.zeros_like(P), torch.zeros_like(Q), torch.zeros_like(Qb),
+            torch.zeros(P.shape[0], dtype=torch.float32, device=P.device),
+            torch.zeros(Q.shape[0], dtype=torch.float32, device=Q.device))
+
+
+def bpr_epoch(P, Q, Qb, opt_state, users, positives, step, *, seed,
+              negatives=None, optimizer, num_items, num_negatives, use_bias,
+              update_i, update_j, bloom=None, bloom_log2=0, alias=None,
+              per_coordinate_normalize, lr, min_lr, beta1, beta2, reg_u,
+              reg_i, reg_j, reg_b, num_valid, total_samples, pos_indptr=None,
+              pos_keys=None, max_step_norm=0.0):
+    """One resident BPR epoch (``bpr_epoch`` :482) over (nchunks, N)
+    chunks in CSR order, entries from ``num_valid`` on padding: per chunk
+    K8 draws the negatives (unless ``negatives`` (nchunks, N *
+    num_negatives) are given) and K9 applies the sgd step with the
+    decayed rate or accumulates the deferred gradients; adam/adagrad end
+    with K10 on each table.  Updates P, Q, Qb and ``opt_state`` in place
+    and returns them."""
+    nchunks, N = users.shape
+    deferred = optimizer != "sgd"
+    grads = new_accumulators(P, Q, Qb) if deferred else None
+    for c in range(nchunks):
+        pos = positives[c]
+        if negatives is None:
+            neg, drawn = sample_negatives(
+                users[c], num_items, num_negatives=num_negatives, seed=seed,
+                epoch=step, chunk=c, bloom=bloom, bloom_log2=bloom_log2,
+                alias=alias, pos_indptr=pos_indptr, pos_keys=pos_keys)
+            if drawn is not None:
+                pos = drawn
+        else:
+            neg = negatives[c]
+        n_valid = max(0, min(N, num_valid - c * N))
+        if deferred:
+            chunk_accumulate(P, Q, Qb, *grads, users[c], pos, neg,
+                             n_valid=n_valid, num_negatives=num_negatives,
+                             use_bias=use_bias, update_i=update_i,
+                             update_j=update_j,
+                             per_coordinate_normalize=per_coordinate_normalize)
+        else:
+            chunk_update(P, Q, Qb, users[c], pos, neg, n_valid=n_valid,
+                         lr=sgd_lr(lr, min_lr, step, num_valid, c, N,
+                                   total_samples),
+                         reg_u=reg_u, reg_i=reg_i, reg_j=reg_j, reg_b=reg_b,
+                         max_step_norm=max_step_norm,
+                         num_negatives=num_negatives, use_bias=use_bias,
+                         update_i=update_i, update_j=update_j)
+    if deferred:
+        apply_epoch_barrier(P, Q, Qb, grads, opt_state, step,
+                            optimizer=optimizer, lr=lr, beta1=beta1,
+                            beta2=beta2, reg_u=reg_u, reg_i=reg_i,
+                            reg_b=reg_b, use_bias=use_bias,
+                            per_coordinate_normalize=per_coordinate_normalize)
+    return P, Q, Qb, opt_state

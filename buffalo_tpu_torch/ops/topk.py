@@ -9,7 +9,12 @@ the reference does: query chunks bucketed (``_chunked_topn``) and, past
 the score-matrix gate, the catalog in item tiles (``_chunked_topn_tiled``,
 a per-tile top-k with a concat + top-k merge).
 ``matmul_topk`` and ``topk`` (any k up to the catalog, the validation's
-``topk + max_seen``) stay ``torch.matmul`` + ``torch.topk``.  The sharded
+``topk + max_seen``) order entries as ``lax.top_k`` does: score
+descending, ties to the smaller index, rows always sorted.  On the card
+``matmul_topk`` goes through K5 for k <= 1024 and d <= 256, and past
+that through ``torch.matmul`` + ``retrieval_kernels.ordered_topk`` (a
+selection on distinct int64 keys); ``topk`` selects with
+``ordered_topk``.  The sharded
 variants (``sharded_matmul_topk``, ``batch_topn_sharded``) come with the
 multi-device port (ROADMAP queue 1 item 13).
 """
@@ -20,14 +25,15 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from buffalo_tpu_torch.ops.retrieval_kernels import (score_topk,
+from buffalo_tpu_torch.ops.retrieval_kernels import (MAX_D, MAX_K,
+                                                     ordered_topk, score_topk,
                                                      tiled_topk_plain)
 from buffalo_tpu_torch.utils import resolve_device
 
 
 def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32)
+        return x.to(device=device, dtype=torch.float32).contiguous()
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(
         device)
 
@@ -37,17 +43,28 @@ def matmul_topk(p, Q, k: int, pb=None, Qb=None, device="cuda"):
 
     ``k`` is clamped to the candidate count (``topk.py:47-50``): a
     validation request of ``topk + max_seen`` can exceed a small
-    catalog.  Returns (scores (B, k), indices (B, k)) on ``device``.
+    catalog.  Rows are sorted by score descending, ties to the smaller
+    index, as ``lax.top_k``.  K5 scores ``p @ Q^T + Qb`` on the card
+    (k <= 1024, d <= 256) and its plain version on the CPU; ``pb`` is
+    added to the selected scores, since a per-row shift leaves a row's
+    order unchanged.  Returns (scores (B, k) float32, indices (B, k)
+    int32) on ``device``.
     """
     device = resolve_device(device)
     p = _as_tensor(p, device)
     Q = _as_tensor(Q, device)
-    scores = torch.matmul(p, Q.T)
-    if pb is not None:
-        scores = scores + _as_tensor(pb, device)[:, None]
     if Qb is not None:
-        scores = scores + _as_tensor(Qb, device)[None, :]
-    return torch.topk(scores, min(k, Q.shape[0]), dim=1)
+        Qb = _as_tensor(Qb, device)
+    k = min(k, Q.shape[0])
+    if device.type == "cpu" or (k <= MAX_K and Q.shape[1] <= MAX_D):
+        vals, idx = score_topk(p, Q, k, Qb)
+    else:
+        scores = torch.matmul(p, Q.T)
+        vals, idx = ordered_topk(scores if Qb is None
+                                 else scores + Qb[None, :], k)
+    if pb is not None:
+        vals = vals + _as_tensor(pb, device)[:, None]
+    return vals, idx
 
 
 _stage_cache = None  # lazy OrderedDict[key -> (host array, device tensor)]
@@ -275,7 +292,10 @@ def topk(scores, k: int, sorted: bool = True, num_threads: int = 0,
 
     Keeps the reference's ``Evaluable.get_topk`` contract
     (``evaluate/base.py:31-42``); ``num_threads`` is accepted for API
-    parity and ignored.  Selection runs on ``device``.
+    parity and ignored.  Selection runs on ``device`` with
+    ``ordered_topk``: rows sorted by score descending, ties to the smaller
+    index, as the reference's ``lax.top_k``, whether or not ``sorted`` is
+    set.
     """
     scores = _as_tensor(scores, resolve_device(device))
     squeeze = scores.dim() == 1
@@ -283,6 +303,5 @@ def topk(scores, k: int, sorted: bool = True, num_threads: int = 0,
         scores = scores[None, :]
     k = min(k, scores.shape[1])
     assert k > 0, f"k({k}) should be greater than 0"
-    idx = torch.topk(scores, k, dim=1, sorted=sorted).indices
-    idx = idx.cpu().numpy().astype(np.int32)
+    idx = ordered_topk(scores.contiguous(), k)[1].cpu().numpy()
     return idx[0] if squeeze else idx

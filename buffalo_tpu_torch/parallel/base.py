@@ -6,8 +6,9 @@ every query scored against the table by K5 (``ops.topk.batch_topn``);
 pool filtering gathers the pool rows first; ``-1`` key padding when a
 pool is smaller than topk; an ANN index per group (``set_ann_index``,
 e.g. an :class:`~buffalo_tpu_torch.parallel.ann.IVFIndex`) serves
-``most_similar`` when set.  ``ParALS`` is ported; ``ParBPRMF``,
-``ParEALS``, ``ParCFR`` and ``ParW2V`` come with their families, and a
+``most_similar`` when set.  ``ParALS`` and ``ParBPRMF`` (scores with the
+item bias ``Qb``) are ported; ``ParEALS``, ``ParCFR`` and ``ParW2V`` come
+with their families, and a
 device mesh with the multi-device port (ROADMAP queue 1).  Runs on the
 model's device (``opt.device``).
 """
@@ -18,13 +19,14 @@ import abc
 import numpy as np
 
 from buffalo_tpu_torch.models.als import ALS
+from buffalo_tpu_torch.models.bpr import BPRMF
 from buffalo_tpu_torch.ops.topk import batch_topn
 
 
 class Parallel(abc.ABC):
     def __init__(self, algo, *argv, **kwargs):
         super().__init__()
-        if not isinstance(algo, ALS):
+        if not isinstance(algo, (ALS, BPRMF)):
             raise ValueError(f"Not supported algo type: {type(algo)}")
         self.algo = algo
         self.num_workers = int(kwargs["num_workers"])
@@ -143,6 +145,24 @@ class ParALS(Parallel):
         pool = self._resolve_pool(pool, group="item")
         topks, scores = self._topk_recommendation(
             indexes, self.algo.P, self.algo.Q, topk, pool)
+        if repr:
+            topks = [[self.algo._idmanager.itemids[t]
+                      for t in tt if t != -1] for tt in topks]
+        return keys, topks, scores
+
+
+class ParBPRMF(ParALS):
+    """``ParALS`` whose recommendations add the item bias (``Qb``) to the
+    scores, through K5 (``parallel/base.py:179-191``)."""
+
+    def topk_recommendation(self, keys, topk=10, pool=None, repr=False):
+        if self.algo.opt.get("_nrz_P") or self.algo.opt.get("_nrz_Q"):
+            raise RuntimeError(
+                "Cannot make topk recommendation with normalized factors")
+        keys, indexes = self._resolve(keys, "user")
+        pool = self._resolve_pool(pool, group="item")
+        topks, scores = self._topk_recommendation_bias(
+            indexes, self.algo.P, self.algo.Q, self.algo.Qb, topk, pool)
         if repr:
             topks = [[self.algo._idmanager.itemids[t]
                       for t in tt if t != -1] for tt in topks]

@@ -16,7 +16,12 @@ and K2 in rows mode and on bfloat16 values, K1, K2 and K3 at d = 13 and
 numpy), bf16 path, scatter path and stream path (one epoch each against
 the range layout), plain path, ialspp kernels (K4 at d = 160 on three
 batches, range and rows modes, bfloat16, and small random widths up to
-256), kernel wide (K2 and K3 at d = 160), ialspp path (d = 160), catalog
+256), kernel wide (K2 and K3 at d = 160), ialspp path (d = 160), bpr
+path (BPRMF on the ML-20M data at d = 40 with the default options, 4 sgd
+epochs, then validation and top-10 through ``ParBPRMF``), bpr variants
+(one adagrad, adam and streamed epoch each), bpr kernels (K8 bit for bit,
+K9's sgd step, accumulation and loss, K10's adam and adagrad steps against
+their plain versions on one of the epoch's 39 chunks), catalog
 path (the README's serving configuration: 10,000 queries over a
 505,840 x 100 KakaoBrunch-shaped catalog through ``batch_topn``, float32
 and bfloat16 queries, its ``IVFIndex`` build and search; K5, K6 and K7
@@ -33,7 +38,9 @@ path, its error against the plain version and its times (CUDA events,
 median of 20 runs, batches L2-warm as in the epoch loop; K5-K7 median of
 10) beside the bound computed from this run's inputs (K1–K3's launches
 are the d = 40 path's, K4's the d = 160 path's, K5–K7's the catalog
-path's, whose shapes their times are of); the kernel lines of K1, K3 and
+path's, K8's and K9's the BPR path's with K9's accumulation from the
+adagrad and adam epochs, K10's those epochs', whose shapes their times are
+of); the kernel lines of K1, K3 and
 K4 also give the kernel's device time alone (CUPTI through
 torch.profiler, median of the 11-22 of 22 launches the trace holds),
 since events around a short launch also catch the wrapper's host work
@@ -118,6 +125,20 @@ BRUNCH_ITEMS, BRUNCH_D, BRUNCH_QUERIES = 505_840, 100, 10_000
 BRUNCH_CELLS = 711
 BRUNCH_PROBES = (8, 32)
 BIG_ITEMS, BIG_D, BIG_QUERIES = 5_000_000, 64, 2_048
+# BPR (bpr_path, bpr_kernels): BPRMF on the ML-20M data at d = D with the
+# default options (sgd, uniform negatives, verify_neg, max_step_norm 0.1):
+# chunks of 524,288 pairs by the batch-size rule, 39 per epoch, a bloom
+# filter of 2^23 words; top-10 through ParBPRMF for BPR_USERS users; the
+# streamed epoch over COOBatcher chunks past BPR_STREAM_RESIDENT_MB.  K9's
+# steps are held to its plain version within TOL_BPR_STEP of the largest
+# step (plus two float32 spacings of the table: each side rounds start +
+# step once), and a K9 run with the row clip off must fail that check; K10
+# within TOL_K10 (rtol, elementwise: the same formula, fused or not)
+BPR_EPOCHS, BPR_USERS, BPR_STREAM_RESIDENT_MB = 4, 10_000, 64
+TOL_BPR_STEP, TOL_K10 = 1e-5, 1e-6
+# H100 SXM int32 rate: 64 INT32 lanes per SM (Hopper white paper) x 132
+# SMs x 1.98 GHz boost; K8's work is integer (Philox, the bloom hashes)
+PEAK_INT32_S = 64 * 132 * 1.98e9
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -487,17 +508,23 @@ def kernel_name(key):
 
 
 def profile_epoch(torch, K, P, Q, row_s, col_s, kw):
-    """Device time of one training epoch by kernel name (torch.profiler
-    over CUPTI), the device's busy time (the union of its activities'
-    intervals: kernels, copies and fills, overlapping ones counted once),
-    the epoch's wall time and the device's idle share of it."""
+    """``profile_call`` of one ALS training epoch."""
+    return profile_call(torch, lambda: K.als_epoch(P, Q, row_s, col_s, **kw))
+
+
+def profile_call(torch, fn, top=8):
+    """Device time of ``fn()`` by kernel name (torch.profiler over CUPTI;
+    the ``top`` largest), the device's busy time (the union of its
+    activities' intervals: kernels, copies and fills, overlapping ones
+    counted once), the call's wall time and the device's idle share of
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         st = time.perf_counter()
-        K.als_epoch(P, Q, row_s, col_s, **kw)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - st)
     by_name, spans = {}, []
@@ -512,7 +539,7 @@ def profile_epoch(torch, K, P, Q, row_s, col_s, kw):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     busy_ms = busy_us / 1e3
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
     return dict(wall_ms=wall_ms,
                 device_busy_ms=busy_ms if busy_ms else "not measured",
                 idle_share=(1 - busy_ms / wall_ms) if busy_ms
@@ -1288,23 +1315,46 @@ def check_training(als, epochs, launches, kernels, num_epochs, d):
     return losses
 
 
-def topk_check(als):
-    """Top-10 for 1,000 users through the entry point: (host ms, share of
-    users whose top-10 equals numpy's)."""
+def ids_match_numpy(ids, P, Q, Qb=None, what="top-k"):
+    """Ranked ids (B, k) against numpy's float64 ranking of P @ Q^T (+ Qb),
+    ties to the smaller index: equal except where numpy's scores of the
+    two ids are within TOL_SCORE (float32 near-ties), and in index order
+    wherever numpy's scores are exactly equal.  Returns the share of rows
+    equal to numpy's outright."""
+    s = P.astype(np.float64) @ Q.astype(np.float64).T
+    if Qb is not None:
+        s = s + Qb.astype(np.float64)[None, :]
+    k = ids.shape[1]
+    ref = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    got_s = np.take_along_axis(s, ids, axis=1)
+    ref_s = np.take_along_axis(s, ref, axis=1)
+    near = np.isclose(got_s, ref_s, rtol=TOL_SCORE, atol=TOL_SCORE_ABS)
+    check(bool(((ids == ref) | near).all()),
+          f"{what}: ids differ from numpy's off near-ties")
+    tie = got_s[:, 1:] == got_s[:, :-1]
+    check(bool((~tie | (ids[:, 1:] > ids[:, :-1])).all()),
+          f"{what}: tied scores not in index order")
+    return float(np.mean((ids == ref).all(axis=1)))
+
+
+def topk_check(als, R):
+    """Top-10 for 1,000 users through the entry point, with K5's count set
+    to 0 just before: (host ms, share of users whose top-10 equals numpy's
+    (float64, ties to the smaller index), K5 launches)."""
     users = [str(u) for u in range(1000)]
     als.topk_recommendation(users[:10], topk=10)  # warm
+    R.score_topk.launches = 0
     st = time.perf_counter()
     recs = als.topk_recommendation(users, topk=10)
     topk_ms = 1e3 * (time.perf_counter() - st)
+    launches = R.score_topk.launches
+    check(launches >= 1, "topk_recommendation did not launch K5")
     check(len(recs) == 1000 and all(
         len(set(v)) == 10 and all(0 <= int(i) < ML20M_ITEMS for i in v)
         for v in recs.values()), "top-10 recommendations malformed")
-    p, q = als.P[:1000], als.Q
-    best = np.argsort(-(p @ q.T), axis=1, kind="stable")[:, :10]
-    same = float(np.mean([set(map(int, recs[str(u)])) == set(best[u])
-                          for u in range(1000)]))
-    check(same >= 0.99, f"top-10 differs from numpy for {1 - same:.3f}")
-    return topk_ms, same
+    ids = np.array([[int(i) for i in recs[u]] for u in users])
+    same = ids_match_numpy(ids, als.P[:1000], als.Q, what="ALS top-10")
+    return topk_ms, same, launches
 
 
 def per_epoch(launches, epochs):
@@ -1865,6 +1915,371 @@ def retrieval_widths(R, torch, dev):
     return dict(max_abs_err=max(out.values()), cases=len(out))
 
 
+def trace_ms(fn, main, reps=10, warmup=2):
+    """Device milliseconds per call of ``fn`` from a torch.profiler (CUPTI)
+    trace: every device activity of the window (kernels, memsets) summed
+    and divided by ``reps``; None unless the trace holds exactly ``reps``
+    launches of the kernel named ``main`` (late in a run the trace has
+    dropped launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    try:   # keep every cycle's events (torch.profiler's own advice)
+        prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+    except TypeError:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if sum(main in e.name for e in ev) != reps:
+        return None
+    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+
+
+def bpr_opt(bt, **kw):
+    """BPRMF options of this script's runs: the defaults at d = D on the
+    card, no validation inside the epochs (it runs after training), with
+    ``kw`` on top."""
+    opt = bt.BPRMFOption().get_default_option()
+    opt.update(d=D, num_iters=BPR_EPOCHS, device="cuda",
+               validation={"topk": TOPK}, evaluation_on_learning=False)
+    opt.update(kw)
+    return opt
+
+
+def bpr_train(bt, S, torch, data, opt):
+    """A BPRMF of ``opt`` from the factors of seed 0, trained with the BPR
+    kernels' counts set to 0 just before: (model, launches, peak MB)."""
+    model = bt.BPRMF(opt, data=data)
+    np.random.seed(0)
+    model.initialize()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(S.KERNELS)
+    model.train()
+    launches = read_counts(S.KERNELS)
+    losses = model.iteration_losses
+    check(len(losses) == opt.num_iters and all(np.isfinite(losses))
+          and all(np.isfinite(t).all() for t in (model.P, model.Q, model.Qb)),
+          f"BPR ({opt.optimizer}) trained non-finite values: {losses}")
+    return model, launches, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def bpr_path(bt, S, R, torch, data):
+    """BPRMF on the ML-20M data at d = D with the default options, BPR_EPOCHS
+    epochs through the user's entry points: the loss falls, each epoch
+    launches K8 and K9 once per chunk (and K9's loss once) and nothing
+    else, validation after training; top-10 for BPR_USERS users through
+    ParBPRMF (K5 with the item bias) equal to numpy with ties by index;
+    then one epoch each of adagrad and adam (K9's accumulation, K10 on P, Q
+    and Qb) and one streamed epoch.  Returns (the sgd model, the path's
+    launches for the kernels line)."""
+    model, launches, peak_mb = bpr_train(bt, S, torch, data, bpr_opt(bt))
+    nchunks = -(-model.num_nnz // model._batch_size())
+    losses = model.iteration_losses
+    check(losses[-1] < losses[0], f"BPR loss did not fall: {losses}")
+    want = dict(sample_negatives=nchunks * BPR_EPOCHS,
+                chunk_update=nchunks * BPR_EPOCHS, triplet_loss=BPR_EPOCHS,
+                chunk_accumulate=0, deferred_update=0)
+    check(launches == want, f"BPR sgd epochs launched {launches}, "
+          f"expected {want}")
+    st = time.perf_counter()
+    val = model.get_validation_results()
+    val_s = time.perf_counter() - st
+    check(np.isfinite(val["ndcg"]) and 0.5 < val["auc"] <= 1.0,
+          f"BPR validation: {val}")
+    med = float(np.median(model.iteration_times[1:]))
+
+    reset_counts(R.KERNELS)
+    users = [str(u) for u in range(BPR_USERS)]
+    par = bt.ParBPRMF(model)
+    ms_first, (keys, ids, scores) = wall_ms(
+        lambda: par.topk_recommendation(users, topk=TOPK))
+    ms_warm, _ = wall_ms(lambda: par.topk_recommendation(users, topk=TOPK))
+    k5 = R.score_topk.launches
+    check(keys == users and ids.shape == (BPR_USERS, TOPK) and k5 == 2,
+          f"ParBPRMF top-10 malformed or not one K5 launch per call ({k5})")
+    same = ids_match_numpy(ids, model.P[:BPR_USERS], model.Q, model.Qb,
+                           "ParBPRMF.topk_recommendation")
+    phase("bpr_path", d=D, epochs=BPR_EPOCHS, optimizer="sgd",
+          chunks_per_epoch=nchunks, chunk=model._batch_size(),
+          train_loss=losses, val_ndcg=val["ndcg"], val_auc=val["auc"],
+          val_map=val["map"], validation_seconds=val_s,
+          epoch_seconds=model.iteration_times,
+          median_epoch_seconds_2_4=med, samples_per_s=model.num_nnz / med,
+          launches=launches, launches_per_epoch=per_epoch(launches,
+                                                          BPR_EPOCHS),
+          max_memory_allocated_mb=peak_mb, topk_users=BPR_USERS,
+          topk_k5_launches=k5, topk_host_ms_first=ms_first,
+          topk_host_ms_warm=ms_warm, topk_same_as_numpy=same)
+    path_launches = {
+        "sample_negatives": launches["sample_negatives"],
+        "bpr_chunk_update": launches["chunk_update"]
+        + launches["triplet_loss"], "deferred_update": 0}
+
+    runs = {}
+    for name, extra in (("adagrad", dict(optimizer="adagrad")),
+                        ("adam", dict(optimizer="adam", lr=0.02)),
+                        ("stream", dict(resident_mb=BPR_STREAM_RESIDENT_MB))):
+        m, ln, mb = bpr_train(bt, S, torch, data,
+                              bpr_opt(bt, num_iters=1, **extra))
+        if name == "stream":
+            check(model.num_nnz * 8 > BPR_STREAM_RESIDENT_MB << 20
+                  and ln["sample_negatives"] == ln["chunk_update"]
+                  == nchunks and ln["deferred_update"] == 0,
+                  f"the streamed BPR epoch launched {ln}")
+        else:
+            check(ln["chunk_accumulate"] == nchunks
+                  and ln["deferred_update"] == 3 and ln["chunk_update"] == 0,
+                  f"the {name} BPR epoch launched {ln}")
+            path_launches["deferred_update"] += ln["deferred_update"]
+            path_launches["bpr_chunk_update"] += ln["chunk_accumulate"]
+        runs[name] = dict(train_loss=m.iteration_losses[0],
+                          epoch_seconds=m.iteration_times[0], launches=ln,
+                          max_memory_allocated_mb=mb)
+        del m
+    phase("bpr_variants", d=D, sgd_first_epoch_loss=losses[0], **runs)
+    return model, path_launches
+
+
+def k8_work(S, torch, users, bloom, log2, num_items, seed, chunk):
+    """(bytes, int32 operations) of K8's function on a chunk: the user ids
+    read, the negatives written, one bloom word read per attempt made (the
+    attempts this chunk's draws need); per attempt Philox4x32-10 (10
+    rounds of 2 wide multiplies, 4 xors and 2 key adds: ~100 operations),
+    the two bloom hashes (~22) and the draw (~4)."""
+    slot = torch.arange(users.shape[0], device=users.device,
+                        dtype=torch.int64)
+    u = users.long()
+    done = torch.zeros_like(slot, dtype=torch.bool)
+    attempts = 0
+    for a in range(S.NUM_ATTEMPTS):
+        attempts += int((~done).sum())
+        x0 = S.philox4x32((slot, chunk, 0, a), S._seed_key(seed))[0]
+        cand = (x0 * num_items) >> 32
+        word, b1, b2 = S.bloom_hashes_plain(u, cand, log2)
+        w = bloom[word].long() & 0xFFFFFFFF
+        done |= ((w >> b1) & (w >> b2) & 1) == 0
+    return 8 * users.shape[0] + 4 * attempts, 126 * attempts, attempts
+
+
+def k9_work(users, pos, neg, d, num_items):
+    """(bytes, operations) of K9's sgd function on a chunk: ids read, the
+    touched rows of P, Q and Qb read and written once; per sample the
+    logit (3 d), its user term (3 d) and its negative's item term (2 d),
+    per slot its positive's item term (2 d), per touched row the step,
+    its norm and the write (6 d)."""
+    import torch
+
+    n_u = int(torch.unique(users).numel())
+    ok = neg[neg < num_items]
+    n_i = int(torch.unique(torch.cat([pos, ok])).numel())
+    B, N = neg.shape[0], users.shape[0]
+    nbytes = 8 * N + 4 * B + 8 * d * (n_u + n_i) + 8 * n_i
+    return nbytes, 8 * d * B + 2 * d * N + 6 * d * (n_u + n_i)
+
+
+def step_check(got, ref, start):
+    """(passes, max |got - ref|, the limit): K9's step against the plain
+    version's, within TOL_BPR_STEP of the plain version's largest step plus
+    two float32 spacings of the table's largest value."""
+    err = float((got - ref).abs().max())
+    limit = (TOL_BPR_STEP * float((ref - start).abs().max())
+             + 2 * 2 ** -23 * float(start.abs().max()))
+    return err <= limit, err, limit
+
+
+def bpr_kernels(S, torch, model):
+    """K8, K9 and K10 against their plain versions on an ML-20M chunk of the
+    sgd model's resident epoch (users in CSR order, its trained tables, the
+    2^23-word bloom filter): K8 bit for bit; K9's sgd step within
+    TOL_BPR_STEP, bitwise repeatable, and a K9 run with the clip off
+    failing the check; its accumulation and loss; K10's adam and adagrad
+    steps on the item and user tables within TOL_K10.  Event ms, CUPTI ms
+    (``trace_ms``), the plain and library ms and the bounds.  Returns the
+    kernels line's K8-K10 entries."""
+    dev = model.device
+    batch = model._batch_size()
+    users_c, items_c, nnz = model._stage_epoch_chunks(batch)
+    c = users_c.shape[0] // 2
+    users, pos = users_c[c].contiguous(), items_c[c].contiguous()
+    group = model.data.get_group("rowwise")
+    words, log2 = S.build_bloom(np.asarray(group["indptr"]),
+                                np.asarray(group["key"]))
+    bloom = torch.from_numpy(words.view(np.int32)).to(dev)
+    I = model.Q.shape[0]
+    seed = int(model.opt.random_seed)
+    kw8 = dict(num_negatives=1, seed=seed, epoch=0, chunk=c, bloom=bloom,
+               bloom_log2=log2)
+    neg, _ = S.sample_negatives(users, I, **kw8)
+    ref_neg, _ = S.sample_negatives_plain(users, I, **kw8)
+    check(torch.equal(neg, ref_neg), "K8 differs from its plain version")
+    sentinels = int((neg == I).sum())
+    nbytes, ops, attempts = k8_work(S, torch, users, bloom, log2, I, seed, c)
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_INT32_S
+    k8 = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_sample.cu",
+              replaces="buffalo_tpu/ops/sgd_kernels.py:243", max_abs_err=0.0,
+              ms=time_ms(lambda: S.sample_negatives(users, I, **kw8)),
+              device_ms=trace_ms(lambda: S.sample_negatives(users, I, **kw8),
+                                 "sample_kernel"),
+              plain_ms=time_ms(lambda: S.sample_negatives_plain(users, I,
+                                                                **kw8),
+                               reps=5, warmup=1),
+              bound_ms=1e3 * max(t_b, t_o),
+              bound_by="bytes" if t_b >= t_o else "operations",
+              library_ms=None, slots=int(users.shape[0]),
+              attempts=attempts, sentinels=sentinels, bloom_words=len(words))
+
+    P0 = torch.from_numpy(model.P).to(dev)
+    Q0 = torch.from_numpy(model.Q).to(dev)
+    Qb0 = torch.from_numpy(model.Qb).to(dev)
+    o = model.opt
+    lr = S.sgd_lr(o.lr, o.min_lr, 0, nnz, c, batch, float(nnz) * o.num_iters)
+    kw9 = dict(n_valid=batch, lr=lr, reg_u=o.reg_u, reg_i=o.reg_i,
+               reg_j=o.reg_j, reg_b=o.reg_b, max_step_norm=o.max_step_norm,
+               num_negatives=1, use_bias=True, update_i=True, update_j=True)
+
+    def run(fn, **over):
+        t = [P0.clone(), Q0.clone(), Qb0.clone()]
+        fn(*t, users, pos, neg, **dict(kw9, **over))
+        return t
+
+    got, again, ref = run(S.chunk_update), run(S.chunk_update), \
+        run(S.chunk_update_plain)
+    unclipped = run(S.chunk_update, max_step_norm=0.0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K9 is not bitwise repeatable")
+    fields, errs = {}, []
+    for name, g, r, s0, w in zip(("P", "Q", "Qb"), got, ref, (P0, Q0, Qb0),
+                                 unclipped):
+        ok, err, limit = step_check(g, r, s0)
+        check(ok, f"K9's {name} step is {err:.3g} from the plain version's "
+              f"(limit {limit:.3g})")
+        errs.append(err)
+        fields[f"{name}_err"], fields[f"{name}_limit"] = err, limit
+        fields[f"{name}_max_step"] = float((r - s0).abs().max())
+        fields[f"{name}_unclipped_err"] = step_check(w, r, s0)[1]
+    check(not all(step_check(w, r, s0)[0] for w, r, s0 in
+                  zip(unclipped, ref, (P0, Q0, Qb0))),
+          "the K9 check passes a run with the row clip off")
+    # the accumulation and the loss
+    acc = [S.new_accumulators(P0, Q0, Qb0) for _ in range(2)]
+    S.chunk_accumulate(P0, Q0, Qb0, *acc[0], users, pos, neg, n_valid=batch,
+                       num_negatives=1, use_bias=True, update_i=True,
+                       update_j=True, per_coordinate_normalize=True)
+    S.chunk_accumulate_plain(P0, Q0, Qb0, *acc[1], users, pos, neg,
+                             n_valid=batch, num_negatives=1, use_bias=True,
+                             update_i=True, update_j=True,
+                             per_coordinate_normalize=True)
+    for name, g, r in zip(("gP", "gQ", "gQb", "cP", "cQ"), *acc):
+        ok, err, limit = step_check(g, r, torch.zeros_like(r))
+        check(ok, f"K9's accumulated {name} is {err:.3g} from the plain "
+              f"version's (limit {limit:.3g})")
+        errs.append(err)
+    sub = [torch.from_numpy(a).to(dev) for a in model._sub_samples]
+    loss = float(S.triplet_loss(P0, Q0, Qb0, *sub, use_bias=True))
+    loss_ref = float(S.triplet_loss_plain(P0, Q0, Qb0, *sub, use_bias=True))
+    check(abs(loss - loss_ref) <= 1e-6 * abs(loss_ref),
+          f"K9's loss {loss} vs plain {loss_ref}")
+
+    t9 = [P0.clone(), Q0.clone(), Qb0.clone()]
+    u_s, p_s, n_ok = users.long(), pos.long(), neg.long() < I
+    _, _, _, _, safe, mask, p_r, qi, qj, logit = S._forward(
+        P0, Q0, Qb0, users, pos, neg, 1, batch, True)
+    rows_p = lr * (logit[:, None] * (qi - qj) - o.reg_u * p_r)
+    rows_q = torch.cat([lr * (logit[:, None] * p_r - o.reg_i * qi),
+                        (lr * (-logit[:, None] * p_r - o.reg_j * qj))[n_ok]])
+    idx_q = torch.cat([p_s, neg.long()[n_ok]])
+
+    def library():
+        # the scatter as index_add_ + the clip, from per-sample rows
+        t9[0] += S.clip_row_norm(torch.zeros_like(P0).index_add_(
+            0, u_s, rows_p), o.max_step_norm)
+        t9[1] += S.clip_row_norm(torch.zeros_like(Q0).index_add_(
+            0, idx_q, rows_q), o.max_step_norm)
+
+    nbytes, flops = k9_work(users, pos, neg, D, I)
+    bms, by = bound_ms(nbytes, flops)
+    k9 = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_update.cu",
+              replaces="buffalo_tpu/ops/sgd_kernels.py:390",
+              max_abs_err=max(errs),
+              ms=time_ms(lambda: S.chunk_update(*t9, users, pos, neg, **kw9)),
+              device_ms=trace_ms(lambda: S.chunk_update(*t9, users, pos, neg,
+                                                        **kw9),
+                                 "forward_kernel"),
+              plain_ms=time_ms(lambda: S.chunk_update_plain(
+                  *t9, users, pos, neg, **kw9), reps=5, warmup=1),
+              bound_ms=bms, bound_by=by,
+              library_ms=time_ms(library, reps=10, warmup=2),
+              slots=int(users.shape[0]), lr=lr, loss=loss, **fields)
+
+    # K10 on the user and item tables and the bias
+    entries = {}
+    for opt_name in ("adam", "adagrad"):
+        for tname, table in (("P", P0), ("Q", Q0), ("Qb", Qb0)):
+            rng = torch.Generator(device=dev).manual_seed(5)
+            g = 0.1 * torch.randn(table.shape, generator=rng, device=dev)
+            m = 0.01 * torch.randn(table.shape, generator=rng, device=dev)
+            v = 0.01 * torch.rand(table.shape, generator=rng, device=dev)
+            cnt = torch.randint(0, 9, (table.shape[0],), generator=rng,
+                                device=dev).float()
+            kw10 = dict(step=3, optimizer=opt_name, lr=0.02, beta1=0.9,
+                        beta2=0.999, reg=0.025, per_coordinate_normalize=True)
+            a = [table.clone(), g.clone(), m.clone(), v.clone()]
+            b = [table.clone(), g.clone(), m.clone(), v.clone()]
+            S.deferred_update(*a, cnt, **kw10)
+            S.deferred_update_plain(*b, cnt, **kw10)
+            err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+            check(all(torch.allclose(x, y, rtol=TOL_K10, atol=1e-7)
+                      for x, y in zip(a, b)),
+                  f"K10 ({opt_name}, {tname}) is {err:.3g} from its plain "
+                  "version")
+            if tname == "P":
+                n = table.numel()
+                nbytes = (32 if opt_name == "adam" else 24) * n \
+                    + 4 * table.shape[0]
+                bms, by = bound_ms(nbytes, 14 * n)
+                fn = (lambda: S.deferred_update(*a, cnt, **kw10))
+                entries[opt_name] = dict(
+                    ms=time_ms(fn), device_ms=trace_ms(fn, "optimizer_kernel"),
+                    plain_ms=time_ms(lambda: S.deferred_update_plain(
+                        *b, cnt, **kw10)), bound_ms=bms, bound_by=by,
+                    elements=n)
+            entries.setdefault("max_abs_err", 0.0)
+            entries["max_abs_err"] = max(entries["max_abs_err"], err)
+    k10 = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_optimizer.cu",
+               replaces="buffalo_tpu/ops/sgd_kernels.py:315",
+               max_abs_err=entries["max_abs_err"], library_ms=None,
+               **{f: entries["adam"][f] for f in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by")},
+               adam=entries["adam"], adagrad=entries["adagrad"])
+    # one sgd epoch's device work (K8 + K9 per chunk) by kernel name
+    t = [P0.clone(), Q0.clone(), Qb0.clone()]
+    prof = profile_call(torch, lambda: S.bpr_epoch(
+        *t, {}, users_c, items_c, 0, seed=seed, optimizer="sgd",
+        num_items=I, num_negatives=1, use_bias=True, update_i=True,
+        update_j=True, bloom=bloom, bloom_log2=log2,
+        per_coordinate_normalize=False, lr=o.lr, min_lr=o.min_lr,
+        beta1=o.beta1, beta2=o.beta2, reg_u=o.reg_u, reg_i=o.reg_i,
+        reg_j=o.reg_j, reg_b=o.reg_b, num_valid=nnz,
+        total_samples=float(nnz) * o.num_iters,
+        max_step_norm=o.max_step_norm), top=16)
+    phase("bpr_kernels", d=D, chunk_index=c, chunks=int(users_c.shape[0]),
+          k8=k8, k9=k9, k10=k10, tol_step=TOL_BPR_STEP, tol_k10=TOL_K10,
+          epoch_profile=prof)
+    del users_c, items_c, bloom, t, t9, got, again, ref, unclipped, acc
+    torch.cuda.empty_cache()
+    return {"sample_negatives": k8, "bpr_chunk_update": k9,
+            "deferred_update": k10}
+
+
 def main() -> int:
     import torch
 
@@ -1878,6 +2293,7 @@ def main() -> int:
     from buffalo_tpu_torch.ops import _build
     from buffalo_tpu_torch.ops import als_kernels as K
     from buffalo_tpu_torch.ops import retrieval_kernels as R
+    from buffalo_tpu_torch.ops import sgd_kernels as S
 
     bt.set_log_level(1)
     dev = bt.utils.resolve_device("cuda")
@@ -1956,7 +2372,7 @@ def main() -> int:
         path_launches = launches
         losses = check_training(als, epochs, launches, narrow, 4, D)
         trained = (als.P, als.Q)
-        topk_ms, same = topk_check(als)
+        topk_ms, same, topk_k5 = topk_check(als, R)
         phase("path", epochs=len(losses), train_loss=losses,
               val_ndcg=[m.get("val_ndcg") for m in epochs],
               epoch_seconds=als.iteration_times,
@@ -1966,6 +2382,7 @@ def main() -> int:
               launches_per_epoch=per_epoch(launches, len(losses)),
               max_memory_allocated_mb=peak_mb, topk_users=1000, topk_k=10,
               topk_ms=topk_ms, topk_same_as_numpy=same,
+              topk_k5_launches=topk_k5,
               # scores for every user and item, and the item table read
               topk_bound_ms=bound_ms(4 * ML20M_ITEMS * D,
                                      2 * 1000 * ML20M_ITEMS * D)[0])
@@ -2031,7 +2448,7 @@ def main() -> int:
             (K.ialspp_solve_batch, K.als_normal_equations, K.batched_cg_dense),
             4, D_WIDE)
         path_launches["ialspp_solve_batch"] = launches["ialspp_solve_batch"]
-        topk_ms, same = topk_check(als)
+        topk_ms, same, topk_k5 = topk_check(als, R)
         phase("ialspp_path", d=D_WIDE, optimizer=als._optimizer,
               block_size=int(als.opt.block_size), epochs=len(losses_w),
               train_loss=losses_w,
@@ -2042,8 +2459,16 @@ def main() -> int:
               train_seconds=train_s, launches=launches,
               launches_per_epoch=per_epoch(launches, len(losses_w)),
               max_memory_allocated_mb=peak_mb, topk_ms=topk_ms,
-              topk_same_as_numpy=same)
-        del als, data
+              topk_same_as_numpy=same, topk_k5_launches=topk_k5)
+        del als
+        torch.cuda.empty_cache()
+
+        # ---- BPR: the user's entry points on the ML-20M data (sgd, then
+        # adagrad, adam and a streamed epoch), then K8-K10 on its chunks
+        bpr, bpr_launches = bpr_path(bt, S, R, torch, data)
+        entries.update(bpr_kernels(S, torch, bpr))
+        path_launches.update(bpr_launches)
+        del bpr, data
         torch.cuda.empty_cache()
 
         # ---- catalog path: the README's serving configuration (K5-K7 at

@@ -584,3 +584,240 @@ def test_kmeans_update_kernel_matches_plain(dev, D):
                                rtol=1e-5, atol=1e-5)
     ref7 = cent[7] / cent[7].norm()
     torch.testing.assert_close(got[7], ref7, rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------- K8-K10
+def _bpr_case(dev, d, U=700, I=300, N=5000, neg_per=1, seed=0, scale=0.3):
+    """Tables, a chunk sorted by user (CSR order) with a masked tail of 37
+    slots, and negatives with about one sentinel in 40; a popular item
+    (10% of the positives), so its row sums thousands of terms."""
+    rng = np.random.default_rng(seed)
+    P = rng.normal(0, scale, (U, d)).astype(np.float32)
+    Q = rng.normal(0, scale, (I, d)).astype(np.float32)
+    Qb = rng.normal(0, scale, I).astype(np.float32)
+    users = np.sort(rng.integers(0, U, N)).astype(np.int32)
+    pos = rng.integers(0, I, N).astype(np.int32)
+    pos[rng.random(N) < 0.1] = 3
+    neg = rng.integers(0, I, N * neg_per).astype(np.int32)
+    neg[rng.random(N * neg_per) < 0.025] = I
+    return [torch.from_numpy(a).to(dev)
+            for a in (P, Q, Qb, users, pos, neg)], N - 37
+
+
+def _step_close(got, ref, start, rtol=1e-5):
+    """A table's step against the plain version's: within rtol of the
+    largest step, plus two float32 spacings of the table's values (each
+    side rounds start + step once)."""
+    err = float((got - ref).abs().max())
+    step = float((ref - start).abs().max())
+    limit = rtol * step + 2 * 2 ** -23 * float(start.abs().max())
+    assert err <= limit, (err, step, limit)
+
+
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("verify", [False, True])
+@pytest.mark.parametrize("neg_per", [1, 3])
+def test_sample_kernel_equals_plain(dev, alias, verify, neg_per):
+    """K8 is its plain version bit for bit: uniform or alias draws, with or
+    without the bloom check, and the random positives."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    rng = np.random.default_rng(neg_per)
+    U, I = 500, 3000
+    deg = rng.integers(1, 200, U)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    keys = rng.integers(0, I, int(indptr[-1])).astype(np.int32)
+    kw = dict(num_negatives=neg_per, seed=(1 << 40) + 5, epoch=3, chunk=7,
+              pos_indptr=torch.from_numpy(indptr).to(dev),
+              pos_keys=torch.from_numpy(keys).to(dev))
+    if verify:
+        words, log2 = S.build_bloom(indptr, keys)
+        kw.update(bloom=torch.from_numpy(words.view(np.int32)).to(dev),
+                  bloom_log2=log2)
+    if alias:
+        prob, al = S.build_alias_table(rng.pareto(1.0, I) + 0.01)
+        kw["alias"] = (torch.from_numpy(prob).to(dev),
+                       torch.from_numpy(al).to(dev))
+    users = torch.from_numpy(rng.integers(0, U, 20000).astype(np.int32)).to(
+        dev)
+    before = S.sample_negatives.launches
+    neg, pos = S.sample_negatives(users, I, **kw)
+    torch.cuda.synchronize()
+    assert S.sample_negatives.launches == before + 1
+    ref_neg, ref_pos = S.sample_negatives_plain(users, I, **kw)
+    assert torch.equal(neg, ref_neg) and torch.equal(pos, ref_pos)
+
+
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 129, 256])
+@pytest.mark.parametrize("cap", [0.0, 0.1])
+@pytest.mark.parametrize("neg_per", [1, 2])
+def test_chunk_update_kernel_matches_plain(dev, d, cap, neg_per):
+    """K9's sgd step against its plain version (steps within 1e-5 of the
+    largest), two launches bitwise equal."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, d, neg_per=neg_per,
+                                                     seed=d)
+    kw = dict(n_valid=n_valid, lr=0.2, reg_u=0.03, reg_i=0.02, reg_j=0.04,
+              reg_b=0.05, max_step_norm=cap, num_negatives=neg_per,
+              use_bias=True, update_i=True, update_j=True)
+    runs = []
+    for fn in (S.chunk_update, S.chunk_update, S.chunk_update_plain):
+        t = [P.clone(), Q.clone(), Qb.clone()]
+        fn(*t, users, pos, neg, **kw)
+        runs.append(t)
+    torch.cuda.synchronize()
+    for got, again, ref, start in zip(*runs, (P, Q, Qb)):
+        assert torch.equal(got, again)
+        _step_close(got, ref, start)
+
+
+@pytest.mark.parametrize("flags", [(True, True, True), (False, True, False),
+                                   (True, False, True)])
+def test_chunk_update_kernel_flags_match_plain(dev, flags):
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    use_bias, update_i, update_j = flags
+    (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, 40, seed=5)
+    kw = dict(n_valid=n_valid, lr=0.2, reg_u=0.03, reg_i=0.02, reg_j=0.04,
+              reg_b=0.05, max_step_norm=0.1, num_negatives=1,
+              use_bias=use_bias, update_i=update_i, update_j=update_j)
+    got, ref = [P.clone(), Q.clone(), Qb.clone()], [P.clone(), Q.clone(),
+                                                     Qb.clone()]
+    S.chunk_update(*got, users, pos, neg, **kw)
+    S.chunk_update_plain(*ref, users, pos, neg, **kw)
+    for g, r, s in zip(got, ref, (P, Q, Qb)):
+        _step_close(g, r, s)
+
+
+@pytest.mark.parametrize("d", [13, 40, 256])
+@pytest.mark.parametrize("pcn", [False, True])
+def test_chunk_accumulate_kernel_matches_plain(dev, d, pcn):
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, d, neg_per=2,
+                                                     seed=d + 1)
+    kw = dict(n_valid=n_valid, num_negatives=2, use_bias=True, update_i=True,
+              update_j=True, per_coordinate_normalize=pcn)
+    runs = []
+    for fn in (S.chunk_accumulate, S.chunk_accumulate,
+               S.chunk_accumulate_plain):
+        acc = S.new_accumulators(P, Q, Qb)
+        for a in acc:   # accumulators already holding a previous chunk
+            a.fill_(0.5)
+        fn(P, Q, Qb, *acc, users, pos, neg, **kw)
+        runs.append(acc)
+    torch.cuda.synchronize()
+    for got, again, ref in zip(*runs):
+        assert torch.equal(got, again)
+        _step_close(got, ref, torch.full_like(ref, 0.5))
+
+
+def test_triplet_loss_kernel_matches_plain(dev):
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    (P, Q, Qb, users, pos, neg), _ = _bpr_case(dev, 40, N=372, seed=9)
+    neg = neg.clamp(max=Q.shape[0] - 1)
+    for bias in (False, True):
+        got = S.triplet_loss(P, Q, Qb, users, pos, neg, use_bias=bias)
+        ref = S.triplet_loss_plain(P, Q, Qb, users, pos, neg, use_bias=bias)
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
+        assert torch.equal(got, S.triplet_loss(P, Q, Qb, users, pos, neg,
+                                               use_bias=bias))
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adagrad"])
+@pytest.mark.parametrize("pcn", [False, True])
+@pytest.mark.parametrize("shape", [(1000, 40), (777,)])
+def test_deferred_update_kernel_matches_plain(dev, optimizer, pcn, shape):
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    rng = np.random.default_rng(len(shape))
+    tabs = [torch.from_numpy(rng.normal(0, s, shape).astype(np.float32)).to(
+        dev) for s in (0.3, 0.5, 0.01)]
+    tabs.append(tabs[2].abs() + 0.01)                     # v >= 0
+    counts = torch.from_numpy(rng.integers(0, 9, shape[0]).astype(
+        np.float32)).to(dev)
+    kw = dict(step=4, optimizer=optimizer, lr=0.05, beta1=0.9, beta2=0.999,
+              reg=0.025, per_coordinate_normalize=pcn)
+    got, ref = [t.clone() for t in tabs], [t.clone() for t in tabs]
+    S.deferred_update(*got, counts, **kw)
+    S.deferred_update_plain(*ref, counts, **kw)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-7)
+    assert not bool(got[1].any())                         # grad zeroed
+
+
+def test_bpr_wrappers_reject_what_kernels_do_not_take(dev):
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    (P, Q, Qb, users, pos, neg), n = _bpr_case(dev, 40)
+    kw = dict(n_valid=n, lr=0.1, reg_u=0.0, reg_i=0.0, reg_j=0.0, reg_b=0.0,
+              max_step_norm=0.0, num_negatives=1, use_bias=True,
+              update_i=True, update_j=True)
+    with pytest.raises(NotImplementedError):
+        S.chunk_update(torch.zeros(9, 257, device=dev),
+                       torch.zeros(5, 257, device=dev), Qb[:5], users[:3],
+                       pos[:3].clamp(max=4), neg[:3].clamp(max=4), **kw)
+    with pytest.raises(TypeError):
+        S.chunk_update(P, Q, Qb, users.long(), pos, neg, **kw)
+    with pytest.raises(ValueError):
+        S.chunk_update(P, Q, Qb, users, pos, neg[:-1], **kw)
+    with pytest.raises(ValueError):
+        S.deferred_update(P, P.clone(), None, P.clone(), None, step=0,
+                          optimizer="rmsprop", lr=0.1, beta1=0.9, beta2=0.9,
+                          reg=0.0, per_coordinate_normalize=False)
+
+
+def test_bpr_epoch_on_the_card_matches_the_cpu(dev):
+    """Two small resident epochs through the user's entry point on the
+    card and on the CPU: the same negatives (K8 equals its plain version)
+    and float32 updates in another order."""
+    import buffalo_tpu_torch as bt
+
+    rng = np.random.default_rng(0)
+    U, I = 300, 120
+    rows, cols = [], []
+    for u in range(U):
+        for i in rng.choice(I, rng.integers(2, 30), replace=False):
+            rows.append(u)
+            cols.append(int(i))
+
+    from buffalo_tpu_torch.data.base import Data
+
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows,
+                                                        minlength=U))])
+    groups = {"rowwise": {"indptr": indptr, "key": np.array(cols, np.int32)}}
+
+    class Small(Data):
+        def __init__(self):
+            pass
+
+        def get_header(self):
+            return {"num_users": U, "num_items": I, "num_nnz": len(cols)}
+
+        def get_group(self, name):
+            return groups[name]
+
+        def get(self, u):
+            return (groups["rowwise"]["key"][indptr[u]:indptr[u + 1]],)
+
+        data_type = "matrix"
+
+        def show_info(self):
+            return ""
+
+    out = []
+    for device in ("cuda", "cpu"):
+        opt = bt.BPRMFOption().get_default_option()
+        opt.update(d=24, num_iters=2, batch_size=1024, device=device,
+                   validation={})
+        m = bt.BPRMF(opt, data=Small())
+        np.random.seed(1)
+        m.initialize()
+        m.train()
+        out.append(m)
+    for name in ("P", "Q", "Qb"):
+        np.testing.assert_allclose(getattr(out[0], name),
+                                   getattr(out[1], name), rtol=1e-4,
+                                   atol=1e-5)

@@ -53,6 +53,9 @@ def test_import_loads_neither_jax_nor_reference():
             "import buffalo_tpu_torch.ops.retrieval_kernels; "
             "import buffalo_tpu_torch.parallel.base; "
             "import buffalo_tpu_torch.parallel.ann; "
+            "import buffalo_tpu_torch.ops.sgd_kernels; "
+            "import buffalo_tpu_torch.models.bpr; "
+            "from buffalo_tpu_torch import BPRMF, BPRMFOption, ParBPRMF; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'buffalo_tpu' "
             "or m.startswith('buffalo_tpu.')]; "
@@ -94,3 +97,23 @@ def test_retrieval_default_without_card_raises(monkeypatch):
     assert topk(scores, 2, device="cpu").tolist() == [[3, 2]] * 3
     assert matmul_topk(scores, scores, 2, device="cpu")[1].device.type == \
         "cpu"
+
+
+def test_bpr_cuda_default_without_card_raises(monkeypatch):
+    from buffalo_tpu_torch import BPRMF, BPRMFOption
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = BPRMFOption().get_default_option()
+    assert opt.device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BPRMF(opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BPRMF.instantiate(BPRMFOption, "unused", [], device="cuda")
+    opt.device = "cpu"
+    assert BPRMF(opt).device.type == "cpu"
+
+
+def test_bpr_kernel_modules_covered():
+    """The BPR modules are among the files the import rule checks."""
+    names = {p.name for p in PORT_FILES}
+    assert {"sgd_kernels.py", "bpr.py"} <= names

@@ -20,12 +20,13 @@ from buffalo_tpu.data import MatrixMarketOptions as RefMMOptions
 from buffalo_tpu.data import load as ref_load
 from buffalo_tpu.parallel import IVFIndex as RefIVF
 from buffalo_tpu.parallel import ParALS as RefParALS
+from buffalo_tpu.parallel import ParBPRMF as RefParBPRMF
 from buffalo_tpu.parallel.ann import _merge_host as ref_merge
 from buffalo_tpu.parallel.ann import _pick_cap as ref_pick_cap
 from buffalo_tpu_torch.convert import from_jax_factors
 from buffalo_tpu_torch.data import MatrixMarketOptions as PortMMOptions
 from buffalo_tpu_torch.data import load as port_load
-from buffalo_tpu_torch.parallel import IVFIndex, ParALS
+from buffalo_tpu_torch.parallel import IVFIndex, ParALS, ParBPRMF
 from buffalo_tpu_torch.parallel.ann import _BQ_CAPS, _L_CAPS, _merge_host, \
     _pick_cap
 
@@ -165,6 +166,62 @@ def test_wrong_algo_and_mesh_rejected(pair):
     for kw in (dict(mesh=object()), dict(num_devices=2)):
         with pytest.raises(NotImplementedError, match="item 13"):
             ParALS(pair[1], **kw)
+
+
+@pytest.fixture(scope="module")
+def bpr_factors(datasets):
+    opt = ref.BPRMFOption().get_default_option()
+    opt.update(d=16, num_iters=8, optimizer="adagrad", num_devices=1,
+               validation={})
+    m = ref.BPRMF(opt, data=datasets[0])
+    np.random.seed(0)
+    m.initialize()
+    m.train()
+    assert np.abs(m.Qb).max() > 1e-2     # the bias moves the ranking
+    return np.array(m.P), np.array(m.Q), np.array(m.Qb)
+
+
+@pytest.fixture
+def bpr_pair(datasets, bpr_factors):
+    """(JAX BPRMF, port BPRMF) holding the same trained P, Q and Qb."""
+    models = []
+    for pkg, data in ((ref, datasets[0]), (port, datasets[1])):
+        opt = pkg.BPRMFOption().get_default_option()
+        opt.update(d=16, validation={})
+        if pkg is port:
+            opt.device = "cpu"
+        m = pkg.BPRMF(opt, data=data)
+        m.P, m.Q, m.Qb = (t.copy() for t in bpr_factors)
+        m.build_itemid_map()
+        m.build_userid_map()
+        models.append(m)
+    return models
+
+
+def test_parbprmf_matches_jax(bpr_pair):
+    """Keys and scores (with the item bias) as the JAX package's ParBPRMF,
+    with and without a pool; ``most_similar`` as ParALS's."""
+    a, b = bpr_pair
+    keys = [f"u{i}" for i in range(0, 500, 3)] + ["not-a-user"]
+    ka, ta, sa = RefParBPRMF(a).topk_recommendation(keys, topk=10)
+    kb, tb, sb = ParBPRMF(b).topk_recommendation(keys, topk=10)
+    assert ka == kb == keys[:-1]
+    _same_up_to_ties((tb, sb), (ta, sa))
+    biased = np.asarray(b.P)[[int(k[1:]) for k in kb]] @ b.Q.T + b.Qb
+    np.testing.assert_allclose(sb[:, 0], biased.max(axis=1), rtol=RTOL)
+    pool = [f"i{i}" for i in range(0, 250, 4)]
+    _same_up_to_ties(ParBPRMF(b).topk_recommendation(keys, topk=7,
+                                                     pool=pool)[1:],
+                     RefParBPRMF(a).topk_recommendation(keys, topk=7,
+                                                        pool=pool)[1:])
+    _, ra, _ = RefParBPRMF(a).topk_recommendation(keys[:4], topk=3, repr=True)
+    _, rb, _ = ParBPRMF(b).topk_recommendation(keys[:4], topk=3, repr=True)
+    assert ra == rb
+    items = [f"i{i}" for i in range(0, 250, 11)]
+    _same_up_to_ties(ParBPRMF(b).most_similar(items, topk=5),
+                     RefParBPRMF(a).most_similar(items, topk=5))
+    with pytest.raises(RuntimeError, match="normalized"):
+        ParBPRMF(b).topk_recommendation(["u0"], topk=3)
 
 
 # ------------------------------------------------------------------- IVF

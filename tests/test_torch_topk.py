@@ -378,3 +378,38 @@ def test_kernel_limits_raise_on_cuda_tensors_only():
         R._check_limits("score_topk", 1025, 8)
     with pytest.raises(NotImplementedError, match="256"):
         R._check_limits("score_topk", 8, 257)
+
+
+def _tie_tables(seed, copies=3, rows=50, d=8, B=64):
+    """A catalog of ``copies`` copies of ``rows`` rows and queries whose
+    second half repeats the first; small integer entries, so every score
+    is an exact float32 sum in any order and ties are many."""
+    rng = np.random.default_rng(seed)
+    Q = np.tile(rng.integers(-3, 4, (rows, d)), (copies, 1)).astype(np.float32)
+    p = rng.integers(-3, 4, (B // 2, d)).astype(np.float32)
+    p = np.concatenate([p, p])
+    Qb = np.tile(rng.integers(-2, 3, rows), copies).astype(np.float32)
+    pb = rng.integers(-2, 3, B).astype(np.float32)
+    return p, Q, Qb, pb
+
+
+@pytest.mark.parametrize("k", [1, 10, 150, 400])
+@pytest.mark.parametrize("bias", [False, True])
+def test_matmul_topk_and_topk_match_jax_order(k, bias):
+    """Exact ties (duplicated rows of Q, integer scores) go to the smaller
+    index and rows come back sorted, as ``lax.top_k`` gives them, at k = 1,
+    10, the whole catalog (150) and past it (clamped); ``topk`` the same
+    with and without ``sorted``.  Exact: every score is an integer."""
+    p, Q, Qb, pb = _tie_tables(3)
+    kw = dict(pb=pb, Qb=Qb) if bias else {}
+    want_s, want_i = J.matmul_topk(p, Q, k, **kw)
+    got_s, got_i = T.matmul_topk(p, Q, k, device="cpu", **kw)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    scores = p @ Q.T + ((pb[:, None] + Qb[None, :]) if bias else 0.0)
+    want = J.topk(scores, k)
+    for sort in (True, False):
+        np.testing.assert_array_equal(
+            T.topk(scores, k, sorted=sort, device="cpu"), want)
+    np.testing.assert_array_equal(T.topk(scores[5], k, device="cpu"),
+                                  J.topk(scores[5], k))
