@@ -5,31 +5,35 @@
 // corrections c1 = 1 - b1^t, c2 = 1 - b2^t; adagrad: v += g^2, param += lr g /
 // (sqrt(v) + 1e-8); grad is zeroed.  1 - b1 and 1 - b2 come from the caller,
 // rounded from double as the reference rounds them (1 - 0.999f in float is
-// 1.3e-5 off 1e-3).
+// 1.3e-5 off 1e-3).  The projection mode (WARP's epoch barrier) then scales
+// each row to L2 norm at most 1: x / max(1, |x|).
 //
 // Replaces buffalo_tpu/ops/sgd_kernels.py apply_deferred_update (:315),
 // adam_update (:295), adagrad_update (:305) and bpr_epoch's inline step
-// (:579-597).
+// (:579-597); with the projection, warp_kernels.py warp_epoch's barrier
+// (:327-343) and project_unit_ball (:498).
 //
 // What bounds it on the card: bytes.  It reads param, grad, v (and m) and
 // writes them back, 32 (adam) or 24 bytes per element, with a handful of
 // operations each.  Design: one fused elementwise pass, one thread per
-// element, no reuse and no shared memory.
+// element, no reuse and no shared memory; the projection mode takes a warp
+// per row (the same step per element, then the row's norm by a fixed-order
+// warp sum).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256, kWarps = kThreads / 32;
+constexpr int kMaxH = 8;  // columns per lane in the projection mode: width <= 256
 constexpr float kEps = 1e-8f;
 
-__global__ void __launch_bounds__(kThreads)
-optimizer_kernel(float* __restrict__ param, float* __restrict__ grad, float* __restrict__ m,
-                 float* __restrict__ v, const float* __restrict__ counts, int64_t n, int width,
-                 int adam, float lr, float b1, float b2, float a1, float a2, float c1, float c2,
-                 float reg) {
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
+// Element e's step: the new value of param[e]; m, v and grad written.
+__device__ __forceinline__ float step(float* __restrict__ param, float* __restrict__ grad,
+                                     float* __restrict__ m, float* __restrict__ v,
+                                     const float* __restrict__ counts, int64_t e, int width,
+                                     int adam, float lr, float b1, float b2, float a1, float a2,
+                                     float c1, float c2, float reg) {
   float g = grad[e];
   if (counts) g = g / fmaxf(counts[e / width], 1.f);
   const float x = param[e];
@@ -46,21 +50,69 @@ optimizer_kernel(float* __restrict__ param, float* __restrict__ grad, float* __r
     v[e] = vv;
     delta = lr * g / (sqrtf(vv) + kEps);
   }
-  param[e] = x + delta;
   grad[e] = 0.f;
+  return x + delta;
+}
+
+__global__ void __launch_bounds__(kThreads)
+optimizer_kernel(float* __restrict__ param, float* __restrict__ grad, float* __restrict__ m,
+                 float* __restrict__ v, const float* __restrict__ counts, int64_t n, int width,
+                 int adam, float lr, float b1, float b2, float a1, float a2, float c1, float c2,
+                 float reg) {
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  param[e] = step(param, grad, m, v, counts, e, width, adam, lr, b1, b2, a1, a2, c1, c2, reg);
+}
+
+// One warp per row: the step of each element, then the row scaled to norm <= 1.
+__global__ void __launch_bounds__(kThreads)
+project_kernel(float* __restrict__ param, float* __restrict__ grad, float* __restrict__ m,
+               float* __restrict__ v, const float* __restrict__ counts, int64_t rows, int width,
+               int adam, float lr, float b1, float b2, float a1, float a2, float c1, float c2,
+               float reg) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  float x[kMaxH];
+  float ss = 0.f;
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    x[h] = c < width ? step(param, grad, m, v, counts, r * width + c, width, adam, lr, b1, b2,
+                            a1, a2, c1, c2, reg)
+                     : 0.f;
+    ss = fmaf(x[h], x[h], ss);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  const float scale = fmaxf(1.f, sqrtf(ss));
+#pragma unroll
+  for (int h = 0; h < kMaxH; ++h) {
+    const int c = lane + 32 * h;
+    if (c < width) param[r * width + c] = x[h] / scale;
+  }
 }
 
 }  // namespace
 
 // n = rows * width elements; m is read only for adam, counts (one per row)
-// only when given; a1 = 1 - b1, a2 = 1 - b2.
+// only when given; a1 = 1 - b1, a2 = 1 - b2; project: each row then scaled to
+// L2 norm at most 1 (width <= 256).
 extern "C" int bpr_optimizer(float* param, float* grad, float* m, float* v, const float* counts,
                              int64_t n, int width, int adam, float lr, float b1, float b2,
-                             float a1, float a2, float c1, float c2, float reg, void* stream) {
-  if (n < 0 || width < 1 || (adam && !m)) return (int)cudaErrorInvalidValue;
+                             float a1, float a2, float c1, float c2, float reg, int project,
+                             void* stream) {
+  if (n < 0 || width < 1 || (adam && !m) || (project && width > 32 * kMaxH) || n % width)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  optimizer_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
-                     (cudaStream_t)stream>>>(param, grad, m, v, counts, n, width, adam, lr, b1,
-                                              b2, a1, a2, c1, c2, reg);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (project) {
+    const int64_t rows = n / width;
+    project_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, st>>>(
+        param, grad, m, v, counts, rows, width, adam, lr, b1, b2, a1, a2, c1, c2, reg);
+  } else {
+    optimizer_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+        param, grad, m, v, counts, n, width, adam, lr, b1, b2, a1, a2, c1, c2, reg);
+  }
   return (int)cudaGetLastError();
 }

@@ -25,39 +25,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sampling.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kAttempts = 4;
 constexpr uint32_t kPositiveStream = 0x80000000u;
-
-struct U4 {
-  uint32_t x0, x1, x2, x3;
-};
-
-// Philox4x32-10 (Salmon et al., SC 2011; Random123's round and key schedule).
-__device__ __forceinline__ U4 philox(U4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x0), lo0 = 0xD2511F53u * c.x0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.x2), lo1 = 0xCD9E8D57u * c.x2;
-    c = U4{hi1 ^ c.x1 ^ k0, lo1, hi0 ^ c.x3 ^ k1, lo0};
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
 
 __global__ void __launch_bounds__(kThreads)
 sample_kernel(const int32_t* __restrict__ users, int N, int neg_per, int num_items, uint32_t k0,
@@ -79,14 +53,7 @@ sample_kernel(const int32_t* __restrict__ users, int N, int neg_per, int num_ite
       const float u01 = (float)(x.x1 >> 8) * (1.0f / 16777216.0f);
       if (!(u01 < prob[cand])) cand = (uint32_t)alias[cand];
     }
-    if (!bloom) {
-      out = (int32_t)cand;
-      break;
-    }
-    const uint32_t h1 = mix32(u ^ mix32(cand ^ 0x9e3779b9u));
-    const uint32_t h2 = mix32(cand ^ mix32(u ^ 0x85ebca6bu));
-    const uint32_t w = bloom[h1 & wmask];
-    if (!((w >> (h2 & 31u)) & (w >> ((h2 >> 5) & 31u)) & 1u)) {
+    if (!bloom || !bloom_contains(bloom, wmask, u, cand)) {
       out = (int32_t)cand;
       break;
     }

@@ -791,3 +791,51 @@ class COOBatcher:
     @property
     def num_batches(self) -> int:
         return math.ceil(self.nnz / self.chunk_size)
+
+
+def csr_pair_chunks(data, batch_size: int):
+    """The rowwise CSR's (user, item) pairs in CSR order as two
+    (nchunks, batch_size) int32 arrays, padded with zeros past nnz (the
+    epochs mask them), and nnz: the resident epoch of the SGD family
+    (the JAX package's ``bpr.py:164-188``, ``warp.py:238-256``)."""
+    group = data.get_group("rowwise")
+    indptr = np.asarray(group["indptr"], dtype=np.int64)
+    users = np.repeat(np.arange(len(indptr) - 1, dtype=np.int32),
+                      np.diff(indptr))
+    items = np.array(group["key"], dtype=np.int32)
+    nnz = len(items)
+    nchunks = -(-nnz // batch_size)
+    pad = nchunks * batch_size - nnz
+    if pad:
+        users = np.concatenate([users, np.zeros(pad, np.int32)])
+        items = np.concatenate([items, np.zeros(pad, np.int32)])
+    return (users.reshape(nchunks, batch_size),
+            items.reshape(nchunks, batch_size), nnz)
+
+
+def loss_triplets(data, num_users: int, num_items: int) -> List[np.ndarray]:
+    """sqrt(U) fixed (u, i+, j-) triplets for the SGD family's training
+    loss as int32 arrays [users, positives, negatives], drawn with
+    ``np.random`` in the calls and order of the JAX package
+    (``bpr.py:120-144``, ``warp.py:145-168``): the users without
+    replacement, then per user |seen| + 1 items without replacement, the
+    first unseen one the negative."""
+    users, positives, negatives = [], [], []
+    num_loss_samples = int(data.get_header()["num_users"] ** 0.5)
+    _users = np.random.choice(range(num_users), size=num_loss_samples,
+                              replace=False)
+    for u in _users:
+        keys, *_ = data.get(u)
+        if len(keys) == 0:
+            continue
+        seen = set(map(int, keys))
+        negs = [n for n in np.random.choice(
+            range(num_items), size=len(seen) + 1, replace=False)
+            if n not in seen]
+        if not negs:
+            continue
+        users.append(int(u))
+        positives.append(int(keys[0]))
+        negatives.append(int(negs[0]))
+    return [np.array(a, dtype=np.int32) for a in (users, positives,
+                                                  negatives)]

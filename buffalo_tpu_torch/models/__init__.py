@@ -1,5 +1,8 @@
 """Algorithm drivers (reference buffalo/algo/ analog)."""
 from buffalo_tpu_torch.models.als import ALS  # noqa: F401
 from buffalo_tpu_torch.models.bpr import BPRMF  # noqa: F401
+from buffalo_tpu_torch.models.eals import EALS  # noqa: F401
 from buffalo_tpu_torch.models.options import (ALSOption, AlgoOption,  # noqa: F401
-                                              BPRMFOption)
+                                              BPRMFOption, EALSOption,
+                                              WARPOption)
+from buffalo_tpu_torch.models.warp import WARP  # noqa: F401

@@ -130,7 +130,7 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
         opt = self.opt
         if int(opt.get("num_devices") or 0) > 1:
             raise NotImplementedError(
-                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 13 "
+                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 8 "
                 "(multi-device epochs over NCCL)")
         if self.device.type == "cuda" and int(opt.d) > MAX_D:
             raise NotImplementedError(

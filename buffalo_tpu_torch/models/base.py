@@ -396,6 +396,19 @@ class Serializable(abc.ABC):
         return names
 
     @classmethod
+    def read_record(cls, path, name):
+        """The unpickled record ``name`` of a saved file (KeyError when it
+        has none), the others skipped."""
+        with open(path, "rb") as fh:
+            for _ in range(cls._read_len(fh)):
+                rec = fh.read(cls._read_len(fh)).decode("utf8")
+                size = cls._read_len(fh)
+                if rec == name:
+                    return _loads(fh.read(size))
+                fh.seek(size, 1)
+        raise KeyError(f"{path} has no record {name!r}")
+
+    @classmethod
     def instantiate(cls, cls_opt, path, data_fields, device="cuda"):
         opt = cls_opt().get_default_option()
         opt.device = str(device)

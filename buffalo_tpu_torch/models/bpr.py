@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from buffalo_tpu_torch.data.base import Data
-from buffalo_tpu_torch.data.batching import COOBatcher
+from buffalo_tpu_torch.data.batching import (COOBatcher, csr_pair_chunks,
+                                              loss_triplets)
 from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import BPRMFOption
@@ -120,29 +121,12 @@ class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
     def sampling_loss_samples(self):
         """sqrt(U) fixed (u, i+, j-) triplets for the loss, drawn with
         ``np.random`` as the reference draws them (``bpr.py:120-144``)."""
-        users, positives, negatives = [], [], []
+        self._sub_samples = [np.zeros(0, np.int32)] * 3
         if self.opt.compute_loss_on_training:
-            header = self.data.get_header()
-            num_loss_samples = int(header["num_users"] ** 0.5)
-            _users = np.random.choice(range(self.P.shape[0]),
-                                      size=num_loss_samples, replace=False)
-            for u in _users:
-                keys, *_ = self.data.get(u)
-                if len(keys) == 0:
-                    continue
-                seen = set(map(int, keys))
-                negs = [n for n in np.random.choice(
-                    range(self.Q.shape[0]), size=len(seen) + 1,
-                    replace=False) if n not in seen]
-                if not negs:
-                    continue
-                users.append(int(u))
-                positives.append(int(keys[0]))
-                negatives.append(int(negs[0]))
-            self.logger.info(f"Generated {len(users)} loss samples.")
-        self._sub_samples = [np.array(users, dtype=np.int32),
-                             np.array(positives, dtype=np.int32),
-                             np.array(negatives, dtype=np.int32)]
+            self._sub_samples = loss_triplets(self.data, self.P.shape[0],
+                                              self.Q.shape[0])
+            self.logger.info(f"Generated {len(self._sub_samples[0])} loss "
+                             "samples.")
 
     def compute_loss(self) -> float:
         users, positives, negatives = self._sub_samples
@@ -171,23 +155,10 @@ class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
 
     def _stage_epoch_chunks(self, batch_size):
         """(nchunks, N) users and positives in CSR order on the device,
-        padded with zeros past nnz (masked in the epoch), and nnz
-        (``bpr.py:164-188``)."""
-        group = self.data.get_group("rowwise")
-        indptr = np.asarray(group["indptr"], dtype=np.int64)
-        users = np.repeat(np.arange(len(indptr) - 1, dtype=np.int32),
-                          np.diff(indptr))
-        items = np.array(group["key"], dtype=np.int32)
-        nnz = len(items)
-        nchunks = -(-nnz // batch_size)
-        pad = nchunks * batch_size - nnz
-        if pad:
-            users = np.concatenate([users, np.zeros(pad, np.int32)])
-            items = np.concatenate([items, np.zeros(pad, np.int32)])
-        return (torch.from_numpy(users.reshape(nchunks, batch_size)).to(
-                    self.device),
-                torch.from_numpy(items.reshape(nchunks, batch_size)).to(
-                    self.device), nnz)
+        padded with zeros past nnz (masked in the epoch), and nnz."""
+        users, items, nnz = csr_pair_chunks(self.data, batch_size)
+        return (torch.from_numpy(users).to(self.device),
+                torch.from_numpy(items).to(self.device), nnz)
 
     def _batch_size(self) -> int:
         """Pairs per chunk: the option, else min(max(nnz // 32, 1024),

@@ -2,7 +2,7 @@
 
 Copy of ``buffalo_tpu.models.options`` for the PyTorch port, with the
 algorithms this port has so far (``AlgoOption``, ``ALSOption``,
-``BPRMFOption``): same
+``BPRMFOption``, ``WARPOption``, ``EALSOption``): same
 hyperparameter names and defaults, so configurations port over
 unchanged.  One key is the port's own: ``device`` ("cuda" by default;
 "cpu" runs the plain PyTorch versions of the kernels).  The reference's
@@ -175,6 +175,87 @@ class BPRMFOption(AlgoOption):
             "batch_size": 0,
             "epoch_dispatch": "auto",
             "stored_width": 0,
+            "model_path": "",
+            "data_opt": {},
+        })
+        return Option(opt)
+
+
+class EALSOption(AlgoOption):
+    def get_default_option(self) -> Option:
+        """Element-wise ALS (reference options.py:98-132; the JAX package's
+        ``EALSOption``, same names and defaults).
+
+        :ivar float c0: strength of negative feedback.
+        :ivar float exponent: popularity exponent for negative weights.
+        """
+        opt = super().get_default_option()
+        opt.update({
+            "save_factors": False,
+            "d": 20,
+            "num_iters": 10,
+            "num_workers": 1,
+            "reg_u": 0.1,
+            "reg_i": 0.1,
+            "alpha": 8.0,
+            "c0": 512.0,
+            "exponent": 0.5,
+            "model_path": "",
+            "data_opt": {},
+        })
+        return Option(opt)
+
+
+class WARPOption(AlgoOption):
+    def get_default_option(self) -> Option:
+        """WARP / CML (reference options.py:256-312; the JAX package's
+        ``WARPOption``, same names and defaults).
+
+        :ivar int max_trials: negative-search attempt cap; the candidates
+            per positive are min(max(max_trials, 2), 64).
+        :ivar str score_func: dot | l2 (CML).
+        :ivar float threshold: margin.
+        :ivar str optimizer: adagrad | adam (deferred, one step per epoch).
+        :ivar bool adaptive_trials: start at 16 candidates and double them
+            (up to the cap) after an epoch in which fewer than 98% of the
+            positives found a violator (resident epoch only).
+        :ivar str probe_mode: "lazy" (probe the bloom filter at the first
+            four margin violators only) | "all" (every candidate: the
+            reference's exact trial ranks).
+        :ivar str epoch_dispatch: auto | fused | split; "split" probes
+            every candidate into packed seen-bits first and forces
+            probe_mode "all", as in the JAX package.
+        :ivar int stored_width: accepted for parity; the reference pads
+            sub-64 tables on a TPU backend only, so the port stores at d.
+        """
+        opt = super().get_default_option()
+        opt.update({
+            "accelerator": False,
+            "evaluation_period": 5,
+            "num_workers": 1,
+            "hyper_threads": 256,
+            "num_iters": 40,
+            "d": 64,
+            "threshold": 1.0,
+            "score_func": "dot",
+            "max_trials": 500,
+            "adaptive_trials": True,
+            "probe_mode": "lazy",
+            "epoch_dispatch": "auto",
+            "stored_width": 0,
+            "update_i": True,
+            "update_j": True,
+            "reg_u": 0.0,
+            "reg_i": 0.0,
+            "reg_j": 0.0,
+            "optimizer": "adagrad",
+            "lr": 0.05,
+            "min_lr": 0.0001,
+            "beta1": 0.9,
+            "beta2": 0.999,
+            "eps": 1e-10,
+            "per_coordinate_normalize": False,
+            "batch_size": 0,
             "model_path": "",
             "data_opt": {},
         })

@@ -18,7 +18,7 @@ the card (``csrc/*.cu``), each beside its plain PyTorch version
   before the negative side reads it) or the deferred path's gradient and
   count accumulation; and the loss over fixed triplets.
 * **K10** ``deferred_update`` — the epoch barrier's adam or adagrad step
-  on one table.
+  on one table, optionally followed by WARP's unit-ball projection.
 
 The random draws are this port's own: a counter-based Philox4x32-10
 function of (seed, epoch, chunk, slot, attempt), computed in uint32 by
@@ -68,7 +68,7 @@ _SIGNATURES = {
                        _P, _P],
     "bpr_loss": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P, _P],
     "bpr_optimizer": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
-                      _F32, _F32, _F32, _F32, _F32, _F32, _P],
+                      _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],
 }
 # the library holding each launch function
 _LIBRARY = {"bpr_sample": "bpr_sample", "bpr_workspace": "bpr_update",
@@ -219,6 +219,14 @@ def philox4x32(ctr, key):
 def _seed_key(seed: int):
     s = int(seed) & ((1 << 64) - 1)
     return s & _U32, s >> 32
+
+
+def philox_key(seed: int) -> int:
+    """The seed's Philox key as the kernels take it: (k1 << 32) | k0, as a
+    signed int64."""
+    k0, k1 = _seed_key(seed)
+    key = (k1 << 32) | k0
+    return key - (1 << 64) if key >= 1 << 63 else key
 
 
 def bloom_hashes_plain(u, i, log2_bits):
@@ -394,6 +402,13 @@ def triplet_loss_plain(P, Q, Qb, users, positives, negatives, *, use_bias):
 
 
 # ----------------------------------------------------------- K10 plain
+def project_unit_ball(X):
+    """Each row scaled to L2 norm at most 1, in place (``warp_kernels.py``
+    ``project_unit_ball`` :498)."""
+    norms = torch.sqrt((X * X).sum(-1, keepdim=True))
+    return X.div_(torch.clamp(norms, min=1.0))
+
+
 def _bias_corrections(optimizer, step, beta1, beta2):
     """adam's 1 - beta^(step + 1) in float32, as the reference's traced
     step computes them (1.0 each for adagrad)."""
@@ -404,10 +419,13 @@ def _bias_corrections(optimizer, step, beta1, beta2):
 
 
 def deferred_update_plain(param, grad, m, v, counts, *, step, optimizer, lr,
-                          beta1, beta2, reg, per_coordinate_normalize):
+                          beta1, beta2, reg, per_coordinate_normalize,
+                          project=False):
     """Plain version of K10, in place: ``apply_deferred_update``
     (``sgd_kernels.py:315``) — the count divide, the L2 term -2 reg param,
-    adam or adagrad, the table moved by the step; the gradient zeroed."""
+    adam or adagrad, the table moved by the step; the gradient zeroed;
+    with ``project`` each row then scaled to L2 norm at most 1
+    (``warp_kernels.py:498``)."""
     g = grad
     if per_coordinate_normalize:
         c = torch.clamp(counts, min=1.0)
@@ -423,6 +441,8 @@ def deferred_update_plain(param, grad, m, v, counts, *, step, optimizer, lr,
         delta = lr * g / (torch.sqrt(v) + FEPS)
     param.add_(delta)
     grad.zero_()
+    if project:
+        project_unit_ball(param)
 
 
 # ------------------------------------------------------------- wrappers
@@ -463,11 +483,8 @@ def sample_negatives(users, num_items, *, num_negatives, seed, epoch, chunk,
     neg = torch.empty(N * num_negatives, dtype=torch.int32, device=dev)
     pos = (torch.empty(N, dtype=torch.int32, device=dev)
            if pos_indptr is not None else None)
-    k0, k1 = _seed_key(seed)
-    key = (k1 << 32) | k0
     rc = _kernel("bpr_sample")(
-        _ptr(users), N, num_negatives, num_items,
-        key - (1 << 64) if key >= 1 << 63 else key,
+        _ptr(users), N, num_negatives, num_items, philox_key(seed),
         int(epoch), int(chunk), _ptr(bloom), int(bloom_log2),
         _ptr(alias[0] if alias is not None else None),
         _ptr(alias[1] if alias is not None else None), _ptr(pos_indptr),
@@ -601,24 +618,28 @@ triplet_loss.launches = 0
 
 
 def deferred_update(param, grad, m, v, counts, *, step, optimizer, lr, beta1,
-                    beta2, reg, per_coordinate_normalize):
+                    beta2, reg, per_coordinate_normalize, project=False):
     """K10: the epoch barrier's optimizer step on one table, in place (see
     ``deferred_update_plain``).  Replaces ``apply_deferred_update`` :315,
     ``adam_update`` :295, ``adagrad_update`` :305 and ``bpr_epoch``'s
-    inline step :579-597.  ``m`` is unused (may be None) for adagrad;
-    ``counts`` is read only with ``per_coordinate_normalize``."""
+    inline step :579-597; with ``project`` (a (rows, d) table) also
+    ``warp_kernels.py`` ``project_unit_ball`` :498.  ``m`` is unused (may
+    be None) for adagrad; ``counts`` is read only with
+    ``per_coordinate_normalize``."""
     if optimizer not in ("adam", "adagrad"):
         raise ValueError(f"deferred optimizer must be adam or adagrad, got "
                          f"{optimizer!r}")
     kw = dict(step=step, optimizer=optimizer, lr=lr, beta1=beta1,
               beta2=beta2, reg=reg,
-              per_coordinate_normalize=per_coordinate_normalize)
+              per_coordinate_normalize=per_coordinate_normalize,
+              project=project)
     if param.device.type == "cpu":
         return deferred_update_plain(param, grad, m, v, counts, **kw)
     dev = param.device
     nd = param.dim()
-    if nd not in (1, 2):
-        raise ValueError("param must be a table (rows, d) or a vector")
+    if nd not in (1, 2) or (project and nd != 2):
+        raise ValueError("param must be a table (rows, d) or a vector (no "
+                         "projection)")
     adam = optimizer == "adam"
     for name, t in (("param", param), ("grad", grad), ("v", v)) + (
             (("m", m),) if adam else ()):
@@ -638,7 +659,7 @@ def deferred_update(param, grad, m, v, counts, *, step, optimizer, lr, beta1,
         _ptr(counts if per_coordinate_normalize else None), rows * width,
         width, int(adam), float(lr), float(beta1), float(beta2),
         1.0 - beta1, 1.0 - beta2, float(c1), float(c2), float(reg),
-        _stream(dev))
+        int(bool(project)), _stream(dev))
     _raise_on(rc, "deferred_update")
     deferred_update.launches += 1
 

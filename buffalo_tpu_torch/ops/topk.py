@@ -4,10 +4,13 @@ PyTorch counterpart of ``buffalo_tpu.ops.topk``'s single-device functions.
 ``batch_topn`` scores every query against the whole table through K5
 (``ops/retrieval_kernels.score_topk``), which never writes the (chunk x N)
 score matrix: on the card one launch takes the real queries and the
-staged table, whatever their sizes.  On the CPU the plain versions run as
-the reference does: query chunks bucketed (``_chunked_topn``) and, past
-the score-matrix gate, the catalog in item tiles (``_chunked_topn_tiled``,
-a per-tile top-k with a concat + top-k merge).
+staged table, whatever their sizes, for k <= 1024 and d <= 256; past
+that (``k5_route``) query chunks of ``torch.matmul`` scores, each at
+most 1 GiB, go through ``ordered_topk``, as ``matmul_topk`` does.  On the
+CPU the plain versions run as the reference does: query chunks bucketed
+(``_chunked_topn``) and, past the score-matrix gate, the catalog in item
+tiles (``_chunked_topn_tiled``, a per-tile top-k with a concat + top-k
+merge).
 ``matmul_topk`` and ``topk`` (any k up to the catalog, the validation's
 ``topk + max_seen``) order entries as ``lax.top_k`` does: score
 descending, ties to the smaller index, rows always sorted.  On the card
@@ -16,7 +19,7 @@ that through ``torch.matmul`` + ``retrieval_kernels.ordered_topk`` (a
 selection on distinct int64 keys); ``topk`` selects with
 ``ordered_topk``.  The sharded
 variants (``sharded_matmul_topk``, ``batch_topn_sharded``) come with the
-multi-device port (ROADMAP queue 1 item 13).
+multi-device port (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -38,6 +41,33 @@ def _as_tensor(x, device) -> torch.Tensor:
         device)
 
 
+def k5_route(k: int, d: int) -> bool:
+    """Whether a top-k of k entries over rows of d floats goes through K5
+    on the card (its limits); past them the card scores with
+    ``torch.matmul`` and selects with ``ordered_topk``."""
+    return k <= MAX_K and d <= MAX_D
+
+
+# the largest (queries x items) float32 score block of the matmul route
+_MATMUL_SCORES_BYTES = 1 << 30
+
+
+def matmul_topn(p, Q, k: int, Qb=None):
+    """The route past K5's limits: ``p @ Q^T (+ Qb)`` in query chunks of
+    at most 1 GiB of scores, each selected by ``ordered_topk`` (score
+    descending, ties to the smaller index).  (vals, idx) (B, k)."""
+    rows = max(1, _MATMUL_SCORES_BYTES // (4 * max(Q.shape[0], 1)))
+    vals, idx = [], []
+    for r0 in range(0, p.shape[0], rows):
+        s = torch.matmul(p[r0:r0 + rows].float(), Q.T)
+        if Qb is not None:
+            s = s + Qb[None, :]
+        v, i = ordered_topk(s, k)
+        vals.append(v)
+        idx.append(i)
+    return torch.cat(vals), torch.cat(idx)
+
+
 def matmul_topk(p, Q, k: int, pb=None, Qb=None, device="cuda"):
     """scores = p @ Q^T (+ biases) then top-k.  p: (B, d), Q: (N, d).
 
@@ -56,12 +86,10 @@ def matmul_topk(p, Q, k: int, pb=None, Qb=None, device="cuda"):
     if Qb is not None:
         Qb = _as_tensor(Qb, device)
     k = min(k, Q.shape[0])
-    if device.type == "cpu" or (k <= MAX_K and Q.shape[1] <= MAX_D):
+    if device.type == "cpu" or k5_route(k, Q.shape[1]):
         vals, idx = score_topk(p, Q, k, Qb)
     else:
-        scores = torch.matmul(p, Q.T)
-        vals, idx = ordered_topk(scores if Qb is None
-                                 else scores + Qb[None, :], k)
+        vals, idx = matmul_topn(p, Q, k, Qb)
     if pb is not None:
         vals = vals + _as_tensor(pb, device)[:, None]
     return vals, idx
@@ -163,9 +191,14 @@ def _assemble_topn(vals, idx, B: int, topk: int, k_eff: int):
 
 def _chunked_topn(p_chunks, Q, Qb, *, k):
     """Top-k of every query chunk against the whole table: one K5 call
-    over all chunks (``topk.py:171`` scans them under one ``lax.scan``)."""
+    over all chunks (``topk.py:171`` scans them under one ``lax.scan``),
+    or on the card past K5's limits the matmul route."""
     nc, chunk, d = p_chunks.shape
-    vals, idx = score_topk(p_chunks.reshape(nc * chunk, d), Q, k, Qb)
+    p = p_chunks.reshape(nc * chunk, d)
+    if p.device.type == "cuda" and not k5_route(k, d):
+        vals, idx = matmul_topn(p, Q, k, Qb)
+    else:
+        vals, idx = score_topk(p, Q, k, Qb)
     return vals.reshape(nc, chunk, k), idx.reshape(nc, chunk, k)
 
 
@@ -206,7 +239,8 @@ def batch_topn(p, Q, topk: int, pool=None, Qb=None, chunk: int = 2048,
 
     The counterpart of the reference's ``batch_topn`` (``topk.py:238``).
     On the card K5 scores the B queries against the whole table in one
-    launch: it never writes the score matrix, so ``chunk`` and the
+    launch (past k = 1024 or d = 256, ``k5_route``, the matmul route
+    instead): it never writes the score matrix, so ``chunk`` and the
     catalog-tiled path only bound the plain versions' memory on the CPU,
     where queries are padded into (chunk, d) blocks whose count is
     bucketed, as the reference's.  A ``pool`` restricts the candidates

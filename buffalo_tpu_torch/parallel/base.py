@@ -7,8 +7,8 @@ pool filtering gathers the pool rows first; ``-1`` key padding when a
 pool is smaller than topk; an ANN index per group (``set_ann_index``,
 e.g. an :class:`~buffalo_tpu_torch.parallel.ann.IVFIndex`) serves
 ``most_similar`` when set.  ``ParALS`` and ``ParBPRMF`` (scores with the
-item bias ``Qb``) are ported; ``ParEALS``, ``ParCFR`` and ``ParW2V`` come
-with their families, and a
+item bias ``Qb``) and ``ParEALS`` are ported; ``ParCFR`` and ``ParW2V``
+come with their families, and a
 device mesh with the multi-device port (ROADMAP queue 1).  Runs on the
 model's device (``opt.device``).
 """
@@ -20,13 +20,14 @@ import numpy as np
 
 from buffalo_tpu_torch.models.als import ALS
 from buffalo_tpu_torch.models.bpr import BPRMF
+from buffalo_tpu_torch.models.eals import EALS
 from buffalo_tpu_torch.ops.topk import batch_topn
 
 
 class Parallel(abc.ABC):
     def __init__(self, algo, *argv, **kwargs):
         super().__init__()
-        if not isinstance(algo, (ALS, BPRMF)):
+        if not isinstance(algo, (ALS, EALS, BPRMF)):
             raise ValueError(f"Not supported algo type: {type(algo)}")
         self.algo = algo
         self.num_workers = int(kwargs["num_workers"])
@@ -35,7 +36,7 @@ class Parallel(abc.ABC):
                 or int(kwargs.get("num_devices", 0)) > 1:
             raise NotImplementedError(
                 "sharded retrieval over a device mesh is not ported yet: "
-                "ROADMAP queue 1 item 13 (multi-device over NCCL)")
+                "ROADMAP queue 1 item 8 (multi-device over NCCL)")
         self.mesh = None
         # approx=True keeps exact selection on the card (the reference's
         # lax.approx_max_k is a TPU partial reduction) and, as in the
@@ -149,6 +150,10 @@ class ParALS(Parallel):
             topks = [[self.algo._idmanager.itemids[t]
                       for t in tt if t != -1] for tt in topks]
         return keys, topks, scores
+
+
+class ParEALS(ParALS):
+    """``ParALS`` over an eALS model (``parallel/base.py:175``)."""
 
 
 class ParBPRMF(ParALS):

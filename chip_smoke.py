@@ -21,7 +21,19 @@ path (BPRMF on the ML-20M data at d = 40 with the default options, 4 sgd
 epochs, then validation and top-10 through ``ParBPRMF``), bpr variants
 (one adagrad, adam and streamed epoch each), bpr kernels (K8 bit for bit,
 K9's sgd step, accumulation and loss, K10's adam and adagrad steps against
-their plain versions on one of the epoch's 39 chunks), catalog
+their plain versions on one of the epoch's 39 chunks), warp path
+(WARP on the ML-20M data with the default options, d = 64, 4 epochs:
+exactly one K11 and one K12 launch per chunk and two K10 launches in
+projection mode per epoch, K and found_frac per epoch, rows in the unit
+ball, validation, a profiled epoch, top-10 through K5), warp variants
+(one l2, probe "all" + split, adam with per-coordinate normalization and
+streamed epoch each), warp kernels (K11 bit for bit on its own and on
+injected candidates, at the model's last K and at K = 64, K12 within 1e-5 with a run without the reg terms
+failing the check, K10's projection), eals path (eALS at d = 40, 4
+epochs, the RMSE falling every epoch, ParEALS top-10), eals kernels (K13
+on a range batch of every length bucket, the segment batches and the CSR
+rows, a Jacobi sweep failing the check, widths 13 to 256; K14's residuals
+and sums), top-k past 1024 (k = 2,000 through the matmul route), catalog
 path (the README's serving configuration: 10,000 queries over a
 505,840 x 100 KakaoBrunch-shaped catalog through ``batch_topn``, float32
 and bfloat16 queries, its ``IVFIndex`` build and search; K5, K6 and K7
@@ -39,8 +51,9 @@ median of 20 runs, batches L2-warm as in the epoch loop; K5-K7 median of
 10) beside the bound computed from this run's inputs (K1–K3's launches
 are the d = 40 path's, K4's the d = 160 path's, K5–K7's the catalog
 path's, K8's and K9's the BPR path's with K9's accumulation from the
-adagrad and adam epochs, K10's those epochs', whose shapes their times are
-of); the kernel lines of K1, K3 and
+adagrad and adam epochs, K10's those epochs' and the WARP path's, K11's
+(with its loss mode) and K12's the WARP path's, K13's and K14's the eALS
+path's; K10's times are of the BPR shapes); the kernel lines of K1, K3 and
 K4 also give the kernel's device time alone (CUPTI through
 torch.profiler, median of the 11-22 of 22 launches the trace holds),
 since events around a short launch also catch the wrapper's host work
@@ -139,6 +152,32 @@ TOL_BPR_STEP, TOL_K10 = 1e-5, 1e-6
 # H100 SXM int32 rate: 64 INT32 lanes per SM (Hopper white paper) x 132
 # SMs x 1.98 GHz boost; K8's work is integer (Philox, the bloom hashes)
 PEAK_INT32_S = 64 * 132 * 1.98e9
+# H100 SXM FP64 rate outside the tensor cores (data sheet); K11 sums its
+# scores in float64
+PEAK_FP64_S = 34e12
+# WARP (warp_path, warp_variants, warp_kernels): WARP on the ML-20M data with
+# the default options (d = 64, adagrad, lazy probes, K adaptive from 16):
+# chunks of 32,768 positives by default_batch_size, 609 per epoch; top-10
+# for WARP_USERS users through K5; one epoch each of the variants, the
+# streamed one past WARP_STREAM_RESIDENT_MB.  K11 is held bit for bit to its
+# plain version (ids, trials, any_v; weights within TOL_WARP_W relative: the
+# same logf); K12 within TOL_WARP_STEP of the largest entry (plus two
+# float32 spacings of the running gradient), with reg terms WARP_CHECK_REG
+# so that a plain run without them must fail the check; K10's projection
+# mode within TOL_K10
+WARP_EPOCHS, WARP_USERS, WARP_STREAM_RESIDENT_MB = 4, 10_000, 64
+TOL_WARP_W, TOL_WARP_STEP, WARP_CHECK_REG = 2 ** -23, 1e-5, 0.05
+# eALS (eals_path, eals_kernels): EALSOption defaults (alpha 8, c0 512,
+# exponent 0.5, reg 0.1) at d = D; K13 within TOL_EALS relative of its
+# plain version (a sweep in Jacobi order must fail that), K14's residuals
+# within TOL_VHAT and its sums within TOL_EALS_SUM relative; K13 also at
+# EALS_WIDTHS on random batches
+EALS_EPOCHS, EALS_USERS = 4, 10_000
+TOL_EALS, TOL_VHAT, TOL_EALS_SUM = 1e-4, 1e-6, 1e-5
+EALS_WIDTHS = (13, 64, 128, 256)
+# topk_past_1024: k = TOPK_PAST items for TOPK_PAST_USERS users of the eALS
+# model through batch_topn's matmul route
+TOPK_PAST, TOPK_PAST_USERS = 2_000, 1_000
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -1315,6 +1354,26 @@ def check_training(als, epochs, launches, kernels, num_epochs, d):
     return losses
 
 
+def ranked_topk(s, k):
+    """The k best columns of each row of ``s`` by score descending, ties to
+    the smaller index, as a full stable argsort gives them: the best
+    m = 2k + 8 by ``argpartition``, sorted; a row where the m-th score ties
+    the k-th (so an excluded column could belong) is sorted in full."""
+    n = s.shape[1]
+    m = min(n, 2 * k + 8)
+    if m == n:
+        return np.argsort(-s, axis=1, kind="stable")[:, :k]
+    part = np.argpartition(-s, m - 1, axis=1)[:, :m]
+    ps = np.take_along_axis(s, part, axis=1)
+    order = np.lexsort((part, -ps), axis=-1)
+    out = np.take_along_axis(part, order, axis=1)
+    cs = np.take_along_axis(ps, order, axis=1)
+    tie = cs[:, m - 1] >= cs[:, k - 1]
+    if tie.any():
+        out[tie, :k] = np.argsort(-s[tie], axis=1, kind="stable")[:, :k]
+    return out[:, :k]
+
+
 def ids_match_numpy(ids, P, Q, Qb=None, what="top-k"):
     """Ranked ids (B, k) against numpy's float64 ranking of P @ Q^T (+ Qb),
     ties to the smaller index: equal except where numpy's scores of the
@@ -1325,7 +1384,7 @@ def ids_match_numpy(ids, P, Q, Qb=None, what="top-k"):
     if Qb is not None:
         s = s + Qb.astype(np.float64)[None, :]
     k = ids.shape[1]
-    ref = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    ref = ranked_topk(s, k)
     got_s = np.take_along_axis(s, ids, axis=1)
     ref_s = np.take_along_axis(s, ref, axis=1)
     near = np.isclose(got_s, ref_s, rtol=TOL_SCORE, atol=TOL_SCORE_ABS)
@@ -2085,12 +2144,12 @@ def k9_work(users, pos, neg, d, num_items):
     return nbytes, 8 * d * B + 2 * d * N + 6 * d * (n_u + n_i)
 
 
-def step_check(got, ref, start):
-    """(passes, max |got - ref|, the limit): K9's step against the plain
-    version's, within TOL_BPR_STEP of the plain version's largest step plus
+def step_check(got, ref, start, tol=TOL_BPR_STEP):
+    """(passes, max |got - ref|, the limit): a kernel's step against the
+    plain version's, within ``tol`` of the plain version's largest step plus
     two float32 spacings of the table's largest value."""
     err = float((got - ref).abs().max())
-    limit = (TOL_BPR_STEP * float((ref - start).abs().max())
+    limit = (tol * float((ref - start).abs().max())
              + 2 * 2 ** -23 * float(start.abs().max()))
     return err <= limit, err, limit
 
@@ -2280,6 +2339,649 @@ def bpr_kernels(S, torch, model):
             "deferred_update": k10}
 
 
+# ------------------------------------------------------------------ WARP
+def warp_opt(bt, **kw):
+    """WARPOption defaults on the card (d = 64), no validation inside the
+    epochs (it runs after training), with ``kw`` on top."""
+    opt = bt.WARPOption().get_default_option()
+    opt.update(num_iters=WARP_EPOCHS, device="cuda",
+               validation={"topk": TOPK}, evaluation_on_learning=False)
+    opt.update(kw)
+    return opt
+
+
+def warp_train(bt, W, S, torch, data, opt):
+    """A WARP of ``opt`` from the factors of seed 0, trained with the WARP
+    kernels' and K10's counts set to 0 just before: (model, launches, peak
+    MB, the largest row norm)."""
+    model = bt.WARP(opt, data=data)
+    np.random.seed(0)
+    model.initialize()
+    kernels = W.KERNELS + (S.deferred_update,)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    model.train()
+    launches = read_counts(kernels)
+    losses = model.iteration_losses
+    check(len(losses) == opt.num_iters and all(np.isfinite(losses))
+          and np.isfinite(model.P).all() and np.isfinite(model.Q).all(),
+          f"WARP ({opt.optimizer}) trained non-finite values: {losses}")
+    norm = max(float(np.linalg.norm(t, axis=1).max())
+               for t in (model.P, model.Q))
+    check(norm <= 1 + 1e-6, f"WARP rows left the unit ball: {norm}")
+    return model, launches, torch.cuda.max_memory_allocated() / 2 ** 20, norm
+
+
+def warp_inputs(S, torch, model):
+    """The resident epoch's inputs of a trained WARP: (users, items,
+    nnz, indptr, bloom words, log2 bits, P, Q)."""
+    dev = model.device
+    group = model.data.get_group("rowwise")
+    users_c, items_c, nnz = model._stage_epoch_chunks(model._batch_size())
+    indptr = torch.from_numpy(np.array(group["indptr"],
+                                       dtype=np.int64)).to(dev)
+    words, log2 = S.build_bloom(np.asarray(group["indptr"]),
+                                np.asarray(group["key"]))
+    return (users_c, items_c, nnz, indptr,
+            torch.from_numpy(words.view(np.int32)).to(dev), log2,
+            torch.from_numpy(model.P).to(dev), torch.from_numpy(model.Q).to(dev))
+
+
+def warp_path(bt, W, S, R, torch, data):
+    """WARP on the ML-20M data with the default options, WARP_EPOCHS epochs
+    through the user's entry points: per chunk exactly one K11 and one K12
+    launch, two K10 launches (projection mode) and one K11 loss per epoch;
+    K and found_frac per epoch, the violation rate, rows in the unit ball,
+    validation after training, a profiled epoch, top-10 for WARP_USERS
+    users through K5 held to numpy; then one epoch of each variant.
+    Returns (the model, the path's launches for the kernels line)."""
+    model, launches, peak_mb, norm = warp_train(bt, W, S, torch, data,
+                                                warp_opt(bt))
+    batch = model._batch_size()
+    nchunks = -(-model.num_nnz // batch)
+    E = WARP_EPOCHS
+    want = dict(warp_search=nchunks * E, warp_probe=0, warp_violations=E,
+                warp_accumulate=nchunks * E, deferred_update=2 * E)
+    check(launches == want, f"WARP epochs launched {launches}, expected "
+          f"{want}")
+    st = time.perf_counter()
+    val = model.get_validation_results()
+    val_s = time.perf_counter() - st
+    check(all(np.isfinite(v) for v in val.values()),
+          f"WARP validation: {val}")
+    med = float(np.median(model.iteration_times[1:]))
+    o = model.opt
+    users_c, items_c, nnz, indptr, bloom, log2, P, Q = warp_inputs(
+        S, torch, model)
+    prof = profile_call(torch, lambda: W.warp_epoch(
+        P, Q, W.new_opt_state(P, Q), users_c, items_c, indptr, bloom, E,
+        seed=int(o.random_seed), optimizer=o.optimizer,
+        num_items=Q.shape[0], num_candidates=model.iteration_candidates[-1],
+        score_func=o.score_func, threshold=float(o.threshold),
+        reg_u=o.reg_u, reg_i=o.reg_i, reg_j=o.reg_j, update_i=o.update_i,
+        update_j=o.update_j,
+        per_coordinate_normalize=o.per_coordinate_normalize, lr=o.lr,
+        beta1=o.beta1, beta2=o.beta2, num_valid=nnz, bloom_log2=log2,
+        probe=o.probe_mode), top=12)
+    del users_c, items_c, P, Q, bloom
+
+    reset_counts(R.KERNELS)
+    users = [str(u) for u in range(WARP_USERS)]
+    ms_first, recs = wall_ms(lambda: model.topk_recommendation(users,
+                                                               topk=TOPK))
+    ms_warm, _ = wall_ms(lambda: model.topk_recommendation(users, topk=TOPK))
+    k5 = R.score_topk.launches
+    check(len(recs) == WARP_USERS and k5 == 2,
+          f"WARP top-10 malformed or not one K5 launch per call ({k5})")
+    ids = np.array([[int(i) for i in recs[u]] for u in users])
+    same = ids_match_numpy(ids, model.P[:WARP_USERS], model.Q,
+                           what="WARP top-10")
+    phase("warp_path", d=int(o.d), epochs=E, optimizer=o.optimizer,
+          probe_mode=o.probe_mode, chunks_per_epoch=nchunks, chunk=batch,
+          num_candidates=model.iteration_candidates,
+          found_frac=model.iteration_found,
+          violation_rate=model.iteration_losses, val_ndcg=val["ndcg"],
+          val_auc=val["auc"], val_map=val["map"], validation_seconds=val_s,
+          epoch_seconds=model.iteration_times,
+          median_epoch_seconds_2_4=med, samples_per_s=model.num_nnz / med,
+          launches=launches,
+          launches_per_chunk={k: launches[k] / (nchunks * E)
+                              for k in ("warp_search", "warp_accumulate")},
+          deferred_update_per_epoch=launches["deferred_update"] / E,
+          max_row_norm=norm, max_memory_allocated_mb=peak_mb,
+          epoch_profile=prof, topk_users=WARP_USERS, topk_k5_launches=k5,
+          topk_host_ms_first=ms_first, topk_host_ms_warm=ms_warm,
+          topk_same_as_numpy=same)
+    path_launches = {
+        "warp_search": launches["warp_search"] + launches["warp_violations"],
+        "warp_accumulate": launches["warp_accumulate"],
+        "deferred_update": launches["deferred_update"]}
+
+    runs = {}
+    for name, extra in (
+            ("l2", dict(score_func="l2")),
+            ("all_split", dict(probe_mode="all", epoch_dispatch="split")),
+            ("adam_pcn", dict(optimizer="adam", lr=0.02,
+                              per_coordinate_normalize=True)),
+            ("stream", dict(resident_mb=WARP_STREAM_RESIDENT_MB))):
+        m, ln, mb, nrm = warp_train(bt, W, S, torch, data,
+                                    warp_opt(bt, num_iters=1, **extra))
+        want = dict(warp_search=nchunks,
+                    warp_probe=nchunks if name == "all_split" else 0,
+                    warp_violations=1, warp_accumulate=nchunks,
+                    deferred_update=2)
+        check(ln == want and (name != "stream" or model.num_nnz * 8
+                              > WARP_STREAM_RESIDENT_MB << 20),
+              f"the {name} WARP epoch launched {ln}, expected {want}")
+        runs[name] = dict(violation_rate=m.iteration_losses[0],
+                          found_frac=m.iteration_found[0],
+                          epoch_seconds=m.iteration_times[0], launches=ln,
+                          max_memory_allocated_mb=mb, max_row_norm=nrm)
+        del m
+    phase("warp_variants", d=int(o.d), default_first_epoch_violation_rate=
+          model.iteration_losses[0], **runs)
+    return model, path_launches
+
+
+def warp_kernels(W, S, torch, model):
+    """K11, K12 and K10's projection mode against their plain versions on
+    chunk nchunks // 2 of the trained model's resident epoch (K11 at the
+    model's last K and at K = 64, lazy and all, on its own draws and on
+    injected candidates; K12 with reg terms WARP_CHECK_REG, bitwise
+    repeatable, with its user side presorted (the resident chunk) and
+    radix-sorted (as a streamed chunk is), a plain run without the reg
+    terms failing the check).  Event ms, CUPTI ms, plain and library ms
+    and the bounds; K11's ms at K = 64 and K12's with each user side.
+    Returns the kernels line's K11 and K12 entries."""
+    dev = model.device
+    users_c, items_c, nnz, indptr, bloom, log2, P0, Q0 = warp_inputs(
+        S, torch, model)
+    c = users_c.shape[0] // 2
+    users, pos = users_c[c].contiguous(), items_c[c].contiguous()
+    N, d, I = users.shape[0], P0.shape[1], Q0.shape[0]
+    o = model.opt
+    K = model.iteration_candidates[-1]
+    base = dict(num_items=I, num_candidates=K, seed=int(o.random_seed),
+                epoch=WARP_EPOCHS, chunk=c, n_valid=N,
+                score_func=o.score_func, threshold=float(o.threshold),
+                probe=o.probe_mode, indptr=indptr, bloom=bloom,
+                bloom_log2=log2)
+    # the model's last K, then K = 64 (lazy and all), which a default
+    # 40-epoch run reaches once found_frac drops below 0.98
+    out, w_err = {}, 0.0
+    for k, probe in sorted({(K, o.probe_mode), (64, "lazy"), (64, "all")}):
+        injected = W.warp_candidates(N, k, I, seed=1234, epoch=0, chunk=0,
+                                     device=dev)
+        for name, extra in (("own", {}), ("injected",
+                                          {"candidates": injected})):
+            kw = dict(base, num_candidates=k, probe=probe, **extra)
+            cnt = [torch.zeros(1, dtype=torch.int32, device=dev)
+                   for _ in range(2)]
+            got = W.warp_search(users, pos, P0, Q0, counts=cnt[0], **kw)
+            ref = W.warp_search_plain(users, pos, P0, Q0, counts=cnt[1], **kw)
+            torch.cuda.synchronize()
+            what = f"K11 (K = {k}, {probe}, {name} candidates)"
+            check(all(torch.equal(got[i], ref[i]) for i in (0, 2, 3))
+                  and torch.equal(cnt[0], cnt[1]),
+                  f"{what}: ids, any_v, trials or counts differ from the "
+                  "plain version")
+            check(torch.allclose(got[1], ref[1], rtol=TOL_WARP_W, atol=0),
+                  f"{what}: weights beyond 1 ulp")
+            w_err = max(w_err, float((got[1] - ref[1]).abs().max()))
+            out[(k, probe, name)] = dict(found=int(cnt[0][0]), got=got)
+    neg, w, any_v, trial = out[(K, o.probe_mode, "own")]["got"]
+    # the bytes this chunk's data needs: the slots' ids, probes and outputs,
+    # each distinct P row and each distinct Q row of the positives and of
+    # the candidates up to each slot's choice (all K without one) read once;
+    # per needed candidate a Philox draw and a float64 score
+    cand = W.warp_candidates(N, K, I, seed=int(o.random_seed),
+                             epoch=WARP_EPOCHS, chunk=c, device=dev)
+    first = torch.argmax((cand == neg[:, None]).int(), 1) + 1
+    upto = torch.where(any_v, first, torch.full_like(first, K))
+    need = int(upto.sum())
+    walked = torch.arange(K, device=dev)[None, :] < upto[:, None]
+    n_u = int(torch.unique(users).numel())
+    n_i = int(torch.unique(torch.cat([pos, cand[walked]])).numel())
+    nbytes = N * (8 + 16 + 13 + 4) + 4 * d * (n_u + n_i)
+    t_b, t_o = nbytes / PEAK_BYTES_S, 2 * d * (need + N) / PEAK_FP64_S
+    t_i = 100 * need / PEAK_INT32_S
+    fn11 = (lambda: W.warp_search(users, pos, P0, Q0, **base))
+    k11 = dict(route="cuda", source="buffalo_tpu_torch/csrc/warp_search.cu",
+               replaces="buffalo_tpu/ops/warp_kernels.py:41",
+               max_abs_err=w_err, ms=time_ms(fn11),
+               device_ms=trace_ms(fn11, "search_kernel"),
+               plain_ms=time_ms(lambda: W.warp_search_plain(
+                   users, pos, P0, Q0, **base), reps=3, warmup=1),
+               bound_ms=1e3 * max(t_b, t_o, t_i),
+               bound_by="bytes" if t_b >= max(t_o, t_i) else "operations",
+               library_ms=None, slots=N, num_candidates=K,
+               candidates_needed=need, user_rows=n_u, item_rows=n_i,
+               found={f"K{k}_{p}_{n}": v["found"]
+                      for (k, p, n), v in out.items()},
+               probe_mode=o.probe_mode)
+    for probe in ("lazy", "all"):
+        k11[f"ms_k64_{probe}"] = time_ms(lambda: W.warp_search(
+            users, pos, P0, Q0, **dict(base, num_candidates=64,
+                                       probe=probe)))
+
+    kw12 = dict(n_valid=N, score_func=o.score_func, reg_u=WARP_CHECK_REG,
+                reg_i=WARP_CHECK_REG, reg_j=WARP_CHECK_REG, update_i=True,
+                update_j=True, per_coordinate_normalize=True,
+                users_sorted=True)
+
+    def acc12(fn, **over):
+        acc = W.new_accumulators(P0, Q0)
+        fn(P0, Q0, *acc, users, pos, neg, any_v, w, **dict(kw12, **over))
+        return acc
+
+    def check12(a, r):
+        return step_check(a, r, torch.zeros_like(r), TOL_WARP_STEP)
+
+    got, again, radix = (acc12(W.warp_accumulate), acc12(W.warp_accumulate),
+                         acc12(W.warp_accumulate, users_sorted=False))
+    ref = acc12(W.warp_accumulate_plain)
+    noreg = acc12(W.warp_accumulate_plain, reg_u=0.0, reg_i=0.0, reg_j=0.0)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K12 is not bitwise repeatable")
+    check(all(check12(a, r)[0] for a, r in zip(radix, ref)),
+          "K12 with the user side radix-sorted is off the plain version")
+    errs, fields = [], {}
+    for name, g, r, n0 in zip(("gP", "gQ", "cP", "cQ"), got, ref, noreg):
+        ok, err, limit = check12(g, r)
+        check(ok, f"K12's {name} is {err:.3g} from the plain version's "
+              f"(limit {limit:.3g})")
+        errs.append(err)
+        fields[f"{name}_err"], fields[f"{name}_limit"] = err, limit
+        fields[f"{name}_no_reg_err"] = check12(n0, r)[1]
+    check(not all(check12(n0, r)[0] for n0, r in zip(noreg, ref)),
+          "the K12 check passes a plain run without the reg terms")
+    # the library call: index_add_ of the per-sample rows (computed once)
+    live = any_v
+    u, i, j = users.long()[live], pos.long()[live], neg.long()[live]
+    ww = w[live][:, None]
+    p, qi, qj = P0[u], Q0[i], Q0[j]
+    rows_p = ww * (qi - qj) - WARP_CHECK_REG * p
+    rows_q = torch.cat([ww * p - WARP_CHECK_REG * qi,
+                        -ww * p - WARP_CHECK_REG * qj])
+    idx_q = torch.cat([i, j])
+    lib = W.new_accumulators(P0, Q0)
+
+    def library():
+        lib[0].index_add_(0, u, rows_p)
+        lib[1].index_add_(0, idx_q, rows_q)
+
+    n_live = int(live.sum())
+    n_u = int(torch.unique(u).numel())
+    n_i = int(torch.unique(idx_q).numel())
+    # the slots' ids, flags and weights; each touched row of P and Q read
+    # once, its gradient and count read and written once
+    nbytes = 17 * N + (12 * d + 8) * (n_u + n_i)
+    bms, by = bound_ms(nbytes, 10 * d * n_live)
+    acc = W.new_accumulators(P0, Q0)
+
+    def fn12(presorted=True):
+        return W.warp_accumulate(P0, Q0, *acc, users, pos, neg, any_v, w,
+                                 **dict(kw12, users_sorted=presorted))
+
+    # the user side presorted and radix-sorted, alternated so that the
+    # spread of the two runs of each shows the noise
+    sort_ms = {f"{name}_{r}": time_ms(lambda: fn12(flag))
+               for r in (1, 2) for name, flag in (("presorted", True),
+                                                  ("radix", False))}
+    k12 = dict(route="cuda",
+               source="buffalo_tpu_torch/csrc/warp_accumulate.cu",
+               replaces="buffalo_tpu/ops/warp_kernels.py:160",
+               max_abs_err=max(errs), ms=time_ms(fn12),
+               device_ms=trace_ms(fn12, "user_runs"),
+               plain_ms=time_ms(lambda: W.warp_accumulate_plain(
+                   P0, Q0, *acc, users, pos, neg, any_v, w, **kw12),
+                   reps=5, warmup=1),
+               bound_ms=bms, bound_by=by,
+               library_ms=time_ms(library, reps=10, warmup=2),
+               live_slots=n_live, user_rows=n_u, item_rows=n_i,
+               users_sort_ms=sort_ms, **fields)
+
+    proj = {}
+    for opt_name in ("adagrad", "adam"):
+        rng = torch.Generator(device=dev).manual_seed(6)
+        g = 0.1 * torch.randn(P0.shape, generator=rng, device=dev)
+        m = 0.01 * torch.randn(P0.shape, generator=rng, device=dev)
+        v = 0.01 * torch.rand(P0.shape, generator=rng, device=dev)
+        cnt = torch.randint(0, 9, (P0.shape[0],), generator=rng,
+                            device=dev).float()
+        kw10 = dict(step=3, optimizer=opt_name, lr=0.05, beta1=0.9,
+                    beta2=0.999, reg=0.0, per_coordinate_normalize=True,
+                    project=True)
+        a = [P0.clone(), g.clone(), m.clone(), v.clone()]
+        b = [P0.clone(), g.clone(), m.clone(), v.clone()]
+        S.deferred_update(*a, cnt, **kw10)
+        S.deferred_update_plain(*b, cnt, **kw10)
+        err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        check(all(torch.allclose(x, y, rtol=TOL_K10, atol=1e-7)
+                  for x, y in zip(a, b)),
+              f"K10's projection ({opt_name}) is {err:.3g} from its plain "
+              "version")
+        n = P0.numel()
+        bms, by = bound_ms((32 if opt_name == "adam" else 24) * n
+                           + 4 * P0.shape[0], 17 * n)
+        fn = (lambda: S.deferred_update(*a, cnt, **kw10))
+        proj[opt_name] = dict(max_abs_err=err, ms=time_ms(fn),
+                              device_ms=trace_ms(fn, "project_kernel"),
+                              plain_ms=time_ms(lambda: S.deferred_update_plain(
+                                  *b, cnt, **kw10)),
+                              bound_ms=bms, bound_by=by, elements=n)
+    phase("warp_kernels", d=d, chunk_index=c, chunks=int(users_c.shape[0]),
+          k11=k11, k12=k12, k10_projection=proj, tol_w=TOL_WARP_W,
+          tol_step=TOL_WARP_STEP, check_reg=WARP_CHECK_REG, tol_k10=TOL_K10)
+    del users_c, items_c, bloom, got, again, radix, ref, noreg, lib, acc, out
+    torch.cuda.empty_cache()
+    return {"warp_search": k11, "warp_accumulate": k12}
+
+
+# ------------------------------------------------------------------ eALS
+def eals_opt(bt, **kw):
+    """EALSOption defaults on the card at d = D, no validation inside the
+    epochs, with ``kw`` on top."""
+    opt = bt.EALSOption().get_default_option()
+    opt.update(d=D, num_iters=EALS_EPOCHS, device="cuda",
+               validation={"topk": TOPK}, evaluation_on_learning=False)
+    opt.update(kw)
+    return opt
+
+
+def eals_inputs(torch, model, st=None):
+    """A trained eALS's range layout on the card (``st``, else built anew):
+    (state, permuted P, Q)."""
+    from buffalo_tpu_torch.data.batching import permute_table
+
+    st = st or model._train_state()
+    P = torch.from_numpy(permute_table(model.P, st["u_pos"],
+                                       st["u_pad"])).to(model.device)
+    Q = torch.from_numpy(permute_table(model.Q, st["i_pos"],
+                                       st["i_pad"])).to(model.device)
+    return st, P, Q
+
+
+def eals_path(bt, E, R, torch, data):
+    """eALS on the ML-20M data (EALSOption defaults, d = D), EALS_EPOCHS
+    epochs through the user's entry points: one K13 launch per batch and
+    one K14 per epoch, the RMSE falling every epoch, validation after
+    training, a profiled epoch; ParEALS top-10 for EALS_USERS users held
+    to numpy.  Returns (model, its range-layout inputs, the path's
+    launches)."""
+    model = bt.EALS(eals_opt(bt), data=data)
+    np.random.seed(0)
+    model.initialize()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(E.KERNELS)
+    model.train()
+    launches = read_counts(E.KERNELS)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = model.iteration_losses
+    check(len(losses) == EALS_EPOCHS and all(np.isfinite(losses))
+          and all(b < a for a, b in zip(losses, losses[1:]))
+          and np.isfinite(model.P).all() and np.isfinite(model.Q).all(),
+          f"eALS RMSE not finite and falling: {losses}")
+    st, P, Q = eals_inputs(torch, model)
+    nb = len(st["row_groups"]) + len(st["col_groups"])
+    want = dict(dim_sweep=nb * EALS_EPOCHS, eals_residual=EALS_EPOCHS)
+    check(launches == want, f"eALS epochs launched {launches}, expected "
+          f"{want}")
+    t0 = time.perf_counter()
+    val = model.get_validation_results()
+    val_s = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in val.values()), f"eALS validation: "
+          f"{val}")
+    o = model.opt
+
+    def epoch():
+        E.eals_epoch(P, Q, st["row_groups"], st["col_groups"], st["C"],
+                     alpha=o.alpha, reg_u=o.reg_u, reg_i=o.reg_i)
+        float(E.eals_loss(P, Q, None, *st["u"], st["C"], o.reg_u, o.reg_i,
+                          alpha=o.alpha)[0])
+
+    prof = profile_call(torch, epoch, top=10)
+    reset_counts(R.KERNELS)
+    users = [str(u) for u in range(EALS_USERS)]
+    par = bt.ParEALS(model)
+    ms_first, (keys, ids, _) = wall_ms(
+        lambda: par.topk_recommendation(users, topk=TOPK))
+    ms_warm, _ = wall_ms(lambda: par.topk_recommendation(users, topk=TOPK))
+    k5 = R.score_topk.launches
+    check(keys == users and ids.shape == (EALS_USERS, TOPK) and k5 == 2,
+          f"ParEALS top-10 malformed or not one K5 launch per call ({k5})")
+    same = ids_match_numpy(ids, model.P[:EALS_USERS], model.Q,
+                           what="ParEALS.topk_recommendation")
+    med = float(np.median(model.iteration_times[1:]))
+    phase("eals_path", d=D, epochs=EALS_EPOCHS, alpha=o.alpha, c0=o.c0,
+          exponent=o.exponent, reg=o.reg_u, batches_per_epoch=nb,
+          train_rmse=losses, val_ndcg=val["ndcg"], val_auc=val["auc"],
+          val_map=val["map"], validation_seconds=val_s,
+          epoch_seconds=model.iteration_times,
+          median_epoch_seconds_2_4=med, launches=launches,
+          launches_per_epoch=per_epoch(launches, EALS_EPOCHS),
+          max_memory_allocated_mb=peak_mb, epoch_profile=prof,
+          topk_users=EALS_USERS, topk_k5_launches=k5,
+          topk_host_ms_first=ms_first, topk_host_ms_warm=ms_warm,
+          topk_same_as_numpy=same)
+    del P, Q
+    return model, st, launches
+
+
+def eals_batch_check(E, torch, X, Y, S, C, batch, rows, item_axis, alpha,
+                     reg):
+    """K13 on one batch against its plain version (and the plain version
+    in Jacobi order): (relative error, Jacobi's relative error)."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+
+    outs = [X.clone() for _ in range(3)]
+    kw = dict(item_axis=item_axis, alpha=alpha, reg=reg)
+    E.dim_sweep(outs[0], Y, S, C, batch=batch, **kw)
+    if isinstance(batch, RangeBatch):
+        args = (int(batch.row_start), batch.lens, batch.cols, batch.vals)
+        E.range_sweep_plain(outs[1], Y, S, C, *args, **kw)
+        E.range_sweep_plain(outs[2], Y, S, C, *args, jacobi=True, **kw)
+    else:
+        E.segment_sweep_plain(outs[1], Y, S, C, batch, **kw)
+        E.segment_sweep_plain(outs[2], Y, S, C, batch, jacobi=True, **kw)
+    scale = max(float(outs[1][rows].abs().max()), 1e-30)
+    return (float((outs[0] - outs[1]).abs().max()) / scale,
+            float((outs[2] - outs[1]).abs().max()) / scale)
+
+
+def k13_work(batch, d, item_axis):
+    """(bytes, operations) of K13's function on a range batch: the lens,
+    the entries' ids and values, the batch's rows read and written, S, and
+    each distinct row of the fixed side (with its C in the user pass) read
+    once; per entry and dimension ~12 operations (the residual and the
+    num/den terms)."""
+    import torch
+
+    B, L = batch.cols.shape
+    live = torch.arange(L, device=batch.cols.device)[None, :] < \
+        batch.lens[:, None]
+    n = int(batch.lens.sum())
+    n_y = int(torch.unique(batch.cols[live]).numel())
+    nbytes = (4 * B + 8 * n + 8 * B * d + 4 * d * d
+              + (4 * d + (0 if item_axis else 4)) * n_y)
+    return nbytes, n * d * 12
+
+
+def eals_kernels(E, torch, model, st):
+    """K13 and K14 against their plain versions on the trained model's
+    ML-20M layout: K13 on the first range batch of every length bucket of
+    both halves, on each segment batch and on the user side's CSR rows
+    (rows mode), within TOL_EALS relative (a Jacobi sweep must fail), and
+    at EALS_WIDTHS on random batches; K14's residuals within TOL_VHAT and
+    sums within TOL_EALS_SUM.  Returns the kernels line's entries."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+
+    dev = model.device
+    o = model.opt
+    alpha, reg = float(o.alpha), float(o.reg_u)
+    _, P, Q = eals_inputs(torch, model, st)
+    C = st["C"]
+    halves = (("rowwise", st["row_groups"], P, Q, E.eals_gramian(Q, C),
+               False), ("colwise", st["col_groups"], Q, P,
+                        E.eals_gramian(P), True))
+    errs, jac, seen, checked = [], [], set(), 0
+    for half, batches, X, Y, S, item in halves:
+        for b in batches:
+            if isinstance(b, RangeBatch):
+                key = (half, b.cols.shape[1])
+                if key in seen:
+                    continue
+                seen.add(key)
+                rs = int(b.row_start)
+                rows = slice(rs, rs + b.cols.shape[0])
+            else:
+                rows = b.rows.long()[b.rows.long() < X.shape[0]]
+            e, j = eals_batch_check(E, torch, X, Y, S, C, b, rows, item,
+                                    alpha, reg)
+            check(e <= TOL_EALS, f"K13 on a {half} batch "
+                  f"{tuple(b.cols.shape)} is {e:.3g} from its plain version")
+            check(j > TOL_EALS, f"the K13 check passes a Jacobi sweep on a "
+                  f"{half} batch {tuple(b.cols.shape)} ({j:.3g})")
+            errs.append(e)
+            jac.append(j)
+            checked += 1
+    # rows mode: the user side's CSR with carried residuals (unpermuted)
+    group = model.data.get_group("rowwise")
+    indptr = torch.from_numpy(np.array(group["indptr"], np.int64)).to(dev)
+    keys = torch.from_numpy(np.array(group["key"], np.int32)).to(dev)
+    vals = torch.from_numpy(np.array(group["val"], np.float32)).to(dev)
+    Pu = torch.from_numpy(model.P).to(dev)
+    Qu = torch.from_numpy(model.Q).to(dev)
+    Cu = torch.from_numpy(model._get_negative_weights()).to(dev)
+    rows_u = torch.repeat_interleave(
+        torch.arange(Pu.shape[0], device=dev, dtype=torch.int32),
+        indptr[1:] - indptr[:-1])
+    vh0 = E.compute_vhat(Pu, Qu, rows_u, keys)
+    Su = E.eals_gramian(Qu, Cu)
+    a, b = [Pu.clone(), vh0.clone()], [Pu.clone(), vh0.clone()]
+    E.eals_half_epoch(a[0], Qu, a[1], indptr, keys, vals, Cu, Su,
+                      item_axis=False, alpha=alpha, reg=reg)
+    E.rows_sweep_plain(b[0], Qu, Su, Cu, indptr, keys, vals, b[1],
+                       item_axis=False, alpha=alpha, reg=reg)
+    rows_err = max(rel_err(a[0], b[0])[1], rel_err(a[1], b[1])[1])
+    check(rows_err <= TOL_EALS, f"K13's rows mode is {rows_err:.3g} from "
+          "its plain version")
+    # random batches at other widths (range, L = 96 and 1024)
+    widths = {}
+    for dw in EALS_WIDTHS:
+        rng = np.random.default_rng(dw)
+        X = torch.tensor(0.2 * rng.standard_normal((2000, dw)),
+                         dtype=torch.float32, device=dev)
+        Y = torch.tensor(0.2 * rng.standard_normal((3000, dw)),
+                         dtype=torch.float32, device=dev)
+        Cw = torch.tensor(rng.uniform(0.05, 0.5, 3000), dtype=torch.float32,
+                          device=dev)
+        Sw = E.eals_gramian(Y, Cw)
+        for L in (96, 1024):
+            lens = rng.integers(0, L + 1, 64).astype(np.int32)
+            cols = rng.integers(0, 3000, (64, L)).astype(np.int32)
+            vv = (rng.integers(1, 5, (64, L))
+                  * (np.arange(L) < lens[:, None])).astype(np.float32)
+            bw = RangeBatch(100, *[torch.from_numpy(x).to(dev)
+                                   for x in (lens, cols, vv)])
+            e, j = eals_batch_check(E, torch, X, Y, Sw, Cw, bw,
+                                    slice(100, 164), False, alpha, reg)
+            check(e <= TOL_EALS and j > TOL_EALS,
+                  f"K13 at d = {dw}, L = {L}: {e:.3g} (Jacobi {j:.3g})")
+            widths[f"d{dw}_L{L}"] = e
+    # timing on the user half's range batch with the most entries
+    big = max((b for b in st["row_groups"] if isinstance(b, RangeBatch)),
+              key=lambda b: int(b.lens.sum()))
+    Sq = E.eals_gramian(Q, C)
+    X = P.clone()
+    kw = dict(item_axis=False, alpha=alpha, reg=reg)
+    args = (int(big.row_start), big.lens, big.cols, big.vals)
+    nbytes, flops = k13_work(big, D, False)
+    bms, by = bound_ms(nbytes, flops)
+    fn13 = (lambda: E.dim_sweep(X, Q, Sq, C, batch=big, **kw))
+    k13 = dict(route="cuda", source="buffalo_tpu_torch/csrc/eals_sweep.cu",
+               replaces="buffalo_tpu/ops/eals_kernels.py:71",
+               max_abs_err=max(errs + [rows_err] + list(widths.values())),
+               ms=time_ms(fn13), device_ms=trace_ms(fn13, "sweep_kernel"),
+               plain_ms=time_ms(lambda: E.range_sweep_plain(
+                   X, Q, Sq, C, *args, **kw), reps=3, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               batch=list(big.cols.shape), entries=int(big.lens.sum()),
+               checked_batches=checked, max_rel_err=max(errs),
+               min_jacobi_rel_err=min(jac), rows_mode_rel_err=rows_err,
+               widths=widths)
+    # K14 over all the nnz of the permuted COO view
+    rows, keys_p, vals_p = st["u"]
+    v_got = E.compute_vhat(P, Q, rows, keys_p)
+    v_ref, s_ref = E.eals_residual_plain(P, Q, rows, keys_p, vals_p, C,
+                                         alpha=alpha)
+    _, s_got = E.eals_residual(P, Q, rows, keys_p, vals_p, C, alpha=alpha)
+    _, s_again = E.eals_residual(P, Q, rows, keys_p, vals_p, C, alpha=alpha)
+    torch.cuda.synchronize()
+    v_err = rel_err(v_got, v_ref)[1]
+    s_err = float(((s_got - s_ref).abs() / s_ref.abs()).max())
+    check(v_err <= TOL_VHAT and s_err <= TOL_EALS_SUM
+          and torch.equal(s_got, s_again),
+          f"K14: residuals {v_err:.3g}, sums {s_err:.3g} from the plain "
+          "version (or not repeatable)")
+    # ids, values and the residual out per entry; each distinct row of P
+    # and Q, and C per distinct item, read once
+    n = rows.shape[0]
+    n_u = int(torch.unique(rows).numel())
+    n_i = int(torch.unique(keys_p).numel())
+    bms, by = bound_ms(16 * n + 4 * D * (n_u + n_i) + 4 * n_i,
+                       n * (2 * D + 10))
+
+    def library():
+        v = (P[rows.long()] * Q[keys_p.long()]).sum(-1)
+        err = vals_p - v
+        return torch.stack([((1 + alpha * vals_p) * err * err).sum(),
+                            (C[keys_p.long()] * v * v).sum(),
+                            (err * err).sum()])
+
+    fn14 = (lambda: E.eals_residual(P, Q, rows, keys_p, vals_p, C,
+                                    alpha=alpha))
+    k14 = dict(route="cuda", source="buffalo_tpu_torch/csrc/eals_loss.cu",
+               replaces="buffalo_tpu/ops/eals_kernels.py:356",
+               max_abs_err=float((v_got - v_ref).abs().max()),
+               ms=time_ms(fn14), device_ms=trace_ms(fn14, "residual_kernel"),
+               plain_ms=time_ms(lambda: E.eals_residual_plain(
+                   P, Q, rows, keys_p, vals_p, C, alpha=alpha), reps=5,
+                   warmup=1),
+               bound_ms=bms, bound_by=by,
+               library_ms=time_ms(library, reps=5, warmup=1), entries=n,
+               user_rows=n_u, item_rows=n_i, vhat_rel_err=v_err,
+               sums_rel_err=s_err)
+    phase("eals_kernels", d=D, k13=k13, k14=k14, tol=TOL_EALS,
+          tol_vhat=TOL_VHAT, tol_sums=TOL_EALS_SUM)
+    del P, Q, X, a, b, Pu, Qu, v_got, v_ref
+    torch.cuda.empty_cache()
+    return {"dim_sweep": k13, "eals_residual": k14}
+
+
+def topk_past_1024(R, torch, model):
+    """``batch_topn`` past K5's k limit on the card: TOPK_PAST items for
+    TOPK_PAST_USERS users of the eALS model (26,744 items), through the
+    matmul route (no K5 launch), held to numpy with ties by index."""
+    from buffalo_tpu_torch.ops.topk import batch_topn
+
+    q = model.P[:TOPK_PAST_USERS]
+    reset_counts(R.KERNELS)
+    ms, (ids, scores) = wall_ms(lambda: batch_topn(q, model.Q, TOPK_PAST,
+                                                   device="cuda"))
+    k5 = R.score_topk.launches
+    check(k5 == 0 and ids.shape == (TOPK_PAST_USERS, TOPK_PAST),
+          f"batch_topn k = {TOPK_PAST}: {k5} K5 launches, {ids.shape}")
+    same = ids_match_numpy(ids, q, model.Q, what=f"batch_topn k = "
+                           f"{TOPK_PAST}")
+    phase("topk_past_1024", k=TOPK_PAST, users=TOPK_PAST_USERS,
+          items=int(model.Q.shape[0]), host_ms=ms, k5_launches=k5,
+          same_as_numpy=same)
+
+
 def main() -> int:
     import torch
 
@@ -2293,7 +2995,9 @@ def main() -> int:
     from buffalo_tpu_torch.ops import _build
     from buffalo_tpu_torch.ops import als_kernels as K
     from buffalo_tpu_torch.ops import retrieval_kernels as R
+    from buffalo_tpu_torch.ops import eals_kernels as E
     from buffalo_tpu_torch.ops import sgd_kernels as S
+    from buffalo_tpu_torch.ops import warp_kernels as W
 
     bt.set_log_level(1)
     dev = bt.utils.resolve_device("cuda")
@@ -2468,7 +3172,26 @@ def main() -> int:
         bpr, bpr_launches = bpr_path(bt, S, R, torch, data)
         entries.update(bpr_kernels(S, torch, bpr))
         path_launches.update(bpr_launches)
-        del bpr, data
+        del bpr
+        torch.cuda.empty_cache()
+
+        # ---- WARP: the user's entry points on the ML-20M data (the
+        # defaults, then its variants), then K11, K12 and K10's projection
+        warp, warp_launches = warp_path(bt, W, S, R, torch, data)
+        entries.update(warp_kernels(W, S, torch, warp))
+        path_launches["deferred_update"] += warp_launches.pop(
+            "deferred_update")
+        path_launches.update(warp_launches)
+        del warp
+        torch.cuda.empty_cache()
+
+        # ---- eALS: the user's entry points at d = D, then K13 and K14 on
+        # its layout; then top-k past K5's k limit on its tables
+        eals, eals_state, eals_launches = eals_path(bt, E, R, torch, data)
+        path_launches.update(eals_launches)
+        entries.update(eals_kernels(E, torch, eals, eals_state))
+        topk_past_1024(R, torch, eals)
+        del eals, eals_state, data
         torch.cuda.empty_cache()
 
         # ---- catalog path: the README's serving configuration (K5-K7 at

@@ -821,3 +821,290 @@ def test_bpr_epoch_on_the_card_matches_the_cpu(dev):
         np.testing.assert_allclose(getattr(out[0], name),
                                    getattr(out[1], name), rtol=1e-4,
                                    atol=1e-5)
+
+
+# ------------------------------------------------------------------ WARP
+def _warp_case(dev, d, U=600, I=300, N=3000, seed=0, scale=0.4):
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(1, 12, U)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    keys = np.concatenate([np.sort(rng.choice(I, k, replace=False))
+                           for k in deg]).astype(np.int32)
+    words, log2 = S.build_bloom(indptr, keys)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return dict(
+        P=t((scale * rng.standard_normal((U, d))).astype(np.float32)),
+        Q=t((scale * rng.standard_normal((I, d))).astype(np.float32)),
+        users=t(np.sort(rng.integers(0, U, N)).astype(np.int32)),
+        pos=t(rng.integers(0, I, N).astype(np.int32)), indptr=t(indptr),
+        bloom=t(words.view(np.int32)), log2=log2, I=I)
+
+
+def _search_kw(c, K, probe, score_func, n_valid, **kw):
+    return dict(num_items=c["I"], num_candidates=K, seed=5, epoch=2, chunk=7,
+                n_valid=n_valid, score_func=score_func, threshold=0.5,
+                probe=probe, indptr=c["indptr"], bloom=c["bloom"],
+                bloom_log2=c["log2"], **kw)
+
+
+@pytest.mark.parametrize("d", [8, 13, 64, 256])
+@pytest.mark.parametrize("K", [3, 16, 64])
+@pytest.mark.parametrize("probe", ["lazy", "all"])
+@pytest.mark.parametrize("score_func", ["dot", "l2"])
+def test_warp_search_kernel_equals_plain(dev, d, K, probe, score_func):
+    """K11 against its plain version: ids, any_v, trials and counts equal,
+    weights within 1 ulp; on its own draws and on injected candidates."""
+    from buffalo_tpu_torch.ops import warp_kernels as W
+
+    c = _warp_case(dev, d, scale=0.6 if d < 64 else 0.2)
+    nv = c["users"].shape[0] - 37
+    cands = W.warp_candidates(c["users"].shape[0], K, c["I"], seed=9,
+                              epoch=0, chunk=0, device=dev)
+    for extra in ({}, {"candidates": cands}):
+        counts = [torch.zeros(3, dtype=torch.int32, device=dev)
+                  for _ in range(2)]
+        kw = _search_kw(c, K, probe, score_func, nv, **extra)
+        got = W.warp_search(c["users"], c["pos"], c["P"], c["Q"],
+                            counts=counts[0], count_index=1, **kw)
+        ref = W.warp_search_plain(c["users"], c["pos"], c["P"], c["Q"],
+                                  counts=counts[1], count_index=1, **kw)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("neg", "w", "any_v", "trial"), got, ref):
+            if name == "w":
+                assert torch.allclose(g, r, rtol=1.2e-7, atol=0), name
+            else:
+                assert torch.equal(g, r), name
+        assert torch.equal(counts[0], counts[1]) and int(counts[0][1]) > 0
+
+
+@pytest.mark.parametrize("K", [5, 64])
+def test_warp_probe_kernel_equals_plain(dev, K):
+    from buffalo_tpu_torch.ops import warp_kernels as W
+
+    c = _warp_case(dev, 16)
+    kw = dict(num_items=c["I"], num_candidates=K, seed=5, epoch=2, chunk=7,
+              bloom=c["bloom"], bloom_log2=c["log2"])
+    got = W.warp_probe(c["users"], **kw)
+    ref = W.warp_probe_plain(c["users"], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and bool(got.ne(0).any())
+    # the search reading those bits under the "all" rule (the same draws)
+    sk = _search_kw(c, K, "all", "dot", c["users"].shape[0], seen_bits=got)
+    sk.pop("bloom")
+    a = W.warp_search(c["users"], c["pos"], c["P"], c["Q"], **sk)
+    b = W.warp_search(c["users"], c["pos"], c["P"], c["Q"],
+                      **_search_kw(c, K, "all", "dot", c["users"].shape[0]))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("d", [8, 64, 256])
+@pytest.mark.parametrize("score_func", ["dot", "l2"])
+@pytest.mark.parametrize("sorted_users", [False, True])
+@pytest.mark.parametrize("flags", [(True, True, False), (False, True, True),
+                                   (True, False, True)])
+def test_warp_accumulate_kernel_matches_plain(dev, d, score_func,
+                                              sorted_users, flags):
+    """K12 against its plain version within 1e-5 of the largest entry,
+    bitwise repeatable."""
+    from buffalo_tpu_torch.ops import warp_kernels as W
+
+    c = _warp_case(dev, d)
+    N = c["users"].shape[0]
+    users = c["users"] if sorted_users else c["users"][torch.randperm(
+        N, device=dev)].contiguous()
+    neg, w, any_v, _ = W.warp_search(
+        users, c["pos"], c["P"], c["Q"],
+        **_search_kw(c, 16, "lazy", score_func, N - 11))
+    upd_i, upd_j, pcn = flags
+    kw = dict(n_valid=N - 11, score_func=score_func, reg_u=0.03, reg_i=0.02,
+              reg_j=0.01, update_i=upd_i, update_j=upd_j,
+              per_coordinate_normalize=pcn, users_sorted=sorted_users)
+    outs = []
+    for fn in (W.warp_accumulate, W.warp_accumulate, W.warp_accumulate_plain):
+        acc = W.new_accumulators(c["P"], c["Q"])
+        for a in acc:
+            a.fill_(0.5)
+        fn(c["P"], c["Q"], *acc, users, c["pos"], neg, any_v, w, **kw)
+        outs.append(acc)
+    torch.cuda.synchronize()
+    for g, g2, r in zip(*outs):
+        assert torch.equal(g, g2)
+        lim = 1e-5 * float((r - 0.5).abs().max()) + 2 ** -23
+        assert float((g - r).abs().max()) <= lim
+
+
+def test_warp_violations_kernel_equals_plain(dev):
+    from buffalo_tpu_torch.ops import warp_kernels as W
+
+    c = _warp_case(dev, 40)
+    rng = np.random.default_rng(2)
+    trip = [torch.from_numpy(rng.integers(0, n, 999).astype(np.int32)).to(dev)
+            for n in (c["P"].shape[0], c["I"], c["I"])]
+    for sf in ("dot", "l2"):
+        got = W.warp_violations(c["P"], c["Q"], *trip, score_func=sf,
+                                threshold=0.5)
+        ref = W.warp_violations_plain(c["P"], c["Q"], *trip, score_func=sf,
+                                      threshold=0.5)
+        assert float(got) == float(ref) and 0 < float(got) < 1
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adagrad"])
+@pytest.mark.parametrize("d", [13, 64, 256])
+def test_deferred_update_projection_matches_plain(dev, optimizer, d):
+    """K10's projection mode: within 1e-6 of the plain version, and before
+    the projection bitwise the elementwise mode's step."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    rng = torch.Generator(device=dev).manual_seed(4)
+    P = 0.5 * torch.randn((999, d), generator=rng, device=dev)
+    g = torch.randn((999, d), generator=rng, device=dev)
+    m = 0.1 * torch.randn((999, d), generator=rng, device=dev)
+    v = 0.1 * torch.rand((999, d), generator=rng, device=dev)
+    cnt = torch.randint(0, 5, (999,), generator=rng, device=dev).float()
+    kw = dict(step=2, optimizer=optimizer, lr=0.3, beta1=0.9, beta2=0.999,
+              reg=0.01, per_coordinate_normalize=True)
+    runs = [[t.clone() for t in (P, g, m, v)] for _ in range(3)]
+    S.deferred_update(*runs[0], cnt, project=True, **kw)
+    S.deferred_update_plain(*runs[1], cnt, project=True, **kw)
+    S.deferred_update(*runs[2], cnt, project=False, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+    for a, b in zip(runs[0][1:], runs[2][1:]):
+        assert torch.equal(a, b)
+    norms = runs[2][0].norm(dim=1, keepdim=True).clamp(min=1.0)
+    assert torch.allclose(runs[0][0], runs[2][0] / norms, rtol=1e-6,
+                          atol=1e-7)
+    assert float(runs[2][0].norm(dim=1).max()) > 1
+
+
+# ------------------------------------------------------------------ eALS
+def _eals_case(dev, d, nx=500, ny=300, seed=0):
+    rng = np.random.default_rng(seed)
+    X = torch.tensor(0.2 * rng.standard_normal((nx, d)), dtype=torch.float32,
+                     device=dev)
+    Y = torch.tensor(0.2 * rng.standard_normal((ny, d)), dtype=torch.float32,
+                     device=dev)
+    C = torch.tensor(rng.uniform(0.05, 0.5, max(nx, ny)), dtype=torch.float32,
+                     device=dev)
+    S = (Y.T @ Y).contiguous()
+    return rng, X, Y, C, S
+
+
+def _rel_close(got, ref, tol=1e-4):
+    return float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("d", [13, 40, 128, 256])
+@pytest.mark.parametrize("L", [8, 96, 1024, 8192])
+@pytest.mark.parametrize("item_axis", [False, True])
+def test_dim_sweep_range_kernel_matches_plain(dev, d, L, item_axis):
+    from buffalo_tpu_torch.data.batching import RangeBatch
+    from buffalo_tpu_torch.ops import eals_kernels as E
+
+    rng, X, Y, C, S = _eals_case(dev, d, ny=300 if L < 1024 else 20000)
+    B = 40 if L < 8192 else 6
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    cols = rng.integers(0, Y.shape[0], (B, L)).astype(np.int32)
+    vals = (rng.integers(1, 5, (B, L)) * (np.arange(L) < lens[:, None]))
+    batch = RangeBatch(17, *[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                             for a in (lens, cols, vals.astype(np.float32))])
+    got, ref, jac = X.clone(), X.clone(), X.clone()
+    kw = dict(item_axis=item_axis, alpha=8.0, reg=0.1)
+    E.dim_sweep(got, Y, S, C, batch=batch, **kw)
+    E.range_sweep_plain(ref, Y, S, C, 17, *batch[1:], **kw)
+    E.range_sweep_plain(jac, Y, S, C, 17, *batch[1:], jacobi=True, **kw)
+    torch.cuda.synchronize()
+    assert _rel_close(got, ref)
+    assert not _rel_close(jac, ref)
+
+
+@pytest.mark.parametrize("d", [13, 40, 256])
+@pytest.mark.parametrize("item_axis", [False, True])
+def test_dim_sweep_segment_and_rows_kernels_match_plain(dev, d, item_axis):
+    from buffalo_tpu_torch.data.batching import SegmentBatch, stage_batch
+    from buffalo_tpu_torch.ops import eals_kernels as E
+
+    rng, X, Y, C, S = _eals_case(dev, d)
+    n = X.shape[0]
+    rows = np.array([5, 300, n + 3], np.int32)
+    lens = np.array([700, 200, 0], np.int32)
+    seg_ids = np.array([0, 0, 0, 1, 3], np.int32)
+    chunk_lens = np.array([256, 256, 188, 200, 0], np.int32)
+    cols = rng.integers(0, Y.shape[0], (5, 256)).astype(np.int32)
+    vals = (rng.integers(1, 5, (5, 256)) * (np.arange(256)
+                                             < chunk_lens[:, None]))
+    batch = stage_batch(SegmentBatch(rows, lens, seg_ids, chunk_lens, cols,
+                                     vals.astype(np.float32)), dev)
+    kw = dict(item_axis=item_axis, alpha=8.0, reg=0.1)
+    got, ref = X.clone(), X.clone()
+    E.dim_sweep(got, Y, S, C, batch=batch, **kw)
+    E.segment_sweep_plain(ref, Y, S, C, batch, **kw)
+    assert _rel_close(got, ref)
+    # rows mode, residuals carried
+    deg = rng.integers(0, 40, n)
+    indptr = torch.tensor(np.concatenate([[0], np.cumsum(deg)]),
+                          dtype=torch.int64, device=dev)
+    keys = torch.tensor(rng.integers(0, Y.shape[0], int(deg.sum())),
+                        dtype=torch.int32, device=dev)
+    vv = torch.tensor(rng.integers(1, 5, int(deg.sum())), dtype=torch.float32,
+                      device=dev)
+    vh = 0.01 * torch.randn(int(deg.sum()), device=dev)
+    a = [X.clone(), vh.clone()]
+    b = [X.clone(), vh.clone()]
+    E.eals_half_epoch(a[0], Y, a[1], indptr, keys, vv, C, S, **kw)
+    E.rows_sweep_plain(b[0], Y, S, C, indptr, keys, vv, b[1], **kw)
+    torch.cuda.synchronize()
+    assert _rel_close(a[0], b[0]) and _rel_close(a[1], b[1])
+
+
+@pytest.mark.parametrize("d", [13, 40, 256])
+def test_eals_residual_kernel_matches_plain(dev, d):
+    from buffalo_tpu_torch.ops import eals_kernels as E
+
+    rng, P, Q, C, _ = _eals_case(dev, d)
+    n = 100003
+    rows = torch.tensor(rng.integers(0, P.shape[0], n), dtype=torch.int32,
+                        device=dev)
+    keys = torch.tensor(rng.integers(0, Q.shape[0], n), dtype=torch.int32,
+                        device=dev)
+    vals = torch.tensor(rng.integers(1, 5, n), dtype=torch.float32,
+                        device=dev)
+    v_got = E.compute_vhat(P, Q, rows, keys)
+    v_ref, s_ref = E.eals_residual_plain(P, Q, rows, keys, vals, C,
+                                         alpha=8.0)
+    _, s_got = E.eals_residual(P, Q, rows, keys, vals, C, alpha=8.0)
+    _, s_given = E.eals_residual(P, Q, rows, keys, vals, C, alpha=8.0,
+                                 vhat=v_ref)
+    _, s_again = E.eals_residual(P, Q, rows, keys, vals, C, alpha=8.0)
+    torch.cuda.synchronize()
+    assert _rel_close(v_got, v_ref, 1e-6)
+    assert torch.allclose(s_got, s_ref, rtol=1e-5)
+    assert torch.allclose(s_given, s_ref, rtol=1e-5)
+    assert torch.equal(s_got, s_again)
+
+
+# ------------------------------------------------------- top-k past 1024
+def test_batch_topn_past_1024_on_the_card(dev):
+    """k = 2,000 takes the matmul route and returns numpy's ids with ties by
+    index (a table with duplicated rows)."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+    from buffalo_tpu_torch.ops.topk import batch_topn
+
+    rng = np.random.default_rng(3)
+    Q = rng.standard_normal((5000, 40)).astype(np.float32)
+    Q[2500:3000] = Q[:500]
+    p = rng.integers(-2, 3, (64, 40)).astype(np.float32)
+    Q = np.round(Q * 4) / 4
+    before = R.score_topk.launches
+    ids, scores = batch_topn(p, Q, 2000, device="cuda")
+    assert R.score_topk.launches == before
+    s = p.astype(np.float64) @ Q.T.astype(np.float64)
+    want = np.lexsort((np.arange(5000)[None, :].repeat(64, 0), -s),
+                      axis=1)[:, :2000]
+    np.testing.assert_array_equal(ids, want)
+    ids10, _ = batch_topn(p, Q, 10, device="cuda")
+    assert R.score_topk.launches == before + 1
+    np.testing.assert_array_equal(ids10, want[:, :10])

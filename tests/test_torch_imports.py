@@ -56,6 +56,12 @@ def test_import_loads_neither_jax_nor_reference():
             "import buffalo_tpu_torch.ops.sgd_kernels; "
             "import buffalo_tpu_torch.models.bpr; "
             "from buffalo_tpu_torch import BPRMF, BPRMFOption, ParBPRMF; "
+            "import buffalo_tpu_torch.ops.warp_kernels; "
+            "import buffalo_tpu_torch.ops.eals_kernels; "
+            "import buffalo_tpu_torch.models.warp; "
+            "import buffalo_tpu_torch.models.eals; "
+            "from buffalo_tpu_torch import (WARP, WARPOption, EALS, "
+            "EALSOption, ParEALS); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'buffalo_tpu' "
             "or m.startswith('buffalo_tpu.')]; "
@@ -117,3 +123,27 @@ def test_bpr_kernel_modules_covered():
     """The BPR modules are among the files the import rule checks."""
     names = {p.name for p in PORT_FILES}
     assert {"sgd_kernels.py", "bpr.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["WARP", "EALS"])
+def test_warp_and_eals_cuda_default_without_card_raises(monkeypatch, name):
+    import buffalo_tpu_torch as port
+
+    cls, opt_cls = getattr(port, name), getattr(port, name + "Option")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = opt_cls().get_default_option()
+    assert opt.device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls.new("unused", device="cuda")
+    opt.device = "cpu"
+    assert cls(opt).device.type == "cpu"
+
+
+def test_warp_and_eals_modules_covered():
+    """The WARP and eALS modules are among the files the import rule
+    checks."""
+    names = {p.name for p in PORT_FILES}
+    assert {"warp_kernels.py", "warp.py", "eals_kernels.py",
+            "eals.py"} <= names

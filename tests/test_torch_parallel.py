@@ -164,7 +164,7 @@ def test_wrong_algo_and_mesh_rejected(pair):
     with pytest.raises(ValueError):
         ParALS(object())
     for kw in (dict(mesh=object()), dict(num_devices=2)):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="item 8"):
             ParALS(pair[1], **kw)
 
 

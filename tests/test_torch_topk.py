@@ -413,3 +413,32 @@ def test_matmul_topk_and_topk_match_jax_order(k, bias):
             T.topk(scores, k, sorted=sort, device="cpu"), want)
     np.testing.assert_array_equal(T.topk(scores[5], k, device="cpu"),
                                   J.topk(scores[5], k))
+
+
+def test_card_route_past_k5_limits():
+    """On the card k <= 1024 (and d <= 256) takes the single K5 launch, and
+    past it query chunks of ``torch.matmul`` + ``ordered_topk`` (each score
+    block at most 1 GiB): the route is chosen by k, in the open."""
+    from buffalo_tpu_torch.ops import topk as T
+
+    assert T.k5_route(1024, 256) and T.k5_route(1, 13)
+    assert not T.k5_route(1025, 40) and not T.k5_route(2000, 64)
+    assert not T.k5_route(10, 257)
+    rng = np.random.default_rng(0)
+    Q = np.round(rng.standard_normal((3000, 24)) * 4).astype(np.float32) / 4
+    Q[1500:2000] = Q[:500]
+    p = rng.integers(-2, 3, (37, 24)).astype(np.float32)
+    Qb = np.round(rng.standard_normal(3000) * 4).astype(np.float32) / 4
+    old = T._MATMUL_SCORES_BYTES
+    try:
+        T._MATMUL_SCORES_BYTES = 4 * 3000 * 5  # 5 queries per block here
+        vals, idx = T.matmul_topn(torch.from_numpy(p), torch.from_numpy(Q),
+                                  2000, torch.from_numpy(Qb))
+    finally:
+        T._MATMUL_SCORES_BYTES = old
+    s = p.astype(np.float64) @ Q.T.astype(np.float64) + Qb[None, :]
+    want = np.lexsort((np.arange(3000)[None, :].repeat(37, 0), -s),
+                      axis=1)[:, :2000]
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(vals.numpy(),
+                                  np.take_along_axis(s, want, 1))
