@@ -1,7 +1,7 @@
 """Data layer: builders, compiled dataset access, device batching.
 
-The port has the MatrixMarket builder; ``Stream`` comes with a later
-slice.
+The port has the MatrixMarket and the Stream builders (the latter with
+the SPPMI group that CoFactor trains on).
 """
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ from buffalo_tpu_torch.data.batching import (BatchPlanner,  # noqa: F401
                                              DeviceBatcher, PaddedBatch)
 from buffalo_tpu_torch.data.mm import (MatrixMarket,  # noqa: F401
                                        MatrixMarketOptions)
+from buffalo_tpu_torch.data.stream import Stream, StreamOptions  # noqa: F401
 from buffalo_tpu_torch.utils import Option
 
 
@@ -25,6 +26,5 @@ def load(opt):
     if opt["type"] == "matrix_market":
         return MatrixMarket(opt)
     if opt["type"] == "stream":
-        raise NotImplementedError(
-            "Stream data is not ported yet (ROADMAP queue 1)")
+        return Stream(opt)
     raise RuntimeError(f"Unexpected data.type: {opt['type']}")

@@ -411,6 +411,35 @@ class BatchPlanner:
                                    self.max_len, self.num_rows)
 
 
+def pad_rows(indptr: np.ndarray, key: np.ndarray, val: Optional[np.ndarray],
+             rows: np.ndarray, L: Optional[int] = None):
+    """Gather the given rows of a CSR into a padded (len(rows), L) block.
+
+    Used when a second CSR group must be fetched for the same row set
+    as an existing batch (CFR's synchronized colwise+sppmi item pass,
+    reference ``buffered_data.py:120-160``).  ``L`` defaults to the
+    next power of two of the max degree among ``rows``.
+    """
+    indptr = np.asarray(indptr, dtype=np.int64)
+    rows = np.asarray(rows, dtype=np.int64)
+    safe = np.clip(rows, 0, len(indptr) - 2)
+    beg = indptr[safe]
+    lens = (indptr[safe + 1] - beg).astype(np.int32)
+    lens = np.where((rows >= 0) & (rows < len(indptr) - 1), lens, 0)
+    if L is None:
+        L = max(MIN_L, _next_pow2(int(lens.max()) if len(lens) else 1))
+    offs = np.arange(L, dtype=np.int64)[None, :]
+    idx = beg[:, None] + np.minimum(offs, np.maximum(lens[:, None] - 1, 0))
+    mask = offs < lens[:, None]
+    cols = np.where(mask, np.asarray(key, dtype=np.int32)[idx], 0)
+    if val is not None:
+        vals = np.where(mask, np.asarray(val, dtype=np.float32)[idx],
+                        0.0).astype(np.float32)
+    else:
+        vals = mask.astype(np.float32)
+    return lens, cols.astype(np.int32), vals
+
+
 def build_segment_batch(indptr: np.ndarray, key: np.ndarray,
                         val: Optional[np.ndarray], plan: Sequence[int],
                         chunk_width: int, num_rows: int) -> SegmentBatch:

@@ -1,17 +1,17 @@
 """Bulk text-triple parsing and CSR construction.
 
-Copy of ``buffalo_tpu.data.fileio`` for the PyTorch port, less the SPPMI
-builder (only the ``Stream`` data type needs it, and the port does not
-have it yet): triple parsing + CSR compression
-(``sort_and_compressed_binarization``, ``fileio.hpp:263-419``).  The hot
-path is vectorized numpy/pandas (C parsers); an optional OpenMP C++
-kernel (``native/``) accelerates the parse+sort path and is used when
-available.
+Copy of ``buffalo_tpu.data.fileio`` for the PyTorch port: triple parsing
++ CSR compression (``sort_and_compressed_binarization``,
+``fileio.hpp:263-419``) and the two-pass SPPMI co-occurrence builder
+(``parallel_build_sppmi``, ``fileio.hpp:109-250``) that the ``Stream``
+data type runs.  The hot path is vectorized numpy/pandas (C parsers); an
+optional OpenMP C++ kernel (``native/``) accelerates the parse+sort path
+and the SPPMI pair counting, and is used when available.
 """
 from __future__ import annotations
 
 import io
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -87,3 +87,122 @@ def build_csr(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     indptr = np.zeros(num_rows + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=num_rows), out=indptr[1:])
     return indptr, key, val
+
+
+def _row_chunks(indptr: np.ndarray, max_entries: int):
+    """Yield (row_beg, row_end) covering all rows, each chunk holding
+    at most ~max_entries nnz (single rows may exceed it)."""
+    n_rows = len(indptr) - 1
+    beg = 0
+    while beg < n_rows:
+        end = int(np.searchsorted(indptr, indptr[beg] + max_entries,
+                                  side="right")) - 1
+        end = min(max(end, beg + 1), n_rows)
+        yield beg, end
+        beg = end
+
+
+def _numpy_sppmi_parts(indptr, keys, num_items, window, k, head_chunk,
+                       chunk_entries=1 << 22):
+    """Bounded-memory fallback: pair counting partitioned by head item.
+
+    Peak memory is one partition's distinct pairs plus one row-chunk's
+    window-shifted pair arrays — never the full pair stream (which is
+    ~2 GB at KakaoBrunch scale in the old all-at-once formulation).
+    """
+    indptr = np.asarray(indptr, dtype=np.int64)
+    keys = np.asarray(keys)
+    n_rows = len(indptr) - 1
+    degrees = np.diff(indptr)
+
+    def chunk_pairs(r0, r1):
+        sl = slice(int(indptr[r0]), int(indptr[r1]))
+        kk = keys[sl]
+        rid = np.repeat(np.arange(r0, r1, dtype=np.int64), degrees[r0:r1])
+        for off in range(1, window + 1):
+            if off >= len(kk):
+                break
+            same = rid[:-off] == rid[off:]
+            yield kk[:-off][same].astype(np.int64), \
+                kk[off:][same].astype(np.int64)
+
+    occ = np.zeros(num_items, dtype=np.float64)
+    d_total = 0.0
+    for r0, r1 in _row_chunks(indptr, chunk_entries):
+        for a, b in chunk_pairs(r0, r1):
+            occ += np.bincount(a, minlength=num_items)
+            occ += np.bincount(b, minlength=num_items)
+            d_total += 2.0 * len(a)
+    if d_total == 0:
+        return []
+
+    parts = []
+    logk = np.log(float(k))
+    for beg in range(0, num_items, head_chunk):
+        end = min(num_items, beg + head_chunk)
+        codes = []
+        for r0, r1 in _row_chunks(indptr, chunk_entries):
+            for a, b in chunk_pairs(r0, r1):
+                m = (a >= beg) & (a < end)
+                codes.append(a[m] * num_items + b[m])
+                m = (b >= beg) & (b < end)
+                codes.append(b[m] * num_items + a[m])
+        if not codes:
+            continue
+        lin = np.concatenate(codes)
+        if len(lin) == 0:
+            continue
+        uniq, counts = np.unique(lin, return_counts=True)
+        rr = uniq // num_items
+        cc = uniq % num_items
+        sppmi = np.log(counts.astype(np.float64) * d_total
+                       / (occ[rr] * occ[cc])) - logk
+        keep = sppmi > 0
+        parts.append((rr[keep].astype(np.int32),
+                      cc[keep].astype(np.int32),
+                      sppmi[keep].astype(np.float32)))
+    return parts
+
+
+def build_sppmi(indptr: np.ndarray, keys: np.ndarray, num_items: int,
+                window: int = 5, k: int = 1, logger=None,
+                max_pairs_in_memory: int = 1 << 26
+                ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Build the shifted-positive-PMI co-occurrence matrix from streams.
+
+    Same math as the reference (``fileio.hpp:109-250``): for every row
+    (user sequence), each ordered pair of items within ``window`` of
+    each other counts one symmetric co-occurrence; then
+    ``sppmi = max(0, log(#(w,c) * D / (#w * #c)) - log k)`` and only
+    positive entries are kept.  Returns CSR (indptr, key, val) over
+    ``num_items`` rows, or None when no pair survives.
+
+    Bounded memory: the pair space is partitioned by head item
+    (``max_pairs_in_memory`` pairs per pass), with the C++/OpenMP
+    kernel (``native/fileio.cc``) doing the counting when available
+    and a chunked numpy path otherwise — the reference's chunked
+    two-pass C++ builder is the model for both.
+    """
+    from buffalo_tpu_torch.data import native
+
+    nnz = len(keys)
+    est_total = 2 * window * max(nnz, 1)
+    n_parts = max(1, -(-est_total // max_pairs_in_memory))
+    head_chunk = max(1, -(-num_items // n_parts))
+
+    parts = native.build_sppmi_native(indptr, keys, num_items, window, k,
+                                      head_chunk)
+    if parts is None:
+        parts = _numpy_sppmi_parts(indptr, keys, num_items, window, k,
+                                   head_chunk)
+    parts = [p for p in parts if len(p[0])]
+    if not parts:
+        return None
+    # both builders emit each head partition in (row, col) order and the
+    # partitions in head order, so the concatenation is the CSR
+    rr = np.concatenate([p[0] for p in parts]).astype(np.int64)
+    cc = np.concatenate([p[1] for p in parts]).astype(np.int32)
+    vv = np.concatenate([p[2] for p in parts])
+    out_indptr = np.zeros(num_items + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rr, minlength=num_items), out=out_indptr[1:])
+    return out_indptr, cc, vv

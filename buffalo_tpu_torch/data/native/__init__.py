@@ -89,6 +89,20 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_int32), ctypes.c_void_p, ctypes.c_int]
+        lib.fileio_sppmi_occ.restype = ctypes.c_int64
+        lib.fileio_sppmi_occ.argtypes = [
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_double)]
+        lib.fileio_sppmi_part.restype = ctypes.c_int64
+        lib.fileio_sppmi_part.argtypes = [
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_double,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_double,
+            ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
         lib.fileio_checksum.restype = None
         lib.fileio_checksum.argtypes = [
             ctypes.c_void_p, ctypes.c_int64,
@@ -154,6 +168,52 @@ def build_csr_native(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
             f"{rc} triples reference rows outside [0, {num_rows}); "
             "the input header row count is wrong")
     return indptr, out_key, out_val
+
+
+def build_sppmi_native(indptr: np.ndarray, keys: np.ndarray,
+                       num_items: int, window: int, k: int,
+                       head_chunk: int):
+    """Partitioned SPPMI build (see fileio.cc).  Yields per-partition
+    (rows, cols, vals) triple arrays, or returns None when the native
+    library is unavailable."""
+    import math
+
+    lib = get_lib()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    n_rows = len(indptr) - 1
+    occ = np.zeros(num_items, dtype=np.float64)
+    d_total = lib.fileio_sppmi_occ(n_rows, _ptr(indptr, ctypes.c_int64),
+                                   _ptr(keys, ctypes.c_int32), num_items,
+                                   window, _ptr(occ, ctypes.c_double))
+    if d_total <= 0:
+        return []
+
+    def parts():
+        cap = max(1 << 16, 4 * d_total // max(
+            1, -(-num_items // head_chunk)))
+        for beg in range(0, num_items, head_chunk):
+            end = min(num_items, beg + head_chunk)
+            while True:
+                out_r = np.empty(cap, dtype=np.int32)
+                out_c = np.empty(cap, dtype=np.int32)
+                out_v = np.empty(cap, dtype=np.float32)
+                got = lib.fileio_sppmi_part(
+                    n_rows, _ptr(indptr, ctypes.c_int64),
+                    _ptr(keys, ctypes.c_int32), num_items, window,
+                    math.log(float(k)), _ptr(occ, ctypes.c_double),
+                    float(d_total), beg, end,
+                    _ptr(out_r, ctypes.c_int32),
+                    _ptr(out_c, ctypes.c_int32),
+                    _ptr(out_v, ctypes.c_float), cap)
+                if got >= 0:
+                    yield out_r[:got], out_c[:got], out_v[:got]
+                    break
+                cap = -got
+
+    return list(parts())
 
 
 def checksum_native(arr: np.ndarray, n_chunks: int = 64):

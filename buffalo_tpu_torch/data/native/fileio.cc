@@ -15,13 +15,13 @@
 #include <omp.h>
 
 #include <algorithm>
+#include <parallel/algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <unordered_map>
 #include <vector>
 
 #include <fcntl.h>
@@ -326,6 +326,11 @@ int64_t fileio_sppmi_occ(int64_t n_rows, const int64_t* indptr,
 // entries with pmi - log k > 0 as triples.  Returns the number of
 // surviving entries; if it exceeds `cap`, nothing is written and the
 // needed size is returned as a negative number (caller re-allocates).
+// The partition's pair codes (head * num_items + tail) are gathered per
+// thread over the OpenMP row loop, sorted once (in parallel) and counted
+// as runs: exact counts, emitted in (head, tail) order.  (A hash map per
+// thread merged under a lock, the earlier form, spent most of a
+// KakaoBrunch-scale build in the serial merge.)
 int64_t fileio_sppmi_part(int64_t n_rows, const int64_t* indptr,
                           const int32_t* keys, int64_t num_items,
                           int64_t window, double logk, const double* occ,
@@ -333,16 +338,11 @@ int64_t fileio_sppmi_part(int64_t n_rows, const int64_t* indptr,
                           int64_t head_end, int32_t* out_rows,
                           int32_t* out_cols, float* out_vals,
                           int64_t cap) {
-    // per-thread maps, merged once: the pair scan dominates the SPPMI
-    // build (each partition rescans the whole stream), so it runs on
-    // the OpenMP row loop like the occ pass
-    std::unordered_map<int64_t, int64_t> counts;
-    counts.reserve(1 << 16);
+    std::vector<std::vector<int64_t>> per(omp_get_max_threads());
 #pragma omp parallel
     {
-        std::unordered_map<int64_t, int64_t> local;
-        local.reserve(1 << 14);
-#pragma omp for schedule(dynamic, 256) nowait
+        std::vector<int64_t>& local = per[omp_get_thread_num()];
+#pragma omp for schedule(dynamic, 256)
         for (int64_t r = 0; r < n_rows; ++r) {
             int64_t beg = indptr[r], end = indptr[r + 1];
             for (int64_t i = beg; i < end; ++i) {
@@ -350,22 +350,30 @@ int64_t fileio_sppmi_part(int64_t n_rows, const int64_t* indptr,
                 for (int64_t j = i + 1; j < hi; ++j) {
                     int64_t a = keys[i], b = keys[j];
                     if (a >= head_beg && a < head_end)
-                        ++local[a * num_items + b];
+                        local.push_back(a * num_items + b);
                     if (b >= head_beg && b < head_end)
-                        ++local[b * num_items + a];
+                        local.push_back(b * num_items + a);
                 }
             }
         }
-#pragma omp critical
-        {
-            for (const auto& kv : local) counts[kv.first] += kv.second;
-        }
     }
+    size_t total = 0;
+    for (const auto& v : per) total += v.size();
+    std::vector<int64_t> codes;
+    codes.reserve(total);
+    for (auto& v : per) {
+        codes.insert(codes.end(), v.begin(), v.end());
+        std::vector<int64_t>().swap(v);
+    }
+    __gnu_parallel::sort(codes.begin(), codes.end());
     int64_t n_out = 0;
-    for (const auto& kv : counts) {
-        int64_t a = kv.first / num_items, b = kv.first % num_items;
-        double pmi = std::log(static_cast<double>(kv.second) * d_total /
-                              (occ[a] * occ[b]));
+    for (size_t s = 0; s < codes.size();) {
+        size_t e = s + 1;
+        while (e < codes.size() && codes[e] == codes[s]) ++e;
+        const int64_t a = codes[s] / num_items, b = codes[s] % num_items;
+        const double pmi = std::log(static_cast<double>(e - s) * d_total /
+                                    (occ[a] * occ[b]));
+        s = e;
         if (pmi - logk <= 0) continue;
         if (n_out < cap) {
             out_rows[n_out] = static_cast<int32_t>(a);

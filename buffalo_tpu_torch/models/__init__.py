@@ -1,8 +1,11 @@
 """Algorithm drivers (reference buffalo/algo/ analog)."""
 from buffalo_tpu_torch.models.als import ALS  # noqa: F401
 from buffalo_tpu_torch.models.bpr import BPRMF  # noqa: F401
+from buffalo_tpu_torch.models.cfr import CFR  # noqa: F401
 from buffalo_tpu_torch.models.eals import EALS  # noqa: F401
 from buffalo_tpu_torch.models.options import (ALSOption, AlgoOption,  # noqa: F401
-                                              BPRMFOption, EALSOption,
+                                              BPRMFOption, CFROption,
+                                              EALSOption, PLSIOption,
                                               WARPOption)
+from buffalo_tpu_torch.models.plsi import PLSI  # noqa: F401
 from buffalo_tpu_torch.models.warp import WARP  # noqa: F401

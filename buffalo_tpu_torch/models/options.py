@@ -2,7 +2,8 @@
 
 Copy of ``buffalo_tpu.models.options`` for the PyTorch port, with the
 algorithms this port has so far (``AlgoOption``, ``ALSOption``,
-``BPRMFOption``, ``WARPOption``, ``EALSOption``): same
+``BPRMFOption``, ``WARPOption``, ``EALSOption``, ``PLSIOption``,
+``CFROption``): same
 hyperparameter names and defaults, so configurations port over
 unchanged.  One key is the port's own: ``device`` ("cuda" by default;
 "cpu" runs the plain PyTorch versions of the kernels).  The reference's
@@ -258,5 +259,67 @@ class WARPOption(AlgoOption):
             "batch_size": 0,
             "model_path": "",
             "data_opt": {},
+        })
+        return Option(opt)
+
+
+class CFROption(AlgoOption):
+    def get_default_option(self) -> Option:
+        """CoFactor (reference options.py:135-177; the JAX package's
+        ``CFROption``, same names and defaults).
+
+        :ivar float reg_c: L2 for the context embedding.
+        :ivar float l: weight of user-item loss vs item-context loss.
+        """
+        opt = super().get_default_option()
+        opt.update({
+            "save_factors": False,
+            "d": 20,
+            "num_iters": 10,
+            "num_workers": 1,
+            "num_cg_max_iters": 3,
+            "cg_tolerance": 1e-10,
+            "eps": 1e-10,
+            "reg_u": 0.1,
+            "reg_i": 0.1,
+            "reg_c": 0.1,
+            "alpha": 8.0,
+            "l": 1.0,
+            "optimizer": "manual_cg",
+            "model_path": "",
+            "data_opt": {},
+        })
+        return Option(opt)
+
+    def is_valid_option(self, opt) -> bool:
+        b = super().is_valid_option(opt)
+        possible = ["llt", "ldlt", "manual_cg", "eigen_cg", "eigen_bicg",
+                    "eigen_gmres", "eigen_dgmres", "eigen_minres"]
+        if opt.optimizer not in possible:
+            raise RuntimeError(
+                f"optimizer ({opt.optimizer}) should be in {possible}")
+        return b
+
+
+class PLSIOption(AlgoOption):
+    def get_default_option(self) -> Option:
+        """pLSI EM (reference options.py:355-385; the JAX package's
+        ``PLSIOption``, same names and defaults).
+
+        :ivar float alpha1: smoothing for cluster assignment P(z|u).
+        :ivar float alpha2: smoothing for item preference P(i|z).
+        """
+        opt = super().get_default_option()
+        opt.update({
+            "d": 20,
+            "num_iters": 10,
+            "num_workers": 1,
+            "alpha1": 1.0,
+            "alpha2": 1.0,
+            "eps": 1e-10,
+            "model_path": "",
+            "save_factors": False,
+            "data_opt": {},
+            "inherit_opt": {},
         })
         return Option(opt)

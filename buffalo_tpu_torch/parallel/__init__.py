@@ -1,3 +1,3 @@
 from buffalo_tpu_torch.parallel.base import (ParALS, ParBPRMF,  # noqa: F401
-                                             ParEALS, Parallel)
+                                             ParCFR, ParEALS, Parallel)
 from buffalo_tpu_torch.parallel.ann import IVFIndex  # noqa: F401

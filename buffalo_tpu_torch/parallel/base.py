@@ -7,10 +7,9 @@ pool filtering gathers the pool rows first; ``-1`` key padding when a
 pool is smaller than topk; an ANN index per group (``set_ann_index``,
 e.g. an :class:`~buffalo_tpu_torch.parallel.ann.IVFIndex`) serves
 ``most_similar`` when set.  ``ParALS`` and ``ParBPRMF`` (scores with the
-item bias ``Qb``) and ``ParEALS`` are ported; ``ParCFR`` and ``ParW2V``
-come with their families, and a
-device mesh with the multi-device port (ROADMAP queue 1).  Runs on the
-model's device (``opt.device``).
+item bias ``Qb``), ``ParEALS`` and ``ParCFR`` are ported; ``ParW2V`` comes
+with its family, and a device mesh with the multi-device port (ROADMAP
+queue 1).  Runs on the model's device (``opt.device``).
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ import numpy as np
 
 from buffalo_tpu_torch.models.als import ALS
 from buffalo_tpu_torch.models.bpr import BPRMF
+from buffalo_tpu_torch.models.cfr import CFR
 from buffalo_tpu_torch.models.eals import EALS
 from buffalo_tpu_torch.ops.topk import batch_topn
 
@@ -27,7 +27,7 @@ from buffalo_tpu_torch.ops.topk import batch_topn
 class Parallel(abc.ABC):
     def __init__(self, algo, *argv, **kwargs):
         super().__init__()
-        if not isinstance(algo, (ALS, EALS, BPRMF)):
+        if not isinstance(algo, (ALS, EALS, CFR, BPRMF)):
             raise ValueError(f"Not supported algo type: {type(algo)}")
         self.algo = algo
         self.num_workers = int(kwargs["num_workers"])
@@ -154,6 +154,11 @@ class ParALS(Parallel):
 
 class ParEALS(ParALS):
     """``ParALS`` over an eALS model (``parallel/base.py:175``)."""
+
+
+class ParCFR(ParALS):
+    """``ParALS`` over a CoFactor model: user x item factors, U / I aliased
+    as P / Q (``parallel/base.py:226``)."""
 
 
 class ParBPRMF(ParALS):

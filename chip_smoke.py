@@ -33,7 +33,20 @@ failing the check, K10's projection), eals path (eALS at d = 40, 4
 epochs, the RMSE falling every epoch, ParEALS top-10), eals kernels (K13
 on a range batch of every length bucket, the segment batches and the CSR
 rows, a Jacobi sweep failing the check, widths 13 to 256; K14's residuals
-and sums), top-k past 1024 (k = 2,000 through the matmul route), catalog
+and sums), top-k past 1024 (k = 2,000 through the matmul route), plsi
+path (pLSI at its defaults, d = 20, 4 epochs in the range layout: one K15
+launch per batch and one K16 per epoch, the loss falling, P's rows and Q's
+columns stochastic, top-10), plsi variants (one epoch each of group
+dispatch, range_layout=False and streamed batches from the trained
+tables), plsi kernels (K15's range, segment and padded modes, a variant
+with the padded floor in the range mode failing the check; K16 masked and
+unmasked), stream build (the KakaoBrunch12M-shaped corpus, 306,291 lines
+over 505,926 items, through ``Stream`` with SPPMI windows 5, k 10; the
+native SPPMI byte-equal to numpy's on a slice), cfr path (CoFactor at
+d = 32, 4 epochs: one K17, K3 and K18 launch per batch, the loss falling,
+top-10 through ``ParCFR``), cfr kernels (K17 on user, item, context and
+segment-pair batches, a run without the explicit term failing; K3 on its
+systems by the CG rule; K18, a run on the old rows failing), catalog
 path (the README's serving configuration: 10,000 queries over a
 505,840 x 100 KakaoBrunch-shaped catalog through ``batch_topn``, float32
 and bfloat16 queries, its ``IVFIndex`` build and search; K5, K6 and K7
@@ -53,7 +66,8 @@ are the d = 40 path's, K4's the d = 160 path's, K5–K7's the catalog
 path's, K8's and K9's the BPR path's with K9's accumulation from the
 adagrad and adam epochs, K10's those epochs' and the WARP path's, K11's
 (with its loss mode) and K12's the WARP path's, K13's and K14's the eALS
-path's; K10's times are of the BPR shapes); the kernel lines of K1, K3 and
+path's, K15's and K16's the pLSI path's, K17's and K18's the CFR path's;
+K10's times are of the BPR shapes); the kernel lines of K1, K3 and
 K4 also give the kernel's device time alone (CUPTI through
 torch.profiler, median of the 11-22 of 22 launches the trace holds),
 since events around a short launch also catch the wrapper's host work
@@ -72,6 +86,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -178,6 +193,41 @@ EALS_WIDTHS = (13, 64, 128, 256)
 # topk_past_1024: k = TOPK_PAST items for TOPK_PAST_USERS users of the eALS
 # model through batch_topn's matmul route
 TOPK_PAST, TOPK_PAST_USERS = 2_000, 1_000
+# pLSI (plsi_path, plsi_variants, plsi_kernels): PLSIOption defaults (d = 20,
+# alpha1 = alpha2 = 1) on the ML-20M data in the range layout, PLSI_EPOCHS
+# epochs, top-10 for PLSI_USERS users.  The variants (group dispatch,
+# range_layout=False, the streamed batches at resident_mb 0) run one epoch
+# each from the trained tables, held at the CPU tests' tolerance (tables
+# TOL_PLSI_X relative, TOL_PLSI_ABS absolute; loss TOL_PLSI_LOSS) to the
+# same function from the same start: group dispatch to the range layout's
+# epoch, the other two (the padded path's element floor, which binds on
+# ML-20M's smallest Q entries) to its plain versions, or where their
+# float32 sums of a head item's ~1M latent rows part, to a float64 run of
+# them within NOISE_FACTOR times the float32 run's distance.  K15's sums within
+# TOL_K15 of its plain version (relative to the largest), its loss within
+# TOL_K15 relative, and a variant with the padded path's element floor must
+# fail that on Dirichlet(PLSI_SPARSE_CONC) tables, where latent products
+# fall below the floors; K16 within TOL_K16.  P's rows and Q's columns sum
+# to 1 within TOL_STOCHASTIC.
+PLSI_EPOCHS, PLSI_USERS = 4, 1_000
+TOL_PLSI_X, TOL_PLSI_ABS, TOL_PLSI_LOSS = 1e-4, 1e-6, 1e-5
+TOL_K15, TOL_K16, PLSI_SPARSE_CONC, TOL_STOCHASTIC = 1e-5, 1e-6, 0.02, 1e-5
+# Stream + CoFactor (stream_build, cfr_path, cfr_kernels): the KakaoBrunch12M
+# shape of the JAX package's stream benchmark (306,291 lines over 505,926
+# items, 12M tokens, Zipf 0.8 popularity, seed 7), `matrix` internal type,
+# SPPMI windows 5 and k 10; the native SPPMI byte-equal to numpy's on the
+# first STREAM_SLICE lines.  CFR at d = CFR_D (that benchmark's width),
+# CFROption defaults otherwise (manual_cg, 3 CG steps, alpha 8, l 1, regs
+# 0.1), CFR_EPOCHS epochs, top-10 for CFR_USERS users through ParCFR (held
+# to numpy's ranking on the first CFR_CHECK_USERS).  K17's
+# A and y within TOL_K17 relative of its plain version (a run without the
+# explicit term must fail that), K18 within TOL_K18 of the largest bias (a
+# run on the rows before the solve must fail that), K3's solves of K17's
+# systems by the CG rule (TOL_X or the noise floor).
+BRUNCH_LINES, BRUNCH_VOCAB, BRUNCH_TOKENS = 306_291, 505_926, 12_000_000
+STREAM_SLICE = 20_000
+CFR_D, CFR_EPOCHS, CFR_USERS, CFR_CHECK_USERS = 32, 4, 10_000, 1_000
+TOL_K17, TOL_K18 = 1e-4, 1e-5
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -2982,6 +3032,709 @@ def topk_past_1024(R, torch, model):
           same_as_numpy=same)
 
 
+def plsi_opt(bt, **kw):
+    """PLSIOption defaults on the card, PLSI_EPOCHS epochs, no validation
+    inside the epochs, with ``kw`` on top."""
+    opt = bt.PLSIOption().get_default_option()
+    opt.update(num_iters=PLSI_EPOCHS, device="cuda",
+               validation={"topk": TOPK}, evaluation_on_learning=False)
+    opt.update(kw)
+    return opt
+
+
+def plsi_model(bt, data, opt, start=None):
+    """A PLSI model on ``data``, initialized from numpy seed 0, or holding
+    the tables ``start`` (P, Q)."""
+    model = bt.PLSI(opt, data=data)
+    np.random.seed(0)
+    model.initialize()
+    if start is not None:
+        model.P, model.Q = start[0].copy(), start[1].copy()
+    return model
+
+
+def plsi_inputs(torch, model):
+    """A trained pLSI's range layout on the card: (state, permuted P, Q)."""
+    from buffalo_tpu_torch.data.batching import permute_table
+
+    st = model._train_state(model._rowwise_batcher())
+    P = torch.from_numpy(permute_table(model.P, st["u_pos"],
+                                       st["u_pad"])).to(model.device)
+    Q = torch.from_numpy(permute_table(model.Q, st["i_pos"],
+                                       st["i_pad"])).to(model.device)
+    return st, P, Q
+
+
+def plsi_path(bt, PK, R, torch, data):
+    """pLSI on the ML-20M data (PLSIOption defaults, d = 20), PLSI_EPOCHS
+    epochs in the range layout through the user's entry points: one K15
+    launch per batch of both orientations and one K16 per epoch, the loss
+    falling every epoch, P's rows and Q's columns stochastic, validation
+    after training, a profiled epoch, top-10 for PLSI_USERS users held to
+    numpy.  Returns (model, its range-layout inputs, the path's
+    launches)."""
+    model = plsi_model(bt, data, plsi_opt(bt))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(PK.KERNELS)
+    model.train()
+    launches = read_counts(PK.KERNELS)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = model.iteration_losses
+    check(len(losses) == PLSI_EPOCHS and all(np.isfinite(losses))
+          and all(b < a for a, b in zip(losses, losses[1:])),
+          f"pLSI loss not finite and falling: {losses}")
+    p_err = float(np.abs(model.P.sum(1, dtype=np.float64) - 1).max())
+    q_err = float(np.abs(model.Q.sum(0, dtype=np.float64) - 1).max())
+    check(p_err <= TOL_STOCHASTIC and q_err <= TOL_STOCHASTIC,
+          f"pLSI tables not stochastic: rows of P {p_err:.3g}, columns of "
+          f"Q {q_err:.3g} from 1")
+    st, P, Q = plsi_inputs(torch, model)
+    nb = len(st["row_groups"]) + len(st["col_groups"])
+    want = dict(plsi_estep=nb * PLSI_EPOCHS, plsi_mstep=PLSI_EPOCHS)
+    check(launches == want, f"pLSI epochs launched {launches}, expected "
+          f"{want}")
+    t0 = time.perf_counter()
+    val = model.get_validation_results()
+    val_s = time.perf_counter() - t0
+    check(all(np.isfinite(v) for v in val.values()), f"pLSI validation: "
+          f"{val}")
+    o = model.opt
+    kw = dict(alpha1=float(o.alpha1), alpha2=float(o.alpha2),
+              num_items=ML20M_ITEMS)
+    prof = profile_call(torch, lambda: float(PK.plsi_epoch_range(
+        P, Q, st["row_groups"], st["col_groups"], st["p_mask"],
+        st["q_mask"], **kw)[2]), top=10)
+    users = [str(u) for u in range(PLSI_USERS)]
+    model.topk_recommendation(users[:10], topk=TOPK)  # warm
+    reset_counts(R.KERNELS)
+    ms, recs = wall_ms(lambda: model.topk_recommendation(users, topk=TOPK))
+    k5 = R.score_topk.launches
+    ids = np.array([[int(i) for i in recs[u]] for u in users])
+    check(k5 >= 1 and ids.shape == (PLSI_USERS, TOPK),
+          f"pLSI top-10 malformed or without K5 ({k5})")
+    same = ids_match_numpy(ids, model.P[:PLSI_USERS], model.Q,
+                           what="PLSI.topk_recommendation")
+    med = float(np.median(model.iteration_times[1:]))
+    phase("plsi_path", d=int(o.d), epochs=PLSI_EPOCHS, alpha1=o.alpha1,
+          alpha2=o.alpha2, batches_per_epoch=nb, train_loss=losses,
+          rows_of_P_sum_err=p_err, cols_of_Q_sum_err=q_err,
+          val_ndcg=val["ndcg"], val_auc=val["auc"], validation_seconds=val_s,
+          epoch_seconds=model.iteration_times, median_epoch_seconds_2_4=med,
+          launches=launches,
+          launches_per_epoch=per_epoch(launches, PLSI_EPOCHS),
+          max_memory_allocated_mb=peak_mb, epoch_profile=prof,
+          topk_users=PLSI_USERS, topk_k5_launches=k5, topk_host_ms=ms,
+          topk_same_as_numpy=same)
+    return model, st, launches
+
+
+def plsi_variants(bt, PK, torch, data, model):
+    """One epoch from the trained tables in each other route: group
+    dispatch against the range layout's epoch from the same start (the
+    same function); range_layout=False and the streamed batches
+    (resident_mb 0), which take the padded path's element floor, against
+    that function's plain versions on the card from the same start.  Each
+    within TOL_PLSI_X relative (TOL_PLSI_ABS absolute), its loss within
+    TOL_PLSI_LOSS; the padded route's distance from the range epoch (the
+    floors differ where latent products fall below 1e-10) is reported."""
+    start = (model.P, model.Q)
+    o = model.opt
+    a1, a2 = float(o.alpha1), float(o.alpha2)
+
+    def epoch(**kw):
+        m = plsi_model(bt, data, plsi_opt(bt, num_iters=1, validation={},
+                                          **kw), start)
+        reset_counts(PK.KERNELS)
+        m.train()
+        return m, read_counts(PK.KERNELS)
+
+    base, _ = epoch()
+    deno = float(np.sum(data.get_group("rowwise")["val"], dtype=np.float64))
+    batches = model._rowwise_batcher().device_batches()
+
+    def plain_epoch(dtype):
+        """The padded route's function through the plain versions on the
+        card, from the same start, in ``dtype``."""
+        P0, Q0 = (torch.from_numpy(t).to(model.device, dtype) for t in start)
+        Pn, Qn = torch.zeros_like(P0), torch.zeros_like(Q0)
+        loss = sum(float(PK.estep_padded_plain(Pn, Qn, P0, Q0, b).double()
+                         .sum()) for b in batches)
+        PK.mstep_plain(Pn, Qn, alpha1=a1, alpha2=a2)
+        return types.SimpleNamespace(
+            P=Pn.cpu().numpy(), Q=Qn.cpu().numpy(),
+            iteration_losses=[loss / (deno + o.eps)])
+
+    # the padded Qn sums add up to ~1M latent rows per head item in float32:
+    # the padded routes are held to the plain float32 epoch, or to the
+    # float64 one within NOISE_FACTOR times the float32 epoch's distance
+    plain, plain64 = plain_epoch(torch.float32), plain_epoch(torch.float64)
+    del batches
+    torch.cuda.empty_cache()
+    out = {}
+    for name, ref, kw in (("group", base, dict(epoch_dispatch="group")),
+                          ("padded", plain, dict(range_layout=False)),
+                          ("streamed", plain, dict(resident_mb=0))):
+        m, launches = epoch(**kw)
+        errs, ok = {}, True
+        for t in "PQ":
+            got, want = getattr(m, t), getattr(ref, t)
+            errs[t] = float(np.abs(got - want).max())
+            close = np.allclose(got, want, rtol=TOL_PLSI_X, atol=TOL_PLSI_ABS)
+            if ref is plain and not close:
+                t64 = getattr(plain64, t)
+                floor64 = float(np.abs(want - t64).max())
+                errs[f"{t}_vs_f64"] = float(np.abs(got - t64).max())
+                errs[f"{t}_plain_vs_f64"] = floor64
+                close = errs[f"{t}_vs_f64"] <= NOISE_FACTOR * floor64 + \
+                    TOL_PLSI_ABS
+            ok = ok and close
+        loss_err = abs(m.iteration_losses[0] - ref.iteration_losses[0]) / \
+            abs(ref.iteration_losses[0])
+        check(ok and loss_err <= TOL_PLSI_LOSS, f"pLSI {name} epoch off "
+              f"its reference: {errs}, loss {loss_err:.3g}")
+        out[name] = dict(epoch_seconds=m.iteration_times[0],
+                         max_abs_err=errs, loss_rel_err=loss_err,
+                         launches=launches)
+        if name == "padded":
+            out[name]["vs_range_epoch"] = dict(
+                max_abs_diff={t: float(np.abs(getattr(m, t)
+                                              - getattr(base, t)).max())
+                              for t in "PQ"},
+                loss_rel_diff=abs(m.iteration_losses[0]
+                                  - base.iteration_losses[0])
+                / abs(base.iteration_losses[0]))
+    phase("plsi_variants", range_epoch_seconds=base.iteration_times[0],
+          tol=TOL_PLSI_X, tol_abs=TOL_PLSI_ABS, tol_loss=TOL_PLSI_LOSS,
+          **out)
+
+
+def dirichlet_tables(torch, n, m, d, dev, seed):
+    """Row-stochastic (n, d) and column-stochastic (m, d) tables drawn from
+    Dirichlet(PLSI_SPARSE_CONC): many latent products below 1e-10."""
+    rng = np.random.default_rng(seed)
+    X = rng.dirichlet(np.full(d, PLSI_SPARSE_CONC), n)
+    Y = rng.dirichlet(np.full(m, PLSI_SPARSE_CONC), d).T
+    return tuple(torch.tensor(np.ascontiguousarray(t / t.sum(axis, keepdims=True)),
+                              dtype=torch.float32, device=dev)
+                 for t, axis in ((X, 1), (Y, 0)))
+
+
+def distinct(torch, cols, lens):
+    """The distinct ids of a padded block's live entries."""
+    live = torch.arange(cols.shape[1], device=cols.device)[None, :] < \
+        lens[:, None]
+    return int(torch.unique(cols[live]).numel())
+
+
+def k15_check(PK, torch, An0, A, Bf, batch, *, padded=False, Qn0=None):
+    """K15 on one batch against its plain version: (largest absolute error
+    of the sums, that relative to the largest sum, the loss's relative
+    error, bitwise repeatable)."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+
+    outs = [[An0.clone()] + ([Qn0.clone()] if padded else [])
+            for _ in range(3)]
+    kw = dict(padded=True, Qn=outs[0][1]) if padded else {}
+    loss = PK.plsi_estep(outs[0][0], A, Bf, batch, **kw)
+    kw = dict(padded=True, Qn=outs[1][1]) if padded else {}
+    again = PK.plsi_estep(outs[1][0], A, Bf, batch, **kw)
+    if padded:
+        ref = PK.estep_padded_plain(outs[2][0], outs[2][1], A, Bf, batch)
+    elif isinstance(batch, RangeBatch):
+        ref = PK.estep_range_plain(outs[2][0], A, Bf, int(batch.row_start),
+                                   batch.lens, batch.cols, batch.vals)
+    else:
+        ref = PK.estep_segment_plain(outs[2][0], A, Bf, batch)
+    torch.cuda.synchronize()
+    errs = [rel_err(g, r) for g, r in zip(outs[0], outs[2])]
+    loss_err = float((loss.double().sum() - ref.double().sum()).abs()
+                     / ref.double().sum().abs())
+    same = all(torch.equal(a, b) for a, b in zip(outs[0], outs[1])) and \
+        torch.equal(loss, again)
+    return (max(e[0] for e in errs), max(e[1] for e in errs), loss_err,
+            same)
+
+
+def plsi_kernels(PK, torch, model, st):
+    """K15 and K16 against their plain versions on the trained model's
+    ML-20M layout: K15's range mode on the user half's range batch with the
+    most entries (and on Dirichlet tables, where the element floor must fail
+    the check), its segment mode on the item half's largest segment batch,
+    its padded mode on the rowwise padded batch with the most entries; K16
+    masked on the permuted tables and unmasked on the model's.  Returns
+    the kernels line's entries."""
+    import torch.nn.functional as F
+    from buffalo_tpu_torch.data.batching import (PaddedBatch, RangeBatch,
+                                                 StagedSegmentBatch)
+
+    dev = model.device
+    _, P, Q = plsi_inputs(torch, model)
+    d = P.shape[1]
+    big = max((b for b in st["row_groups"] if isinstance(b, RangeBatch)),
+              key=lambda b: int(b.lens.sum()))
+    abs_err, err, loss_err, same = k15_check(PK, torch, torch.zeros_like(P),
+                                             P, Q, big)
+    Ps, Qs = dirichlet_tables(torch, P.shape[0], Q.shape[0], d, dev, 15)
+    _, s_err, s_loss_err, s_same = k15_check(
+        PK, torch, torch.zeros_like(P), Ps, Qs, big)
+    B = big.cols.shape[0]
+    rs = int(big.row_start)
+    wrong, ref = torch.zeros_like(Ps), torch.zeros_like(Ps)
+    PK.estep_range_plain(ref, Ps, Qs, rs, big.lens, big.cols, big.vals)
+    PK.estep_padded_plain(wrong, torch.zeros_like(Qs), Ps, Qs, PaddedBatch(
+        torch.arange(rs, rs + B, device=dev, dtype=torch.int32), big.lens,
+        big.cols, big.vals))
+    wrong_err = rel_err(wrong, ref)[1]
+    check(max(err, s_err) <= TOL_K15 and max(loss_err, s_loss_err) <= TOL_K15
+          and same and s_same, f"K15 range mode: sums {err:.3g} / "
+          f"{s_err:.3g}, loss {loss_err:.3g} / {s_loss_err:.3g} from the "
+          f"plain version (repeatable: {same}, {s_same})")
+    check(wrong_err > TOL_K15, f"the K15 check passes the element floor in "
+          f"the range mode ({wrong_err:.3g})")
+    seg = max((b for b in st["col_groups"]
+               if isinstance(b, StagedSegmentBatch)),
+              key=lambda b: int(b.chunk_lens.sum()), default=None)
+    check(seg is not None, "the item half has no segment batch")
+    _, g_err, g_loss_err, g_same = k15_check(PK, torch, torch.zeros_like(Q),
+                                             Q, P, seg)
+    check(g_err <= TOL_K15 and g_loss_err <= TOL_K15 and g_same,
+          f"K15 segment mode: {g_err:.3g}, loss {g_loss_err:.3g}, "
+          f"repeatable {g_same}")
+    # the padded mode on the rowwise batches of the fallback path
+    batcher = model._rowwise_batcher()
+    pb = max((b for b in batcher.device_batches()
+              if isinstance(b, PaddedBatch)),
+             key=lambda b: int(b.lens.sum()))
+    Pu = torch.from_numpy(model.P).to(dev)
+    Qu = torch.from_numpy(model.Q).to(dev)
+    _, p_err, p_loss_err, p_same = k15_check(
+        PK, torch, torch.zeros_like(Pu), Pu, Qu, pb, padded=True,
+        Qn0=torch.zeros_like(Qu))
+    check(p_err <= TOL_K15 and p_loss_err <= TOL_K15 and p_same,
+          f"K15 padded mode: {p_err:.3g}, loss {p_loss_err:.3g}, "
+          f"repeatable {p_same}")
+    # times and bounds: range mode (the kernels line), segment and padded
+    An = torch.zeros_like(P)
+    n = int(big.lens.sum())
+    nbytes = 4 * B + 8 * n + 4 * d * (distinct(torch, big.cols, big.lens)
+                                      + 3 * B) + 4 * B
+    bms, by = bound_ms(nbytes, n * (4 * d + 8))
+    n_seg = int(seg.chunk_lens.sum())
+    R_seg = seg.rows.shape[0]
+    n_pad = int(pb.lens.sum())
+    cols_pad = distinct(torch, pb.cols, pb.lens)
+    AnQ, AnP, Qn = (torch.zeros_like(t) for t in (Q, Pu, Qu))
+    k15 = dict(
+        route="cuda", source="buffalo_tpu_torch/csrc/plsi_estep.cu",
+        replaces="buffalo_tpu/ops/plsi_kernels.py:111", max_abs_err=abs_err,
+        ms=time_ms(lambda: PK.plsi_estep(An, P, Q, big)),
+        plain_ms=time_ms(lambda: PK.estep_range_plain(
+            An, P, Q, rs, big.lens, big.cols, big.vals), reps=5, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        batch=list(big.cols.shape), entries=n, rel_err=err,
+        loss_rel_err=loss_err, dirichlet_rel_err=s_err,
+        dirichlet_loss_rel_err=s_loss_err,
+        element_floor_rel_err=wrong_err, repeatable=same and s_same,
+        segment=dict(
+            rows=R_seg, chunks=int(seg.chunk_lens.numel()), entries=n_seg,
+            rel_err=g_err, loss_rel_err=g_loss_err,
+            ms=time_ms(lambda: PK.plsi_estep(AnQ, Q, P, seg)),
+            plain_ms=time_ms(lambda: PK.estep_segment_plain(
+                AnQ, Q, P, seg), reps=5, warmup=1),
+            bound_ms=bound_ms(8 * n_seg + 4 * d * (
+                distinct(torch, seg.cols, seg.chunk_lens) + 3 * R_seg),
+                n_seg * (4 * d + 8))[0]),
+        padded=dict(
+            batch=list(pb.cols.shape), entries=n_pad, rel_err=p_err,
+            loss_rel_err=p_loss_err,
+            ms=time_ms(lambda: PK.plsi_estep(AnP, Pu, Qu, pb, padded=True,
+                                             Qn=Qn)),
+            plain_ms=time_ms(lambda: PK.estep_padded_plain(
+                AnP, Qn, Pu, Qu, pb), reps=5, warmup=1),
+            bound_ms=bound_ms(
+                12 * pb.lens.shape[0] + 8 * n_pad
+                + 4 * d * (3 * pb.lens.shape[0] + 3 * cols_pad),
+                n_pad * (5 * d + 8))[0]))
+    # K16: masked on the permuted tables after one accumulation, unmasked
+    # on the model's
+    o = model.opt
+    Pn, Qn2 = torch.zeros_like(P), torch.zeros_like(Q)
+    for g in st["row_groups"]:
+        PK.plsi_accumulate_group(Pn, P, Q, g, with_loss=False)
+    for g in st["col_groups"]:
+        PK.plsi_accumulate_group(Qn2, Q, P, g, with_loss=False)
+    kw_m = dict(alpha1=float(o.alpha1), alpha2=float(o.alpha2),
+                num_items=ML20M_ITEMS, p_mask=st["p_mask"],
+                q_mask=st["q_mask"])
+    kw_u = dict(alpha1=float(o.alpha1), alpha2=float(o.alpha2))
+    m_err, errs = 0.0, {}
+    for name, (tp, tq), kw in (("masked", (Pn, Qn2), kw_m),
+                               ("unmasked", (Pu, Qu), kw_u)):
+        runs = [[tp.clone(), tq.clone()] for _ in range(3)]
+        PK.plsi_mstep(*runs[0], **kw)
+        PK.plsi_mstep(*runs[1], **kw)
+        PK.mstep_plain(*runs[2], **kw)
+        torch.cuda.synchronize()
+        e = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                for a, b in zip(runs[0], runs[2]))
+        rep = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+        check(e <= TOL_K16 and rep, f"K16 {name}: {e:.3g} from the plain "
+              f"version (repeatable: {rep})")
+        errs[name] = e
+        m_err = max(m_err, max(float((a - b).abs().max())
+                               for a, b in zip(runs[0], runs[2])))
+    Pt, Qt = Pn.clone(), Qn2.clone()
+    nel = Pt.numel() + Qt.numel()
+    # each table read once and written once, and the masks read
+
+    def library():
+        F.normalize(Pt + float(o.alpha1) / d, p=1, dim=1)
+        F.normalize(Qt + float(o.alpha2) / ML20M_ITEMS, p=1, dim=0)
+
+    bms, by = bound_ms(4 * (2 * nel + Pt.shape[0] + Qt.shape[0]), 3 * nel)
+    k16 = dict(route="cuda", source="buffalo_tpu_torch/csrc/plsi_mstep.cu",
+               replaces="buffalo_tpu/ops/plsi_kernels.py:209",
+               max_abs_err=m_err,
+               ms=time_ms(lambda: PK.plsi_mstep(Pt, Qt, **kw_m)),
+               plain_ms=time_ms(lambda: PK.mstep_plain(Pt, Qt, **kw_m)),
+               bound_ms=bms, bound_by=by, library_ms=time_ms(library),
+               tables=[list(Pt.shape), list(Qt.shape)], rel_err=errs)
+    phase("plsi_kernels", d=d, k15=k15, k16=k16, tol_k15=TOL_K15,
+          tol_k16=TOL_K16)
+    del P, Q, Ps, Qs, Pu, Qu, An, AnQ, AnP, Pn, Qn, Qn2, Pt, Qt, wrong, ref
+    torch.cuda.empty_cache()
+    return {"plsi_estep": k15, "plsi_mstep": k16}
+
+
+def brunch_corpus(path):
+    """The KakaoBrunch12M-shaped stream file (the JAX package's stream
+    benchmark's synthesis, seed 7): Zipf(0.8) item popularity over
+    BRUNCH_VOCAB items, Poisson line lengths scaled to BRUNCH_TOKENS."""
+    rng = np.random.default_rng(7)
+    pop = 1.0 / np.arange(1, BRUNCH_VOCAB + 1) ** 0.8
+    pop /= pop.sum()
+    lens = np.maximum(1, rng.poisson(BRUNCH_TOKENS / BRUNCH_LINES,
+                                     BRUNCH_LINES))
+    lens = np.maximum(1, (lens * (BRUNCH_TOKENS / lens.sum())).astype(
+        np.int64))
+    items = rng.choice(BRUNCH_VOCAB, size=int(lens.sum()), p=pop)
+    with open(path, "w") as fh:
+        pos = 0
+        for n in lens:
+            fh.write(" ".join(map(str, items[pos:pos + n])) + "\n")
+            pos += n
+    return int(lens.sum())
+
+
+def stream_build(bt, torch):
+    """The brunch corpus written and built through ``Stream`` (matrix
+    internal type, SPPMI windows 5 and k 10); the native SPPMI builder
+    byte-equal to the numpy one on the corpus's first STREAM_SLICE lines.
+    Returns the opened data."""
+    from buffalo_tpu_torch.data import fileio, native
+
+    path = os.path.join(WORK, "brunch.txt")
+    st = time.perf_counter()
+    tokens = brunch_corpus(path)
+    corpus_s = time.perf_counter() - st
+    sopt = bt.StreamOptions().get_default_option()
+    sopt.input.main = path
+    sopt.data.path = os.path.join(WORK, "brunch.bfo")
+    sopt.data.tmp_dir = os.path.join(WORK, "tmp")
+    sopt.data.internal_data_type = "matrix"
+    sopt.data.validation = {}
+    sopt.data.sppmi = {"windows": 5, "k": 10}
+    st = time.perf_counter()
+    data = bt.data.load(sopt)
+    data.create()
+    build_s = time.perf_counter() - st
+    header = data.get_header()
+    # the slice: the first lines' order-preserving token ids
+    seqs = []
+    with open(path) as fh:
+        for _ in range(STREAM_SLICE):
+            seqs.append(np.array(fh.readline().split(), dtype=np.int64))
+    indptr = np.zeros(len(seqs) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in seqs], out=indptr[1:])
+    keys = np.concatenate(seqs).astype(np.int32)
+    have_native = native.get_lib() is not None
+    st = time.perf_counter()
+    got = fileio.build_sppmi(indptr, keys, BRUNCH_VOCAB, window=5, k=10)
+    native_s = time.perf_counter() - st
+    lib = native.build_sppmi_native
+    native.build_sppmi_native = lambda *a, **k: None
+    try:
+        st = time.perf_counter()
+        ref = fileio.build_sppmi(indptr, keys, BRUNCH_VOCAB, window=5, k=10)
+        numpy_s = time.perf_counter() - st
+    finally:
+        native.build_sppmi_native = lib
+    equal = all(a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(got, ref))
+    check(have_native and equal, f"SPPMI on the slice: native library "
+          f"{have_native}, native and numpy byte-equal {equal}")
+    phase("stream_build", lines=BRUNCH_LINES, vocab=BRUNCH_VOCAB,
+          tokens=tokens, users=header["num_users"],
+          items=header["num_items"], nnz=header["num_nnz"],
+          sppmi_nnz=int(data.attrs["sppmi_nnz"]),
+          corpus_write_seconds=corpus_s, build_host_seconds=build_s,
+          slice_lines=STREAM_SLICE, slice_sppmi_nnz=int(len(got[1])),
+          slice_native_seconds=native_s, slice_numpy_seconds=numpy_s,
+          slice_byte_equal=equal)
+    return data
+
+
+def cfr_tables(torch, model):
+    """Copies of the CFR model's tables on the card: (U, I, C, Ib, Cb)."""
+    return tuple(torch.from_numpy(t).to(model.device, copy=True) for t in
+                 (model.U, model.I, model.C, model.Ib, model.Cb))
+
+
+def cfr_path(bt, CK, K, R, torch, data):
+    """CoFactor on the brunch data at d = CFR_D (CFROption defaults
+    otherwise), CFR_EPOCHS epochs through the user's entry points: one K17,
+    one K3 and one K18 launch per batch of each phase, the loss finite and
+    falling, a profiled epoch; ParCFR top-10 for CFR_USERS users held to
+    numpy.  Returns (model, the path's launches, its batches staged on the
+    card)."""
+    from buffalo_tpu_torch.models.cfr import _stage_entry
+
+    opt = bt.CFROption().get_default_option()
+    opt.update(d=CFR_D, num_iters=CFR_EPOCHS, device="cuda", validation={})
+    model = bt.CFR(opt, data=data)
+    np.random.seed(0)
+    model.initialize()
+    kernels = CK.KERNELS + (K.batched_cg_dense,)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    st = time.perf_counter()
+    model.train()
+    train_s = time.perf_counter() - st
+    launches = read_counts(kernels)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses = model.iteration_losses
+    check(len(losses) == CFR_EPOCHS and all(np.isfinite(losses))
+          and all(b < a for a, b in zip(losses, losses[1:]))
+          and all(np.isfinite(getattr(model, t)).all()
+                  for t in ("U", "I", "C", "Ib", "Cb")),
+          f"CFR loss not finite and falling: {losses}")
+    host = model._build_batches()
+    staged = {k: [_stage_entry(e, model.device) for e in v]
+              for k, v in host.items()}
+    tabs = cfr_tables(torch, model)
+    sizes = {k: len(v) for k, v in host.items()}
+    nb = sum(sizes.values())
+    want = dict(cfr_normal_equations=nb * CFR_EPOCHS,
+                cfr_bias=nb * CFR_EPOCHS, batched_cg_dense=nb * CFR_EPOCHS)
+    check(launches == want, f"CFR epochs launched {launches}, expected "
+          f"{want}")
+    o = model.opt
+    kw = dict(alpha=float(o.alpha), l=float(o.l), reg_u=float(o.reg_u),
+              reg_i=float(o.reg_i), reg_c=float(o.reg_c),
+              optimizer=str(o.optimizer), cg_iters=int(o.num_cg_max_iters),
+              cg_tol=float(o.cg_tolerance), compute_loss=True)
+    prof = profile_call(torch, lambda: float(CK.cfr_epoch(
+        *tabs, staged["user"], staged["item"], staged["context"], **kw)),
+        top=10)
+    users = [str(u) for u in range(1, CFR_USERS + 1)]
+    par = bt.ParCFR(model)
+    reset_counts(R.KERNELS)
+    ms_first, (keys, ids, _) = wall_ms(
+        lambda: par.topk_recommendation(users, topk=TOPK))
+    ms_warm, _ = wall_ms(lambda: par.topk_recommendation(users, topk=TOPK))
+    k5 = R.score_topk.launches
+    check(keys == users and ids.shape == (CFR_USERS, TOPK) and k5 == 2,
+          f"ParCFR top-10 malformed or not one K5 launch per call ({k5})")
+    # numpy's float64 scores of the first CFR_CHECK_USERS users (all 10,000
+    # would take 40 GB of host memory)
+    rows = np.asarray(model.get_index(users[:CFR_CHECK_USERS], group="user"),
+                      dtype=np.int64)
+    same = ids_match_numpy(ids[:CFR_CHECK_USERS], model.U[rows], model.I,
+                           what="ParCFR.topk_recommendation")
+    med = float(np.median(model.iteration_times[1:]))
+    phase("cfr_path", d=CFR_D, epochs=CFR_EPOCHS, alpha=o.alpha, l=o.l,
+          reg=o.reg_u, optimizer=o.optimizer, cg_iters=o.num_cg_max_iters,
+          batches=sizes, segment_pairs=sum(len(e) == 2 for e in host["item"]),
+          train_loss=losses, epoch_seconds=model.iteration_times,
+          median_epoch_seconds_2_4=med, train_seconds=train_s,
+          launches=launches, launches_per_epoch=per_epoch(launches,
+                                                          CFR_EPOCHS),
+          max_memory_allocated_mb=peak_mb, epoch_profile=prof,
+          topk_users=CFR_USERS, topk_checked_users=CFR_CHECK_USERS,
+          topk_k5_launches=k5,
+          topk_host_ms_first=ms_first, topk_host_ms_warm=ms_warm,
+          topk_same_as_numpy=same)
+    del tabs
+    torch.cuda.empty_cache()
+    return model, {k: launches[k] for k in ("cfr_normal_equations",
+                                            "cfr_bias")}, staged
+
+
+def k17_check(CK, torch, X, rows, kw):
+    """K17 against its plain version on one batch: (A and y errors relative
+    to their largest, loss error, totals equal, repeatable, the outputs)."""
+    got = CK.cfr_normal_equations(X, rows, **kw)
+    again = CK.cfr_normal_equations(X, rows, **kw)
+    ref = CK.cfr_normal_equations_plain(X, rows, **kw)
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b)[1] for a, b in zip(got[:2], ref[:2])]
+    loss_err = rel_err(got[2], ref[2])[1]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    return max(errs), loss_err, torch.equal(got[3], ref[3]), same, got, ref
+
+
+def cfr_kernels(CK, K, torch, model, staged):
+    """K17 and K18 against their plain versions on the trained model's
+    brunch batches: K17 on the user batch, the padded item entry and the
+    context batch with the most entries and on the item segment pair with
+    the most chunks (a run without the explicit term must fail the item
+    check); K3's solves of the item systems by the CG rule; K18 after that
+    solve (a run on the rows before the solve must fail).  Returns the
+    kernels line's entries."""
+    from buffalo_tpu_torch.ops.als_kernels import gramian
+    from buffalo_tpu_torch.ops.cfr_kernels import (LOSS_EXPLICIT,
+                                                   LOSS_IMPLICIT, LOSS_REG,
+                                                   Side)
+
+    o = model.opt
+    d = CFR_D
+    U, I, C, Ib, Cb = cfr_tables(torch, model)
+    alpha, l, reg = float(o.alpha), float(o.l), float(o.reg_i)
+    flags = LOSS_IMPLICIT | LOSS_EXPLICIT | LOSS_REG
+
+    def entries(e):
+        """Live entries of a staged batch, item entry or segment pair."""
+        if hasattr(e, "lens"):
+            return int(e.lens.sum())
+        other = e[1].lens if hasattr(e[1], "lens") else e[1]
+        return int(e[0].lens.sum()) + int(other.sum())
+
+    padded = [e for e in staged["item"] if len(e) == 4]
+    pairs = [e for e in staged["item"] if len(e) == 2]
+    check(bool(padded) and bool(pairs), "the item phase lacks a padded "
+          "entry or a segment pair")
+    ub = max(staged["user"], key=entries)
+    ie = max(padded, key=entries)
+    cb = max(staged["context"], key=entries)
+    FFi, FFu = gramian(I), gramian(U)
+    b, lens_c, cols_c, vals_c = ie
+    item_kw = dict(implicit=Side.of(U, b),
+                   explicit=Side(C, lens_c, cols_c, vals_c), FF=FFu,
+                   rbias=Ib, cbias=Cb, alpha=alpha, l=l, reg=reg, loss=flags)
+    cases = {
+        "user": (U, ub.rows, dict(implicit=Side.of(I, ub), FF=FFi,
+                                  alpha=alpha, l=l, reg=float(o.reg_u))),
+        "item": (I, b.rows, item_kw),
+        "context": (C, cb.rows, dict(explicit=Side.of(I, cb), rbias=Cb,
+                                     cbias=Ib, reg=float(o.reg_c),
+                                     loss=LOSS_REG)),
+    }
+    sb_u, sb_c = max(pairs, key=lambda e: int(e[0].chunk_lens.numel()
+                                              + e[1].chunk_lens.numel()))
+    cases["segment_pair"] = (I, sb_u.rows, dict(
+        item_kw, implicit=Side.of(U, sb_u), explicit=Side.of(C, sb_c)))
+    k17_errs, out = {}, {}
+    for name, (X, rows, kw) in cases.items():
+        e, le, tot, rep, got, ref = k17_check(CK, torch, X, rows, kw)
+        check(e <= TOL_K17 and le <= TOL_K17 and tot and rep,
+              f"K17 {name}: A/y {e:.3g}, loss {le:.3g} from the plain "
+              f"version (totals equal {tot}, repeatable {rep})")
+        k17_errs[name] = dict(rel_err=e, loss_rel_err=le)
+        out[name] = (got, ref)
+    got, ref = out["item"]
+    no_exp = CK.cfr_normal_equations_plain(I, b.rows,
+                                           **dict(item_kw, explicit=None))
+    wrong_err = rel_err(got[0], no_exp[0])[1]
+    check(wrong_err > TOL_K17, f"the K17 check passes a run without the "
+          f"explicit term ({wrong_err:.3g})")
+    # K3 on the item systems, by the CG rule, from the rows K17 read
+    A, y, _, total = got
+    live = (total > 0) & (b.rows < I.shape[0])
+    idx = b.rows.long()[live]
+    cg = dict(cg_iters=int(o.num_cg_max_iters), cg_tol=float(o.cg_tolerance))
+    ok, solve_fields, short_ok = floor_check(
+        lambda t: K.batched_cg_dense(A, y, t, total, rows=b.rows, **cg),
+        lambda t, it: K.batched_cg_dense_plain(
+            A.to(t.dtype), y.to(t.dtype), t, total, rows=b.rows,
+            cg_iters=it, cg_tol=cg["cg_tol"]), I, idx)
+    check(ok, f"K3 on the CFR item systems: {solve_fields}")
+    # K18 after the solve: the new rows' biases; on the old rows it misses
+    I_new = I.clone()
+    K.batched_cg_dense(A, y, I_new, total, rows=b.rows, **cg)
+    exp = item_kw["explicit"]
+    runs = [Ib.clone() for _ in range(4)]
+    CK.cfr_bias(I_new, b.rows, total, explicit=exp, bias=runs[0], cbias=Cb)
+    CK.cfr_bias(I_new, b.rows, total, explicit=exp, bias=runs[1], cbias=Cb)
+    CK.cfr_bias_plain(I_new, b.rows, total, explicit=exp, bias=runs[2],
+                      cbias=Cb)
+    CK.cfr_bias_plain(I, b.rows, total, explicit=exp, bias=runs[3], cbias=Cb)
+    torch.cuda.synchronize()
+    k18_err = rel_err(runs[0][idx], runs[2][idx])[1]
+    old_err = rel_err(runs[3][idx], runs[2][idx])[1]
+    k18_rep = torch.equal(runs[0], runs[1])
+    check(k18_err <= TOL_K18 and k18_rep, f"K18: {k18_err:.3g} from the "
+          f"plain version (repeatable {k18_rep})")
+    check(old_err > TOL_K18, f"the K18 check passes the rows before the "
+          f"solve ({old_err:.3g})")
+    # times, bounds and the library product on the item entry
+    n_u = int(b.lens.sum())
+    n_c = int(lens_c.sum())
+    B = b.rows.shape[0]
+    dist_u = distinct(torch, b.cols, b.lens)
+    dist_c = distinct(torch, cols_c, lens_c)
+    nbytes = (8 * (n_u + n_c) + 16 * B + 4 * d * (dist_u + dist_c + B)
+              + 4 * dist_c + 4 * d * d + 4 * B * (d * d + d + 2))
+    bms, by = bound_ms(nbytes, (n_u + n_c) * (d * (d + 1) + 4 * d))
+    # the library's A: one bmm over both sides, the implicit rows weighted
+    # by alpha v and the SPPMI rows by 1, each side's padding by 0
+    def weights(lens, L, w):
+        return (torch.arange(L, device=U.device)[None, :]
+                < lens[:, None]).float() * w
+    Fg = torch.cat([U[b.cols.long()], C[cols_c.long()]], dim=1)
+    Fw = (Fg * torch.cat([weights(b.lens, b.cols.shape[1], alpha * b.vals),
+                          weights(lens_c, cols_c.shape[1], 1.0)],
+                         dim=1)[:, :, None]).transpose(1, 2)
+    k17 = dict(route="cuda",
+               source="buffalo_tpu_torch/csrc/cfr_normal_equations.cu",
+               replaces="buffalo_tpu/ops/cfr_kernels.py:29",
+               max_abs_err=float((got[0] - ref[0]).abs().max()),
+               ms=time_ms(lambda: CK.cfr_normal_equations(I, b.rows,
+                                                          **item_kw)),
+               plain_ms=time_ms(lambda: CK.cfr_normal_equations_plain(
+                   I, b.rows, **item_kw), reps=5, warmup=1),
+               bound_ms=bms, bound_by=by,
+               library_ms=time_ms(lambda: torch.bmm(Fw, Fg)),
+               batch=[B, int(b.cols.shape[1]), int(cols_c.shape[1])],
+               implicit_entries=n_u, explicit_entries=n_c, checks=k17_errs,
+               no_explicit_rel_err=wrong_err,
+               k3_item_solve=dict(solve_fields,
+                                  one_step_fewer_passes=short_ok))
+    for name in ("user", "context", "segment_pair"):
+        X, rows, kw = cases[name]
+        k17[f"{name}_ms"] = time_ms(
+            lambda: CK.cfr_normal_equations(X, rows, **kw))
+    bms, by = bound_ms(8 * n_c + 12 * B + 4 * d * (dist_c + B)
+                       + 4 * dist_c + 4 * B, n_c * (2 * d + 3))
+    k18 = dict(route="cuda", source="buffalo_tpu_torch/csrc/cfr_bias.cu",
+               replaces="buffalo_tpu/ops/cfr_kernels.py:146",
+               max_abs_err=float((runs[0] - runs[2]).abs().max()),
+               ms=time_ms(lambda: CK.cfr_bias(I_new, b.rows, total,
+                                              explicit=exp, bias=runs[1],
+                                              cbias=Cb)),
+               plain_ms=time_ms(lambda: CK.cfr_bias_plain(
+                   I_new, b.rows, total, explicit=exp, bias=runs[3],
+                   cbias=Cb), reps=5, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=None, rel_err=k18_err,
+               old_rows_rel_err=old_err, entries=n_c)
+    phase("cfr_kernels", d=d, k17=k17, k18=k18, tol_k17=TOL_K17,
+          tol_k18=TOL_K18)
+    del U, I, C, Ib, Cb, out, got, ref, A, y, I_new, Fg, Fw
+    torch.cuda.empty_cache()
+    return {"cfr_normal_equations": k17, "cfr_bias": k18}
+
+
 def main() -> int:
     import torch
 
@@ -2995,7 +3748,9 @@ def main() -> int:
     from buffalo_tpu_torch.ops import _build
     from buffalo_tpu_torch.ops import als_kernels as K
     from buffalo_tpu_torch.ops import retrieval_kernels as R
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
     from buffalo_tpu_torch.ops import eals_kernels as E
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
     from buffalo_tpu_torch.ops import sgd_kernels as S
     from buffalo_tpu_torch.ops import warp_kernels as W
 
@@ -3191,7 +3946,27 @@ def main() -> int:
         path_launches.update(eals_launches)
         entries.update(eals_kernels(E, torch, eals, eals_state))
         topk_past_1024(R, torch, eals)
-        del eals, eals_state, data
+        del eals, eals_state
+        torch.cuda.empty_cache()
+
+        # ---- pLSI: the user's entry points on the ML-20M data (the range
+        # layout, then the other epoch routes), then K15 and K16 on its
+        # layout
+        plsi, plsi_state, plsi_launches = plsi_path(bt, PK, R, torch, data)
+        path_launches.update(plsi_launches)
+        plsi_variants(bt, PK, torch, data, plsi)
+        entries.update(plsi_kernels(PK, torch, plsi, plsi_state))
+        del plsi, plsi_state, data
+        torch.cuda.empty_cache()
+
+        # ---- Stream + CoFactor: the brunch-shaped corpus built with its
+        # SPPMI group, CFR's entry points on it, then K17 and K18 on its
+        # batches
+        brunch = stream_build(bt, torch)
+        cfr, cfr_launches, cfr_staged = cfr_path(bt, CK, K, R, torch, brunch)
+        path_launches.update(cfr_launches)
+        entries.update(cfr_kernels(CK, K, torch, cfr, cfr_staged))
+        del cfr, cfr_staged, brunch
         torch.cuda.empty_cache()
 
         # ---- catalog path: the README's serving configuration (K5-K7 at

@@ -1,0 +1,216 @@
+"""The port's CoFactor against the JAX package's, end to end on the CPU.
+
+The same stream file (sentences drawn from 5 word clusters, as in
+``tests/models/test_w2v_cfr.py``) built by each package's ``Stream``
+(``matrix`` internal type, SPPMI windows 3, k 1, a sampled validation
+set); ``np.random.seed`` set before both ``initialize()`` calls so both
+start from the same U, I, C; the JAX package on one device, the port with
+``device="cpu"`` (the plain versions of K17, K18 and K3).
+
+Tolerances, as for ALS (``test_torch_als.py``).  ``llt`` solves each row
+exactly, so after 3 epochs the tables (U, I, C, Ib, Cb) agree within 1e-3
+and the losses within 1e-4.  ``manual_cg``'s 3 warm-started CG steps
+amplify float32 reordering over the epochs; a float64 run of the port's
+plain path from the same start is the witness of that noise, and the two
+packages' tables are held within 2x the port's distance from it, the
+losses within 1e-3.  Cases: padded batches (``llt``, ``manual_cg``),
+segment batches on every phase (``max_len=4``: rows past 4 entries become
+chunked head rows, the item phase's segment pairs among them) and the
+streamed batches past ``resident_mb``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import buffalo_tpu as ref
+from buffalo_tpu.data import StreamOptions as RefStreamOptions
+from buffalo_tpu.data import load as ref_load
+from buffalo_tpu.parallel.base import ParCFR as RefParCFR
+import buffalo_tpu_torch as port
+from buffalo_tpu_torch.convert import from_jax_factors, load_reference_model
+from buffalo_tpu_torch.data import StreamOptions as PortStreamOptions
+from buffalo_tpu_torch.data import load as port_load
+
+TABLES = ("U", "I", "C", "Ib", "Cb")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions' many small ops run fastest on one thread, and
+    then do not contend with other test processes' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def stream_file(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cfr_stream")
+    rng = np.random.default_rng(3)
+    V, k = 60, 5
+    cl = rng.integers(0, k, V)
+    lines = []
+    for _ in range(300):
+        members = np.nonzero(cl == rng.integers(0, k))[0]
+        sent = rng.choice(members, size=10, replace=True)
+        lines.append(" ".join(f"w{int(x)}" for x in sent))
+    path = root / "main.txt"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def _build(options, load, path, root):
+    opt = options().get_default_option()
+    opt.input.main = path
+    opt.data.path = str(root / "c.bfo")
+    opt.data.tmp_dir = str(root / "tmp")
+    opt.data.internal_data_type = "matrix"
+    opt.data.validation = {"name": "sample", "p": 0.1, "max_samples": 100}
+    opt.data.sppmi = {"windows": 3, "k": 1}
+    data = load(opt)
+    data.create()
+    return data
+
+
+@pytest.fixture(scope="module")
+def datasets(stream_file, tmp_path_factory):
+    return (_build(RefStreamOptions, ref_load, stream_file,
+                   tmp_path_factory.mktemp("ref_cfr")),
+            _build(PortStreamOptions, port_load, stream_file,
+                   tmp_path_factory.mktemp("port_cfr")))
+
+
+def _model(pkg, data, seed, **kw):
+    opt = pkg.CFROption().get_default_option()
+    opt.d = kw.pop("d", 8)
+    opt.num_iters = kw.pop("num_iters", 3)
+    opt.validation = kw.pop("validation", {"topk": 10})
+    opt.evaluation_period = 1
+    opt.update(kw)
+    if pkg is ref:
+        opt.num_devices = 1
+    else:
+        opt.device = "cpu"
+    model = pkg.CFR(opt, data=data)
+    np.random.seed(seed)
+    model.initialize()
+    return model
+
+
+def _train(model):
+    seen = []
+    res = model.train(
+        training_callback=lambda i, met: seen.append(met["train_loss"]))
+    return res, seen
+
+
+def _rel(x, y):
+    return np.linalg.norm(x - y) / max(np.linalg.norm(y), 1e-30)
+
+
+CASES = {
+    "llt": dict(optimizer="llt"),
+    "manual_cg": dict(),
+    "segment_llt": dict(optimizer="llt", max_len=4),
+    "segment_cg": dict(max_len=4),
+    "streamed": dict(resident_mb=0),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_matches_jax(datasets, case):
+    kw = CASES[case]
+    a = _model(ref, datasets[0], 5, **kw)
+    res_a, loss_a = _train(a)
+    b = _model(port, datasets[1], 5, **kw)
+    res_b, loss_b = _train(b)
+    assert len(loss_a) == len(loss_b) == 3 and loss_b == b.iteration_losses
+    assert all(np.isfinite(loss_b)) and loss_b[-1] < loss_b[0]
+    if "max_len" in kw:
+        assert any(len(e) == 2 for e in b._build_batches()["item"])
+    if kw.get("optimizer") == "llt":
+        np.testing.assert_allclose(loss_b, loss_a, rtol=1e-4)
+        for t in TABLES:
+            np.testing.assert_allclose(getattr(b, t), getattr(a, t),
+                                       rtol=1e-3, atol=1e-3, err_msg=t)
+        assert abs(res_b["vali_ndcg"] - res_a["vali_ndcg"]) < 1e-3
+        return
+    c = _model(port, datasets[1], 5, **kw)
+    for t in TABLES:
+        setattr(c, t, getattr(c, t).astype(np.float64))
+    res_c, _ = _train(c)
+    assert c.U.dtype == np.float64 and b.U.dtype == np.float32
+    np.testing.assert_allclose(loss_b, loss_a, rtol=1e-3)
+    for t in TABLES:
+        x_ref, x_port, x64 = getattr(a, t), getattr(b, t), getattr(c, t)
+        noise = _rel(x_port, x64)  # the port's own float32 error
+        assert noise < 1e-2, (t, noise)
+        assert _rel(x_port, x_ref) <= 2.0 * noise + 1e-6, (t, noise)
+    assert abs(res_b["vali_ndcg"] - res_a["vali_ndcg"]) < 1e-2
+
+
+def test_par_cfr_matches_naive_scan_and_jax(datasets):
+    """``ParCFR`` (U / I as P / Q) against a numpy scan of the port's
+    factors, and against the JAX package's ``ParCFR`` on them."""
+    a = _model(ref, datasets[0], 4, optimizer="llt", validation={})
+    a.train()
+    b = _model(port, datasets[1], 4, optimizer="llt", validation={})
+    for t in TABLES:
+        setattr(b, t, getattr(a, t).copy())
+    b.P, b.Q = b.U, b.I
+    users = [str(u) for u in range(1, 301, 7)]
+    keys, ids, scores = port.ParCFR(b).topk_recommendation(users, topk=5)
+    assert keys == users
+    rows = np.asarray(b.get_index(users, group="user"), dtype=np.int64)
+    s = b.U[rows] @ b.I.T
+    want = np.argsort(-s, axis=1, kind="stable")[:, :5]
+    np.testing.assert_allclose(scores, np.take_along_axis(s, want, 1),
+                               rtol=1e-5, atol=1e-6)
+    assert (np.asarray(ids) == want).mean() > 0.98
+    _, ids_a, _ = RefParCFR(a).topk_recommendation(users, topk=5)
+    assert (np.asarray(ids) == np.asarray(ids_a)).mean() > 0.98
+    items, _ = port.ParCFR(b).most_similar(["w3", "w9"], topk=4)
+    assert np.asarray(items).shape == (2, 4)
+
+
+def test_save_load_both_directions(datasets, tmp_path):
+    a = _model(ref, datasets[0], 2, num_iters=1, validation={})
+    a.train()
+    b = _model(port, datasets[1], 2, num_iters=1, validation={})
+    b.train()
+    port_path, ref_path = str(tmp_path / "p.cfr"), str(tmp_path / "r.cfr")
+    b.save(port_path)
+    a.save(ref_path)
+    by_ref = ref.CFR.new(port_path)
+    by_port = port.CFR.new(ref_path, device="cpu")
+    for t in TABLES:
+        np.testing.assert_array_equal(getattr(by_ref, t), getattr(b, t))
+        np.testing.assert_array_equal(getattr(by_port, t), getattr(a, t))
+    assert by_ref.opt.reg_c == b.opt.reg_c
+    served = load_reference_model(ref_path, device="cpu")
+    assert type(served) is port.CFR
+    assert type(load_reference_model(port_path, device="cpu")) is port.CFR
+    users = ["1", "7", "30"]
+    assert served.topk_recommendation(users, topk=5) == \
+        a.topk_recommendation(users, topk=5)
+    # the JAX package's tables as the port's tensors
+    tensors = from_jax_factors(*(getattr(a, t) for t in TABLES),
+                               device="cpu")
+    for t, x in zip(TABLES, tensors):
+        assert x.dtype == torch.float32
+        np.testing.assert_array_equal(x.numpy(), getattr(a, t))
+
+
+def test_negative_values_and_multi_device_raise(datasets, tmp_path):
+    """The JAX package's implicit term takes sqrt(alpha v), NaN for v < 0;
+    the port refuses such data instead.  More than one device raises."""
+    data = port.Stream(datasets[1].opt)
+    data.open(datasets[1].path)
+    vals = np.array(data.handle["rowwise"]["val"])
+    vals[::3] = -1.0
+    data.handle["rowwise"]["val"] = vals
+    with pytest.raises(ValueError, match="non-negative"):
+        _model(port, data, 1, validation={}).train()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        _model(port, datasets[1], 1, num_devices=2).train()

@@ -1108,3 +1108,283 @@ def test_batch_topn_past_1024_on_the_card(dev):
     ids10, _ = batch_topn(p, Q, 10, device="cuda")
     assert R.score_topk.launches == before + 1
     np.testing.assert_array_equal(ids10, want[:, :10])
+
+
+# ------------------------------------------------------------------ pLSI
+def _plsi_tables(dev, d, nx=600, ny=400, seed=0, sparse=False):
+    """Row-stochastic X and column-stochastic Y (pLSI's P and Q); sparse:
+    Dirichlet(0.02) rows and columns, so that many latent products fall
+    below the element floor (1e-10) and some norms below the summed one."""
+    rng = np.random.default_rng(seed)
+    if sparse:
+        X = rng.dirichlet(np.full(d, 0.02), nx)
+        Y = rng.dirichlet(np.full(ny, 0.02), d).T
+    else:
+        X = np.abs(rng.normal(size=(nx, d)))
+        Y = np.abs(rng.normal(size=(ny, d)))
+    X = np.ascontiguousarray(X / X.sum(1, keepdims=True), np.float32)
+    Y = np.ascontiguousarray(Y / Y.sum(0, keepdims=True), np.float32)
+    return rng, torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+
+
+def _plsi_batch(dev, rng, B, L, ny, rows=None):
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    lens[0] = 0
+    cols = rng.integers(0, ny, (B, L)).astype(np.int32)
+    vals = (rng.integers(1, 5, (B, L))
+            * (np.arange(L)[None, :] < lens[:, None])).astype(np.float32)
+    out = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for a in (lens, cols, vals)]
+    if rows is not None:
+        out = [torch.from_numpy(rows).to(dev)] + out
+    return out
+
+
+@pytest.mark.parametrize("d", [8, 20, 40, 64, 256])
+@pytest.mark.parametrize("L", [8, 96, 1024, 8192])
+@pytest.mark.parametrize("sparse", [False, True])
+def test_plsi_estep_range_kernel_matches_plain(dev, d, L, sparse):
+    from buffalo_tpu_torch.data.batching import RangeBatch
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
+
+    rng, X, Y = _plsi_tables(dev, d, ny=400 if L < 1024 else 20000,
+                             sparse=sparse)
+    B = 40 if L < 8192 else 6
+    lens, cols, vals = _plsi_batch(dev, rng, B, L, Y.shape[0])
+    batch = RangeBatch(17, lens, cols, vals)
+    got, again, ref, wrong = (torch.zeros_like(X) for _ in range(4))
+    before = PK.plsi_estep.launches
+    loss = PK.plsi_estep(got, X, Y, batch)
+    PK.plsi_estep(again, X, Y, batch)
+    want = PK.estep_range_plain(ref, X, Y, 17, lens, cols, vals)
+    torch.cuda.synchronize()
+    assert PK.plsi_estep.launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel_close(got, ref, 1e-5)
+    assert torch.allclose(loss, want, rtol=1e-5, atol=1e-6)
+    assert PK.plsi_estep(X.clone(), X, Y, batch, with_loss=False) is None
+    if sparse:
+        # the element floor (the padded path's) is another function here
+        PK.estep_padded_plain(wrong, torch.zeros_like(Y), X, Y,
+                              batching.PaddedBatch(
+                                  torch.arange(17, 17 + B, device=dev,
+                                               dtype=torch.int32),
+                                  lens, cols, vals))
+        assert not _rel_close(wrong, ref, 1e-5)
+
+
+def _plsi_segment(dev, rng, ny, n, C=256):
+    from buffalo_tpu_torch.data.batching import SegmentBatch, stage_batch
+
+    rows = np.array([5, 300, n + 3], np.int32)
+    lens = np.array([700, 200, 0], np.int32)
+    seg_ids = np.array([0, 0, 0, 1, 3], np.int32)
+    chunk_lens = np.array([256, 256, 188, 200, 0], np.int32)
+    cols = rng.integers(0, ny, (5, C)).astype(np.int32)
+    vals = (rng.integers(1, 5, (5, C))
+            * (np.arange(C) < chunk_lens[:, None])).astype(np.float32)
+    return stage_batch(SegmentBatch(rows, lens, seg_ids, chunk_lens, cols,
+                                    vals), dev)
+
+
+@pytest.mark.parametrize("d", [8, 20, 64, 256])
+def test_plsi_estep_segment_and_padded_kernels_match_plain(dev, d):
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
+
+    rng, X, Y = _plsi_tables(dev, d, sparse=d == 20)
+    n = X.shape[0]
+    seg = _plsi_segment(dev, rng, Y.shape[0], n)
+    got, ref = torch.zeros_like(X), torch.zeros_like(X)
+    l_got = PK.plsi_estep(got, X, Y, seg)
+    l_ref = PK.estep_segment_plain(ref, X, Y, seg)
+    torch.cuda.synchronize()
+    assert _rel_close(got, ref, 1e-5)
+    assert torch.allclose(l_got, l_ref, rtol=1e-5, atol=1e-6)
+    # padded mode: a PaddedBatch (padding rows past the table) and the
+    # segment batch, both tables accumulated
+    rows = rng.permutation(n)[:50].astype(np.int32)
+    rows[[3, 9]] = n
+    padded = batching.PaddedBatch(*_plsi_batch(dev, rng, 50, 33, Y.shape[0],
+                                               rows=rows))
+    for batch in (padded, seg):
+        tabs = [torch.zeros_like(X), torch.zeros_like(Y)]
+        runs = [[t.clone() for t in tabs] for _ in range(3)]
+        l0 = PK.plsi_estep(runs[0][0], X, Y, batch, padded=True,
+                           Qn=runs[0][1])
+        PK.plsi_estep(runs[2][0], X, Y, batch, padded=True, Qn=runs[2][1])
+        l1 = PK.estep_padded_plain(runs[1][0], runs[1][1], X, Y, batch)
+        torch.cuda.synchronize()
+        for a, b in zip(runs[0], runs[1]):
+            assert _rel_close(a, b, 1e-5)
+        assert torch.allclose(l0, l1, rtol=1e-5, atol=1e-6)
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[2]))
+
+
+@pytest.mark.parametrize("d", [8, 20, 64, 256])
+@pytest.mark.parametrize("masked", [False, True])
+def test_plsi_mstep_kernel_matches_plain(dev, d, masked):
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
+
+    rng = np.random.default_rng(d)
+    Pn = torch.tensor(rng.random((3001, d)), dtype=torch.float32, device=dev)
+    Qn = torch.tensor(rng.random((70001, d)), dtype=torch.float32,
+                      device=dev)
+    Pn[7] = 0
+    Qn[:, 1] = 0
+    kw = dict(alpha1=0.0, alpha2=0.0) if d == 8 else dict(alpha1=1.0,
+                                                         alpha2=1.0)
+    if masked:
+        kw.update(p_mask=(torch.rand(3001, device=dev) > 0.1).float(),
+                  q_mask=(torch.rand(70001, device=dev) > 0.1).float(),
+                  num_items=60000)
+    got = [Pn.clone(), Qn.clone()]
+    ref = [Pn.clone(), Qn.clone()]
+    PK.plsi_mstep(*got, **kw)
+    PK.mstep_plain(*ref, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-9)
+    if d == 8:
+        assert torch.equal(got[0][7], torch.zeros(d, device=dev))
+        assert torch.equal(got[1][:, 1], torch.zeros(70001, device=dev))
+
+
+# ------------------------------------------------------------------- CFR
+def _cfr_tables(dev, d, n=500, seed=0):
+    rng = np.random.default_rng(seed)
+    t = [torch.tensor(0.3 * rng.standard_normal((n, d)), dtype=torch.float32,
+                      device=dev) for _ in range(3)]
+    b = [torch.tensor(0.1 * rng.standard_normal(n), dtype=torch.float32,
+                      device=dev) for _ in range(2)]
+    return rng, t, b
+
+
+def _cfr_padded_side(dev, rng, table, B, L, lens=None):
+    from buffalo_tpu_torch.ops.cfr_kernels import Side
+
+    if lens is None:
+        lens = rng.integers(0, L + 1, B).astype(np.int32)
+    cols = rng.integers(0, table.shape[0], (B, L)).astype(np.int32)
+    vals = (rng.integers(1, 6, (B, L))
+            * (np.arange(L)[None, :] < lens[:, None])).astype(np.float32)
+    return Side(table, *[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in (lens, cols, vals)])
+
+
+def _cfr_segment_side(dev, rng, table, chunk_lens, seg_ids, R, C=64):
+    from buffalo_tpu_torch.data.batching import segment_chunk_ptr
+    from buffalo_tpu_torch.ops.cfr_kernels import Side
+
+    chunk_lens = np.asarray(chunk_lens, np.int32)
+    seg_ids = np.asarray(seg_ids, np.int32)
+    lens = np.zeros(R, np.int32)
+    np.add.at(lens, seg_ids[seg_ids < R], chunk_lens[seg_ids < R])
+    cols = rng.integers(0, table.shape[0], (len(chunk_lens), C)).astype(
+        np.int32)
+    vals = (rng.integers(1, 6, (len(chunk_lens), C))
+            * (np.arange(C) < chunk_lens[:, None])).astype(np.float32)
+    arrs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+            (lens, cols, vals, segment_chunk_ptr(seg_ids, R), chunk_lens)]
+    return Side(table, *arrs)
+
+
+def _cfr_phases(dev, d, rng, tabs, biases, segment):
+    """(name, kwargs of cfr_normal_equations, rows) of the three phases."""
+    from buffalo_tpu_torch.ops.cfr_kernels import (LOSS_EXPLICIT,
+                                                   LOSS_IMPLICIT, LOSS_REG)
+
+    U, I, C = tabs
+    Ib, Cb = biases
+    n = U.shape[0]
+    if segment:
+        R = 4
+        rows = np.array([5, 17, 300, n], np.int32)
+
+        def side(t, lens):
+            return _cfr_segment_side(dev, rng, t, lens,
+                                     [0, 0, 1, 2, 2, 2, 4][:len(lens)], R)
+        imp = side(U, [64, 10, 0, 64, 64, 3, 0])
+        exp = side(C, [64, 5, 0, 0, 0, 0, 0])
+        ctx = side(I, [64, 64, 7, 64, 1, 2, 0])
+    else:
+        R = 37
+        rows = rng.permutation(n)[:R].astype(np.int32)
+        rows[[4, 30]] = n
+        imp = _cfr_padded_side(dev, rng, U, R, 40)
+        lens_c = rng.integers(0, 24, R).astype(np.int32)
+        lens_c[[1, 2]] = 0
+        exp = _cfr_padded_side(dev, rng, C, R, 24, lens_c)
+        ctx = _cfr_padded_side(dev, rng, I, R, 24)
+    rows = torch.from_numpy(rows).to(dev)
+    FF = (U.T @ U).contiguous()
+    return [
+        ("user", dict(implicit=imp._replace(table=I), FF=(I.T @ I)
+                      .contiguous(), alpha=8.0, l=1.5, reg=0.1), rows),
+        ("item", dict(implicit=imp, explicit=exp, FF=FF, rbias=Ib,
+                      cbias=Cb, alpha=8.0, l=1.5, reg=0.1,
+                      loss=LOSS_IMPLICIT | LOSS_EXPLICIT | LOSS_REG), rows),
+        ("context", dict(explicit=ctx, rbias=Cb, cbias=Ib, reg=0.1,
+                         loss=LOSS_REG), rows),
+    ]
+
+
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+@pytest.mark.parametrize("segment", [False, True])
+def test_cfr_normal_equations_kernel_matches_plain(dev, d, segment):
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
+
+    rng, tabs, biases = _cfr_tables(dev, d)
+    X = {"user": tabs[0], "item": tabs[1], "context": tabs[2]}
+    for name, kw, rows in _cfr_phases(dev, d, rng, tabs, biases, segment):
+        before = CK.cfr_normal_equations.launches
+        got = CK.cfr_normal_equations(X[name], rows, **kw)
+        again = CK.cfr_normal_equations(X[name], rows, **kw)
+        ref = CK.cfr_normal_equations_plain(X[name], rows, **kw)
+        torch.cuda.synchronize()
+        assert CK.cfr_normal_equations.launches == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        for a, b in zip(got[:2], ref[:2]):
+            assert _rel_close(a, b, 1e-4), name
+        assert torch.allclose(got[2], ref[2], rtol=1e-4, atol=1e-5), name
+        assert torch.equal(got[3], ref[3]), name
+        if name == "item":
+            # the explicit term is part of the check
+            no_exp = CK.cfr_normal_equations_plain(
+                X[name], rows, **dict(kw, explicit=None))
+            assert not _rel_close(got[0], no_exp[0], 1e-4)
+
+
+@pytest.mark.parametrize("d", [8, 32, 128])
+@pytest.mark.parametrize("segment", [False, True])
+def test_cfr_bias_kernel_matches_plain(dev, d, segment):
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
+
+    rng, tabs, biases = _cfr_tables(dev, d)
+    X = {"user": tabs[0], "item": tabs[1], "context": tabs[2]}
+    bias_of = {"item": (biases[0], biases[1]),
+               "context": (biases[1], biases[0])}
+    for name, kw, rows in _cfr_phases(dev, d, rng, tabs, biases, segment):
+        total = CK.cfr_normal_equations_plain(X[name], rows, **kw)[3]
+        if name == "user":
+            got, ref = torch.zeros(rows.shape[0], device=dev), None
+            ref = got.clone()
+            CK.cfr_bias(X[name], rows, total, reg_new=0.1, loss=got)
+            CK.cfr_bias_plain(X[name], rows, total, reg_new=0.1, loss=ref)
+            torch.cuda.synchronize()
+            assert torch.allclose(got, ref, rtol=1e-5, atol=1e-7)
+            continue
+        own, other = bias_of[name]
+        got, ref = own.clone(), own.clone()
+        CK.cfr_bias(X[name], rows, total, explicit=kw["explicit"], bias=got,
+                    cbias=other)
+        CK.cfr_bias_plain(X[name], rows, total, explicit=kw["explicit"],
+                          bias=ref, cbias=other)
+        torch.cuda.synchronize()
+        assert _rel_close(got, ref, 1e-5), name
+        if name == "item" and not segment:
+            # rows with user entries and no SPPMI entries get 0
+            live = (total > 0) & (kw["explicit"].lens == 0) & \
+                (rows < X[name].shape[0])
+            assert bool(live.any())
+            assert bool((got[rows[live].long()] == 0).all())

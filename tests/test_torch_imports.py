@@ -62,6 +62,11 @@ def test_import_loads_neither_jax_nor_reference():
             "import buffalo_tpu_torch.models.eals; "
             "from buffalo_tpu_torch import (WARP, WARPOption, EALS, "
             "EALSOption, ParEALS); "
+            "import buffalo_tpu_torch.ops.plsi_kernels; "
+            "import buffalo_tpu_torch.ops.cfr_kernels; "
+            "import buffalo_tpu_torch.data.stream; "
+            "from buffalo_tpu_torch import (PLSI, PLSIOption, CFR, "
+            "CFROption, ParCFR, Stream, StreamOptions); "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'buffalo_tpu' "
             "or m.startswith('buffalo_tpu.')]; "
@@ -147,3 +152,27 @@ def test_warp_and_eals_modules_covered():
     names = {p.name for p in PORT_FILES}
     assert {"warp_kernels.py", "warp.py", "eals_kernels.py",
             "eals.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["PLSI", "CFR"])
+def test_plsi_and_cfr_cuda_default_without_card_raises(monkeypatch, name):
+    import buffalo_tpu_torch as port
+
+    cls, opt_cls = getattr(port, name), getattr(port, name + "Option")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = opt_cls().get_default_option()
+    assert opt.device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls.new("unused", device="cuda")
+    opt.device = "cpu"
+    assert cls(opt).device.type == "cpu"
+
+
+def test_plsi_stream_and_cfr_modules_covered():
+    """The pLSI, Stream and CoFactor modules are among the files the
+    import rule checks."""
+    names = {p.name for p in PORT_FILES}
+    assert {"plsi_kernels.py", "plsi.py", "cfr_kernels.py", "cfr.py",
+            "stream.py"} <= names
