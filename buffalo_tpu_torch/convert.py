@@ -3,8 +3,8 @@
 ``from_jax_factors`` turns the reference's host factor tables (numpy
 arrays, e.g. a trained ``buffalo_tpu`` ALS's ``.P`` / ``.Q``, or a BPRMF's
 ``.P`` / ``.Q`` / ``.Qb``, a WARP's, eALS's or pLSI's ``.P`` / ``.Q``, a
-CoFactor's ``.U`` / ``.I`` / ``.C`` / ``.Ib`` / ``.Cb``) into this port's
-float32 tensors on a device;
+CoFactor's ``.U`` / ``.I`` / ``.C`` / ``.Ib`` / ``.Cb``, a W2V's ``.L0`` /
+``.L1``) into this port's float32 tensors on a device;
 ``load_reference_model`` opens a model file that ``buffalo_tpu`` saved,
 without importing it.
 """
@@ -31,8 +31,9 @@ def from_jax_factors(*tables, device="cuda"):
 
 def load_reference_model(path, device="cuda"):
     """The port's model of a file saved by either package's ALS, BPRMF,
-    WARP, EALS, PLSI or CFR: a BPRMF file holds a ``Qb`` record and a CFR
-    file a ``Cb`` record; otherwise the saved options tell WARP
+    WARP, EALS, PLSI, CFR or W2V: a BPRMF file holds a ``Qb`` record, a CFR
+    file a ``Cb`` record and a W2V file a ``_vocab`` record; otherwise the
+    saved options tell WARP
     (``score_func``), EALS (``c0``) and PLSI (``alpha1``) from ALS.  Its
     options, id maps and factors, ready to serve on ``device``."""
     from buffalo_tpu_torch.models.als import ALS
@@ -41,6 +42,7 @@ def load_reference_model(path, device="cuda"):
     from buffalo_tpu_torch.models.cfr import CFR
     from buffalo_tpu_torch.models.eals import EALS
     from buffalo_tpu_torch.models.plsi import PLSI
+    from buffalo_tpu_torch.models.w2v import W2V
     from buffalo_tpu_torch.models.warp import WARP
 
     records = Serializable.record_names(path)
@@ -48,6 +50,8 @@ def load_reference_model(path, device="cuda"):
         return BPRMF.new(path, device=device)
     if "Cb" in records:
         return CFR.new(path, device=device)
+    if "_vocab" in records:
+        return W2V.new(path, device=device)
     opt = Serializable.read_record(path, "opt")
     cls = (WARP if "score_func" in opt else EALS if "c0" in opt
            else PLSI if "alpha1" in opt else ALS)

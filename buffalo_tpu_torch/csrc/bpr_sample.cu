@@ -47,12 +47,8 @@ sample_kernel(const int32_t* __restrict__ users, int N, int neg_per, int num_ite
   int32_t out = num_items;
   const int attempts = bloom ? kAttempts : 1;
   for (int a = 0; a < attempts; ++a) {
-    const U4 x = philox(U4{(uint32_t)k, chunk, epoch, (uint32_t)a}, k0, k1);
-    uint32_t cand = __umulhi(x.x0, (uint32_t)num_items);
-    if (prob) {
-      const float u01 = (float)(x.x1 >> 8) * (1.0f / 16777216.0f);
-      if (!(u01 < prob[cand])) cand = (uint32_t)alias[cand];
-    }
+    const uint32_t cand = alias_draw(U4{(uint32_t)k, chunk, epoch, (uint32_t)a}, k0, k1,
+                                     (uint32_t)num_items, prob, alias);
     if (!bloom || !bloom_contains(bloom, wmask, u, cand)) {
       out = (int32_t)cand;
       break;

@@ -1,5 +1,6 @@
 // The counter-based draws and the bloom probe shared by the sampling kernels
-// (K8 csrc/bpr_sample.cu, K11 csrc/warp_search.cu): Philox4x32-10 and the
+// (K8 csrc/bpr_sample.cu, K11 csrc/warp_search.cu, K19 csrc/w2v_pair_step.cu):
+// Philox4x32-10, the alias draw and the
 // blocked bloom filter's hashes (buffalo_tpu/ops/sgd_kernels.py _mix32 :106,
 // _bloom_hashes :117, bloom_contains :234), the same uint32 functions as the
 // plain versions in ops/sgd_kernels.py.
@@ -26,6 +27,20 @@ __device__ __forceinline__ U4 philox(U4 c, uint32_t k0, uint32_t k1) {
     c = U4{hi1 ^ c.x1 ^ k0, lo1, hi0 ^ c.x3 ^ k1, lo0};
   }
   return c;
+}
+
+// The draw of K8 and K19: the Philox words (x0, x1) of the counter
+// (c0, c1, c2, c3) give the index mulhi(x0, n); with alias tables that index
+// is kept when (x1 >> 8) 2^-24 < prob[index], else alias[index] is drawn;
+// with prob null it is drawn uniformly.
+__device__ __forceinline__ uint32_t alias_draw(U4 ctr, uint32_t k0, uint32_t k1, uint32_t n,
+                                               const float* __restrict__ prob,
+                                               const int32_t* __restrict__ alias) {
+  const U4 x = philox(ctr, k0, k1);
+  const uint32_t cand = __umulhi(x.x0, n);
+  if (!prob) return cand;
+  const float u01 = (float)(x.x1 >> 8) * (1.0f / 16777216.0f);
+  return u01 < prob[cand] ? cand : (uint32_t)alias[cand];
 }
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {

@@ -107,6 +107,19 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.fileio_checksum.argtypes = [
             ctypes.c_void_p, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64]
+        lib.fileio_w2v_pairs_count.restype = ctypes.c_int64
+        lib.fileio_w2v_pairs_count.argtypes = [
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64)]
+        lib.fileio_w2v_pairs_fill.restype = None
+        lib.fileio_w2v_pairs_fill.argtypes = [
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32)]
         _lib = lib
         return _lib
 
@@ -236,6 +249,40 @@ def checksum_native(arr: np.ndarray, n_chunks: int = 64):
     lib.fileio_checksum(arr.ctypes.data_as(ctypes.c_void_p), arr.nbytes,
                         _ptr(out, ctypes.c_int64), n_chunks)
     return out
+
+
+def w2v_pairs_native(words: np.ndarray, sents: np.ndarray,
+                     h: np.ndarray, window: int):
+    """Skip-gram pair generation (``fileio_w2v_pairs_count/fill``; the JAX
+    package's ``w2v_pairs_native``).
+
+    ``words`` int32 vocab ids of the subsampled token stream, ``sents``
+    the int32 sentence id per token (non-decreasing), ``h`` the
+    per-position shrunken half-width (the target position's h admits a
+    pair).  Returns ``(inputs, targets)`` int32 arrays in position-major
+    order — the same pair multiset as the numpy offset-major path of
+    ``models/w2v.py`` — or None when the native library is unavailable.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(words)
+    words = np.ascontiguousarray(words, dtype=np.int32)
+    sents = np.ascontiguousarray(sents, dtype=np.int32)
+    h = np.ascontiguousarray(h, dtype=np.int32)
+    prefix = np.empty(n + 1, dtype=np.int64)
+    total = lib.fileio_w2v_pairs_count(
+        n, _ptr(sents, ctypes.c_int32), _ptr(h, ctypes.c_int32),
+        int(window), _ptr(prefix, ctypes.c_int64))
+    inputs = np.empty(total, dtype=np.int32)
+    targets = np.empty(total, dtype=np.int32)
+    if total:
+        lib.fileio_w2v_pairs_fill(
+            n, _ptr(words, ctypes.c_int32), _ptr(sents, ctypes.c_int32),
+            _ptr(h, ctypes.c_int32), int(window),
+            _ptr(prefix, ctypes.c_int64), _ptr(inputs, ctypes.c_int32),
+            _ptr(targets, ctypes.c_int32))
+    return inputs, targets
 
 
 def gather_remapped_native(indptr: np.ndarray, key: np.ndarray,

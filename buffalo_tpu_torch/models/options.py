@@ -3,7 +3,7 @@
 Copy of ``buffalo_tpu.models.options`` for the PyTorch port, with the
 algorithms this port has so far (``AlgoOption``, ``ALSOption``,
 ``BPRMFOption``, ``WARPOption``, ``EALSOption``, ``PLSIOption``,
-``CFROption``): same
+``CFROption``, ``W2VOption``): same
 hyperparameter names and defaults, so configurations port over
 unchanged.  One key is the port's own: ``device`` ("cuda" by default;
 "cpu" runs the plain PyTorch versions of the kernels).  The reference's
@@ -321,5 +321,63 @@ class PLSIOption(AlgoOption):
             "save_factors": False,
             "data_opt": {},
             "inherit_opt": {},
+        })
+        return Option(opt)
+
+
+class W2VOption(AlgoOption):
+    def get_default_option(self) -> Option:
+        """Skip-gram word2vec over streams (reference options.py:315-352;
+        the JAX package's ``W2VOption``, same names and defaults).
+
+        :ivar int window: context window size (< 256: the stream epoch's
+            half-windows travel as uint8).
+        :ivar int min_count: vocabulary frequency floor.
+        :ivar float sample: frequent-word subsampling threshold.
+        :ivar int num_negative_samples: negatives per (center, context).
+        :ivar float max_step_norm: per-row L2 cap on each chunk's
+            aggregated update (0 disables).
+        :ivar int max_chunks_per_dispatch: chunks per group; an epoch of
+            more chunks runs as groups of this many (padded with sentinel
+            chunks), each group keyed and rated as in the JAX package.
+        :ivar int stored_width: accepted for parity; the reference pads
+            sub-64 tables on a TPU backend only, so the port stores at d.
+        :ivar str pair_gen: where skip-gram pairs are expanded.  "host"
+            generates (input, target) pairs on the host each epoch and
+            trains on them in chunks (K19 + K20); "device" ships the
+            subsampled token stream (6 bytes a token) and expands the
+            windows on the card with block-shared negatives (K8 + K21 +
+            K20).  "auto" = "device" when the model's device is CUDA and
+            "host" on the CPU: the JAX package's rule ("device" on its
+            accelerator) mapped onto the card.
+        :ivar str offset_mode: "scan" | "unrolled", validated; both run
+            the same offsets in order on the card (the JAX package's two
+            programs agree to float32 reordering).
+        :ivar int neg_block: "device" pair_gen only: consecutive tokens
+            sharing one set of negative draws (shrunk for micro-corpora).
+        :ivar int batch_size: pairs per chunk ("host") or tokens per chunk
+            ("device"); 0 picks the JAX package's sizes.
+        """
+        opt = super().get_default_option()
+        opt.update({
+            "evaluation_on_learning": False,
+            "num_workers": 1,
+            "num_iters": 3,
+            "d": 20,
+            "window": 5,
+            "min_count": 5,
+            "sample": 0.001,
+            "num_negative_samples": 5,
+            "lr": 0.025,
+            "min_lr": 0.0001,
+            "max_step_norm": 0.1,
+            "max_chunks_per_dispatch": 32,
+            "stored_width": 0,
+            "pair_gen": "auto",
+            "offset_mode": "scan",
+            "neg_block": 4,
+            "batch_size": 0,
+            "model_path": "",
+            "data_opt": {},
         })
         return Option(opt)

@@ -7,9 +7,9 @@ pool filtering gathers the pool rows first; ``-1`` key padding when a
 pool is smaller than topk; an ANN index per group (``set_ann_index``,
 e.g. an :class:`~buffalo_tpu_torch.parallel.ann.IVFIndex`) serves
 ``most_similar`` when set.  ``ParALS`` and ``ParBPRMF`` (scores with the
-item bias ``Qb``), ``ParEALS`` and ``ParCFR`` are ported; ``ParW2V`` comes
-with its family, and a device mesh with the multi-device port (ROADMAP
-queue 1).  Runs on the model's device (``opt.device``).
+item bias ``Qb``), ``ParEALS``, ``ParCFR`` and ``ParW2V`` (most-similar
+over W2V's input table L0) are ported; a device mesh comes with the
+multi-device port (ROADMAP queue 1).  Runs on the model's device (``opt.device``).
 """
 from __future__ import annotations
 
@@ -21,13 +21,14 @@ from buffalo_tpu_torch.models.als import ALS
 from buffalo_tpu_torch.models.bpr import BPRMF
 from buffalo_tpu_torch.models.cfr import CFR
 from buffalo_tpu_torch.models.eals import EALS
+from buffalo_tpu_torch.models.w2v import W2V
 from buffalo_tpu_torch.ops.topk import batch_topn
 
 
 class Parallel(abc.ABC):
     def __init__(self, algo, *argv, **kwargs):
         super().__init__()
-        if not isinstance(algo, (ALS, EALS, CFR, BPRMF)):
+        if not isinstance(algo, (ALS, EALS, CFR, W2V, BPRMF)):
             raise ValueError(f"Not supported algo type: {type(algo)}")
         self.algo = algo
         self.num_workers = int(kwargs["num_workers"])
@@ -177,3 +178,39 @@ class ParBPRMF(ParALS):
             topks = [[self.algo._idmanager.itemids[t]
                       for t in tt if t != -1] for tt in topks]
         return keys, topks, scores
+
+
+class ParW2V(Parallel):
+    """Batched ``most_similar`` over a W2V model's normalized L0, through K5
+    (``parallel/base.py:194-224``); keys resolve through the vocabulary
+    remap, and ``repr=True`` maps the ids back to item keys."""
+
+    def __init__(self, algo, **kwargs):
+        opt = getattr(algo, "opt", None)
+        kwargs["num_workers"] = int(kwargs.get(
+            "num_workers", opt.num_workers if opt else 1))
+        super().__init__(algo, **kwargs)
+
+    def most_similar(self, keys, topk=10, pool=None, repr=False,
+                     group="item", ef_search=-1, use_mmap=True):
+        self.algo.normalize(group="item")
+        indexes = self.algo.get_index(list(keys), group="item")
+        kept = [(k, i) for k, i in zip(keys, indexes) if i is not None]
+        keys = [k for k, _ in kept]
+        indexes = np.array([i for _, i in kept], dtype=np.int32)
+        if pool is not None:
+            pool = np.asarray(
+                [i for i in self.algo.get_index(list(pool), group="item")
+                 if i is not None], dtype=np.int32)
+            if len(pool) == 0:
+                raise RuntimeError("pool is empty")
+        topks, scores = self._most_similar("item", indexes, self.algo.L0,
+                                           topk, pool)
+        if repr:
+            inv = self.algo._vocab.inv_index
+            topks = [[self.algo._idmanager.itemids[inv[t]]
+                      for t in tt if t != -1] for tt in topks]
+        return topks, scores
+
+    def topk_recommendation(self, keys, topk=10, pool=None, repr=False):
+        raise NotImplementedError

@@ -46,7 +46,15 @@ native SPPMI byte-equal to numpy's on a slice), cfr path (CoFactor at
 d = 32, 4 epochs: one K17, K3 and K18 launch per batch, the loss falling,
 top-10 through ``ParCFR``), cfr kernels (K17 on user, item, context and
 segment-pair batches, a run without the explicit term failing; K3 on its
-systems by the CG rule; K18, a run on the old rows failing), catalog
+systems by the CG rule; K18, a run on the old rows failing), w2v path (the
+brunch corpus built again as a token stream; W2V at d = 32 on its device
+epoch, 4 epochs: one K8, one K21 and two K20 launches per token chunk, the
+loss falling every epoch, a profiled epoch, top-10 for 10,000 keys through
+``ParW2V``), w2v kernels (K8's draws bit for bit, K21 and K20 on a token
+chunk, K19 on a pair chunk, a K20 run with the cap off and a K21 run at
+window - 1 failing), w2v variants (one epoch each of the device path and
+the host-pair path, resident and streamed), w2v quality (the clustered
+corpus's purity gate, both paths), catalog
 path (the README's serving configuration: 10,000 queries over a
 505,840 x 100 KakaoBrunch-shaped catalog through ``batch_topn``, float32
 and bfloat16 queries, its ``IVFIndex`` build and search; K5, K6 and K7
@@ -67,7 +75,9 @@ path's, K8's and K9's the BPR path's with K9's accumulation from the
 adagrad and adam epochs, K10's those epochs' and the WARP path's, K11's
 (with its loss mode) and K12's the WARP path's, K13's and K14's the eALS
 path's, K15's and K16's the pLSI path's, K17's and K18's the CFR path's;
-K10's times are of the BPR shapes); the kernel lines of K1, K3 and
+K10's times are of the BPR shapes; K8's count adds the W2V path's, K20's
+and K21's are the W2V path's and K19's the host-pair W2V epoch's); the
+kernel lines of K1, K3 and
 K4 also give the kernel's device time alone (CUPTI through
 torch.profiler, median of the 11-22 of 22 launches the trace holds),
 since events around a short launch also catch the wrapper's host work
@@ -228,6 +238,26 @@ BRUNCH_LINES, BRUNCH_VOCAB, BRUNCH_TOKENS = 306_291, 505_926, 12_000_000
 STREAM_SLICE = 20_000
 CFR_D, CFR_EPOCHS, CFR_USERS, CFR_CHECK_USERS = 32, 4, 10_000, 1_000
 TOL_K17, TOL_K18 = 1e-4, 1e-5
+# W2V (w2v_path, w2v_kernels, w2v_variants, w2v_quality): the brunch corpus
+# built again as `stream` (token order kept, no SPPMI); W2V at the JAX
+# package's stream benchmark settings (benchmark/test_stream_scale.py:
+# 129-134: d = W2V_D, min_count 2, the defaults otherwise: window 5, 5
+# negatives, sample 1e-3, neg_block 4; pair_gen auto = the device epoch on
+# the card), W2V_EPOCHS epochs, ParW2V top-10 for W2V_QUERIES keys (the
+# first W2V_CHECK_QUERIES held to numpy's float64 ranking on the normalized
+# L0: numpy's top-10 set where its 10th and 11th scores are not near-tied,
+# w2v_topk_check).  K19's rows and K21's outputs within TOL_W2V of their
+# largest entry (losses TOL_W2V relative, counts exact, K8's draws
+# bit for bit); K20 within TOL_W2V of the largest summed row delta before
+# the cap (the sums' rounding, which the cap scales with the row) plus two
+# float32 spacings of the table (each side rounds table + step once); a K20 run
+# with the cap off and a K21 run at window - 1 must fail those checks.  The
+# variants: one epoch each of the device and host-pair paths from one start,
+# the device loss below W2V_DEVICE_BAND x the host loss (the JAX package's
+# band, tests/models/test_w2v_cfr.py:508), the streamed host epoch within
+# TOL_W2V_STREAMED of the resident one (the same pairs and draws)
+W2V_D, W2V_EPOCHS, W2V_QUERIES, W2V_CHECK_QUERIES = 32, 4, 10_000, 1_000
+TOL_W2V, W2V_DEVICE_BAND, TOL_W2V_STREAMED = 1e-5, 1.15, 1e-3
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -3735,6 +3765,463 @@ def cfr_kernels(CK, K, torch, model, staged):
     return {"cfr_normal_equations": k17, "cfr_bias": k18}
 
 
+def w2v_build(bt):
+    """The brunch corpus of ``stream_build`` built again as ``stream``
+    (order-preserving token lists, no SPPMI): W2V trains on token order,
+    which the ``matrix`` build's per-line dedupe loses.  Returns (data,
+    host seconds)."""
+    sopt = bt.StreamOptions().get_default_option()
+    sopt.input.main = os.path.join(WORK, "brunch.txt")
+    sopt.data.path = os.path.join(WORK, "brunch_w2v.bfo")
+    sopt.data.tmp_dir = os.path.join(WORK, "tmp")
+    sopt.data.internal_data_type = "stream"
+    sopt.data.validation = {}
+    st = time.perf_counter()
+    data = bt.data.load(sopt)
+    data.create()
+    return data, time.perf_counter() - st
+
+
+def w2v_opt(bt, **kw):
+    """W2V at the JAX package's stream benchmark settings
+    (``benchmark/test_stream_scale.py:129-134``: d = W2V_D, min_count 2,
+    the defaults otherwise) on the card."""
+    opt = bt.W2VOption().get_default_option()
+    opt.update(d=W2V_D, min_count=2, num_iters=W2V_EPOCHS, device="cuda")
+    opt.update(kw)
+    return opt
+
+
+def w2v_model(bt, data, opt):
+    np.random.seed(0)
+    model = bt.W2V(opt, data=data)
+    model.initialize()
+    return model
+
+
+def w2v_path(bt, W, S, R, torch, data, build_s):
+    """W2V's main path on the brunch stream: ``pair_gen`` auto (the device
+    epoch), W2V_EPOCHS epochs through the user's entry points: exactly one
+    K8, one K21 and two K20 launches per token chunk and none of K19, the
+    loss falling every epoch, a profiled epoch; ParW2V top-10 for
+    W2V_QUERIES keys held to numpy on the normalized L0.  Returns (model,
+    the path's launches, one epoch's host arrays)."""
+    model = w2v_model(bt, data, w2v_opt(bt))
+    kernels = W.KERNELS + (S.sample_negatives,)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    st = time.perf_counter()
+    model.train()
+    train_s = time.perf_counter() - st
+    launches = read_counts(kernels)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    losses, stats = model.iteration_losses, model.epoch_stats
+    check(len(losses) == W2V_EPOCHS and all(np.isfinite(losses))
+          and all(b < a for a, b in zip(losses, losses[1:]))
+          and np.isfinite(model.L0).all() and np.isfinite(model.L1).all(),
+          f"W2V loss not finite and falling: {losses}")
+    chunks = sum(s["chunks"] for s in stats)
+    want = dict(pair_step=0, row_apply=2 * chunks,
+                stream_chunk_deltas=chunks, sample_negatives=chunks)
+    check(launches == want, f"W2V epochs launched {launches}, expected "
+          f"{want}")
+    # one more epoch's device work, profiled: the staged chunks of one
+    # host phase through the groups, on copies of the trained tables
+    block, T, _ = model._stream_plan()
+    G = int(model.opt.max_chunks_per_dispatch)
+    wc, bc, hc, nchunks, _ = model._stream_host_phase(
+        np.random.default_rng(1), T, G)
+    dev = model.device
+    g_len = min(G, nchunks)
+    staged = [tuple(torch.from_numpy(a[g * g_len:(g + 1) * g_len]).to(dev)
+                    for a in (wc, bc, hc)) for g in range(nchunks // g_len)]
+    L0 = torch.from_numpy(model.L0).to(dev, copy=True)
+    L1 = torch.from_numpy(model.L1).to(dev, copy=True)
+    prob, al = S.build_alias_table(np.diff(np.asarray(
+        model._vocab.dist, dtype=np.int64), prepend=0))
+    alias = (torch.from_numpy(prob).to(dev), torch.from_numpy(al).to(dev))
+    o = model.opt
+    V = int(model._vocab.size)
+    com = dict(seed=0, epoch=W2V_EPOCHS, groups=len(staged),
+               window=int(o.window), block=block,
+               num_negatives=int(o.num_negative_samples), vocab_size=V,
+               compute_loss=True, lr=float(o.lr), min_lr=float(o.min_lr),
+               total_words=float(model._vocab.total_word_count),
+               words_per_chunk=1.0, max_step_norm=float(o.max_step_norm))
+
+    def epoch():
+        out = [W.w2v_epoch_stream(L0, L1, *arr, alias, np.float32(0), group=g,
+                                  **com) for g, arr in enumerate(staged)]
+        return float(sum(float(x[0]) for x in out))
+
+    prof = profile_call(torch, epoch, top=10)
+    del L0, L1, staged
+    # serving: ParW2V top-10 for W2V_QUERIES in-vocabulary keys, first call
+    # and warm, held to numpy's float64 ranking on the normalized L0
+    model.build_itemid_map()
+    keys = [model._idmanager.itemids[i]
+            for i in model._vocab.inv_index[:W2V_QUERIES]]
+    par = bt.ParW2V(model)
+    reset_counts(R.KERNELS)
+    ms_first, (ids, scores) = wall_ms(lambda: par.most_similar(keys,
+                                                               topk=TOPK))
+    ms_warm, _ = wall_ms(lambda: par.most_similar(keys, topk=TOPK))
+    k5 = R.score_topk.launches
+    ids, scores = np.asarray(ids), np.asarray(scores)
+    check(ids.shape == (W2V_QUERIES, TOPK) and k5 == 2,
+          f"ParW2V top-10 malformed or not one K5 launch per call ({k5})")
+    topk = w2v_topk_check(
+        model.L0, np.asarray(model.get_index(keys[:W2V_CHECK_QUERIES])),
+        ids[:W2V_CHECK_QUERIES], scores[:W2V_CHECK_QUERIES])
+    med = float(np.median(model.iteration_times[1:]))
+    phase("w2v_path", d=W2V_D, epochs=W2V_EPOCHS, window=int(o.window),
+          negatives=int(o.num_negative_samples), sample=o.sample,
+          neg_block=block, pair_gen=model._pair_gen(),
+          stream_build_host_seconds=build_s, vocab=V,
+          total_words=int(model._vocab.total_word_count),
+          tokens_kept=[s["tokens"] for s in stats],
+          pairs=[s["pairs"] for s in stats], chunk_tokens=T,
+          chunks=[s["chunks"] for s in stats],
+          groups=[s["groups"] for s in stats], train_loss=losses,
+          epoch_seconds=model.iteration_times,
+          median_epoch_seconds_2_4=med, train_seconds=train_s,
+          host_phase_seconds=[s["host_seconds"] for s in stats],
+          h2d_bytes_per_epoch=[s["h2d_bytes"] for s in stats],
+          launches=launches, launches_per_epoch=per_epoch(launches,
+                                                          W2V_EPOCHS),
+          max_memory_allocated_mb=peak_mb, epoch_profile=prof,
+          topk_queries=W2V_QUERIES, topk_k5_launches=k5,
+          topk_host_ms_first=ms_first, topk_host_ms_warm=ms_warm,
+          topk_checked_queries=W2V_CHECK_QUERIES, **topk)
+    return model, launches, (wc, bc, hc, alias, block)
+
+
+def w2v_topk_check(table, idx, ids, scores, chunk=256):
+    """ParW2V's top-k of queries ``table[idx]`` against numpy's float64
+    scores, in chunks of queries.  A query is near-tied when numpy's k-th and
+    (k+1)-th scores are within TOL_SCORE of each other (np.isclose's rule):
+    the float32 scores may then rank either id k-th.  Held: numpy's exact
+    top-k set on at least MIN_SAME_TOPK of the other queries; on every query
+    the returned ids' float64 scores, rank by rank, within TOL_SCORE of
+    numpy's top-k; the returned scores within TOL_SCORE.  Returns the
+    readings: the shares of queries with numpy's set, near-tied, with
+    numpy's set among those not near-tied, with exactly equal k-th and
+    (k+1)-th scores; the differing queries that are not near-tied; the
+    largest k-th gap among differing queries, the gap's quartiles; the
+    share of queries whose ids are a top-k off ties; the largest score
+    error."""
+    k = ids.shape[1]
+    same, gaps, tol, off = [], [], [], []
+    err = 0.0
+    table64 = table.astype(np.float64)
+    for s in range(0, len(idx), chunk):
+        full = table64[idx[s:s + chunk]] @ table64.T
+        # numpy's top k + 1, highest first (a partition: sorting every row of
+        # a 502k-word vocabulary would take most of the phase)
+        top = np.argpartition(-full, k, axis=1)[:, :k + 1]
+        ref = np.take_along_axis(full, top, axis=1)
+        order = np.argsort(-ref, axis=1, kind="stable")
+        top = np.take_along_axis(top, order, axis=1)
+        ref = np.take_along_axis(ref, order, axis=1)
+        gaps += list(ref[:, k - 1] - ref[:, k])
+        tol += list(TOL_SCORE * np.abs(ref[:, k - 1]) + TOL_SCORE_ABS)
+        ref = ref[:, :k]
+        mine = np.take_along_axis(full, ids[s:s + chunk].astype(np.int64),
+                                  axis=1)
+        same += [set(a) == set(b) for a, b in zip(ids[s:s + chunk],
+                                                 top[:, :k])]
+        off += list(np.isclose(mine, ref, rtol=TOL_SCORE,
+                               atol=TOL_SCORE_ABS).all(axis=1))
+        err = max(err, float(np.abs(scores[s:s + chunk] - ref).max()))
+    same, gaps, off = np.asarray(same), np.asarray(gaps), np.asarray(off)
+    near = gaps <= np.asarray(tol)
+    clear = float(same[~near].mean()) if (~near).any() else 1.0
+    out = dict(
+        topk_same_as_numpy=float(same.mean()),
+        topk_near_tied=float(near.mean()),
+        topk_same_not_near_tied=clear,
+        topk_exact_ties=float((gaps == 0).mean()),
+        topk_differing_not_near_tied=int((~same & ~near).sum()),
+        topk_max_gap_differing=float(gaps[~same].max()) if (~same).any()
+        else None,
+        topk_gap_quartiles=[float(q) for q in np.quantile(gaps, [.25, .5,
+                                                                 .75])],
+        topk_same_off_ties=float(off.mean()), topk_max_score_err=err)
+    check(clear >= MIN_SAME_TOPK and out["topk_same_off_ties"] >= MIN_SAME_TOPK
+          and err <= TOL_SCORE,   # cosines: |s| <= 1
+          f"ParW2V.most_similar: numpy's top-{k} set for {clear:.4f} of the "
+          f"queries not near-tied, a top-{k} off ties for "
+          f"{out['topk_same_off_ties']:.4f}, scores off numpy's by {err:.3g}")
+    return out
+
+
+def distinct_rows(torch, *keys, R):
+    """Distinct ids below R among the int32 tensors ``keys``."""
+    k = torch.cat([x.reshape(-1) for x in keys])
+    return int(torch.unique(k[k < R]).numel())
+
+
+def w2v_kernels(W, S, torch, model, arrays):
+    """K19, K20 and K21 against their plain versions at d = W2V_D on the
+    brunch data: K21 (with K8's block-shared draws, bit for bit) and K20 on
+    the first token chunk of an epoch of the trained model, K19 on the
+    first pair chunk of a host-pair epoch; each repeatable, each check
+    shown to have power (K20 with the cap off, K21 at window - 1), times,
+    bounds and library calls.  Returns the kernels line's entries."""
+    wc_h, bc_h, hc_h, alias, block = arrays
+    dev = model.device
+    o = model.opt
+    V, d, K = int(model._vocab.size), W2V_D, int(o.num_negative_samples)
+    window, cap, lr = int(o.window), float(o.max_step_norm), float(o.lr)
+    L0 = torch.from_numpy(model.L0).to(dev, copy=True)
+    L1 = torch.from_numpy(model.L1).to(dev, copy=True)
+    # ---- K8 + K21 on the first token chunk
+    wc = torch.from_numpy(wc_h[0]).to(dev)
+    hc = torch.from_numpy(hc_h[0]).to(dev)
+    sc = torch.cumsum(torch.from_numpy(bc_h[0]).to(dev), 0,
+                      dtype=torch.int32)
+    T = wc.shape[0]
+    NB = T // block
+    draw = dict(num_negatives=K, seed=0, epoch=0, chunk=0, alias=alias)
+    negs = W.stream_negatives(NB, V, device=dev, **draw)
+    negs_p, _ = S.sample_negatives_plain(
+        torch.zeros(NB, dtype=torch.int32, device=dev), V, **draw)
+    check(torch.equal(negs.reshape(-1), negs_p), "K8's block-shared draws "
+          "differ from its plain version")
+    kw = dict(window=window, block=block, vocab_size=V)
+    got = W.stream_chunk_deltas(L0, L1, wc, sc, hc, negs, **kw)
+    again = W.stream_chunk_deltas(L0, L1, wc, sc, hc, negs, **kw)
+    ref = W.stream_chunk_deltas_plain(L0, L1, wc, sc, hc, negs, **kw)
+    short = W.stream_chunk_deltas_plain(L0, L1, wc, sc, hc, negs,
+                                        **dict(kw, window=window - 1))
+    torch.cuda.synchronize()
+    k21_err = max(rel_err(a, b)[1] for a, b in zip(got[:3], ref[:3]))
+    short_err = min(rel_err(a, b)[1] for a, b in zip(short[:3], got[:3]))
+    k21_loss = abs(float(got[3]) - float(ref[3])) / abs(float(ref[3]))
+    k21_rep = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(k21_err <= TOL_W2V and k21_loss <= TOL_W2V and k21_rep
+          and float(got[4]) == float(ref[4]) > 0,
+          f"K21: {k21_err:.3g} from the plain version, loss {k21_loss:.3g}, "
+          f"count {float(got[4])} vs {float(ref[4])}, repeatable {k21_rep}")
+    check(short_err > TOL_W2V, f"the K21 check passes a run at window - 1 "
+          f"({short_err:.3g})")
+    # ---- K20 on that chunk's L1 update (positions + negatives)
+    dL1p, dLn = got[1], got[2]
+    parts = [(wc, dL1p), (negs.reshape(-1), dLn.reshape(-1, d))]
+    outs = [L1.clone() for _ in range(4)]
+    W.row_apply(outs[0], parts, scale=lr, cap=cap)
+    W.row_apply(outs[1], parts, scale=lr, cap=cap)
+    W.row_apply_plain(outs[2], parts, scale=lr, cap=cap)
+    W.row_apply_plain(outs[3], parts, scale=lr, cap=0.0)
+    torch.cuda.synchronize()
+    # the scale: the largest entry of the summed row deltas before the cap
+    dT = outs[3] - L1
+    scale = float(dT.abs().max())
+    spacing = 2 * float(torch.finfo(torch.float32).eps) * float(
+        L1.abs().max())
+    k20_err = float((outs[0] - outs[2]).abs().max())
+    off_err = float((outs[3] - outs[2]).abs().max())
+    k20_rep = torch.equal(outs[0], outs[1])
+    binding = int(((dT * dT).sum(1).sqrt() > cap).sum())
+    check(k20_err <= TOL_W2V * scale + spacing and k20_rep and binding > 0,
+          f"K20: {k20_err:.3g} from the plain version (row deltas up to "
+          f"{scale:.3g}, repeatable {k20_rep}, rows past the cap {binding})")
+    check(off_err > TOL_W2V * scale + spacing, f"the K20 check passes a run "
+          f"with the cap off ({off_err:.3g})")
+    # ---- K19 on the first pair chunk of a host-pair epoch
+    chunk = model._pair_chunk()
+    inp_h, tgt_h, _ = model._generate_pairs(np.random.default_rng(0))
+    inputs = torch.from_numpy(inp_h[:chunk].copy()).to(dev)
+    targets = torch.from_numpy(tgt_h[:chunk].copy()).to(dev)
+    B = inputs.shape[0]
+    pkw = dict(vocab_size=V, num_negatives=K, seed=0, epoch=0, chunk=0,
+               alias=alias)
+    p_got = W.pair_step(L0, L1, inputs, targets, lr, **pkw)
+    p_again = W.pair_step(L0, L1, inputs, targets, lr, **pkw)
+    p_negs = W.w2v_negatives(targets, V, num_negatives=K, seed=0, epoch=0,
+                             chunk=0, alias=alias)
+    p_ref = W.pair_step_plain(L0, L1, inputs, targets, p_negs, lr,
+                              vocab_size=V)
+    torch.cuda.synchronize()
+    k19_err = max(rel_err(a, b)[1] for a, b in zip(p_got[2:4], p_ref[1:3]))
+    k19_loss = abs(float(p_got[4]) - float(p_ref[3])) / abs(float(p_ref[3]))
+    k19_rep = all(torch.equal(a, b) for a, b in zip(p_got, p_again))
+    check(torch.equal(p_got[0], p_negs) and torch.equal(p_got[1], p_ref[0])
+          and not bool((p_negs == targets[:, None]).any()),
+          "K19's draws or keys differ from its plain version, or a target "
+          "was drawn")
+    check(k19_err <= TOL_W2V and k19_loss <= TOL_W2V and k19_rep
+          and float(p_got[5]) == float(p_ref[4]) == B,
+          f"K19: rows {k19_err:.3g} from the plain version, loss "
+          f"{k19_loss:.3g}, count {float(p_got[5])}, repeatable {k19_rep}")
+    # ---- times, bounds, library calls
+    valid = int((wc < V).sum())
+    u0 = distinct_rows(torch, wc, R=V)
+    u1 = distinct_rows(torch, wc, negs, R=V)
+    pairs = float(got[4])
+    bms, by = bound_ms(9 * T + 4 * NB * K + 4 * d * (u0 + u1)
+                       + 4 * d * (2 * T + NB * K),
+                       pairs * 2 * d * (3 + 3 * K))
+    k21 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_stream_chunk.cu",
+               replaces="buffalo_tpu/ops/w2v_kernels.py:236",
+               max_abs_err=max(float((a - b).abs().max())
+                               for a, b in zip(got[:3], ref[:3])),
+               ms=time_ms(lambda: W.stream_chunk_deltas(L0, L1, wc, sc, hc,
+                                                        negs, **kw)),
+               plain_ms=time_ms(lambda: W.stream_chunk_deltas_plain(
+                   L0, L1, wc, sc, hc, negs, **kw), reps=5, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               library="none: no call expands skip-gram windows with "
+               "block-shared negatives",
+               rel_err=k21_err, loss_rel_err=k21_loss,
+               window_minus_1_rel_err=short_err, positions=T,
+               real_tokens=valid, pair_terms=pairs, k8_bitwise=True)
+    n20 = T + NB * K
+    t20 = distinct_rows(torch, wc, negs, R=V)
+    bms, by = bound_ms(4 * n20 + 4 * d * n20 + 8 * d * t20, 2 * d * n20)
+    keys_all = torch.cat([wc, negs.reshape(-1)])
+    rows_all = torch.cat([dL1p, dLn.reshape(-1, d)])
+    keep = keys_all < V
+    keys_l, rows_l = keys_all[keep].long(), rows_all[keep]
+
+    def library():
+        D = torch.zeros_like(L1).index_add_(0, keys_l, rows_l, alpha=lr)
+        n = (D * D).sum(1, keepdim=True).sqrt()
+        return outs[3].add_(D * torch.clamp(cap / n.clamp(min=1e-20),
+                                            max=1.0))
+
+    k20 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_row_apply.cu",
+               replaces="buffalo_tpu/ops/w2v_kernels.py:34",
+               max_abs_err=k20_err,
+               ms=time_ms(lambda: W.row_apply(outs[1], parts, scale=lr,
+                                              cap=cap)),
+               plain_ms=time_ms(lambda: W.row_apply_plain(
+                   outs[2], parts, scale=lr, cap=cap), reps=5, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=time_ms(library),
+               library="index_add_ of the rows + the norm clip",
+               rel_err=k20_err / scale, cap_off_err=off_err,
+               entries=n20, touched_rows=t20, rows_past_cap=binding)
+    ui = distinct_rows(torch, inputs, R=V)
+    ut = distinct_rows(torch, targets, p_negs, R=V)
+    bms, by = bound_ms(8 * B + 4 * d * (ui + ut)
+                       + 4 * (B * K + B * (1 + K)) + 4 * d * B * (2 + K),
+                       B * (K + 1) * 5 * d)
+    k19 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_pair_step.cu",
+               replaces="buffalo_tpu/ops/w2v_kernels.py:477",
+               max_abs_err=max(float((a - b).abs().max())
+                               for a, b in zip(p_got[2:4], p_ref[1:3])),
+               ms=time_ms(lambda: W.pair_step(L0, L1, inputs, targets, lr,
+                                              **pkw)),
+               plain_ms=time_ms(lambda: W.pair_step_plain(
+                   L0, L1, inputs, targets, W.w2v_negatives(
+                       targets, V, num_negatives=K, seed=0, epoch=0, chunk=0,
+                       alias=alias), lr, vocab_size=V), reps=5, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               library="none: no call draws the redrawn negatives and forms "
+               "the SGNS rows",
+               rel_err=k19_err, loss_rel_err=k19_loss, pairs=B,
+               k8_draws_bitwise=True)
+    phase("w2v_kernels", d=d, chunk_index=0, k19=k19, k20=k20, k21=k21,
+          tol=TOL_W2V)
+    del L0, L1, outs, got, again, ref, short, p_got, p_again, p_ref, dT
+    torch.cuda.empty_cache()
+    return {"pair_step": k19, "row_apply": k20, "stream_chunk_deltas": k21}
+
+
+def w2v_variants(bt, W, S, torch, data, device_first_loss=None):
+    """One epoch each (num_iters 1, the same start) of the device path and
+    the host-pair path, resident (262,144-pair chunks) and streamed
+    (``resident_mb`` 0): seconds, host pair-generation seconds, bytes to
+    the card, the device loss below W2V_DEVICE_BAND x each host loss (the
+    JAX package's band), the two host runs (the same pairs and draws, the
+    rate in float32 per group or float64 per chunk) within
+    TOL_W2V_STREAMED.  Returns the host path's launches (K19 per pair
+    chunk, two K20)."""
+    runs, launches = {}, None
+    kernels = W.KERNELS + (S.sample_negatives,)
+    for name, kw in (("device", {}), ("host", dict(pair_gen="host")),
+                     ("host_streamed", dict(pair_gen="host",
+                                            resident_mb=0))):
+        model = w2v_model(bt, data, w2v_opt(bt, num_iters=1, **kw))
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        model.train()
+        got = read_counts(kernels)
+        s = model.epoch_stats[0]
+        if name == "host":
+            launches = got
+            want = dict(pair_step=s["chunks"], row_apply=2 * s["chunks"],
+                        stream_chunk_deltas=0, sample_negatives=0)
+            check(got == want, f"host-pair epoch launched {got}, expected "
+                  f"{want}")
+        runs[name] = dict(loss=model.iteration_losses[0],
+                          epoch_seconds=model.iteration_times[0],
+                          host_seconds=s["host_seconds"],
+                          h2d_bytes=s["h2d_bytes"], pairs=s["pairs"],
+                          chunks=s["chunks"], chunk=s["chunk"],
+                          launches=got)
+        del model
+        torch.cuda.empty_cache()
+    dl = runs["device"]["loss"]
+    for name in ("host", "host_streamed"):
+        check(dl < W2V_DEVICE_BAND * runs[name]["loss"],
+              f"device loss {dl:.5f} not below {W2V_DEVICE_BAND} x the "
+              f"{name} loss {runs[name]['loss']:.5f}")
+    gap = abs(runs["host"]["loss"] - runs["host_streamed"]["loss"]) \
+        / runs["host"]["loss"]
+    check(gap <= TOL_W2V_STREAMED, f"streamed host epoch {gap:.3g} from the "
+          f"resident one")
+    phase("w2v_variants", d=W2V_D, band=W2V_DEVICE_BAND,
+          streamed_rel_gap=gap, **runs)
+    return launches
+
+
+def w2v_quality(bt, W, torch):
+    """The JAX package's quality gate on the card
+    (``tests/models/test_w2v_cfr.py:485-516``): the clustered corpus, d =
+    16, 20 epochs, window 4, lr 0.05, min_count 2, the port's own draws;
+    cluster purity of the top-5 neighbours > 0.5 on the host and the device
+    path (neg_block 16) and the device loss below W2V_DEVICE_BAND x the
+    host loss."""
+    rng = np.random.default_rng(3)
+    cl = rng.integers(0, 5, 60)
+    lines = [" ".join(f"w{int(x)}" for x in rng.choice(
+        np.nonzero(cl == rng.integers(0, 5))[0], size=10))
+        for _ in range(300)]
+    path = os.path.join(WORK, "clustered.txt")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    sopt = bt.StreamOptions().get_default_option()
+    sopt.input.main = path
+    sopt.data.path = os.path.join(WORK, "clustered.bfo")
+    sopt.data.tmp_dir = os.path.join(WORK, "tmp")
+    sopt.data.validation = {}
+    data = bt.data.load(sopt)
+    data.create()
+    out = {}
+    for pg in ("host", "device"):
+        opt = bt.W2VOption().get_default_option()
+        opt.update(d=16, num_iters=20, min_count=2, window=4, lr=0.05,
+                   pair_gen=pg, neg_block=16, device="cuda")
+        np.random.seed(5)
+        m = bt.W2V(opt, data=data)
+        m.initialize()
+        loss = m.train()["train_loss"]
+        hits = total = 0
+        for w in ("w0", "w1", "w2"):
+            for key, _ in m.most_similar(w, topk=5):
+                total += 1
+                hits += int(cl[int(key[1:])] == cl[int(w[1:])])
+        out[pg] = dict(loss=loss, purity=hits / max(total, 1))
+        check(total > 0 and hits / total > 0.5,
+              f"W2V {pg} purity {hits}/{total} on the clustered corpus")
+    check(out["device"]["loss"] < W2V_DEVICE_BAND * out["host"]["loss"],
+          f"clustered corpus: device loss not below {W2V_DEVICE_BAND} x "
+          f"host: {out}")
+    phase("w2v_quality", **out)
+
+
 def main() -> int:
     import torch
 
@@ -3752,6 +4239,7 @@ def main() -> int:
     from buffalo_tpu_torch.ops import eals_kernels as E
     from buffalo_tpu_torch.ops import plsi_kernels as PK
     from buffalo_tpu_torch.ops import sgd_kernels as S
+    from buffalo_tpu_torch.ops import w2v_kernels as W2
     from buffalo_tpu_torch.ops import warp_kernels as W
 
     bt.set_log_level(1)
@@ -3967,6 +4455,25 @@ def main() -> int:
         path_launches.update(cfr_launches)
         entries.update(cfr_kernels(CK, K, torch, cfr, cfr_staged))
         del cfr, cfr_staged, brunch
+        torch.cuda.empty_cache()
+
+        # ---- W2V: the brunch corpus as a token stream, W2V's main path
+        # (the device epoch: K8, K21, K20) and ParW2V, K19-K21 against their
+        # plain versions, the host-pair epochs (K19, K20), the quality gate
+        w2v_data, w2v_build_s = w2v_build(bt)
+        w2v, w2v_launches, w2v_arrays = w2v_path(bt, W2, S, R, torch,
+                                                 w2v_data, w2v_build_s)
+        entries.update(w2v_kernels(W2, S, torch, w2v, w2v_arrays))
+        del w2v, w2v_arrays
+        torch.cuda.empty_cache()
+        host_launches = w2v_variants(bt, W2, S, torch, w2v_data)
+        path_launches["sample_negatives"] += w2v_launches["sample_negatives"]
+        path_launches.update(
+            row_apply=w2v_launches["row_apply"],
+            stream_chunk_deltas=w2v_launches["stream_chunk_deltas"],
+            pair_step=host_launches["pair_step"])
+        w2v_quality(bt, W2, torch)
+        del w2v_data
         torch.cuda.empty_cache()
 
         # ---- catalog path: the README's serving configuration (K5-K7 at

@@ -1388,3 +1388,171 @@ def test_cfr_bias_kernel_matches_plain(dev, d, segment):
                 (rows < X[name].shape[0])
             assert bool(live.any())
             assert bool((got[rows[live].long()] == 0).all())
+
+
+# ---------------------------------------------------------------- W2V
+def _w2v_problem(dev, d, V=3000, seed=0):
+    """Tables at a trained scale, Zipf(0.8) words and their unigram^0.75
+    alias tables on the card."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    rng = np.random.default_rng(seed)
+    L0, L1 = (torch.tensor(rng.normal(size=(V, d)) * 0.3,
+                           dtype=torch.float32, device=dev) for _ in range(2))
+    p = 1.0 / np.arange(1, V + 1) ** 0.8
+    prob, al = S.build_alias_table(p ** 0.75)
+    alias = (torch.from_numpy(prob).to(dev), torch.from_numpy(al).to(dev))
+    return rng, L0, L1, p / p.sum(), alias
+
+
+@pytest.mark.parametrize("d", [13, 32, 256])
+def test_w2v_pair_step_kernel_matches_plain(dev, d):
+    """K19: its own draws bit for bit the plain version's (never the
+    target), keys equal, delta rows 1e-5 of the largest, loss 1e-5, count
+    exact, repeatable; and on given negatives."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V, B, K = 3000, 5000, 5
+    rng, L0, L1, p, alias = _w2v_problem(dev, d, V)
+    inputs = torch.from_numpy(rng.choice(V, B, p=p).astype(np.int32))
+    targets = torch.from_numpy(rng.choice(V, B, p=p).astype(np.int32))
+    inputs[-37:] = V
+    targets[-37:] = V
+    kw = dict(vocab_size=V, num_negatives=K, seed=11, epoch=2, chunk=3,
+              alias=alias)
+    before = W.pair_step.launches
+    got = W.pair_step(L0, L1, inputs.to(dev), targets.to(dev), 0.025, **kw)
+    again = W.pair_step(L0, L1, inputs.to(dev), targets.to(dev), 0.025, **kw)
+    negs = W.w2v_negatives(targets, V, num_negatives=K, seed=11, epoch=2,
+                           chunk=3, alias=tuple(a.cpu() for a in alias))
+    ref = W.pair_step_plain(L0.cpu(), L1.cpu(), inputs, targets, negs, 0.025,
+                            vocab_size=V)
+    given = W.pair_step(L0, L1, inputs.to(dev), targets.to(dev), 0.025,
+                        negatives=negs.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert W.pair_step.launches == before + 3
+    assert torch.equal(got[0].cpu(), negs)
+    assert not (negs == targets[:, None]).any()
+    assert torch.equal(got[1].cpu(), ref[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, given))
+    for a, b in zip(got[2:4], ref[1:3]):
+        assert _rel_close(a.cpu(), b, 1e-5)
+    assert abs(float(got[4]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    assert float(got[5]) == float(ref[4]) == B - 37
+
+
+@pytest.mark.parametrize("d", [13, 32, 256])
+@pytest.mark.parametrize("cap", [0.0, 0.1])
+def test_w2v_row_apply_kernel_matches_plain(dev, d, cap):
+    """K20 on two parts with dropped keys and a head word of 20,000
+    entries: within 1e-5 of the largest summed row delta before the cap
+    (plus two float32 spacings of the table), untouched rows bitwise,
+    repeatable."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V = 3000
+    rng, L0, _, p, _ = _w2v_problem(dev, d, V)
+    keys = [rng.choice(V, 60000, p=p).astype(np.int32),
+            rng.choice(V, 9000, p=p).astype(np.int32)]
+    keys[0][:20000] = 0
+    keys[1][::5] = V
+    parts = [(torch.from_numpy(k).to(dev),
+              torch.tensor(rng.normal(size=(len(k), d)) * 0.01,
+                           dtype=torch.float32, device=dev)) for k in keys]
+    outs = [L0.clone() for _ in range(4)]
+    before = W.row_apply.launches
+    W.row_apply(outs[0], parts, scale=0.5, cap=cap)
+    W.row_apply(outs[1], parts, scale=0.5, cap=cap)
+    W.row_apply_plain(outs[2], parts, scale=0.5, cap=cap)
+    W.row_apply_plain(outs[3], parts, scale=0.5, cap=0.0)
+    torch.cuda.synchronize()
+    assert W.row_apply.launches == before + 2
+    assert torch.equal(outs[0], outs[1])
+    # the scale: the largest summed row delta before the cap
+    delta = (outs[3] - L0).abs().max()
+    spacing = 2 * torch.finfo(torch.float32).eps * L0.abs().max()
+    assert (outs[0] - outs[2]).abs().max() <= 1e-5 * delta + spacing
+    touched = torch.zeros(V, dtype=torch.bool, device=dev)
+    touched[torch.from_numpy(np.concatenate(keys)).to(dev).clamp(max=V - 1)
+            .long()] = True
+    assert torch.equal(outs[0][~touched], L0[~touched])
+
+
+@pytest.mark.parametrize("d", [13, 32, 256])
+@pytest.mark.parametrize("block", [4, 16])
+def test_w2v_stream_chunk_kernel_matches_plain(dev, d, block):
+    """K21 on a Zipf chunk with sentence ends inside negative blocks and
+    padding at its end: 1e-5 of the largest entry, count exact, loss 1e-5,
+    repeatable; one offset fewer fails that check."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V, T, K, window = 3000, 8192, 5, 5
+    rng, L0, L1, p, alias = _w2v_problem(dev, d, V)
+    wc = rng.choice(V, T, p=p).astype(np.int32)
+    bnd = (rng.random(T) < 0.1).astype(np.uint8)
+    hc = (window - rng.integers(0, window, T)).astype(np.uint8)
+    wc[-100:], bnd[-100:], hc[-100:] = V, 1, 0
+    bnd[0] = 1
+    sc = np.cumsum(bnd.astype(np.int32)).astype(np.int32)
+    negs = W.stream_negatives(T // block, V, num_negatives=K, seed=1,
+                              epoch=0, chunk=4, alias=alias, device=dev)
+    args = [torch.from_numpy(a).to(dev) for a in (wc, sc, hc)] + [negs]
+    kw = dict(window=window, block=block, vocab_size=V)
+    got = W.stream_chunk_deltas(L0, L1, *args, **kw)
+    again = W.stream_chunk_deltas(L0, L1, *args, **kw)
+    cpu = [L0.cpu(), L1.cpu()] + [a.cpu() for a in args]
+    ref = W.stream_chunk_deltas_plain(*cpu, **kw)
+    short = W.stream_chunk_deltas_plain(*cpu, **dict(kw, window=window - 1))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b, c in zip(got[:3], ref[:3], short[:3]):
+        assert _rel_close(a.cpu(), b, 1e-5)
+        assert not _rel_close(a.cpu(), c, 1e-5)
+    assert abs(float(got[3]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    assert float(got[4]) == float(ref[4]) > 0
+
+
+@pytest.mark.parametrize("pair_gen", ["host", "device"])
+def test_w2v_trains_on_the_card(dev, tmp_path, pair_gen):
+    """A short ``W2V.train`` on the card, each path through its kernels:
+    the clustered corpus's purity gate and a falling loss."""
+    import buffalo_tpu_torch as bt
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    rng = np.random.default_rng(3)
+    cl = rng.integers(0, 5, 60)
+    lines = [" ".join(f"w{int(x)}" for x in rng.choice(
+        np.nonzero(cl == rng.integers(0, 5))[0], size=10))
+        for _ in range(300)]
+    (tmp_path / "main.txt").write_text("\n".join(lines) + "\n")
+    sopt = bt.StreamOptions().get_default_option()
+    sopt.input.main = str(tmp_path / "main.txt")
+    sopt.data.path = str(tmp_path / "s.bfo")
+    sopt.data.tmp_dir = str(tmp_path / "tmp")
+    sopt.data.validation = {}
+    data = bt.data.load(sopt)
+    data.create()
+    opt = bt.W2VOption().get_default_option()
+    opt.update(d=16, num_iters=20, min_count=2, window=4, lr=0.05,
+               pair_gen=pair_gen, neg_block=16)
+    np.random.seed(5)
+    m = bt.W2V(opt, data=data)
+    m.initialize()
+    counts = [k.launches for k in W.KERNELS + (S.sample_negatives,)]
+    m.train()
+    new = [k.launches - c for k, c in zip(W.KERNELS + (S.sample_negatives,),
+                                          counts)]
+    if pair_gen == "host":
+        assert new[0] > 0 and new[1] == 2 * new[0] and new[2] == 0
+    else:
+        assert new[0] == 0 and new[2] > 0 and new[1] == 2 * new[2] \
+            and new[3] == new[2]
+    assert m.iteration_losses[-1] < m.iteration_losses[0]
+    hits = total = 0
+    for w in ["w0", "w1", "w2"]:
+        for key, _ in m.most_similar(w, topk=5):
+            total += 1
+            hits += cl[int(key[1:])] == cl[int(w[1:])]
+    assert total > 0 and hits / total > 0.5

@@ -67,6 +67,9 @@ def test_import_loads_neither_jax_nor_reference():
             "import buffalo_tpu_torch.data.stream; "
             "from buffalo_tpu_torch import (PLSI, PLSIOption, CFR, "
             "CFROption, ParCFR, Stream, StreamOptions); "
+            "import buffalo_tpu_torch.ops.w2v_kernels; "
+            "import buffalo_tpu_torch.models.w2v; "
+            "from buffalo_tpu_torch import W2V, W2VOption, ParW2V, aux; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'buffalo_tpu' "
             "or m.startswith('buffalo_tpu.')]; "
@@ -176,3 +179,36 @@ def test_plsi_stream_and_cfr_modules_covered():
     names = {p.name for p in PORT_FILES}
     assert {"plsi_kernels.py", "plsi.py", "cfr_kernels.py", "cfr.py",
             "stream.py"} <= names
+
+
+def test_w2v_cuda_default_without_card_raises(monkeypatch):
+    from buffalo_tpu_torch import W2V, W2VOption
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = W2VOption().get_default_option()
+    assert opt.device == "cuda"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        W2V(opt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        W2V.new("unused", device="cuda")
+    opt.device = "cpu"
+    assert W2V(opt).device.type == "cpu"
+
+
+def test_w2v_modules_covered():
+    """The W2V modules are among the files the import rule checks."""
+    names = {p.name for p in PORT_FILES}
+    assert {"w2v_kernels.py", "w2v.py"} <= names
+
+
+def test_exports_match_the_reference():
+    """The package exports the JAX package's names, W2V's and the
+    reference's compatibility flags included (both False)."""
+    import buffalo_tpu
+    import buffalo_tpu_torch
+
+    assert sorted(buffalo_tpu_torch.__all__) == sorted(buffalo_tpu.__all__)
+    for name in buffalo_tpu_torch.__all__:
+        assert hasattr(buffalo_tpu_torch, name), name
+    assert buffalo_tpu_torch.inited_CUALS is False
+    assert buffalo_tpu_torch.inited_CUBPR is False
