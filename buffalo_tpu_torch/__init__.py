@@ -5,7 +5,10 @@ CML, eALS, pLSI, CoFactor and skip-gram W2V with top-k recommendation or
 most-similar retrieval, MatrixMarket and Stream data with its SPPMI group,
 batched retrieval with ``ParALS`` / ``ParBPRMF`` / ``ParEALS`` /
 ``ParCFR`` / ``ParW2V`` and the ``IVFIndex`` ANN index), the same option
-names and the same save/load byte formats, running on one CUDA device.
+names and the same save/load byte formats, running on one CUDA device or,
+for ALS, eALS and pLSI training and for sharded serving, over a device
+mesh (``parallelism``: shards on one or more cards, across processes
+through ``torch.distributed``).
 The hot per-row solves, BPR's and WARP's sampling and chunk updates,
 eALS's dimension sweeps, pLSI's EM steps, CoFactor's normal equations and
 biases, W2V's pair steps, stream chunks and capped row updates and the
@@ -35,6 +38,7 @@ from buffalo_tpu_torch.models import (ALS, BPRMF, CFR, EALS, PLSI,  # noqa: F401
 from buffalo_tpu_torch.models.base import Algo  # noqa: F401
 from buffalo_tpu_torch.parallel import (IVFIndex, ParALS,  # noqa: F401
                                         ParBPRMF, ParCFR, ParEALS, ParW2V)
+from buffalo_tpu_torch import parallelism  # noqa: F401
 from buffalo_tpu_torch import utils as aux  # noqa: F401  (reference alias)
 from buffalo_tpu_torch.utils import Option  # noqa: F401
 from buffalo_tpu_torch.utils import log  # noqa: F401

@@ -107,9 +107,17 @@ int blocks_for(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
 // Doubles of the workspace for a Q of n rows and d columns.
 extern "C" int plsi_mstep_workspace(int n, int d) { return (blocks_for(n) + 1) * d; }
 
-// p_mask and q_mask both given (one float per row) or both null.
-extern "C" int plsi_mstep(float* P, int nP, float* Q, int nQ, int d, float add_p, float add_q,
-                          const float* p_mask, const float* q_mask, double* part, void* stream) {
+// The M-step in two launches, so that a row-sharded table's column sums
+// can be all-reduced between them (plsi_epoch_sharded_range, :256); on one
+// device the second follows the first directly.  plsi_mstep_sums: P's rows
+// as above, and the column sums of Q's smoothed rows (Q itself unchanged)
+// into part[nb * d .. (nb + 1) * d), nb = the workspace's blocks.
+// plsi_mstep_apply: Q's rows smoothed and divided by the given column sums
+// (d doubles).  p_mask and q_mask both given (one float per row) or both
+// null.
+extern "C" int plsi_mstep_sums(float* P, int nP, const float* Q, int nQ, int d, float add_p,
+                               float add_q, const float* p_mask, const float* q_mask,
+                               double* part, void* stream) {
   if (d < 1 || d > kMaxD || nP < 0 || nQ < 0 || (!p_mask) != (!q_mask) || !part)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -118,16 +126,22 @@ extern "C" int plsi_mstep(float* P, int nP, float* Q, int nQ, int d, float add_p
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (nQ == 0) return 0;
   const int nb = blocks_for(nQ);
-  q_partial<<<nb, kThreads, 0, st>>>(Q, nQ, d, add_q, q_mask, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (nb > 0) {
+    q_partial<<<nb, kThreads, 0, st>>>(Q, nQ, d, add_q, q_mask, part);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   q_total<<<1, kThreads, 0, st>>>(part, nb, d);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int plsi_mstep_apply(float* Q, int nQ, int d, float add_q, const float* q_mask,
+                                const double* total, void* stream) {
+  if (d < 1 || d > kMaxD || nQ < 0 || !total) return (int)cudaErrorInvalidValue;
+  if (nQ == 0) return 0;
   const int64_t m = (int64_t)nQ * d;
   const int grid = (int)((m + kThreads - 1) / kThreads < 4096 ? (m + kThreads - 1) / kThreads : 4096);
-  q_apply<<<grid, kThreads, 0, st>>>(Q, nQ, d, add_q, q_mask, part + (int64_t)nb * d);
+  q_apply<<<grid, kThreads, 0, (cudaStream_t)stream>>>(Q, nQ, d, add_q, q_mask, total);
   return (int)cudaGetLastError();
 }

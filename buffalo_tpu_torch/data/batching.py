@@ -264,6 +264,122 @@ def _remap_segment(planner, plan_rows, key, val, self_newpos, other_newpos,
                         vals=sb.vals.astype(vals_dtype))
 
 
+def build_sharded_range_layout(row_planner: "BatchPlanner",
+                               col_planner: "BatchPlanner",
+                               row_key, row_val, col_key, col_val,
+                               num_shards: int, vals_dtype=np.float32):
+    """Permute both tables into PER-SHARD bucket order (the JAX package's
+    ``build_sharded_range_layout``, ``data/batching.py:272``).
+
+    Shard k of the permuted table is the contiguous block ``[k*S,
+    (k+1)*S)``; within a shard, rows sit in bucket order so every batch
+    updates a contiguous LOCAL range.  Every shard carries an identical
+    batch schedule (uneven bucket splits are filled with padding rows of
+    length 0), so the stacked groups gain a leading shard axis.
+
+    Returns ``(row_groups, col_groups, row_segments, col_segments,
+    u_newpos, i_newpos, S_u, S_i)``: groups are stacked ``RangeBatch``
+    tuples with the shard axis first (``row_start (D, n)``, ``lens (D, n,
+    B)``, ``cols/vals (D, n, B, L)``); segments are ``SegmentBatch``es
+    with GLOBAL remapped ids; ``*_newpos[old_id]`` is the global position
+    in a table of ``num_shards * S`` rows.  Byte-equal to the JAX
+    function's output.
+    """
+    D = int(num_shards)
+
+    def positions(planner):
+        num = planner.num_rows
+        local = np.full(num, -1, dtype=np.int64)
+        shard = np.zeros(num, dtype=np.int64)
+        plan = []  # (parts per shard, local_start, n_pad, B, L)
+        pos = 0
+        for bucket in planner.buckets:
+            parts = np.array_split(bucket.row_ids, D)
+            n_pad = -(-max(len(p) for p in parts) // MIN_B) * MIN_B
+            B = min(int(bucket.B), n_pad)
+            for k, part in enumerate(parts):
+                shard[part] = k
+                local[part] = pos + np.arange(len(part))
+            plan.append((parts, pos, n_pad, B, int(bucket.L)))
+            pos += n_pad
+        # tail: long (segment) rows then degree-0 rows, round-robin
+        seg = np.asarray([r for p in planner.segment_plans for r in p],
+                         dtype=np.int64)
+        deg0 = np.nonzero(local < 0)[0]
+        if len(seg):
+            deg0 = deg0[~np.isin(deg0, seg)]
+        tail = np.concatenate([seg, deg0])
+        for k in range(D):
+            mine = tail[k::D]
+            shard[mine] = k
+            local[mine] = pos + np.arange(len(mine))
+        S = pos + (-(-len(tail) // D) if len(tail) else 0)
+        S = -(-max(S, MIN_B) // MIN_B) * MIN_B
+        return (shard * S + local), plan, int(S)
+
+    u_newpos, u_plan, S_u = positions(row_planner)
+    i_newpos, i_plan, S_i = positions(col_planner)
+
+    def emit(planner, plan, key, val, self_newpos, other_newpos):
+        key = np.asarray(key)
+        indptr = planner.indptr
+        per_shard: List[List[RangeBatch]] = [[] for _ in range(D)]
+        for parts, start, n_pad, B, L in plan:
+            for lo in range(0, n_pad, B):
+                Bj = min(B, n_pad - lo)
+                for k in range(D):
+                    lens, cols, vals = _gather_remapped(
+                        indptr, key, val, parts[k][lo:lo + Bj], Bj, L,
+                        other_newpos, vals_dtype)
+                    per_shard[k].append(RangeBatch(
+                        row_start=np.int32(start + lo), lens=lens,
+                        cols=cols, vals=vals))
+        # same-shape stacking is aligned across shards by construction;
+        # the shard axis goes in front
+        stacked = [stack_batches(bs) for bs in per_shard]
+        groups = [type(g0)(*[np.stack([np.asarray(getattr(s[i], f))
+                                       for s in stacked])
+                             for f in g0._fields])
+                  for i, g0 in enumerate(stacked[0])]
+        segments = [_remap_segment(planner, p, key, val, self_newpos,
+                                   other_newpos, vals_dtype)
+                    for p in planner.segment_plans]
+        return groups, segments
+
+    row_groups, row_segments = emit(row_planner, u_plan, row_key, row_val,
+                                    u_newpos, i_newpos)
+    col_groups, col_segments = emit(col_planner, i_plan, col_key, col_val,
+                                    i_newpos, u_newpos)
+    return (row_groups, col_groups, row_segments, col_segments,
+            u_newpos, i_newpos, S_u, S_i)
+
+
+def shard_group(group: RangeBatch, shard: int) -> RangeBatch:
+    """Shard ``shard``'s slice of a stacked group of
+    ``build_sharded_range_layout`` (the leading shard axis dropped)."""
+    return RangeBatch(*[np.asarray(a)[shard] for a in group])
+
+
+def stage_shard_groups(groups, mesh, vals_dtype=None) -> List[list]:
+    """Stacked groups of ``build_sharded_range_layout`` staged per local
+    shard of ``mesh``: one list of groups per shard, on its device."""
+    return [[stage_batch(shard_group(g, k), dev, vals_dtype) for g in groups]
+            for k, dev in zip(mesh.shards, mesh.devices)]
+
+
+def split_rows(batch, parts: int, part: int):
+    """Part ``part`` of ``parts`` equal row slices of a staged padded
+    batch (the JAX package's batch sharding over a mesh axis: row
+    ``r`` of a batch of B rows lives on shard ``r // (B / parts)``).
+    A PaddedBatch's B is a multiple of the mesh size (``row_multiple``)."""
+    B = batch.lens.shape[0]
+    if B % parts:
+        raise ValueError(f"a batch of {B} rows does not split over "
+                         f"{parts} shards")
+    n = B // parts
+    return PaddedBatch(*[a[part * n:(part + 1) * n] for a in batch])
+
+
 @dataclass
 class _BucketPlan:
     L: int                    # padded row length

@@ -9,8 +9,13 @@ the device-resident bucket-order range layout (bfloat16 values past
 (``range_layout=False``) and, when the padded epoch exceeds
 ``resident_mb``, the streaming path.  Each batch runs on the
 hand-written CUDA kernels of ``ops/als_kernels.py`` (their plain
-PyTorch versions on the CPU).  More than one device is not ported yet
-and raises ``NotImplementedError`` at ``train``.
+PyTorch versions on the CPU).  Over a device mesh (``num_devices`` > 1,
+``parallelism.get_mesh``; the port's ``devices`` option names the
+shards' devices) the same kernels run per shard: "dp+tp" on the
+per-shard range layout (``als_epoch_sharded_range``), "dp" on
+replicated tables and "tp" with ``range_layout=False`` on row-sharded
+ones (``als_epoch_replicated``), streamed when the epoch is not
+resident.
 
 Reference: Hu, Koren, Volinsky — Collaborative Filtering for Implicit
 Feedback Datasets; iALS++ (arXiv 2110.14044).
@@ -25,13 +30,24 @@ import torch
 
 from buffalo_tpu_torch.data.base import Data
 from buffalo_tpu_torch.data.batching import (DeviceBatcher, build_range_layout,
+                                             build_sharded_range_layout,
                                              choose_group_dispatch,
                                              padded_entry_count,
-                                             permute_table, stage_batch)
+                                             permute_table, stage_batch,
+                                             stage_shard_groups)
 from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import ALSOption
-from buffalo_tpu_torch.ops.als_kernels import MAX_D, als_epoch
+from buffalo_tpu_torch.ops.als_kernels import (MAX_D, als_epoch,
+                                              als_epoch_replicated,
+                                              als_epoch_sharded_range)
+
+def _replicas(mesh, table):
+    """``table`` once per device of ``mesh``, listed per local shard."""
+    out = {}
+    return [out.setdefault(dev, torch.from_numpy(table).to(dev, copy=True))
+            for dev in mesh.devices]
+
 
 # values of the range layout past this many padded entries are staged as
 # bfloat16 (the reference's rule, models/als.py:358-366)
@@ -128,10 +144,6 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
         """Raise for what this port does not run yet (ROADMAP queue 1
         names each item)."""
         opt = self.opt
-        if int(opt.get("num_devices") or 0) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 8 "
-                "(multi-device epochs over NCCL)")
         if self.device.type == "cuda" and int(opt.d) > MAX_D:
             raise NotImplementedError(
                 f"d = {opt.d}: the kernels take rows of at most {MAX_D} "
@@ -150,22 +162,22 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
                              f"got {choice!r}")
         return torch.bfloat16 if choice == "bfloat16" else None
 
-    def train(self, training_callback: Optional[
-            Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
-        assert self.data, "Data is not set"
-        self._optimizer = self._resolve_optimizer()
-        self._check_supported()
-        device = self.device
-        batchers = {group: DeviceBatcher(
+    def _batchers(self, row_multiple=1, device=None):
+        return {group: DeviceBatcher(
             self.data, group,
             batch_mb=int(self.data.opt.data.get("batch_mb", 1024)),
             resident_mb=int(self.opt.get("resident_mb", 4096)),
-            d=int(self.opt.d),
+            row_multiple=row_multiple, d=int(self.opt.d),
             # llt/ldlt materialize the (B, d, d) system at every
             # bucket length; cap rows-per-batch everywhere for them
             matrix_free=self._optimizer not in ("llt", "ldlt"),
-            device=device)
+            device=device or self.device)
             for group in ("rowwise", "colwise")}
+
+    def _prepare_single(self, kw):
+        """One device: (epoch(), to_host(), batchers)."""
+        device = self.device
+        batchers = self._batchers()
         rb, cb = batchers["rowwise"], batchers["colwise"]
         # buckets and segment chunks, the count the reference's budget
         # rules share
@@ -201,14 +213,116 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
             Q = torch.from_numpy(self.Q).to(device, copy=True)
             order = None
         num_users, num_items = int(self.P.shape[0]), int(self.Q.shape[0])
-        kw = self._epoch_kwargs()
+
+        def epoch():
+            _, _, nume, deno = als_epoch(
+                P, Q, row_batches, col_batches, reg_u=float(self.opt.reg_u),
+                reg_i=float(self.opt.reg_i), num_p_rows=num_users,
+                num_q_rows=num_items, **kw)
+            return nume, deno
 
         def to_host():
             Ph, Qh = P.cpu().numpy(), Q.cpu().numpy()
             if order is not None:
                 Ph, Qh = Ph[order[0]], Qh[order[1]]
             return Ph, Qh
+        return epoch, to_host, batchers
 
+    def _prepare_mesh(self, mesh, kw):
+        """A device mesh (``models/als.py:260-410``): with "tp" in
+        ``sharding`` and the range layout, row-sharded tables in the
+        per-shard bucket order of ``build_sharded_range_layout``;
+        otherwise padded batches planned with ``row_multiple`` = the mesh
+        size whose rows split over the shards, on replicated ("dp") or
+        row-sharded ("tp", ``range_layout=False``) tables; the sharded
+        range intent falls back to the latter when the epoch is not
+        resident (``:299-305``).  Returns (epoch(), to_host(),
+        batchers)."""
+        from buffalo_tpu_torch import parallelism as par
+
+        opt = self.opt
+        sharding = str(opt.get("sharding", "dp"))
+        range_intent = "tp" in sharding and bool(
+            opt.get("range_layout", True))
+        dev0 = mesh.devices[0]
+        batchers = self._batchers(1 if range_intent else mesh.size, dev0)
+        rb, cb = batchers["rowwise"], batchers["colwise"]
+        if range_intent and not (rb.resident and cb.resident):
+            range_intent = False
+            batchers = self._batchers(mesh.size, dev0)
+            rb, cb = batchers["rowwise"], batchers["colwise"]
+        num_users, num_items = int(self.P.shape[0]), int(self.Q.shape[0])
+        common = dict(mesh=mesh, reg_u=float(opt.reg_u),
+                      reg_i=float(opt.reg_i), num_p_rows=num_users,
+                      num_q_rows=num_items, **kw)
+        if range_intent:
+            (row_g, col_g, row_seg, col_seg, u_pos, i_pos, S_u,
+             S_i) = build_sharded_range_layout(
+                rb.planner, cb.planner, rb.key, rb.val, cb.key, cb.val,
+                mesh.size)
+            mr = self._mesh_range = {
+                "row_groups": stage_shard_groups(row_g, mesh),
+                "col_groups": stage_shard_groups(col_g, mesh),
+                "row_segments": [stage_batch(b, dev0) for b in row_seg],
+                "col_segments": [stage_batch(b, dev0) for b in col_seg],
+                "u_pos": u_pos, "i_pos": i_pos, "mesh": mesh}
+            P = par.shard_table(mesh, permute_table(self.P, u_pos,
+                                                    mesh.size * S_u))
+            Q = par.shard_table(mesh, permute_table(self.Q, i_pos,
+                                                    mesh.size * S_i))
+
+            def epoch():
+                _, _, nume, deno = als_epoch_sharded_range(
+                    P, Q, mr["row_groups"], mr["col_groups"],
+                    mr["row_segments"], mr["col_segments"], **common)
+                return nume, deno
+
+            def to_host():
+                return (par.gather_table(mesh, P)[u_pos],
+                        par.gather_table(mesh, Q)[i_pos])
+            return epoch, to_host, batchers
+
+        row_sharded = "tp" in sharding
+        if rb.resident and cb.resident:
+            rb.device_batches()
+            cb.device_batches()
+        if row_sharded:
+            # row-sharded tables divide evenly over the mesh: zero rows
+            # at the end, never named by a batch
+            def mesh_pad(T):
+                pad = (-T.shape[0]) % mesh.size
+                return np.vstack([T, np.zeros((pad, T.shape[1]), T.dtype)])
+            P = par.shard_table(mesh, mesh_pad(self.P))
+            Q = par.shard_table(mesh, mesh_pad(self.Q))
+        else:
+            P = _replicas(mesh, self.P)
+            Q = _replicas(mesh, self.Q)
+
+        def epoch():
+            _, _, nume, deno = als_epoch_replicated(
+                P, Q, rb, cb, row_sharded=row_sharded, **common)
+            return nume, deno
+
+        def to_host():
+            if row_sharded:
+                return (par.gather_table(mesh, P)[:num_users],
+                        par.gather_table(mesh, Q)[:num_items])
+            return P[0].cpu().numpy(), Q[0].cpu().numpy()
+        return epoch, to_host, batchers
+
+    def train(self, training_callback: Optional[
+            Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
+        assert self.data, "Data is not set"
+        self._optimizer = self._resolve_optimizer()
+        self._check_supported()
+        kw = self._epoch_kwargs()
+        mesh = self._select_mesh(default_all=True)
+        self._mesh_range = None
+        if mesh is None:
+            epoch, to_host, batchers = self._prepare_single(kw)
+        else:
+            epoch, to_host, batchers = self._prepare_mesh(mesh, kw)
+        rb, cb = batchers["rowwise"], batchers["colwise"]
         def _sync_host():
             self.P, self.Q = to_host()
         self._sync_host_factors = _sync_host
@@ -218,10 +332,7 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
         self.iteration_times = []  # per-epoch train seconds
         for i in range(self.opt.num_iters):
             start_t = time.time()
-            P, Q, nume, deno = als_epoch(
-                P, Q, row_batches, col_batches, reg_u=float(self.opt.reg_u),
-                reg_i=float(self.opt.reg_i), num_p_rows=num_users,
-                num_q_rows=num_items, **kw)
+            nume, deno = epoch()
             nume, deno = float(nume), float(deno)  # waits for the epoch
             train_t = time.time() - start_t
             self.iteration_times.append(train_t)
@@ -249,6 +360,7 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
                 break
         self.P, self.Q = to_host()
         self._sync_host_factors = None
+        self._mesh_range = None
         # bytes the streaming path copied to the card (0 when resident)
         self.h2d_bytes = rb.h2d_bytes + cb.h2d_bytes
         self.logger.info(

@@ -294,6 +294,34 @@ class Algo(abc.ABC):
         return (mean / (np.linalg.norm(mean) + EPS)).astype(np.float32)
 
     # -------------------------------------------------------- training aids
+    def _select_mesh(self, default_all: bool = False):
+        """The device mesh the options ask for, or None for one device.
+
+        ``num_devices`` 1 forces one device; more than 1 asks for a mesh
+        of that many shards (across processes once
+        ``parallelism.initialize_distributed`` has run), on the cards or
+        on the devices ``opt.devices`` names (the port's own key, e.g.
+        ``["cuda:0"] * 4`` or ``["cpu"] * 8``).  With ``default_all`` (the
+        ALS rule, ``models/als.py:261-265``), 0 meshes over every card
+        when this process sees more than one, or over every process of a
+        distributed job.
+        """
+        from buffalo_tpu_torch import parallelism
+
+        n_dev = int(self.opt.get("num_devices") or 0)
+        devices = self.opt.get("devices") or None
+        if n_dev == 1:
+            return None
+        if n_dev > 1:
+            return parallelism.get_mesh(n_dev, devices=devices)
+        if not default_all:
+            return None
+        local = len(devices) if devices else (
+            parallelism.num_devices() if self.device.type == "cuda" else 1)
+        if local * parallelism.world_size() > 1:
+            return parallelism.get_mesh(None, devices=devices)
+        return None
+
     def periodical(self, period, current):
         """True when iteration ``current`` falls on the save/eval period."""
         return not period or (current + 1) % period == 0

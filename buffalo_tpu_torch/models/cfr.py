@@ -240,8 +240,8 @@ class CFR(Algo, CFROption, Evaluable, Serializable):
     def _check_supported(self):
         if int(self.opt.get("num_devices") or 0) > 1:
             raise NotImplementedError(
-                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 8 "
-                "(multi-device epochs over NCCL)")
+                "num_devices > 1 is not ported yet for this model: ROADMAP "
+                "queue 1 item 8b (the data-parallel SGD / EM epochs)")
         if int(self.opt.d) > K.MAX_D:
             raise NotImplementedError(
                 f"d = {self.opt.d}: the CFR kernels take rows of at most "

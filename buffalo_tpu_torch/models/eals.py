@@ -10,8 +10,10 @@ batch a contiguous row range, head rows as segment batches) or, with
 residuals carried between the halves through the row-to-column
 permutation.  K13 sweeps each batch's dimensions and K14 computes the
 residuals and the loss's sums (``ops/eals_kernels.py``; their plain
-PyTorch versions on the CPU).  More than one device raises
-``NotImplementedError`` at ``train``.
+PyTorch versions on the CPU).  With ``num_devices`` > 1 the range layout
+runs over a device mesh (``parallelism.get_mesh``, the shards' devices
+named by the port's ``devices`` option): the per-shard layout of
+``build_sharded_range_layout`` and ``eals_epoch_sharded_range``.
 
 Reference: He et al., Fast Matrix Factorization for Online Recommendation
 with Implicit Feedback (SIGIR 2016).
@@ -26,9 +28,10 @@ import torch
 
 from buffalo_tpu_torch.data.base import Data
 from buffalo_tpu_torch.data.batching import (BatchPlanner, build_range_layout,
+                                             build_sharded_range_layout,
                                              choose_group_dispatch,
                                              padded_entry_count, permute_table,
-                                             stage_batch)
+                                             stage_batch, stage_shard_groups)
 from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import EALSOption
@@ -105,10 +108,6 @@ class EALS(Algo, EALSOption, Evaluable, Serializable):
 
     # -------------------------------------------------------------- training
     def _check_supported(self):
-        if int(self.opt.get("num_devices") or 0) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 8 "
-                "(multi-device epochs over NCCL)")
         if self.device.type == "cuda" and int(self.opt.d) > K.MAX_D:
             raise NotImplementedError(
                 f"d = {self.opt.d}: the eALS kernels take rows of at most "
@@ -154,6 +153,35 @@ class EALS(Algo, EALSOption, Evaluable, Serializable):
         entries = max(batch_mb * 1024 * 1024 // (8 + 8 * d), 4096)
         rp = BatchPlanner(rw_indptr, entries_per_batch=entries)
         cp = BatchPlanner(np.asarray(cw["indptr"]), entries_per_batch=entries)
+        mesh = self._select_mesh()
+        if mesh is not None:
+            # mesh training: the per-shard bucket-order layout, as the
+            # ALS / pLSI sharded epochs (``eals.py:137-170``)
+            from buffalo_tpu_torch import parallelism as par
+
+            (row_g, col_g, row_seg, col_seg, u_pos, i_pos, S_u,
+             S_i) = build_sharded_range_layout(
+                rp, cp, u_keys, u_vals, np.asarray(cw["key"], np.int32),
+                np.asarray(cw["val"], np.float32), mesh.size)
+            u_pad, i_pad = mesh.size * S_u, mesh.size * S_i
+            C_perm = np.zeros(i_pad, np.float32)
+            C_perm[i_pos] = C
+            dev0 = mesh.devices[0]
+
+            def put0(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev0)
+            return {
+                "mode": "mesh", "mesh": mesh,
+                "row_groups": stage_shard_groups(row_g, mesh),
+                "col_groups": stage_shard_groups(col_g, mesh),
+                "row_segments": [stage_batch(b, dev0) for b in row_seg],
+                "col_segments": [stage_batch(b, dev0) for b in col_seg],
+                "C": par.shard_table(mesh, C_perm), "u_pos": u_pos,
+                "i_pos": i_pos, "u_pad": u_pad, "i_pad": i_pad,
+                "u": (put0(u_pos[u_rows].astype(np.int32)),
+                      put0(i_pos[u_keys].astype(np.int32)), put0(u_vals)),
+                "num_users": num_users, "num_items": num_items,
+            }
         row_b, col_b, u_pos, i_pos, u_pad, i_pad = build_range_layout(
             rp, cp, u_keys, u_vals, np.asarray(cw["key"], np.int32),
             np.asarray(cw["val"], np.float32))
@@ -186,7 +214,19 @@ class EALS(Algo, EALSOption, Evaluable, Serializable):
         du = st["u"]
         alpha, reg_u, reg_i = (float(opt.alpha), float(opt.reg_u),
                                float(opt.reg_i))
-        if st["mode"] == "range":
+        if st["mode"] == "mesh":
+            from buffalo_tpu_torch import parallelism as par
+
+            mesh = st["mesh"]
+            P = par.shard_table(mesh, permute_table(self.P, st["u_pos"],
+                                                    st["u_pad"]))
+            Q = par.shard_table(mesh, permute_table(self.Q, st["i_pos"],
+                                                    st["i_pad"]))
+
+            def to_host():
+                return (par.gather_table(mesh, P)[st["u_pos"]],
+                        par.gather_table(mesh, Q)[st["i_pos"]])
+        elif st["mode"] == "range":
             P = torch.from_numpy(permute_table(self.P, st["u_pos"],
                                                st["u_pad"])).to(dev)
             Q = torch.from_numpy(permute_table(self.Q, st["i_pos"],
@@ -214,7 +254,19 @@ class EALS(Algo, EALSOption, Evaluable, Serializable):
         self.iteration_losses = []  # per-epoch RMSE
         for i in range(opt.num_iters):
             start_t = time.time()
-            if st["mode"] == "range":
+            if st["mode"] == "mesh":
+                K.eals_epoch_sharded_range(
+                    P, Q, st["row_groups"], st["col_groups"],
+                    st["row_segments"], st["col_segments"], C, mesh=mesh,
+                    alpha=alpha, reg_u=reg_u, reg_i=reg_i)
+                # the loss is K14 over the gathered tables
+                rmse, total_loss = K.eals_loss(
+                    par.all_gather_rows(mesh, P, first_only=True),
+                    par.all_gather_rows(mesh, Q, first_only=True), None,
+                    du[0], du[1], du[2],
+                    par.all_gather_rows(mesh, C, first_only=True), reg_u,
+                    reg_i, alpha=alpha)
+            elif st["mode"] == "range":
                 K.eals_epoch(P, Q, st["row_groups"], st["col_groups"], C,
                              alpha=alpha, reg_u=reg_u, reg_i=reg_i)
                 vhat = None  # K14 recomputes the residuals with the sums
@@ -231,8 +283,10 @@ class EALS(Algo, EALSOption, Evaluable, Serializable):
                                   alpha=alpha, reg=reg_i)
                 vhat_u[st["u2i"]] = vhat_i
                 vhat = vhat_u
-            rmse, total_loss = K.eals_loss(P, Q, vhat, du[0], du[1], du[2],
-                                           C, reg_u, reg_i, alpha=alpha)
+            if st["mode"] != "mesh":
+                rmse, total_loss = K.eals_loss(P, Q, vhat, du[0], du[1],
+                                               du[2], C, reg_u, reg_i,
+                                               alpha=alpha)
             loss = float(rmse)  # a device readback: ends the epoch
             train_t = time.time() - start_t
             self.iteration_times.append(train_t)

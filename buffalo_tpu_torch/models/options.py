@@ -6,11 +6,12 @@ algorithms this port has so far (``AlgoOption``, ``ALSOption``,
 ``CFROption``, ``W2VOption``): same
 hyperparameter names and defaults, so configurations port over
 unchanged.  One key is the port's own: ``device`` ("cuda" by default;
-"cpu" runs the plain PyTorch versions of the kernels).  The reference's
+"cpu" runs the plain PyTorch versions of the kernels), and an optional
+``devices`` list naming the shards' devices of a mesh.  The reference's
 device keys (``num_devices``, ``sharding``, ``resident_mb``,
 ``range_layout``, ``epoch_dispatch``, ``vals_dtype``) keep their
-defaults; more than one device raises ``NotImplementedError`` at
-``train``.
+defaults; more than one device trains ALS, eALS and pLSI over a device
+mesh and raises ``NotImplementedError`` at ``train`` for the others.
 """
 from __future__ import annotations
 
@@ -33,9 +34,16 @@ class AlgoOption(InputOptions):
         :ivar dict validation: validation options (topk, batch, eval_samples).
         :ivar str device: torch device the model trains and serves on
             ("cuda" or "cpu"); a CUDA device without a card raises.
+        :ivar list devices: optional, the port's own: the devices of a
+            mesh's local shards (repeats put several shards on one
+            device, e.g. ``["cuda:0"] * 4`` or ``["cpu"] * 8``); unset,
+            a mesh takes the first cards and raises when there are
+            fewer than ``num_devices``.
 
-        Reference device keys (same defaults): ``num_devices`` (the port
-        runs on one card; > 1 raises), ``sharding``, ``resident_mb``
+        Reference device keys (same defaults): ``num_devices`` (mesh size
+        of ALS, eALS and pLSI; ALS meshes over every card at 0 when there
+        are several; > 1 raises for the other models), ``sharding``
+        ("dp", "dp+tp"), ``resident_mb``
         (budget for keeping the epoch's batches on the device; past it
         they stream), ``range_layout`` (False: the scatter layout),
         ``epoch_dispatch`` (validated; the port launches per batch

@@ -9,8 +9,11 @@ over both orientations when the colwise group is there and both
 orientations' batches fit ``resident_mb`` (``range_layout`` on); otherwise
 over the rowwise padded and segment batches, resident or streamed.  K15
 accumulates each batch's E-step and K16 runs the M-step
-(``ops/plsi_kernels.py``; their plain PyTorch versions on the CPU).  More
-than one device raises ``NotImplementedError`` at ``train``.
+(``ops/plsi_kernels.py``; their plain PyTorch versions on the CPU).  With
+``num_devices`` > 1 the range layout runs over a device mesh
+(``parallelism.get_mesh``; the port's ``devices`` option names the shards'
+devices): ``build_sharded_range_layout`` and
+``plsi_epoch_sharded_range``.
 
 Reference: Hofmann, Probabilistic Latent Semantic Indexing (SIGIR 99).
 """
@@ -24,9 +27,10 @@ import torch
 
 from buffalo_tpu_torch.data.base import Data
 from buffalo_tpu_torch.data.batching import (DeviceBatcher, build_range_layout,
+                                             build_sharded_range_layout,
                                              choose_group_dispatch,
                                              padded_entry_count, permute_table,
-                                             stage_batch)
+                                             stage_batch, stage_shard_groups)
 from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import PLSIOption
@@ -135,10 +139,6 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
 
     # -------------------------------------------------------------- training
     def _check_supported(self):
-        if int(self.opt.get("num_devices") or 0) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 8 "
-                "(multi-device epochs over NCCL)")
         if int(self.opt.d) > K.MAX_D:
             raise NotImplementedError(
                 f"d = {self.opt.d}: the pLSI kernels take rows of at most "
@@ -168,6 +168,9 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
             device=self.device)
         if not cb.resident:
             return None
+        mesh = self._select_mesh()
+        if mesh is not None:
+            return self._mesh_state(mesh, batcher, cb)
         row_b, col_b, u_pos, i_pos, u_pad, i_pad = build_range_layout(
             batcher.planner, cb.planner, batcher.key, batcher.val, cb.key,
             cb.val)
@@ -188,6 +191,32 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
             "q_mask": torch.from_numpy(q_mask).to(dev),
         }
 
+    def _mesh_state(self, mesh, rb, cb):
+        """The per-shard range layout over ``mesh`` (``plsi.py:147-180``):
+        staged groups per local shard, segments on its first device, the
+        real-row masks as row shards."""
+        from buffalo_tpu_torch import parallelism as par
+
+        (row_g, col_g, row_seg, col_seg, u_pos, i_pos, S_u,
+         S_i) = build_sharded_range_layout(rb.planner, cb.planner, rb.key,
+                                           rb.val, cb.key, cb.val, mesh.size)
+        u_pad, i_pad = mesh.size * S_u, mesh.size * S_i
+        p_mask = np.zeros(u_pad, np.float32)
+        p_mask[u_pos] = 1.0
+        q_mask = np.zeros(i_pad, np.float32)
+        q_mask[i_pos] = 1.0
+        dev0 = mesh.devices[0]
+        self._mesh_range = {
+            "mesh": mesh, "row_groups": stage_shard_groups(row_g, mesh),
+            "col_groups": stage_shard_groups(col_g, mesh),
+            "row_segments": [stage_batch(b, dev0) for b in row_seg],
+            "col_segments": [stage_batch(b, dev0) for b in col_seg],
+            "u_pos": u_pos, "i_pos": i_pos, "u_pad": u_pad, "i_pad": i_pad,
+            "p_mask": par.shard_table(mesh, p_mask),
+            "q_mask": par.shard_table(mesh, q_mask),
+        }
+        return self._mesh_range
+
     def train(self, training_callback: Optional[
             Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
         assert self.data, "Data is not set"
@@ -197,8 +226,21 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
         batcher = self._rowwise_batcher()
         group = self.data.get_group("rowwise")
         loss_deno = float(np.sum(group["val"], dtype=np.float64))
+        self._mesh_range = None
         rs = self._train_state(batcher)
-        if rs is not None:
+        mesh = None if rs is None else rs.get("mesh")
+        if mesh is not None:
+            from buffalo_tpu_torch import parallelism as par
+
+            P = par.shard_table(mesh, permute_table(self.P, rs["u_pos"],
+                                                    rs["u_pad"]))
+            Q = par.shard_table(mesh, permute_table(self.Q, rs["i_pos"],
+                                                    rs["i_pad"]))
+
+            def to_host(P, Q):
+                return (par.gather_table(mesh, P)[rs["u_pos"]],
+                        par.gather_table(mesh, Q)[rs["i_pos"]])
+        elif rs is not None:
             P = torch.from_numpy(permute_table(self.P, rs["u_pos"],
                                                rs["u_pad"])).to(dev)
             Q = torch.from_numpy(permute_table(self.Q, rs["i_pos"],
@@ -230,7 +272,13 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
         alpha1, alpha2 = float(opt.alpha1), float(opt.alpha2)
         for i in range(opt.num_iters):
             start_t = time.time()
-            if rs is not None:
+            if mesh is not None:
+                P, Q, epoch_loss = K.plsi_epoch_sharded_range(
+                    P, Q, rs["row_groups"], rs["col_groups"],
+                    rs["row_segments"], rs["col_segments"], rs["p_mask"],
+                    rs["q_mask"], mesh=mesh, alpha1=alpha1, alpha2=alpha2,
+                    num_items=int(self.num_items))
+            elif rs is not None:
                 P, Q, epoch_loss = K.plsi_epoch_range(
                     P, Q, rs["row_groups"], rs["col_groups"], rs["p_mask"],
                     rs["q_mask"], alpha1=alpha1, alpha2=alpha2,
@@ -267,6 +315,7 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
                 break
         self.P, self.Q = to_host(P, Q)
         self._sync_host_factors = None
+        self._mesh_range = None
         self.logger.info(
             f"elapsed for full epochs: {time.time() - full_st:.2f} sec")
         ret = {"train_loss": loss}

@@ -276,8 +276,8 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
         opt = self.opt
         if int(opt.get("num_devices") or 0) > 1:
             raise NotImplementedError(
-                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 8 "
-                "(multi-device epochs over NCCL)")
+                "num_devices > 1 is not ported yet for this model: ROADMAP "
+                "queue 1 item 8b (the data-parallel SGD / EM epochs)")
         if self.device.type == "cuda" and int(opt.d) > W.MAX_D:
             raise NotImplementedError(
                 f"d = {opt.d}: the W2V kernels take rows of at most "

@@ -173,8 +173,8 @@ class WARP(Algo, WARPOption, Evaluable, Serializable):
         opt = self.opt
         if int(opt.get("num_devices") or 0) > 1:
             raise NotImplementedError(
-                "num_devices > 1 is not ported yet: ROADMAP queue 1 item 8 "
-                "(multi-device epochs over NCCL)")
+                "num_devices > 1 is not ported yet for this model: ROADMAP "
+                "queue 1 item 8b (the data-parallel SGD / EM epochs)")
         if self.device.type == "cuda" and int(opt.d) > W.MAX_D:
             raise NotImplementedError(
                 f"d = {opt.d}: the WARP kernels take rows of at most "

@@ -25,6 +25,12 @@ Values are float32 or bfloat16 (the range layout's at scale); the
 kernels and plain versions read them as float32.  Rows are at most
 ``MAX_D`` floats wide (K1: ``K1_MAX_D``).
 
+Over a device mesh (``parallelism``) the same kernels run per shard:
+``als_epoch_sharded_range`` on the per-shard range layout, and
+``als_epoch_replicated`` for the JAX driver's "dp" sharding and its "tp"
+scatter and streamed paths, with the gramians, fixed sides and losses
+through ``all_reduce_sum`` / ``all_gather_rows``.
+
 Each wrapper runs its plain PyTorch version (same module, ``*_plain``)
 when given CPU tensors, and launches its kernel (or raises) for CUDA
 tensors; ``launches`` on each wrapper counts kernel launches.  The loss
@@ -628,15 +634,16 @@ def _flat(batches) -> Iterator:
 
 
 def als_half_epoch(A, Bf, batches, *, reg, item_axis, num_fixed_rows,
-                   **common):
+                   FF=None, **common):
     """One half of an epoch: ``FF = Bf^T Bf``, then every batch of
     ``batches`` (a list, or an iterable that stages them as it goes, the
     streaming path) updates its rows of ``A`` in place.  The counterpart
     of the reference's ``gramian_step`` + ``als_group_step`` loop and of
     its streaming loop over ``als_batch_step`` (``models/als.py:
     161-170,212-238``).  Returns the per-row (nume, deno) of every batch,
-    concatenated."""
-    FF = gramian(Bf)
+    concatenated.  ``FF`` given (a mesh's all-reduced gramian) replaces
+    ``Bf^T Bf``."""
+    FF = gramian(Bf) if FF is None else FF
     numes, denos = [], []
     for batch in _flat(batches):
         n, dn = _apply_batch(A, Bf, FF, batch, reg=reg, item_axis=item_axis,
@@ -672,3 +679,177 @@ def als_epoch(P, Q, row_batches, col_batches, *, optimizer, alpha, reg_u,
         zero = P.new_zeros(())
         return P, Q, zero, zero
     return P, Q, torch.cat(numes).sum(), torch.cat(denos).sum()
+
+
+# ------------------------------------------------------------ device mesh
+def _half_terms(A, Bf, FF, batches, **kw):
+    """``als_half_epoch`` with the gramian ``FF`` given; (nume, deno)
+    summed, as one (2,) tensor."""
+    numes, denos = als_half_epoch(A, Bf, batches, FF=FF, **kw)
+    if not numes:
+        return A.new_zeros(2)
+    return torch.stack([torch.cat(numes).sum(), torch.cat(denos).sum()])
+
+
+def _sharded_half(mesh, A, Bf, groups, segments, **kw):
+    """One half over row-sharded tables (``sharded_half`` of
+    ``als_epoch_sharded_range``, ``als_kernels.py:480``): the gramian as an
+    all-reduce of per-shard partial products, the fixed side all-gathered
+    (once per device), each shard's range batches into its own shard, then
+    the segment batches (global ids) on the gathered table of this
+    process's first device, their rows written back into the shards that
+    own them.  Returns the per-shard (nume, deno) and the segments'."""
+    from buffalo_tpu_torch import parallelism as par
+
+    FF = par.all_reduce_sum(mesh, [gramian(b) for b in Bf])
+    Bf_full = par.all_gather_rows(mesh, Bf)
+    parts = [_half_terms(a, bf, ff, g, **kw)
+             for a, bf, ff, g in zip(A, Bf_full, FF, groups)]
+    seg = A[0].new_zeros(2)
+    if segments:
+        A_full = par.all_gather_rows(mesh, A, first_only=True)
+        seg = _half_terms(A_full, Bf_full[0], FF[0], segments, **kw)
+        par.write_back(mesh, A, A_full)
+    return parts, seg
+
+
+def als_epoch_sharded_range(P, Q, row_groups, col_groups, row_segments,
+                            col_segments, *, mesh, optimizer, alpha, reg_u,
+                            reg_i, adaptive_reg, cg_iters, cg_tol,
+                            block_size, compute_loss, num_p_rows,
+                            num_q_rows):
+    """One ALS epoch over a device mesh on the per-shard range layout.
+
+    Counterpart of ``buffalo_tpu.ops.als_kernels.als_epoch_sharded_range``
+    (:480).  ``P`` / ``Q``: this process's row shards (one tensor per
+    local shard of ``mesh``, in the per-shard bucket order of
+    ``build_sharded_range_layout``); ``row_groups`` / ``col_groups``: per
+    local shard, its staged groups (local ``row_start``); ``*_segments``:
+    staged SegmentBatches with global ids on the mesh's first device.
+    Every batch runs on the single-device kernels (K1, K2 + K3, K4); the
+    shards are updated in place.  nume/deno are summed over the shards
+    (an all-reduce) plus the segments' (computed once per process, as the
+    JAX program computes them replicated).  Returns (P, Q, nume, deno).
+    """
+    from buffalo_tpu_torch import parallelism as par
+
+    common = dict(optimizer=optimizer, alpha=alpha,
+                  adaptive_reg=adaptive_reg, cg_iters=cg_iters,
+                  cg_tol=cg_tol, block_size=block_size,
+                  compute_loss=compute_loss)
+    p1, s1 = _sharded_half(mesh, P, Q, row_groups, row_segments, reg=reg_u,
+                           item_axis=False, num_fixed_rows=num_q_rows,
+                           **common)
+    p2, s2 = _sharded_half(mesh, Q, P, col_groups, col_segments, reg=reg_i,
+                           item_axis=True, num_fixed_rows=num_p_rows,
+                           **common)
+    total = par.all_reduce_sum(mesh, [a + b for a, b in zip(p1, p2)])[0]
+    total = total + s1 + s2
+    return P, Q, total[0], total[1]
+
+
+def _replica_half(mesh, reps, Bf, FF, batches, **kw):
+    """One half over replicated tables (the JAX package's "dp" sharding,
+    and its "tp" scatter path once the table is gathered): each local
+    shard solves its slice of every padded batch's rows
+    (``data.batching.split_rows``) into its device's replica; a segment
+    batch runs whole on the first replica.  When the mesh spans processes
+    or devices, the solved rows then reach every replica through one
+    all-reduce of a table holding only the rows this process solved
+    (every row is solved by exactly one shard; the segment rows are added
+    by the first process).  Returns the per-shard (nume, deno) and the
+    segments'."""
+    from buffalo_tpu_torch import parallelism as par
+    from buffalo_tpu_torch.data.batching import split_rows
+
+    parts = [reps[0].new_zeros(2) for _ in mesh.devices]
+    seg = reps[0].new_zeros(2)
+    mine = [[] for _ in mesh.devices]
+    every, seg_rows = [], []
+    for batch in _flat(batches):
+        if isinstance(batch, StagedSegmentBatch):
+            seg = seg + _half_terms(reps[0], Bf[0], FF[0], [batch], **kw)
+            seg_rows.append(batch.rows)
+            continue
+        every.append(batch.rows)
+        for j, g in enumerate(mesh.shards):
+            sub = split_rows(batch, mesh.size, g)
+            if sub.rows.device != reps[j].device:
+                sub = type(sub)(*[a.to(reps[j].device) for a in sub])
+            parts[j] = parts[j] + _half_terms(reps[j], Bf[j], FF[j], [sub],
+                                              **kw)
+            mine[j].append(sub.rows)
+    if mesh.group is None and len(mesh.unique_devices) == 1:
+        return parts, seg
+    n, dev0 = reps[0].shape[0], reps[0].device
+
+    def valid(rows, device):
+        r = torch.cat(rows).long().to(device)
+        return r[r < n]
+
+    contrib = torch.zeros_like(reps[0])
+    for j, rows in enumerate(mine):
+        if rows:
+            r = valid(rows, reps[j].device)
+            contrib[r.to(dev0)] = reps[j][r].to(dev0)
+    if seg_rows and mesh.first == 0:
+        r = valid(seg_rows, dev0)
+        contrib[r] = reps[0][r]
+    full = par.all_reduce_sum(mesh, [contrib], first_only=True)
+    # every process plans the same batches: the rows they name are the
+    # rows some shard solved
+    if every or seg_rows:
+        idx = valid(every + seg_rows, dev0)
+        for rep in {id(r): r for r in reps}.values():
+            rep[idx.to(rep.device)] = full[idx].to(rep.device)
+    return parts, seg
+
+
+def als_epoch_replicated(P, Q, row_batches, col_batches, *, mesh,
+                         row_sharded, optimizer, alpha, reg_u, reg_i,
+                         adaptive_reg, cg_iters, cg_tol, block_size,
+                         compute_loss, num_p_rows, num_q_rows):
+    """One ALS epoch over a device mesh on padded batches (global row
+    ids): the JAX package's "dp" sharding (``row_sharded=False``: ``P``
+    and ``Q`` one replica per local shard, shards on one device sharing
+    it, the gramian one product) and its "tp" scatter path
+    (``row_sharded=True``: ``P`` and ``Q`` row shards; per half the
+    gramian is an all-reduce of partial products and both tables are
+    all-gathered, the slices solved into the gathered table and each
+    shard takes its rows back), resident or streamed (``*_batches``
+    staged lists, or ``DeviceBatcher``s planned with ``row_multiple`` =
+    the mesh size).  Returns (P, Q, nume, deno)."""
+    from buffalo_tpu_torch import parallelism as par
+
+    common = dict(optimizer=optimizer, alpha=alpha,
+                  adaptive_reg=adaptive_reg, cg_iters=cg_iters,
+                  cg_tol=cg_tol, block_size=block_size,
+                  compute_loss=compute_loss)
+
+    def half(A, Bf, batches, **kw):
+        if row_sharded:
+            FF = par.all_reduce_sum(mesh, [gramian(b) for b in Bf])
+            Bf_r = par.all_gather_rows(mesh, Bf)
+            A_r = par.all_gather_rows(mesh, A)
+        else:
+            FF = _per_device_gramian(Bf)
+            Bf_r, A_r = Bf, A
+        parts, seg = _replica_half(mesh, A_r, Bf_r, FF, batches, **kw,
+                                   **common)
+        if row_sharded:
+            par.write_back(mesh, A, A_r[0])
+        return parts, seg
+
+    p1, s1 = half(P, Q, row_batches, reg=reg_u, item_axis=False,
+                  num_fixed_rows=num_q_rows)
+    p2, s2 = half(Q, P, col_batches, reg=reg_i, item_axis=True,
+                  num_fixed_rows=num_p_rows)
+    total = par.all_reduce_sum(mesh, [a + b for a, b in zip(p1, p2)])[0]
+    total = total + s1 + s2
+    return P, Q, total[0], total[1]
+
+
+def _per_device_gramian(tables):
+    """``gramian`` of each distinct replica, listed per shard."""
+    out = {}
+    return [out.setdefault(id(t), gramian(t)) for t in tables]

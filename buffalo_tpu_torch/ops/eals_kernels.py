@@ -19,7 +19,8 @@ Q)^T (C^0.5 Q)`` / ``Sp = P^T P``.  Two hand-written CUDA kernels
 (``torch.matmul``).  Each wrapper runs its plain version for CPU tensors
 and launches its kernel (or raises) for CUDA tensors; ``launches`` on each
 wrapper counts the calls that launched it.  Rows are at most ``MAX_D``
-floats wide; values are float32.
+floats wide; values are float32.  ``eals_epoch_sharded_range`` runs K13
+per shard of a device mesh (``parallelism``).
 """
 from __future__ import annotations
 
@@ -406,3 +407,56 @@ def eals_loss(P, Q, vhat, row_ids, keys, vals, C, reg_u, reg_i, *, alpha):
                                * torch.matmul(CQ.T, CQ)).sum()
     reg = reg_u * (P * P).sum() + reg_i * (Q * Q).sum()
     return torch.sqrt(s[2] / row_ids.shape[0]), feedbacks + reg
+
+
+# ------------------------------------------------------------ device mesh
+def _sweep_segments(mesh, X, Y_full, S, C, segments, *, item_axis, alpha,
+                    reg):
+    """Segment batches (global ids) on the gathered X of this process's
+    first device, their rows written back into the shards that own
+    them."""
+    from buffalo_tpu_torch import parallelism as par
+
+    if not segments:
+        return
+    X_full = par.all_gather_rows(mesh, X, first_only=True)
+    for sb in segments:
+        dim_sweep(X_full, Y_full, S, C, item_axis=item_axis, alpha=alpha,
+                  reg=reg, batch=sb)
+    par.write_back(mesh, X, X_full)
+
+
+def eals_epoch_sharded_range(P, Q, row_groups, col_groups, row_segments,
+                             col_segments, C_perm, *, mesh, alpha, reg_u,
+                             reg_i):
+    """One eALS epoch over a device mesh on the per-shard range layout
+    (``eals_epoch_sharded_range`` :245).  ``P``, ``Q`` and ``C_perm``: this
+    process's row shards (one tensor per local shard, in the order of
+    ``build_sharded_range_layout``); ``*_groups``: per local shard its
+    staged groups; ``*_segments``: staged SegmentBatches with global ids
+    on the mesh's first device.  Per half the weighted gramian is an
+    all-reduce of per-shard partials (``eals_gramian`` :235), the fixed
+    side is all-gathered (and on the user pass ``C_perm``, read at the
+    fixed side's positions; the item pass reads each shard's own), each
+    shard's batches run K13 into the shard, then the segment rows.  The
+    shards are updated in place."""
+    from buffalo_tpu_torch import parallelism as par
+
+    kw = dict(alpha=alpha)
+    Sq = par.all_reduce_sum(mesh, [eals_gramian(q, c)
+                                   for q, c in zip(Q, C_perm)])
+    Q_full = par.all_gather_rows(mesh, Q)
+    C_full = par.all_gather_rows(mesh, C_perm)
+    for p, q, s, c, groups in zip(P, Q_full, Sq, C_full, row_groups):
+        for g in groups:
+            eals_group_step(p, q, c, s, g, item_axis=False, reg=reg_u, **kw)
+    _sweep_segments(mesh, P, Q_full[0], Sq[0], C_full[0], row_segments,
+                    item_axis=False, reg=reg_u, **kw)
+    Sp = par.all_reduce_sum(mesh, [eals_gramian(p) for p in P])
+    P_full = par.all_gather_rows(mesh, P)
+    for q, p, s, c, groups in zip(Q, P_full, Sp, C_perm, col_groups):
+        for g in groups:
+            eals_group_step(q, p, c, s, g, item_axis=True, reg=reg_i, **kw)
+    _sweep_segments(mesh, Q, P_full[0], Sp[0], C_full[0], col_segments,
+                    item_axis=True, reg=reg_i, **kw)
+    return P, Q

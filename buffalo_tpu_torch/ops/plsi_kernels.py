@@ -22,7 +22,10 @@ with P's rows and Q's columns normalized.  Two hand-written CUDA kernels
   every row (``plsi_normalize_swap`` :313); a zero sum divides by 1.
 
 The compositions (``plsi_epoch_range``, ``plsi_epoch`` and the per-group
-steps) are plain loops over them.  Each wrapper runs its plain version for
+steps) are plain loops over them.  Over a device mesh
+(``plsi_epoch_sharded_range``) K15 runs per shard and K16 in two halves,
+``plsi_mstep_sums`` and ``plsi_mstep_apply``, around an all-reduce of Q's
+column sums.  Each wrapper runs its plain version for
 CPU tensors and launches its kernel (or raises) for CUDA tensors;
 ``launches`` on each wrapper counts the calls that launched it.  Rows are at
 most ``MAX_D`` floats wide; values are float32.
@@ -50,10 +53,13 @@ _SIGNATURES = {
                    _I32, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P,
                    _P],
     "plsi_mstep_workspace": [_I32, _I32],
-    "plsi_mstep": [_P, _I32, _P, _I32, _I32, _F32, _F32, _P, _P, _P, _P],
+    "plsi_mstep_sums": [_P, _I32, _P, _I32, _I32, _F32, _F32, _P, _P, _P,
+                        _P],
+    "plsi_mstep_apply": [_P, _I32, _I32, _F32, _P, _P, _P],
 }
 _LIBRARY = {"plsi_estep_workspace": "plsi_estep", "plsi_estep": "plsi_estep",
-            "plsi_mstep_workspace": "plsi_mstep", "plsi_mstep": "plsi_mstep"}
+            "plsi_mstep_workspace": "plsi_mstep",
+            "plsi_mstep_sums": "plsi_mstep", "plsi_mstep_apply": "plsi_mstep"}
 # K15's launch modes
 RANGE, SEGMENT, PADDED_ROWS, PADDED_SEGMENT = 0, 1, 2, 3
 
@@ -159,12 +165,36 @@ def estep_padded_plain(Pn, Qn, P, Q, batch):
     return loss if seg is None else _segment_sum(loss, seg, R)
 
 
+def _num_items(Qn, num_items, q_mask):
+    """The item count of ``alpha2``'s smoothing: the real items with the
+    masks, every row of Qn without them."""
+    return Qn.shape[0] if q_mask is None else num_items
+
+
 def mstep_plain(Pn, Qn, *, alpha1, alpha2, num_items=None, p_mask=None,
                 q_mask=None):
     """Plain version of K16, in place: ``_mstep`` :209 with the masks of
     the real rows (``num_items`` the real item count), or
     ``plsi_normalize_swap`` :313 without them (``num_items`` = Qn's
-    rows)."""
+    rows).  The two halves of ``mstep_sums_plain`` and
+    ``mstep_apply_plain``, as the kernel's two launches."""
+    colsum = mstep_sums_plain(Pn, Qn, alpha1=alpha1, alpha2=alpha2,
+                              num_items=num_items, p_mask=p_mask,
+                              q_mask=q_mask)
+    mstep_apply_plain(Qn, colsum, alpha2=alpha2, num_items=num_items,
+                      q_mask=q_mask)
+
+
+def _smooth_q(Qn, alpha2, num_items, q_mask):
+    add = alpha2 / _num_items(Qn, num_items, q_mask)
+    return add if q_mask is None else add * q_mask[:, None]
+
+
+def mstep_sums_plain(Pn, Qn, *, alpha1, alpha2, num_items=None, p_mask=None,
+                     q_mask=None):
+    """Plain version of K16's first half: P's rows smoothed and normalized
+    in place; returns the column sums (float64, (d,)) of Q's smoothed
+    rows, Q unchanged."""
     d = Pn.shape[1]
     if p_mask is None:
         Pn += alpha1 / d
@@ -172,12 +202,17 @@ def mstep_plain(Pn, Qn, *, alpha1, alpha2, num_items=None, p_mask=None,
         Pn += (alpha1 / d) * p_mask[:, None]
     psum = Pn.sum(1, keepdim=True)
     Pn /= torch.where(psum > 0, psum, torch.ones_like(psum))
-    if q_mask is None:
-        Qn += alpha2 / Qn.shape[0]
-    else:
-        Qn += (alpha2 / num_items) * q_mask[:, None]
-    qsum = Qn.sum(0, keepdim=True)
-    Qn /= torch.where(qsum > 0, qsum, torch.ones_like(qsum))
+    return (Qn + _smooth_q(Qn, alpha2, num_items, q_mask)).sum(
+        0, dtype=torch.float64)
+
+
+def mstep_apply_plain(Qn, colsum, *, alpha2, num_items=None, q_mask=None):
+    """Plain version of K16's second half: Q's rows smoothed and divided by
+    the column sums (on a mesh, summed over every shard; a zero sum
+    divides by 1), in place."""
+    s = colsum.to(Qn.dtype)
+    Qn += _smooth_q(Qn, alpha2, num_items, q_mask)
+    Qn /= torch.where(s > 0, s, torch.ones_like(s))[None, :]
 
 
 # ------------------------------------------------------------- wrappers
@@ -284,20 +319,25 @@ def plsi_estep(An, A, Bf, batch, *, padded=False, Qn=None, with_loss=True):
 plsi_estep.launches = 0
 
 
-def plsi_mstep(Pn, Qn, *, alpha1, alpha2, num_items=None, p_mask=None,
-               q_mask=None):
-    """K16: the M-step in place (see ``mstep_plain``): both masks (the
-    permuted tables' real rows, ``num_items`` the real item count) or
-    neither (every row; ``num_items`` = Qn's rows).  Replaces ``_mstep``
-    :209 / ``plsi_mstep`` :224 and ``plsi_normalize_swap`` :313."""
+def _mstep_args(Qn, num_items, p_mask, q_mask):
+    """Checks the masks' pairing; the item count of the smoothing."""
     if (p_mask is None) != (q_mask is None) or (
             p_mask is not None and not num_items):
         raise ValueError("give both masks and the real item count, or "
                          "neither")
-    kw = dict(alpha1=alpha1, alpha2=alpha2, num_items=num_items,
-              p_mask=p_mask, q_mask=q_mask)
-    if Pn.device.type == "cpu":
-        return mstep_plain(Pn, Qn, **kw)
+    return int(_num_items(Qn, num_items, q_mask))
+
+
+def _check_mask(name, mask, table, dev):
+    if mask is not None:
+        _check(name, mask, torch.float32, dev, 1)
+        if mask.shape[0] != table.shape[0]:
+            raise ValueError(f"{name} must have one entry per row")
+
+
+def _launch_sums(Pn, Qn, add_p, add_q, p_mask, q_mask):
+    """K16's first launch (``plsi_mstep_sums`` in csrc/plsi_mstep.cu);
+    returns the column sums, float64 (d,) on Qn's device."""
     dev = Pn.device
     _check("Pn", Pn, torch.float32, dev, 2)
     _check("Qn", Qn, torch.float32, dev, 2)
@@ -305,23 +345,84 @@ def plsi_mstep(Pn, Qn, *, alpha1, alpha2, num_items=None, p_mask=None,
     if Qn.shape[1] != d:
         raise ValueError(f"Pn is {d} wide, Qn {Qn.shape[1]}")
     _check_width(d)
-    if p_mask is not None:
-        _check("p_mask", p_mask, torch.float32, dev, 1)
-        _check("q_mask", q_mask, torch.float32, dev, 1)
-        if p_mask.shape[0] != Pn.shape[0] or q_mask.shape[0] != Qn.shape[0]:
-            raise ValueError("the masks must have one entry per row")
-    nq = Qn.shape[0] if p_mask is None else int(num_items)
-    part = torch.empty(max(_kernel("plsi_mstep_workspace")(Qn.shape[0], d),
-                           1), dtype=torch.float64, device=dev)
-    rc = _kernel("plsi_mstep")(
-        _ptr(Pn), Pn.shape[0], _ptr(Qn), Qn.shape[0], d, float(alpha1) / d,
-        float(alpha2) / nq, _ptr(p_mask), _ptr(q_mask), _ptr(part),
-        _stream(dev))
-    _raise_on(rc, "plsi_mstep")
+    _check_mask("p_mask", p_mask, Pn, dev)
+    _check_mask("q_mask", q_mask, Qn, dev)
+    n = _kernel("plsi_mstep_workspace")(Qn.shape[0], d)
+    part = torch.empty(n, dtype=torch.float64, device=dev)
+    rc = _kernel("plsi_mstep_sums")(
+        _ptr(Pn), Pn.shape[0], _ptr(Qn), Qn.shape[0], d, add_p, add_q,
+        _ptr(p_mask), _ptr(q_mask), _ptr(part), _stream(dev))
+    _raise_on(rc, "plsi_mstep_sums")
+    return part[n - d:]
+
+
+def _launch_apply(Qn, colsum, add_q, q_mask):
+    """K16's second launch (``plsi_mstep_apply``), in place."""
+    dev = Qn.device
+    _check("Qn", Qn, torch.float32, dev, 2)
+    d = Qn.shape[1]
+    _check_width(d)
+    _check_mask("q_mask", q_mask, Qn, dev)
+    _check("colsum", colsum, torch.float64, dev, 1)
+    if colsum.shape[0] != d:
+        raise ValueError(f"colsum must have {d} entries")
+    rc = _kernel("plsi_mstep_apply")(
+        _ptr(Qn), Qn.shape[0], d, add_q, _ptr(q_mask),
+        _ptr(colsum.contiguous()), _stream(dev))
+    _raise_on(rc, "plsi_mstep_apply")
+
+
+def plsi_mstep(Pn, Qn, *, alpha1, alpha2, num_items=None, p_mask=None,
+               q_mask=None):
+    """K16: the M-step in place (see ``mstep_plain``): both masks (the
+    permuted tables' real rows, ``num_items`` the real item count) or
+    neither (every row; ``num_items`` = Qn's rows).  Its two launches
+    follow each other; one K16 launch in the count.  Replaces ``_mstep``
+    :209 / ``plsi_mstep`` :224 and ``plsi_normalize_swap`` :313."""
+    nq = _mstep_args(Qn, num_items, p_mask, q_mask)
+    if Pn.device.type == "cpu":
+        return mstep_plain(Pn, Qn, alpha1=alpha1, alpha2=alpha2,
+                           num_items=num_items, p_mask=p_mask,
+                           q_mask=q_mask)
+    add_q = float(alpha2) / nq
+    colsum = _launch_sums(Pn, Qn, float(alpha1) / Pn.shape[1], add_q,
+                          p_mask, q_mask)
+    _launch_apply(Qn, colsum, add_q, q_mask)
     plsi_mstep.launches += 1
 
 
 plsi_mstep.launches = 0
+
+
+def plsi_mstep_sums(Pn, Qn, *, alpha1, alpha2, num_items=None, p_mask=None,
+                    q_mask=None):
+    """K16's first half, for a row shard of the permuted tables (``_mstep``
+    :209 over a mesh): P's rows smoothed and normalized in place; returns
+    the column sums of Q's smoothed rows (float64 (d,), in the kernel's
+    block order), which the caller sums over the shards before
+    ``plsi_mstep_apply``.  Counts as a K16 launch."""
+    nq = _mstep_args(Qn, num_items, p_mask, q_mask)
+    if Pn.device.type == "cpu":
+        return mstep_sums_plain(Pn, Qn, alpha1=alpha1, alpha2=alpha2,
+                                num_items=num_items, p_mask=p_mask,
+                                q_mask=q_mask)
+    colsum = _launch_sums(Pn, Qn, float(alpha1) / Pn.shape[1],
+                          float(alpha2) / nq, p_mask, q_mask)
+    plsi_mstep.launches += 1
+    return colsum
+
+
+def plsi_mstep_apply(Qn, colsum, *, alpha2, num_items=None, q_mask=None):
+    """K16's second half: Q's rows smoothed and divided by ``colsum``
+    (float64 (d,), summed over every shard), in place.  Counts as a K16
+    launch."""
+    nq = int(_num_items(Qn, num_items, q_mask))
+    if Qn.device.type == "cpu":
+        return mstep_apply_plain(Qn, colsum, alpha2=alpha2,
+                                 num_items=num_items, q_mask=q_mask)
+    _launch_apply(Qn, colsum, float(alpha2) / nq, q_mask)
+    plsi_mstep.launches += 1
+
 
 KERNELS = (plsi_estep, plsi_mstep)
 
@@ -380,3 +481,60 @@ def plsi_epoch(P, Q, batches, *, alpha1, alpha2):
     losses = [plsi_accumulate(Pn, Qn, P, Q, b) for b in _flat(batches)]
     plsi_normalize_swap(Pn, Qn, alpha1=alpha1, alpha2=alpha2)
     return Pn, Qn, _loss_sum(losses, P)
+
+
+# ------------------------------------------------------------ device mesh
+def _sharded_side(mesh, A, Bf, groups, segments, *, with_loss):
+    """One orientation's E-step over row shards: the fixed side
+    all-gathered, each shard's range batches into its own accumulator,
+    then the segment batches (global ids) into the gathered accumulators
+    of this process's first device, written back to the owning shards.
+    Returns (accumulators per shard, per-row losses of the shards,
+    the segments' losses)."""
+    from buffalo_tpu_torch import parallelism as par
+
+    Bf_full = par.all_gather_rows(mesh, Bf)
+    An = [torch.zeros_like(a) for a in A]
+    losses = []
+    for an, a, bf, gs in zip(An, A, Bf_full, groups):
+        loss = []
+        for g in gs:
+            loss += plsi_accumulate_group(an, a, bf, g, with_loss=with_loss)
+        losses.append(_loss_sum(loss, a))
+    seg = []
+    if segments:
+        A_full = par.all_gather_rows(mesh, A, first_only=True)
+        An_full = par.all_gather_rows(mesh, An, first_only=True)
+        for sb in segments:
+            seg += plsi_accumulate_group(An_full, A_full, Bf_full[0], sb,
+                                         with_loss=with_loss)
+        par.write_back(mesh, An, An_full)
+    return An, losses, _loss_sum(seg, A[0])
+
+
+def plsi_epoch_sharded_range(P, Q, row_groups, col_groups, row_segments,
+                             col_segments, p_mask, q_mask, *, mesh, alpha1,
+                             alpha2, num_items):
+    """One EM epoch over a device mesh on the per-shard range layout
+    (``plsi_epoch_sharded_range`` :256).  ``P``, ``Q``, ``p_mask`` and
+    ``q_mask``: this process's row shards; ``*_groups``: per local shard
+    its staged groups; ``*_segments``: staged SegmentBatches (global ids)
+    on the mesh's first device.  K15 accumulates each shard's next rows;
+    the M-step is K16 in two halves around an all-reduce of Q's column
+    sums (``plsi_mstep_sums`` / ``plsi_mstep_apply``); the loss is summed
+    over the shards.  Returns (P', Q', loss) with new shards."""
+    from buffalo_tpu_torch import parallelism as par
+
+    Pn, losses, seg = _sharded_side(mesh, P, Q, row_groups, row_segments,
+                                    with_loss=True)
+    Qn, _, _ = _sharded_side(mesh, Q, P, col_groups, col_segments,
+                             with_loss=False)
+    kw = dict(alpha2=alpha2, num_items=num_items)
+    sums = [plsi_mstep_sums(pn, qn, alpha1=alpha1, p_mask=pm, q_mask=qm,
+                            **kw)
+            for pn, qn, pm, qm in zip(Pn, Qn, p_mask, q_mask)]
+    total = par.all_reduce_sum(mesh, sums)
+    for qn, s, qm in zip(Qn, total, q_mask):
+        plsi_mstep_apply(qn, s, q_mask=qm, **kw)
+    loss = par.all_reduce_sum(mesh, [x.reshape(1) for x in losses])[0]
+    return Pn, Qn, loss[0] + seg

@@ -14,6 +14,10 @@ K1–K4 with theirs:
   masked, top-kk.
 * **K7** ``kmeans_update`` — the spherical k-means cell update (member
   mean, normalized; empty cells keep their centroid).
+* **K22** ``sharded_topk_merge`` — the merge of a row-sharded table's
+  per-shard top-k lists (``ops.topk.sharded_matmul_topk``): the top k of
+  the shard-major concatenation, one warp per query, lane j holding shard
+  j's head.
 
 Selection everywhere orders entries by score descending, ties to the
 smaller index, as ``lax.top_k`` and ``jnp.argmax`` do; ``torch.topk``
@@ -44,7 +48,10 @@ _SIGNATURES = {
                       _P],
     "kmeans_update": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P],
+    "sharded_topk_merge": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _P],
 }
+# K22 takes at most one list per lane of a warp
+MAX_SHARDS = 32
 MAX_K = 1024
 MAX_D = 256
 # IVF tile caps the kernel takes (the reference's largest, parallel/ann.py)
@@ -329,5 +336,49 @@ def kmeans_update(unit, assign, cent):
 
 
 kmeans_update.launches = 0
+
+def sharded_topk_merge_plain(vals, idx, k):
+    """Plain version of K22: ``merge_topk`` over the shard-major
+    concatenation of the (B, D, kl) candidate lists."""
+    B = vals.shape[0]
+    return merge_topk(vals.reshape(B, -1), idx.reshape(B, -1), k)
+
+
+def sharded_topk_merge(vals, idx, k):
+    """K22: the top k of per-shard candidate lists, (vals (B, k) float32,
+    idx (B, k) int32) by score descending, ties to the smaller index.
+
+    ``vals`` (B, D, kl) float32 and ``idx`` (B, D, kl) int32: for each
+    query, shard j's top kl with global indices, sorted in that order,
+    every index of shard j below shard j+1's; 1 <= D <= 32,
+    1 <= k <= D * kl.  Replaces the all-gathered ``lax.top_k`` merge of
+    ``sharded_matmul_topk`` (``buffalo_tpu/ops/topk.py:353-365``).
+    """
+    if vals.device.type == "cpu":
+        return sharded_topk_merge_plain(vals, idx, k)
+    dev = vals.device
+    _check("vals", vals, torch.float32, dev, 3)
+    _check("idx", idx, torch.int32, dev, 3)
+    B, D, kl = vals.shape
+    if tuple(idx.shape) != (B, D, kl):
+        raise ValueError(f"idx {tuple(idx.shape)} and vals {(B, D, kl)} "
+                         "disagree")
+    if not 1 <= D <= MAX_SHARDS:
+        raise NotImplementedError(
+            f"sharded_topk_merge merges at most {MAX_SHARDS} shards, got "
+            f"{D}")
+    if not 1 <= k <= D * kl:
+        raise ValueError(f"k = {k} outside [1, {D * kl}]")
+    out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    rc = _kernel("sharded_topk_merge")(
+        _ptr(vals), _ptr(idx), B, D, kl, int(k), _ptr(out_v), _ptr(out_i),
+        _stream(dev))
+    _raise_on(rc, "sharded_topk_merge")
+    sharded_topk_merge.launches += 1
+    return out_v, out_i
+
+
+sharded_topk_merge.launches = 0
 
 KERNELS = (score_topk, ivf_tile_topk, kmeans_update)

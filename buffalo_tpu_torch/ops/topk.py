@@ -17,9 +17,11 @@ descending, ties to the smaller index, rows always sorted.  On the card
 ``matmul_topk`` goes through K5 for k <= 1024 and d <= 256, and past
 that through ``torch.matmul`` + ``retrieval_kernels.ordered_topk`` (a
 selection on distinct int64 keys); ``topk`` selects with
-``ordered_topk``.  The sharded
-variants (``sharded_matmul_topk``, ``batch_topn_sharded``) come with the
-multi-device port (ROADMAP queue 1 item 8).
+``ordered_topk``.  The sharded variants (``sharded_matmul_topk``,
+``batch_topn_sharded``) score a row-sharded table over a device mesh
+(``parallelism``): each shard takes its own top-k (K5, or the matmul
+route past its limits) with global ids, the candidates are all-gathered
+and K22 (``retrieval_kernels.sharded_topk_merge``) merges them.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch
 
 from buffalo_tpu_torch.ops.retrieval_kernels import (MAX_D, MAX_K,
                                                      ordered_topk, score_topk,
+                                                     sharded_topk_merge,
                                                      tiled_topk_plain)
 from buffalo_tpu_torch.utils import resolve_device
 
@@ -318,6 +321,89 @@ def batch_topn(p, Q, topk: int, pool=None, Qb=None, chunk: int = 2048,
         mapped = np.asarray(pool)[np.maximum(out_keys, 0)]
         out_keys = np.where(out_keys >= 0, mapped, -1).astype(np.int32)
     return out_keys, out_scores
+
+
+def sharded_matmul_topk(p, Q, Qb, k: int, *, mesh):
+    """Distributed MIPS top-k (``sharded_matmul_topk``, ``topk.py:330``):
+    ``Q`` / ``Qb`` this process's row shards of a table padded to a
+    multiple of the mesh size with bias -inf on the padding rows (lists,
+    one tensor per local shard, S rows each); ``p`` (B, d) the queries.
+    Each shard keeps its top ``min(k, S)`` of ``p @ Q_j^T + Qb_j`` with
+    global indices (K5, or past its limits the matmul route), the
+    (B, D, k_loc) candidates are all-gathered, and K22 merges them.
+    Returns (scores (B, k') float32, indices (B, k') int32) on the mesh's
+    first device, k' = min(k, D * k_loc)."""
+    from buffalo_tpu_torch import parallelism as par
+
+    S, d = Q[0].shape
+    k_loc = min(int(k), S)
+    on_dev = {}
+    cands = []
+    for g, q, qb in zip(mesh.shards, Q, Qb):
+        pp = on_dev.setdefault(q.device, p.to(q.device))
+        if q.device.type == "cuda" and not k5_route(k_loc, d):
+            v, i = matmul_topn(pp, q, k_loc, qb)
+        else:
+            v, i = score_topk(pp, q, k_loc, qb)
+        # one int32 block per shard: the scores' bits beside the ids
+        cands.append(torch.stack([v.view(torch.int32), i + g * S],
+                                 dim=-1)[None])
+    c = par.all_gather_rows(mesh, cands, first_only=True)  # (D, B, kl, 2)
+    c = c.permute(1, 0, 2, 3)
+    vals = c[..., 0].contiguous().view(torch.float32)
+    idx = c[..., 1].contiguous()
+    return sharded_topk_merge(vals, idx, min(int(k), mesh.size * k_loc))
+
+
+def _table_shards(mesh, Q_d, Qb_d):
+    """Row shards of a staged (N, d) table and its bias, padded to a
+    multiple of the mesh size with zero rows of bias -inf, on each
+    shard's device."""
+    N, d = Q_d.shape
+    S = -(-N // mesh.size)
+    Q, Qb = [], []
+    for g, dev in zip(mesh.shards, mesh.devices):
+        lo, hi = min(g * S, N), min((g + 1) * S, N)
+        q, qb = Q_d[lo:hi], Qb_d[lo:hi]
+        if hi - lo < S:
+            q = torch.cat([q, q.new_zeros((S - (hi - lo), d))])
+            qb = torch.cat([qb, qb.new_full((S - (hi - lo),),
+                                            float("-inf"))])
+        Q.append(q.to(dev).contiguous())
+        Qb.append(qb.to(dev).contiguous())
+    return Q, Qb
+
+
+def batch_topn_sharded(p, Q, topk: int, mesh, Qb=None, chunk: int = 2048,
+                       approx: bool = False, query_dtype=None):
+    """Bulk sharded MIPS retrieval over a device mesh
+    (``batch_topn_sharded``, ``topk.py:393``): the table staged once on
+    the mesh's first device (``_stage``), row-sharded (padded to a mesh
+    multiple with bias -inf), every query through
+    ``sharded_matmul_topk``.  ``chunk`` and ``approx`` are accepted for
+    the reference's signature (K5 needs no query chunks; selection stays
+    exact, as in ``batch_topn``).  Returns (keys int32[B, topk],
+    scores float32[B, topk]), -1 / 0-padded past the catalog."""
+    dev0 = mesh.devices[0]
+    p = np.ascontiguousarray(np.asarray(p, dtype=np.float32))
+    Q = np.asarray(Q, dtype=np.float32)
+    B = p.shape[0]
+    n_items = Q.shape[0]
+    k_eff = min(topk, n_items)
+    if k_eff <= 0 or B == 0:
+        return (np.full((B, topk), -1, dtype=np.int32),
+                np.zeros((B, topk), dtype=np.float32))
+    Q_d = _stage(Q, dev0)
+    Qb_d = torch.zeros(n_items, device=dev0) if Qb is None else \
+        _as_tensor(np.asarray(Qb, dtype=np.float32), dev0)
+    Q_sh, Qb_sh = _table_shards(mesh, Q_d, Qb_d)
+    q = torch.from_numpy(p)
+    if _dtype_name(query_dtype) == "bfloat16":
+        q = q.to(torch.bfloat16)
+    vals, idx = sharded_matmul_topk(q.to(dev0), Q_sh, Qb_sh, k_eff,
+                                    mesh=mesh)
+    return _assemble_topn(vals.cpu().numpy(), idx.cpu().numpy(), B, topk,
+                          k_eff)
 
 
 def topk(scores, k: int, sorted: bool = True, num_threads: int = 0,

@@ -8,8 +8,11 @@ pool is smaller than topk; an ANN index per group (``set_ann_index``,
 e.g. an :class:`~buffalo_tpu_torch.parallel.ann.IVFIndex`) serves
 ``most_similar`` when set.  ``ParALS`` and ``ParBPRMF`` (scores with the
 item bias ``Qb``), ``ParEALS``, ``ParCFR`` and ``ParW2V`` (most-similar
-over W2V's input table L0) are ported; a device mesh comes with the
-multi-device port (ROADMAP queue 1).  Runs on the model's device (``opt.device``).
+over W2V's input table L0) are ported.  Runs on the model's device
+(``opt.device``), or with ``mesh=`` / ``num_devices`` > 1 (and the port's
+``devices``) sharded over a device mesh: per-shard top-k with K5, merged
+by K22 (``ops.topk.batch_topn_sharded``), whichever model trained the
+factors.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from buffalo_tpu_torch.models.bpr import BPRMF
 from buffalo_tpu_torch.models.cfr import CFR
 from buffalo_tpu_torch.models.eals import EALS
 from buffalo_tpu_torch.models.w2v import W2V
-from buffalo_tpu_torch.ops.topk import batch_topn
+from buffalo_tpu_torch.ops.topk import batch_topn, batch_topn_sharded
 
 
 class Parallel(abc.ABC):
@@ -33,12 +36,19 @@ class Parallel(abc.ABC):
         self.algo = algo
         self.num_workers = int(kwargs["num_workers"])
         self._ann_index = {}    # group -> index (reference _ann_list)
-        if kwargs.get("mesh") is not None \
-                or int(kwargs.get("num_devices", 0)) > 1:
-            raise NotImplementedError(
-                "sharded retrieval over a device mesh is not ported yet: "
-                "ROADMAP queue 1 item 8 (multi-device over NCCL)")
-        self.mesh = None
+        # optional device mesh: retrieval shards the candidate table and
+        # merges the per-shard top-k (ops.topk.batch_topn_sharded); the
+        # port's ``devices`` names the shards' devices
+        from buffalo_tpu_torch import parallelism
+
+        self.mesh = kwargs.get("mesh")
+        if self.mesh is None and int(kwargs.get("num_devices", 0)) > 1:
+            self.mesh = parallelism.get_mesh(int(kwargs["num_devices"]),
+                                             devices=kwargs.get("devices"))
+        if self.mesh is not None and \
+                not isinstance(self.mesh, parallelism.Mesh):
+            raise TypeError("mesh must be a buffalo_tpu_torch.parallelism."
+                            f"Mesh, got {type(self.mesh).__name__}")
         # approx=True keeps exact selection on the card (the reference's
         # lax.approx_max_k is a TPU partial reduction) and, as in the
         # reference, uploads the queries as bfloat16
@@ -76,8 +86,14 @@ class Parallel(abc.ABC):
         return pool.astype(np.int32)
 
     def _scan(self, queries, Factor, topk, pool, Qb=None):
-        """Exact MIPS scan on the model's device (``batch_topn``); approx
-        mode ships the queries as bfloat16."""
+        """Exact MIPS scan: sharded over the mesh when one is set and no
+        pool restricts the candidates (``batch_topn_sharded``), else on
+        the model's device (``batch_topn``); approx mode ships the queries
+        as bfloat16."""
+        if self.mesh is not None and pool is None:
+            return batch_topn_sharded(
+                queries, Factor, topk, self.mesh, Qb=Qb, approx=self.approx,
+                query_dtype="bfloat16" if self.approx else None)
         return batch_topn(queries, Factor, topk, pool=pool, Qb=Qb,
                           approx=self.approx,
                           query_dtype="bfloat16" if self.approx else None,

@@ -258,6 +258,26 @@ TOL_K17, TOL_K18 = 1e-4, 1e-5
 # TOL_W2V_STREAMED of the resident one (the same pairs and draws)
 W2V_D, W2V_EPOCHS, W2V_QUERIES, W2V_CHECK_QUERIES = 32, 4, 10_000, 1_000
 TOL_W2V, W2V_DEVICE_BAND, TOL_W2V_STREAMED = 1e-5, 1.15, 1e-3
+# the device mesh (mesh_als, mesh_nccl, mesh_eals, mesh_plsi, sharded_topk):
+# MESH_SHARDS shards named on the one card (devices=["cuda:0"] * n), so
+# every collective is a copy or a sum on it; MESH_EPOCHS epochs from the
+# trained ALS factors, each mesh run's first epoch held by the layouts rule
+# (TOL_LAYOUT_X, TOL_LAYOUT_LOSS) to the single-device range epoch from the
+# same start, its losses within TOL_LAYOUT_LOSS, and every epoch's factors
+# within NOISE_FACTOR x the largest distance of three single-device float32
+# runs from the float64 witness (the same epochs through the plain versions
+# on the CPU); the NCCL
+# run (a 1-rank process group, NCCL_SHARDS local shards) to the 4-shard run
+# and the witness by the same rules; eALS and pLSI (from seed 0) to their
+# single-device epochs: eALS each table's largest difference within
+# NOISE_FACTOR x the single-device range-vs-rows distance and the RMSE
+# within TOL_EALS_SUM, pLSI at TOL_PLSI_X / TOL_PLSI_ABS and TOL_PLSI_LOSS.
+# Sharded top-k over MESH_SHARDS shards: SHARDED_USERS ML-20M users and the
+# brunch catalog's queries at k = TOPK, SHARDED_PAST_USERS users at k =
+# TOPK_PAST, each equal to batch_topn's (ids off ties, scores TOL_SCORE);
+# K22 bit for bit to its plain version on the real candidates
+MESH_SHARDS, NCCL_SHARDS, MESH_EPOCHS = 4, 2, 2
+SHARDED_USERS, SHARDED_PAST_USERS = 10_000, 1_000
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
 
@@ -4222,6 +4242,509 @@ def w2v_quality(bt, W, torch):
     phase("w2v_quality", **out)
 
 
+def mesh_opt(n, **kw):
+    """The options of a mesh of ``n`` shards on the one card."""
+    return dict(num_devices=n, devices=["cuda:0"] * n, **kw)
+
+
+def frob_rel(a, b):
+    return float(np.linalg.norm(a.astype(np.float64) - b)
+                 / np.linalg.norm(b.astype(np.float64)))
+
+
+def layouts_rule(run, base, what, epoch=-1):
+    """Epoch ``epoch`` of ``run`` held to ``base``'s by the layouts rule:
+    factors within TOL_LAYOUT_X (relative Frobenius norm), the loss within
+    TOL_LAYOUT_LOSS relative.  Returns the readings."""
+    (P, Q), (bP, bQ) = run["tables"][epoch], base["tables"][epoch]
+    loss, bloss = run["losses"][epoch], base["losses"][epoch]
+    fields = dict(P_rel=frob_rel(P, bP), Q_rel=frob_rel(Q, bQ), loss=loss,
+                  base_loss=bloss, loss_rel=abs(loss / bloss - 1))
+    check(fields["P_rel"] <= TOL_LAYOUT_X and fields["Q_rel"] <= TOL_LAYOUT_X
+          and fields["loss_rel"] <= TOL_LAYOUT_LOSS,
+          f"{what} differs from the single-device range epoch: {fields}")
+    return fields
+
+
+def witness_rule(run, family, witness, what):
+    """Every epoch of ``run`` (float32) held to the float64 witness, the
+    single-device run from the same start through the plain versions on
+    the CPU: each table within NOISE_FACTOR times the noise scale, the
+    largest distance from the witness (relative Frobenius norm) among
+    ``family``, the single-device float32 runs that differ from one
+    another only in the order of their sums (ROADMAP's float64-witness
+    rule; three CG steps amplify any such order on a few ill-conditioned
+    rows from epoch to epoch, and a more accurate sum is not nearer the
+    witness: PERF.md, PR 10).  Returns the readings per epoch, with the
+    share of the distance on the 8 furthest rows of the run and of the
+    single device."""
+    def top_share(x, w, n=8):
+        """The share of ``x``'s distance from ``w`` on its n furthest rows."""
+        rows = np.sort(np.linalg.norm(x.astype(np.float64) - w, axis=1))
+        return float(np.linalg.norm(rows[-n:]) / np.linalg.norm(rows))
+
+    out = []
+    for e, wtables in enumerate(witness["tables"]):
+        r = {}
+        for i, (t, w) in enumerate(zip("PQ", wtables)):
+            dist = {name: frob_rel(f["tables"][e][i], w)
+                    for name, f in family.items()}
+            r[t] = dict(run=frob_rel(run["tables"][e][i], w),
+                        scale=max(dist.values()), **dist,
+                        run_top8_share=top_share(run["tables"][e][i], w),
+                        single_top8_share=top_share(
+                            family["single"]["tables"][e][i], w))
+        check(all(v["run"] <= NOISE_FACTOR * v["scale"] for v in r.values()),
+              f"{what}, epoch {e + 1}: further from the float64 witness "
+              f"than {NOISE_FACTOR} x the single-device noise scale: {r}")
+        out.append(r)
+    return out
+
+
+def mesh_train(bt, K, torch, data, opt, start):
+    """A model of ``opt`` from the factors ``start`` trained with the
+    kernels' and the collectives' counts set to 0 just before, validation
+    on (a loss per epoch), each epoch's host tables kept: (run dict,
+    launches, collective calls)."""
+    par = bt.parallelism
+    opt.update(validation={"topk": TOPK})
+    als = bt.ALS(opt, data=data)
+    np.random.seed(0)
+    als.initialize()
+    als.P, als.Q = start[0].copy(), start[1].copy()
+    losses, tables = [], []
+
+    def keep(i, m):
+        losses.append(m["train_loss"])
+        tables.append((als.P.copy(), als.Q.copy()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(K.KERNELS)
+    par.reset_counts()
+    als.train(training_callback=keep)
+    check(als._mesh_range is None, "the mesh layout outlived train()")
+    check(len(losses) == int(opt.num_iters) and np.isfinite(losses).all(),
+          f"losses {losses}")
+    run = dict(losses=losses, tables=tables,
+               epoch_seconds=als.iteration_times,
+               max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+               / 2 ** 20)
+    calls = dict(all_gather_rows=par.all_gather_rows.calls,
+                 all_reduce_sum=par.all_reduce_sum.calls,
+                 dist_all_gather=par.all_gather_rows.dist_calls,
+                 dist_all_reduce=par.all_reduce_sum.dist_calls)
+    launches = read_counts(K.KERNELS)
+    del als
+    return run, launches, calls
+
+
+def mesh_als(bt, K, torch, data, start):
+    """ALS d = D over MESH_SHARDS shards on the one card, from the trained
+    factors ``start``.  MESH_EPOCHS epochs of "dp+tp" (the per-shard range
+    layout) against the single-device range layout: the first epoch by the
+    layouts rule, every epoch's loss within TOL_LAYOUT_LOSS, and every
+    epoch's factors by ``witness_rule`` against the float64 single-device
+    run on the CPU (the plain versions) from the same start, the noise
+    scale taken from three single-device float32 runs (the range layout,
+    the same with float64-summed gramians, the scatter layout); ``llt``
+    (exact solves, nothing for CG to amplify) by the layouts rule after
+    every epoch.  The single-device scatter layout's distance from the
+    range layout is printed beside the mesh's.  Then one epoch each of
+    "dp", "tp" with ``range_layout=False`` and the streamed mesh path
+    (resident_mb STREAM_RESIDENT_MB) against one single-device epoch.
+    Returns the "dp+tp" run and the witness rule's runs (for
+    mesh_nccl)."""
+    narrow = (K.als_cg_matrix_free, K.als_normal_equations,
+              K.batched_cg_dense)
+    mesh_kw = mesh_opt(MESH_SHARDS, sharding="dp+tp")
+    base, _, _ = mesh_train(bt, K, torch, data, als_opt(
+        bt, d=D, num_iters=MESH_EPOCHS), start)
+    st = time.perf_counter()
+    witness, _, _ = mesh_train(bt, K, torch, data, als_opt(
+        bt, d=D, num_iters=MESH_EPOCHS, device="cpu"),
+        tuple(t.astype(np.float64) for t in start))
+    witness_s = time.perf_counter() - st
+    check(witness["tables"][0][0].dtype == np.float64,
+          f"the witness ran in {witness['tables'][0][0].dtype}")
+    scatter, _, _ = mesh_train(bt, K, torch, data, als_opt(
+        bt, d=D, num_iters=MESH_EPOCHS, range_layout=False), start)
+    # the single device with its gramians summed in float64 (cuBLAS's
+    # DGEMM, rounded once): the same epochs, a more accurate sum
+    gramian = K.gramian
+    K.gramian = lambda X: torch.matmul(X.double().T, X.double()).float()
+    try:
+        gram64, _, _ = mesh_train(bt, K, torch, data, als_opt(
+            bt, d=D, num_iters=MESH_EPOCHS), start)
+    finally:
+        K.gramian = gramian
+    family = dict(single=base, single_gramian_f64=gram64, scatter=scatter)
+    run, launches, calls = mesh_train(bt, K, torch, data, als_opt(
+        bt, d=D, num_iters=MESH_EPOCHS, **mesh_kw), start)
+    first = layouts_rule(run, base, "the dp+tp mesh's first epoch", 0)
+    loss_rel = [abs(a / b - 1) for a, b in zip(run["losses"],
+                                                base["losses"])]
+    check(max(loss_rel) <= TOL_LAYOUT_LOSS,
+          f"the dp+tp mesh's losses differ: {loss_rel}")
+    vs_witness = witness_rule(run, family, witness, "the dp+tp mesh")
+    readings = [dict(mesh=[frob_rel(x, y) for x, y in zip(m, b)],
+                     scatter=[frob_rel(x, y) for x, y in zip(s, b)])
+                for m, s, b in zip(run["tables"], scatter["tables"],
+                                   base["tables"])]
+    check(all(launches[k.__name__] > 0 for k in narrow),
+          f"a kernel of the mesh path never launched: {launches}")
+    # per half: the gramian's all-reduce and the fixed side's all-gather
+    # (and the segments' table); per epoch the loss's all-reduce
+    check(calls["all_reduce_sum"] == 3 * MESH_EPOCHS
+          and calls["all_gather_rows"] >= 2 * MESH_EPOCHS,
+          f"collective calls {calls}")
+    llt = {}
+    for name, extra in (("single", {}), ("mesh", mesh_kw)):
+        llt[name], _, _ = mesh_train(bt, K, torch, data, als_opt(
+            bt, d=D, num_iters=MESH_EPOCHS, optimizer="llt", **extra), start)
+    llt_fields = [layouts_rule(llt["mesh"], llt["single"],
+                               f"the llt dp+tp mesh's epoch {i + 1}", i)
+                  for i in range(MESH_EPOCHS)]
+    phase("mesh_als", d=D, shards=MESH_SHARDS, devices="cuda:0 (shared)",
+          sharding="dp+tp", epochs=MESH_EPOCHS, first_epoch=first,
+          loss_rel=loss_rel, factors_rel_per_epoch_PQ=readings,
+          vs_float64_witness=vs_witness, witness_cpu_seconds=witness_s,
+          witness_losses=witness["losses"],
+          llt=llt_fields, losses=run["losses"],
+          single_losses=base["losses"], epoch_seconds=run["epoch_seconds"],
+          single_epoch_seconds=base["epoch_seconds"],
+          llt_epoch_seconds=llt["mesh"]["epoch_seconds"],
+          llt_single_epoch_seconds=llt["single"]["epoch_seconds"],
+          launches=launches,
+          launches_per_shard_epoch={
+              k: v / (MESH_SHARDS * MESH_EPOCHS) for k, v in launches.items()},
+          collectives=calls,
+          max_memory_allocated_mb=run["max_memory_allocated_mb"],
+          tol_factors=TOL_LAYOUT_X, tol_loss=TOL_LAYOUT_LOSS,
+          noise_factor=NOISE_FACTOR)
+    one, _, _ = mesh_train(bt, K, torch, data,
+                           als_opt(bt, d=D, num_iters=1), start)
+    data_opt = data.opt.data
+    had, saved = "batch_mb" in data_opt, data_opt.get("batch_mb")
+    out = {}
+    try:
+        for name, extra in (("dp", dict(sharding="dp")),
+                            ("tp_scatter", dict(sharding="dp+tp",
+                                                range_layout=False)),
+                            ("streamed", dict(
+                                sharding="dp+tp",
+                                resident_mb=STREAM_RESIDENT_MB))):
+            if name == "streamed":
+                data_opt["batch_mb"] = STREAM_BATCH_MB
+            r, ln, cl = mesh_train(bt, K, torch, data, als_opt(
+                bt, d=D, num_iters=1, **mesh_opt(MESH_SHARDS, **extra)),
+                start)
+            check(all(ln[k.__name__] > 0 for k in narrow),
+                  f"a kernel of the {name} mesh path never launched: {ln}")
+            out[name] = dict(layouts_rule(r, one, f"the {name} mesh epoch"),
+                             epoch_seconds=r["epoch_seconds"][0],
+                             launches=ln, collectives=cl)
+    finally:
+        if had:
+            data_opt["batch_mb"] = saved
+        else:
+            data_opt.pop("batch_mb", None)
+    phase("mesh_als_modes", d=D, shards=MESH_SHARDS, epochs=1,
+          single_epoch_seconds=one["epoch_seconds"][0], **out,
+          tol_factors=TOL_LAYOUT_X, tol_loss=TOL_LAYOUT_LOSS)
+    return run, dict(family=family, witness=witness)
+
+
+def mesh_nccl(bt, K, torch, data, start, mesh_run, refs):
+    """The "dp+tp" epochs of mesh_als inside a 1-rank NCCL process group
+    (a TCP store on a free local port) with NCCL_SHARDS local shards: the
+    collectives go through torch.distributed on NCCL, and the result is
+    held as mesh_als's: the first epoch by the layouts rule to mesh_als's
+    run, every loss within TOL_LAYOUT_LOSS of it, and every epoch's
+    factors by ``witness_rule`` against ``refs`` (mesh_als's witness and
+    single-device float32 runs).  The group is destroyed after."""
+    import socket
+
+    par = bt.parallelism
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    world = par.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                       backend="nccl")
+    try:
+        mesh = par.get_mesh(NCCL_SHARDS, devices=["cuda:0"] * NCCL_SHARDS)
+        check(world == 1 and mesh.backend == "nccl" and mesh.group
+              is not None, f"process group: world {world}, {mesh}")
+        run, launches, calls = mesh_train(
+            bt, K, torch, data, als_opt(bt, d=D, num_iters=MESH_EPOCHS,
+                                        **mesh_opt(NCCL_SHARDS,
+                                                   sharding="dp+tp")), start)
+        backend = mesh.backend
+    finally:
+        par.shutdown_distributed()
+    check(calls["dist_all_reduce"] == calls["all_reduce_sum"] > 0
+          and calls["dist_all_gather"] == calls["all_gather_rows"] > 0,
+          f"collectives did not all go through torch.distributed: {calls}")
+    # the mesh_als rule: the first epoch's factors, every epoch's loss
+    fields = layouts_rule(run, mesh_run, "the NCCL mesh's first epoch", 0)
+    loss_rel = [abs(a / b - 1) for a, b in zip(run["losses"],
+                                                mesh_run["losses"])]
+    check(max(loss_rel) <= TOL_LAYOUT_LOSS,
+          f"the NCCL mesh's losses differ: {loss_rel}")
+    vs_witness = witness_rule(run, refs["family"], refs["witness"],
+                              "the NCCL mesh")
+    (P, Q), (mP, mQ) = run["tables"][-1], mesh_run["tables"][-1]
+    last = dict(P_rel=frob_rel(P, mP), Q_rel=frob_rel(Q, mQ))
+    phase("mesh_nccl", d=D, world_size=world, backend=backend,
+          local_shards=NCCL_SHARDS, epochs=MESH_EPOCHS, first_epoch=fields,
+          loss_rel=loss_rel, last_epoch_vs_mesh_als=last,
+          vs_float64_witness=vs_witness, noise_factor=NOISE_FACTOR,
+          losses=run["losses"], epoch_seconds=run["epoch_seconds"],
+          launches=launches, collectives=calls,
+          tol_factors=TOL_LAYOUT_X, tol_loss=TOL_LAYOUT_LOSS)
+
+
+def mesh_eals(bt, E, torch, data):
+    """eALS d = D over MESH_SHARDS shards, MESH_EPOCHS epochs from seed 0,
+    against the single-device range epochs; the noise scale is the
+    single-device range-vs-rows (``range_layout=False``) distance."""
+    par = bt.parallelism
+    runs = {}
+    for name, extra in (("single", {}), ("rows", dict(range_layout=False)),
+                        ("mesh", mesh_opt(MESH_SHARDS))):
+        model = bt.EALS(eals_opt(bt, num_iters=MESH_EPOCHS, validation={},
+                                 **extra), data=data)
+        np.random.seed(0)
+        model.initialize()
+        reset_counts(E.KERNELS)
+        par.reset_counts()
+        model.train()
+        runs[name] = dict(P=model.P, Q=model.Q,
+                          losses=model.iteration_losses,
+                          epoch_seconds=model.iteration_times,
+                          launches=read_counts(E.KERNELS),
+                          collectives=dict(
+                              all_gather_rows=par.all_gather_rows.calls,
+                              all_reduce_sum=par.all_reduce_sum.calls))
+        del model
+    mesh, single, rows = runs["mesh"], runs["single"], runs["rows"]
+    diff = {t: float(np.abs(mesh[t] - single[t]).max()) for t in "PQ"}
+    noise = {t: float(np.abs(rows[t] - single[t]).max()) for t in "PQ"}
+    loss_rel = abs(mesh["losses"][-1] / single["losses"][-1] - 1)
+    q_close = bool(np.allclose(mesh["Q"], single["Q"], rtol=TOL_PLSI_X,
+                               atol=TOL_PLSI_ABS))
+    check(all(diff[t] <= NOISE_FACTOR * noise[t] for t in "PQ")
+          and loss_rel <= TOL_EALS_SUM,
+          f"the eALS mesh differs from one device: {diff} (noise {noise}), "
+          f"RMSE {loss_rel:.3g}")
+    check(all(v > 0 for v in mesh["launches"].values()),
+          f"an eALS kernel never launched on the mesh: {mesh['launches']}")
+    phase("mesh_eals", d=D, shards=MESH_SHARDS, epochs=MESH_EPOCHS,
+          max_abs_diff=diff, range_vs_rows=noise, rmse_rel=loss_rel,
+          Q_within_1e4_1e6=q_close, losses=mesh["losses"],
+          single_losses=single["losses"],
+          epoch_seconds=mesh["epoch_seconds"],
+          single_epoch_seconds=single["epoch_seconds"],
+          launches=mesh["launches"], collectives=mesh["collectives"],
+          noise_factor=NOISE_FACTOR, tol_rmse=TOL_EALS_SUM)
+
+
+def k16_halves_check(PK, torch, sums_in, apply_in):
+    """K16's two halves on the first shard's inputs as the mesh epoch gave
+    them (recorded before each launch), against their plain versions on
+    copies of the same inputs: P, the column sums and Q within TOL_K16
+    relative.  Returns the relative errors."""
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+    (Pn, Qn), kw = sums_in
+    got, ref = [Pn.clone(), Qn.clone()], [Pn.clone(), Qn.clone()]
+    s_got = PK.plsi_mstep_sums(*got, **kw)
+    s_ref = PK.mstep_sums_plain(*ref, **kw)
+    (Qa, colsum), kw_a = apply_in
+    q_got, q_ref = Qa.clone(), Qa.clone()
+    PK.plsi_mstep_apply(q_got, colsum, **kw_a)
+    PK.mstep_apply_plain(q_ref, colsum, **kw_a)
+    torch.cuda.synchronize()
+    errs = dict(P=rel(got[0], ref[0]), colsum=rel(s_got, s_ref),
+                Q=rel(q_got, q_ref))
+    check(max(errs.values()) <= TOL_K16 and torch.equal(got[1], Qn),
+          f"K16's halves on a mesh shard differ from the plain versions: "
+          f"{errs}")
+    return dict(errs, P_shard=list(Pn.shape), Q_shard=list(Qn.shape))
+
+
+def mesh_plsi(bt, PK, torch, data):
+    """pLSI d = 20 over MESH_SHARDS shards, MESH_EPOCHS epochs from seed 0,
+    against the single-device range epochs (tables TOL_PLSI_X /
+    TOL_PLSI_ABS, losses TOL_PLSI_LOSS).  The first shard's inputs to
+    K16's two halves in the first epoch are kept, and each half is then
+    held to its plain version on them (``k16_halves_check``)."""
+    runs = {}
+    kept = {}
+    real = {name: getattr(PK, name)
+            for name in ("plsi_mstep_sums", "plsi_mstep_apply")}
+
+    def keeping(name):
+        def call(*args, **kw):
+            if name not in kept:
+                kept[name] = ([a.clone() for a in args], dict(kw))
+            return real[name](*args, **kw)
+        return call
+    for name, extra in (("single", {}), ("mesh", mesh_opt(MESH_SHARDS))):
+        model = plsi_model(bt, data, plsi_opt(bt, num_iters=MESH_EPOCHS,
+                                              validation={}, **extra))
+        reset_counts(PK.KERNELS)
+        for fn in real:
+            setattr(PK, fn, keeping(fn))
+        try:
+            model.train()
+        finally:
+            for fn, f in real.items():
+                setattr(PK, fn, f)
+        runs[name] = dict(P=model.P, Q=model.Q,
+                          losses=model.iteration_losses,
+                          epoch_seconds=model.iteration_times,
+                          launches=read_counts(PK.KERNELS))
+        del model
+    mesh, single = runs["mesh"], runs["single"]
+    ok = all(np.allclose(mesh[t], single[t], rtol=TOL_PLSI_X,
+                         atol=TOL_PLSI_ABS) for t in "PQ")
+    loss_rel = max(abs(a / b - 1) for a, b in zip(mesh["losses"],
+                                                  single["losses"]))
+    diff = {t: float(np.abs(mesh[t] - single[t]).max()) for t in "PQ"}
+    check(ok and loss_rel <= TOL_PLSI_LOSS,
+          f"the pLSI mesh differs from one device: {diff}, loss {loss_rel}")
+    # K16 runs as two launches per shard (the sharded halves)
+    check(mesh["launches"]["plsi_mstep"] == 2 * MESH_SHARDS * MESH_EPOCHS
+          and mesh["launches"]["plsi_estep"] > 0,
+          f"pLSI mesh launches {mesh['launches']}")
+    check(set(kept) == set(real), f"K16's halves never ran: {list(kept)}")
+    halves = k16_halves_check(PK, torch, kept["plsi_mstep_sums"],
+                              kept["plsi_mstep_apply"])
+    phase("mesh_plsi", d=int(plsi_opt(bt).d), shards=MESH_SHARDS,
+          epochs=MESH_EPOCHS, max_abs_diff=diff, loss_rel=loss_rel,
+          losses=mesh["losses"], single_losses=single["losses"],
+          epoch_seconds=mesh["epoch_seconds"],
+          single_epoch_seconds=single["epoch_seconds"],
+          launches=mesh["launches"], k16_halves_rel_err=halves,
+          tol=[TOL_PLSI_X, TOL_PLSI_ABS], tol_loss=TOL_PLSI_LOSS,
+          tol_k16=TOL_K16)
+
+
+def same_topk(got, ref, what):
+    """(ids, scores) of a sharded call against the unsharded call's: scores
+    within TOL_SCORE, ids equal off ties.  Returns (max score error, ids
+    differing at ties)."""
+    (gi, gs), (ri, rs) = got, ref
+    close = np.isclose(gs, rs, rtol=TOL_SCORE, atol=TOL_SCORE_ABS)
+    check(bool(close.all()), f"{what}: scores differ by up to "
+          f"{float(np.abs(gs - rs).max()):.3g}")
+    check(bool(((gi == ri) | close).all()), f"{what}: ids differ off ties")
+    return float(np.abs(gs - rs).max()), int((gi != ri).sum())
+
+
+def k22_bytes(torch, out_idx, D, kl, S):
+    """The bytes K22 must move for this run's data, and the candidates it
+    must read.  A query's merge reads, of each shard's list, the entries
+    it took (c_j, counted from the output ids: shard j holds ids [j S,
+    (j + 1) S)) and the head that stopped it, min(c_j + 1, kl), but not
+    the head after the last output's: at most k + D - 1 per query.  Each
+    list's reads are charged in whole 32-byte sectors of the score and of
+    the index arrays ((B, D, kl), contiguous); the (B, k) scores and ids
+    are written once."""
+    B, k = out_idx.shape
+    shard = out_idx.long() // S
+    c = torch.zeros((B, D), dtype=torch.int64, device=out_idx.device)
+    c.scatter_add_(1, shard, torch.ones_like(shard))
+    n = torch.minimum(c + 1, torch.full_like(c, kl))
+    n.scatter_(1, shard[:, -1:], c.gather(1, shard[:, -1:]))
+    start = 4 * kl * torch.arange(B * D, device=out_idx.device).view(B, D)
+    sectors = torch.where(n > 0, (start + 4 * n - 1) // 32 - start // 32 + 1,
+                          torch.zeros_like(n))
+    return 2 * 32 * int(sectors.sum()) + 8 * B * k, int(n.sum())
+
+
+def sharded_topk(bt, R, torch, trained):
+    """batch_topn_sharded over MESH_SHARDS shards on the one card, with
+    K22's count set to 0 just before: SHARDED_USERS ML-20M users against
+    the trained Q at k = TOPK, the brunch catalog's queries (seed 21, as
+    catalog_path) at k = TOPK, and SHARDED_PAST_USERS users at k =
+    TOPK_PAST (each shard past K5's limit); each equal to batch_topn.
+    Then K22 on the recorded candidates of the brunch call, bit for bit
+    against its plain version, with its event time, bound and plain time.
+    Returns (K22's kernels-line entry, its launches)."""
+    import buffalo_tpu_torch.ops.topk as T
+
+    par = bt.parallelism
+    mesh = par.get_mesh(MESH_SHARDS, devices=["cuda:0"] * MESH_SHARDS)
+    P, Q = trained
+    brunch, queries = brunch_tables(np.random.default_rng(21), BRUNCH_ITEMS,
+                                    BRUNCH_D, BRUNCH_QUERIES)
+    seen = []
+    real = T.sharded_topk_merge
+
+    def recording(vals, idx, k):
+        seen.append((vals, idx, k))
+        return real(vals, idx, k)
+    out = {}
+    R.sharded_topk_merge.launches = 0
+    T.sharded_topk_merge = recording
+    try:
+        for name, p, table, k in (
+                ("ml20m_users", P[:SHARDED_USERS], Q, TOPK),
+                ("brunch", queries, brunch, TOPK),
+                ("ml20m_past_1024", P[:SHARDED_PAST_USERS], Q, TOPK_PAST)):
+            T.batch_topn_sharded(p, table, k, mesh)  # stages the table
+            sh_ms, got = wall_ms(
+                lambda: T.batch_topn_sharded(p, table, k, mesh))
+            T.batch_topn(p, table, k, device="cuda")
+            one_ms, ref = wall_ms(
+                lambda: T.batch_topn(p, table, k, device="cuda"))
+            err, ties = same_topk(got, ref, f"sharded top-k ({name})")
+            out[name] = dict(queries=p.shape[0], items=table.shape[0],
+                             d=table.shape[1], k=k, host_ms_sharded=sh_ms,
+                             host_ms_unsharded=one_ms, max_abs_score_err=err,
+                             ids_differing_at_ties=ties)
+    finally:
+        T.sharded_topk_merge = real
+    launches = R.sharded_topk_merge.launches
+    check(launches == 6, f"K22 launched {launches} times, expected 6")
+    # K22 on the recorded candidates of the brunch call and of the
+    # k = TOPK_PAST call (the first of each pair of calls)
+    k22 = {}
+    for name, (vals, idx, k) in (("brunch", seen[2]),
+                                 ("ml20m_past_1024", seen[4])):
+        got = R.sharded_topk_merge(vals, idx, k)
+        ref = R.sharded_topk_merge_plain(vals, idx, k)
+        check(torch.equal(got[1], ref[1]) and torch.equal(
+            got[0].view(torch.int32), ref[0].view(torch.int32)),
+            f"K22 differs from its plain version ({name})")
+        B, Dn, kl = vals.shape
+        flat = vals.reshape(B, -1)
+        S = -(-out[name]["items"] // Dn)
+        nbytes, entries = k22_bytes(torch, got[1], Dn, kl, S)
+        bms, by = bound_ms(nbytes, 0)
+        k22[name] = dict(
+            B=B, shards=Dn, k_loc=kl, k=k, entries_read=entries,
+            bytes=nbytes,
+            ms=time_ms(lambda: R.sharded_topk_merge(vals, idx, k)),
+            plain_ms=time_ms(
+                lambda: R.sharded_topk_merge_plain(vals, idx, k), reps=5,
+                warmup=1),
+            library_ms=time_ms(lambda: torch.topk(flat, k, dim=1), reps=5,
+                               warmup=1),
+            bound_ms=bms, bound_by=by)
+    phase("sharded_topk", shards=MESH_SHARDS, devices="cuda:0 (shared)",
+          **out, k22=k22, k22_launches=launches)
+    main = k22["brunch"]
+    entry = dict(route="cuda",
+                 source="buffalo_tpu_torch/csrc/sharded_topk_merge.cu",
+                 replaces="buffalo_tpu/ops/topk.py:330", max_abs_err=0.0,
+                 **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")})
+    return entry, launches
+
+
 def main() -> int:
     import torch
 
@@ -4358,7 +4881,19 @@ def main() -> int:
 
         # ---- scatter and streaming paths against the range layout
         layout_paths(bt, K, torch, data, dev, trained)
+
+        # ---- the device mesh: MESH_SHARDS shards on this card (ALS's
+        # mesh modes, a 1-rank NCCL group, eALS, pLSI), then sharded
+        # serving through K22
+        mesh_run, refs = mesh_als(bt, K, torch, data, trained)
+        mesh_nccl(bt, K, torch, data, trained, mesh_run, refs)
+        del mesh_run, refs
+        mesh_eals(bt, E, torch, data)
+        mesh_plsi(bt, PK, torch, data)
+        torch.cuda.empty_cache()
+        k22_entry, k22_launches = sharded_topk(bt, R, torch, trained)
         del trained
+        torch.cuda.empty_cache()
 
         # ---- plain path: one epoch at 20k x 5k, 2M nnz from a trained
         # state, through the kernels and through the plain versions
@@ -4519,6 +5054,8 @@ def main() -> int:
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
+    entries["sharded_topk_merge"] = k22_entry
+    path_launches["sharded_topk_merge"] = k22_launches
     kernels = []
     for name, entry in entries.items():
         kernels.append({"name": name, "route": entry["route"],

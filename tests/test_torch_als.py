@@ -217,6 +217,9 @@ def test_save_load_both_directions(trained, tmp_path):
 
 @pytest.mark.parametrize("setting", [{"num_devices": 2}])
 def test_unported_paths_raise(datasets, setting):
+    """A mesh of 2 shards on a machine without a card and without named
+    devices raises instead of putting the shards on fewer devices (the
+    mesh itself trains in ``test_torch_mesh.py``)."""
     model = _model(port, datasets[1], seed=1, num_iters=1, **setting)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="name the devices"):
         model.train()

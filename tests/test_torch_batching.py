@@ -175,3 +175,49 @@ def test_group_dispatch_choice_matches_reference(dispatch, entries):
     batches = [ref.PaddedBatch(*[np.zeros((3, 5))] * 4)] * 2
     assert port.padded_entry_count(batches) == \
         ref.padded_entry_count(batches) == 30
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 8])
+def test_sharded_range_layout_identical(D):
+    """``build_sharded_range_layout`` byte for byte against the JAX
+    package's, segment rows included, for 1, 2, 3 and 8 shards; each
+    shard's slice (``shard_group``) is the stacked group's."""
+    U, I = 70, 45
+    indptr, key, val = _csr(U, I, seed=D, long_deg=53)
+    cindptr, ckey, cval = _colwise(indptr, key, val, I)
+    kw = dict(entries_per_batch=512, max_len=16, max_rows=64)
+    rp, cp = ref.BatchPlanner(indptr, **kw), ref.BatchPlanner(cindptr, **kw)
+    tp, tc = port.BatchPlanner(indptr, **kw), port.BatchPlanner(cindptr, **kw)
+    assert rp.segment_plans, "fixture must exercise the segment path"
+    r_out = ref.build_sharded_range_layout(rp, cp, key, val, ckey, cval, D)
+    t_out = port.build_sharded_range_layout(tp, tc, key, val, ckey, cval, D)
+    for i in range(4):
+        _assert_same_batches(r_out[i], t_out[i])
+    for a, b in zip(r_out[4:], t_out[4:]):
+        assert np.array_equal(a, b)
+    assert t_out[6] * D >= U and t_out[7] * D >= I
+    for g in t_out[0]:
+        assert g.lens.shape[0] == D
+        for k in range(D):
+            x = port.shard_group(g, k)
+            assert np.array_equal(x.cols, g.cols[k])
+            assert (x.row_start == g.row_start[k]).all()
+            # local ranges stay inside the shard
+            assert (x.row_start + x.lens.shape[-1] <= t_out[6]).all()
+
+
+def test_split_rows_slices_a_batch_over_shards():
+    """A padded batch planned with ``row_multiple`` = the mesh size splits
+    into equal, contiguous row slices, one per shard (the JAX package's
+    batch sharding)."""
+    indptr, key, val = _csr(40, 20, seed=5)
+    planner = port.BatchPlanner(indptr, entries_per_batch=256, row_multiple=3)
+    for b in planner.iter_batches(key, val):
+        if not isinstance(b, port.PaddedBatch):
+            continue
+        staged = port.stage_batch(b, "cpu")
+        parts = [port.split_rows(staged, 3, j) for j in range(3)]
+        for f in range(4):
+            assert torch.equal(torch.cat([p[f] for p in parts]), staged[f])
+    with pytest.raises(ValueError):
+        port.split_rows(staged, 7, 0)

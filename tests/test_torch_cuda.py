@@ -1556,3 +1556,109 @@ def test_w2v_trains_on_the_card(dev, tmp_path, pair_gen):
             total += 1
             hits += cl[int(key[1:])] == cl[int(w[1:])]
     assert total > 0 and hits / total > 0.5
+
+
+# ------------------------------------------------------------ device mesh
+def _merge_case(dev, B, D, kl, seed):
+    """(B, D, kl) per-shard candidate lists as the sharded top-k makes
+    them: sorted by score descending with ties in index order, shard j's
+    indices all below shard j + 1's; integer scores (many ties, across and
+    within shards) and -inf padding at the end of the last shard."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-4, 5, (B, D, kl)).astype(np.float32)
+    v[:, -1, kl // 2:] = -np.inf
+    v[0] = -np.inf
+    S = kl + 5
+    loc = np.argsort(rng.random((B, D, S)), axis=2)[:, :, :kl]
+    order = np.lexsort((loc, -v), axis=2)
+    v = np.take_along_axis(v, order, 2)
+    i = (np.take_along_axis(loc, order, 2)
+         + (np.arange(D) * S)[None, :, None]).astype(np.int32)
+    return (torch.from_numpy(v).to(dev), torch.from_numpy(i).to(dev))
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("kl", [1, 7, 64, 1024])
+def test_sharded_topk_merge_kernel_equals_plain(dev, D, kl):
+    """K22 bit for bit against its plain version, k from 1 to every
+    candidate."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    B = 37 if kl < 1024 else 9
+    vals, idx = _merge_case(dev, B, D, kl, seed=D * 7 + kl)
+    for k in sorted({1, min(10, D * kl), D * kl}):
+        before = R.sharded_topk_merge.launches
+        gv, gi = R.sharded_topk_merge(vals, idx, k)
+        assert R.sharded_topk_merge.launches == before + 1
+        pv, pi = R.sharded_topk_merge_plain(vals, idx, k)
+        assert torch.equal(gi, pi), (D, kl, k)
+        assert torch.equal(gv.view(torch.int32), pv.view(torch.int32))
+
+
+def test_sharded_topk_merge_rejects_what_it_does_not_take(dev):
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    vals, idx = _merge_case(dev, 4, 2, 3, 0)
+    with pytest.raises(ValueError):
+        R.sharded_topk_merge(vals, idx, 7)
+    with pytest.raises(NotImplementedError):
+        big = torch.zeros((2, 33, 1), device=dev)
+        R.sharded_topk_merge(big, big.to(torch.int32), 1)
+
+
+def test_batch_topn_sharded_on_the_card(dev):
+    """Four shards on one card: ids equal the unsharded scan's (integer
+    scores, ties by index), at k = 10 and past K5 at k = 2,000."""
+    from buffalo_tpu_torch import parallelism as par
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+    from buffalo_tpu_torch.ops.topk import batch_topn, batch_topn_sharded
+
+    rng = np.random.default_rng(5)
+    Q = np.round(rng.standard_normal((5003, 40)) * 4).astype(np.float32) / 4
+    Q[2500:2600] = Q[:100]
+    p = rng.integers(-2, 3, (64, 40)).astype(np.float32)
+    Qb = np.round(rng.standard_normal(5003) * 4).astype(np.float32) / 4
+    mesh = par.get_mesh(4, devices=["cuda:0"] * 4)
+    for k in (10, 2000):
+        before = R.sharded_topk_merge.launches
+        a = batch_topn_sharded(p, Q, k, mesh, Qb=Qb)
+        assert R.sharded_topk_merge.launches == before + 1
+        b = batch_topn(p, Q, k, Qb=Qb, device="cuda")
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_allclose(a[1], b[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("d", [8, 20, 256])
+@pytest.mark.parametrize("masked", [False, True])
+def test_plsi_mstep_split_kernels_match_plain(dev, d, masked):
+    """K16's two halves, as a mesh calls them (masked) and as the one
+    device's unmasked M-step does: P rows 1e-6, Q's column sums 1e-12
+    relative (double), Q after the division 1e-6, against the plain
+    versions."""
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
+
+    rng = np.random.default_rng(d)
+    Pn = torch.from_numpy(rng.random((700, d)).astype(np.float32)).to(dev)
+    Qn = torch.from_numpy(rng.random((900, d)).astype(np.float32)).to(dev)
+    pm = torch.from_numpy((rng.random(700) > 0.1).astype(np.float32)).to(dev)
+    qm = torch.from_numpy((rng.random(900) > 0.1).astype(np.float32)).to(dev)
+    kw = dict(alpha1=0.5, alpha2=2.0)
+    if masked:
+        kw.update(num_items=800)
+        mk, mk_cpu = dict(p_mask=pm, q_mask=qm), dict(p_mask=pm.cpu(),
+                                                      q_mask=qm.cpu())
+    else:
+        mk = mk_cpu = {}
+    got = [Pn.clone(), Qn.clone()]
+    want = [Pn.cpu(), Qn.cpu()]
+    s_got = PK.plsi_mstep_sums(*got, **mk, **kw)
+    s_want = PK.mstep_sums_plain(*want, **mk_cpu, **kw)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(s_got.cpu().numpy(), s_want.numpy(),
+                               rtol=1e-12)
+    kw.pop("alpha1")
+    PK.plsi_mstep_apply(got[1], s_got, q_mask=mk.get("q_mask"), **kw)
+    PK.mstep_apply_plain(want[1], s_want, q_mask=mk_cpu.get("q_mask"), **kw)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
+                               rtol=1e-6, atol=1e-9)

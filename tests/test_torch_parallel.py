@@ -163,9 +163,12 @@ def test_normalized_factors_refused(pair):
 def test_wrong_algo_and_mesh_rejected(pair):
     with pytest.raises(ValueError):
         ParALS(object())
-    for kw in (dict(mesh=object()), dict(num_devices=2)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ParALS(pair[1], **kw)
+    # a mesh must be a parallelism.Mesh, and two shards without a card or
+    # named devices raise (sharded serving runs in test_torch_parallelism)
+    with pytest.raises(TypeError, match="Mesh"):
+        ParALS(pair[1], mesh=object())
+    with pytest.raises(RuntimeError, match="name the devices"):
+        ParALS(pair[1], num_devices=2)
 
 
 @pytest.fixture(scope="module")

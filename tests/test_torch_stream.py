@@ -19,6 +19,11 @@ from buffalo_tpu.data import Stream as RefStream
 from buffalo_tpu.data import StreamOptions as RefStreamOptions
 from buffalo_tpu.data import fileio as ref_fileio
 from buffalo_tpu_torch.data import Stream, StreamOptions, fileio, load, native
+from tests.test_torch_native_ref import jax_native_lib  # noqa: F401
+
+# the JAX package's native library, built and loaded under a lock
+# (see test_torch_native_ref.py)
+pytestmark = pytest.mark.usefixtures("jax_native_lib")
 
 STREAM_LINES = "alpha beta gamma beta\nbeta delta\ngamma gamma alpha\n"
 GROUPS = ("rowwise", "colwise", "vali", "idmap", "sppmi")

@@ -17,6 +17,11 @@ import buffalo_tpu.ops.topk as J
 import buffalo_tpu_torch.data.native as port_native
 import buffalo_tpu_torch.ops.topk as T
 from buffalo_tpu_torch.ops import retrieval_kernels as R
+from tests.test_torch_native_ref import jax_native_lib  # noqa: F401
+
+# the JAX package's native library, built and loaded under a lock
+# (see test_torch_native_ref.py)
+pytestmark = pytest.mark.usefixtures("jax_native_lib")
 
 RTOL = 1e-5
 

@@ -42,6 +42,11 @@ from buffalo_tpu.parallel import ParW2V as RefParW2V
 from buffalo_tpu_torch.convert import load_reference_model
 from buffalo_tpu_torch.data import StreamOptions as PortStreamOptions
 from buffalo_tpu_torch.data import load as port_load
+from tests.test_torch_native_ref import jax_native_lib  # noqa: F401
+
+# the JAX package's native library, built and loaded under a lock
+# (see test_torch_native_ref.py)
+pytestmark = pytest.mark.usefixtures("jax_native_lib")
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 LOSS_RTOL = 1e-5
