@@ -53,6 +53,12 @@
 //   6 units cover 48 units (d <= 142); past that the entries are streamed
 //   once per pass of 48 units, and the data part of A is assembled in the
 //   output itself (global memory, L2) instead of over the ring.
+// * Past 256 floats the ring of whole rows no longer fits shared memory:
+//   the wide form tiles A's output into 64 x 64 blocks, one thread block per
+//   (row or chunk, tile), each walking the entries in order with their two
+//   64-column slices of Bf staged (scalar FMAs in float32); a second kernel,
+//   one block per row or chunk, forms y and the loss terms from global
+//   memory.
 #include "als_common.cuh"
 
 namespace {
@@ -448,6 +454,160 @@ cudaError_t launch_statistics(const Params& p, int blocks, size_t smem, cudaStre
 
 constexpr int kUnitCounts[] = {1, 2, 3, 4, 6};  // instantiated kUPW
 
+// ------------------------------------------------------------- wide rows
+constexpr int kOut = 64;                         // output tiles of kOut x kOut
+constexpr int kWideTile = 32;                    // entries staged at a time
+constexpr int kWidePer = kOut * kOut / kThreads;  // a thread's tile entries
+
+// The entries of block b (a row, or a chunk of a head row): [base, base + n)
+// of cols / vals, the table row src of p, and whether it is real.
+struct WideList {
+  int n;
+  int64_t src, base;
+  bool real;
+};
+
+__device__ __forceinline__ WideList wide_list(const Params& p, int b, bool chunks) {
+  WideList L;
+  if (chunks) {
+    int lo = 0, hi = p.R;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (p.chunk_ptr[mid] <= b) lo = mid; else hi = mid - 1;
+    }
+    L.n = p.chunk_lens[b];
+    L.src = lo < p.R ? p.rows[lo] : -1;
+    L.real = b < p.chunk_ptr[p.R] && p.lens[lo] > 0 && L.n > 0 && L.src >= 0 &&
+             L.src < p.n_table_rows;
+  } else {
+    L.n = p.lens[b];
+    L.src = p.rows ? (int64_t)p.rows[b] : p.row_start + b;
+    L.real = L.n > 0 && L.src >= 0 && L.src < p.n_table_rows;
+  }
+  if (!L.real) L.n = 0;
+  L.base = (int64_t)b * p.C;
+  return L;
+}
+
+// A's output tile blockIdx.y of row / chunk blockIdx.x: the entries' sum of
+// w f_i f_j, then (range mode) FF and the reg term.
+template <bool kChunks>
+__global__ void __launch_bounds__(kThreads) wide_a_kernel(const Params p) {
+  __shared__ float Fi[kWideTile][kOut], Fj[kWideTile][kOut], wa[kWideTile];
+  const int d = p.d, t = threadIdx.x, b = blockIdx.x;
+  const int nt = (d + kOut - 1) / kOut;
+  const int i0 = (blockIdx.y / nt) * kOut, j0 = (blockIdx.y % nt) * kOut;
+  const WideList L = wide_list(p, b, kChunks);
+  float acc[kWidePer];
+#pragma unroll
+  for (int j = 0; j < kWidePer; ++j) acc[j] = 0.f;
+  for (int base = 0; base < L.n; base += kWideTile) {
+    const int cnt = min(kWideTile, L.n - base);
+    for (int q = t; q < kWideTile * kOut; q += kThreads) {
+      const int l = q / kOut, z = q - l * kOut;
+      const float* f = p.Bf + (int64_t)(l < cnt ? p.cols[L.base + base + l] : 0) * d;
+      Fi[l][z] = l < cnt && i0 + z < d ? f[i0 + z] : 0.f;
+      Fj[l][z] = l < cnt && j0 + z < d ? f[j0 + z] : 0.f;
+    }
+    if (t < kWideTile)
+      wa[t] = t < cnt ? p.alpha * als::load_val(p.vals, L.base + base + t, p.vals_bf16) : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kWidePer; ++j) {
+      const int e = t + j * kThreads, ri = e / kOut, rj = e - ri * kOut;
+      float a = acc[j];
+      for (int l = 0; l < cnt; ++l) a = fmaf(Fi[l][ri] * wa[l], Fj[l][rj], a);
+      acc[j] = a;
+    }
+    __syncthreads();
+  }
+  const float reg_ada = kChunks ? 0.f : p.reg * (p.adaptive_reg ? (float)p.lens[b] : 1.f);
+  float* Ab = p.A + (int64_t)b * d * d;
+#pragma unroll
+  for (int j = 0; j < kWidePer; ++j) {
+    const int e = t + j * kThreads, i = i0 + e / kOut, k = j0 + e % kOut;
+    if (i < d && k < d)
+      Ab[(int64_t)i * d + k] =
+          kChunks ? acc[j] : p.FF[(int64_t)i * d + k] + acc[j] + (i == k ? reg_ada : 0.f);
+  }
+}
+
+// y = F^T (1 + w) and the loss terms of row / chunk blockIdx.x (wide rows):
+// nume = reg_ada |p|^2 (range) plus, on the item axis, p^T FF p (range) +
+// sum_l w_l (p.f_l)^2 - 2 p.y + n + sum(w); deno = num_fixed_rows (range)
+// + sum(w), as normal_equations_body.
+template <bool kChunks>
+__global__ void __launch_bounds__(kThreads) wide_y_kernel(const Params p) {
+  extern __shared__ float ps[];  // [d]
+  __shared__ float scratch[33];
+  const int d = p.d, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, b = blockIdx.x;
+  const WideList L = wide_list(p, b, kChunks);
+  for (int j = tid; j < d; j += kThreads) ps[j] = L.real ? p.table[L.src * d + j] : 0.f;
+  __syncthreads();
+  float py = 0.f;
+  for (int j = tid; j < d; j += kThreads) {
+    float yw = 0.f, y1 = 0.f;
+    for (int e = 0; e < L.n; ++e) {
+      const float f = p.Bf[(int64_t)p.cols[L.base + e] * d + j];
+      yw = fmaf(p.alpha * als::load_val(p.vals, L.base + e, p.vals_bf16), f, yw);
+      y1 += f;
+    }
+    const float yj = yw + y1;
+    p.y[(int64_t)b * d + j] = yj;
+    py += ps[j] * yj;
+  }
+  if (!p.compute_loss) return;
+  const float reg_ada = kChunks ? 0.f : p.reg * (p.adaptive_reg ? (float)p.lens[b] : 1.f);
+  float sq = 0.f, quad = 0.f, wsum = 0.f;
+  for (int j = tid; j < d; j += kThreads) {
+    sq += ps[j] * ps[j];
+    if (!kChunks && p.item_axis) {
+      float q = 0.f;
+      for (int k = 0; k < d; ++k) q = fmaf(p.FF[(int64_t)j * d + k], ps[k], q);
+      quad += ps[j] * q;
+    }
+  }
+  if (p.item_axis) {
+    for (int e = warp; e < L.n; e += kThreads / 32) {
+      const float* f = p.Bf + (int64_t)p.cols[L.base + e] * d;
+      float s = 0.f;
+      for (int k = lane; k < d; k += 32) s = fmaf(ps[k], f[k], s);
+      s = als::warp_sum(s);
+      if (lane == 0)
+        quad += p.alpha * als::load_val(p.vals, L.base + e, p.vals_bf16) * s * s;
+    }
+    for (int e = tid; e < L.n; e += kThreads)
+      wsum += p.alpha * als::load_val(p.vals, L.base + e, p.vals_bf16);
+  }
+  float nu = 0.f, de = 0.f;
+  if (!kChunks) nu = reg_ada * als::block_sum(sq, scratch);
+  if (p.item_axis) {
+    const float w = als::block_sum(wsum, scratch);
+    nu += als::block_sum(quad - 2.f * py, scratch) + (float)L.n + w;
+    de = (kChunks ? 0.f : p.num_fixed_rows) + w;
+  }
+  if (tid == 0) {
+    p.nume[b] = L.real ? nu : 0.f;
+    p.deno[b] = L.real ? de : 0.f;
+  }
+}
+
+cudaError_t launch_wide(const Params& p, int blocks, cudaStream_t s) {
+  const int nt = (p.d + kOut - 1) / kOut;
+  const bool chunks = p.chunk_ptr != nullptr;
+  if (chunks) wide_a_kernel<true><<<dim3(blocks, nt * nt), kThreads, 0, s>>>(p);
+  else wide_a_kernel<false><<<dim3(blocks, nt * nt), kThreads, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * p.d;
+  err = chunks ? als::allow_smem(wide_y_kernel<true>, smem)
+               : als::allow_smem(wide_y_kernel<false>, smem);
+  if (err != cudaSuccess) return err;
+  if (chunks) wide_y_kernel<true><<<blocks, kThreads, smem, s>>>(p);
+  else wide_y_kernel<false><<<blocks, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 // Segment mode, second pass: row r adds its chunks' partials in chunk order
 // (the reference's segment_sum) and finishes A = FF + sum + reg*ada*I, y and
 // the loss terms of the pre-update row.
@@ -513,6 +673,9 @@ als_segment_reduce_kernel(const float* __restrict__ table, const float* __restri
 
 }  // namespace
 
+// 1 when rows of d floats take the wide form.
+extern "C" int als_normal_equations_wide(int d) { return d > 256 ? 1 : 0; }
+
 // Range mode: chunk_ptr == NULL, R rows.  Segment mode: chunk_ptr != NULL,
 // R rows over Nc chunks, with (Nc, d, d) / (Nc, d) / (Nc) / (Nc) scratch for
 // the chunk partials in A_part / y_part / pos_part / w_part.
@@ -564,7 +727,9 @@ extern "C" int als_normal_equations(const float* table, const float* Bf, const f
   const size_t smem = sizeof(float) * ((size_t)kStages * kTL * (p.S + 2) +
                                        (size_t)p.EG * p.TT * 128 + 3 * p.NP + 33);
   cudaStream_t s = (cudaStream_t)stream;
+  const bool wide = als_normal_equations_wide(d);
   auto launch = [&](int blocks) {
+    if (wide) return launch_wide(p, blocks, s);
     switch (p.UPW) {
       case 1: return launch_statistics<1>(p, blocks, smem, s);
       case 2: return launch_statistics<2>(p, blocks, smem, s);

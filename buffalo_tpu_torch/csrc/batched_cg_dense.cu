@@ -23,7 +23,12 @@
 // stride that keeps float4 row reads free of bank conflicts) and read from
 // there in every matvec, two warps per block at d = 160 (105 KB each).  At
 // d = 256 one system's A (266 KB) exceeds a block's 227 KB, so each matvec
-// reads it again from L2 (global mode, still two warps per block).
+// reads it again from L2 (global mode, still two warps per block).  Past
+// 256 floats the vectors no longer fit a lane's registers: one block of
+// kWideThreads per system holds them in shared memory, thread i computing
+// rows i, i + kWideThreads, ... of each matvec from A in global memory (in
+// column order, as the lanes do), the dot products block sums in a fixed
+// order.
 #include "als_common.cuh"
 
 namespace {
@@ -129,7 +134,84 @@ batched_cg_dense_kernel(const float* __restrict__ A, const float* __restrict__ y
     if (lane + 32 * m < d) row[lane + 32 * m] = x[m];
 }
 
+// ------------------------------------------------------------- wide systems
+constexpr int kWideThreads = 256;
+
+// One block per system of any width d: x0, y, x, r, p and A p in shared
+// memory (6 d floats), A read from global memory.
+__global__ void __launch_bounds__(kWideThreads)
+batched_cg_dense_wide(const float* __restrict__ A, const float* __restrict__ y,
+                      float* __restrict__ table, const int32_t* __restrict__ lens,
+                      const int32_t* __restrict__ rows, int64_t row_start, int64_t n_table_rows,
+                      int R, int d, int cg_iters, float cg_tol) {
+  extern __shared__ float wsm[];
+  __shared__ float scratch[33];
+  const int b = blockIdx.x, tid = threadIdx.x;
+  if (lens[b] <= 0) return;  // the whole block
+  const int64_t dst = rows ? (int64_t)rows[b] : row_start + b;
+  if (dst < 0 || dst >= n_table_rows) return;
+  float *x0 = wsm, *ys = x0 + d, *x = ys + d, *r = x + d, *pv = r + d, *Ap = pv + d;
+  const float* Ab = A + (int64_t)b * d * d;
+  float* row = table + dst * d;
+  for (int i = tid; i < d; i += kWideThreads) {
+    x0[i] = row[i];
+    ys[i] = y[(int64_t)b * d + i];
+  }
+  __syncthreads();
+  auto matvec = [&](const float* v, float* out) {  // out = A v, row by row
+    for (int i = tid; i < d; i += kWideThreads) {
+      const float* a = Ab + (int64_t)i * d;
+      float acc = 0.f;
+      for (int k = 0; k < d; ++k) acc = fmaf(__ldg(a + k), v[k], acc);
+      out[i] = acc;
+    }
+    __syncthreads();
+  };
+  // the reference's warm start (solve.py:37): keep x0 unless the zero start
+  // has the smaller residual
+  matvec(x0, Ap);
+  float yy = 0.f, rr = 0.f;
+  for (int i = tid; i < d; i += kWideThreads) {
+    r[i] = ys[i] - Ap[i];
+    yy += ys[i] * ys[i];
+    rr += r[i] * r[i];
+  }
+  const bool use_zero = als::block_sum(yy, scratch) < als::block_sum(rr, scratch);
+  float part = 0.f;
+  for (int i = tid; i < d; i += kWideThreads) {
+    x[i] = use_zero ? 0.f : x0[i];
+    if (use_zero) r[i] = ys[i];
+    pv[i] = r[i];
+    part += r[i] * r[i];
+  }
+  __syncthreads();
+  float rsold = als::block_sum(part, scratch);
+  bool active = rsold >= cg_tol;
+  for (int it = 0; it < cg_iters && active; ++it) {
+    matvec(pv, Ap);
+    part = 0.f;
+    for (int i = tid; i < d; i += kWideThreads) part += pv[i] * Ap[i];
+    const float alpha = rsold / fmaxf(als::block_sum(part, scratch), 1e-30f);
+    part = 0.f;
+    for (int i = tid; i < d; i += kWideThreads) {
+      x[i] += alpha * pv[i];
+      r[i] -= alpha * Ap[i];
+      part += r[i] * r[i];
+    }
+    const float rsnew = als::block_sum(part, scratch);
+    active = rsnew >= cg_tol;
+    const float beta = rsold > 0.f ? rsnew / fmaxf(rsold, 1e-30f) : 0.f;
+    for (int i = tid; i < d; i += kWideThreads) pv[i] = r[i] + beta * pv[i];
+    __syncthreads();
+    rsold = rsnew;
+  }
+  for (int i = tid; i < d; i += kWideThreads) row[i] = x[i];
+}
+
 }  // namespace
+
+// 1 when systems of width d take the wide kernel.
+extern "C" int batched_cg_dense_wide_mode(int d) { return d > 256 ? 1 : 0; }
 
 extern "C" int batched_cg_dense(const float* A, const float* y, float* table,
                                 const int32_t* lens, const int32_t* rows,
@@ -137,6 +219,14 @@ extern "C" int batched_cg_dense(const float* A, const float* y, float* table,
                                 int cg_iters, float cg_tol, void* stream) {
   if (R == 0) return 0;
   const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  if (batched_cg_dense_wide_mode(d)) {
+    const size_t smem = sizeof(float) * 6 * (size_t)d;
+    const cudaError_t err = als::allow_smem(batched_cg_dense_wide, smem);
+    if (err != cudaSuccess) return (int)err;
+    batched_cg_dense_wide<<<R, kWideThreads, smem, (cudaStream_t)stream>>>(
+        A, y, table, lens, rows, row_start, n_table_rows, R, d, cg_iters, cg_tol);
+    return (int)cudaGetLastError();
+  }
   return als::with_width<256>(d, [&](auto width) {
     constexpr int DW = decltype(width)::value;
     constexpr int N = als::round32(DW);

@@ -13,7 +13,13 @@
 //  * the deferred path (bpr_accumulate): the same sums without lr and reg
 //    added into the epoch's gradient tables, and with per-coordinate
 //    normalization the counts (user and positive once per slot, the negative
-//    once per sample);
+//    once per sample); or
+//  * the delta path (bpr_delta, a mesh shard's sgd chunk, bpr_epoch_dp
+//    :804-846): the sgd step's rows unclipped, added into dense delta tables
+//    dP, dQ and dQb (the bias's positive side), the tables untouched; a
+//    second launch (bpr_delta_bias_neg) adds the negative side's bias step
+//    from the same item groups once Qb has taken the reduced positive side;
+//    the cap applies to the reduced deltas (K10's capped add);
 // and (bpr_loss) the mean of log(1 + exp(-x)) over fixed triplets.
 //
 // Replaces buffalo_tpu/ops/sgd_kernels.py _bpr_forward (:336), clipped_logit
@@ -32,7 +38,9 @@
 // in order, clips and writes.  Padding slots and sentinel negatives are keyed
 // to a dropped row.  The logits are computed once (one warp per sample) and
 // both sides' run sums finish before either epilogue writes, so every term
-// reads the snapshot.
+// reads the snapshot.  A lane holds 8 columns of a row (kChunk = 256); wider
+// rows take the wide instantiation of the run and row kernels, which walks a
+// row in 256-column chunks (the clipped step passes twice: its norm first).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,7 +103,8 @@ make_keys(int item_side, const int32_t* __restrict__ users, const int32_t* __res
 }
 
 // User runs: part[q] = sum over the run's slots j and their samples k of
-// l_k (q_pos(j) - q_neg(k)).
+// l_k (q_pos(j) - q_neg(k)).  Wide rows (kWide) are walked in column chunks.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 user_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
           const int32_t* __restrict__ run_start, const int32_t* __restrict__ pos,
@@ -104,27 +113,29 @@ user_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ st
   const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
   int r, m0, m1;
   if (!find_run(q, R, start, run_start, r, m0, m1)) return;
-  float acc[kMaxH];
+  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
+    float acc[kMaxH];
 #pragma unroll
-  for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
-  for (int m = m0; m < m1; ++m) {
-    const int j = idx[m];
-    const float* qi = Q + (int64_t)pos[j] * d;
-    for (int n = 0; n < neg_per; ++n) {
-      const int64_t k = (int64_t)j * neg_per + n;
-      const float w = logit[k];
-      const float* qj = Q + (int64_t)min(neg[k], I - 1) * d;
+    for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
+    for (int m = m0; m < m1; ++m) {
+      const int j = idx[m];
+      const float* qi = Q + (int64_t)pos[j] * d;
+      for (int n = 0; n < neg_per; ++n) {
+        const int64_t k = (int64_t)j * neg_per + n;
+        const float w = logit[k];
+        const float* qj = Q + (int64_t)min(neg[k], I - 1) * d;
 #pragma unroll
-      for (int h = 0; h < kMaxH; ++h) {
-        const int c = lane + 32 * h;
-        if (c < d) acc[h] = fmaf(w, qi[c] - qj[c], acc[h]);
+        for (int h = 0; h < kMaxH; ++h) {
+          const int c = c0 + lane + 32 * h;
+          if (c < d) acc[h] = fmaf(w, qi[c] - qj[c], acc[h]);
+        }
       }
     }
-  }
 #pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) part[(int64_t)q * d + c] = acc[h];
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = c0 + lane + 32 * h;
+      if (c < d) part[(int64_t)q * d + c] = acc[h];
+    }
   }
 }
 
@@ -132,6 +143,7 @@ user_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ st
 // negative logit sum, the positive and the negative entry counts); c_e is
 // the slot's logit sum for a positive (0 without update_i) and minus the
 // sample's logit for a negative (0 without update_j).
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 item_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
           const int32_t* __restrict__ run_start, const int32_t* __restrict__ users, int N,
@@ -140,41 +152,44 @@ item_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ st
   const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
   int r, m0, m1;
   if (!find_run(q, R, start, run_start, r, m0, m1)) return;
-  float acc[kMaxH];
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
+  float* out = part + (int64_t)q * (d + 4);
   float lpos = 0.f, lneg = 0.f, cpos = 0.f, cneg = 0.f;
-  for (int m = m0; m < m1; ++m) {
-    const int e = idx[m];
-    int u;
-    float coef;
-    if (e < N) {
-      u = users[e];
-      float w = 0.f;
-      for (int n = 0; n < neg_per; ++n) w += logit[(int64_t)e * neg_per + n];
-      lpos += w;
-      cpos += 1.f;
-      coef = upd_i ? w : 0.f;
-    } else {
-      const int64_t k = e - N;
-      u = users[k / neg_per];
-      const float w = logit[k];
-      lneg += w;
-      cneg += 1.f;
-      coef = upd_j ? -w : 0.f;
+  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
+    float acc[kMaxH];
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
+    lpos = lneg = cpos = cneg = 0.f;
+    for (int m = m0; m < m1; ++m) {
+      const int e = idx[m];
+      int u;
+      float coef;
+      if (e < N) {
+        u = users[e];
+        float w = 0.f;
+        for (int n = 0; n < neg_per; ++n) w += logit[(int64_t)e * neg_per + n];
+        lpos += w;
+        cpos += 1.f;
+        coef = upd_i ? w : 0.f;
+      } else {
+        const int64_t k = e - N;
+        u = users[k / neg_per];
+        const float w = logit[k];
+        lneg += w;
+        cneg += 1.f;
+        coef = upd_j ? -w : 0.f;
+      }
+      const float* p = P + (int64_t)u * d;
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) {
+        const int c = c0 + lane + 32 * h;
+        if (c < d) acc[h] = fmaf(coef, p[c], acc[h]);
+      }
     }
-    const float* p = P + (int64_t)u * d;
 #pragma unroll
     for (int h = 0; h < kMaxH; ++h) {
-      const int c = lane + 32 * h;
-      if (c < d) acc[h] = fmaf(coef, p[c], acc[h]);
+      const int c = c0 + lane + 32 * h;
+      if (c < d) out[c] = acc[h];
     }
-  }
-  float* out = part + (int64_t)q * (d + 4);
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) out[c] = acc[h];
   }
   if (lane == 0) {
     out[d] = lpos;
@@ -184,18 +199,84 @@ item_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ st
   }
 }
 
-// Scale of a row step clipped to L2 norm cap (cap 0: 1).
-__device__ __forceinline__ float clip_scale(const float (&dl)[kMaxH], int d, int lane, float cap) {
+// Scale of a row step clipped to L2 norm cap (cap 0: 1), from each lane's
+// partial sum of squares.
+__device__ __forceinline__ float clip_scale(float ss, float cap) {
   if (cap <= 0.f) return 1.f;
-  float ss = 0.f;
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h)
-    if (lane + 32 * h < d) ss = fmaf(dl[h], dl[h], ss);
   ss = warp_sum(ss);
   return fminf(1.f, cap / fmaxf(sqrtf(ss), 1e-12f));
 }
 
-// One warp per user row: the sgd step (mode 0) or the accumulation (mode 1).
+// The modes of the row kernels
+enum RowMode { kStep = 0, kAccumulate = 1, kDelta = 2 };
+
+// One warp per row of a table T with its runs' sums acc and the reg factor
+// rc = rc_of(the row's scalars): the sgd step T += clip(lr (acc - rc T))
+// (kStep), the accumulation out += acc (kAccumulate), or the unclipped step
+// added to a delta table out (kDelta).  Wide rows take the chunks twice when
+// clipping: the step's norm first.
+template <bool kWide, class RcOf>
+__device__ __forceinline__ void row_update(int mode, int r, const int32_t* __restrict__ run_start,
+                                           const float* __restrict__ part, int d, int W, int lane,
+                                           float lr, RcOf rc_of, float cap, float* __restrict__ T,
+                                           float* __restrict__ out, float (&sc)[4]) {
+  float* t = T ? T + (int64_t)r * d : nullptr;
+  float* o = out ? out + (int64_t)r * d : nullptr;
+  float acc[kMaxH];
+  float s = 1.f;
+  if (kWide && mode == kStep && cap > 0.f) {
+    float ss = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kChunk) {
+      row_sum(r, run_start, part, d, W, lane, acc, sc, c0);
+      const float rc = rc_of(sc);
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) {
+        const int c = c0 + lane + 32 * h;
+        const float dl = c < d ? lr * (acc[h] - rc * t[c]) : 0.f;
+        ss = fmaf(dl, dl, ss);
+      }
+    }
+    s = clip_scale(ss, cap);
+  }
+  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
+    row_sum(r, run_start, part, d, W, lane, acc, sc, c0);
+    if (mode == kAccumulate) {
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) {
+        const int c = c0 + lane + 32 * h;
+        if (c < d) o[c] += acc[h];
+      }
+      continue;
+    }
+    const float rc = rc_of(sc);
+    float dl[kMaxH];
+    float ss = 0.f;
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = c0 + lane + 32 * h;
+      dl[h] = c < d ? lr * (acc[h] - rc * t[c]) : 0.f;
+      ss = fmaf(dl[h], dl[h], ss);
+    }
+    if (mode == kDelta) {
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) {
+        const int c = c0 + lane + 32 * h;
+        if (c < d) o[c] += dl[h];
+      }
+      continue;
+    }
+    if (!kWide) s = clip_scale(ss, cap);
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = c0 + lane + 32 * h;
+      if (c < d) t[c] += dl[h] * s;
+    }
+  }
+}
+
+// One warp per user row: the sgd step of P (kStep), the accumulation into gP
+// (kAccumulate) or the step added into dP (kDelta).
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 user_rows(int mode, int R, const int32_t* __restrict__ start,
           const int32_t* __restrict__ run_start, const float* __restrict__ part, int d,
@@ -205,36 +286,18 @@ user_rows(int mode, int R, const int32_t* __restrict__ start,
   if (r >= R) return;
   const int n = start[r + 1] - start[r];
   if (n == 0) return;
-  float acc[kMaxH], sc[4];
-  row_sum(r, run_start, part, d, d, lane, acc, sc);
-  if (mode == 1) {
-    float* g = gP + (int64_t)r * d;
-#pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      const int c = lane + 32 * h;
-      if (c < d) g[c] += acc[h];
-    }
-    if (cP && lane == 0) cP[r] += (float)n;
-    return;
-  }
-  float* p = P + (int64_t)r * d;
+  float sc[4];
   const float rc = reg_u * (float)(n * neg_per);
-  float dl[kMaxH];
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int c = lane + 32 * h;
-    dl[h] = c < d ? lr * (acc[h] - rc * p[c]) : 0.f;
-  }
-  const float s = clip_scale(dl, d, lane, cap);
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) p[c] += dl[h] * s;
-  }
+  row_update<kWide>(mode, r, run_start, part, d, d, lane, lr,
+                    [rc](const float(&)[4]) { return rc; }, cap, P, gP, sc);
+  if (mode == kAccumulate && cP && lane == 0) cP[r] += (float)n;
 }
 
-// One warp per item row: the sgd step of Q and Qb (mode 0) or the
-// accumulation (mode 1).
+// One warp per item row: the sgd step of Q and Qb (kStep), the accumulation
+// (kAccumulate), or the steps of Q and of Qb's positive side added into dQ
+// and dQb (kDelta; the negative side follows in bias_neg_rows, after the
+// positive side's delta has been applied).
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 item_rows(int mode, int R, const int32_t* __restrict__ start,
           const int32_t* __restrict__ run_start, const float* __restrict__ part, int d,
@@ -244,50 +307,56 @@ item_rows(int mode, int R, const int32_t* __restrict__ start,
   const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R) return;
   if (start[r + 1] == start[r]) return;
-  float acc[kMaxH], sc[4];
-  row_sum(r, run_start, part, d, d + 4, lane, acc, sc);
+  float sc[4];
+  // the reg factor from the counts, the scalars past the row's sums
+  const float ri = upd_i ? reg_i * (float)neg_per : 0.f, rj = upd_j ? reg_j : 0.f;
+  row_update<kWide>(mode, r, run_start, part, d, d + 4, lane, lr,
+                    [=](const float(&x)[4]) {
+                      return (upd_i ? ri * x[2] : 0.f) + (upd_j ? rj * x[3] : 0.f);
+                    },
+                    cap, Q, gQ, sc);
   const float lpos = sc[0], lneg = sc[1], cpos = sc[2], cneg = sc[3];
-  if (mode == 1) {
-    float* g = gQ + (int64_t)r * d;
-#pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      const int c = lane + 32 * h;
-      if (c < d) g[c] += acc[h];
-    }
-    if (lane == 0) {
-      if (use_bias) gQb[r] += (upd_i ? lpos : 0.f) - (upd_j ? lneg : 0.f);
-      if (cQ) cQ[r] += cpos + cneg;
-    }
+  if (lane != 0) return;
+  if (mode == kAccumulate) {
+    if (use_bias) gQb[r] += (upd_i ? lpos : 0.f) - (upd_j ? lneg : 0.f);
+    if (cQ) cQ[r] += cpos + cneg;
     return;
   }
-  float* q = Q + (int64_t)r * d;
-  const float rc = (upd_i ? reg_i * (float)neg_per * cpos : 0.f) + (upd_j ? reg_j * cneg : 0.f);
-  float dl[kMaxH];
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int c = lane + 32 * h;
-    dl[h] = c < d ? lr * (acc[h] - rc * q[c]) : 0.f;
+  if (!use_bias) return;
+  if (mode == kDelta) {
+    if (upd_i) gQb[r] += lr * (lpos - reg_b * (float)neg_per * cpos * Qb[r]);
+    return;
   }
-  const float s = clip_scale(dl, d, lane, cap);
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) q[c] += dl[h] * s;
+  float b = Qb[r];
+  if (upd_i) {
+    float db = lr * (lpos - reg_b * (float)neg_per * cpos * b);
+    if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
+    b += db;
   }
-  if (use_bias && lane == 0) {
-    float b = Qb[r];
-    if (upd_i) {
-      float db = lr * (lpos - reg_b * (float)neg_per * cpos * b);
-      if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
-      b += db;
-    }
-    if (upd_j) {
-      float db = lr * (-lneg - reg_b * cneg * b);
-      if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
-      b += db;
-    }
-    Qb[r] = b;
+  if (upd_j) {
+    float db = lr * (-lneg - reg_b * cneg * b);
+    if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
+    b += db;
   }
+  Qb[r] = b;
+}
+
+// One thread per item row: the negative side's bias step, -lr (sum of the
+// row's negative logits + reg_b count Qb), added into dQb; Qb is read after
+// the positive side's delta has been applied (the delta path's second
+// launch).
+__global__ void __launch_bounds__(kThreads)
+bias_neg_rows(int R, const int32_t* __restrict__ start, const int32_t* __restrict__ run_start,
+              const float* __restrict__ part, int d, float lr, float reg_b,
+              const float* __restrict__ Qb, float* __restrict__ dQb) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= R || start[r + 1] == start[r]) return;
+  float lneg = 0.f, cneg = 0.f;
+  for (int q = run_start[r]; q < run_start[r + 1]; ++q) {
+    lneg += part[(int64_t)q * (d + 4) + d + 1];
+    cneg += part[(int64_t)q * (d + 4) + d + 3];
+  }
+  if (cneg > 0.f) dQb[r] += lr * (-lneg - reg_b * cneg * Qb[r]);
 }
 
 // Mean log(1 + exp(-x)) over n triplets: one block, warp w takes triplets w,
@@ -354,8 +423,9 @@ cudaError_t group_side(Side& x, int item_side, const int32_t* users, const int32
   return sort_side(x, false, st);
 }
 
-// The shared front of both modes: logits, both sides grouped and summed in
+// The shared front of every mode: logits, both sides grouped and summed in
 // runs (all reads of the snapshot happen here).
+template <bool kWide>
 cudaError_t front(const int32_t* users, const int32_t* pos, const int32_t* neg, const float* P,
                   const float* Q, const float* Qb, int N, int neg_per, int n_valid, int U, int I,
                   int d, int use_bias, int upd_i, int upd_j, int32_t* ws_i, float* ws_f,
@@ -371,19 +441,46 @@ cudaError_t front(const int32_t* users, const int32_t* pos, const int32_t* neg, 
   if (err != cudaSuccess) return err;
   err = group_side(si, 1, users, pos, neg, N, neg_per, n_valid, st);
   if (err != cudaSuccess) return err;
-  user_runs<<<warps_grid(su.max_runs), kThreads, 0, st>>>(
+  user_runs<kWide><<<warps_grid(su.max_runs), kThreads, 0, st>>>(
       su.idx[su.sorted], su.R, su.start, su.run_start, pos, neg, neg_per, logit, Q, I, d,
       su.part);
   CHECK_LAUNCH();
-  item_runs<<<warps_grid(si.max_runs), kThreads, 0, st>>>(
+  item_runs<kWide><<<warps_grid(si.max_runs), kThreads, 0, st>>>(
       si.idx[si.sorted], si.R, si.start, si.run_start, users, N, neg_per, logit, P, d, upd_i,
       upd_j, si.part);
   CHECK_LAUNCH();
   return cudaSuccess;
 }
 
+// The front, then both sides' row kernels in mode `mode`: the tables' sgd
+// step, the accumulation into (gP, gQ, gQb, cP, cQ) or the deltas into (gP,
+// gQ, gQb) = (dP, dQ, dQb).
+template <bool kWide>
+int run(int mode, const int32_t* users, const int32_t* pos, const int32_t* neg, float* P,
+        float* Q, float* Qb, int N, int neg_per, int n_valid, int U, int I, int d, float lr,
+        float reg_u, float reg_i, float reg_j, float reg_b, float cap, int use_bias, int upd_i,
+        int upd_j, float* gP, float* gQ, float* gQb, float* cP, float* cQ, int32_t* ws_i,
+        float* ws_f, cudaStream_t st) {
+  Side su, si;
+  cudaError_t err = front<kWide>(users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d,
+                                 use_bias, upd_i, upd_j, ws_i, ws_f, su, si, st);
+  if (err != cudaSuccess) return (int)err;
+  user_rows<kWide><<<warps_grid(U), kThreads, 0, st>>>(mode, U, su.start, su.run_start, su.part,
+                                                       d, neg_per, lr, reg_u, cap, P, gP, cP);
+  CHECK_LAUNCH();
+  item_rows<kWide><<<warps_grid(I), kThreads, 0, st>>>(mode, I, si.start, si.run_start, si.part,
+                                                       d, neg_per, lr, reg_i, reg_j, reg_b, cap,
+                                                       use_bias, upd_i, upd_j, Q, Qb, gQ, gQb,
+                                                       cQ);
+  return (int)cudaGetLastError();
+}
+
+// The row kernels hold a row in registers up to kChunk columns (narrow);
+// wider rows take the wide instantiation, which walks them in chunks.
+bool wide(int d) { return d > kChunk; }
+
 bool bad_args(int N, int neg_per, int U, int I, int d) {
-  return N < 1 || neg_per < 1 || U < 1 || I < 1 || d < 1 || d > 32 * kMaxH ||
+  return N < 1 || neg_per < 1 || U < 1 || I < 1 || d < 1 ||
          (int64_t)N * (neg_per + 1) >= (1LL << 31);
 }
 
@@ -397,6 +494,11 @@ extern "C" int bpr_workspace(int N, int neg_per, int U, int I, int d, int64_t* s
   return 0;
 }
 
+// 1 when rows of d floats take the wide instantiation of the row kernels.
+extern "C" int bpr_wide(int d) { return wide(d) ? 1 : 0; }
+
+#define BPR_RUN(...) (wide(d) ? run<true>(__VA_ARGS__) : run<false>(__VA_ARGS__))
+
 extern "C" int bpr_update(const int32_t* users, const int32_t* pos, const int32_t* neg, float* P,
                           float* Q, float* Qb, int N, int neg_per, int n_valid, int U, int I,
                           int d, float lr, float reg_u, float reg_i, float reg_j, float reg_b,
@@ -404,18 +506,9 @@ extern "C" int bpr_update(const int32_t* users, const int32_t* pos, const int32_
                           float* ws_f, void* stream) {
   if (N == 0) return 0;
   if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  Side su, si;
-  cudaError_t err = front(users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, use_bias,
-                          upd_i, upd_j, ws_i, ws_f, su, si, st);
-  if (err != cudaSuccess) return (int)err;
-  user_rows<<<warps_grid(U), kThreads, 0, st>>>(0, U, su.start, su.run_start, su.part, d,
-                                                neg_per, lr, reg_u, cap, P, nullptr, nullptr);
-  CHECK_LAUNCH();
-  item_rows<<<warps_grid(I), kThreads, 0, st>>>(0, I, si.start, si.run_start, si.part, d,
-                                                neg_per, lr, reg_i, reg_j, reg_b, cap, use_bias,
-                                                upd_i, upd_j, Q, Qb, nullptr, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  return BPR_RUN(kStep, users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, lr, reg_u, reg_i,
+                 reg_j, reg_b, cap, use_bias, upd_i, upd_j, nullptr, nullptr, nullptr, nullptr,
+                 nullptr, ws_i, ws_f, (cudaStream_t)stream);
 }
 
 extern "C" int bpr_accumulate(const int32_t* users, const int32_t* pos, const int32_t* neg,
@@ -425,19 +518,43 @@ extern "C" int bpr_accumulate(const int32_t* users, const int32_t* pos, const in
                               int32_t* ws_i, float* ws_f, void* stream) {
   if (N == 0) return 0;
   if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
+  return BPR_RUN(kAccumulate, users, pos, neg, const_cast<float*>(P), const_cast<float*>(Q),
+                 const_cast<float*>(Qb), N, neg_per, n_valid, U, I, d, 0.f, 0.f, 0.f, 0.f, 0.f,
+                 0.f, use_bias, upd_i, upd_j, gP, gQ, gQb, pcn ? cP : nullptr, pcn ? cQ : nullptr,
+                 ws_i, ws_f, (cudaStream_t)stream);
+}
+
+// The delta path (a mesh shard's sgd chunk): the sgd step's unclipped row
+// sums added into dP, dQ and (with the bias and update_i) the positive
+// side's bias step into dQb; the tables are read, not written.  The
+// workspace keeps the item side's groups for bpr_delta_bias_neg.
+extern "C" int bpr_delta(const int32_t* users, const int32_t* pos, const int32_t* neg,
+                         const float* P, const float* Q, const float* Qb, int N, int neg_per,
+                         int n_valid, int U, int I, int d, float lr, float reg_u, float reg_i,
+                         float reg_j, float reg_b, int use_bias, int upd_i, int upd_j, float* dP,
+                         float* dQ, float* dQb, int32_t* ws_i, float* ws_f, void* stream) {
+  if (N == 0) return 0;
+  if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
+  return BPR_RUN(kDelta, users, pos, neg, const_cast<float*>(P), const_cast<float*>(Q),
+                 const_cast<float*>(Qb), N, neg_per, n_valid, U, I, d, lr, reg_u, reg_i, reg_j,
+                 reg_b, 0.f, use_bias, upd_i, upd_j, dP, dQ, dQb, nullptr, nullptr, ws_i, ws_f,
+                 (cudaStream_t)stream);
+}
+
+// The delta path's second launch: the negative side's bias step, from the
+// same chunk's item groups (the workspace of its bpr_delta call) and Qb as
+// it stands after the positive side's delta, added into dQb.
+extern "C" int bpr_delta_bias_neg(int N, int neg_per, int U, int I, int d, float lr, float reg_b,
+                                  const float* Qb, float* dQb, int32_t* ws_i, float* ws_f,
+                                  void* stream) {
+  if (N == 0) return 0;
+  if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
   Side su, si;
-  cudaError_t err = front(users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, use_bias,
-                          upd_i, upd_j, ws_i, ws_f, su, si, st);
-  if (err != cudaSuccess) return (int)err;
-  user_rows<<<warps_grid(U), kThreads, 0, st>>>(1, U, su.start, su.run_start, su.part, d,
-                                                neg_per, 0.f, 0.f, 0.f, nullptr, gP,
-                                                pcn ? cP : nullptr);
-  CHECK_LAUNCH();
-  item_rows<<<warps_grid(I), kThreads, 0, st>>>(1, I, si.start, si.run_start, si.part, d,
-                                                neg_per, 0.f, 0.f, 0.f, 0.f, 0.f, use_bias,
-                                                upd_i, upd_j, nullptr, nullptr, gQ, gQb,
-                                                pcn ? cQ : nullptr);
+  float* logit;
+  int64_t isz, fsz;
+  layout(N, neg_per, U, I, d, ws_i, ws_f, su, si, &logit, &isz, &fsz);
+  bias_neg_rows<<<(I + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      I, si.start, si.run_start, si.part, d, lr, reg_b, Qb, dQb);
   return (int)cudaGetLastError();
 }
 

@@ -26,7 +26,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kMaxH = 4;  // d <= 128
+constexpr int kMaxH = 4;  // columns per lane of the narrow forms: d <= 128
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -109,7 +109,49 @@ __global__ void __launch_bounds__(kThreads) bias_kernel(Args g) {
   if (lane == 0) g.bias[row] = (float)sum / ((float)g.lens[b] + 1e-10f);
 }
 
+// Rows past 32 kMaxH floats: the lanes over the columns, the row x read from
+// global memory (L1) in the registers' column order for its norm and each
+// entry's dot.
+__global__ void __launch_bounds__(kThreads) bias_kernel_wide(Args g) {
+  const int lane = threadIdx.x & 31, b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= g.R) return;
+  const int row = g.rows[b];
+  if (g.total[b] <= 0 || row < 0 || row >= g.n) return;
+  const float* xr = g.X + (int64_t)row * g.d;
+  if (g.loss) {
+    float x2 = 0.f;
+    for (int c = lane; c < g.d; c += 32) x2 = fmaf(xr[c], xr[c], x2);
+    const float s = warp_sum(x2);
+    if (lane == 0) g.loss[b] += g.reg_new * s;
+  }
+  if (!g.F) return;
+  int c0 = b, c1 = b + 1;
+  if (g.chunk_ptr) {
+    c0 = g.chunk_ptr[b];
+    c1 = g.chunk_ptr[b + 1];
+  }
+  double sum = 0.0;
+  for (int ch = c0; ch < c1; ++ch) {
+    const int len = g.chunk_ptr ? g.chunk_lens[ch] : g.lens[b];
+    const int32_t* cc = g.cols + (int64_t)ch * g.L;
+    const float* vv = g.vals + (int64_t)ch * g.L;
+    for (int e = 0; e < len; ++e) {
+      const int col = cc[e];
+      const float* f = g.F + (int64_t)col * g.d;
+      float part = 0.f;
+      for (int c = lane; c < g.d; c += 32) part = fmaf(xr[c], __ldg(f + c), part);
+      const float dot = warp_sum(part);
+      if (lane == 0) sum += (double)(vv[e] - dot - g.cbias[col]);
+    }
+  }
+  sum = warp_sum_d(sum);
+  if (lane == 0) g.bias[row] = (float)sum / ((float)g.lens[b] + 1e-10f);
+}
+
 }  // namespace
+
+// 1 when rows of d floats take the wide instantiation.
+extern "C" int cfr_bias_wide(int d) { return d > 32 * kMaxH ? 1 : 0; }
 
 // The explicit side (F, lens, chunk_ptr, chunk_lens, cols, vals, L) with
 // cbias and bias, or F null (no bias); loss null unless reg_new is used.
@@ -118,7 +160,7 @@ extern "C" int cfr_bias(const float* X, int n, int d, const int32_t* rows, int R
                         const int32_t* chunk_ptr, const int32_t* chunk_lens,
                         const int32_t* cols, const float* vals, int L, const float* cbias,
                         float* bias, float reg_new, float* loss, void* stream) {
-  if (d < 1 || d > 32 * kMaxH || n < 1 || R < 0 || (F && (!bias || !cbias || !lens)) ||
+  if (d < 1 || n < 1 || R < 0 || (F && (!bias || !cbias || !lens)) ||
       (!F && !loss))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
@@ -129,6 +171,7 @@ extern "C" int cfr_bias(const float* X, int n, int d, const int32_t* rows, int R
   if (d <= 8) bias_kernel<8, true><<<grid, kThreads, 0, st>>>(g);
   else if (d <= 16) bias_kernel<16, true><<<grid, kThreads, 0, st>>>(g);
   else if (d <= 32) bias_kernel<32, true><<<grid, kThreads, 0, st>>>(g);
-  else bias_kernel<32 * kMaxH, false><<<grid, kThreads, 0, st>>>(g);
+  else if (d <= 32 * kMaxH) bias_kernel<32 * kMaxH, false><<<grid, kThreads, 0, st>>>(g);
+  else bias_kernel_wide<<<grid, kThreads, 0, st>>>(g);
   return (int)cudaGetLastError();
 }

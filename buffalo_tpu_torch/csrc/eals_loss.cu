@@ -23,7 +23,6 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 1056;  // 8 per SM of the H100's 132
-constexpr int kMaxD = 256;
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -113,7 +112,7 @@ extern "C" int eals_loss(const float* P, const float* Q, int d, const int32_t* r
                          const int32_t* keys, const float* vals, const float* C, int64_t n,
                          float alpha, const float* vhat_in, float* vhat_out, double* part,
                          float* sums, void* stream) {
-  if (n < 0 || d < 1 || d > kMaxD || (!vhat_in && (!P || !Q)) || (sums && !part))
+  if (n < 0 || d < 1 || (!vhat_in && (!P || !Q)) || (sums && !part))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nb = blocks_for(n);

@@ -30,7 +30,9 @@
 // owning the same strided entries in every dimension so that the residuals
 // need no barrier, the row in shared memory, the two sums reduced in a fixed
 // order (warp shuffles, then the warps in order) and the dense term x . S[:, t]
-// by the first warp; S (d x d) is read from L1/L2.
+// by the first warp; S (d x d) is read from L1/L2.  The row sits in a static
+// shared array of kMaxD floats; wider rows take the wide instantiation, which
+// keeps it in dynamic shared memory after the residuals.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,11 +111,13 @@ __device__ __forceinline__ void segment(const Batch& a, int b, int s, float* vsh
   }
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 sweep_kernel(Batch a, float* __restrict__ X) {
   extern __shared__ float vsh[];  // range mode: the row's residuals
-  __shared__ float xs[kMaxD];
+  __shared__ float xs_static[kWide ? 1 : kMaxD];
   __shared__ float red[2 * kMaxWarps];
+  float* xs = kWide ? vsh + (a.mode == 0 ? a.L : 0) : xs_static;
   const int b = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
   const Row r = row_of(a, b);
@@ -199,6 +203,9 @@ int threads_for(int L) { return L <= 64 ? 32 : L <= 256 ? 64 : L <= 1024 ? 128 :
 
 }  // namespace
 
+// 1 when rows of d floats take the wide instantiation.
+extern "C" int eals_sweep_wide(int d) { return d > kMaxD ? 1 : 0; }
+
 // mode 0 (range): row_start, B rows, L, lens, cols/vals (B x L); mode 1
 // (segment): R rows, rows, lens, chunk_ptr (R + 1), chunk_lens, cols/vals (Nc x
 // Cw), vhat workspace (Nc x Cw); mode 2 (rows): num_rows rows, indptr, cols/vals
@@ -210,7 +217,7 @@ extern "C" int eals_sweep(int mode, float* X, int num_rows, const float* Y, int 
                           const int32_t* chunk_ptr, const int32_t* chunk_lens, int Cw,
                           const int64_t* indptr, const int32_t* cols, const float* vals,
                           float* vhat, void* stream) {
-  if (mode < 0 || mode > 2 || d < 1 || d > kMaxD || num_rows < 0 || (mode == 0 && L > 8192) ||
+  if (mode < 0 || mode > 2 || d < 1 || num_rows < 0 || (mode == 0 && L > 8192) ||
       (mode != 0 && !vhat))
     return (int)cudaErrorInvalidValue;
   const int blocks = mode == 0 ? B : mode == 1 ? R : num_rows;
@@ -219,6 +226,16 @@ extern "C" int eals_sweep(int mode, float* X, int num_rows, const float* Y, int 
           chunk_lens, Cw, indptr, cols, vals, vhat};
   const int T = threads_for(mode == 0 ? L : mode == 1 ? Cw : 128);
   const size_t smem = mode == 0 ? sizeof(float) * (size_t)L : 0;
-  sweep_kernel<<<blocks, T, smem, (cudaStream_t)stream>>>(a, X);
+  if (eals_sweep_wide(d)) {
+    const size_t wide_smem = smem + sizeof(float) * (size_t)d;
+    if (wide_smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          sweep_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide_smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    sweep_kernel<true><<<blocks, T, wide_smem, (cudaStream_t)stream>>>(a, X);
+  } else {
+    sweep_kernel<false><<<blocks, T, smem, (cudaStream_t)stream>>>(a, X);
+  }
   return (int)cudaGetLastError();
 }

@@ -44,6 +44,7 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps; thread j owns feature j of a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 3;      // CG steps per block (als.cc:322-345)
+constexpr int kMaxM = 32;      // features per thread: block_size <= 8192
 
 struct Params {
   float* table;
@@ -71,6 +72,10 @@ __host__ __device__ constexpr size_t smem_floats(int T, int S, int d, int L) {
   return (size_t)T * S + 2 * round4(d) + round4(L) + 3 * round4(T) + 33;
 }
 
+// kM features of a block per thread: thread j owns features j + m kThreads,
+// m < kM (1 for block sizes up to kThreads; wider blocks, iALS++'s default
+// block_size = d past 256, take the wider instantiations).
+template <int kM>
 __global__ void __launch_bounds__(kThreads) ialspp_solve_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -173,62 +178,100 @@ __global__ void __launch_bounds__(kThreads) ialspp_solve_kernel(const Params p) 
   const int nblk = (d + p.bs - 1) / p.bs;
   for (int blk = 0; blk < nblk; ++blk) {
     const int beg = blk * p.bs, bs = min(p.bs, d - beg);
-    const int j = tid;
-    const bool own = j < bs;  // thread j holds feature beg + j of the block
 
     // ---- b = p FF[:, blk] + reg p_blk + sum_l (Yui_l - 1) w_l F_l[blk]
-    float dense = 0.f, data = 0.f;
-    if (own) {
-      for (int k = 0; k < d; ++k)
-        dense = fmaf(ps[k], __ldg(p.FF + (int64_t)k * d + beg + j), dense);
-      dense += p.reg * ps[beg + j];
+    float dense[kM], data[kM];
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int j = tid + m * kThreads;
+      dense[m] = data[m] = 0.f;
+      if (j < bs) {  // thread tid holds feature beg + j of the block
+        for (int k = 0; k < d; ++k)
+          dense[m] = fmaf(ps[k], __ldg(p.FF + (int64_t)k * d + beg + j), dense[m]);
+        dense[m] += p.reg * ps[beg + j];
+      }
     }
     tiles([&](int t0, int tl) {
       for (int l = tid; l < tl; l += kThreads) gs[l] = (Yui[t0 + l] - 1.f) * ws[l];
       __syncthreads();
-      if (own) data += sum_rows(tl, beg, j);
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+        if (tid + m * kThreads < bs) data[m] += sum_rows(tl, beg, tid + m * kThreads);
       __syncthreads();
     });
 
     // ---- 3 CG steps from x = 0, r = b (solve.py cg_loop's freeze rule)
-    float r = own ? dense + data : 0.f, x = 0.f, pv = r;
-    if (own) vs[j] = pv;
-    float rsold = als::block_sum(r * r, scratch);
+    float r[kM], x[kM], pv[kM];
+    float rr = 0.f;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int j = tid + m * kThreads;
+      r[m] = j < bs ? dense[m] + data[m] : 0.f;
+      x[m] = 0.f;
+      pv[m] = r[m];
+      if (j < bs) vs[j] = pv[m];
+      rr += r[m] * r[m];
+    }
+    float rsold = als::block_sum(rr, scratch);
     bool active = rsold >= p.cg_tol;
     for (int it = 0; it < kSteps && active; ++it) {
       // A pv = pv (FF[blk, blk] + reg I) + F[:, blk]^T (w * F[:, blk] pv);
       // FF is symmetric, so column j is read down a column (coalesced)
-      float Ap = 0.f, acc = 0.f;
-      if (own) {
-        for (int i = 0; i < bs; ++i)
-          Ap = fmaf(vs[i], __ldg(p.FF + (int64_t)(beg + i) * d + beg + j), Ap);
-        Ap += p.reg * pv;
+      float Ap[kM], acc[kM];
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        const int j = tid + m * kThreads;
+        Ap[m] = acc[m] = 0.f;
+        if (j < bs) {
+          for (int i = 0; i < bs; ++i)
+            Ap[m] = fmaf(vs[i], __ldg(p.FF + (int64_t)(beg + i) * d + beg + j), Ap[m]);
+          Ap[m] += p.reg * pv[m];
+        }
       }
       tiles([&](int t0, int tl) {
         dot_rows(tl, beg, bs, vs, [&](int l, float s) {
           if (lane == 0) gs[l] = s * ws[l];
         });
         __syncthreads();
-        if (own) acc += sum_rows(tl, beg, j);
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+          if (tid + m * kThreads < bs) acc[m] += sum_rows(tl, beg, tid + m * kThreads);
         __syncthreads();
       });
-      Ap += acc;
-      const float alpha = rsold / fmaxf(als::block_sum(pv * Ap, scratch), 1e-30f);
-      x += alpha * pv;
-      r -= alpha * Ap;
-      const float rsnew = als::block_sum(r * r, scratch);
+      float pAp = 0.f;
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        Ap[m] += acc[m];
+        pAp += pv[m] * Ap[m];
+      }
+      const float alpha = rsold / fmaxf(als::block_sum(pAp, scratch), 1e-30f);
+      rr = 0.f;
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        x[m] += alpha * pv[m];
+        r[m] -= alpha * Ap[m];
+        rr += r[m] * r[m];
+      }
+      const float rsnew = als::block_sum(rr, scratch);
       active = rsnew >= p.cg_tol;
       const float beta = rsold > 0.f ? rsnew / fmaxf(rsold, 1e-30f) : 0.f;
-      pv = r + beta * pv;
-      if (own) vs[j] = pv;
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        pv[m] = r[m] + beta * pv[m];
+        if (tid + m * kThreads < bs) vs[tid + m * kThreads] = pv[m];
+      }
       __syncthreads();
       rsold = rsnew;
     }
 
     // ---- p_blk -= x; Yui -= F[:, blk] x (not needed after the last block)
-    if (own) {
-      ps[beg + j] -= x;
-      vs[j] = x;
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      const int j = tid + m * kThreads;
+      if (j < bs) {
+        ps[beg + j] -= x[m];
+        vs[j] = x[m];
+      }
     }
     __syncthreads();
     if (blk + 1 < nblk)
@@ -244,6 +287,11 @@ __global__ void __launch_bounds__(kThreads) ialspp_solve_kernel(const Params p) 
 
 }  // namespace
 
+// Features of a block per thread (1: the narrow form, block_size <= 256).
+extern "C" int ialspp_features_per_thread(int block_size) {
+  return (block_size + kThreads - 1) / kThreads;
+}
+
 // Range mode: rows == NULL, batch row u is table row row_start + u.  Rows
 // mode: rows != NULL, batch row u is table row rows[u].  nume / deno (B)
 // receive the loss terms of the rows solved and are left as they are for the
@@ -256,7 +304,7 @@ extern "C" int ialspp_solve(float* table, const float* Bf, const float* FF,
                             float cg_tol, int item_axis, float num_fixed_rows,
                             int compute_loss, void* stream) {
   if (B == 0) return 0;
-  if (L < 1 || d < 1 || d > 256 || block_size < 1 || block_size > kThreads)
+  if (L < 1 || d < 1 || block_size < 1 || block_size > kThreads * kMaxM)
     return (int)cudaErrorInvalidValue;
   Params p{table, Bf,    FF,  lens,   rows,  cols,         vals,         nume,
            deno,  row_start, n_table_rows, L, d, block_size, alpha, reg,
@@ -270,8 +318,17 @@ extern "C" int ialspp_solve(float* table, const float* Bf, const float* FF,
   const size_t T = (budget - fixed - 9) / (p.S + 3);
   p.T = T < (size_t)L ? (int)T : L;
   const size_t smem = sizeof(float) * smem_floats(p.T, p.S, d, L);
-  cudaError_t err = als::allow_smem(ialspp_solve_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  ialspp_solve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel) {
+    cudaError_t err = als::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(p);
+    return (int)cudaGetLastError();
+  };
+  const int per = ialspp_features_per_thread(block_size);
+  if (per == 1) return launch(ialspp_solve_kernel<1>);
+  if (per == 2) return launch(ialspp_solve_kernel<2>);
+  if (per <= 4) return launch(ialspp_solve_kernel<4>);
+  if (per <= 8) return launch(ialspp_solve_kernel<8>);
+  if (per <= 16) return launch(ialspp_solve_kernel<16>);
+  return launch(ialspp_solve_kernel<kMaxM>);
 }

@@ -24,7 +24,7 @@ namespace {
 
 using namespace topk;
 
-template <class C>
+template <class C, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 ivf_tile_topk_kernel(const float* __restrict__ queries, const float* __restrict__ table,
                      const int32_t* __restrict__ qidx, const uint8_t* __restrict__ qmask,
@@ -32,7 +32,7 @@ ivf_tile_topk_kernel(const float* __restrict__ queries, const float* __restrict_
                      int bq_cap, int d, int kk, float* __restrict__ vals,
                      int32_t* __restrict__ pos) {
   extern __shared__ __align__(16) char smem[];
-  const Smem<C> sm(smem, d);
+  const Smem<C> sm(smem, kWide ? kDC : d);
   const int t = blockIdx.x, s0 = blockIdx.y * C::QB;
   for (int q = threadIdx.x; q < C::QB; q += kThreads) {
     const int64_t slot = (int64_t)t * bq_cap + s0 + q;
@@ -40,7 +40,7 @@ ivf_tile_topk_kernel(const float* __restrict__ queries, const float* __restrict_
   }
   __syncthreads();
   const int lo_t = lo[t], ln_t = ln[t];
-  scan_items<C>(sm, queries, false, d, table + (int64_t)lo_t * d, nullptr, ln_t, 0u, kk);
+  scan_items<C, kWide>(sm, queries, false, d, table + (int64_t)lo_t * d, nullptr, ln_t, 0u, kk);
   for (int e = threadIdx.x; e < C::QB * kk; e += kThreads) {
     const int q = e / kk, j = e % kk;
     if (s0 + q >= bq_cap) continue;
@@ -72,9 +72,10 @@ extern "C" int ivf_tile_topk(const float* queries, const float* table, const int
   if (kk < 1 || d < 1) return (int)cudaErrorInvalidValue;
   return with_list(kk, [&](auto cfg) {
     using C = decltype(cfg);
-    const size_t bytes = Smem<C>::bytes(d);
+    const bool wide = d > kMaxStagedD;
+    const size_t bytes = Smem<C>::bytes(wide ? kDC : d);
     if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-    auto kernel = ivf_tile_topk_kernel<C>;
+    auto kernel = wide ? ivf_tile_topk_kernel<C, true> : ivf_tile_topk_kernel<C, false>;
     cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3(T, (bq_cap + C::QB - 1) / C::QB), kThreads, bytes, (cudaStream_t)stream>>>(

@@ -19,7 +19,10 @@
 // at most kRun, a run never crossing a cell, one block per run (so a cell of
 // 100,000 members is spread over ~800 blocks instead of one), and one block
 // per cell adds its runs' sums in order and applies the epilogue.  Six
-// launches of one call.
+// launches of one call.  Past 227 KB of per-cell counters (58,112 cells) the
+// counts are global integer atomics on the chunk's histogram row, and the
+// placement advances each (chunk, cell) offset in place; past 512 columns
+// the epilogue writes the mean and scales it in a second pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,7 +32,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 2048;  // rows per histogram / placement block
 constexpr int kRun = 128;     // members per partial sum
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int kMaxD = 2 * kThreads;  // a thread owns columns j and j + 256
+constexpr int kMaxD = 2 * kThreads;  // a thread owns columns j and j + 256 (narrow)
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -38,13 +41,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // hist[b][c]: rows of chunk b in cell c with nonzero norm; member[r] flags them.
+// kGlobal: the counts go to hist directly (zeroed by the caller).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
 cell_histogram(const float* __restrict__ unit, const int32_t* __restrict__ assign, int N, int D,
                int C, int32_t* __restrict__ hist, uint8_t* __restrict__ member) {
-  extern __shared__ int counts[];
+  extern __shared__ int shared_counts[];
   const int b = blockIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = threadIdx.x; c < C; c += kThreads) counts[c] = 0;
-  __syncthreads();
+  int* counts = kGlobal ? hist + (int64_t)b * C : shared_counts;
+  if (!kGlobal) {
+    for (int c = threadIdx.x; c < C; c += kThreads) counts[c] = 0;
+    __syncthreads();
+  }
   const int r0 = b * kChunk, r1 = min(N, r0 + kChunk);
   for (int r = r0 + warp; r < r1; r += kWarps) {
     const float* row = unit + (int64_t)r * D;
@@ -56,6 +64,7 @@ cell_histogram(const float* __restrict__ unit, const int32_t* __restrict__ assig
       if (in) atomicAdd(&counts[assign[r]], 1);
     }
   }
+  if (kGlobal) return;
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += kThreads) hist[(int64_t)b * C + c] = counts[c];
 }
@@ -111,15 +120,20 @@ cell_starts(const int32_t* __restrict__ total, int C, int32_t* __restrict__ star
 }
 
 // One warp per chunk, its rows in order: perm[start[c] + offset[b][c] + rank]
-// = r, rank counting the chunk's earlier members of cell c.
+// = r, rank counting the chunk's earlier members of cell c (kGlobal: counted
+// by advancing offset[b][c] itself).
+template <bool kGlobal>
 __global__ void __launch_bounds__(32)
 place_members(const int32_t* __restrict__ assign, const uint8_t* __restrict__ member, int N,
-              int C, const int32_t* __restrict__ offset, const int32_t* __restrict__ start,
+              int C, int32_t* __restrict__ offset, const int32_t* __restrict__ start,
               int32_t* __restrict__ perm) {
-  extern __shared__ int seen[];
+  extern __shared__ int shared_seen[];
   const int b = blockIdx.x, lane = threadIdx.x;
-  for (int c = lane; c < C; c += 32) seen[c] = 0;
-  __syncwarp();
+  int* seen = kGlobal ? offset + (int64_t)b * C : shared_seen;
+  if (!kGlobal) {
+    for (int c = lane; c < C; c += 32) seen[c] = 0;
+    __syncwarp();
+  }
   const int r0 = b * kChunk, r1 = min(N, r0 + kChunk);
   for (int base = r0; base < r1; base += 32) {
     const int r = base + lane;
@@ -130,7 +144,7 @@ place_members(const int32_t* __restrict__ assign, const uint8_t* __restrict__ me
     const int before = in ? seen[c] : 0;
     __syncwarp();
     if (in) {
-      perm[start[c] + offset[(int64_t)b * C + c] + before + rank] = r;
+      perm[start[c] + (kGlobal ? 0 : offset[(int64_t)b * C + c]) + before + rank] = r;
       if (rank == 0) seen[c] = before + __popc(peers);
     }
     __syncwarp();
@@ -167,6 +181,7 @@ run_sums(const float* __restrict__ unit, int D, int C, const int32_t* __restrict
 
 // One block per cell: its runs' sums added in order, the mean (the old
 // centroid where the cell has no members), normalized.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 cell_means(const float* __restrict__ old, int D, const int32_t* __restrict__ start,
            const int32_t* __restrict__ run_start, const float* __restrict__ part,
@@ -176,8 +191,17 @@ cell_means(const float* __restrict__ old, int D, const int32_t* __restrict__ sta
   const int n = start[c + 1] - start[c], q0 = run_start[c], q1 = run_start[c + 1];
   float val[2] = {0.f, 0.f};
   float ss = 0.f;
+  if (kWide) {  // every column of the thread, the means kept in out
+    for (int col = threadIdx.x; col < D; col += kThreads) {
+      float s = 0.f;
+      for (int q = q0; q < q1; ++q) s += part[(int64_t)q * D + col];
+      const float m = n > 0 ? s / (float)n : old[(int64_t)c * D + col];
+      out[(int64_t)c * D + col] = m;
+      ss = fmaf(m, m, ss);
+    }
+  }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < 2 && !kWide; ++h) {
     const int col = threadIdx.x + h * kThreads;
     if (col < D) {
       float s = 0.f;
@@ -192,6 +216,10 @@ cell_means(const float* __restrict__ old, int D, const int32_t* __restrict__ sta
   float norm2 = 0.f;
   for (int w = 0; w < kWarps; ++w) norm2 += red[w];
   const float scale = 1.f / fmaxf(sqrtf(norm2), 1e-12f);
+  if (kWide) {
+    for (int col = threadIdx.x; col < D; col += kThreads) out[(int64_t)c * D + col] *= scale;
+    return;
+  }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int col = threadIdx.x + h * kThreads;
@@ -201,6 +229,12 @@ cell_means(const float* __restrict__ old, int D, const int32_t* __restrict__ sta
 
 }  // namespace
 
+// 1 when C cells' counters take the global form (past 227 KB of shared
+// memory).
+extern "C" int kmeans_update_global_counts(int C) {
+  return sizeof(int) * (size_t)C > 227 * 1024 ? 1 : 0;
+}
+
 // scratch (allocated by the caller): hist nb * C, total C, start C + 1,
 // run_start C + 1 int32; member N bytes; perm N int32; part (N / 128 + C + 1)
 // * D floats; nb = ceil(N / 2048).
@@ -209,22 +243,28 @@ extern "C" int kmeans_update(const float* unit, const int32_t* assign, const flo
                              int32_t* run_start, uint8_t* member, int32_t* perm, float* part,
                              float* out, void* stream) {
   if (C == 0) return 0;
-  if (D < 1 || D > kMaxD) return (int)cudaErrorInvalidValue;
+  if (D < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int nb = (N + kChunk - 1) / kChunk;
-  const size_t cbytes = sizeof(int) * C;
-  if (cbytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const bool global = kmeans_update_global_counts(C);
+  const size_t cbytes = global ? 0 : sizeof(int) * C;
   cudaError_t err;
   if (cbytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(cell_histogram, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)cbytes);
+    err = cudaFuncSetAttribute(cell_histogram<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cbytes);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(place_members, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)cbytes);
+    err = cudaFuncSetAttribute(place_members<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cbytes);
     if (err != cudaSuccess) return (int)err;
   }
   if (nb > 0) {
-    cell_histogram<<<nb, kThreads, cbytes, st>>>(unit, assign, N, D, C, hist, member);
+    if (global) {
+      err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * (size_t)nb * C, st);
+      if (err != cudaSuccess) return (int)err;
+      cell_histogram<true><<<nb, kThreads, 0, st>>>(unit, assign, N, D, C, hist, member);
+    } else {
+      cell_histogram<false><<<nb, kThreads, cbytes, st>>>(unit, assign, N, D, C, hist, member);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   cell_offsets<<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(hist, nb, C, total);
@@ -232,12 +272,14 @@ extern "C" int kmeans_update(const float* unit, const int32_t* assign, const flo
   cell_starts<<<1, 1024, 0, st>>>(total, C, start, run_start);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (nb > 0) {
-    place_members<<<nb, 32, cbytes, st>>>(assign, member, N, C, hist, start, perm);
+    if (global) place_members<true><<<nb, 32, 0, st>>>(assign, member, N, C, hist, start, perm);
+    else place_members<false><<<nb, 32, cbytes, st>>>(assign, member, N, C, hist, start, perm);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     // at most N / kRun + C runs: every cell's last run may be short
     run_sums<<<N / kRun + C, kThreads, 0, st>>>(unit, D, C, start, run_start, perm, part);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  cell_means<<<C, kThreads, 0, st>>>(old, D, start, run_start, part, out);
+  if (D > kMaxD) cell_means<true><<<C, kThreads, 0, st>>>(old, D, start, run_start, part, out);
+  else cell_means<false><<<C, kThreads, 0, st>>>(old, D, start, run_start, part, out);
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,10 @@
 // stable radix sort and add each column's runs in entry order.  No float
 // atomics anywhere: two launches are bitwise equal.  Each entry's norm is
 // kept from the first pass so that the second recomputes the same latent
-// values.
+// values.  Rows past 32 kMaxH = 256 floats take the wide instantiation:
+// lanes on the columns, the rows read from global memory (L1) in the same
+// column order, each warp's sums in dynamic shared memory (d floats), the
+// Qn runs and rows walked in 256-column chunks.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -205,34 +208,123 @@ chunk_kernel(Args g, float* __restrict__ part, double* __restrict__ part_loss) {
   }
 }
 
+// Wide rows: walk's lanes-on-the-columns form with a (the row of A) and
+// each f read from global memory in the registers' column order, the sums
+// into tot (d floats of the warp's shared slice).
+template <bool kElem>
+__device__ __forceinline__ void walk_wide(const Args& g, const float* __restrict__ a, int lane,
+                                          int64_t e0, int n, float* tot, double& loss) {
+  const int32_t* cols = g.cols + e0;
+  const float* vals = g.vals + e0;
+  const int d = g.d;
+  for (int l = 0; l < n; ++l) {
+    const float w = vals[l];
+    const float* f = g.Bf + (int64_t)cols[l] * d;
+    float s = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float af = __ldg(a + c), fc = __ldg(f + c);
+      s = kElem ? s + fmaxf(af * fc, 1e-10f) : fmaf(af, fc, s);
+    }
+    s = warp_sum(s);
+    const float norm = kElem ? s : fmaxf(s, g.floor_sum);
+    if (g.loss) loss += (double)(logf(norm) * w);
+    if (kElem && g.norms && lane == 0) g.norms[e0 + l] = norm;
+    const float gw = w / norm;
+    for (int c = lane; c < d; c += 32) {
+      const float fc = __ldg(f + c);
+      tot[c] = kElem ? tot[c] + fmaxf(__ldg(a + c) * fc, 1e-10f) / norm * w
+                     : fmaf(gw, fc, tot[c]);
+    }
+  }
+}
+
+// Range and padded rows with wide rows: one warp per batch row.
+template <bool kElem>
+__global__ void __launch_bounds__(kThreads) rows_kernel_wide(Args g) {
+  extern __shared__ float wsm[];  // kWarps x d
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b >= g.R) return;
+  const int row = g.mode == kRange ? g.row_start + b : g.rows[b];
+  const int n = g.lens[b], d = g.d;
+  const float* a = g.A + (int64_t)min(row, g.nA - 1) * d;
+  float* tot = wsm + (int64_t)warp * d;
+  for (int c = lane; c < d; c += 32) tot[c] = 0.f;
+  __syncwarp();
+  double loss = 0.0;
+  walk_wide<kElem>(g, a, lane, (int64_t)b * g.L, n, tot, loss);
+  __syncwarp();
+  if (g.loss && lane == 0) g.loss[b] = (float)(-loss);
+  if (n > 0 && row >= 0 && row < g.nA) {
+    float* out = g.An + (int64_t)row * d;
+    for (int c = lane; c < d; c += 32) out[c] += kElem ? tot[c] : a[c] * tot[c];
+  }
+}
+
+// Segment modes, pass 1, wide rows: chunk_kernel with each warp's sums in
+// its shared slice, added in warp order.
+template <bool kElem>
+__global__ void __launch_bounds__(kThreads)
+chunk_kernel_wide(Args g, float* __restrict__ part, double* __restrict__ part_loss) {
+  extern __shared__ float wsm[];  // kWarps x d
+  __shared__ double red_loss[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, c = blockIdx.x;
+  const int s = g.seg_ids[c], d = g.d;
+  const int row = s < g.R ? g.rows[s] : g.nA;
+  const int len = g.lens[c];
+  const int S = (len + kWarps - 1) / kWarps;
+  const int l0 = min(len, warp * S), l1 = min(len, l0 + S);
+  float* tot = wsm + (int64_t)warp * d;
+  for (int t = lane; t < d; t += 32) tot[t] = 0.f;
+  __syncwarp();
+  double loss = 0.0;
+  walk_wide<kElem>(g, g.A + (int64_t)min(row, g.nA - 1) * d, lane, (int64_t)c * g.L + l0,
+                   l1 - l0, tot, loss);
+  if (lane == 0) red_loss[warp] = loss;
+  __syncthreads();
+  for (int t = threadIdx.x; t < d; t += kThreads) {
+    float v = wsm[t];
+    for (int w = 1; w < kWarps; ++w) v += wsm[(int64_t)w * d + t];
+    part[(int64_t)c * d + t] = v;
+  }
+  if (threadIdx.x == 0) {
+    double tl = 0.0;
+    for (int w = 0; w < kWarps; ++w) tl += red_loss[w];
+    part_loss[c] = tl;
+  }
+}
+
 // Segment modes, pass 2: one warp per row, its chunks' partials added in
 // chunk order, then An[row] += the sums (times a in the summed-floor form).
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 chunk_rows(Args g, const float* __restrict__ part, const double* __restrict__ part_loss,
            int elem) {
   const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= g.R) return;
   const int row = g.rows[r], c0 = g.chunk_ptr[r], c1 = g.chunk_ptr[r + 1];
-  float t[kMaxH];
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) t[h] = 0.f;
   double tl = 0.0;
-  for (int c = c0; c < c1; ++c) {
+  for (int k0 = 0; k0 < chunk_end<kWide>(g.d); k0 += kChunk) {
+    float t[kMaxH];
+#pragma unroll
+    for (int h = 0; h < kMaxH; ++h) t[h] = 0.f;
+    for (int c = c0; c < c1; ++c) {
+#pragma unroll
+      for (int h = 0; h < kMaxH; ++h) {
+        const int col = k0 + lane + 32 * h;
+        if (col < g.d) t[h] += part[(int64_t)c * g.d + col];
+      }
+      if (k0 == 0) tl += part_loss[c];
+    }
+    if (k0 == 0 && g.loss && lane == 0) g.loss[r] = (float)(-tl);
+    if (c1 == c0 || row < 0 || row >= g.nA) return;
+    const float* ar = g.A + (int64_t)row * g.d;
+    float* out = g.An + (int64_t)row * g.d;
 #pragma unroll
     for (int h = 0; h < kMaxH; ++h) {
-      const int col = lane + 32 * h;
-      if (col < g.d) t[h] += part[(int64_t)c * g.d + col];
+      const int col = k0 + lane + 32 * h;
+      if (col < g.d) out[col] += elem ? t[h] : ar[col] * t[h];
     }
-    tl += part_loss[c];
-  }
-  if (g.loss && lane == 0) g.loss[r] = (float)(-tl);
-  if (c1 == c0 || row < 0 || row >= g.nA) return;
-  const float* ar = g.A + (int64_t)row * g.d;
-  float* out = g.An + (int64_t)row * g.d;
-#pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int col = lane + 32 * h;
-    if (col < g.d) out[col] += elem ? t[h] : ar[col] * t[h];
   }
 }
 
@@ -250,55 +342,62 @@ make_keys(const int32_t* __restrict__ lens, const int32_t* __restrict__ cols, in
 
 // part[q] = the run's latent rows summed in entry order (the same values
 // as the first pass: the row's a, the column's q, the kept norm).
-template <int H>
+// (kWide: H = kMaxH columns per lane per 256-column chunk of the row.)
+template <int H, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 q_runs(const int32_t* __restrict__ idx, const int32_t* __restrict__ start,
        const int32_t* __restrict__ run_start, Args g, float* __restrict__ part) {
   const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
   int r, m0, m1;
   if (!find_run(q, g.nB, start, run_start, r, m0, m1)) return;
-  float qv[H], acc[H];
-  load_vec<H, false>(g.Bf + (int64_t)r * g.d, g.d, lane, qv);
+  for (int k0 = 0; k0 < chunk_end<kWide>(g.d); k0 += kChunk) {
+    const int dk = g.d - k0;  // the columns from this chunk on
+    float qv[H], acc[H];
+    load_vec<H, false>(g.Bf + (int64_t)r * g.d + k0, dk, lane, qv);
 #pragma unroll
-  for (int h = 0; h < H; ++h) acc[h] = 0.f;
-  for (int m = m0; m < m1; ++m) {
-    const int e = idx[m];
-    const int b = e / g.L;
-    int row;
-    if (g.mode == kPaddedRows) {
-      row = g.rows[b];
-    } else {
-      const int s = g.seg_ids[b];
-      row = s < g.R ? g.rows[s] : g.nA;
+    for (int h = 0; h < H; ++h) acc[h] = 0.f;
+    for (int m = m0; m < m1; ++m) {
+      const int e = idx[m];
+      const int b = e / g.L;
+      int row;
+      if (g.mode == kPaddedRows) {
+        row = g.rows[b];
+      } else {
+        const int s = g.seg_ids[b];
+        row = s < g.R ? g.rows[s] : g.nA;
+      }
+      float p[H];
+      load_vec<H, false>(g.A + (int64_t)min(row, g.nA - 1) * g.d + k0, dk, lane, p);
+      const float norm = g.norms[e], w = g.vals[e];
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        if (lane + 32 * h < dk) acc[h] += fmaxf(p[h] * qv[h], 1e-10f) / norm * w;
     }
-    float p[H];
-    load_vec<H, false>(g.A + (int64_t)min(row, g.nA - 1) * g.d, g.d, lane, p);
-    const float norm = g.norms[e], w = g.vals[e];
+    float* out = part + (int64_t)q * g.d + k0;
 #pragma unroll
-    for (int h = 0; h < H; ++h)
-      if (lane + 32 * h < g.d) acc[h] += fmaxf(p[h] * qv[h], 1e-10f) / norm * w;
-  }
-  float* out = part + (int64_t)q * g.d;
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const int c = lane + 32 * h;
-    if (c < g.d) out[c] = acc[h];
+    for (int h = 0; h < H; ++h) {
+      const int c = lane + 32 * h;
+      if (c < dk) out[c] = acc[h];
+    }
   }
 }
 
 // One warp per column of Qn: its runs added in order.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 q_add(int R, const int32_t* __restrict__ start, const int32_t* __restrict__ run_start,
       const float* __restrict__ part, int d, float* __restrict__ Qn) {
   const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= R || start[r + 1] == start[r]) return;
   float acc[kMaxH], sc[4];
-  row_sum(r, run_start, part, d, d, lane, acc, sc);
   float* out = Qn + (int64_t)r * d;
+  for (int k0 = 0; k0 < chunk_end<kWide>(d); k0 += kChunk) {
+    row_sum(r, run_start, part, d, d, lane, acc, sc, k0);
 #pragma unroll
-  for (int h = 0; h < kMaxH; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) out[c] += acc[h];
+    for (int h = 0; h < kMaxH; ++h) {
+      const int c = k0 + lane + 32 * h;
+      if (c < d) out[c] += acc[h];
+    }
   }
 }
 
@@ -355,6 +454,9 @@ extern "C" int plsi_estep_workspace(int n, int R, int d, int64_t* sizes) {
   return 0;
 }
 
+// 1 when rows of d floats take the wide instantiation.
+extern "C" int plsi_estep_wide(int d) { return d > 32 * kMaxH ? 1 : 0; }
+
 // mode: 0 range (rows [row_start, + R) of An / A), 1 segment (rows[R] with
 // chunk_ptr[R + 1], seg_ids; lens per chunk), 2 padded rows (rows[R]), 3
 // padded segment (as 1).  n_lists lists of L entries in cols / vals.  loss
@@ -370,7 +472,7 @@ extern "C" int plsi_estep(int mode, float* An, int nA, const float* A, const flo
   const bool padded = mode == kPaddedRows || mode == kPaddedSegment;
   const bool seg = mode == kSegment || mode == kPaddedSegment;
   const int64_t n = (int64_t)n_lists * L;
-  if (mode < 0 || mode > 3 || d < 1 || d > 32 * kMaxH || nA < 1 || nB < 1 || L < 1 ||
+  if (mode < 0 || mode > 3 || d < 1 || nA < 1 || nB < 1 || L < 1 ||
       n >= (1LL << 31) || (padded && (!Qn || !norms || !ws_i || !ws_f || !loss)) ||
       (seg && (!chunk_ptr || !seg_ids || !seg_part || !seg_loss)) || (mode != kRange && !rows))
     return (int)cudaErrorInvalidValue;
@@ -378,7 +480,36 @@ extern "C" int plsi_estep(int mode, float* An, int nA, const float* A, const flo
   const cudaStream_t st = (cudaStream_t)stream;
   const Args g{mode, An, nA, A, Bf, nB, d, row_start, R, rows, lens, L, cols, vals, chunk_ptr,
                seg_ids, loss, padded ? norms : nullptr, (float)((double)d * 1e-10)};
-  cudaError_t err = with_layout(d, [&](auto w, auto entries) {
+  const bool wide = plsi_estep_wide(d);
+  cudaError_t err;
+  if (wide) {
+    // each warp's sums in its slice of dynamic shared memory
+    const size_t smem = sizeof(float) * (size_t)kWarps * d;
+    if (smem > 48 * 1024) {
+      const void* kernels[] = {(const void*)rows_kernel_wide<true>,
+                               (const void*)rows_kernel_wide<false>,
+                               (const void*)chunk_kernel_wide<true>,
+                               (const void*)chunk_kernel_wide<false>};
+      for (const void* k : kernels) {
+        err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+      }
+    }
+    if (seg) {
+      if (n_lists > 0) {
+        if (padded)
+          chunk_kernel_wide<true><<<n_lists, kThreads, smem, st>>>(g, seg_part, seg_loss);
+        else
+          chunk_kernel_wide<false><<<n_lists, kThreads, smem, st>>>(g, seg_part, seg_loss);
+        CHECK_LAUNCH();
+      }
+      chunk_rows<true><<<warps_grid(R), kThreads, 0, st>>>(g, seg_part, seg_loss, padded ? 1 : 0);
+    } else {
+      if (padded) rows_kernel_wide<true><<<warps_grid(R), kThreads, smem, st>>>(g);
+      else rows_kernel_wide<false><<<warps_grid(R), kThreads, smem, st>>>(g);
+    }
+    err = cudaGetLastError();
+  } else err = with_layout(d, [&](auto w, auto entries) {
     constexpr int kW = decltype(w)::value;
     constexpr bool kE = decltype(entries)::value;
     if (seg) {
@@ -390,7 +521,8 @@ extern "C" int plsi_estep(int mode, float* An, int nA, const float* A, const flo
         const cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess) return e;
       }
-      chunk_rows<<<warps_grid(R), kThreads, 0, st>>>(g, seg_part, seg_loss, padded ? 1 : 0);
+      chunk_rows<false><<<warps_grid(R), kThreads, 0, st>>>(g, seg_part, seg_loss,
+                                                           padded ? 1 : 0);
     } else {
       if (padded) rows_kernel<kW, kE, true><<<warps_grid(R), kThreads, 0, st>>>(g);
       else rows_kernel<kW, kE, false><<<warps_grid(R), kThreads, 0, st>>>(g);
@@ -407,12 +539,19 @@ extern "C" int plsi_estep(int mode, float* An, int nA, const float* A, const flo
   CHECK_LAUNCH();
   err = sort_side(x, false, st);
   if (err != cudaSuccess) return (int)err;
+  if (wide) {
+    q_runs<kMaxH, true><<<warps_grid(x.max_runs), kThreads, 0, st>>>(
+        x.idx[x.sorted], x.start, x.run_start, g, x.part);
+    CHECK_LAUNCH();
+    q_add<true><<<warps_grid(nB), kThreads, 0, st>>>(nB, x.start, x.run_start, x.part, d, Qn);
+    return (int)cudaGetLastError();
+  }
   err = with_h(d, [&](auto h) {
-    q_runs<decltype(h)::value><<<warps_grid(x.max_runs), kThreads, 0, st>>>(
+    q_runs<decltype(h)::value, false><<<warps_grid(x.max_runs), kThreads, 0, st>>>(
         x.idx[x.sorted], x.start, x.run_start, g, x.part);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return (int)err;
-  q_add<<<warps_grid(nB), kThreads, 0, st>>>(nB, x.start, x.run_start, x.part, d, Qn);
+  q_add<false><<<warps_grid(nB), kThreads, 0, st>>>(nB, x.start, x.run_start, x.part, d, Qn);
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,10 @@
 // sums in double, per block of 256 rows (8 warps over the rows, a lane per
 // column, the warps' sums added in warp order) and over the blocks in block
 // order by one block, so the sums do not depend on the launch and are
-// within a rounding of the exact sum; then an elementwise pass.
+// within a rounding of the exact sum; then an elementwise pass.  Rows up to
+// kMaxD floats sit in registers (P) or one shared tile of column sums (Q);
+// wider rows take the wide instantiation: P's rows read twice (the sum,
+// then the divide), Q's columns in kMaxD-column chunks of the same tile.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,12 +38,21 @@ __device__ __forceinline__ float smooth(float add, const float* __restrict__ mas
   return mask ? add * mask[r] : add;
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 p_rows(float* __restrict__ P, int n, int d, float add, const float* __restrict__ mask) {
   const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= n) return;
   float* row = P + (int64_t)r * d;
   const float s_add = smooth(add, mask, r);
+  if (kWide) {  // the columns in the registers' order (lane + 32 h)
+    float part = 0.f;
+    for (int c = lane; c < d; c += 32) part += row[c] + s_add;
+    const float s = warp_sum(part);
+    const float div = s > 0.f ? s : 1.f;
+    for (int c = lane; c < d; c += 32) row[c] = (row[c] + s_add) / div;
+    return;
+  }
   float x[kMaxH];
   float part = 0.f;
 #pragma unroll
@@ -59,23 +71,28 @@ p_rows(float* __restrict__ P, int n, int d, float add, const float* __restrict__
 }
 
 // part[b * d + c] = the sum of column c of the smoothed rows of block b.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 q_partial(const float* __restrict__ Q, int n, int d, float add, const float* __restrict__ mask,
           double* __restrict__ part) {
   __shared__ double red[kWarps][kMaxD];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = blockIdx.x * kRowsPerBlock, r1 = min(n, r0 + kRowsPerBlock);
-  for (int c = lane; c < d; c += 32) {
-    double s = 0.0;
-    for (int r = r0 + warp; r < r1; r += kWarps)
-      s += (double)(Q[(int64_t)r * d + c] + smooth(add, mask, r));
-    red[warp][c] = s;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < d; c += kThreads) {
-    double t = 0.0;
-    for (int w = 0; w < kWarps; ++w) t += red[w][c];
-    part[(int64_t)blockIdx.x * d + c] = t;
+  for (int c0 = 0; c0 < (kWide ? d : 1); c0 += kMaxD) {
+    const int dc = min(d - c0, kMaxD);
+    for (int c = lane; c < dc; c += 32) {
+      double s = 0.0;
+      for (int r = r0 + warp; r < r1; r += kWarps)
+        s += (double)(Q[(int64_t)r * d + c0 + c] + smooth(add, mask, r));
+      red[warp][c] = s;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < dc; c += kThreads) {
+      double t = 0.0;
+      for (int w = 0; w < kWarps; ++w) t += red[w][c];
+      part[(int64_t)blockIdx.x * d + c0 + c] = t;
+    }
+    if (kWide) __syncthreads();  // the tile is refilled for the next chunk
   }
 }
 
@@ -104,6 +121,9 @@ int blocks_for(int n) { return (n + kRowsPerBlock - 1) / kRowsPerBlock; }
 
 }  // namespace
 
+// 1 when rows of d floats take the wide instantiation.
+extern "C" int plsi_mstep_wide(int d) { return d > kMaxD ? 1 : 0; }
+
 // Doubles of the workspace for a Q of n rows and d columns.
 extern "C" int plsi_mstep_workspace(int n, int d) { return (blocks_for(n) + 1) * d; }
 
@@ -118,17 +138,21 @@ extern "C" int plsi_mstep_workspace(int n, int d) { return (blocks_for(n) + 1) *
 extern "C" int plsi_mstep_sums(float* P, int nP, const float* Q, int nQ, int d, float add_p,
                                float add_q, const float* p_mask, const float* q_mask,
                                double* part, void* stream) {
-  if (d < 1 || d > kMaxD || nP < 0 || nQ < 0 || (!p_mask) != (!q_mask) || !part)
+  if (d < 1 || nP < 0 || nQ < 0 || (!p_mask) != (!q_mask) || !part)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  const bool wide = plsi_mstep_wide(d);
   if (nP > 0) {
-    p_rows<<<(nP + kWarps - 1) / kWarps, kThreads, 0, st>>>(P, nP, d, add_p, p_mask);
+    const unsigned grid = (nP + kWarps - 1) / kWarps;
+    if (wide) p_rows<true><<<grid, kThreads, 0, st>>>(P, nP, d, add_p, p_mask);
+    else p_rows<false><<<grid, kThreads, 0, st>>>(P, nP, d, add_p, p_mask);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int nb = blocks_for(nQ);
   if (nb > 0) {
-    q_partial<<<nb, kThreads, 0, st>>>(Q, nQ, d, add_q, q_mask, part);
+    if (wide) q_partial<true><<<nb, kThreads, 0, st>>>(Q, nQ, d, add_q, q_mask, part);
+    else q_partial<false><<<nb, kThreads, 0, st>>>(Q, nQ, d, add_q, q_mask, part);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -138,7 +162,7 @@ extern "C" int plsi_mstep_sums(float* P, int nP, const float* Q, int nQ, int d, 
 
 extern "C" int plsi_mstep_apply(float* Q, int nQ, int d, float add_q, const float* q_mask,
                                 const double* total, void* stream) {
-  if (d < 1 || d > kMaxD || nQ < 0 || !total) return (int)cudaErrorInvalidValue;
+  if (d < 1 || nQ < 0 || !total) return (int)cudaErrorInvalidValue;
   if (nQ == 0) return 0;
   const int64_t m = (int64_t)nQ * d;
   const int grid = (int)((m + kThreads - 1) / kThreads < 4096 ? (m + kThreads - 1) / kThreads : 4096);

@@ -17,7 +17,16 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kTile = 2048;  // entries per radix tile
 constexpr int kRun = 128;    // entries per partial sum
-constexpr int kMaxH = 8;     // columns per lane: d <= 256
+constexpr int kMaxH = 8;     // columns per lane of one column chunk
+constexpr int kChunk = 32 * kMaxH;  // a warp's columns per pass: rows past
+                                    // it are walked in chunks (wide mode)
+
+// The column chunks of a row of d floats: one pass at offset 0 for the
+// narrow instantiation (d <= kChunk), else ceil(d / kChunk) passes.
+template <bool kWide>
+__device__ __forceinline__ int chunk_end(int d) {
+  return kWide ? d : 1;
+}
 constexpr int kScan = 1024;  // threads of a scan block
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -207,11 +216,11 @@ __device__ __forceinline__ bool find_run(int q, int R, const int32_t* __restrict
   return true;
 }
 
-// The runs of row r added in order: acc (d columns) and, with W > d, the
-// scalars past them.
+// The runs of row r added in order: acc (columns c0 + lane + 32 h below d)
+// and, with W > d, the scalars past them.
 __device__ __forceinline__ int row_sum(int r, const int32_t* __restrict__ run_start,
                                        const float* __restrict__ part, int d, int W, int lane,
-                                       float (&acc)[kMaxH], float (&sc)[4]) {
+                                       float (&acc)[kMaxH], float (&sc)[4], int c0 = 0) {
 #pragma unroll
   for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
 #pragma unroll
@@ -221,7 +230,7 @@ __device__ __forceinline__ int row_sum(int r, const int32_t* __restrict__ run_st
     const float* pr = part + (int64_t)q * W;
 #pragma unroll
     for (int h = 0; h < kMaxH; ++h) {
-      const int c = lane + 32 * h;
+      const int c = c0 + lane + 32 * h;
       if (c < d) acc[h] += pr[c];
     }
     for (int s = 0; s < W - d; ++s) sc[s] += pr[d + s];

@@ -28,19 +28,19 @@ namespace {
 
 using namespace topk;
 
-template <class C>
+template <class C, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 score_topk_kernel(const void* __restrict__ p, int p_bf16, const float* __restrict__ Q,
                   const float* __restrict__ Qb, int B, int N, int d, int k, int per_split,
                   uint64_t* __restrict__ part, float* __restrict__ vals,
                   int32_t* __restrict__ idx) {
   extern __shared__ __align__(16) char smem[];
-  const Smem<C> sm(smem, d);
+  const Smem<C> sm(smem, kWide ? kDC : d);
   const int q0 = blockIdx.x * C::QB, s = blockIdx.y;
   const int lo = s * per_split, n = max(0, min(per_split, N - lo));
   for (int q = threadIdx.x; q < C::QB; q += kThreads) sm.row[q] = q0 + q < B ? q0 + q : -1;
   __syncthreads();
-  scan_items<C>(sm, p, p_bf16 != 0, d, Q + (int64_t)lo * d, Qb ? Qb + lo : nullptr, n,
+  scan_items<C, kWide>(sm, p, p_bf16 != 0, d, Q + (int64_t)lo * d, Qb ? Qb + lo : nullptr, n,
                 (uint32_t)lo, k);
   for (int e = threadIdx.x; e < C::QB * k; e += kThreads) {
     const int q = e / k, j = e % k;
@@ -85,9 +85,10 @@ extern "C" int score_topk(const void* p, int p_bf16, const float* Q, const float
   const cudaStream_t st = (cudaStream_t)stream;
   return with_list(k, [&](auto cfg) {
     using C = decltype(cfg);
-    const size_t bytes = Smem<C>::bytes(d);
+    const bool wide = d > kMaxStagedD;
+    const size_t bytes = Smem<C>::bytes(wide ? kDC : d);
     if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-    auto kernel = score_topk_kernel<C>;
+    auto kernel = wide ? score_topk_kernel<C, true> : score_topk_kernel<C, false>;
     cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return (int)err;
     const int per_split = (N + S - 1) / S;

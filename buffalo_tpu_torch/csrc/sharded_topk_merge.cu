@@ -18,7 +18,9 @@
 // warp-wide arg-max.  Design: one warp per query; lane j < D holds the head
 // of shard j's list in registers; each step takes the warp's largest key
 // (a xor-butterfly of 64-bit shuffles), the winning lane writes it and
-// loads its next candidate.  D <= 32.
+// loads its next candidate.  Past 32 shards (the wide form) the heads sit
+// in the warp's slice of shared memory, lane j keeping lists j, j + 32, ...:
+// each step a lane's best head, then the same warp-wide arg-max.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,15 +81,68 @@ merge(const float* __restrict__ vals, const int* __restrict__ idx, int B, int D,
   }
 }
 
+// The wide form (D > 32): the warp's heads in shared memory (D keys and
+// positions per warp).
+__global__ void __launch_bounds__(kThreads)
+merge_wide(const float* __restrict__ vals, const int* __restrict__ idx, int B, int D, int kl,
+           int k, float* __restrict__ out_v, int* __restrict__ out_i) {
+  extern __shared__ unsigned long long heads[];  // [kWarps][D], then [kWarps][D] positions
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * kWarps + warp;
+  if (q >= B) return;  // whole warps leave together
+  unsigned long long* head = heads + (int64_t)warp * D;
+  int* pos = reinterpret_cast<int*>(heads + (int64_t)kWarps * D) + (int64_t)warp * D;
+  const float* v = vals + (int64_t)q * D * kl;
+  const int* ix = idx + (int64_t)q * D * kl;
+  for (int j = lane; j < D; j += 32) {
+    head[j] = key_of(v[(int64_t)j * kl], ix[(int64_t)j * kl]);
+    pos[j] = 0;
+  }
+  float* ov = out_v + (int64_t)q * k;
+  int* oi = out_i + (int64_t)q * k;
+  for (int t = 0; t < k; ++t) {
+    unsigned long long mine = 0;
+    int jm = -1;
+    for (int j = lane; j < D; j += 32)
+      if (head[j] > mine) {
+        mine = head[j];
+        jm = j;
+      }
+    const unsigned long long best = warp_max(mine);
+    if (jm >= 0 && mine == best) {
+      const int64_t o = (int64_t)jm * kl + pos[jm];
+      ov[t] = v[o];
+      oi[t] = ix[o];
+      if (++pos[jm] < kl) head[jm] = key_of(v[o + 1], ix[o + 1]);
+      else head[jm] = 0;
+    }
+    __syncwarp();
+  }
+}
+
 }  // namespace
 
-// vals / idx: (B, D, kl) row-major; out_v / out_i: (B, k).  1 <= D <= 32,
+// 1 when D lists take the wide form.
+extern "C" int sharded_topk_merge_wide(int D) { return D > 32 ? 1 : 0; }
+
+// vals / idx: (B, D, kl) row-major; out_v / out_i: (B, k).  D >= 1,
 // 1 <= k <= D * kl; the indices of one query are distinct.
 extern "C" int sharded_topk_merge(const float* vals, const int* idx, int B, int D, int kl, int k,
                                   float* out_v, int* out_i, void* stream) {
-  if (B < 0 || D < 1 || D > 32 || kl < 1 || k < 1 || (int64_t)k > (int64_t)D * kl)
+  if (B < 0 || D < 1 || kl < 1 || k < 1 || (int64_t)k > (int64_t)D * kl)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  if (sharded_topk_merge_wide(D)) {
+    const size_t smem = (sizeof(unsigned long long) + sizeof(int)) * kWarps * (size_t)D;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          merge_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    merge_wide<<<(B + kWarps - 1) / kWarps, kThreads, smem, (cudaStream_t)stream>>>(
+        vals, idx, B, D, kl, k, out_v, out_i);
+    return (int)cudaGetLastError();
+  }
   merge<<<(B + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(vals, idx, B, D, kl, k,
                                                                           out_v, out_i);
   return (int)cudaGetLastError();

@@ -167,7 +167,12 @@ struct Smem {
 // given.  On return (after a block barrier) sm.list[q * KP ...] holds query
 // q's best entries in descending key order, 0-padded; empty slots are left
 // untouched.  Reads no item row past n_items.
-template <class C>
+// Rows past kMaxStagedD floats take the wide instantiation: the queries'
+// features are staged kDC at a time beside the item tile's chunk (sm built
+// for kDC features), in the same order, so the scores are the same sums.
+constexpr int kMaxStagedD = 256;
+
+template <class C, bool kWide = false>
 __device__ void scan_items(const Smem<C>& sm, const void* queries, bool q_bf16, int d,
                            const float* __restrict__ items, const float* __restrict__ bias,
                            int n_items, uint32_t idx0, int k) {
@@ -182,15 +187,19 @@ __device__ void scan_items(const Smem<C>& sm, const void* queries, bool q_bf16, 
     sm.thr[q] = 0;
     sm.cnt[q] = 0;
   }
-  for (int e = tid; e < QB * d; e += kThreads) {
-    const int q = e / d, j = e % d;
-    const int64_t r = sm.row[q];
-    float v = 0.f;
-    if (r >= 0)
-      v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(queries)[r * d + j])
-                 : static_cast<const float*>(queries)[r * d + j];
-    sm.pT[j * QB + q] = v;
-  }
+  // the queries' features [j0, j0 + n) into rows [j0 - base, ..) of pT
+  auto stage_queries = [&](int j0, int n, int base) {
+    for (int e = tid; e < QB * n; e += kThreads) {
+      const int q = e / n, j = j0 + e % n;
+      const int64_t r = sm.row[q];
+      float v = 0.f;
+      if (r >= 0)
+        v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(queries)[r * d + j])
+                   : static_cast<const float*>(queries)[r * d + j];
+      sm.pT[(j - base) * QB + q] = v;
+    }
+  };
+  if (!kWide) stage_queries(0, d, 0);
 
   for (int t0 = 0; t0 < n_items; t0 += IT) {
     const int nv = min(IT, n_items - t0);
@@ -208,10 +217,11 @@ __device__ void scan_items(const Smem<C>& sm, const void* queries, bool q_bf16, 
         sm.QT[jj * QTLD + i] =
             (i < nv && jj < jn) ? __ldg(items + (int64_t)(t0 + i) * d + j0 + jj) : 0.f;
       }
+      if (kWide) stage_queries(j0, jn, j0);
       __syncthreads();
 #pragma unroll 4
       for (int jj = 0; jj < jn; ++jj) {
-        const float* pr = sm.pT + (j0 + jj) * QB + tq * TQ;
+        const float* pr = sm.pT + (kWide ? jj : j0 + jj) * QB + tq * TQ;
         float a[TQ];
         if constexpr (TQ == 4) {
           const float4 v = *reinterpret_cast<const float4*>(pr);

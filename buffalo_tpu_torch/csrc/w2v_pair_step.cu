@@ -39,7 +39,9 @@ namespace {
 
 constexpr int kAttempts = 3;
 
-template <int H>
+// kWide (rows past 256 floats): the rows read from global memory in the
+// registers' column order, the input's delta summed in its output row.
+template <int H, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 pair_step(const float* __restrict__ L0, const float* __restrict__ L1,
           const int32_t* __restrict__ inputs, const int32_t* __restrict__ targets, int B, int V,
@@ -75,6 +77,44 @@ pair_step(const float* __restrict__ L0, const float* __restrict__ L1,
     }
     if (lane == 0) keys1[b] = valid ? tg : V;
     __syncwarp();  // the warp's negatives, written above, are read below
+    if (kWide) {
+      const float* l0 = L0 + (int64_t)min(in, V - 1) * d;
+      const float* lt = L1 + (int64_t)min(tg, V - 1) * d;
+      float* w0 = d0 + (int64_t)b * d;  // the input's delta, summed in place
+      float sp = 0.f;
+      for (int c = lane; c < d; c += 32) sp += l0[c] * lt[c];
+      const float fp = warp_sum(sp);
+      const float gp = g_of(1.f, fp) * vf;
+      float lsum = compute_loss ? -logf(sigm(fp) + kEps) : 0.f;
+      for (int c = lane; c < d; c += 32) {
+        w0[c] = gp * lt[c];
+        d1[(int64_t)b * d + c] = lr * gp * l0[c];
+      }
+      for (int k = 0; k < K; ++k) {
+        const int64_t s = (int64_t)b * K + k;
+        const float* ln = L1 + (int64_t)negs[s] * d;
+        float sn = 0.f;
+        for (int c = lane; c < d; c += 32) sn += l0[c] * ln[c];
+        const float fn = warp_sum(sn);
+        const float gn = g_of(0.f, fn) * vf;
+        if (compute_loss) lsum -= logf(1.f - sigm(fn) + kEps);
+        for (int c = lane; c < d; c += 32) {
+          w0[c] += gn * ln[c];
+          d1[((int64_t)B + s) * d + c] = lr * gn * l0[c];
+        }
+      }
+      for (int c = lane; c < d; c += 32) w0[c] = lr * w0[c];
+      loss = vf * lsum;
+      cnt = vf;
+    }
+  }
+  if (kWide) {
+    block_partials(loss, cnt, part);
+    return;
+  }
+  if (b < B) {
+    const int in = inputs[b], tg = targets[b];
+    const float vf = in < V ? 1.f : 0.f;
     float l0[H], lt[H], ln[H], work[H];
     load_row<H>(L0 + (int64_t)min(in, V - 1) * d, d, lane, l0);
     load_row<H>(L1 + (int64_t)min(tg, V - 1) * d, d, lane, lt);
@@ -102,6 +142,9 @@ pair_step(const float* __restrict__ L0, const float* __restrict__ L1,
 
 }  // namespace
 
+// 1 when rows of d floats take the wide instantiation.
+extern "C" int w2v_pair_step_wide(int d) { return d > 256 ? 1 : 0; }
+
 // Partials the launch needs (2 floats each).
 extern "C" int w2v_pair_parts(int B) { return (B + kWarps - 1) / kWarps; }
 
@@ -114,21 +157,22 @@ extern "C" int w2v_pair_step(const float* L0, const float* L1, const int32_t* in
                              const int32_t* alias, const int32_t* negs_in, int32_t* negs,
                              int32_t* keys1, float* d1, float* d0, int compute_loss, float* part,
                              float* out, void* stream) {
-  if (B < 0 || V < 1 || d < 1 || d > 256 || K < 1 || (!negs_in && (!prob || !alias)))
+  if (B < 0 || V < 1 || d < 1 || K < 1 || (!negs_in && (!prob || !alias)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const uint64_t kk = (uint64_t)key;
   const int blocks = w2v_pair_parts(B);
   if (blocks > 0) {
-#define W2V_PAIR(H)                                                                         \
-  pair_step<H><<<blocks, kThreads, 0, st>>>(L0, L1, inputs, targets, B, V, d, K, lr,        \
+#define W2V_PAIR(H, W)                                                                      \
+  pair_step<H, W><<<blocks, kThreads, 0, st>>>(L0, L1, inputs, targets, B, V, d, K, lr, \
                                             (uint32_t)kk, (uint32_t)(kk >> 32),             \
                                             (uint32_t)epoch, (uint32_t)chunk, prob, alias, \
                                             negs_in, negs, keys1, d1, d0, compute_loss, part)
-    if (d <= 32) W2V_PAIR(1);
-    else if (d <= 64) W2V_PAIR(2);
-    else if (d <= 128) W2V_PAIR(4);
-    else W2V_PAIR(8);
+    if (d <= 32) W2V_PAIR(1, false);
+    else if (d <= 64) W2V_PAIR(2, false);
+    else if (d <= 128) W2V_PAIR(4, false);
+    else if (d <= 256) W2V_PAIR(8, false);
+    else W2V_PAIR(8, true);
 #undef W2V_PAIR
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;

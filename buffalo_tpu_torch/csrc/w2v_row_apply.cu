@@ -23,7 +23,10 @@
 // read 32 at a time and the rows loaded four ahead), and a warp per touched
 // row adds its runs in order, eight loads in flight, caps and writes.  A
 // head word with tens of thousands of entries in a chunk is many runs summed
-// in parallel, then a few hundred partial rows added by one warp.
+// in parallel, then a few hundred partial rows added by one warp.  A lane
+// holds H <= 8 columns (rows up to 256 floats); wider rows take the wide
+// instantiation, which walks each row in 256-column chunks (the capped
+// rows twice: the norm of the sum first).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,7 +55,7 @@ __device__ __forceinline__ void add_row(const float* __restrict__ row, int d, in
 }
 
 // part[q] = the sum of run q's scaled rows, in entry order.
-template <int H>
+template <int H, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 run_sums(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
          const int32_t* __restrict__ run_start, const float* __restrict__ ra, int na,
@@ -60,37 +63,36 @@ run_sums(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ sta
   const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
   int r, m0, m1;
   if (!find_run(q, R, start, run_start, r, m0, m1)) return;
-  float acc[H];
+  for (int k0 = 0; k0 < chunk_end<kWide>(d); k0 += kChunk) {
+    const int dk = d - k0;  // the columns from this chunk on
+    float acc[H];
 #pragma unroll
-  for (int h = 0; h < H; ++h) acc[h] = 0.f;
-  for (int base = m0; base < m1; base += 32) {
-    const int mine = base + lane < m1 ? idx[base + lane] : 0;
-    const int cnt = min(32, m1 - base);
+    for (int h = 0; h < H; ++h) acc[h] = 0.f;
+    for (int base = m0; base < m1; base += 32) {
+      const int mine = base + lane < m1 ? idx[base + lane] : 0;
+      const int cnt = min(32, m1 - base);
 #pragma unroll 4
-    for (int j = 0; j < cnt; ++j) {
-      const int e = __shfl_sync(kFull, mine, j);
-      const float* row = e < na ? ra + (int64_t)e * d : rb + (int64_t)(e - na) * d;
-      add_row<H>(row, d, lane, scale, acc);
+      for (int j = 0; j < cnt; ++j) {
+        const int e = __shfl_sync(kFull, mine, j);
+        const float* row = e < na ? ra + (int64_t)e * d : rb + (int64_t)(e - na) * d;
+        add_row<H>(row + k0, dk, lane, scale, acc);
+      }
     }
-  }
-  float* out = part + (int64_t)q * d;
+    float* out = part + (int64_t)q * d + k0;
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) out[c] = acc[h];
+    for (int h = 0; h < H; ++h) {
+      const int c = lane + 32 * h;
+      if (c < dk) out[c] = acc[h];
+    }
   }
 }
 
-// One warp per table row: its runs added in order, the cap, the write.
+// acc = the sum of row r's runs over columns k0 + lane + 32 h, in run order
+// with kAhead loads in flight.
 template <int H>
-__global__ void __launch_bounds__(kThreads)
-apply_rows(int R, const int32_t* __restrict__ start, const int32_t* __restrict__ run_start,
-           const float* __restrict__ part, int d, float cap, float* __restrict__ T) {
+__device__ __forceinline__ void sum_runs(int q0, int q1, const float* __restrict__ part, int d,
+                                         int k0, int lane, float (&acc)[H]) {
   constexpr int kAhead = 8;
-  const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= R || start[r + 1] == start[r]) return;
-  const int q0 = run_start[r], q1 = run_start[r + 1];
-  float acc[H];
 #pragma unroll
   for (int h = 0; h < H; ++h) acc[h] = 0.f;
   for (int q = q0; q < q1; q += kAhead) {
@@ -99,7 +101,7 @@ apply_rows(int R, const int32_t* __restrict__ start, const int32_t* __restrict__
     for (int a = 0; a < kAhead; ++a) {
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        const int c = lane + 32 * h;
+        const int c = k0 + lane + 32 * h;
         v[a][h] = q + a < q1 && c < d ? part[(int64_t)(q + a) * d + c] : 0.f;
       }
     }
@@ -111,18 +113,41 @@ apply_rows(int R, const int32_t* __restrict__ start, const int32_t* __restrict__
       }
     }
   }
+}
+
+// One warp per table row: its runs added in order, the cap, the write.
+template <int H, bool kWide>
+__global__ void __launch_bounds__(kThreads)
+apply_rows(int R, const int32_t* __restrict__ start, const int32_t* __restrict__ run_start,
+           const float* __restrict__ part, int d, float cap, float* __restrict__ T) {
+  const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= R || start[r + 1] == start[r]) return;
+  const int q0 = run_start[r], q1 = run_start[r + 1];
+  float acc[H];
   float s = 1.f;
-  if (cap > 0.f) {
+  if (kWide && cap > 0.f) {  // the norm of the whole sum first
     float ss = 0.f;
+    for (int k0 = 0; k0 < d; k0 += kChunk) {
+      sum_runs<H>(q0, q1, part, d, k0, lane, acc);
 #pragma unroll
-    for (int h = 0; h < H; ++h) ss += acc[h] * acc[h];
+      for (int h = 0; h < H; ++h) ss += acc[h] * acc[h];
+    }
     s = fminf(1.f, cap / fmaxf(sqrtf(warp_sum(ss)), 1e-20f));
   }
   float* tr = T + (int64_t)r * d;
+  for (int k0 = 0; k0 < chunk_end<kWide>(d); k0 += kChunk) {
+    sum_runs<H>(q0, q1, part, d, k0, lane, acc);
+    if (!kWide && cap > 0.f) {
+      float ss = 0.f;
 #pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) tr[c] += cap > 0.f ? acc[h] * s : acc[h];
+      for (int h = 0; h < H; ++h) ss += acc[h] * acc[h];
+      s = fminf(1.f, cap / fmaxf(sqrtf(warp_sum(ss)), 1e-20f));
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int c = k0 + lane + 32 * h;
+      if (c < d) tr[c] += cap > 0.f ? acc[h] * s : acc[h];
+    }
   }
 }
 
@@ -144,14 +169,14 @@ void layout(int n, int R, int d, int32_t* ibase, float* fbase, Side& x, int64_t*
   *fsz = fo;
 }
 
-template <int H>
+template <int H, bool kWide = false>
 cudaError_t launch(const Side& x, const float* ra, int na, const float* rb, float* T, int d,
                    float scale, float cap, cudaStream_t st) {
-  run_sums<H><<<warps_grid(x.max_runs), kThreads, 0, st>>>(
+  run_sums<H, kWide><<<warps_grid(x.max_runs), kThreads, 0, st>>>(
       x.idx[x.sorted], x.R, x.start, x.run_start, ra, na, rb, d, scale, x.part);
   CHECK_LAUNCH();
-  apply_rows<H><<<warps_grid(x.R), kThreads, 0, st>>>(x.R, x.start, x.run_start, x.part, d, cap,
-                                                      T);
+  apply_rows<H, kWide><<<warps_grid(x.R), kThreads, 0, st>>>(x.R, x.start, x.run_start, x.part,
+                                                             d, cap, T);
   return cudaGetLastError();
 }
 
@@ -165,12 +190,15 @@ extern "C" int w2v_apply_workspace(int n, int R, int d, int64_t* sizes) {
   return 0;
 }
 
+// 1 when rows of d floats take the wide instantiation.
+extern "C" int w2v_row_apply_wide(int d) { return d > kChunk ? 1 : 0; }
+
 // keys_b / rows_b may be null when nb is 0.
 extern "C" int w2v_row_apply(const int32_t* keys_a, const float* rows_a, int na,
                              const int32_t* keys_b, const float* rows_b, int nb, float* T, int R,
                              int d, float scale, float cap, int32_t* ws_i, float* ws_f,
                              void* stream) {
-  if (na < 0 || nb < 0 || R < 1 || d < 1 || d > 32 * kMaxH || (int64_t)na + nb >= (1LL << 31) ||
+  if (na < 0 || nb < 0 || R < 1 || d < 1 || (int64_t)na + nb >= (1LL << 31) ||
       cap < 0.f)
     return (int)cudaErrorInvalidValue;
   const int n = na + nb;
@@ -188,6 +216,7 @@ extern "C" int w2v_row_apply(const int32_t* keys_a, const float* rows_a, int na,
   if (d <= 32) e = launch<1>(x, rows_a, na, rows_b, T, d, scale, cap, st);
   else if (d <= 64) e = launch<2>(x, rows_a, na, rows_b, T, d, scale, cap, st);
   else if (d <= 128) e = launch<4>(x, rows_a, na, rows_b, T, d, scale, cap, st);
-  else e = launch<8>(x, rows_a, na, rows_b, T, d, scale, cap, st);
+  else if (d <= kChunk) e = launch<8>(x, rows_a, na, rows_b, T, d, scale, cap, st);
+  else e = launch<kMaxH, true>(x, rows_a, na, rows_b, T, d, scale, cap, st);
   return (int)e;
 }

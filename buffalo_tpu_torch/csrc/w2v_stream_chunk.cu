@@ -171,6 +171,122 @@ chunk_deltas(Chunk c, int tile, int compute_loss, float* __restrict__ dL0p,
   block_partials(loss, cnt, part);
 }
 
+// Rows past 256 floats: chunk_deltas with every row read from global memory
+// (L1) and the three output rows summed in place, in the registers' column
+// order (lane + 32 h), so each dot and axpy adds as the narrow form does.
+__device__ __forceinline__ float gdot(const float* __restrict__ a, const float* __restrict__ b,
+                                      int d, int lane) {
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) s += a[c] * b[c];
+  return warp_sum(s);
+}
+
+__device__ __forceinline__ void gaxpy(float g, const float* __restrict__ x, float* y, int d,
+                                      int lane) {
+  for (int c = lane; c < d; c += 32) y[c] += g * x[c];
+}
+
+__global__ void __launch_bounds__(kThreads)
+chunk_deltas_wide(Chunk c, int tile, int compute_loss, float* __restrict__ dL0p,
+                  float* __restrict__ dL1p, float* __restrict__ dLn, float* __restrict__ part) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int d = c.d, K = c.K, W = c.W, blk = c.blk;
+  const int p0 = blockIdx.x * tile, p1 = min(c.T, p0 + tile);
+  auto valid = [&](int p) { return p >= 0 && p < c.T && c.w[p] < c.V; };
+  auto r0 = [&](int p) { return c.L0 + (int64_t)c.w[p] * d; };
+  auto r1 = [&](int p) { return c.L1 + (int64_t)c.w[p] * d; };
+  auto rn = [&](int b, int k) { return c.L1 + (int64_t)c.negs[(int64_t)b * K + k] * d; };
+
+  float loss = 0.f, cnt = 0.f;
+  const int npos = p1 - p0, nneg = (npos / blk) * K;
+  for (int it = warp; it < npos + nneg; it += kWarps) {
+    if (it < npos) {
+      const int p = p0 + it;
+      float* a0 = dL0p + (int64_t)p * d;
+      float* a1 = dL1p + (int64_t)p * d;
+      for (int t = lane; t < d; t += 32) a0[t] = a1[t] = 0.f;
+      if (!valid(p)) continue;
+      const int sp = c.s[p], hp = c.h[p], bp = p / blk;
+      const float* l0p = r0(p);
+      const float* l1p = r1(p);
+      float fnb = 0.f;
+      for (int k = 0; k < K && k < 32; ++k) {
+        const float f = gdot(l0p, rn(bp, k), d, lane);
+        if (lane == k) fnb = f;
+      }
+      for (int o = 1; o <= W; ++o) {
+        const int j = p + o;
+        if (j < c.T && c.w[j] < c.V && c.s[j] == sp) {
+          const int wj = c.w[j], hj = c.h[j];
+          if (o <= hp) {
+            const float* x = r0(j);
+            const float f = gdot(x, l1p, d, lane);
+            gaxpy(g_of(1.f, f), x, a1, d, lane);
+            if (compute_loss) loss -= logf(sigm(f) + kEps);
+            cnt += 1.f;
+          }
+          if (o <= hj) {
+            const float* y = r1(j);
+            const float f = gdot(l0p, y, d, lane);
+            gaxpy(g_of(1.f, f), y, a0, d, lane);
+            if (compute_loss) loss -= logf(sigm(f) + kEps);
+            cnt += 1.f;
+            for (int k = 0; k < K; ++k) {
+              if (c.negs[(int64_t)bp * K + k] == wj) continue;
+              const float* z = rn(bp, k);
+              const float fk = k < 32 ? __shfl_sync(kFull, fnb, k) : gdot(l0p, z, d, lane);
+              gaxpy(g_of(0.f, fk), z, a0, d, lane);
+              if (compute_loss) loss -= logf(1.f - sigm(fk) + kEps);
+            }
+          }
+        }
+        const int i = p - o;
+        if (i >= 0 && c.w[i] < c.V && c.s[i] == sp) {
+          const int wi = c.w[i], hi = c.h[i], bi = i / blk;
+          if (o <= hi) {
+            const float* y = r1(i);
+            gaxpy(g_of(1.f, gdot(l0p, y, d, lane)), y, a0, d, lane);
+            for (int k = 0; k < K; ++k) {
+              if (c.negs[(int64_t)bi * K + k] == wi) continue;
+              const float* z = rn(bi, k);
+              const float fk = gdot(l0p, z, d, lane);
+              gaxpy(g_of(0.f, fk), z, a0, d, lane);
+              if (compute_loss) loss -= logf(1.f - sigm(fk) + kEps);
+            }
+          }
+          if (o <= hp) {
+            const float* x = r0(i);
+            gaxpy(g_of(1.f, gdot(x, l1p, d, lane)), x, a1, d, lane);
+          }
+        }
+      }
+    } else {
+      const int q = it - npos;
+      const int b = p0 / blk + q / K, k = q % K;
+      const int n = c.negs[(int64_t)b * K + k];
+      float* acc = dLn + ((int64_t)b * K + k) * d;
+      for (int t = lane; t < d; t += 32) acc[t] = 0.f;
+      const float* z = rn(b, k);
+      for (int i = b * blk; i < (b + 1) * blk; ++i) {
+        if (!valid(i)) continue;
+        const int wi = c.w[i], si = c.s[i], hi = c.h[i];
+        const float* x = r0(i);
+        const float fb = gdot(x, z, d, lane);
+        for (int o = 1; o <= W; ++o) {
+          const int j = i + o;
+          if (j >= c.T || c.w[j] >= c.V || c.s[j] != si) continue;
+          if (o <= hi && n != wi) {
+            const float* y = r0(j);
+            gaxpy(g_of(0.f, gdot(y, z, d, lane)), y, acc, d, lane);
+          }
+          if (o <= c.h[j] && n != c.w[j]) gaxpy(g_of(0.f, fb), x, acc, d, lane);
+        }
+      }
+    }
+  }
+  block_partials(loss, cnt, part);
+}
+
 int tile_of(int blk) { return blk * (kTile / blk > 1 ? kTile / blk : 1); }
 
 template <int H>
@@ -183,6 +299,9 @@ cudaError_t launch(const Chunk& c, int compute_loss, float* dL0p, float* dL1p, f
 }
 
 }  // namespace
+
+// 1 when rows of d floats take the wide instantiation.
+extern "C" int w2v_stream_chunk_wide(int d) { return d > 256 ? 1 : 0; }
 
 // Partials the launch needs (2 floats each): one per tile of positions.
 extern "C" int w2v_stream_parts(int T, int blk) {
@@ -198,7 +317,9 @@ extern "C" int w2v_stream_chunk(const float* L0, const float* L1, const int32_t*
                                 int V, int d, int K, int window, int blk, int compute_loss,
                                 float* dL0p, float* dL1p, float* dLn, float* part, float* out,
                                 void* stream) {
-  if (T < 1 || V < 1 || d < 1 || d > 256 || K < 1 || window < 0 || window > 255 || blk < 1 ||
+  // window <= 255: the half-windows come as uint8 (the JAX package's wire
+  // format asserts the same, models/w2v.py:311)
+  if (T < 1 || V < 1 || d < 1 || K < 1 || window < 0 || window > 255 || blk < 1 ||
       T % blk != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -207,7 +328,13 @@ extern "C" int w2v_stream_chunk(const float* L0, const float* L1, const int32_t*
   if (d <= 32) e = launch<1>(c, compute_loss, dL0p, dL1p, dLn, part, st);
   else if (d <= 64) e = launch<2>(c, compute_loss, dL0p, dL1p, dLn, part, st);
   else if (d <= 128) e = launch<4>(c, compute_loss, dL0p, dL1p, dLn, part, st);
-  else e = launch<8>(c, compute_loss, dL0p, dL1p, dLn, part, st);
+  else if (d <= 256) e = launch<8>(c, compute_loss, dL0p, dL1p, dLn, part, st);
+  else {
+    const int tile = tile_of(c.blk);
+    chunk_deltas_wide<<<(c.T + tile - 1) / tile, kThreads, 0, st>>>(c, tile, compute_loss, dL0p,
+                                                                      dL1p, dLn, part);
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return (int)e;
   sum_parts<<<1, 32, 0, st>>>(part, w2v_stream_parts(T, blk), out);
   return (int)cudaGetLastError();

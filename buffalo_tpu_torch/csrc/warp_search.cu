@@ -18,7 +18,10 @@
 // (integer division before the log); counts[count_index] gains the number of
 // valid slots with any_v.  warp_probe writes every candidate's seen bit,
 // packed 32 to a word (the split epoch's first pass); warp_violations is the
-// violation rate over fixed triplets.
+// violation rate over fixed triplets.  On a mesh shard the Philox counter
+// takes the slot's global index, slot + slot_offset (the shard's first slot
+// of the chunk), so a shard's candidates equal the single device's rows
+// (warp_epoch_dp :398-401).
 //
 // Replaces buffalo_tpu/ops/warp_kernels.py _scores (:30),
 // _select_violator_lazy (:41), the search of warp_accumulate_step (:110-146)
@@ -31,7 +34,9 @@
 // chosen violator.  Design: one warp per slot walks its candidates 32 at a
 // time, a lane per candidate reading its whole row with 16-byte loads
 // against the slot's user row in shared memory, and stops at the first group
-// that settles the choice; ballots give the ranks and counts.
+// that settles the choice; ballots give the ranks and counts.  Rows wider
+// than the shared row (kMaxD) take the wide instantiation, which reads the
+// user row from global memory (L1) in the same order.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,13 +88,15 @@ struct Draw {
   const int32_t* cands;  // (N, K) or null: Philox
   int K, num_items;
   uint32_t k0, k1, epoch, chunk;
+  int64_t offset;  // the chunk's global index of slot 0
   __device__ __forceinline__ uint32_t operator()(int slot, int j) const {
     if (cands) return (uint32_t)cands[(int64_t)slot * K + j];
-    const U4 x = philox(U4{(uint32_t)slot, chunk, epoch, (uint32_t)j}, k0, k1);
+    const U4 x = philox(U4{(uint32_t)(slot + offset), chunk, epoch, (uint32_t)j}, k0, k1);
     return __umulhi(x.x0, (uint32_t)num_items);
   }
 };
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 search_kernel(const int32_t* __restrict__ users, const int32_t* __restrict__ pos, int N,
               int n_valid, Draw draw, const float* __restrict__ P, const float* __restrict__ Q,
@@ -98,16 +105,20 @@ search_kernel(const int32_t* __restrict__ users, const int32_t* __restrict__ pos
               uint32_t wmask, const int64_t* __restrict__ indptr, int32_t* __restrict__ out_neg,
               float* __restrict__ out_w, uint8_t* __restrict__ out_anyv,
               int32_t* __restrict__ out_trial, int32_t* __restrict__ counts) {
-  __shared__ float ps[kWarps][kMaxD];
+  __shared__ float ps[kWarps][kWide ? 1 : kMaxD];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int slot = blockIdx.x * kWarps + warp;
   const int K = draw.K, nw = (K + 31) / 32;
   bool found = false;
   if (slot < N) {
     const int u = users[slot];
-    float* p = ps[warp];
-    for (int c = lane; c < d; c += 32) p[c] = P[(int64_t)u * d + c];
-    __syncwarp();
+    const float* p = P + (int64_t)u * d;
+    if (!kWide) {
+      float* pw = ps[warp];
+      for (int c = lane; c < d; c += 32) pw[c] = p[c];
+      __syncwarp();
+      p = pw;
+    }
     const float ui = row_score(p, Q + (int64_t)pos[slot] * d, d, l2, vec);
     const int J = K < kProbes ? K : kProbes;
     int f = 0, trial = 1;
@@ -247,15 +258,19 @@ violations_kernel(const int32_t* __restrict__ users, const int32_t* __restrict__
   }
 }
 
-Draw make_draw(const int32_t* cands, int K, int num_items, int64_t key, int epoch, int chunk) {
+Draw make_draw(const int32_t* cands, int K, int num_items, int64_t key, int epoch, int chunk,
+               int64_t offset) {
   const uint64_t kk = (uint64_t)key;
   return Draw{cands, K, num_items, (uint32_t)kk, (uint32_t)(kk >> 32), (uint32_t)epoch,
-              (uint32_t)chunk};
+              (uint32_t)chunk, offset};
 }
 
 uint32_t word_mask(int bloom_log2) { return (1u << (bloom_log2 - 5)) - 1u; }
 
 }  // namespace
+
+// 1 when rows of d floats take the search's wide instantiation.
+extern "C" int warp_search_wide(int d) { return d > kMaxD ? 1 : 0; }
 
 // cands (N x K) may be null (Philox draws under key = (k1 << 32) | k0);
 // seen_bits (N x ceil(K / 32) words) may be null (the bloom filter, 2^(log2 -
@@ -264,18 +279,26 @@ extern "C" int warp_search(const int32_t* users, const int32_t* pos, int N, int 
                            int num_items, const float* P, const float* Q, int d, int l2,
                            float threshold, int lazy, const int32_t* cands,
                            const uint32_t* seen_bits, const uint32_t* bloom, int bloom_log2,
-                           int64_t key, int epoch, int chunk, const int64_t* indptr,
-                           int32_t* out_neg, float* out_w, uint8_t* out_anyv, int32_t* out_trial,
-                           int32_t* counts, void* stream) {
-  if (N < 0 || K < 1 || num_items < 1 || d < 1 || d > kMaxD ||
+                           int64_t key, int epoch, int chunk, int64_t slot_offset,
+                           const int64_t* indptr, int32_t* out_neg, float* out_w,
+                           uint8_t* out_anyv, int32_t* out_trial, int32_t* counts,
+                           void* stream) {
+  if (N < 0 || K < 1 || num_items < 1 || d < 1 || slot_offset < 0 ||
       (!seen_bits && (!bloom || bloom_log2 < 5 || bloom_log2 > 32)))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   const bool vec = (d % 4 == 0) && ((uintptr_t)Q % 16 == 0);
-  search_kernel<<<(N + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(
-      users, pos, N, n_valid, make_draw(cands, K, num_items, key, epoch, chunk), P, Q, d, l2, vec,
-      threshold, lazy, seen_bits, bloom, seen_bits ? 0u : word_mask(bloom_log2), indptr,
-      out_neg, out_w, out_anyv, out_trial, counts);
+  const Draw draw = make_draw(cands, K, num_items, key, epoch, chunk, slot_offset);
+  const unsigned grid = (N + kWarps - 1) / kWarps;
+  const uint32_t wm = seen_bits ? 0u : word_mask(bloom_log2);
+  if (warp_search_wide(d))
+    search_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        users, pos, N, n_valid, draw, P, Q, d, l2, vec, threshold, lazy, seen_bits, bloom, wm,
+        indptr, out_neg, out_w, out_anyv, out_trial, counts);
+  else
+    search_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        users, pos, N, n_valid, draw, P, Q, d, l2, vec, threshold, lazy, seen_bits, bloom, wm,
+        indptr, out_neg, out_w, out_anyv, out_trial, counts);
   return (int)cudaGetLastError();
 }
 
@@ -286,7 +309,7 @@ extern "C" int warp_probe(const int32_t* users, int N, int K, int num_items,
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   probe_kernel<<<(N + kWarps - 1) / kWarps, kThreads, 0, (cudaStream_t)stream>>>(
-      users, N, make_draw(cands, K, num_items, key, epoch, chunk), bloom, word_mask(bloom_log2),
+      users, N, make_draw(cands, K, num_items, key, epoch, chunk, 0), bloom, word_mask(bloom_log2),
       out_bits);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ from buffalo_tpu_torch.data.batching import (DeviceBatcher, build_range_layout,
 from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import ALSOption
-from buffalo_tpu_torch.ops.als_kernels import (MAX_D, als_epoch,
+from buffalo_tpu_torch.ops.als_kernels import (als_epoch,
                                               als_epoch_replicated,
                                               als_epoch_sharded_range)
 
@@ -139,15 +139,6 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
             cg_tol=float(opt.cg_tolerance),
             block_size=min(int(opt.block_size), int(opt.d)),
             compute_loss=bool(opt.compute_loss_on_training))
-
-    def _check_supported(self):
-        """Raise for what this port does not run yet (ROADMAP queue 1
-        names each item)."""
-        opt = self.opt
-        if self.device.type == "cuda" and int(opt.d) > MAX_D:
-            raise NotImplementedError(
-                f"d = {opt.d}: the kernels take rows of at most {MAX_D} "
-                "floats (ROADMAP queue 1 item 4, d > 256)")
 
     def _vals_dtype(self, padded_entries: int):
         """The range layout's staged value type (the reference's
@@ -314,7 +305,6 @@ class ALS(Algo, ALSOption, Evaluable, Serializable):
             Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
         assert self.data, "Data is not set"
         self._optimizer = self._resolve_optimizer()
-        self._check_supported()
         kw = self._epoch_kwargs()
         mesh = self._select_mesh(default_all=True)
         self._mesh_range = None

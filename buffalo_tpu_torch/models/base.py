@@ -322,6 +322,50 @@ class Algo(abc.ABC):
             return parallelism.get_mesh(None, devices=devices)
         return None
 
+    def _select_dp_mesh(self, resident, split_dispatch):
+        """The dp mesh of the SGD / EM families (``models/base.py:270-295``
+        of the JAX package), or None for one device.  A mesh only on an
+        explicit ``num_devices > 1`` (over ``opt.devices`` when given);
+        "tp" warns and runs dp (replicated tables, batch-sharded chunks);
+        a streamed run or ``epoch_dispatch="split"`` warns and runs on one
+        device.  The warnings are the JAX package's, word for word."""
+        from buffalo_tpu_torch import parallelism
+
+        opt = self.opt
+        n_dev = int(opt.get("num_devices") or 0)
+        if n_dev <= 1:
+            return None
+        if "tp" in str(opt.get("sharding", "dp")):
+            self.logger.warning(
+                "%s supports sharding='dp' only (replicated tables, "
+                "batch-sharded chunks); using dp", type(self).__name__)
+        if not resident:
+            self.logger.warning(
+                "mesh training applies to the device-resident fused "
+                "epoch only; streaming path runs single-device")
+            return None
+        if split_dispatch:
+            self.logger.warning(
+                "epoch_dispatch='split' is a single-device mode; "
+                "running without the mesh")
+            return None
+        return parallelism.get_mesh(n_dev,
+                                    devices=opt.get("devices") or None)
+
+    def _stage_dp_shards(self, mesh, tensors):
+        """Each (nchunks, N) host array of ``tensors`` split on its batch
+        axis into the local shards' (nchunks, N / mesh.size) int32 tensors,
+        each on its shard's device."""
+        import torch
+
+        out = []
+        for a in tensors:
+            N_loc = a.shape[1] // mesh.size
+            out.append([torch.from_numpy(np.ascontiguousarray(
+                a[:, g * N_loc:(g + 1) * N_loc])).to(dev)
+                for g, dev in zip(mesh.shards, mesh.devices)])
+        return out
+
     def periodical(self, period, current):
         """True when iteration ``current`` falls on the save/eval period."""
         return not period or (current + 1) % period == 0

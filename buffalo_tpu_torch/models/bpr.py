@@ -12,8 +12,11 @@ verifies the negatives and K9 applies the update (``ops/sgd_kernels.py``;
 their plain PyTorch versions on the CPU); K10 is the deferred step.  The
 negatives come from the port's own counter-based generator, so a run
 draws other negatives than the JAX package's from the same seed (the
-tests inject the JAX package's to compare the math).  More than one
-device raises ``NotImplementedError`` at ``train``.
+tests inject the JAX package's to compare the math).  With
+``num_devices > 1`` the resident epoch runs on a dp mesh
+(``_select_dp_mesh``; ``sgd_kernels.bpr_epoch``): the chunks, rounded
+up to a multiple of the mesh size, split over the shards, the tables
+replicated, each shard's draws the single device's.
 
 Reference: Rendle et al., BPR: Bayesian Personalized Ranking from
 Implicit Feedback (UAI 2009).
@@ -33,6 +36,7 @@ from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import BPRMFOption
 from buffalo_tpu_torch.ops import sgd_kernels as K
+from buffalo_tpu_torch.parallelism import Mesh
 
 
 class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
@@ -141,24 +145,9 @@ class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
 
     def _check_supported(self):
         opt = self.opt
-        if int(opt.get("num_devices") or 0) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet for this model: ROADMAP "
-                "queue 1 item 8b (the data-parallel SGD / EM epochs)")
-        if self.device.type == "cuda" and int(opt.d) > K.MAX_D:
-            raise NotImplementedError(
-                f"d = {opt.d}: the BPR kernels take rows of at most "
-                f"{K.MAX_D} floats (ROADMAP queue 2, d > 256)")
         if opt.optimizer not in ("sgd", "adam", "adagrad"):
             raise ValueError(f"optimizer must be sgd, adam or adagrad, got "
                              f"{opt.optimizer!r}")
-
-    def _stage_epoch_chunks(self, batch_size):
-        """(nchunks, N) users and positives in CSR order on the device,
-        padded with zeros past nnz (masked in the epoch), and nnz."""
-        users, items, nnz = csr_pair_chunks(self.data, batch_size)
-        return (torch.from_numpy(users).to(self.device),
-                torch.from_numpy(items).to(self.device), nnz)
 
     def _batch_size(self) -> int:
         """Pairs per chunk: the option, else min(max(nnz // 32, 1024),
@@ -207,11 +196,6 @@ class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
                     reg_j=float(opt.reg_j), reg_b=float(opt.reg_b))
         max_step_norm = float(opt.get("max_step_norm", 0.0))
 
-        # the tables live on the device; self.P/Q/Qb are synced back
-        self._P = torch.from_numpy(self.P).to(dev, copy=True)
-        self._Q = torch.from_numpy(self.Q).to(dev, copy=True)
-        self._Qb = torch.from_numpy(self.Qb).to(dev, copy=True)
-
         resident = (self.num_nnz * 8) <= int(opt.get("resident_mb", 4096)) \
             * 1024 * 1024
         dispatch = str(opt.get("epoch_dispatch") or "auto")
@@ -219,16 +203,35 @@ class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
             raise ValueError(
                 f"epoch_dispatch must be auto|fused|split, got {dispatch!r}")
         random_positive = bool(opt.get("random_positive"))
-        opt_state = (K.new_opt_state(self._P, self._Q, self._Qb, use_bias)
-                     if deferred else {})
+        mesh = self._select_dp_mesh(resident, dispatch == "split")
         if resident:
-            users_c, items_c, nnz = self._stage_epoch_chunks(batch_size)
+            # the resident epoch runs on a dp mesh, one device being a mesh
+            # of one shard; the chunk width divides over it (bpr.py:257)
+            mesh = mesh or Mesh([dev])
+            batch_size = -(-batch_size // mesh.size) * mesh.size
             if random_positive:
                 sampling.update(
                     pos_indptr=torch.from_numpy(np.array(
-                        group["indptr"], dtype=np.int64)).to(dev),
+                        group["indptr"], dtype=np.int64)),
                     pos_keys=torch.from_numpy(np.array(
-                        group["key"], dtype=np.int32)).to(dev))
+                        group["key"], dtype=np.int32)))
+            # one replica of the tables, the moments and K8's inputs per
+            # device of the mesh; self._P / _Q / _Qb are the first shard's
+            tables, opt_states, shard_sampling = {}, {}, {}
+            for mdev in K.replica_shards(mesh):
+                tables[mdev] = tuple(torch.from_numpy(a).to(mdev, copy=True)
+                                     for a in (self.P, self.Q, self.Qb))
+                opt_states[mdev] = (K.new_opt_state(*tables[mdev], use_bias)
+                                    if deferred else {})
+                shard_sampling[mdev] = {
+                    k: (tuple(t.to(mdev) for t in v) if isinstance(v, tuple)
+                        else v.to(mdev) if isinstance(v, torch.Tensor)
+                        else v)
+                    for k, v in sampling.items() if k != "seed"}
+            self._P, self._Q, self._Qb = tables[mesh.devices[0]]
+            users_np, items_np, nnz = csr_pair_chunks(self.data, batch_size)
+            users_s, items_s = self._stage_dp_shards(mesh,
+                                                     (users_np, items_np))
         else:
             if random_positive:
                 # reference parity: the streaming path walks positives in
@@ -236,6 +239,12 @@ class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
                 self.logger.warning(
                     "random_positive is honored on the resident epoch "
                     "only; streaming epochs walk the shuffled positives")
+            # the tables live on the device; self.P/Q/Qb are synced back
+            self._P = torch.from_numpy(self.P).to(dev, copy=True)
+            self._Q = torch.from_numpy(self.Q).to(dev, copy=True)
+            self._Qb = torch.from_numpy(self.Qb).to(dev, copy=True)
+            opt_state = (K.new_opt_state(self._P, self._Q, self._Qb,
+                                         use_bias) if deferred else {})
             coo = COOBatcher(self.data, chunk_size=batch_size, shuffle=True,
                              seed=int(opt.random_seed))
             grads = (K.new_accumulators(self._P, self._Q, self._Qb)
@@ -259,12 +268,12 @@ class BPRMF(Algo, BPRMFOption, Evaluable, Serializable):
             start_t = time.time()
             if resident:
                 K.bpr_epoch(
-                    self._P, self._Q, self._Qb, opt_state, users_c, items_c, i,
+                    mesh, tables, opt_states, users_s, items_s, i,
+                    seed=sampling["seed"], sampling=shard_sampling,
                     optimizer=optimizer, num_items=num_items,
                     per_coordinate_normalize=pcn, min_lr=float(opt.min_lr),
                     num_valid=nnz, total_samples=total_samples,
-                    max_step_norm=max_step_norm, **sampling, **rows, **rates,
-                    **regs)
+                    max_step_norm=max_step_norm, **rows, **rates, **regs)
             else:
                 for c, (users, positives, _vals) in enumerate(coo):
                     u = torch.from_numpy(users).to(dev)

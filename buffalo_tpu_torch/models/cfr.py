@@ -242,10 +242,6 @@ class CFR(Algo, CFROption, Evaluable, Serializable):
             raise NotImplementedError(
                 "num_devices > 1 is not ported yet for this model: ROADMAP "
                 "queue 1 item 8b (the data-parallel SGD / EM epochs)")
-        if int(self.opt.d) > K.MAX_D:
-            raise NotImplementedError(
-                f"d = {self.opt.d}: the CFR kernels take rows of at most "
-                f"{K.MAX_D} floats (ROADMAP queue 2)")
         val = self.data.get_group("rowwise")["val"]
         if len(val) and float(np.min(val)) < 0:
             raise ValueError(

@@ -107,12 +107,6 @@ class EALS(Algo, EALSOption, Evaluable, Serializable):
         return (self.P[row] * self.Q[col]).sum(axis=1)
 
     # -------------------------------------------------------------- training
-    def _check_supported(self):
-        if self.device.type == "cuda" and int(self.opt.d) > K.MAX_D:
-            raise NotImplementedError(
-                f"d = {self.opt.d}: the eALS kernels take rows of at most "
-                f"{K.MAX_D} floats (ROADMAP queue 2, d > 256)")
-
     def _train_state(self):
         """The epoch's data on the device (``eals.py:96-198``): the range
         layout's staged batches, the permuted negative weights and the
@@ -206,7 +200,6 @@ class EALS(Algo, EALSOption, Evaluable, Serializable):
     def train(self, training_callback: Optional[
             Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
         assert self.data, "Data is not set"
-        self._check_supported()
         opt = self.opt
         dev = self.device
         st = self._train_state()

@@ -11,7 +11,9 @@ unchanged.  One key is the port's own: ``device`` ("cuda" by default;
 device keys (``num_devices``, ``sharding``, ``resident_mb``,
 ``range_layout``, ``epoch_dispatch``, ``vals_dtype``) keep their
 defaults; more than one device trains ALS, eALS and pLSI over a device
-mesh and raises ``NotImplementedError`` at ``train`` for the others.
+mesh, BPR-MF and WARP over a dp mesh (replicated tables, batch-sharded
+chunks), and raises ``NotImplementedError`` at ``train`` for CoFactor and
+W2V.
 """
 from __future__ import annotations
 

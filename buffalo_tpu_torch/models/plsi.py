@@ -138,12 +138,6 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
         return (self.P[row] * self.Q[col]).sum(axis=1)
 
     # -------------------------------------------------------------- training
-    def _check_supported(self):
-        if int(self.opt.d) > K.MAX_D:
-            raise NotImplementedError(
-                f"d = {self.opt.d}: the pLSI kernels take rows of at most "
-                f"{K.MAX_D} floats (ROADMAP queue 2, d > 256)")
-
     def _rowwise_batcher(self):
         """The rowwise orientation's batches (``plsi.py:139-143``)."""
         return DeviceBatcher(
@@ -220,7 +214,6 @@ class PLSI(Algo, PLSIOption, Evaluable, Serializable):
     def train(self, training_callback: Optional[
             Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
         assert self.data, "Data is not set"
-        self._check_supported()
         opt = self.opt
         dev = self.device
         batcher = self._rowwise_batcher()

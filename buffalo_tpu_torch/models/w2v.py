@@ -278,10 +278,6 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
             raise NotImplementedError(
                 "num_devices > 1 is not ported yet for this model: ROADMAP "
                 "queue 1 item 8b (the data-parallel SGD / EM epochs)")
-        if self.device.type == "cuda" and int(opt.d) > W.MAX_D:
-            raise NotImplementedError(
-                f"d = {opt.d}: the W2V kernels take rows of at most "
-                f"{W.MAX_D} floats (ROADMAP queue 2, d > 256)")
 
     def _epoch_done(self, i, loss, pairs, start_t, training_callback,
                     **stats):

@@ -14,8 +14,10 @@ gradients (``ops/warp_kernels.py``; their plain PyTorch versions on the
 CPU); K10's projection mode is the epoch barrier.  The candidates come
 from the port's own counter-based generator, so a run draws other
 candidates than the JAX package's from the same seed (the tests inject the
-JAX package's to compare the math).  More than one device raises
-``NotImplementedError`` at ``train``.
+JAX package's to compare the math).  With ``num_devices > 1`` the
+resident epoch runs on a dp mesh (``_select_dp_mesh``;
+``warp_kernels.warp_epoch``): the chunks split over the shards, the
+tables replicated, one all-reduce at the epoch barrier.
 
 Reference: Weston et al., WSABIE (IJCAI 2011); Hsieh et al.,
 Collaborative Metric Learning (WWW 2017).
@@ -36,6 +38,7 @@ from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import WARPOption
 from buffalo_tpu_torch.ops import sgd_kernels as S
 from buffalo_tpu_torch.ops import warp_kernels as W
+from buffalo_tpu_torch.parallelism import Mesh
 
 
 def default_batch_size(nnz: int, d: int, max_trials: int) -> int:
@@ -171,14 +174,6 @@ class WARP(Algo, WARPOption, Evaluable, Serializable):
 
     def _check_supported(self):
         opt = self.opt
-        if int(opt.get("num_devices") or 0) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet for this model: ROADMAP "
-                "queue 1 item 8b (the data-parallel SGD / EM epochs)")
-        if self.device.type == "cuda" and int(opt.d) > W.MAX_D:
-            raise NotImplementedError(
-                f"d = {opt.d}: the WARP kernels take rows of at most "
-                f"{W.MAX_D} floats (ROADMAP queue 2, d > 256)")
         if opt.optimizer not in ("adam", "adagrad"):
             raise ValueError(f"optimizer must be adagrad or adam, got "
                              f"{opt.optimizer!r}")
@@ -191,13 +186,6 @@ class WARP(Algo, WARPOption, Evaluable, Serializable):
             batch_size = default_batch_size(self.num_nnz, int(self.opt.d),
                                             int(self.opt.max_trials))
         return batch_size
-
-    def _stage_epoch_chunks(self, batch_size):
-        """(nchunks, N) users and positives in CSR order on the device,
-        padded with zeros past nnz (masked in the epoch), and nnz."""
-        users, items, nnz = csr_pair_chunks(self.data, batch_size)
-        return (torch.from_numpy(users).to(self.device),
-                torch.from_numpy(items).to(self.device), nnz)
 
     def train(self, training_callback: Optional[
             Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
@@ -214,10 +202,6 @@ class WARP(Algo, WARPOption, Evaluable, Serializable):
                                           np.asarray(group["key"]))
         bloom = torch.from_numpy(words.view(np.int32)).to(dev)
 
-        # the tables live on the device; self.P/Q are synced back
-        self._P = torch.from_numpy(self.P).to(dev, copy=True)
-        self._Q = torch.from_numpy(self.Q).to(dev, copy=True)
-
         resident = (self.num_nnz * 8) <= int(opt.get("resident_mb", 4096)) \
             * 1024 * 1024
         dispatch = str(opt.get("epoch_dispatch") or "auto")
@@ -230,10 +214,30 @@ class WARP(Algo, WARPOption, Evaluable, Serializable):
                 "epoch_dispatch='split' applies to the device-resident "
                 "fused epoch only; the streaming path ignores it")
             split_probe = False
-        opt_state = W.new_opt_state(self._P, self._Q)
+        # dp mesh opt-in (the BPR rule: an explicit num_devices > 1)
+        mesh = self._select_dp_mesh(resident, split_probe)
         if resident:
-            users_c, items_c, nnz = self._stage_epoch_chunks(batch_size)
+            # the resident epoch runs on a dp mesh, one device being a mesh
+            # of one shard; the chunk width divides over it (warp.py:234)
+            mesh = mesh or Mesh([dev])
+            batch_size = -(-batch_size // mesh.size) * mesh.size
+            # one replica of the tables, the moments, indptr and the bloom
+            # filter per device; self._P / _Q are the first shard's
+            tables, opt_states, idx, blm = {}, {}, {}, {}
+            for mdev in S.replica_shards(mesh):
+                tables[mdev] = tuple(torch.from_numpy(a).to(mdev, copy=True)
+                                     for a in (self.P, self.Q))
+                opt_states[mdev] = W.new_opt_state(*tables[mdev])
+                idx[mdev], blm[mdev] = indptr.to(mdev), bloom.to(mdev)
+            self._P, self._Q = tables[mesh.devices[0]]
+            users_np, items_np, nnz = csr_pair_chunks(self.data, batch_size)
+            users_s, items_s = self._stage_dp_shards(mesh,
+                                                     (users_np, items_np))
         else:
+            # the tables live on the device; self.P/Q are synced back
+            self._P = torch.from_numpy(self.P).to(dev, copy=True)
+            self._Q = torch.from_numpy(self.Q).to(dev, copy=True)
+            opt_state = W.new_opt_state(self._P, self._Q)
             coo = COOBatcher(self.data, chunk_size=batch_size, shuffle=True,
                              seed=int(opt.random_seed))
             grads = W.new_accumulators(self._P, self._Q)
@@ -285,15 +289,14 @@ class WARP(Algo, WARPOption, Evaluable, Serializable):
                 if split_probe:
                     # pass 1: every candidate's seen bit; the update pass
                     # redraws the same candidates and reads the bits
-                    seen_bits = W.warp_probe_epoch(
-                        users_c, bloom, seed=seed, epoch=i,
+                    seen_bits = [W.warp_probe_epoch(
+                        users_s[0], bloom, seed=seed, epoch=i,
                         num_items=num_items, num_candidates=num_candidates,
-                        bloom_log2=bloom_log2)
-                _, _, opt_state, found_frac = W.warp_epoch(
-                    self._P, self._Q, opt_state, users_c, items_c, indptr,
-                    bloom, i, seen_bits, seed=seed,
-                    num_candidates=num_candidates, num_valid=nnz,
-                    precomputed_probe=split_probe, **statics, **rates)
+                        bloom_log2=bloom_log2)]
+                found_frac = W.warp_epoch(
+                    mesh, tables, opt_states, users_s, items_s, i, seed=seed,
+                    indptr=idx, bloom=blm, num_candidates=num_candidates,
+                    num_valid=nnz, seen_bits=seen_bits, **statics, **rates)
             else:
                 for c, (users, positives, _vals) in enumerate(coo):
                     W.warp_accumulate_step(

@@ -22,8 +22,11 @@ the card (``csrc/*.cu``):
   segment rows take K2 + K3, as the reference's ``manual_cg`` there.
 
 Values are float32 or bfloat16 (the range layout's at scale); the
-kernels and plain versions read them as float32.  Rows are at most
-``MAX_D`` floats wide (K1: ``K1_MAX_D``).
+kernels and plain versions read them as float32.  K2-K4 take rows of any
+width (past 256 floats K2 builds A in output tiles, K3 keeps a system's
+vectors in shared memory, K4 gives each thread several features of a
+block); K1 holds rows of at most ``K1_MAX_D`` floats by design, and the
+ALS driver never sends it wider ones (d >= 128 trains with iALS++).
 
 Over a device mesh (``parallelism``) the same kernels run per shard:
 ``als_epoch_sharded_range`` on the per-shard range layout, and
@@ -68,9 +71,8 @@ _SIGNATURES = {
                      _I32, _I32, _I32, _I32, _F32, _F32, _I32, _F32, _I32,
                      _F32, _I32, _P],
 }
-# the widest rows K2, K3 and K4 take (compiled widths up to 256; wider rows
-# are ROADMAP queue 1's open item), and K1's (F and FF^T in shared memory)
-MAX_D = 256
+# K1's widest rows (F and FF^T in shared memory); the ALS driver trains
+# d >= 128 with iALS++ (K4), so no model sends K1 wider ones
 K1_MAX_D = 128
 VALS_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -107,13 +109,6 @@ def _check_vals(vals, device, ndim=2):
         raise TypeError(f"vals must be float32 or bfloat16, got {vals.dtype}")
     _check("vals", vals, vals.dtype, device, ndim)
     return int(vals.dtype == torch.bfloat16)
-
-
-def _check_width(name, d, limit):
-    if d > limit:
-        raise NotImplementedError(
-            f"{name} takes rows of at most {limit} floats, got d = {d}: "
-            "wider rows are an open item of ROADMAP queue 1")
 
 
 def _check_rows(lens, cols, row_start, rows, table, device):
@@ -384,8 +379,10 @@ def als_cg_matrix_free(table, Bf, FF, row_start, lens, cols, vals, *,
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
     if d > K1_MAX_D:
-        raise ValueError(f"als_cg_matrix_free supports d <= {K1_MAX_D}, "
-                         f"got {d}")
+        raise ValueError(
+            f"als_cg_matrix_free (K1) holds rows of at most {K1_MAX_D} "
+            f"floats, got {d}: ALS trains d >= 128 with iALS++ (K4), so no "
+            "model routes wider rows here")
     _check("lens", lens, torch.int32, dev, 1)
     _check("cols", cols, torch.int32, dev, 2)
     bf16 = _check_vals(vals, dev)
@@ -435,7 +432,6 @@ def als_normal_equations(table, Bf, FF, lens, cols, vals, *, row_start=0,
                                           **kw)
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
-    _check_width("als_normal_equations", d, MAX_D)
     _check("lens", lens, torch.int32, dev, 1)
     _check("cols", cols, torch.int32, dev, 2)
     bf16 = _check_vals(vals, dev)
@@ -497,7 +493,6 @@ def batched_cg_dense(A, y, table, lens, *, row_start=0, rows=None,
     if tuple(A.shape) != (R, d, d) or table.shape[1] != d \
             or lens.shape[0] != R:
         raise ValueError("shape mismatch in batched_cg_dense")
-    _check_width("batched_cg_dense", d, MAX_D)
     if rows is None:
         if row_start < 0 or row_start + R > table.shape[0]:
             raise ValueError("row range past the table")
@@ -533,7 +528,6 @@ def ialspp_solve_batch(table, Bf, FF, lens, cols, vals, *, row_start=0,
         return ialspp_solve_batch_plain(table, Bf, FF, lens, cols, vals, **kw)
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
-    _check_width("ialspp_solve_batch", d, MAX_D)
     if block_size < 1:
         raise ValueError(f"block_size must be at least 1, got {block_size}")
     _check("lens", lens, torch.int32, dev, 1)

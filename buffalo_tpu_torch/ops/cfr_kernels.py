@@ -31,7 +31,8 @@ its plain PyTorch version (``*_plain``):
 ``gramian`` (``FF``) is a plain product (``torch.matmul``).  Each wrapper
 runs its plain version for CPU tensors and launches its kernel (or raises)
 for CUDA tensors; ``launches`` on each wrapper counts the calls that
-launched it.  Rows are at most ``MAX_D`` floats wide; values are float32.
+launched it.  Rows of any width (past 128 floats K17 builds A in output
+tiles and K18 reads rows from global memory); values are float32.
 """
 from __future__ import annotations
 
@@ -43,8 +44,6 @@ import torch
 from buffalo_tpu_torch.data.batching import StagedSegmentBatch
 from buffalo_tpu_torch.ops.als_kernels import (_check, _ptr, _raise_on,
                                                _solve_into, _stream, gramian)
-
-MAX_D = 128
 
 _P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIDE = [_P, _P, _P, _P, _P, _P, _I32]
@@ -224,12 +223,7 @@ def _side_args(name, side, R, dev, d):
 def _check_rows(X, rows, dev):
     _check("X", X, torch.float32, dev, 2)
     _check("rows", rows, torch.int32, dev, 1)
-    d = X.shape[1]
-    if d > MAX_D:
-        raise NotImplementedError(
-            f"the CFR kernels take rows of at most {MAX_D} floats, got "
-            f"d = {d} (ROADMAP queue 2)")
-    return d
+    return X.shape[1]
 
 
 def cfr_normal_equations(X, rows, *, implicit=None, explicit=None, FF=None,

@@ -18,8 +18,8 @@ Q)^T (C^0.5 Q)`` / ``Sp = P^T P``.  Two hand-written CUDA kernels
 ``eals_gramian`` and the loss's d x d terms are plain products
 (``torch.matmul``).  Each wrapper runs its plain version for CPU tensors
 and launches its kernel (or raises) for CUDA tensors; ``launches`` on each
-wrapper counts the calls that launched it.  Rows are at most ``MAX_D``
-floats wide; values are float32.  ``eals_epoch_sharded_range`` runs K13
+wrapper counts the calls that launched it.  Rows of any width (K13 keeps
+rows past 256 floats in dynamic shared memory); values are float32.  ``eals_epoch_sharded_range`` runs K13
 per shard of a device mesh (``parallelism``).
 """
 from __future__ import annotations
@@ -32,7 +32,6 @@ from buffalo_tpu_torch.data.batching import RangeBatch, StagedSegmentBatch
 from buffalo_tpu_torch.ops.als_kernels import (_check, _flat, _ptr, _raise_on,
                                                _stream)
 
-MAX_D = 256
 # the longest range-batch row K13 keeps in shared memory (the planner's
 # max_len: longer rows come as segment batches)
 MAX_RANGE_L = 8192
@@ -213,10 +212,6 @@ def _check_tables(X, Y, S, C, dev):
     if Y.shape[1] != d or tuple(S.shape) != (d, d):
         raise ValueError(f"X {tuple(X.shape)}, Y {tuple(Y.shape)} and S "
                          f"{tuple(S.shape)} disagree")
-    if d > MAX_D:
-        raise NotImplementedError(
-            f"dim_sweep takes rows of at most {MAX_D} floats, got d = {d} "
-            "(ROADMAP queue 2: d > 256)")
     return d
 
 
@@ -299,22 +294,18 @@ def eals_residual(P, Q, row_ids, keys, vals=None, C=None, *, alpha=0.0,
     """K14: the residuals and the loss's nnz sums (see
     ``eals_residual_plain``) in one pass over the entries; ``vhat`` given:
     only the sums, from it.  Replaces ``compute_vhat`` :356 and the sums
-    of ``eals_loss`` :334-344.  Returns (vhat or None when given, sums
-    (3,) float32 or None)."""
+    of ``eals_loss`` :334-344.  Returns (vhat, or None when it is given or
+    the sums are asked; sums (3,) float32 or None)."""
     kw = dict(alpha=alpha, vhat=vhat, sums=sums)
     if P.device.type == "cpu":
         out, s = eals_residual_plain(P, Q, row_ids, keys, vals, C, **kw)
-        return (None if vhat is not None else out), s
+        return (out if vhat is None and not sums else None), s
     dev = P.device
     _check("P", P, torch.float32, dev, 2)
     _check("Q", Q, torch.float32, dev, 2)
     d = P.shape[1]
     if Q.shape[1] != d:
         raise ValueError(f"P is {d} wide, Q {Q.shape[1]}")
-    if d > MAX_D:
-        raise NotImplementedError(
-            f"eals_residual takes rows of at most {MAX_D} floats, got d = "
-            f"{d} (ROADMAP queue 2: d > 256)")
     n = row_ids.shape[0]
     _check("row_ids", row_ids, torch.int32, dev, 1)
     _check("keys", keys, torch.int32, dev, 1)

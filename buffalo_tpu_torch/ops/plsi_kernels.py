@@ -27,8 +27,9 @@ steps) are plain loops over them.  Over a device mesh
 ``plsi_mstep_sums`` and ``plsi_mstep_apply``, around an all-reduce of Q's
 column sums.  Each wrapper runs its plain version for
 CPU tensors and launches its kernel (or raises) for CUDA tensors;
-``launches`` on each wrapper counts the calls that launched it.  Rows are at
-most ``MAX_D`` floats wide; values are float32.
+``launches`` on each wrapper counts the calls that launched it.  Rows of any
+width (past 256 floats the kernels walk them in chunks); values are
+float32.
 """
 from __future__ import annotations
 
@@ -41,7 +42,6 @@ from buffalo_tpu_torch.data.batching import (PaddedBatch, RangeBatch,
 from buffalo_tpu_torch.ops.als_kernels import (_check, _flat, _ptr, _raise_on,
                                                _stream)
 
-MAX_D = 256
 
 _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
@@ -216,13 +216,6 @@ def mstep_apply_plain(Qn, colsum, *, alpha2, num_items=None, q_mask=None):
 
 
 # ------------------------------------------------------------- wrappers
-def _check_width(d):
-    if d > MAX_D:
-        raise NotImplementedError(
-            f"the pLSI kernels take rows of at most {MAX_D} floats, got "
-            f"d = {d} (ROADMAP queue 2, d > 256)")
-
-
 def plsi_estep(An, A, Bf, batch, *, padded=False, Qn=None, with_loss=True):
     """K15: one batch's E-step, accumulated in place.
 
@@ -258,7 +251,6 @@ def plsi_estep(An, A, Bf, batch, *, padded=False, Qn=None, with_loss=True):
             padded and Qn.shape != Bf.shape):
         raise ValueError(f"An {tuple(An.shape)}, A {tuple(A.shape)}, Bf "
                          f"{tuple(Bf.shape)} disagree")
-    _check_width(d)
     cols, vals = batch.cols, batch.vals
     _check("cols", cols, torch.int32, dev, 2)
     _check("vals", vals, torch.float32, dev, 2)
@@ -344,7 +336,6 @@ def _launch_sums(Pn, Qn, add_p, add_q, p_mask, q_mask):
     d = Pn.shape[1]
     if Qn.shape[1] != d:
         raise ValueError(f"Pn is {d} wide, Qn {Qn.shape[1]}")
-    _check_width(d)
     _check_mask("p_mask", p_mask, Pn, dev)
     _check_mask("q_mask", q_mask, Qn, dev)
     n = _kernel("plsi_mstep_workspace")(Qn.shape[0], d)
@@ -361,7 +352,6 @@ def _launch_apply(Qn, colsum, add_q, q_mask):
     dev = Qn.device
     _check("Qn", Qn, torch.float32, dev, 2)
     d = Qn.shape[1]
-    _check_width(d)
     _check_mask("q_mask", q_mask, Qn, dev)
     _check("colsum", colsum, torch.float64, dev, 1)
     if colsum.shape[0] != d:

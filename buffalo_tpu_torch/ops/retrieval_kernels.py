@@ -23,8 +23,12 @@ Selection everywhere orders entries by score descending, ties to the
 smaller index, as ``lax.top_k`` and ``jnp.argmax`` do; ``torch.topk``
 promises no order among ties, so the plain versions select on 64-bit keys
 (the score's bits mapped to an ordered integer, then the index reversed),
-which are distinct.  -inf is a valid, lowest score.  Limits: k <= 1024 and
-d <= 256 (``NotImplementedError`` past them, ROADMAP queue 1).
+which are distinct.  -inf is a valid, lowest score.  Rows of any width:
+past 256 floats K5 and K6 stage the queries' features a chunk at a time,
+K7 keeps its means in the output, and K7 past 58,112 cells and K22 past 32
+shards take their global / shared-memory forms.  K5 and K6 select at most
+k = 1024 (``NotImplementedError`` past it: ``ops/topk.py`` routes larger k
+to ``torch.matmul`` + ``ordered_topk``).
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors; ``launches`` on each wrapper counts
@@ -50,10 +54,7 @@ _SIGNATURES = {
                       _P, _P, _P],
     "sharded_topk_merge": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _P],
 }
-# K22 takes at most one list per lane of a warp
-MAX_SHARDS = 32
 MAX_K = 1024
-MAX_D = 256
 # IVF tile caps the kernel takes (the reference's largest, parallel/ann.py)
 MAX_BQ_CAP, MAX_L_CAP = 256, 1024
 QUERY_DTYPES = (torch.float32, torch.bfloat16)
@@ -73,15 +74,11 @@ def _kernel(name: str):
     return launcher(name, _SIGNATURES[name])
 
 
-def _check_limits(name, k, d):
+def _check_k(name, k):
     if k > MAX_K:
         raise NotImplementedError(
             f"{name} selects at most {MAX_K} entries per row, got k = {k} "
-            "(ROADMAP queue 1: top-k past 1024)")
-    if d > MAX_D:
-        raise NotImplementedError(
-            f"{name} takes rows of at most {MAX_D} floats, got d = {d} "
-            "(ROADMAP queue 1: d > 256)")
+            "(ops/topk.py routes larger k to torch.matmul + ordered_topk)")
 
 
 # ---------------------------------------------------------------- plain
@@ -229,7 +226,7 @@ def score_topk(p, Q, k, Qb=None):
             raise ValueError(f"Qb has {Qb.shape[0]} entries for {N} items")
     if not 1 <= k <= N:
         raise ValueError(f"k = {k} outside [1, {N}]")
-    _check_limits("score_topk", k, d)
+    _check_k("score_topk", k)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
     S = _k5_splits(B, N, k, dev)
@@ -276,7 +273,7 @@ def ivf_tile_topk(queries, table, qidx, qmask, lo, ln, kk, l_cap):
             f"{MAX_L_CAP} rows, got {bq} x {l_cap}")
     if not 1 <= kk <= l_cap:
         raise ValueError(f"kk = {kk} outside [1, {l_cap}]")
-    _check_limits("ivf_tile_topk", kk, d)
+    _check_k("ivf_tile_topk", kk)
     vals = torch.empty((T, bq, kk), dtype=torch.float32, device=dev)
     pos = torch.empty((T, bq, kk), dtype=torch.int32, device=dev)
     rc = _kernel("ivf_tile_topk")(
@@ -310,14 +307,6 @@ def kmeans_update(unit, assign, cent):
     (N, D), C = unit.shape, cent.shape[0]
     if cent.shape[1] != D or assign.shape[0] != N:
         raise ValueError("shape mismatch in kmeans_update")
-    if D > MAX_D + 1:
-        raise NotImplementedError(
-            f"kmeans_update takes rows of at most {MAX_D + 1} floats (d + 1 "
-            f"with the MIPS coordinate), got {D} (ROADMAP queue 1: d > 256)")
-    if 4 * C > 227 * 1024:
-        raise NotImplementedError(
-            f"kmeans_update keeps one counter per cell in shared memory: at "
-            f"most {227 * 1024 // 4} cells, got {C}")
     nb = -(-N // _K7_CHUNK)
     i32 = dict(dtype=torch.int32, device=dev)
     hist, total = torch.empty(nb * C, **i32), torch.empty(C, **i32)
@@ -350,8 +339,7 @@ def sharded_topk_merge(vals, idx, k):
 
     ``vals`` (B, D, kl) float32 and ``idx`` (B, D, kl) int32: for each
     query, shard j's top kl with global indices, sorted in that order,
-    every index of shard j below shard j+1's; 1 <= D <= 32,
-    1 <= k <= D * kl.  Replaces the all-gathered ``lax.top_k`` merge of
+    every index of shard j below shard j+1's; D >= 1, 1 <= k <= D * kl.  Replaces the all-gathered ``lax.top_k`` merge of
     ``sharded_matmul_topk`` (``buffalo_tpu/ops/topk.py:353-365``).
     """
     if vals.device.type == "cpu":
@@ -363,10 +351,8 @@ def sharded_topk_merge(vals, idx, k):
     if tuple(idx.shape) != (B, D, kl):
         raise ValueError(f"idx {tuple(idx.shape)} and vals {(B, D, kl)} "
                          "disagree")
-    if not 1 <= D <= MAX_SHARDS:
-        raise NotImplementedError(
-            f"sharded_topk_merge merges at most {MAX_SHARDS} shards, got "
-            f"{D}")
+    if D < 1:
+        raise ValueError(f"sharded_topk_merge needs a shard, got D = {D}")
     if not 1 <= k <= D * kl:
         raise ValueError(f"k = {k} outside [1, {D * kl}]")
     out_v = torch.empty((B, k), dtype=torch.float32, device=dev)

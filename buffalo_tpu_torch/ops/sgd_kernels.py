@@ -12,22 +12,30 @@ the card (``csrc/*.cu``), each beside its plain PyTorch version
   does not flag as a positive of the user, else the sentinel
   ``num_items``; optionally each slot's positive drawn from the user's
   list (``random_positive``).
-* **K9** ``chunk_update`` / ``chunk_accumulate`` / ``triplet_loss`` —
-  the chunk's pairwise logits and either the sgd step (per-row summed
-  deltas, the optional per-row L2 clip, the positive side's bias applied
-  before the negative side reads it) or the deferred path's gradient and
-  count accumulation; and the loss over fixed triplets.
+* **K9** ``chunk_update`` / ``chunk_accumulate`` / ``chunk_delta`` +
+  ``chunk_bias_neg_delta`` / ``triplet_loss`` — the chunk's pairwise
+  logits and either the sgd step (per-row summed deltas, the optional
+  per-row L2 clip, the positive side's bias applied before the negative
+  side reads it), the deferred path's gradient and count accumulation, or
+  a mesh shard's sgd deltas added into dense tables (the cap then applies
+  to their all-reduced sum); and the loss over fixed triplets.
 * **K10** ``deferred_update`` — the epoch barrier's adam or adagrad step
-  on one table, optionally followed by WARP's unit-ball projection.
+  on one table, optionally followed by WARP's unit-ball projection;
+  ``capped_add`` — a table plus its reduced delta, each row capped.
 
 The random draws are this port's own: a counter-based Philox4x32-10
 function of (seed, epoch, chunk, slot, attempt), computed in uint32 by
 K8 and in int64 torch ops masked to 32 bits by its plain version, which
 agree bit for bit.  JAX's threefry stream cannot be reproduced, so the
-tests inject the JAX package's negatives (``negatives=``) to compare the
-update math exactly.  Sums are deterministic: K9 groups a chunk's slots
-by row with a stable radix sort and adds each row's terms in slot order,
-with no float atomics.  Rows are at most ``MAX_D`` floats wide.
+tests inject the JAX package's negatives (in place of
+``sample_negatives``'s) to compare the update math exactly.  Sums are
+deterministic: K9 groups a chunk's slots by row with a stable radix sort
+and adds each row's terms in slot order, with no float atomics.  Rows of any width: the kernels hold up to 256
+columns of a row per warp and walk wider rows in 256-column chunks.
+
+``bpr_epoch`` is the resident epoch over a device mesh (one device is a
+mesh of one shard): the chunks split over the shards, the tables
+replicated, each shard's draws keyed by its global slots.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors; ``launches`` on each wrapper counts
@@ -46,7 +54,6 @@ from buffalo_tpu_torch.ops.als_kernels import _check, _ptr, _raise_on, _stream
 
 MAX_EXP = 6.0
 FEPS = 1e-8
-MAX_D = 256
 NUM_ATTEMPTS = 4
 # the Philox counter word that tells random-positive draws from the
 # negatives' attempts (0 .. NUM_ATTEMPTS - 1)
@@ -57,8 +64,8 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # C signatures of the launch functions (csrc/bpr_*.cu); each returns the
 # cudaError_t of its launches
 _SIGNATURES = {
-    "bpr_sample": [_P, _I32, _I32, _I32, _I64, _I32, _I32, _P, _I32, _P, _P,
-                   _P, _P, _P, _P, _P],
+    "bpr_sample": [_P, _I32, _I32, _I32, _I64, _I32, _I32, _I64, _P, _I32,
+                   _P, _P, _P, _P, _P, _P, _P],
     "bpr_workspace": [_I32, _I32, _I32, _I32, _I32, _P],
     "bpr_update": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                    _I32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _I32,
@@ -66,14 +73,22 @@ _SIGNATURES = {
     "bpr_accumulate": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                        _I32, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P,
                        _P, _P],
+    "bpr_delta": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                  _I32, _F32, _F32, _F32, _F32, _F32, _I32, _I32, _I32, _P,
+                  _P, _P, _P, _P, _P],
+    "bpr_delta_bias_neg": [_I32, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P,
+                           _P, _P, _P],
     "bpr_loss": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P, _P],
     "bpr_optimizer": [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F32, _F32,
                       _F32, _F32, _F32, _F32, _F32, _F32, _I32, _P],
+    "bpr_capped_add": [_P, _P, _I64, _I32, _F32, _I32, _P],
 }
 # the library holding each launch function
 _LIBRARY = {"bpr_sample": "bpr_sample", "bpr_workspace": "bpr_update",
             "bpr_update": "bpr_update", "bpr_accumulate": "bpr_update",
-            "bpr_loss": "bpr_update", "bpr_optimizer": "bpr_optimizer"}
+            "bpr_delta": "bpr_update", "bpr_delta_bias_neg": "bpr_update",
+            "bpr_loss": "bpr_update", "bpr_optimizer": "bpr_optimizer",
+            "bpr_capped_add": "bpr_optimizer"}
 _U32 = 0xFFFFFFFF
 
 
@@ -81,13 +96,6 @@ def _kernel(name: str):
     from buffalo_tpu_torch.ops._build import launcher
 
     return launcher(name, _SIGNATURES[name], library=_LIBRARY[name])
-
-
-def _check_width(name, d):
-    if d > MAX_D:
-        raise NotImplementedError(
-            f"{name} takes rows of at most {MAX_D} floats, got d = {d} "
-            "(ROADMAP queue 2: d > 256)")
 
 
 # ----------------------------------------------------------- host helpers
@@ -246,7 +254,7 @@ def bloom_hashes_plain(u, i, log2_bits):
 # ------------------------------------------------------------ K8 plain
 def sample_negatives_plain(users, num_items, *, num_negatives, seed, epoch,
                            chunk, bloom=None, bloom_log2=0, alias=None,
-                           pos_indptr=None, pos_keys=None):
+                           pos_indptr=None, pos_keys=None, slot_offset=0):
     """Plain version of K8.  Slot k = j * num_negatives + n belongs to user
     ``users[j]``; attempt a draws Philox words x0, x1 of the counter (k,
     chunk, epoch, a) under the seed's key: the uniform index is
@@ -255,17 +263,20 @@ def sample_negatives_plain(users, num_items, *, num_negatives, seed, epoch,
     the first attempt not flagged seen wins, else ``num_items``; without,
     attempt 0.  With ``pos_indptr``/``pos_keys`` (int64 / int32 CSR), slot
     j's positive is ``keys[lo + (x0 >> 2) % max(deg, 1)]`` from the
-    counter (j, chunk, epoch, POSITIVE_STREAM).  Returns (negatives int32
+    counter (j, chunk, epoch, POSITIVE_STREAM).  A mesh shard passes
+    ``slot_offset``, its first slot of the chunk: the counters then take
+    the global slots (j + slot_offset, and k + slot_offset * num_negatives),
+    so its draws are the single device's slice.  Returns (negatives int32
     (N * num_negatives,), positives int32 (N,) or None)."""
     key = _seed_key(seed)
     N = users.shape[0]
     slot = torch.arange(N * num_negatives, device=users.device,
-                        dtype=torch.int64)
+                        dtype=torch.int64) + int(slot_offset) * num_negatives
     u = users.long().repeat_interleave(num_negatives)
     out = torch.full_like(slot, num_items)
     done = torch.zeros_like(slot, dtype=torch.bool)
     for a in range(NUM_ATTEMPTS if bloom is not None else 1):
-        x0, x1, _, _ = philox4x32((slot, chunk, epoch, a), key)
+        x0, x1, _, _ = philox4x32((slot & _U32, chunk, epoch, a), key)
         cand = (x0 * num_items) >> 32
         if alias is not None:
             prob, al = alias
@@ -281,7 +292,9 @@ def sample_negatives_plain(users, num_items, *, num_negatives, seed, epoch,
         done |= take
     pos = None
     if pos_indptr is not None:
-        x0 = philox4x32((slot[:N], chunk, epoch, POSITIVE_STREAM), key)[0]
+        j = torch.arange(N, device=users.device,
+                         dtype=torch.int64) + int(slot_offset)
+        x0 = philox4x32((j & _U32, chunk, epoch, POSITIVE_STREAM), key)[0]
         ul = users.long()
         lo = pos_indptr[ul]
         deg = pos_indptr[ul + 1] - lo
@@ -327,6 +340,43 @@ def _forward(P, Q, Qb, users, positives, negatives, num_negatives, n_valid,
     return u, pos, neg, neg_ok, safe, mask, p, qi, qj, logit * mask
 
 
+def capped_add_plain(param, delta, cap):
+    """Plain version of K10's capped add, in place: ``param +=
+    clip_row_norm(delta, cap)`` (cap 0: the delta as it is)."""
+    param += clip_row_norm(delta, cap) if cap else delta
+
+
+def chunk_delta_plain(P, Q, Qb, dP, dQ, dQb, users, positives, negatives, *,
+                      n_valid, lr, reg_u, reg_i, reg_j, reg_b, num_negatives,
+                      use_bias, update_i, update_j):
+    """Plain version of K9's delta path: the sgd terms of one chunk
+    (``bpr_epoch_dp`` :804-821) added into the dense tables dP, dQ and (the
+    bias's positive side) dQb, every term from the chunk's snapshot; the
+    tables are not written.  Returns what ``chunk_bias_neg_delta_plain``
+    needs for the negative side's bias."""
+    u, pos, neg, ok, safe, mask, p, qi, qj, logit = _forward(
+        P, Q, Qb, users, positives, negatives, num_negatives, n_valid,
+        use_bias)
+    lr_m = lr * mask[:, None]
+    item_deriv = logit[:, None] * p
+    dP.index_add_(0, u, lr_m * (logit[:, None] * (qi - qj) - reg_u * p))
+    if update_i:
+        dQ.index_add_(0, pos, lr_m * (item_deriv - reg_i * qi))
+        if use_bias:
+            dQb.index_add_(0, pos, lr * mask * (logit - reg_b * Qb[pos]))
+    if update_j:
+        dQ.index_add_(0, neg[ok], (lr_m * (-item_deriv - reg_j * qj))[ok])
+    return neg, ok, safe, mask, logit
+
+
+def chunk_bias_neg_delta_plain(handle, Qb, dQb, *, lr, reg_b):
+    """Plain version of K9's second delta launch: the negative side's bias
+    step into dQb, its reg term reading Qb after the positive side's
+    (``bpr_epoch_dp`` :832-839)."""
+    neg, ok, safe, mask, logit = handle
+    dQb.index_add_(0, neg[ok], (lr * mask * (-logit - reg_b * Qb[safe]))[ok])
+
+
 def chunk_update_plain(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
                        reg_u, reg_i, reg_j, reg_b, max_step_norm,
                        num_negatives, use_bias, update_i, update_j):
@@ -334,34 +384,23 @@ def chunk_update_plain(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
     ``bpr_epoch`` (``sgd_kernels.py:603-651``) for one chunk whose first
     ``n_valid`` slots are real, every term from the chunk's snapshot of
     the tables except the negative side's bias reg term, which reads Qb
-    after the positive side's update."""
-    u, pos, neg, ok, safe, mask, p, qi, qj, logit = _forward(
-        P, Q, Qb, users, positives, negatives, num_negatives, n_valid,
-        use_bias)
-    m = mask[:, None]
-    lr_m = lr * m
-    item_deriv = logit[:, None] * p
-    dP = lr_m * (logit[:, None] * (qi - qj) - reg_u * p)
-    dQ_pos = lr_m * (item_deriv - reg_i * qi)
-    dQ_neg = (lr_m * (-item_deriv - reg_j * qj))[ok]
+    after the positive side's update.  It is the delta path on one shard
+    followed by the capped adds, in the mesh epoch's order."""
     cap = float(max_step_norm)
-
-    def capped(d):
-        return clip_row_norm(d, cap) if cap else d
-
-    P += capped(torch.zeros_like(P).index_add_(0, u, dP))
-    dQ = torch.zeros_like(Q)
-    if update_i:
-        dQ.index_add_(0, pos, dQ_pos)
-        if use_bias:
-            Qb += capped(torch.zeros_like(Qb).index_add_(
-                0, pos, lr * mask * (logit - reg_b * Qb[pos])))
-    if update_j:
-        dQ.index_add_(0, neg[ok], dQ_neg)
-        if use_bias:
-            Qb += capped(torch.zeros_like(Qb).index_add_(
-                0, neg[ok], (lr * mask * (-logit - reg_b * Qb[safe]))[ok]))
-    Q += capped(dQ)
+    dP, dQ, dQb = (torch.zeros_like(t) for t in (P, Q, Qb))
+    h = chunk_delta_plain(P, Q, Qb, dP, dQ, dQb, users, positives, negatives,
+                          n_valid=n_valid, lr=lr, reg_u=reg_u, reg_i=reg_i,
+                          reg_j=reg_j, reg_b=reg_b,
+                          num_negatives=num_negatives, use_bias=use_bias,
+                          update_i=update_i, update_j=update_j)
+    if use_bias and update_i:
+        capped_add_plain(Qb, dQb, cap)
+    if use_bias and update_j:
+        dQb.zero_()
+        chunk_bias_neg_delta_plain(h, Qb, dQb, lr=lr, reg_b=reg_b)
+        capped_add_plain(Qb, dQb, cap)
+    capped_add_plain(P, dP, cap)
+    capped_add_plain(Q, dQ, cap)
 
 
 def chunk_accumulate_plain(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
@@ -448,17 +487,19 @@ def deferred_update_plain(param, grad, m, v, counts, *, step, optimizer, lr,
 # ------------------------------------------------------------- wrappers
 def sample_negatives(users, num_items, *, num_negatives, seed, epoch, chunk,
                      bloom=None, bloom_log2=0, alias=None, pos_indptr=None,
-                     pos_keys=None):
+                     pos_keys=None, slot_offset=0):
     """K8: one chunk's negatives (and, given the CSR, its drawn positives);
     see ``sample_negatives_plain`` for the function.  Replaces
     ``draw_from_alias`` :70, ``draw_negatives`` :82, ``bloom_contains``
     :234, ``sample_verified_negatives`` :243 and the random-positive draw
     of ``bpr_epoch`` :508-519 (``buffalo_tpu/ops/sgd_kernels.py``).
     ``users`` (N,) int32; ``bloom`` int32 words; ``alias`` (prob float32,
-    alias int32); ``pos_indptr`` int64, ``pos_keys`` int32."""
+    alias int32); ``pos_indptr`` int64, ``pos_keys`` int32; ``slot_offset``
+    a mesh shard's first global slot of the chunk."""
     kw = dict(num_negatives=num_negatives, seed=seed, epoch=epoch,
               chunk=chunk, bloom=bloom, bloom_log2=bloom_log2, alias=alias,
-              pos_indptr=pos_indptr, pos_keys=pos_keys)
+              pos_indptr=pos_indptr, pos_keys=pos_keys,
+              slot_offset=slot_offset)
     if users.device.type == "cpu":
         return sample_negatives_plain(users, num_items, **kw)
     dev = users.device
@@ -476,16 +517,17 @@ def sample_negatives(users, num_items, *, num_negatives, seed, epoch, chunk,
     if pos_indptr is not None:
         _check("pos_indptr", pos_indptr, torch.int64, dev, 1)
         _check("pos_keys", pos_keys, torch.int32, dev, 1)
-    if not 1 <= num_items < 1 << 31 or num_negatives < 1:
+    if not 1 <= num_items < 1 << 31 or num_negatives < 1 or slot_offset < 0:
         raise ValueError(f"num_items {num_items}, num_negatives "
-                         f"{num_negatives}")
+                         f"{num_negatives}, slot_offset {slot_offset}")
     N = users.shape[0]
     neg = torch.empty(N * num_negatives, dtype=torch.int32, device=dev)
     pos = (torch.empty(N, dtype=torch.int32, device=dev)
            if pos_indptr is not None else None)
     rc = _kernel("bpr_sample")(
         _ptr(users), N, num_negatives, num_items, philox_key(seed),
-        int(epoch), int(chunk), _ptr(bloom), int(bloom_log2),
+        int(epoch), int(chunk), int(slot_offset), _ptr(bloom),
+        int(bloom_log2),
         _ptr(alias[0] if alias is not None else None),
         _ptr(alias[1] if alias is not None else None), _ptr(pos_indptr),
         _ptr(pos_keys), _ptr(neg), _ptr(pos), _stream(dev))
@@ -513,7 +555,6 @@ def _check_chunk(P, Q, Qb, users, positives, negatives, num_negatives):
     if positives.shape[0] != N or negatives.shape[0] != N * num_negatives:
         raise ValueError("users, positives and negatives disagree on the "
                          "chunk's slots")
-    _check_width("the BPR chunk kernels", d)
     return dev, N, d
 
 
@@ -598,6 +639,65 @@ def chunk_accumulate(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
 chunk_accumulate.launches = 0
 
 
+def chunk_delta(P, Q, Qb, dP, dQ, dQb, users, positives, negatives, *,
+                n_valid, lr, reg_u, reg_i, reg_j, reg_b, num_negatives,
+                use_bias, update_i, update_j):
+    """K9, delta: one chunk's sgd terms added into the dense delta tables
+    dP, dQ and dQb (see ``chunk_delta_plain``); a mesh shard's chunk of
+    ``bpr_epoch_dp`` :804-831.  Returns the handle that
+    ``chunk_bias_neg_delta`` takes (on the card, the workspace that keeps
+    the chunk's item groups)."""
+    kw = dict(n_valid=n_valid, lr=lr, reg_u=reg_u, reg_i=reg_i, reg_j=reg_j,
+              reg_b=reg_b, num_negatives=num_negatives, use_bias=use_bias,
+              update_i=update_i, update_j=update_j)
+    if P.device.type == "cpu":
+        return chunk_delta_plain(P, Q, Qb, dP, dQ, dQb, users, positives,
+                                 negatives, **kw)
+    dev, N, d = _check_chunk(P, Q, Qb, users, positives, negatives,
+                             num_negatives)
+    for name, t, like in (("dP", dP, P), ("dQ", dQ, Q), ("dQb", dQb, Qb)):
+        _check(name, t, torch.float32, dev, like.dim())
+        if t.shape != like.shape:
+            raise ValueError(f"{name} must have the shape of its table")
+    U, I = P.shape[0], Q.shape[0]
+    ws_i, ws_f = _workspace(dev, N, num_negatives, U, I, d)
+    rc = _kernel("bpr_delta")(
+        _ptr(users), _ptr(positives), _ptr(negatives), _ptr(P), _ptr(Q),
+        _ptr(Qb), N, num_negatives, int(max(0, min(n_valid, N))), U, I, d,
+        float(lr), float(reg_u), float(reg_i), float(reg_j), float(reg_b),
+        int(bool(use_bias)), int(bool(update_i)), int(bool(update_j)),
+        _ptr(dP), _ptr(dQ), _ptr(dQb), _ptr(ws_i), _ptr(ws_f), _stream(dev))
+    _raise_on(rc, "chunk_delta")
+    chunk_delta.launches += 1
+    return ws_i, ws_f, N, num_negatives, U, I, d
+
+
+chunk_delta.launches = 0
+
+
+def chunk_bias_neg_delta(handle, Qb, dQb, *, lr, reg_b):
+    """K9, the delta path's second launch: the negative side's bias step
+    of the chunk that ``chunk_delta`` returned ``handle`` for, from Qb as
+    it stands (after the positive side's reduced delta), added into dQb."""
+    if Qb.device.type == "cpu":
+        return chunk_bias_neg_delta_plain(handle, Qb, dQb, lr=lr,
+                                          reg_b=reg_b)
+    ws_i, ws_f, N, neg_per, U, I, d = handle
+    dev = Qb.device
+    for name, t in (("Qb", Qb), ("dQb", dQb)):
+        _check(name, t, torch.float32, dev, 1)
+        if t.shape[0] != I:
+            raise ValueError(f"{name} must have one entry per item")
+    rc = _kernel("bpr_delta_bias_neg")(
+        N, neg_per, U, I, d, float(lr), float(reg_b), _ptr(Qb), _ptr(dQb),
+        _ptr(ws_i), _ptr(ws_f), _stream(dev))
+    _raise_on(rc, "chunk_bias_neg_delta")
+    chunk_bias_neg_delta.launches += 1
+
+
+chunk_bias_neg_delta.launches = 0
+
+
 def triplet_loss(P, Q, Qb, users, positives, negatives, *, use_bias):
     """K9, loss: mean log(1 + exp(-x)) over fixed (u, i, j) triplets in one
     ordered reduction, a 0-d float32 tensor (``bpr_loss`` :859)."""
@@ -648,7 +748,6 @@ def deferred_update(param, grad, m, v, counts, *, step, optimizer, lr, beta1,
             raise ValueError(f"{name} must have the shape of param")
     rows = param.shape[0]
     width = param.shape[1] if nd == 2 else 1
-    _check_width("deferred_update", width)
     if per_coordinate_normalize:
         _check("counts", counts, torch.float32, dev, 1)
         if counts.shape[0] != rows:
@@ -666,8 +765,36 @@ def deferred_update(param, grad, m, v, counts, *, step, optimizer, lr, beta1,
 
 deferred_update.launches = 0
 
-KERNELS = (sample_negatives, chunk_update, chunk_accumulate, triplet_loss,
-           deferred_update)
+def capped_add(param, delta, *, cap):
+    """K10, capped add: ``param += clip_row_norm(delta, cap)`` in place,
+    per row of a table or per element of a vector (see
+    ``capped_add_plain``); the sgd mesh epoch's apply of a reduced delta
+    (``bpr_epoch_dp`` :823-846)."""
+    if param.device.type == "cpu":
+        return capped_add_plain(param, delta, float(cap))
+    dev = param.device
+    nd = param.dim()
+    if nd not in (1, 2):
+        raise ValueError("param must be a table (rows, d) or a vector")
+    for name, t in (("param", param), ("delta", delta)):
+        _check(name, t, torch.float32, dev, nd)
+    if delta.shape != param.shape:
+        raise ValueError("delta must have the shape of param")
+    if cap < 0:
+        raise ValueError(f"cap must be >= 0, got {cap}")
+    width = param.shape[1] if nd == 2 else 1
+    rc = _kernel("bpr_capped_add")(_ptr(param), _ptr(delta), param.numel(),
+                                   width, float(cap), int(nd == 1),
+                                   _stream(dev))
+    _raise_on(rc, "capped_add")
+    capped_add.launches += 1
+
+
+capped_add.launches = 0
+
+
+KERNELS = (sample_negatives, chunk_update, chunk_accumulate, chunk_delta,
+           chunk_bias_neg_delta, triplet_loss, deferred_update, capped_add)
 
 
 # -------------------------------------------------------- composed steps
@@ -754,52 +881,126 @@ def new_accumulators(P, Q, Qb):
             torch.zeros(Q.shape[0], dtype=torch.float32, device=Q.device))
 
 
-def bpr_epoch(P, Q, Qb, opt_state, users, positives, step, *, seed,
-              negatives=None, optimizer, num_items, num_negatives, use_bias,
-              update_i, update_j, bloom=None, bloom_log2=0, alias=None,
-              per_coordinate_normalize, lr, min_lr, beta1, beta2, reg_u,
-              reg_i, reg_j, reg_b, num_valid, total_samples, pos_indptr=None,
-              pos_keys=None, max_step_norm=0.0):
-    """One resident BPR epoch (``bpr_epoch`` :482) over (nchunks, N)
-    chunks in CSR order, entries from ``num_valid`` on padding: per chunk
-    K8 draws the negatives (unless ``negatives`` (nchunks, N *
-    num_negatives) are given) and K9 applies the sgd step with the
-    decayed rate or accumulates the deferred gradients; adam/adagrad end
-    with K10 on each table.  Updates P, Q, Qb and ``opt_state`` in place
-    and returns them."""
-    nchunks, N = users.shape
-    deferred = optimizer != "sgd"
-    grads = new_accumulators(P, Q, Qb) if deferred else None
-    for c in range(nchunks):
-        pos = positives[c]
-        if negatives is None:
-            neg, drawn = sample_negatives(
-                users[c], num_items, num_negatives=num_negatives, seed=seed,
-                epoch=step, chunk=c, bloom=bloom, bloom_log2=bloom_log2,
-                alias=alias, pos_indptr=pos_indptr, pos_keys=pos_keys)
-            if drawn is not None:
-                pos = drawn
-        else:
-            neg = negatives[c]
-        n_valid = max(0, min(N, num_valid - c * N))
-        if deferred:
-            chunk_accumulate(P, Q, Qb, *grads, users[c], pos, neg,
-                             n_valid=n_valid, num_negatives=num_negatives,
-                             use_bias=use_bias, update_i=update_i,
-                             update_j=update_j,
-                             per_coordinate_normalize=per_coordinate_normalize)
-        else:
-            chunk_update(P, Q, Qb, users[c], pos, neg, n_valid=n_valid,
+# ------------------------------------------------------------- the mesh
+def replica_shards(mesh):
+    """{device: index of its first local shard}: the replicas of a table
+    the dp epochs keep, one per local device, in shard order."""
+    out = {}
+    for k, dev in enumerate(mesh.devices):
+        out.setdefault(dev, k)
+    return out
+
+
+def shard_slots(mesh, k, N_loc, num_valid, c, N):
+    """(slot_offset, n_valid) of local shard k's part of chunk c: its first
+    global slot within the chunk, and its real slots (the global slots
+    below ``num_valid``, ``bpr_epoch_dp`` :704-706)."""
+    off = mesh.shards[k] * N_loc
+    return off, max(0, min(N_loc, num_valid - c * N - off))
+
+
+def reduced(mesh, parts):
+    """The sum over the mesh of ``parts`` (one tensor per local shard):
+    one tensor per local shard, each on its shard's device; a single
+    shard's own tensor, unchanged."""
+    if mesh.size == 1:
+        return list(parts)
+    from buffalo_tpu_torch.parallelism import all_reduce_sum
+    return all_reduce_sum(mesh, parts)
+
+
+def bpr_epoch(mesh, tables, opt_states, users, positives, step, *, seed,
+              sampling, optimizer, num_items, num_negatives, use_bias,
+              update_i, update_j, per_coordinate_normalize, lr, min_lr,
+              beta1, beta2, reg_u, reg_i, reg_j, reg_b, num_valid,
+              total_samples, max_step_norm=0.0):
+    """One resident BPR epoch (``bpr_epoch`` :482, and ``bpr_epoch_dp``
+    :664 on a mesh): the positives in CSR order as (nchunks, N) chunks,
+    entries from ``num_valid`` on padding, split on the batch axis over
+    the mesh's shards (one device is a mesh of one shard), the tables
+    replicated.  ``tables`` {device: (P, Q, Qb)} and ``opt_states``
+    {device: moments} hold one replica per local device; ``users`` /
+    ``positives`` one (nchunks, N / mesh.size) int32 tensor per local
+    shard, on its device; ``sampling`` {device: K8's keywords (bloom,
+    bloom_log2, alias, pos_indptr, pos_keys)}.
+
+    Per chunk each shard draws its slice of the single device's negatives
+    (K8 at its slot offset).  sgd on one shard: K9 applies the step with
+    the decayed rate and the row cap.  sgd on a mesh: K9 adds each shard's
+    terms into dense deltas, which are all-reduced and applied by K10's
+    capped add on every replica: the positive side of the bias, then (K9's
+    second launch, from the updated Qb) the negative side, then P and Q,
+    so the cap sees the reduced delta.  adam / adagrad accumulate per
+    shard (K9) and reduce the gradients and counts once, at the barrier
+    (K10 on every replica).  The tables are updated in place."""
+    devs = mesh.devices
+    reps = replica_shards(mesh)
+    nchunks, N_loc = users[0].shape
+    N = N_loc * mesh.size
+    rows = dict(num_negatives=num_negatives, use_bias=use_bias,
+                update_i=update_i, update_j=update_j)
+
+    def draw(k, c):
+        off, n_valid = shard_slots(mesh, k, N_loc, num_valid, c, N)
+        neg, drawn = sample_negatives(
+            users[k][c], num_items, num_negatives=num_negatives, seed=seed,
+            epoch=step, chunk=c, slot_offset=off, **sampling[devs[k]])
+        return neg, positives[k][c] if drawn is None else drawn, n_valid
+
+    if optimizer != "sgd":
+        grads = [new_accumulators(*tables[dev]) for dev in devs]
+        for c in range(nchunks):
+            for k, dev in enumerate(devs):
+                neg, pos, n_valid = draw(k, c)
+                chunk_accumulate(
+                    *tables[dev], *grads[k], users[k][c], pos, neg,
+                    n_valid=n_valid,
+                    per_coordinate_normalize=per_coordinate_normalize, **rows)
+        total = [reduced(mesh, [g[i] for g in grads]) for i in range(5)]
+        for dev, k in reps.items():
+            apply_epoch_barrier(
+                *tables[dev], [t[k] for t in total], opt_states[dev], step,
+                optimizer=optimizer, lr=lr, beta1=beta1, beta2=beta2,
+                reg_u=reg_u, reg_i=reg_i, reg_b=reg_b, use_bias=use_bias,
+                per_coordinate_normalize=per_coordinate_normalize)
+        return
+
+    regs = dict(reg_u=reg_u, reg_i=reg_i, reg_j=reg_j, reg_b=reg_b)
+    if mesh.size == 1:
+        for c in range(nchunks):
+            neg, pos, n_valid = draw(0, c)
+            chunk_update(*tables[devs[0]], users[0][c], pos, neg,
+                         n_valid=n_valid,
                          lr=sgd_lr(lr, min_lr, step, num_valid, c, N,
                                    total_samples),
-                         reg_u=reg_u, reg_i=reg_i, reg_j=reg_j, reg_b=reg_b,
-                         max_step_norm=max_step_norm,
-                         num_negatives=num_negatives, use_bias=use_bias,
-                         update_i=update_i, update_j=update_j)
-    if deferred:
-        apply_epoch_barrier(P, Q, Qb, grads, opt_state, step,
-                            optimizer=optimizer, lr=lr, beta1=beta1,
-                            beta2=beta2, reg_u=reg_u, reg_i=reg_i,
-                            reg_b=reg_b, use_bias=use_bias,
-                            per_coordinate_normalize=per_coordinate_normalize)
-    return P, Q, Qb, opt_state
+                         max_step_norm=max_step_norm, **regs, **rows)
+        return
+
+    cap = float(max_step_norm)
+    deltas = [tuple(torch.zeros_like(t) for t in tables[dev]) for dev in devs]
+
+    def apply(i):
+        total = reduced(mesh, [dl[i] for dl in deltas])
+        for dev, k in reps.items():
+            capped_add(tables[dev][i], total[k], cap=cap)
+
+    for c in range(nchunks):
+        lr_c = sgd_lr(lr, min_lr, step, num_valid, c, N, total_samples)
+        handles = []
+        for k, dev in enumerate(devs):
+            for t in deltas[k]:
+                t.zero_()
+            neg, pos, n_valid = draw(k, c)
+            handles.append(chunk_delta(
+                *tables[dev], *deltas[k], users[k][c], pos, neg,
+                n_valid=n_valid, lr=lr_c, **regs, **rows))
+        if use_bias and update_i:
+            apply(2)
+        if use_bias and update_j:
+            for k, dev in enumerate(devs):
+                deltas[k][2].zero_()
+                chunk_bias_neg_delta(handles[k], tables[dev][2],
+                                     deltas[k][2], lr=lr_c, reg_b=reg_b)
+            apply(2)
+        apply(0)
+        apply(1)

@@ -4,7 +4,7 @@ PyTorch counterpart of ``buffalo_tpu.ops.topk``'s single-device functions.
 ``batch_topn`` scores every query against the whole table through K5
 (``ops/retrieval_kernels.score_topk``), which never writes the (chunk x N)
 score matrix: on the card one launch takes the real queries and the
-staged table, whatever their sizes, for k <= 1024 and d <= 256; past
+staged table, whatever their sizes and widths, for k <= 1024; past
 that (``k5_route``) query chunks of ``torch.matmul`` scores, each at
 most 1 GiB, go through ``ordered_topk``, as ``matmul_topk`` does.  On the
 CPU the plain versions run as the reference does: query chunks bucketed
@@ -14,7 +14,7 @@ merge).
 ``matmul_topk`` and ``topk`` (any k up to the catalog, the validation's
 ``topk + max_seen``) order entries as ``lax.top_k`` does: score
 descending, ties to the smaller index, rows always sorted.  On the card
-``matmul_topk`` goes through K5 for k <= 1024 and d <= 256, and past
+``matmul_topk`` goes through K5 for k <= 1024 (any width), and past
 that through ``torch.matmul`` + ``retrieval_kernels.ordered_topk`` (a
 selection on distinct int64 keys); ``topk`` selects with
 ``ordered_topk``.  The sharded variants (``sharded_matmul_topk``,
@@ -30,8 +30,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from buffalo_tpu_torch.ops.retrieval_kernels import (MAX_D, MAX_K,
-                                                     ordered_topk, score_topk,
+from buffalo_tpu_torch.ops.retrieval_kernels import (MAX_K, ordered_topk,
+                                                     score_topk,
                                                      sharded_topk_merge,
                                                      tiled_topk_plain)
 from buffalo_tpu_torch.utils import resolve_device
@@ -46,9 +46,9 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 def k5_route(k: int, d: int) -> bool:
     """Whether a top-k of k entries over rows of d floats goes through K5
-    on the card (its limits); past them the card scores with
+    on the card: k <= 1024, at any width; past that the card scores with
     ``torch.matmul`` and selects with ``ordered_topk``."""
-    return k <= MAX_K and d <= MAX_D
+    return k <= MAX_K
 
 
 # the largest (queries x items) float32 score block of the matmul route
@@ -78,7 +78,7 @@ def matmul_topk(p, Q, k: int, pb=None, Qb=None, device="cuda"):
     validation request of ``topk + max_seen`` can exceed a small
     catalog.  Rows are sorted by score descending, ties to the smaller
     index, as ``lax.top_k``.  K5 scores ``p @ Q^T + Qb`` on the card
-    (k <= 1024, d <= 256) and its plain version on the CPU; ``pb`` is
+    (k <= 1024) and its plain version on the CPU; ``pb`` is
     added to the selected scores, since a per-row shift leaves a row's
     order unchanged.  Returns (scores (B, k) float32, indices (B, k)
     int32) on ``device``.
@@ -242,7 +242,7 @@ def batch_topn(p, Q, topk: int, pool=None, Qb=None, chunk: int = 2048,
 
     The counterpart of the reference's ``batch_topn`` (``topk.py:238``).
     On the card K5 scores the B queries against the whole table in one
-    launch (past k = 1024 or d = 256, ``k5_route``, the matmul route
+    launch (past k = 1024, ``k5_route``, the matmul route
     instead): it never writes the score matrix, so ``chunk`` and the
     catalog-tiled path only bound the plain versions' memory on the CPU,
     where queries are padded into (chunk, d) blocks whose count is

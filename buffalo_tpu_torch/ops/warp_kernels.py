@@ -26,7 +26,10 @@ threefry stream cannot be reproduced, so the tests replace
 ``warp_candidates`` with the JAX package's draws to compare the math, or
 pass ``candidates=`` explicitly.  Scores are summed in float64 and rounded
 once, in the kernel and in the plain version, so both compare the same
-float32 margins.  Rows are at most ``MAX_D`` floats wide.
+float32 margins.  Rows of any width: K11 reads rows wider than its
+shared-memory row from global memory, K12 walks them in 256-column chunks.
+``warp_epoch`` is the resident epoch over a device mesh (one device is a
+mesh of one shard).
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors; ``launches`` on each wrapper counts
@@ -42,7 +45,6 @@ import torch
 from buffalo_tpu_torch.ops import sgd_kernels as S
 from buffalo_tpu_torch.ops.als_kernels import _check, _ptr, _raise_on, _stream
 
-MAX_D = S.MAX_D
 # violators probed per positive under probe="lazy" (warp_kernels.py:38)
 LAZY_PROBES = 4
 # the adaptive schedule's start and cap (warp.py:273-275)
@@ -54,8 +56,8 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # cudaError_t of its launches
 _SIGNATURES = {
     "warp_search": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _I32, _I32, _F32,
-                    _I32, _P, _P, _P, _I32, _I64, _I32, _I32, _P, _P, _P, _P,
-                    _P, _P, _P],
+                    _I32, _P, _P, _P, _I32, _I64, _I32, _I32, _I64, _P, _P, _P,
+                    _P, _P, _P, _P],
     "warp_probe": [_P, _I32, _I32, _I32, _P, _P, _I32, _I64, _I32, _I32, _P,
                    _P],
     "warp_violations": [_P, _P, _P, _I32, _P, _P, _I32, _I32, _F32, _P, _P],
@@ -81,11 +83,14 @@ def _l2(score_func: str) -> bool:
 
 
 # ---------------------------------------------------------------- plain
-def warp_candidates(N, K, num_items, *, seed, epoch, chunk, device):
+def warp_candidates(N, K, num_items, *, seed, epoch, chunk, device,
+                    slot_offset=0):
     """(N, K) int32 candidates: candidate j of slot s is mulhi(x0,
-    num_items) of the Philox words of the counter (s, chunk, epoch, j)
-    under the seed's key, as K11 draws it."""
-    slot = torch.arange(N, device=device, dtype=torch.int64)
+    num_items) of the Philox words of the counter (s + slot_offset, chunk,
+    epoch, j) under the seed's key, as K11 draws it; a mesh shard's
+    ``slot_offset`` is its first global slot of the chunk."""
+    slot = (torch.arange(N, device=device, dtype=torch.int64)
+            + int(slot_offset)) & S._U32
     j = torch.arange(K, device=device, dtype=torch.int64)
     x0 = S.philox4x32((slot.repeat_interleave(K), chunk, epoch, j.repeat(N)),
                       S._seed_key(seed))[0]
@@ -122,7 +127,7 @@ def warp_search_plain(users, positives, P, Q, *, num_items, num_candidates,
                       seed, epoch, chunk, n_valid, score_func, threshold,
                       probe, indptr, bloom=None, bloom_log2=0,
                       seen_bits=None, candidates=None, counts=None,
-                      count_index=0):
+                      count_index=0, slot_offset=0):
     """Plain version of K11: the JAX package's selection
     (``_select_violator_lazy`` :41 or the all-probe rule :126-138) on
     the chunk's candidates (``candidates`` (N, K), else
@@ -133,7 +138,7 @@ def warp_search_plain(users, positives, P, Q, *, num_items, num_candidates,
     N, K = users.shape[0], int(num_candidates)
     dev = users.device
     cand = (warp_candidates(N, K, num_items, seed=seed, epoch=epoch,
-                            chunk=chunk, device=dev)
+                            chunk=chunk, device=dev, slot_offset=slot_offset)
             if candidates is None else candidates).long()
     u = users.long()
     p = P[u]
@@ -252,26 +257,26 @@ def _check_tables(P, Q, dev):
     _check("Q", Q, torch.float32, dev, 2)
     if Q.shape[1] != P.shape[1]:
         raise ValueError(f"P is {P.shape[1]} wide, Q {Q.shape[1]}")
-    S._check_width("the WARP kernels", P.shape[1])
     return P.shape[1]
 
 
 def warp_search(users, positives, P, Q, *, num_items, num_candidates, seed,
                 epoch, chunk, n_valid, score_func, threshold, probe, indptr,
                 bloom=None, bloom_log2=0, seen_bits=None, candidates=None,
-                counts=None, count_index=0):
+                counts=None, count_index=0, slot_offset=0):
     """K11: one chunk's violator search (see ``warp_search_plain``).
     Replaces ``_select_violator_lazy`` :41 and the search of
     ``warp_accumulate_step`` :110-146 / ``warp_epoch`` :259-296
     (``buffalo_tpu/ops/warp_kernels.py``).  ``users``/``positives`` (N,)
     int32, ``indptr`` int64 (U + 1), ``bloom`` int32 words, ``seen_bits``
-    (N, ceil(K / 32)) int32, ``candidates`` (N, K) int32, ``counts`` int32."""
+    (N, ceil(K / 32)) int32, ``candidates`` (N, K) int32, ``counts`` int32;
+    ``slot_offset`` a mesh shard's first global slot of the chunk."""
     kw = dict(num_items=num_items, num_candidates=num_candidates, seed=seed,
               epoch=epoch, chunk=chunk, n_valid=n_valid,
               score_func=score_func, threshold=threshold, probe=probe,
               indptr=indptr, bloom=bloom, bloom_log2=bloom_log2,
               seen_bits=seen_bits, candidates=candidates, counts=counts,
-              count_index=count_index)
+              count_index=count_index, slot_offset=slot_offset)
     if users.device.type == "cpu":
         return warp_search_plain(users, positives, P, Q, **kw)
     dev = users.device
@@ -303,8 +308,9 @@ def warp_search(users, positives, P, Q, *, num_items, num_candidates, seed,
     _check("counts", counts, torch.int32, dev, 1)
     if not 0 <= count_index < counts.shape[0]:
         raise ValueError(f"count_index {count_index} outside counts")
-    if K < 1 or not 1 <= num_items < 1 << 31:
-        raise ValueError(f"num_candidates {K}, num_items {num_items}")
+    if K < 1 or not 1 <= num_items < 1 << 31 or slot_offset < 0:
+        raise ValueError(f"num_candidates {K}, num_items {num_items}, "
+                         f"slot_offset {slot_offset}")
     neg = torch.empty(N, dtype=torch.int32, device=dev)
     w = torch.empty(N, dtype=torch.float32, device=dev)
     any_v = torch.empty(N, dtype=torch.bool, device=dev)
@@ -315,7 +321,7 @@ def warp_search(users, positives, P, Q, *, num_items, num_candidates, seed,
         float(threshold), int(probe == "lazy"), _ptr(candidates),
         _ptr(seen_bits), _ptr(bloom if seen_bits is None else None),
         int(bloom_log2), S.philox_key(seed), int(epoch), int(chunk),
-        _ptr(indptr),
+        int(slot_offset), _ptr(indptr),
         _ptr(neg), _ptr(w), _ptr(any_v), _ptr(trial),
         ctypes.c_void_p(counts.data_ptr() + 4 * int(count_index)),
         _stream(dev))
@@ -489,16 +495,18 @@ def apply_epoch_barrier(P, Q, grads, opt_state, step, *, optimizer, lr,
                       **kw)
 
 
-def found_fraction(counts, N, num_valid):
-    """``found / max(possible, 1)`` as the JAX scan computes it: per-chunk
-    sums (exact) added into float32 carries, so past 2^24 samples the
-    totals round as the reference's do (``warp_epoch`` :316-347)."""
-    f32 = np.float32
-    found = possible = f32(0.0)
-    for c, k in enumerate(np.asarray(counts)):
-        found = f32(found + f32(k))
-        possible = f32(possible + f32(min(N, max(0, num_valid - c * N))))
-    return float(found / max(possible, f32(1.0)))
+def found_totals(counts, n_valid):
+    """(found, possible) of one shard: its per-chunk found counts and real
+    slots added into float32 carries, as the JAX scan carries them, so
+    past 2^24 samples the totals round as the reference's do
+    (``warp_epoch`` :316-347)."""
+    out = []
+    for values in (counts, n_valid):
+        total = np.float32(0.0)
+        for v in values:
+            total = np.float32(total + np.float32(v))
+        out.append(total)
+    return tuple(out)
 
 
 def warp_accumulate_step(P, Q, gradP, gradQ, countP, countQ, users,
@@ -535,45 +543,72 @@ def warp_probe_epoch(users, bloom_words, *, seed, epoch, num_items,
         bloom_log2=bloom_log2) for c in range(users.shape[0])])
 
 
-def warp_epoch(P, Q, opt_state, users, positives, indptr, bloom_words, step,
-               seen_bits=None, *, seed, optimizer, num_items, num_candidates,
+def warp_epoch(mesh, tables, opt_states, users, positives, step, *, seed,
+               indptr, bloom, optimizer, num_items, num_candidates,
                score_func, threshold, reg_u, reg_i, reg_j, update_i,
                update_j, per_coordinate_normalize, lr, beta1, beta2,
-               num_valid, bloom_log2, precomputed_probe=False, probe="lazy",
+               num_valid, bloom_log2, probe="lazy", seen_bits=None,
                candidates=None):
-    """One resident WARP epoch (``warp_epoch`` :226) over (nchunks, N)
-    chunks in CSR order, entries from ``num_valid`` on padding: per chunk
-    K11 then K12 (the users already in order), then K10 with the projection
-    on P and Q.  ``precomputed_probe`` reads ``seen_bits`` (from
-    ``warp_probe_epoch``) and forces the "all" rule; ``candidates``
-    (nchunks, N, K) replaces the draws.  Updates P, Q and ``opt_state`` in
-    place; returns (P, Q, opt_state, found_frac)."""
-    nchunks, N = users.shape
-    grads = new_accumulators(P, Q)
-    counts = torch.zeros(nchunks, dtype=torch.int32, device=P.device)
-    rule = "all" if precomputed_probe else probe
+    """One resident WARP epoch (``warp_epoch`` :226, and ``warp_epoch_dp``
+    :357 on a mesh): the positives in CSR order as (nchunks, N) chunks,
+    entries from ``num_valid`` on padding, split on the batch axis over the
+    mesh's shards (one device is a mesh of one shard), the tables
+    replicated.  ``tables`` {device: (P, Q)} and ``opt_states`` {device:
+    moments} hold one replica per local device; ``users`` / ``positives``
+    one (nchunks, N / mesh.size) int32 tensor per local shard; ``indptr``
+    / ``bloom`` {device: tensor}.  Per chunk and shard K11 searches the
+    shard's rows of the single device's candidates (its slot offset) and
+    K12 accumulates (the users already in order); at the barrier the
+    gradients, counts and the found / possible totals are reduced over the
+    shards, then K10 (adam or adagrad, and the unit-ball projection) runs
+    on every replica.  ``seen_bits`` (one (nchunks, N, ceil(K / 32))
+    tensor per shard, from ``warp_probe_epoch``) forces the "all" rule on
+    those bits; ``candidates`` (one (nchunks, N, K) tensor per shard)
+    replaces the draws.  Updates the tables and moments in place; returns
+    found_frac."""
+    devs = mesh.devices
+    reps = S.replica_shards(mesh)
+    nchunks, N_loc = users[0].shape
+    N = N_loc * mesh.size
+    rule = "all" if seen_bits is not None else probe
+    grads = [new_accumulators(*tables[dev]) for dev in devs]
+    counts = [torch.zeros(nchunks, dtype=torch.int32, device=dev)
+              for dev in devs]
+    n_valids = [[] for _ in devs]
     for c in range(nchunks):
-        n_valid = max(0, min(N, num_valid - c * N))
-        neg, w, any_v, _ = warp_search(
-            users[c], positives[c], P, Q, num_items=num_items,
-            num_candidates=num_candidates, seed=seed, epoch=step, chunk=c,
-            n_valid=n_valid, score_func=score_func, threshold=threshold,
-            probe=rule, indptr=indptr, bloom=bloom_words,
-            bloom_log2=bloom_log2,
-            seen_bits=seen_bits[c] if precomputed_probe else None,
-            candidates=None if candidates is None else candidates[c],
-            counts=counts, count_index=c)
-        warp_accumulate(P, Q, *grads, users[c], positives[c], neg, any_v, w,
-                        n_valid=n_valid, score_func=score_func, reg_u=reg_u,
-                        reg_i=reg_i, reg_j=reg_j, update_i=update_i,
-                        update_j=update_j,
-                        per_coordinate_normalize=per_coordinate_normalize,
-                        users_sorted=True)
-    apply_epoch_barrier(P, Q, grads, opt_state, step, optimizer=optimizer,
-                        lr=lr, beta1=beta1, beta2=beta2, reg_u=reg_u,
-                        reg_i=reg_i,
-                        per_coordinate_normalize=per_coordinate_normalize)
-    return P, Q, opt_state, found_fraction(counts.cpu(), N, num_valid)
+        for k, dev in enumerate(devs):
+            P, Q = tables[dev]
+            off, n_valid = S.shard_slots(mesh, k, N_loc, num_valid, c, N)
+            neg, w, any_v, _ = warp_search(
+                users[k][c], positives[k][c], P, Q, num_items=num_items,
+                num_candidates=num_candidates, seed=seed, epoch=step,
+                chunk=c, n_valid=n_valid, score_func=score_func,
+                threshold=threshold, probe=rule, indptr=indptr[dev],
+                bloom=bloom[dev], bloom_log2=bloom_log2,
+                seen_bits=None if seen_bits is None else seen_bits[k][c],
+                candidates=None if candidates is None else candidates[k][c],
+                counts=counts[k], count_index=c, slot_offset=off)
+            warp_accumulate(P, Q, *grads[k], users[k][c], positives[k][c],
+                            neg, any_v, w, n_valid=n_valid,
+                            score_func=score_func, reg_u=reg_u, reg_i=reg_i,
+                            reg_j=reg_j, update_i=update_i,
+                            update_j=update_j,
+                            per_coordinate_normalize=per_coordinate_normalize,
+                            users_sorted=True)
+            n_valids[k].append(n_valid)
+    total = [S.reduced(mesh, [g[i] for g in grads]) for i in range(4)]
+    # each shard's found and possible totals, reduced over the shards
+    fp = [torch.tensor(found_totals(counts[k].cpu().numpy(), n_valids[k]),
+                       dtype=torch.float32, device=dev)
+          for k, dev in enumerate(devs)]
+    found, poss = S.reduced(mesh, fp)[0].cpu().numpy()
+    for dev, k in reps.items():
+        apply_epoch_barrier(*tables[dev], [t[k] for t in total],
+                            opt_states[dev], step, optimizer=optimizer,
+                            lr=lr, beta1=beta1, beta2=beta2, reg_u=reg_u,
+                            reg_i=reg_i,
+                            per_coordinate_normalize=per_coordinate_normalize)
+    return float(found / max(poss, np.float32(1.0)))
 
 
 def warp_loss(P, Q, users, positives, negatives, *, score_func, threshold):

@@ -277,6 +277,15 @@ TOL_W2V, W2V_DEVICE_BAND, TOL_W2V_STREAMED = 1e-5, 1.15, 1e-3
 # TOPK_PAST, each equal to batch_topn's (ids off ties, scores TOL_SCORE);
 # K22 bit for bit to its plain version on the real candidates
 MESH_SHARDS, NCCL_SHARDS, MESH_EPOCHS = 4, 2, 2
+# BPR-MF's and WARP's dp mesh (mesh_bpr, mesh_warp) against one device at
+# the same batch size (the same draws): every epoch's tables within
+# TOL_MESH_X (relative Frobenius norm), its loss within TOL_MESH_LOSS
+# relative (WARP's violation rate one triplet's 1 / n more)
+TOL_MESH_X, TOL_MESH_LOSS = 1e-4, 1e-5
+# wide_rows: each model WIDE_EPOCHS epochs at d = WIDE_D on the SMALL_*
+# synthetic or a stream corpus of WIDE_LINES lines over WIDE_VOCAB words
+WIDE_EPOCHS = 2
+WIDE_LINES, WIDE_VOCAB, WIDE_TOKENS = 20_000, 20_000, 800_000
 SHARDED_USERS, SHARDED_PAST_USERS = 10_000, 1_000
 WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                     "chip_smoke")
@@ -427,8 +436,15 @@ def write_compiled(groups, num_users, num_items, path, num_vali, seed):
                    "num_validation_samples": num_vali}, fh)
 
 
+_START = 0.0  # set when main() starts
+
+
 def phase(tag, /, **fields):
-    print(json.dumps({"phase": tag, **fields}), flush=True)
+    """One phase's readings as a JSON line, with the script's elapsed
+    seconds at its end (``at_seconds``)."""
+    print(json.dumps({"phase": tag, **fields,
+                      "at_seconds": time.perf_counter() - _START}),
+          flush=True)
 
 
 def check(ok, what):
@@ -501,21 +517,25 @@ def device_ms(fn, name, reps=20, warmup=3):
     (CUPTI): the kernel's own time, without the wrapper's host work that
     CUDA events around the call also catch.  The trace can miss launches
     of a short kernel (on the H100 it has held 19 of 20 and 19 of 22 of
-    K3's), so it holds two calls more than the median needs and takes the
-    median of those it saw, at least half of them."""
+    K3's, and once 8 of 22), so it holds two calls more than the median
+    needs and takes the median of those it saw, at least half of them; a
+    trace that saw fewer is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps + 2):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and name in e.name]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + 2):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and name in e.name]
+        if len(us) >= reps // 2:
+            break
     check(reps // 2 <= len(us) <= reps + 2, f"profiler saw {len(us)} "
           f"launches of {name}, expected {reps // 2} to {reps + 2}")
     return float(np.median(us)) / 1e3
@@ -2101,6 +2121,24 @@ def trace_ms(fn, main, reps=10, warmup=2):
     return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
 
 
+def epoch_chunks(torch, model, batch):
+    """A trained BPR-MF's or WARP's resident epoch chunks on its device:
+    (nchunks, batch) users and positives in CSR order, padded with zeros
+    past nnz, and nnz."""
+    from buffalo_tpu_torch.data.batching import csr_pair_chunks
+
+    users, items, nnz = csr_pair_chunks(model.data, batch)
+    return (torch.from_numpy(users).to(model.device),
+            torch.from_numpy(items).to(model.device), nnz)
+
+
+def one_shard(dev):
+    """The mesh of one shard on ``dev``: the single device's epoch."""
+    from buffalo_tpu_torch.parallelism import Mesh
+
+    return Mesh([dev])
+
+
 def bpr_opt(bt, **kw):
     """BPRMF options of this script's runs: the defaults at d = D on the
     card, no validation inside the epochs (it runs after training), with
@@ -2145,7 +2183,8 @@ def bpr_path(bt, S, R, torch, data):
     check(losses[-1] < losses[0], f"BPR loss did not fall: {losses}")
     want = dict(sample_negatives=nchunks * BPR_EPOCHS,
                 chunk_update=nchunks * BPR_EPOCHS, triplet_loss=BPR_EPOCHS,
-                chunk_accumulate=0, deferred_update=0)
+                chunk_accumulate=0, deferred_update=0, chunk_delta=0,
+                chunk_bias_neg_delta=0, capped_add=0)
     check(launches == want, f"BPR sgd epochs launched {launches}, "
           f"expected {want}")
     st = time.perf_counter()
@@ -2265,7 +2304,7 @@ def bpr_kernels(S, torch, model):
     kernels line's K8-K10 entries."""
     dev = model.device
     batch = model._batch_size()
-    users_c, items_c, nnz = model._stage_epoch_chunks(batch)
+    users_c, items_c, nnz = epoch_chunks(torch, model, batch)
     c = users_c.shape[0] // 2
     users, pos = users_c[c].contiguous(), items_c[c].contiguous()
     group = model.data.get_group("rowwise")
@@ -2422,9 +2461,10 @@ def bpr_kernels(S, torch, model):
     # one sgd epoch's device work (K8 + K9 per chunk) by kernel name
     t = [P0.clone(), Q0.clone(), Qb0.clone()]
     prof = profile_call(torch, lambda: S.bpr_epoch(
-        *t, {}, users_c, items_c, 0, seed=seed, optimizer="sgd",
-        num_items=I, num_negatives=1, use_bias=True, update_i=True,
-        update_j=True, bloom=bloom, bloom_log2=log2,
+        one_shard(dev), {dev: tuple(t)}, {dev: {}}, [users_c], [items_c], 0,
+        seed=seed, optimizer="sgd", num_items=I, num_negatives=1,
+        use_bias=True, update_i=True, update_j=True,
+        sampling={dev: dict(bloom=bloom, bloom_log2=log2)},
         per_coordinate_normalize=False, lr=o.lr, min_lr=o.min_lr,
         beta1=o.beta1, beta2=o.beta2, reg_u=o.reg_u, reg_i=o.reg_i,
         reg_j=o.reg_j, reg_b=o.reg_b, num_valid=nnz,
@@ -2478,7 +2518,8 @@ def warp_inputs(S, torch, model):
     nnz, indptr, bloom words, log2 bits, P, Q)."""
     dev = model.device
     group = model.data.get_group("rowwise")
-    users_c, items_c, nnz = model._stage_epoch_chunks(model._batch_size())
+    users_c, items_c, nnz = epoch_chunks(torch, model,
+                                         model._batch_size())
     indptr = torch.from_numpy(np.array(group["indptr"],
                                        dtype=np.int64)).to(dev)
     words, log2 = S.build_bloom(np.asarray(group["indptr"]),
@@ -2514,8 +2555,10 @@ def warp_path(bt, W, S, R, torch, data):
     o = model.opt
     users_c, items_c, nnz, indptr, bloom, log2, P, Q = warp_inputs(
         S, torch, model)
+    dev = P.device
     prof = profile_call(torch, lambda: W.warp_epoch(
-        P, Q, W.new_opt_state(P, Q), users_c, items_c, indptr, bloom, E,
+        one_shard(dev), {dev: (P, Q)}, {dev: W.new_opt_state(P, Q)},
+        [users_c], [items_c], E, indptr={dev: indptr}, bloom={dev: bloom},
         seed=int(o.random_seed), optimizer=o.optimizer,
         num_items=Q.shape[0], num_candidates=model.iteration_candidates[-1],
         score_func=o.score_func, threshold=float(o.threshold),
@@ -4745,7 +4788,1042 @@ def sharded_topk(bt, R, torch, trained):
     return entry, launches
 
 
+# ------------------------------------------------ the dp mesh: BPR and WARP
+def epoch_snapshots(module, name, tables_of):
+    """Wrap ``module.name`` (an epoch function) so that each call appends
+    the host copies of the tables ``tables_of(args)`` returns after it; the
+    list, and a function that puts the original back."""
+    original = getattr(module, name)
+    snaps = []
+
+    def wrapped(*args, **kwargs):
+        out = original(*args, **kwargs)
+        snaps.append([t.cpu().numpy().copy() for t in tables_of(args)])
+        return out
+
+    setattr(module, name, wrapped)
+    return snaps, lambda: setattr(module, name, original)
+
+
+def mesh_epochs_rule(mesh_tables, one_tables, mesh_losses, one_losses, names,
+                     what, loss_atol=0.0):
+    """Every epoch of a dp mesh run held to the single device at the same
+    batch size (the same draws; only the shards' sums are ordered
+    otherwise): each table within TOL_MESH_X (relative Frobenius norm), the
+    loss within TOL_MESH_LOSS relative plus ``loss_atol``.  Returns the
+    readings per epoch."""
+    out = []
+    check(len(mesh_tables) == len(one_tables) == len(mesh_losses),
+          f"{what}: {len(mesh_tables)} mesh epochs, {len(one_tables)} "
+          "single-device epochs")
+    for e, (mt, ot) in enumerate(zip(mesh_tables, one_tables)):
+        r = {f"{n}_rel": frob_rel(a, b) for n, a, b in zip(names, mt, ot)}
+        r.update(loss=mesh_losses[e], base_loss=one_losses[e],
+                 loss_diff=abs(mesh_losses[e] - one_losses[e]))
+        check(all(r[f"{n}_rel"] <= TOL_MESH_X for n in names)
+              and r["loss_diff"] <= TOL_MESH_LOSS * abs(one_losses[e])
+              + loss_atol,
+              f"{what}, epoch {e + 1}: the mesh parts from one device: {r}")
+        out.append(r)
+    return out
+
+
+def mesh_bpr(bt, S, torch, data):
+    """BPR-MF's dp mesh (``bpr_epoch`` on a mesh) over MESH_SHARDS shards on this
+    card, MESH_EPOCHS epochs each of sgd (the defaults: the item bias, the
+    0.1 step cap) and adagrad, every epoch held to one device at the same
+    batch size (``mesh_epochs_rule``), launches and epoch times beside one
+    device's.  Then, on the first chunk's second shard (a non-zero slot
+    offset) of the trained sgd model: K8 bit for bit to its plain version
+    and to the single device's slice, K9's delta path (both launches)
+    within TOL_BPR_STEP, K10's capped add within TOL_K10.  Returns (the
+    kernels line's entries of the new entry points, their launches in the
+    sgd mesh run)."""
+    runs, mesh_launches = {}, None
+    batch = None
+    for name, extra in (("sgd", {}), ("adagrad", dict(optimizer="adagrad"))):
+        res = {}
+        for where, more in (("mesh", mesh_opt(MESH_SHARDS)), ("one", {})):
+            snaps, restore = epoch_snapshots(
+                S, "bpr_epoch", lambda a: a[1][next(iter(a[1]))])
+            try:
+                opt = bpr_opt(bt, num_iters=MESH_EPOCHS, **extra, **more)
+                if batch is not None:
+                    opt.batch_size = batch
+                model, launches, peak_mb = bpr_train(bt, S, torch, data, opt)
+            finally:
+                restore()
+            if where == "mesh" and batch is None:
+                batch = -(-model._batch_size() // MESH_SHARDS) * MESH_SHARDS
+            if where == "mesh":
+                if name == "sgd":
+                    mesh_launches, sgd_model = launches, model
+            res[where] = dict(tables=snaps, losses=model.iteration_losses,
+                              epoch_seconds=model.iteration_times,
+                              launches=launches, max_memory_allocated_mb=peak_mb)
+        nchunks = -(-model.num_nnz // batch)
+        per = MESH_SHARDS * nchunks * MESH_EPOCHS
+        ln = res["mesh"]["launches"]
+        if name == "sgd":
+            want = dict(sample_negatives=per, chunk_delta=per,
+                        chunk_bias_neg_delta=per,
+                        capped_add=4 * nchunks * MESH_EPOCHS,
+                        triplet_loss=MESH_EPOCHS, chunk_update=0,
+                        chunk_accumulate=0, deferred_update=0)
+        else:
+            want = dict(sample_negatives=per, chunk_accumulate=per,
+                        deferred_update=3 * MESH_EPOCHS,
+                        triplet_loss=MESH_EPOCHS, chunk_update=0,
+                        chunk_delta=0, chunk_bias_neg_delta=0, capped_add=0)
+        check(ln == want, f"the {name} BPR mesh launched {ln}, expected {want}")
+        runs[name] = dict(
+            epochs=mesh_epochs_rule(res["mesh"]["tables"],
+                                    res["one"]["tables"],
+                                    res["mesh"]["losses"],
+                                    res["one"]["losses"], ("P", "Q", "Qb"),
+                                    f"BPR {name} mesh"),
+            epoch_seconds=res["mesh"]["epoch_seconds"],
+            one_device_epoch_seconds=res["one"]["epoch_seconds"],
+            launches=ln, launches_per_epoch=per_epoch(ln, MESH_EPOCHS),
+            one_device_launches_per_epoch=per_epoch(res["one"]["launches"],
+                                                    MESH_EPOCHS),
+            max_memory_allocated_mb=res["mesh"]["max_memory_allocated_mb"],
+            one_device_max_memory_allocated_mb=res["one"][
+                "max_memory_allocated_mb"])
+
+    # ---- the new entry points on one real shard's inputs
+    model = sgd_model
+    mesh = bt.parallelism.get_mesh(MESH_SHARDS,
+                                   devices=["cuda:0"] * MESH_SHARDS)
+    dev = mesh.devices[0]
+    users_c, items_c, nnz = epoch_chunks(torch, model, batch)
+    n_loc = batch // MESH_SHARDS
+    g = 1
+    users = users_c[0, g * n_loc:(g + 1) * n_loc].contiguous()
+    pos = items_c[0, g * n_loc:(g + 1) * n_loc].contiguous()
+    group = model.data.get_group("rowwise")
+    words, log2 = S.build_bloom(np.asarray(group["indptr"]),
+                                np.asarray(group["key"]))
+    bloom = torch.from_numpy(words.view(np.int32)).to(dev)
+    I = model.Q.shape[0]
+    seed = int(model.opt.random_seed)
+    kw8 = dict(num_negatives=1, seed=seed, epoch=0, chunk=0, bloom=bloom,
+               bloom_log2=log2, slot_offset=g * n_loc)
+    neg, _ = S.sample_negatives(users, I, **kw8)
+    ref_neg, _ = S.sample_negatives_plain(users, I, **kw8)
+    whole, _ = S.sample_negatives(users_c[0].contiguous(), I,
+                                  **dict(kw8, slot_offset=0))
+    check(torch.equal(neg, ref_neg)
+          and torch.equal(neg, whole[g * n_loc:(g + 1) * n_loc]),
+          "K8 at a slot offset differs from its plain version or from the "
+          "single device's slice")
+    nbytes, ops, attempts = k8_work(S, torch, users, bloom, log2, I, seed, 0)
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / PEAK_INT32_S
+    k8 = dict(ms=time_ms(lambda: S.sample_negatives(users, I, **kw8)),
+              plain_ms=time_ms(lambda: S.sample_negatives_plain(users, I,
+                                                                **kw8),
+                               reps=5, warmup=1),
+              bound_ms=1e3 * max(t_b, t_o),
+              bound_by="bytes" if t_b >= t_o else "operations",
+              slots=n_loc, slot_offset=g * n_loc, attempts=attempts)
+
+    P0 = torch.from_numpy(model.P).to(dev)
+    Q0 = torch.from_numpy(model.Q).to(dev)
+    Qb0 = torch.from_numpy(model.Qb).to(dev)
+    o = model.opt
+    cap = float(o.max_step_norm)
+    lr = S.sgd_lr(o.lr, o.min_lr, 0, nnz, 0, batch, float(nnz) * o.num_iters)
+    kw9 = dict(lr=lr, reg_u=o.reg_u, reg_i=o.reg_i, reg_j=o.reg_j,
+               reg_b=o.reg_b, num_negatives=1, use_bias=True, update_i=True,
+               update_j=True)
+    # the first chunk of an epoch from the trained tables, as the mesh
+    # epoch runs it: every shard's K8 at its offset and K9's delta into its
+    # own dense deltas, the positive side's bias delta all-reduced and added
+    # by K10 with the cap, then the negative side's (K9's second launch)
+    # from that Qb, then P's and Q's reduced deltas capped and added
+    shards = []
+    for k in range(MESH_SHARDS):
+        off, nv = S.shard_slots(mesh, k, n_loc, nnz, 0, batch)
+        us = users_c[0, off:off + n_loc].contiguous()
+        ps = items_c[0, off:off + n_loc].contiguous()
+        ng, _ = S.sample_negatives(us, I, **dict(kw8, slot_offset=off))
+        dl = [torch.zeros_like(t) for t in (P0, Q0, Qb0)]
+        h = S.chunk_delta(P0, Q0, Qb0, *dl, us, ps, ng,
+                          **dict(kw9, n_valid=nv))
+        shards.append((us, ps, ng, nv, dl, h))
+    check(torch.equal(shards[g][2], neg), "the epoch's shard drew other "
+          "negatives than K8's checked call")
+    n_valid = shards[g][3]
+    kw9["n_valid"] = n_valid
+
+    def reduced(i):
+        return bt.parallelism.all_reduce_sum(
+            mesh, [sh[4][i] for sh in shards], first_only=True)
+
+    dQb_pos = reduced(2)
+    Qb1 = Qb0.clone()
+    S.capped_add(Qb1, dQb_pos, cap=cap)  # Qb after the positive side
+    Qb1_plain = Qb0.clone()
+    S.capped_add_plain(Qb1_plain, dQb_pos, cap)
+    torch.cuda.synchronize()
+    err_qb = float((Qb1 - Qb1_plain).abs().max())
+    check(torch.allclose(Qb1, Qb1_plain, rtol=TOL_K10, atol=1e-7),
+          f"K10's capped add of the bias is {err_qb:.3g} from its plain "
+          "version")
+    capped_bias = int((dQb_pos.abs() > cap).sum())
+
+    def delta(fn, fn_neg):
+        dl = [torch.zeros_like(t) for t in (P0, Q0, Qb0)]
+        h = fn(P0, Q0, Qb0, *dl, users, pos, neg, **kw9)
+        dneg = torch.zeros_like(Qb0)
+        fn_neg(h, Qb1, dneg, lr=lr, reg_b=o.reg_b)
+        return dl + [dneg]
+
+    got = delta(S.chunk_delta, S.chunk_bias_neg_delta)
+    again = delta(S.chunk_delta, S.chunk_bias_neg_delta)
+    ref = delta(S.chunk_delta_plain, S.chunk_bias_neg_delta_plain)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got[:3], shards[g][4]))
+          and all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K9's delta path is not bitwise repeatable")
+    fields, errs = {}, []
+    for name, a, r in zip(("dP", "dQ", "dQb", "dQb_neg"), got, ref):
+        ok, err, limit = step_check(a, r, torch.zeros_like(r))
+        check(ok, f"K9's delta {name} is {err:.3g} from the plain version's "
+              f"(limit {limit:.3g})")
+        errs.append(err)
+        fields[f"{name}_err"], fields[f"{name}_limit"] = err, limit
+    # bounds: what the delta must move: the ids, each touched P / Q / Qb
+    # row read once and its delta row read and written (it adds); per
+    # sample the K9 operations.  The negative side's bias: each valid
+    # negative's logit and id, and its row of Qb read and of dQb added.
+    n_u = int(torch.unique(users[:n_valid]).numel())
+    ok_neg = neg[:n_valid][neg[:n_valid] < I]
+    n_i = int(torch.unique(torch.cat([pos[:n_valid], ok_neg])).numel())
+    n_n = int(torch.unique(ok_neg).numel())
+    B, N = neg.shape[0], users.shape[0]
+    d = P0.shape[1]
+    nbytes = 8 * N + 4 * B + (4 + 8) * d * (n_u + n_i) + (4 + 8) * n_i
+    bms, by = bound_ms(nbytes, 8 * d * B + 2 * d * N + 6 * d * (n_u + n_i))
+    dl_t = [torch.zeros_like(t) for t in (P0, Q0, Qb0)]
+    u_s, p_s, n_ok = users.long(), pos.long(), neg.long() < I
+    _, _, _, _, safe, mask, p_r, qi, qj, logit = S._forward(
+        P0, Q0, Qb0, users, pos, neg, 1, n_valid, True)
+    rows_p = lr * mask[:, None] * (logit[:, None] * (qi - qj) - o.reg_u * p_r)
+    rows_q = torch.cat([lr * mask[:, None] * (logit[:, None] * p_r
+                                              - o.reg_i * qi),
+                        (lr * mask[:, None] * (-logit[:, None] * p_r
+                                               - o.reg_j * qj))[n_ok]])
+    idx_q = torch.cat([p_s, neg.long()[n_ok]])
+
+    def library():  # the two scatters of per-sample rows (index_add_)
+        dl_t[0].index_add_(0, u_s, rows_p)
+        dl_t[1].index_add_(0, idx_q, rows_q)
+
+    k9d = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_update.cu",
+               replaces="buffalo_tpu/ops/sgd_kernels.py:804",
+               max_abs_err=max(errs[:3]),
+               ms=time_ms(lambda: S.chunk_delta(P0, Q0, Qb0, *dl_t, users, pos,
+                                                neg, **kw9)),
+               plain_ms=time_ms(lambda: S.chunk_delta_plain(
+                   P0, Q0, Qb0, *dl_t, users, pos, neg, **kw9), reps=5,
+                   warmup=1),
+               bound_ms=bms, bound_by=by,
+               library_ms=time_ms(library, reps=10, warmup=2),
+               slots=N, slot_offset=g * n_loc, lr=lr, **fields)
+    h = S.chunk_delta(P0, Q0, Qb0, *dl_t, users, pos, neg, **kw9)
+    h_plain = S.chunk_delta_plain(P0, Q0, Qb0, *dl_t, users, pos, neg, **kw9)
+    neg_rows = (lr * mask * (-logit - o.reg_b * Qb1[safe]))[n_ok]
+    neg_idx = neg.long()[n_ok]
+    bms, by = bound_ms(8 * int(n_ok.sum()) + 12 * n_n, 4 * int(n_ok.sum()))
+    k9n = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_update.cu",
+               replaces="buffalo_tpu/ops/sgd_kernels.py:832",
+               max_abs_err=errs[3],
+               ms=time_ms(lambda: S.chunk_bias_neg_delta(
+                   h, Qb1, dl_t[2], lr=lr, reg_b=o.reg_b)),
+               plain_ms=time_ms(lambda: S.chunk_bias_neg_delta_plain(
+                   h_plain, Qb1, dl_t[2], lr=lr, reg_b=o.reg_b)),
+               bound_ms=bms, bound_by=by,
+               library_ms=time_ms(lambda: dl_t[2].index_add_(0, neg_idx,
+                                                             neg_rows)),
+               negatives=int(n_ok.sum()), rows=n_n)
+
+    # K10's capped add of P's reduced delta (the four shards' deltas of this
+    # chunk summed): the cap must bind on some rows for the check to see it
+    dP = reduced(0)
+    a, b = P0.clone(), P0.clone()
+    S.capped_add(a, dP, cap=cap)
+    S.capped_add_plain(b, dP, cap)
+    torch.cuda.synchronize()
+    err10 = float((a - b).abs().max())
+    check(torch.allclose(a, b, rtol=TOL_K10, atol=1e-7),
+          f"K10's capped add is {err10:.3g} from its plain version")
+    capped_rows = int((dP.norm(dim=1) > cap).sum())
+    check(capped_rows > 0, f"no row of the chunk's reduced delta of P passes "
+          f"the cap {cap}: the capped add's check cannot see the cap")
+    bms, by = bound_ms(12 * P0.numel(), 5 * P0.numel())
+    k10c = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_optimizer.cu",
+                replaces="buffalo_tpu/ops/sgd_kernels.py:280",
+                max_abs_err=max(err10, err_qb),
+                ms=time_ms(lambda: S.capped_add(a, dP, cap=cap)),
+                plain_ms=time_ms(lambda: S.capped_add_plain(b, dP, cap)),
+                bound_ms=bms, bound_by=by, library_ms=None,
+                rows=int(P0.shape[0]), capped_rows=capped_rows,
+                bias_entries=int(Qb0.shape[0]), capped_bias=capped_bias)
+    phase("mesh_bpr", d=D, shards=MESH_SHARDS, devices="cuda:0 (shared)",
+          epochs=MESH_EPOCHS, chunk=batch, tol_x=TOL_MESH_X,
+          tol_loss=TOL_MESH_LOSS, **runs, k8_offset=k8, k9_delta=k9d,
+          k9_bias_neg=k9n, k10_capped_add=k10c, tol_step=TOL_BPR_STEP,
+          tol_k10=TOL_K10)
+    del users_c, items_c, bloom, P0, Q0, Qb0, shards, dP, dl_t
+    torch.cuda.empty_cache()
+    entries = {"chunk_delta": k9d, "chunk_bias_neg_delta": k9n,
+               "capped_add": k10c}
+    return entries, {n: mesh_launches[n] for n in entries}
+
+
+def mesh_warp(bt, W, S, torch, data):
+    """WARP's dp mesh (``warp_epoch`` on a mesh) over MESH_SHARDS shards on this
+    card, MESH_EPOCHS epochs of the defaults (adagrad, d = 64) at the
+    single device's batch size rounded to the mesh: every epoch held to one
+    device at that batch size (``mesh_epochs_rule``; the violation rate
+    within one triplet's 1 / n more, since a margin within one float64
+    rounding may flip), the K schedule and found_frac equal; launches and
+    epoch times beside one device's.  Then K11 at the second shard's slot
+    offset against its plain version on a real chunk (ids, any_v, trials
+    and counts equal, weights within TOL_WARP_W)."""
+    res = {}
+    batch = None
+    for where, more in (("mesh", mesh_opt(MESH_SHARDS)), ("one", {})):
+        snaps, restore = epoch_snapshots(
+            W, "warp_epoch", lambda a: a[1][next(iter(a[1]))])
+        try:
+            opt = warp_opt(bt, num_iters=MESH_EPOCHS, **more)
+            if batch is not None:
+                opt.batch_size = batch
+            model, launches, peak_mb, _ = warp_train(bt, W, S, torch, data,
+                                                     opt)
+        finally:
+            restore()
+        if where == "mesh":
+            batch = model._batch_size()
+            batch = -(-batch // MESH_SHARDS) * MESH_SHARDS
+            mesh_model = model
+        res[where] = dict(tables=snaps, losses=model.iteration_losses,
+                          K=model.iteration_candidates,
+                          found=model.iteration_found,
+                          epoch_seconds=model.iteration_times,
+                          launches=launches, max_memory_allocated_mb=peak_mb)
+    nchunks = -(-mesh_model.num_nnz // batch)
+    ln = res["mesh"]["launches"]
+    per = MESH_SHARDS * nchunks * MESH_EPOCHS
+    want = dict(warp_search=per, warp_accumulate=per, warp_probe=0,
+                warp_violations=MESH_EPOCHS, deferred_update=2 * MESH_EPOCHS)
+    check(ln == want, f"the WARP mesh launched {ln}, expected {want}")
+    check(res["mesh"]["K"] == res["one"]["K"],
+          f"K schedules differ: {res['mesh']['K']} vs {res['one']['K']}")
+    check(np.allclose(res["mesh"]["found"], res["one"]["found"], rtol=1e-6,
+                      atol=0),
+          f"found_frac differs: {res['mesh']['found']} vs "
+          f"{res['one']['found']}")
+    n = len(mesh_model._sub_samples[0])
+    epochs = mesh_epochs_rule(res["mesh"]["tables"], res["one"]["tables"],
+                              res["mesh"]["losses"], res["one"]["losses"],
+                              ("P", "Q"), "WARP mesh", loss_atol=1.0 / n)
+
+    # K11 at a slot offset on the second shard of the middle chunk
+    dev = bt.parallelism.get_mesh(MESH_SHARDS,
+                                  devices=["cuda:0"] * MESH_SHARDS).devices[0]
+    _, _, _, indptr, bloom, log2, P0, Q0 = warp_inputs(S, torch, mesh_model)
+    from buffalo_tpu_torch.data.batching import csr_pair_chunks
+
+    u_np, i_np, _ = csr_pair_chunks(mesh_model.data, batch)
+    users_c, items_c = (torch.from_numpy(a).to(dev) for a in (u_np, i_np))
+    c = users_c.shape[0] // 2
+    n_loc, g = batch // MESH_SHARDS, 1
+    users = users_c[c, g * n_loc:(g + 1) * n_loc].contiguous()
+    pos = items_c[c, g * n_loc:(g + 1) * n_loc].contiguous()
+    o = mesh_model.opt
+    K = mesh_model.iteration_candidates[-1]
+    kw = dict(num_items=Q0.shape[0], num_candidates=K, seed=int(o.random_seed),
+              epoch=0, chunk=c, n_valid=n_loc, score_func=o.score_func,
+              threshold=float(o.threshold), probe=o.probe_mode, indptr=indptr,
+              bloom=bloom, bloom_log2=log2, slot_offset=g * n_loc)
+    cnt = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)]
+    got = W.warp_search(users, pos, P0, Q0, counts=cnt[0], **kw)
+    ref = W.warp_search_plain(users, pos, P0, Q0, counts=cnt[1], **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(got[i], ref[i]) for i in (0, 2, 3))
+          and torch.equal(cnt[0], cnt[1])
+          and torch.allclose(got[1], ref[1], rtol=TOL_WARP_W, atol=0),
+          "K11 at a slot offset differs from its plain version")
+    cand = W.warp_candidates(n_loc, K, Q0.shape[0], seed=int(o.random_seed),
+                             epoch=0, chunk=c, device=dev,
+                             slot_offset=g * n_loc)
+    whole = W.warp_candidates(batch, K, Q0.shape[0], seed=int(o.random_seed),
+                              epoch=0, chunk=c, device=dev)
+    check(torch.equal(cand, whole[g * n_loc:(g + 1) * n_loc]),
+          "a shard's candidates are not the single device's rows")
+    neg, w, any_v, _ = got
+    first = torch.argmax((cand == neg[:, None]).int(), 1) + 1
+    upto = torch.where(any_v, first, torch.full_like(first, K))
+    need = int(upto.sum())
+    walked = torch.arange(K, device=dev)[None, :] < upto[:, None]
+    d = P0.shape[1]
+    n_u = int(torch.unique(users).numel())
+    n_i = int(torch.unique(torch.cat([pos, cand[walked]])).numel())
+    nbytes = n_loc * (8 + 16 + 13 + 4) + 4 * d * (n_u + n_i)
+    t_b, t_o = nbytes / PEAK_BYTES_S, 2 * d * (need + n_loc) / PEAK_FP64_S
+    t_i = 100 * need / PEAK_INT32_S
+    k11 = dict(ms=time_ms(lambda: W.warp_search(users, pos, P0, Q0, **kw)),
+               plain_ms=time_ms(lambda: W.warp_search_plain(
+                   users, pos, P0, Q0, **kw), reps=3, warmup=1),
+               bound_ms=1e3 * max(t_b, t_o, t_i),
+               bound_by="bytes" if t_b >= max(t_o, t_i) else "operations",
+               slots=n_loc, slot_offset=g * n_loc, num_candidates=K,
+               found=int(cnt[0][0]),
+               weight_max_abs_err=float((got[1] - ref[1]).abs().max()))
+    phase("mesh_warp", d=int(o.d), shards=MESH_SHARDS,
+          devices="cuda:0 (shared)", epochs=MESH_EPOCHS, chunk=batch,
+          optimizer=o.optimizer, tol_x=TOL_MESH_X, tol_loss=TOL_MESH_LOSS,
+          loss_atol=1.0 / n, epochs_rule=epochs, K=res["mesh"]["K"],
+          found_frac=res["mesh"]["found"],
+          epoch_seconds=res["mesh"]["epoch_seconds"],
+          one_device_epoch_seconds=res["one"]["epoch_seconds"],
+          launches=ln, launches_per_epoch=per_epoch(ln, MESH_EPOCHS),
+          one_device_launches_per_epoch=per_epoch(res["one"]["launches"],
+                                                  MESH_EPOCHS),
+          max_memory_allocated_mb=res["mesh"]["max_memory_allocated_mb"],
+          k11_offset=k11)
+    del users_c, items_c, bloom, P0, Q0, mesh_model
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- wide rows
+WIDE_D = 300  # past 256 floats (the widths the kernels took before) and
+              # no multiple of 32
+# K7 past the 58,112 cells it once took: an IVF index of WIDE_CELLS cells
+# over WIDE_IVF_ROWS random rows of WIDE_D floats (WIDE_IVF_ITERS Lloyd
+# iterations), searched by WIDE_IVF_QUERIES queries; K22 past the 32 shards
+# it once took: sharded top-k over WIDE_SHARDS shards
+WIDE_IVF_ROWS, WIDE_CELLS, WIDE_IVF_ITERS = 120_000, 60_000, 2
+WIDE_IVF_QUERIES, WIDE_SHARDS = 1_000, 33
+# how each kernel's first call on the d = WIDE_D paths is held to its plain
+# version, run on host copies of the call's inputs through the wrapper's
+# own CPU route: "table", each input the call changed and each output
+# within the tolerance of its largest entry; "step", each changed input's
+# step within the tolerance of the largest step, plus two float32 spacings
+# of the input (each side rounds start + step once); "solve", the solved
+# rows by the CG rule (noise_floor_check: TOL_X, or the noise floor against
+# a float64 run), the outputs as "table"; "topk", kernel_topk_check.  A
+# tuple gives the outputs' tolerances in order; integer tensors equal.  The
+# tolerances are those the kernels are held to elsewhere in this script; a
+# float tensor past its tolerance passes only by that noise floor (the
+# plain version's float64 run as the witness), and the phase line lists
+# each such tensor with both distances from the witness.
+WIDE_RULES = {
+    "als_normal_equations": ("table", TOL_X),
+    "batched_cg_dense": ("solve", TOL_X),
+    "ialspp_solve_batch": ("solve", TOL_LOSS),
+    "score_topk": ("topk", TOL_SCORE),
+    "ivf_tile_topk": ("topk", TOL_SCORE),
+    "kmeans_update": ("table", TOL_CENT),
+    "sharded_topk_merge": ("table", 0.0),
+    "chunk_update": ("step", TOL_BPR_STEP),
+    "chunk_accumulate": ("step", TOL_BPR_STEP),
+    "chunk_delta": ("step", TOL_BPR_STEP),
+    "triplet_loss": ("table", TOL_K10),
+    "deferred_update": ("table", TOL_K10),
+    "capped_add": ("table", TOL_K10),
+    "warp_search": ("table", TOL_WARP_W),
+    "warp_violations": ("table", 0.0),
+    "warp_accumulate": ("step", TOL_WARP_STEP),
+    "dim_sweep": ("table", TOL_EALS),
+    "eals_residual": ("table", (TOL_VHAT, TOL_EALS_SUM)),
+    "plsi_estep": ("table", TOL_K15),
+    "plsi_mstep": ("table", TOL_K16),
+    "cfr_normal_equations": ("table", TOL_K17),
+    "cfr_bias": ("table", TOL_K18),
+    "pair_step": ("table", TOL_W2V),
+    "row_apply": ("step", TOL_W2V),
+    "stream_chunk_deltas": ("table", TOL_W2V),
+}
+# K9's delta entry point returns a handle for its second launch (on the
+# card the workspace, in the plain version the chunk's terms): its deltas
+# are compared, not its result
+WIDE_OPAQUE_RESULT = ("chunk_delta",)
+
+
+def tree_map(torch, x, fn, memo=None):
+    """``x`` (tuples, named tuples, lists and dicts of tensors) with every
+    tensor replaced by ``fn(tensor)``; a tensor met twice maps to one
+    result, so aliases stay aliases."""
+    memo = {} if memo is None else memo
+    if isinstance(x, torch.Tensor):
+        if id(x) not in memo:
+            memo[id(x)] = fn(x)
+        return memo[id(x)]
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tree_map(torch, v, fn, memo) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(tree_map(torch, v, fn, memo) for v in x)
+    if isinstance(x, dict):
+        return {k: tree_map(torch, v, fn, memo) for k, v in x.items()}
+    return x
+
+
+def leaves(torch, x):
+    """The tensors of ``x`` in ``tree_map``'s order."""
+    out = []
+    tree_map(torch, x, lambda t: out.append(t) or t, memo={})
+    return out
+
+
+class FirstCalls:
+    """While open, each of ``kernels`` (kernel wrappers) records its first
+    call that changes something (W2V's first K20 call adds a zero delta:
+    L1 starts at 0): copies of its inputs on the card just before it, and
+    of its inputs and result just after.  The wrapper is replaced in every
+    module of the port that holds it, its launch count carried over."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels, self.calls = torch, kernels, {}
+
+    def _wrap(self, fn):
+        torch, calls, name = self.torch, self.calls, fn.__name__
+
+        def wrapped(*args, **kwargs):
+            if name in calls:
+                return fn(*args, **kwargs)
+            pre = tree_map(torch, (args, kwargs), lambda t: t.clone())
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            changed = leaves(torch, out) or not all(
+                torch.equal(a, b) for a, b in zip(
+                    leaves(torch, pre), leaves(torch, (args, kwargs))))
+            if changed:
+                calls[name] = (pre, tree_map(torch, (args, kwargs, out),
+                                             lambda t: t.clone()))
+            return out
+
+        wrapped.launches = fn.launches
+        return wrapped
+
+    def __enter__(self):
+        self.patched = []
+        for fn in self.kernels:
+            w = self._wrap(fn)
+            for mod in list(sys.modules.values()):
+                if getattr(mod, "__name__", "").startswith(
+                        "buffalo_tpu_torch") and \
+                        getattr(mod, fn.__name__, None) is fn:
+                    setattr(mod, fn.__name__, w)
+                    self.patched.append((mod, fn, w))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, w in self.patched:
+            setattr(mod, fn.__name__, fn)
+            # the wrapper's own count statement names it in its module
+            fn.launches = w.launches
+        return False
+
+
+def n_distinct(torch, *ids):
+    """The number of distinct ids among the given int tensors."""
+    return int(torch.unique(torch.cat([t.reshape(-1).long()
+                                       for t in ids])).numel())
+
+
+def live_cols(torch, side):
+    """The real entries' ids of a batch or side: per row (``lens``) or
+    per chunk (``chunk_lens``)."""
+    cols = side.cols
+    lens = getattr(side, "chunk_lens", None)
+    if lens is None or getattr(side, "chunk_ptr", None) is None:
+        lens = side.lens
+    L = cols.shape[1]
+    return cols[torch.arange(L, device=cols.device)[None, :]
+                < lens[:, None]]
+
+
+def wide_work(torch, name, a, r, d):
+    """(bytes, operations, peak operations per second) of kernel ``name``'s
+    function on its recorded call: ``a`` the call's arguments by name, ``r``
+    its result.  Each id and value read once, each distinct gathered row
+    read once, each output written once; the operations of the function
+    (K11's scores are float64, the rest float32)."""
+    fp32, fp64 = PEAK_FP32_S, PEAK_FP64_S
+    if name == "als_normal_equations":
+        lens = a["lens"]
+        side = types.SimpleNamespace(cols=a["cols"], lens=lens,
+                                     chunk_lens=a["chunk_lens"],
+                                     chunk_ptr=a["chunk_ptr"])
+        R_ = lens.shape[0]
+        return k2_work(live_cols(torch, side), int((lens > 0).sum()), R_, d,
+                       a["item_axis"], 4 * R_) + (fp32,)
+    if name == "batched_cg_dense":
+        lens = a["lens"]
+        R_, real = lens.shape[0], int((lens > 0).sum())
+        return (4 * R_ * d * d + 4 * R_ * d + 8 * real * d + 4 * R_,
+                real * (1 + a["cg_iters"]) * 2 * d * d, fp32)
+    if name == "ialspp_solve_batch":
+        b = types.SimpleNamespace(cols=a["cols"], lens=a["lens"])
+        return ialspp_work(b, a["vals"], d, a["block_size"],
+                           a["item_axis"])[2:] + (fp32,)
+    if name == "score_topk":
+        return k5_work(a["p"].shape[0], a["Q"].shape[0], d, a["k"],
+                       a["Qb"] is not None) + (fp32,)
+    if name == "ivf_tile_topk":
+        qmask, ln = a["qmask"], a["ln"]
+        pairs = int((qmask.sum(1).long() * ln.long()).sum())
+        n = a["qidx"].numel()
+        return (4 * d * (int(ln.sum()) + n_distinct(torch, a["qidx"][qmask]))
+                + 8 * n + 8 * n * a["kk"], 2 * d * pairs, fp32)
+    if name == "kmeans_update":
+        (N, D_), C = a["unit"].shape, a["cent"].shape[0]
+        return 4 * N * D_ + 4 * N + 8 * C * D_, N * D_, fp32
+    if name == "sharded_topk_merge":
+        B, D_, kl = a["vals"].shape
+        return (k22_bytes(torch, r[1], D_, kl, a["items_per_shard"])[0], 0,
+                fp32)
+    if name in ("chunk_update", "chunk_accumulate", "chunk_delta",
+                "triplet_loss"):
+        users, pos, neg = a["users"], a["positives"], a["negatives"]
+        I = a["Q"].shape[0]
+        ok = neg[neg < I]
+        n_u, n_i = n_distinct(torch, users), n_distinct(torch, pos, ok)
+        B, N = neg.shape[0], users.shape[0]
+        if name == "chunk_update":
+            return k9_work(users, pos, neg, d, I) + (fp32,)
+        if name == "triplet_loss":
+            return (12 * N + 4 * d * (n_u + n_i) + 4 * n_i, 3 * d * N + N,
+                    fp32)
+        # the touched rows read, their accumulator or delta rows read and
+        # written (the counts too when accumulating)
+        extra = 8 * (n_u + n_i) if name == "chunk_accumulate" else 0
+        return (8 * N + 4 * B + (4 + 8) * d * (n_u + n_i) + (4 + 8) * n_i
+                + extra, 8 * d * B + 2 * d * N + 2 * d * (n_u + n_i), fp32)
+    if name == "deferred_update":
+        # param, grad (zeroed), v (and adam's m), each read and written
+        n = a["param"].numel()
+        words = 3 if a["optimizer"] == "adagrad" else 4
+        return (8 * words * n + 4 * a["param"].shape[0],
+                14 * n + (3 * n if a["project"] else 0), fp32)
+    if name == "capped_add":
+        n = a["param"].numel()
+        return 12 * n, 5 * n, fp32
+    if name in ("warp_search", "warp_violations"):
+        users, pos = a["users"], a["positives"]
+        neg = r[0] if name == "warp_search" else a["negatives"]
+        N, n_u = users.shape[0], n_distinct(torch, users)
+        n_i = n_distinct(torch, pos, neg)
+        if name == "warp_violations":
+            return 12 * N + 4 * d * (n_u + n_i), 6 * d * N, fp64
+        K_ = a["num_candidates"]
+        return (N * (8 + 16 + 13 + 4) + 4 * d * (n_u + n_i),
+                2 * d * N * (K_ + 1), fp64)
+    if name == "warp_accumulate":
+        users, any_v = a["users"], a["any_v"]
+        n = int(any_v[:a["n_valid"]].sum())
+        n_u = n_distinct(torch, users)
+        n_i = n_distinct(torch, a["positives"], a["negatives"])
+        return 13 * users.shape[0] + 12 * d * (n_u + n_i), 10 * d * n, fp32
+    if name == "dim_sweep":
+        b = a["batch"]
+        check(type(b).__name__ == "RangeBatch", f"K13's first call at d = "
+              f"{d} took a {type(b).__name__}, not a range batch")
+        return k13_work(b, d, a["item_axis"]) + (fp32,)
+    if name == "eals_residual":
+        n = a["row_ids"].shape[0]
+        return (16 * n + 4 * d * (n_distinct(torch, a["row_ids"])
+                                  + n_distinct(torch, a["keys"])),
+                n * (2 * d + 10), fp32)
+    if name == "plsi_estep":
+        b = a["batch"]
+        cols = live_cols(torch, b)
+        n, R_ = int(cols.numel()), b.lens.shape[0]
+        return (8 * n + 4 * d * n_distinct(torch, cols) + 12 * R_ * d,
+                4 * d * n, fp32)
+    if name == "plsi_mstep":
+        Pn, Qn = a["Pn"], a["Qn"]
+        return (4 * (2 * (Pn.numel() + Qn.numel()) + Pn.shape[0]
+                     + Qn.shape[0]), 3 * (Pn.numel() + Qn.numel()), fp32)
+    if name == "cfr_normal_equations":
+        n, fixed = 0, []
+        for side in (a["implicit"], a["explicit"]):
+            if side is not None:
+                c = live_cols(torch, side)
+                n += int(c.numel())
+                fixed.append(c)
+        R_ = a["rows"].shape[0]
+        return (8 * n + 4 * d * n_distinct(torch, *fixed)
+                + 4 * R_ * d * (d + 2) + 4 * d * d,
+                n * (d * (d + 1) + 4 * d), fp32)
+    if name == "cfr_bias":
+        rows, side = a["rows"], a["explicit"]
+        if side is None:  # the loss term alone: each row's |x|^2
+            return (4 * d * rows.shape[0] + 8 * rows.shape[0],
+                    2 * d * rows.shape[0], fp32)
+        c = live_cols(torch, side)
+        n = int(c.numel())
+        return (8 * n + 4 * d * (rows.shape[0] + n_distinct(torch, c)),
+                2 * d * n, fp32)
+    if name == "pair_step":
+        B, K_ = a["inputs"].shape[0], a["num_negatives"]
+        n_rows = (n_distinct(torch, a["inputs"])
+                  + n_distinct(torch, a["targets"], r[0]))
+        return (8 * B + 4 * d * n_rows + 4 * d * B * (K_ + 2),
+                B * (K_ + 1) * 6 * d, fp32)
+    if name == "row_apply":
+        parts = a["parts"]
+        n = sum(int(p[0].numel()) for p in parts)
+        rows = n_distinct(torch, *[p[0] for p in parts])
+        return 4 * n + 4 * d * n + 8 * d * rows, 2 * d * n, fp32
+    if name == "stream_chunk_deltas":
+        wc, negs = a["wc"], a["negs"]
+        T_ = wc.shape[0]
+        rows = n_distinct(torch, wc, negs)
+        return (9 * T_ + 8 * d * rows + 4 * d * (2 * T_ + negs.numel()),
+                2 * d * T_ * a["window"] * 2 * (negs.shape[1] + 1), fp32)
+    raise KeyError(name)
+
+
+def hold_first_call(torch, fn, call, d, **extra):
+    """Kernel wrapper ``fn``'s recorded first call (``FirstCalls``) held to
+    its plain version by ``WIDE_RULES``: the plain version runs on host
+    copies of the call's inputs (the wrapper's CPU route), and for a solve
+    also in float64.  A float tensor past its tolerance passes only by the
+    noise floor (the plain version's float64 run: the kernel no further
+    from it than NOISE_FACTOR times the plain float32 run, plus the
+    tolerance), recorded in ``noise_floor``.  Then the wrapper timed on
+    copies of those inputs on the card, and the bound from them
+    (``wide_work``; ``extra`` adds arguments the bound needs).  Returns the
+    readings."""
+    import inspect
+
+    name = fn.__name__
+    rule, tol = WIDE_RULES[name]
+    tols = tol if isinstance(tol, tuple) else (tol,)
+    pre, post = call
+
+    def host(dtype=None):
+        def to(t):
+            t = t.detach().to("cpu", copy=True)
+            return t.to(dtype) if dtype is not None and \
+                t.is_floating_point() else t
+        return tree_map(torch, pre, to)
+
+    def plain(dtype=None, **over):
+        args, kwargs = host(dtype)
+        kwargs = dict(kwargs, **over)
+        return args, kwargs, fn(*args, **kwargs)
+
+    st = time.perf_counter()
+    ref = plain()
+    plain_host_ms = 1e3 * (time.perf_counter() - st)
+    ref64 = plain(torch.float64) if rule == "solve" else None
+
+    def witness():
+        nonlocal ref64
+        if ref64 is None:
+            ref64 = plain(torch.float64)
+        return ref64
+
+    # K20's steps are held to the largest step before the cap
+    uncapped = plain(cap=0.0) if name == "row_apply" else None
+
+    a0 = [t.cpu() for t in leaves(torch, pre)]
+    ak = [t.cpu() for t in leaves(torch, post[:2])]
+    ap = leaves(torch, ref[:2])
+    check(len(a0) == len(ak) == len(ap), f"{name}: the plain run's inputs "
+          "differ in structure from the kernel's")
+    err = 0.0
+    compared, floors = [], {}
+
+    def held(got, want, limit, what, where):
+        nonlocal err
+        if not got.is_floating_point() or limit == 0.0:
+            ok = torch.equal(got, want)
+            e = 0.0 if ok else float("inf")
+            fields = {}
+        else:
+            e = float((got.double() - want.double()).abs().max()) \
+                if got.numel() else 0.0
+            ok, fields = e <= limit, {}
+            if not ok:  # the noise floor: the float64 run as the witness
+                w = where(witness())
+                e64 = float((got.double() - w).abs().max())
+                floor = float((want.double() - w).abs().max())
+                ok = e64 <= NOISE_FACTOR * floor + limit
+                fields = dict(max_abs_err=e, limit=limit, err_vs_f64=e64,
+                              plain_err_vs_f64=floor)
+                floors[what] = fields
+        check(ok, f"{name} at d = {d}: {what} is {e:.3g} from the plain "
+              f"version's (limit {limit:.3g}) {fields}")
+        err = max(err, e)
+        compared.append(what)
+
+    def amax(t):
+        return float(t.double().abs().max()) if t.numel() else 0.0
+
+    for i, (b, k, p) in enumerate(zip(a0, ak, ap)):
+        if torch.equal(k, b) and torch.equal(p, b):
+            continue  # an input the call did not change
+        what = f"input {i} {tuple(k.shape)}"
+        def where(r, i=i):
+            return leaves(torch, r[:2])[i].double()
+
+        if not k.is_floating_point():
+            held(k, p, 0.0, what, where)
+        elif rule == "solve":
+            p64 = leaves(torch, ref64[:2])[i]
+            if k.dim() == 2:  # the rows the solve wrote
+                rows = (k != b).any(1) | (p != b).any(1)
+                k, p, p64 = k[rows], p[rows], p64[rows]
+            ok, fields = noise_floor_check(k, p, p64)
+            check(ok, f"{name} at d = {d}: {what} off the CG rule: {fields}")
+            err = max(err, fields["max_abs_err"])
+            compared.append(what)
+        elif rule == "step":
+            top = p if uncapped is None else leaves(torch, uncapped[:2])[i]
+            held(k, p, tols[0] * amax(top - b)
+                 + 2 * float(np.finfo(np.float32).eps) * amax(b), what,
+                 where)
+        else:
+            held(k, p, tols[0] * amax(p), what, where)
+    ok_, op = leaves(torch, post[2]), leaves(torch, ref[2])
+    if name in WIDE_OPAQUE_RESULT:
+        ok_, op = [], []
+    check(len(ok_) == len(op), f"{name}: the plain run's result differs in "
+          "structure from the kernel's")
+    if rule == "topk":
+        e, ties = kernel_topk_check(tuple(t.cpu() for t in ok_[:2]),
+                                    tuple(op[:2]), f"{name} at d = {d}")
+        err = max(err, e)
+        compared.append("scores and ids")
+    else:
+        for j, (k, p) in enumerate(zip(ok_, op)):
+            held(k.cpu(), p, tols[min(j, len(tols) - 1)] * amax(p)
+                 if p.is_floating_point() else 0.0,
+                 f"output {j} {tuple(k.shape)}",
+                 lambda r, j=j: leaves(torch, r[2])[j].double())
+    check(bool(compared), f"{name} at d = {d}: the call changed nothing")
+
+    args, kwargs = tree_map(torch, pre, lambda t: t.clone())
+    bound = inspect.signature(fn).bind(*args, **kwargs)
+    bound.apply_defaults()
+    nbytes, ops, peak = wide_work(torch, name, dict(bound.arguments,
+                                                    **extra), post[2], d)
+    t_b, t_o = nbytes / PEAK_BYTES_S, ops / peak
+    out = dict(ms=time_ms(lambda: fn(*args, **kwargs), reps=10, warmup=2),
+               plain_host_ms=plain_host_ms, bound_ms=1e3 * max(t_b, t_o),
+               bound_by="bytes" if t_b >= t_o else "operations",
+               max_abs_err=err, compared=compared, noise_floor=floors,
+               bytes=nbytes, operations=ops)
+    del args, kwargs, bound, ref, ref64, uncapped
+    torch.cuda.synchronize()
+    return out
+
+
+def small_corpus(path, lines, vocab, tokens):
+    """A stream file shaped as ``brunch_corpus`` at a smaller scale."""
+    rng = np.random.default_rng(11)
+    pop = 1.0 / np.arange(1, vocab + 1) ** 0.8
+    pop /= pop.sum()
+    lens = np.maximum(1, rng.poisson(tokens / lines, lines))
+    items = rng.choice(vocab, size=int(lens.sum()), p=pop)
+    with open(path, "w") as fh:
+        pos = 0
+        for n in lens:
+            fh.write(" ".join(map(str, items[pos:pos + n])) + "\n")
+            pos += n
+
+
+def wide_rows(bt, torch, dev):
+    """Rows of WIDE_D floats through the user's entry points, each model
+    WIDE_EPOCHS epochs (ALS, BPR-MF sgd and adagrad and on a 2-shard mesh,
+    WARP, eALS and pLSI on the SMALL_* synthetic; CoFactor and W2V, device
+    and host pairs, on a WIDE_LINES-line stream corpus): finite losses that
+    fall, and every kernel of the model's path launched.  The first call
+    of each widened kernel on these paths is recorded and held to its plain
+    version (``hold_first_call``), timed, and bounded from its inputs.  Then
+    an IVF index of WIDE_CELLS cells (K7 past its old cell cap; K6 on its
+    search), and on the trained ALS tables top-k (K5) and sharded top-k
+    over WIDE_SHARDS shards (K22 past its old shard cap)."""
+    from buffalo_tpu_torch.data.mm import MatrixMarket, MatrixMarketOptions
+    from buffalo_tpu_torch.ops import als_kernels as K
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
+    from buffalo_tpu_torch.ops import eals_kernels as E
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+    from buffalo_tpu_torch.ops import topk as T
+    from buffalo_tpu_torch.ops import w2v_kernels as W2
+    from buffalo_tpu_torch.ops import warp_kernels as W
+    from buffalo_tpu_torch.parallel.ann import IVFIndex
+
+    d = WIDE_D
+    groups, _ = synth_ml20m(SMALL_USERS, SMALL_ITEMS, SMALL_NNZ, seed=5)
+    path = os.path.join(WORK, "wide.bfo")
+    write_compiled(groups, SMALL_USERS, SMALL_ITEMS, path, num_vali=500,
+                   seed=2)
+    del groups
+    dopt = MatrixMarketOptions().get_default_option()
+    dopt.data.tmp_dir = os.path.join(WORK, "tmp")
+    dopt.data.path = path
+    data = MatrixMarket(dopt)
+    data.open(path)
+    corpus = os.path.join(WORK, "wide.txt")
+    small_corpus(corpus, WIDE_LINES, WIDE_VOCAB, WIDE_TOKENS)
+    streams = {}
+    for kind in ("matrix", "stream"):
+        sopt = bt.StreamOptions().get_default_option()
+        sopt.input.main = corpus
+        sopt.data.path = os.path.join(WORK, f"wide_{kind}.bfo")
+        sopt.data.tmp_dir = os.path.join(WORK, "tmp")
+        sopt.data.internal_data_type = kind
+        sopt.data.validation = {}
+        if kind == "matrix":
+            sopt.data.sppmi = {"windows": 5, "k": 10}
+        streams[kind] = bt.data.load(sopt)
+        streams[kind].create()
+
+    kernels, runs, als = {}, {}, None
+    mesh2 = dict(num_devices=2, devices=[str(dev)] * 2, use_bias=True)
+    # (run, class, options, data, options set, the kernels of its path that
+    # must launch, the widened kernels whose first call is held)
+    models = (
+        ("ALS", bt.ALS, bt.ALSOption, data, {}, K.KERNELS,
+         ("ialspp_solve_batch", "als_normal_equations", "batched_cg_dense"),
+         (K.ialspp_solve_batch, K.als_normal_equations,
+          K.batched_cg_dense)),
+        ("BPRMF", bt.BPRMF, bt.BPRMFOption, data, {}, S.KERNELS,
+         ("sample_negatives", "chunk_update", "triplet_loss"),
+         (S.chunk_update, S.triplet_loss)),
+        ("BPRMF adagrad", bt.BPRMF, bt.BPRMFOption, data,
+         dict(optimizer="adagrad"), S.KERNELS,
+         ("sample_negatives", "chunk_accumulate", "deferred_update"),
+         (S.chunk_accumulate, S.deferred_update)),
+        ("BPRMF sgd mesh", bt.BPRMF, bt.BPRMFOption, data, mesh2, S.KERNELS,
+         ("sample_negatives", "chunk_delta", "chunk_bias_neg_delta",
+          "capped_add"), (S.chunk_delta, S.capped_add)),
+        ("WARP", bt.WARP, bt.WARPOption, data, {},
+         W.KERNELS + (S.deferred_update,),
+         ("warp_search", "warp_accumulate", "deferred_update"),
+         (W.warp_search, W.warp_accumulate, W.warp_violations,
+          S.deferred_update)),
+        ("EALS", bt.EALS, bt.EALSOption, data, {}, E.KERNELS,
+         ("dim_sweep", "eals_residual"), (E.dim_sweep, E.eals_residual)),
+        ("PLSI", bt.PLSI, bt.PLSIOption, data, {}, PK.KERNELS,
+         ("plsi_estep", "plsi_mstep"), (PK.plsi_estep, PK.plsi_mstep)),
+        ("CFR", bt.CFR, bt.CFROption, streams["matrix"], {},
+         CK.KERNELS + (K.batched_cg_dense,),
+         ("cfr_normal_equations", "cfr_bias", "batched_cg_dense"),
+         (CK.cfr_normal_equations, CK.cfr_bias, K.batched_cg_dense)),
+        ("W2V", bt.W2V, bt.W2VOption, streams["stream"],
+         dict(min_count=2, pair_gen="device"),
+         W2.KERNELS + (S.sample_negatives,),
+         ("stream_chunk_deltas", "row_apply", "sample_negatives"),
+         (W2.stream_chunk_deltas, W2.row_apply)),
+        ("W2V host pairs", bt.W2V, bt.W2VOption, streams["stream"],
+         dict(min_count=2, pair_gen="host"), W2.KERNELS,
+         ("pair_step", "row_apply"), (W2.pair_step,)),
+    )
+    for run, cls, options, mdata, extra, kset, need, held in models:
+        opt = options().get_default_option()
+        opt.update(d=d, num_iters=WIDE_EPOCHS, device="cuda", validation={},
+                   **extra)
+        if cls is bt.ALS:  # ALS reports its loss to the callback
+            opt.update(validation={"topk": TOPK}, evaluation_period=1)
+        model = cls(opt, data=mdata)
+        np.random.seed(0)
+        model.initialize()
+        torch.cuda.synchronize()
+        reset_counts(kset)
+        seen = []
+        with FirstCalls(torch, held) as rec:
+            model.train(training_callback=lambda i, m: seen.append(
+                m["train_loss"]))
+        launches = read_counts(kset)
+        losses = [float(x) for x in getattr(model, "iteration_losses",
+                                            seen)]
+        check(len(losses) == WIDE_EPOCHS and np.isfinite(losses).all()
+              and losses[-1] < losses[0],
+              f"{run} at d = {d}: losses {losses}")
+        check(all(launches[k] > 0 for k in need),
+              f"{run} at d = {d} launched {launches}")
+        held_here = {}
+        for fn in held:
+            if fn.__name__ in rec.calls:
+                held_here[fn.__name__] = hold_first_call(
+                    torch, fn, rec.calls[fn.__name__], d)
+        check(all(n in held_here for n in need if n in
+                  {f.__name__ for f in held}),
+              f"{run} at d = {d}: no first call of {need} recorded")
+        for kname, reading in held_here.items():
+            # a kernel held on two paths (K10's adagrad and projection
+            # modes, K3 in ALS and CoFactor) keeps both readings
+            kernels[kname if kname not in kernels
+                    else f"{kname} ({run})"] = dict(reading, run=run)
+        runs[run] = dict(train_loss=losses,
+                         epoch_seconds=model.iteration_times,
+                         launches=launches, held=sorted(held_here))
+        del rec
+        if cls is bt.ALS:
+            als = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+
+    # retrieval at d = WIDE_D: an IVF index past K7's old cell cap, its
+    # search (K6), and sharded top-k past K22's old shard cap
+    rng = np.random.default_rng(31)
+    table = rng.standard_normal((WIDE_IVF_ROWS, d), dtype=np.float32)
+    queries = rng.standard_normal((WIDE_IVF_QUERIES, d), dtype=np.float32)
+    with FirstCalls(torch, (R.kmeans_update, R.ivf_tile_topk)) as rec:
+        index = IVFIndex.build(table, n_clusters=WIDE_CELLS,
+                               n_iters=WIDE_IVF_ITERS, spill=1,
+                               device="cuda")
+        ids, _ = index.search(queries, TOPK)
+    cells = rec.calls["kmeans_update"][0][0][2].shape[0]
+    check(cells == WIDE_CELLS > 58_112, f"K7 ran on {cells} cells")
+    check(ids.shape == (WIDE_IVF_QUERIES, TOPK) and (ids >= 0).all(),
+          "the wide IVF search returned no full top-k")
+    for fn in (R.kmeans_update, R.ivf_tile_topk):
+        kernels[fn.__name__] = dict(hold_first_call(
+            torch, fn, rec.calls[fn.__name__], d), run="IVF")
+    del index, rec, table
+    mesh = bt.parallelism.get_mesh(WIDE_SHARDS,
+                                   devices=[str(dev)] * WIDE_SHARDS)
+    P, Q = als.P[:WIDE_IVF_QUERIES], als.Q
+    with FirstCalls(torch, (R.sharded_topk_merge,)) as rec:
+        got = T.batch_topn_sharded(P, Q, TOPK, mesh)
+    with FirstCalls(torch, (R.score_topk,)) as rec5:
+        want = T.batch_topn(P, Q, TOPK, device="cuda")
+    same_topk(got, want, f"sharded top-k over {WIDE_SHARDS} shards at d = "
+              f"{d}")
+    kernels["score_topk"] = dict(hold_first_call(
+        torch, R.score_topk, rec5.calls["score_topk"], d), run="top-k")
+    kernels["sharded_topk_merge"] = dict(hold_first_call(
+        torch, R.sharded_topk_merge, rec.calls["sharded_topk_merge"], d,
+        items_per_shard=-(-Q.shape[0] // WIDE_SHARDS)), run="sharded top-k",
+        shards=WIDE_SHARDS)
+    del als, rec, rec5, mesh
+    torch.cuda.empty_cache()
+    phase("wide_rows", d=d, kernels=kernels, models=runs,
+          epochs=WIDE_EPOCHS, ivf=dict(rows=WIDE_IVF_ROWS, cells=WIDE_CELLS,
+                                       lloyd_iterations=WIDE_IVF_ITERS,
+                                       queries=WIDE_IVF_QUERIES),
+          sharded_topk_shards=WIDE_SHARDS,
+          data=dict(users=SMALL_USERS, items=SMALL_ITEMS, nnz=SMALL_NNZ,
+                    corpus_lines=WIDE_LINES, corpus_vocab=WIDE_VOCAB))
+    return kernels
+
+
 def main() -> int:
+    global _START
+    _START = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4963,6 +6041,14 @@ def main() -> int:
         del warp
         torch.cuda.empty_cache()
 
+        # ---- the dp mesh of BPR-MF and WARP: MESH_SHARDS shards on this
+        # card against one device, and the new entry points of K8-K11 on
+        # a shard's inputs
+        mesh_entries, mesh_launches = mesh_bpr(bt, S, torch, data)
+        entries.update(mesh_entries)
+        path_launches.update(mesh_launches)
+        mesh_warp(bt, W, S, torch, data)
+
         # ---- eALS: the user's entry points at d = D, then K13 and K14 on
         # its layout; then top-k past K5's k limit on its tables
         eals, eals_state, eals_launches = eals_path(bt, E, R, torch, data)
@@ -5010,6 +6096,10 @@ def main() -> int:
         w2v_quality(bt, W2, torch)
         del w2v_data
         torch.cuda.empty_cache()
+
+        # ---- rows of WIDE_D floats: every widened kernel against its plain
+        # version, then each model's entry points at that width
+        wide_rows(bt, torch, dev)
 
         # ---- catalog path: the README's serving configuration (K5-K7 at
         # its shapes), then K5 and K6 at every width

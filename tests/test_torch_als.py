@@ -103,7 +103,9 @@ def test_identical_initial_factors(datasets):
 
 # the settings each case trains both packages with; NOISY cases are held
 # to the float64 witness alone (see the module docstring)
-NOISY = {"ialspp_auto_d128"}
+NOISY = {"ialspp_auto_d128", "ialspp_d300"}
+# d > 256 trains on ``wide_datasets``: rows of 300 floats need more items
+# than the 250 of ml100k_like, whose item gramian is then singular
 CASES = {
     "llt": dict(optimizer="llt"),
     "manual_cg": dict(optimizer="manual_cg"),
@@ -112,11 +114,42 @@ CASES = {
     "scatter": dict(range_layout=False),
     "streaming": dict(resident_mb=0),
     "bfloat16": dict(vals_dtype="bfloat16"),
+    "ialspp_d300": dict(d=300),
 }
 
 
 @pytest.fixture(scope="module")
-def trained(datasets):
+def wide_datasets(tmp_path_factory):
+    """1,200 users x 900 items in 8 planted clusters (20-30 in-cluster
+    picks each, 2-4 others): both gramians full rank at d = 300."""
+    root = tmp_path_factory.mktemp("als_wide")
+    rng = np.random.default_rng(9)
+    num_users, num_items, k = 1200, 900, 8
+    ucl, icl = rng.integers(0, k, num_users), rng.integers(0, k, num_items)
+    lines = []
+    for u in range(num_users):
+        same = np.nonzero(icl == ucl[u])[0]
+        other = np.nonzero(icl != ucl[u])[0]
+        picks = list(rng.choice(same, int(rng.integers(20, 30)),
+                                replace=False)) + \
+            list(rng.choice(other, int(rng.integers(2, 5)), replace=False))
+        lines += [f"{u + 1} {int(i) + 1} "
+                  f"{int(rng.integers(4, 6)) if icl[i] == ucl[u] else 1}"
+                  for i in picks]
+    path = root / "main.mm"
+    path.write_text("%%MatrixMarket matrix coordinate real general\n"
+                    f"{num_users} {num_items} {len(lines)}\n"
+                    + "\n".join(lines) + "\n")
+    (root / "uid").write_text("\n".join(f"u{i}" for i in range(num_users)))
+    (root / "iid").write_text("\n".join(f"i{i}" for i in range(num_items)))
+    fixture = {"path": str(path), "uid": str(root / "uid"),
+               "iid": str(root / "iid")}
+    return (_build(RefMMOptions, ref_load, fixture, root / "ref"),
+            _build(PortMMOptions, port_load, fixture, root / "port"))
+
+
+@pytest.fixture(scope="module")
+def trained(request):
     """case -> ((ref model, result, losses), (port model, ...),
     (float64 port model, ...)), trained once per module."""
     cache = {}
@@ -124,6 +157,8 @@ def trained(datasets):
     def get(case):
         if case not in cache:
             kw = CASES[case]
+            datasets = request.getfixturevalue(
+                "wide_datasets" if kw.get("d", 0) > 256 else "datasets")
             a = _model(ref, datasets[0], seed=5, **kw)
             b = _model(port, datasets[1], seed=5, **kw)
             c = _model(port, datasets[1], seed=5, **kw)

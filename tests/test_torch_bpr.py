@@ -124,6 +124,7 @@ CASES = {
     "adam_pcn": dict(optimizer="adam", lr=0.02,
                      per_coordinate_normalize=True),
     "adam": dict(optimizer="adam", lr=0.02),
+    "sgd_wide": dict(d=300),
 }
 
 
@@ -265,10 +266,22 @@ def test_split_and_fused_dispatch_identical(datasets):
         bad.train()
 
 
-def test_multi_device_raises(datasets):
+def test_multi_device_trains_on_the_mesh(datasets, monkeypatch):
+    """num_devices=2 (two shards on the CPU) trains the dp mesh epoch
+    (``tests/test_torch_bpr_mesh.py`` holds it to the JAX package)."""
+    epochs = []
+    original = PK.bpr_epoch
+
+    def record(mesh, *args, **kwargs):
+        epochs.append(mesh.size)
+        return original(mesh, *args, **kwargs)
+
+    monkeypatch.setattr(PK, "bpr_epoch", record)
     m = _model(port, datasets[1], seed=1, num_devices=2)
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        m.train()
+    m.opt.devices = ["cpu"] * 2
+    r = m.train()
+    assert epochs == [2] * 3
+    assert np.isfinite(r["train_loss"]) and r["train_loss"] < np.log(2.0)
 
 
 def test_save_load_both_directions(datasets, tmp_path):

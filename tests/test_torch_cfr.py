@@ -16,7 +16,10 @@ packages' tables are held within 2x the port's distance from it, the
 losses within 1e-3.  Cases: padded batches (``llt``, ``manual_cg``),
 segment batches on every phase (``max_len=4``: rows past 4 entries become
 chunked head rows, the item phase's segment pairs among them) and the
-streamed batches past ``resident_mb``.
+streamed batches past ``resident_mb``; and rows of 160 floats (``llt`` at
+1e-3, ``manual_cg`` within 2x the JAX package's own distance from the
+port's float64 run, the JAX run being the noisier there) on a fixture of
+800 words.
 """
 import numpy as np
 import pytest
@@ -74,6 +77,33 @@ def _build(options, load, path, root):
 
 
 @pytest.fixture(scope="module")
+def wide_stream_file(tmp_path_factory):
+    """800 words in 8 clusters, 1,500 sentences of 12: enough words for
+    rows of 160 floats (on the 60 words above such rows are rank-deficient,
+    and both packages' float32 runs land ~1e-2 from a float64 run)."""
+    root = tmp_path_factory.mktemp("cfr_wide_stream")
+    rng = np.random.default_rng(3)
+    V, k = 800, 8
+    cl = rng.integers(0, k, V)
+    lines = []
+    for _ in range(1500):
+        members = np.nonzero(cl == rng.integers(0, k))[0]
+        sent = rng.choice(members, size=12, replace=True)
+        lines.append(" ".join(f"w{int(x)}" for x in sent))
+    path = root / "main.txt"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def wide_datasets(wide_stream_file, tmp_path_factory):
+    return (_build(RefStreamOptions, ref_load, wide_stream_file,
+                   tmp_path_factory.mktemp("ref_cfr_wide")),
+            _build(PortStreamOptions, port_load, wide_stream_file,
+                   tmp_path_factory.mktemp("port_cfr_wide")))
+
+
+@pytest.fixture(scope="module")
 def datasets(stream_file, tmp_path_factory):
     return (_build(RefStreamOptions, ref_load, stream_file,
                    tmp_path_factory.mktemp("ref_cfr")),
@@ -115,12 +145,18 @@ CASES = {
     "segment_llt": dict(optimizer="llt", max_len=4),
     "segment_cg": dict(max_len=4),
     "streamed": dict(resident_mb=0),
+    # past the 128-float rows the card's CFR kernels once refused, which
+    # also raised here on the CPU; on the wide fixture
+    "wide_llt": dict(optimizer="llt", d=160),
+    "wide_cg": dict(d=160),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_train_matches_jax(datasets, case):
+def test_train_matches_jax(request, case):
     kw = CASES[case]
+    datasets = request.getfixturevalue(
+        "wide_datasets" if case.startswith("wide") else "datasets")
     a = _model(ref, datasets[0], 5, **kw)
     res_a, loss_a = _train(a)
     b = _model(port, datasets[1], 5, **kw)
@@ -146,7 +182,12 @@ def test_train_matches_jax(datasets, case):
         x_ref, x_port, x64 = getattr(a, t), getattr(b, t), getattr(c, t)
         noise = _rel(x_port, x64)  # the port's own float32 error
         assert noise < 1e-2, (t, noise)
-        assert _rel(x_port, x_ref) <= 2.0 * noise + 1e-6, (t, noise)
+        # 160-float rows: the JAX package's float32 run is the further from
+        # the witness on some tables (Cb 2.5x the port's), so there the
+        # allowance is the larger of the two packages' own distances
+        floor = max(noise, _rel(x_ref, x64)) if case.startswith("wide") \
+            else noise
+        assert _rel(x_port, x_ref) <= 2.0 * floor + 1e-6, (t, noise, floor)
     assert abs(res_b["vali_ndcg"] - res_a["vali_ndcg"]) < 1e-2
 
 

@@ -129,7 +129,7 @@ def test_cg_kernels_freeze_like_plain(dev, kernel):
 # keep A in the warp's shared memory, 256 reads it from L2, the others keep
 # it in registers; the scatter mode writes through a reversed row list
 # holding padding ids past the table
-@pytest.mark.parametrize("d", [8, 13, 40, 64, 65, 128, 160, 256])
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 65, 128, 160, 256, 300, 1000])
 @pytest.mark.parametrize("mode", ["range", "scatter"])
 def test_dense_cg_kernel_matches_plain(dev, d, mode):
     table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=200, B=61, seed=d)
@@ -180,7 +180,7 @@ def test_cg_kernels_are_deterministic(dev, kernel):
 # with A over the ring, 160 and 256 pass over the entries 2 and 4 times and
 # build A in the output; L = 97 and 104 end inside a stage of the gather
 # ring, 1000 and 8192 wrap the ring many times and end in a partial stage
-@pytest.mark.parametrize("d", [8, 13, 40, 64, 128, 160, 256])
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 128, 160, 256, 300])
 @pytest.mark.parametrize("L", [97, 104, 1000, 8192])
 def test_normal_equations_and_cg_match_plain(dev, d, L):
     table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=L, B=32)
@@ -281,22 +281,14 @@ def test_wrappers_reject_what_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         K.als_cg_matrix_free(table, Bf.cpu(), FF, 0, lens, cols, vals,
                              cg_iters=3, cg_tol=1e-10, **_kw(False))
-    # K1 takes rows of at most 128 floats; K2, K3 and K4 of at most 256
+    # K1 holds rows of at most 128 floats by design (ALS sends wider rows
+    # to iALS++); K2, K3 and K4 take any width
     wide = torch.zeros(300, 129, device=dev)
-    with pytest.raises(ValueError, match="d <= 128"):
+    with pytest.raises(ValueError, match="at most 128"):
         K.als_cg_matrix_free(wide, wide[:200].contiguous(),
                              torch.zeros(129, 129, device=dev), 0, lens,
                              cols, vals, cg_iters=3, cg_tol=1e-10,
                              **_kw(False))
-    wider = torch.zeros(300, 257, device=dev)
-    with pytest.raises(NotImplementedError, match="256"):
-        K.batched_cg_dense(torch.zeros(64, 257, 257, device=dev),
-                           torch.zeros(64, 257, device=dev), wider, lens,
-                           cg_iters=3, cg_tol=1e-10)
-    with pytest.raises(NotImplementedError, match="256"):
-        K.ialspp_solve_batch(wider, wider[:200].contiguous(),
-                             torch.zeros(257, 257, device=dev), lens, cols,
-                             vals, block_size=32, cg_tol=1e-10, **_kw(False))
     with pytest.raises(TypeError):  # values are float32 or bfloat16
         K.als_cg_matrix_free(table, Bf, FF, 0, lens, cols, vals.half(),
                              cg_iters=3, cg_tol=1e-10, **_kw(False))
@@ -361,7 +353,8 @@ def test_k1_k2_rows_mode_and_bf16_match_plain(dev, L, mode, bf16):
 # the row's F in shared memory for the whole solve, 1000 at d = 256 and
 # 8192 stream it through the tile in every pass
 @pytest.mark.parametrize("d,block_size", [(13, 13), (64, 32), (150, 32),
-                                          (160, 160), (256, 256)])
+                                          (160, 160), (256, 256), (300, 32),
+                                          (300, 300)])
 @pytest.mark.parametrize("L", [8, 96, 1000, 8192])
 @pytest.mark.parametrize("mode", ["range", "rows"])
 def test_ialspp_kernel_matches_plain(dev, d, block_size, L, mode):
@@ -469,7 +462,7 @@ def _score_case(dev, d, N=2500, B=300, seed=0, dup=True):
 # d = 13, 40, 100, 160, 256 (no multiple of the 32-feature chunk but 160,
 # 256); k = 1, 10 (list of 32), 100 (128), 1024; N = 2500 is no multiple of
 # the item tile, B = 300 none of the query block
-@pytest.mark.parametrize("d", [13, 40, 100, 160, 256])
+@pytest.mark.parametrize("d", [13, 40, 100, 160, 256, 300])
 @pytest.mark.parametrize("k", [1, 10, 100, 1024])
 @pytest.mark.parametrize("bias", [False, True])
 def test_score_topk_kernel_matches_plain(dev, d, k, bias):
@@ -505,7 +498,7 @@ def test_score_topk_kernel_shapes(dev, shape):
 
 def test_score_topk_kernel_neg_inf_and_limits(dev):
     """-inf scores (padding rows' bias) are kept as the lowest entries, in
-    index order; k past 1024 and d past 256 raise NotImplementedError."""
+    index order; k past 1024 raises NotImplementedError."""
     from buffalo_tpu_torch.ops import retrieval_kernels as R
 
     p, Q, Qb = _score_case(dev, 24, N=300, B=70, dup=False)
@@ -516,9 +509,6 @@ def test_score_topk_kernel_neg_inf_and_limits(dev):
     assert idx[:, 200:].tolist() == [list(range(200, 250))] * 70
     with pytest.raises(NotImplementedError):
         R.score_topk(p, torch.zeros(2000, 24, device=dev), 1025)
-    with pytest.raises(NotImplementedError):
-        R.score_topk(torch.zeros(4, 257, device=dev),
-                     torch.zeros(8, 257, device=dev), 2)
 
 
 def _ivf_case(dev, d, T=40, bq=64, l_cap=256, seed=0):
@@ -536,7 +526,7 @@ def _ivf_case(dev, d, T=40, bq=64, l_cap=256, seed=0):
             for a in (queries, table, qidx, qmask, lo, ln)]
 
 
-@pytest.mark.parametrize("d", [13, 40, 100, 160, 256])
+@pytest.mark.parametrize("d", [13, 40, 100, 160, 256, 300])
 @pytest.mark.parametrize("kk", [1, 10, 100, 1024])
 def test_ivf_tile_kernel_matches_plain(dev, d, kk):
     from buffalo_tpu_torch.ops import retrieval_kernels as R
@@ -557,7 +547,7 @@ def test_ivf_tile_kernel_matches_plain(dev, d, kk):
     assert torch.equal(torch.isinf(gv), torch.isinf(rv))
 
 
-@pytest.mark.parametrize("D", [14, 41, 101, 257])
+@pytest.mark.parametrize("D", [14, 41, 101, 257, 301, 600])
 def test_kmeans_update_kernel_matches_plain(dev, D):
     """Members' mean normalized, an empty cell keeping its centroid, rows
     of zero norm weighing nothing; two launches bitwise equal."""
@@ -584,6 +574,25 @@ def test_kmeans_update_kernel_matches_plain(dev, D):
                                rtol=1e-5, atol=1e-5)
     ref7 = cent[7] / cent[7].norm()
     torch.testing.assert_close(got[7], ref7, rtol=1e-6, atol=1e-7)
+
+
+def test_kmeans_update_kernel_many_cells(dev):
+    """Past 58,112 cells the counters leave shared memory (the global
+    form): the same means, bitwise repeatable."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    rng = np.random.default_rng(1)
+    N, C, D = 200_000, 60_000, 14
+    unit = rng.normal(size=(N, D)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    assign = rng.integers(0, C, size=N).astype(np.int32)
+    cent = rng.normal(size=(C, D)).astype(np.float32)
+    unit, assign, cent = (torch.from_numpy(a).to(dev)
+                          for a in (unit, assign, cent))
+    got = R.kmeans_update(unit, assign, cent)
+    assert torch.equal(got, R.kmeans_update(unit, assign, cent))
+    torch.testing.assert_close(got, R.kmeans_update_plain(unit, assign, cent),
+                               rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------- K8-K10
@@ -648,7 +657,7 @@ def test_sample_kernel_equals_plain(dev, alias, verify, neg_per):
     assert torch.equal(neg, ref_neg) and torch.equal(pos, ref_pos)
 
 
-@pytest.mark.parametrize("d", [8, 13, 40, 64, 129, 256])
+@pytest.mark.parametrize("d", [8, 13, 40, 64, 129, 256, 300])
 @pytest.mark.parametrize("cap", [0.0, 0.1])
 @pytest.mark.parametrize("neg_per", [1, 2])
 def test_chunk_update_kernel_matches_plain(dev, d, cap, neg_per):
@@ -690,7 +699,7 @@ def test_chunk_update_kernel_flags_match_plain(dev, flags):
         _step_close(g, r, s)
 
 
-@pytest.mark.parametrize("d", [13, 40, 256])
+@pytest.mark.parametrize("d", [13, 40, 256, 300])
 @pytest.mark.parametrize("pcn", [False, True])
 def test_chunk_accumulate_kernel_matches_plain(dev, d, pcn):
     from buffalo_tpu_torch.ops import sgd_kernels as S
@@ -755,10 +764,6 @@ def test_bpr_wrappers_reject_what_kernels_do_not_take(dev):
     kw = dict(n_valid=n, lr=0.1, reg_u=0.0, reg_i=0.0, reg_j=0.0, reg_b=0.0,
               max_step_norm=0.0, num_negatives=1, use_bias=True,
               update_i=True, update_j=True)
-    with pytest.raises(NotImplementedError):
-        S.chunk_update(torch.zeros(9, 257, device=dev),
-                       torch.zeros(5, 257, device=dev), Qb[:5], users[:3],
-                       pos[:3].clamp(max=4), neg[:3].clamp(max=4), **kw)
     with pytest.raises(TypeError):
         S.chunk_update(P, Q, Qb, users.long(), pos, neg, **kw)
     with pytest.raises(ValueError):
@@ -849,7 +854,7 @@ def _search_kw(c, K, probe, score_func, n_valid, **kw):
                 bloom_log2=c["log2"], **kw)
 
 
-@pytest.mark.parametrize("d", [8, 13, 64, 256])
+@pytest.mark.parametrize("d", [8, 13, 64, 256, 300])
 @pytest.mark.parametrize("K", [3, 16, 64])
 @pytest.mark.parametrize("probe", ["lazy", "all"])
 @pytest.mark.parametrize("score_func", ["dot", "l2"])
@@ -899,7 +904,7 @@ def test_warp_probe_kernel_equals_plain(dev, K):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("d", [8, 64, 256])
+@pytest.mark.parametrize("d", [8, 64, 256, 300])
 @pytest.mark.parametrize("score_func", ["dot", "l2"])
 @pytest.mark.parametrize("sorted_users", [False, True])
 @pytest.mark.parametrize("flags", [(True, True, False), (False, True, True),
@@ -951,7 +956,7 @@ def test_warp_violations_kernel_equals_plain(dev):
 
 
 @pytest.mark.parametrize("optimizer", ["adam", "adagrad"])
-@pytest.mark.parametrize("d", [13, 64, 256])
+@pytest.mark.parametrize("d", [13, 64, 256, 300])
 def test_deferred_update_projection_matches_plain(dev, optimizer, d):
     """K10's projection mode: within 1e-6 of the plain version, and before
     the projection bitwise the elementwise mode's step."""
@@ -997,7 +1002,7 @@ def _rel_close(got, ref, tol=1e-4):
     return float((got - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("d", [13, 40, 128, 256])
+@pytest.mark.parametrize("d", [13, 40, 128, 256, 300])
 @pytest.mark.parametrize("L", [8, 96, 1024, 8192])
 @pytest.mark.parametrize("item_axis", [False, True])
 def test_dim_sweep_range_kernel_matches_plain(dev, d, L, item_axis):
@@ -1021,7 +1026,7 @@ def test_dim_sweep_range_kernel_matches_plain(dev, d, L, item_axis):
     assert not _rel_close(jac, ref)
 
 
-@pytest.mark.parametrize("d", [13, 40, 256])
+@pytest.mark.parametrize("d", [13, 40, 256, 300])
 @pytest.mark.parametrize("item_axis", [False, True])
 def test_dim_sweep_segment_and_rows_kernels_match_plain(dev, d, item_axis):
     from buffalo_tpu_torch.data.batching import SegmentBatch, stage_batch
@@ -1060,7 +1065,7 @@ def test_dim_sweep_segment_and_rows_kernels_match_plain(dev, d, item_axis):
     assert _rel_close(a[0], b[0]) and _rel_close(a[1], b[1])
 
 
-@pytest.mark.parametrize("d", [13, 40, 256])
+@pytest.mark.parametrize("d", [13, 40, 256, 300])
 def test_eals_residual_kernel_matches_plain(dev, d):
     from buffalo_tpu_torch.ops import eals_kernels as E
 
@@ -1140,7 +1145,7 @@ def _plsi_batch(dev, rng, B, L, ny, rows=None):
     return out
 
 
-@pytest.mark.parametrize("d", [8, 20, 40, 64, 256])
+@pytest.mark.parametrize("d", [8, 20, 40, 64, 256, 300])
 @pytest.mark.parametrize("L", [8, 96, 1024, 8192])
 @pytest.mark.parametrize("sparse", [False, True])
 def test_plsi_estep_range_kernel_matches_plain(dev, d, L, sparse):
@@ -1187,7 +1192,7 @@ def _plsi_segment(dev, rng, ny, n, C=256):
                                     vals), dev)
 
 
-@pytest.mark.parametrize("d", [8, 20, 64, 256])
+@pytest.mark.parametrize("d", [8, 20, 64, 256, 300])
 def test_plsi_estep_segment_and_padded_kernels_match_plain(dev, d):
     from buffalo_tpu_torch.ops import plsi_kernels as PK
 
@@ -1220,7 +1225,7 @@ def test_plsi_estep_segment_and_padded_kernels_match_plain(dev, d):
         assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[2]))
 
 
-@pytest.mark.parametrize("d", [8, 20, 64, 256])
+@pytest.mark.parametrize("d", [8, 20, 64, 256, 300])
 @pytest.mark.parametrize("masked", [False, True])
 def test_plsi_mstep_kernel_matches_plain(dev, d, masked):
     from buffalo_tpu_torch.ops import plsi_kernels as PK
@@ -1329,7 +1334,7 @@ def _cfr_phases(dev, d, rng, tabs, biases, segment):
     ]
 
 
-@pytest.mark.parametrize("d", [8, 32, 64, 128])
+@pytest.mark.parametrize("d", [8, 32, 64, 128, 160, 300])
 @pytest.mark.parametrize("segment", [False, True])
 def test_cfr_normal_equations_kernel_matches_plain(dev, d, segment):
     from buffalo_tpu_torch.ops import cfr_kernels as CK
@@ -1355,7 +1360,7 @@ def test_cfr_normal_equations_kernel_matches_plain(dev, d, segment):
             assert not _rel_close(got[0], no_exp[0], 1e-4)
 
 
-@pytest.mark.parametrize("d", [8, 32, 128])
+@pytest.mark.parametrize("d", [8, 32, 128, 160, 300])
 @pytest.mark.parametrize("segment", [False, True])
 def test_cfr_bias_kernel_matches_plain(dev, d, segment):
     from buffalo_tpu_torch.ops import cfr_kernels as CK
@@ -1405,7 +1410,7 @@ def _w2v_problem(dev, d, V=3000, seed=0):
     return rng, L0, L1, p / p.sum(), alias
 
 
-@pytest.mark.parametrize("d", [13, 32, 256])
+@pytest.mark.parametrize("d", [13, 32, 256, 300])
 def test_w2v_pair_step_kernel_matches_plain(dev, d):
     """K19: its own draws bit for bit the plain version's (never the
     target), keys equal, delta rows 1e-5 of the largest, loss 1e-5, count
@@ -1442,7 +1447,7 @@ def test_w2v_pair_step_kernel_matches_plain(dev, d):
     assert float(got[5]) == float(ref[4]) == B - 37
 
 
-@pytest.mark.parametrize("d", [13, 32, 256])
+@pytest.mark.parametrize("d", [13, 32, 256, 300])
 @pytest.mark.parametrize("cap", [0.0, 0.1])
 def test_w2v_row_apply_kernel_matches_plain(dev, d, cap):
     """K20 on two parts with dropped keys and a head word of 20,000
@@ -1479,7 +1484,7 @@ def test_w2v_row_apply_kernel_matches_plain(dev, d, cap):
     assert torch.equal(outs[0][~touched], L0[~touched])
 
 
-@pytest.mark.parametrize("d", [13, 32, 256])
+@pytest.mark.parametrize("d", [13, 32, 256, 300])
 @pytest.mark.parametrize("block", [4, 16])
 def test_w2v_stream_chunk_kernel_matches_plain(dev, d, block):
     """K21 on a Zipf chunk with sentence ends inside negative blocks and
@@ -1577,7 +1582,7 @@ def _merge_case(dev, B, D, kl, seed):
     return (torch.from_numpy(v).to(dev), torch.from_numpy(i).to(dev))
 
 
-@pytest.mark.parametrize("D", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("D", [1, 2, 4, 8, 32, 33, 100])
 @pytest.mark.parametrize("kl", [1, 7, 64, 1024])
 def test_sharded_topk_merge_kernel_equals_plain(dev, D, kl):
     """K22 bit for bit against its plain version, k from 1 to every
@@ -1601,9 +1606,6 @@ def test_sharded_topk_merge_rejects_what_it_does_not_take(dev):
     vals, idx = _merge_case(dev, 4, 2, 3, 0)
     with pytest.raises(ValueError):
         R.sharded_topk_merge(vals, idx, 7)
-    with pytest.raises(NotImplementedError):
-        big = torch.zeros((2, 33, 1), device=dev)
-        R.sharded_topk_merge(big, big.to(torch.int32), 1)
 
 
 def test_batch_topn_sharded_on_the_card(dev):
@@ -1628,7 +1630,7 @@ def test_batch_topn_sharded_on_the_card(dev):
         np.testing.assert_allclose(a[1], b[1], rtol=1e-5)
 
 
-@pytest.mark.parametrize("d", [8, 20, 256])
+@pytest.mark.parametrize("d", [8, 20, 256, 300])
 @pytest.mark.parametrize("masked", [False, True])
 def test_plsi_mstep_split_kernels_match_plain(dev, d, masked):
     """K16's two halves, as a mesh calls them (masked) and as the one
@@ -1662,3 +1664,152 @@ def test_plsi_mstep_split_kernels_match_plain(dev, d, masked):
     PK.mstep_apply_plain(want[1], s_want, q_mask=mk_cpu.get("q_mask"), **kw)
     np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
                                rtol=1e-6, atol=1e-9)
+
+
+# ------------------------------------------------- the dp mesh's entry points
+@pytest.mark.parametrize("alias", [False, True])
+@pytest.mark.parametrize("neg_per", [1, 3])
+def test_sample_kernel_slot_offset_equals_plain(dev, alias, neg_per):
+    """K8 at a mesh shard's slot offset is its plain version bit for bit,
+    and equals that slice of the single device's draws."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    rng = np.random.default_rng(neg_per)
+    U, I, N, D = 400, 2000, 8000, 4
+    deg = rng.integers(1, 100, U)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    keys = rng.integers(0, I, int(indptr[-1])).astype(np.int32)
+    words, log2 = S.build_bloom(indptr, keys)
+    kw = dict(num_negatives=neg_per, seed=11, epoch=2, chunk=5,
+              bloom=torch.from_numpy(words.view(np.int32)).to(dev),
+              bloom_log2=log2, pos_indptr=torch.from_numpy(indptr).to(dev),
+              pos_keys=torch.from_numpy(keys).to(dev))
+    if alias:
+        prob, al = S.build_alias_table(rng.pareto(1.0, I) + 0.01)
+        kw["alias"] = (torch.from_numpy(prob).to(dev),
+                       torch.from_numpy(al).to(dev))
+    users = torch.from_numpy(rng.integers(0, U, N).astype(np.int32)).to(dev)
+    whole_neg, whole_pos = S.sample_negatives(users, I, **kw)
+    n = N // D
+    for g in range(D):
+        part = users[g * n:(g + 1) * n].contiguous()
+        neg, pos = S.sample_negatives(part, I, slot_offset=g * n, **kw)
+        ref_neg, ref_pos = S.sample_negatives_plain(part, I, slot_offset=g * n,
+                                                    **kw)
+        assert torch.equal(neg, ref_neg) and torch.equal(pos, ref_pos)
+        assert torch.equal(neg, whole_neg[g * n * neg_per:(g + 1) * n * neg_per])
+        assert torch.equal(pos, whole_pos[g * n:(g + 1) * n])
+
+
+@pytest.mark.parametrize("probe", ["lazy", "all"])
+def test_warp_search_slot_offset_equals_plain(dev, probe):
+    """K11 at a shard's slot offset: its plain version's choices, and the
+    single device's rows of candidates."""
+    from buffalo_tpu_torch.ops import warp_kernels as W
+
+    c = _warp_case(dev, 64, seed=3, scale=0.2)
+    N = c["users"].shape[0]
+    off = 1000
+    kw = _search_kw(c, 16, probe, "dot", N, slot_offset=off)
+    got = W.warp_search(c["users"], c["pos"], c["P"], c["Q"], **kw)
+    ref = W.warp_search_plain(c["users"], c["pos"], c["P"], c["Q"], **kw)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("neg", "w", "any_v", "trial"), got, ref):
+        if name == "w":
+            assert torch.allclose(g, r, rtol=1.2e-7, atol=0), name
+        else:
+            assert torch.equal(g, r), name
+    whole = W.warp_candidates(N + off, 16, c["I"], seed=5, epoch=2, chunk=7,
+                              device=dev)
+    assert torch.equal(W.warp_candidates(N, 16, c["I"], seed=5, epoch=2,
+                                         chunk=7, device=dev, slot_offset=off),
+                       whole[off:])
+
+
+@pytest.mark.parametrize("d", [40, 300])
+@pytest.mark.parametrize("flags", [(True, True, True), (True, False, True),
+                                   (False, True, True)])
+def test_chunk_delta_kernel_matches_plain(dev, d, flags):
+    """K9's delta path (both launches) against its plain version at K9's
+    tolerance, and the capped adds composing it equal the sgd step."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    use_bias, update_i, update_j = flags
+    (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, d, neg_per=2,
+                                                     seed=d)
+    kw = dict(n_valid=n_valid, lr=0.2, reg_u=0.03, reg_i=0.02, reg_j=0.04,
+              reg_b=0.05, num_negatives=2, use_bias=use_bias,
+              update_i=update_i, update_j=update_j)
+    outs = []
+    for delta, neg_delta in ((S.chunk_delta, S.chunk_bias_neg_delta),
+                             (S.chunk_delta_plain,
+                              S.chunk_bias_neg_delta_plain)):
+        dl = [torch.zeros_like(t) for t in (P, Q, Qb)]
+        h = delta(P, Q, Qb, *dl, users, pos, neg, **kw)
+        Qb2 = Qb + 0.01   # as after the positive side's reduced delta
+        dneg = torch.zeros_like(Qb)
+        neg_delta(h, Qb2, dneg, lr=0.2, reg_b=0.05)
+        outs.append(dl + [dneg])
+    torch.cuda.synchronize()
+    zero = [torch.zeros_like(t) for t in outs[1]]
+    for got, ref, z in zip(*outs, zero):
+        _step_close(got, ref, z)
+
+
+@pytest.mark.parametrize("shape", [(1000, 40), (500, 300), (777,)])
+@pytest.mark.parametrize("cap", [0.0, 0.05])
+def test_capped_add_kernel_matches_plain(dev, shape, cap):
+    """K10's capped add against its plain version at K10's tolerance."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    rng = np.random.default_rng(len(shape))
+    param = torch.from_numpy(rng.normal(0, 0.3, shape).astype(np.float32)).to(
+        dev)
+    delta = torch.from_numpy(rng.normal(0, 0.05, shape).astype(
+        np.float32)).to(dev)
+    got, ref = param.clone(), param.clone()
+    before = S.capped_add.launches
+    S.capped_add(got, delta, cap=cap)
+    S.capped_add_plain(ref, delta, cap)
+    assert S.capped_add.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
+
+
+def test_narrow_widths_keep_their_instantiations(dev):
+    """Rows of 40, 64 and 160 floats launch the narrow instantiations the
+    kernels ran before they took wide rows; 300 the wide ones (each
+    launcher's own choice, asked through its C interface)."""
+    import ctypes
+
+    from buffalo_tpu_torch.ops._build import launcher
+
+    queries = {
+        "bpr_wide": "bpr_update", "bpr_optimizer_wide": "bpr_optimizer",
+        "warp_search_wide": "warp_search",
+        "warp_accumulate_wide": "warp_accumulate",
+        "eals_sweep_wide": "eals_sweep", "plsi_estep_wide": "plsi_estep",
+        "plsi_mstep_wide": "plsi_mstep",
+        "cfr_normal_equations_wide": "cfr_normal_equations",
+        "cfr_bias_wide": "cfr_bias", "w2v_pair_step_wide": "w2v_pair_step",
+        "w2v_row_apply_wide": "w2v_row_apply",
+        "w2v_stream_chunk_wide": "w2v_stream_chunk",
+        "als_normal_equations_wide": "als_normal_equations",
+        "batched_cg_dense_wide_mode": "batched_cg_dense",
+        "ialspp_features_per_thread": "ialspp_solve",
+    }
+    for name, lib in queries.items():
+        f = launcher(name, [ctypes.c_int], library=lib)
+        narrow = [f(d) for d in (40, 64, 160)]
+        if name.startswith("cfr"):
+            # CoFactor's kernels held 128 floats: 160 is their wide form
+            assert narrow == [0, 0, 1] and f(300) == 1, name
+        elif name == "ialspp_features_per_thread":
+            assert narrow == [1, 1, 1] and f(300) == 2, name
+        else:
+            assert narrow == [0, 0, 0] and f(300) == 1, name
+    merge = launcher("sharded_topk_merge_wide", [ctypes.c_int],
+                     library="sharded_topk_merge")
+    assert [merge(D) for D in (4, 32, 33)] == [0, 0, 1]
+    cells = launcher("kmeans_update_global_counts", [ctypes.c_int],
+                     library="kmeans_update")
+    assert [cells(C) for C in (711, 58_112, 58_113)] == [0, 0, 1]

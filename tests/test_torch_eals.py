@@ -100,9 +100,10 @@ def _noise(data, seed, **kw):
             for t in "PQ"}
 
 
-def _close(a, b, noise):
-    """Port model b against JAX model a."""
-    np.testing.assert_allclose(b.Q, a.Q, **TOL)
+def _close(a, b, noise, fixed=True):
+    """Port model b against JAX model a (``fixed``: Q also at TOL)."""
+    if fixed:
+        np.testing.assert_allclose(b.Q, a.Q, **TOL)
     for t in "PQ":
         diff = float(np.abs(getattr(b, t) - getattr(a, t)).max())
         assert diff <= 2 * noise[t], (t, diff, noise[t])
@@ -129,6 +130,7 @@ CASES = {
     "range_fused": dict(),
     "range_group": dict(epoch_dispatch="group"),
     "rows": dict(range_layout=False),
+    "wide": dict(d=300),
 }
 
 
@@ -144,7 +146,13 @@ def test_train_matches_jax(datasets, noise, case):
     ra = a.train()
     b = _model(port, datasets[1], seed=11, **kw)
     rb = b.train()
-    _close(a, b, noise)
+    if "d" in kw:
+        # rows of 300 floats over 250 items: the JAX package's own two
+        # layouts part by ~1e-4 on Q, so its distance at this width is
+        # the rule for both tables
+        _close(a, b, _noise(datasets[0], 11, d=kw["d"]), fixed=False)
+    else:
+        _close(a, b, noise)
     np.testing.assert_allclose(rb["train_loss"], ra["train_loss"],
                                rtol=RMSE_TOL)
     np.testing.assert_allclose(rb["val_ndcg"], ra["val_ndcg"], rtol=1e-4)

@@ -117,6 +117,9 @@ CASES = {
     "range_group": dict(epoch_dispatch="group"),
     "padded": dict(range_layout=False),
     "streamed": dict(resident_mb=0),
+    # rows of 300 floats: past the 256 the kernels once took, which also
+    # raised here on the CPU
+    "wide": dict(d=300),
 }
 
 

@@ -27,6 +27,7 @@ import torch
 
 from buffalo_tpu.ops import sgd_kernels as J
 from buffalo_tpu_torch.ops import sgd_kernels as K
+from buffalo_tpu_torch.parallelism import Mesh
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -212,9 +213,21 @@ EPOCH_CASES = {
 }
 
 
+def _port_epoch(monkeypatch, P, Q, Qb, state, users, pos, step, negs,
+                **common):
+    """The port's resident epoch on one CPU shard, the negatives (nchunks,
+    N * num_negatives) injected in place of K8's draws."""
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(K, "sample_negatives",
+                        lambda users, num_items, *, chunk, **_:
+                        (negs[chunk], None))
+    K.bpr_epoch(Mesh([cpu]), {cpu: (P, Q, Qb)}, {cpu: state}, [users], [pos],
+                step, seed=0, sampling={cpu: {}}, **common)
+
+
 @pytest.mark.parametrize("case", list(EPOCH_CASES))
 @pytest.mark.parametrize("step", [0, 3])
-def test_epoch_matches_jax_on_injected_negatives(case, step):
+def test_epoch_matches_jax_on_injected_negatives(monkeypatch, case, step):
     kw = dict(EPOCH_CASES[case])
     optimizer = kw.pop("optimizer")
     neg_per = kw.pop("num_negatives", 1)
@@ -245,9 +258,8 @@ def test_epoch_matches_jax_on_injected_negatives(case, step):
     tP, tQ, tQb = (torch.from_numpy(x.copy()) for x in (P, Q, Qb))
     tstate = (K.new_opt_state(tP, tQ, tQb, flags["use_bias"])
               if optimizer != "sgd" else {})
-    K.bpr_epoch(tP, tQ, tQb, tstate, torch.from_numpy(users),
-                torch.from_numpy(pos), step, seed=0,
-                negatives=torch.from_numpy(negs), **common)
+    _port_epoch(monkeypatch, tP, tQ, tQb, tstate, torch.from_numpy(users),
+                torch.from_numpy(pos), step, torch.from_numpy(negs), **common)
     for got, ref, start in zip((tP, tQ, tQb), want[:3], (P, Q, Qb)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
         moved = np.abs(got.numpy() - start).max()
@@ -259,14 +271,14 @@ def test_epoch_matches_jax_on_injected_negatives(case, step):
                                        **TOL)
 
 
-def test_capped_and_uncapped_epochs_differ():
+def test_capped_and_uncapped_epochs_differ(monkeypatch):
     """The cap binds on these inputs, so the capped case above has power."""
     P, Q, Qb, users, pos, negs = _epoch_inputs(7, 1)
     out = []
     for cap in (0.1, 0.0):
         t = [torch.from_numpy(x.copy()) for x in (P, Q, Qb)]
-        K.bpr_epoch(*t, {}, torch.from_numpy(users), torch.from_numpy(pos),
-                    0, seed=0, negatives=torch.from_numpy(negs),
+        _port_epoch(monkeypatch, *t, {}, torch.from_numpy(users),
+                    torch.from_numpy(pos), 0, torch.from_numpy(negs),
                     optimizer="sgd", num_items=I, num_negatives=1,
                     use_bias=True, update_i=True, update_j=True,
                     per_coordinate_normalize=False, lr=0.5, min_lr=0.01,

@@ -373,16 +373,16 @@ def test_kmeans_update_plain_vs_float64():
 
 
 def test_kernel_limits_raise_on_cuda_tensors_only():
-    """Past k = 1024 or d = 256 the CUDA path raises (naming the limit)
-    before any launch; CPU tensors run the plain version."""
+    """Past k = 1024 the CUDA path raises (naming the limit) before any
+    launch, at any width (the kernels take rows of any width); CPU tensors
+    run the plain version."""
     p = torch.zeros(3, 300)
     Q = torch.zeros(2000, 300)
     vals, _ = R.score_topk(p, Q, 1100)
     assert vals.shape == (3, 1100)
     with pytest.raises(NotImplementedError, match="1024"):
-        R._check_limits("score_topk", 1025, 8)
-    with pytest.raises(NotImplementedError, match="256"):
-        R._check_limits("score_topk", 8, 257)
+        R._check_k("score_topk", 1025)
+    R._check_k("score_topk", 1024)
 
 
 def _tie_tables(seed, copies=3, rows=50, d=8, B=64):
@@ -421,14 +421,14 @@ def test_matmul_topk_and_topk_match_jax_order(k, bias):
 
 
 def test_card_route_past_k5_limits():
-    """On the card k <= 1024 (and d <= 256) takes the single K5 launch, and
+    """On the card k <= 1024 takes the single K5 launch at any width, and
     past it query chunks of ``torch.matmul`` + ``ordered_topk`` (each score
     block at most 1 GiB): the route is chosen by k, in the open."""
     from buffalo_tpu_torch.ops import topk as T
 
     assert T.k5_route(1024, 256) and T.k5_route(1, 13)
     assert not T.k5_route(1025, 40) and not T.k5_route(2000, 64)
-    assert not T.k5_route(10, 257)
+    assert T.k5_route(10, 257) and T.k5_route(1024, 300)
     rng = np.random.default_rng(0)
     Q = np.round(rng.standard_normal((3000, 24)) * 4).astype(np.float32) / 4
     Q[1500:2000] = Q[:500]

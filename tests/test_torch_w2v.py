@@ -272,6 +272,7 @@ CASES = {
     "device_block4": dict(pair_gen="device", neg_block=4),
     "device_block16": dict(pair_gen="device", neg_block=16,
                            max_chunks_per_dispatch=4),
+    "device_wide": dict(pair_gen="device", neg_block=4, d=300),
 }
 
 
@@ -292,7 +293,7 @@ def test_train_matches_jax(corpora, monkeypatch, name, case):
     np.testing.assert_allclose(lb, la, rtol=LOSS_RTOL)
     np.testing.assert_allclose(b.L0, a.L0, **TOL)
     np.testing.assert_allclose(b.L1, a.L1, **TOL)
-    assert b.L0.shape == (b._vocab.size, 8)
+    assert b.L0.shape == (b._vocab.size, int(b.opt.d))
     if "groups" in case or "16" in case:
         assert max(s["groups"] for s in b.epoch_stats) > 1
 

@@ -98,7 +98,7 @@ def _jax_draws(seed, streamed):
     them, as a stand-in for ``warp_candidates``."""
     state = {"rng": jax.random.PRNGKey(seed), "epoch": None, "sub": None}
 
-    def draw(N, K, num_items, *, seed, epoch, chunk, device):
+    def draw(N, K, num_items, *, seed, epoch, chunk, device, slot_offset=0):
         if streamed:
             state["rng"], key = jax.random.split(state["rng"])
         else:
@@ -117,6 +117,7 @@ CASES = {
     "split": dict(epoch_dispatch="split"),
     "streamed": dict(resident_mb=0),
     "l2": dict(score_func="l2"),
+    "wide": dict(d=300),
     "adam_pcn_reg": dict(optimizer="adam", lr=0.02,
                          per_coordinate_normalize=True, reg_u=0.01,
                          reg_i=0.01, reg_j=0.01),
@@ -211,7 +212,8 @@ def test_bad_options_raise(datasets):
     for kw, err in ((dict(optimizer="sgd"), ValueError),
                     (dict(epoch_dispatch="bogus"), ValueError),
                     (dict(probe_mode="bogus"), ValueError),
-                    (dict(num_devices=2), NotImplementedError)):
+                    # a mesh of two shards, with no card and no devices
+                    (dict(num_devices=2), RuntimeError)):
         with pytest.raises(err):
             _model(port, datasets[1], seed=1, **kw).train()
 

@@ -20,6 +20,7 @@ import buffalo_tpu.ops.sgd_kernels as JS
 import buffalo_tpu.ops.warp_kernels as JW
 import buffalo_tpu_torch.ops.sgd_kernels as S
 import buffalo_tpu_torch.ops.warp_kernels as W
+from buffalo_tpu_torch.parallelism import Mesh
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -185,15 +186,18 @@ def _port_epoch(pb, K, probe, optimizer, pcn, key, step=0, num_valid=None,
             users[c], num_items=pb["I"], num_candidates=K, seed=0, epoch=step,
             chunk=c, bloom=bloom, bloom_log2=pb["log2"],
             candidates=cands[c]) for c in range(nchunks)])
-    _, _, _, ff = W.warp_epoch(
-        tP, tQ, W.new_opt_state(tP, tQ), users, torch.from_numpy(pb["pos"]),
-        torch.from_numpy(pb["indptr"]), bloom, step, seen_bits, seed=0,
+    cpu = torch.device("cpu")
+    ff = W.warp_epoch(
+        Mesh([cpu]), {cpu: (tP, tQ)}, {cpu: W.new_opt_state(tP, tQ)}, [users],
+        [torch.from_numpy(pb["pos"])], step, seed=0,
+        indptr={cpu: torch.from_numpy(pb["indptr"])}, bloom={cpu: bloom},
         optimizer=optimizer, num_items=pb["I"], num_candidates=K,
         score_func="dot", threshold=1.0, reg_u=0.01, reg_i=0.02, reg_j=0.03,
         update_i=True, update_j=True, per_coordinate_normalize=pcn, lr=0.05,
         beta1=0.9, beta2=0.999, num_valid=num_valid or nchunks * N,
-        bloom_log2=pb["log2"], precomputed_probe=split, probe=probe,
-        candidates=cands)
+        bloom_log2=pb["log2"], probe=probe,
+        seen_bits=None if seen_bits is None else [seen_bits],
+        candidates=[cands])
     return tP.numpy(), tQ.numpy(), ff
 
 
@@ -314,8 +318,8 @@ def test_projection_mode_matches_jax():
 def test_found_fraction_rounds_as_float32_carries():
     """Past 2^24 samples the float32 totals round: 2^24 found then 1 more
     stays 2^24, as the JAX scan's carry does."""
-    ff = W.found_fraction([1 << 24, 1], 1 << 24, (1 << 24) + 1)
+    found, possible = W.found_totals([1 << 24, 1], [1 << 24, 1])
     f32 = np.float32
-    want = f32(f32(f32(1 << 24) + f32(1))) / f32(f32(f32(1 << 24) + f32(1)))
-    assert ff == float(want)
-    assert W.found_fraction([3, 2], 4, 7) == float(f32(5) / f32(7))
+    want = f32(f32(f32(1 << 24) + f32(1)))
+    assert found == possible == want == f32(1 << 24)
+    assert W.found_totals([3, 2], [4, 3]) == (f32(5), f32(7))
