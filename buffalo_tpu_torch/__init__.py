@@ -6,9 +6,9 @@ most-similar retrieval, MatrixMarket and Stream data with its SPPMI group,
 batched retrieval with ``ParALS`` / ``ParBPRMF`` / ``ParEALS`` /
 ``ParCFR`` / ``ParW2V`` and the ``IVFIndex`` ANN index), the same option
 names and the same save/load byte formats, running on one CUDA device or,
-for ALS, eALS and pLSI training and for sharded serving, over a device
-mesh (``parallelism``: shards on one or more cards, across processes
-through ``torch.distributed``).
+for every model's training and for sharded serving, over a device mesh
+(``parallelism``: shards on one or more cards, across processes through
+``torch.distributed``).
 The hot per-row solves, BPR's and WARP's sampling and chunk updates,
 eALS's dimension sweeps, pLSI's EM steps, CoFactor's normal equations and
 biases, W2V's pair steps, stream chunks and capped row updates and the

@@ -4,9 +4,13 @@
 // pair, which trains nothing.  Negative k of pair b is slot s = b K + k: the
 // first of three alias draws (K8's routine, the Philox counter (s, chunk,
 // epoch, attempt)) that is not the target, else (target + 1) mod V; or
-// negs_in[s] when given.  With f = l0 . l1 and g(label, f) = label -
-// sigmoid(f), 1 - label above +6 and label below -6, pair b emits, each row
-// scaled by lr and every term from the tables before the step:
+// negs_in[s] when given.  On a mesh shard the counter takes the slot's global
+// index: slot_offset (the shard's first pair of the chunk) is added to b, so
+// the shard draws the single device's negatives of its pairs bit for bit
+// (_w2v_step_body :503-511 draws the global batch and slices it).  With f =
+// l0 . l1 and g(label, f) = label - sigmoid(f), 1 - label above +6 and label
+// below -6, pair b emits, each row scaled by lr and every term from the
+// tables before the step:
 //  * keys1[b] = target, d1[b] = g(1, f_pos) l0;
 //  * keys1[B + s] = negative k, d1[B + s] = g(0, f_neg_k) l0;
 //  * d0[b] = g(1, f_pos) l_t + sum_k g(0, f_neg_k) l_k (keyed by inputs[b]);
@@ -46,7 +50,7 @@ __global__ void __launch_bounds__(kThreads)
 pair_step(const float* __restrict__ L0, const float* __restrict__ L1,
           const int32_t* __restrict__ inputs, const int32_t* __restrict__ targets, int B, int V,
           int d, int K, float lr, uint32_t k0, uint32_t k1, uint32_t epoch, uint32_t chunk,
-          const float* __restrict__ prob, const int32_t* __restrict__ alias,
+          int64_t slot_offset, const float* __restrict__ prob, const int32_t* __restrict__ alias,
           const int32_t* __restrict__ negs_in, int32_t* negs, int32_t* __restrict__ keys1,
           float* __restrict__ d1, float* __restrict__ d0, int compute_loss,
           float* __restrict__ part) {
@@ -66,8 +70,9 @@ pair_step(const float* __restrict__ L0, const float* __restrict__ L1,
         n = -1;
         for (int a = 0; a < kAttempts && n < 0; ++a) {
           const int32_t c =
-              (int32_t)alias_draw(U4{(uint32_t)s, chunk, epoch, (uint32_t)a}, k0, k1,
-                                  (uint32_t)V, prob, alias);
+              (int32_t)alias_draw(U4{(uint32_t)(s + slot_offset * K), chunk, epoch,
+                                     (uint32_t)a},
+                                  k0, k1, (uint32_t)V, prob, alias);
           if (c != tg) n = c;
         }
         if (n < 0) n = (int32_t)(((int64_t)tg + 1) % V);
@@ -148,26 +153,29 @@ extern "C" int w2v_pair_step_wide(int d) { return d > 256 ? 1 : 0; }
 // Partials the launch needs (2 floats each).
 extern "C" int w2v_pair_parts(int B) { return (B + kWarps - 1) / kWarps; }
 
-// key = (k1 << 32) | k0 of the seed; negs_in may be null (draw), prob/alias
-// are then the V-entry alias tables; part has 2 w2v_pair_parts(B) floats;
-// out gets (loss, count).
+// key = (k1 << 32) | k0 of the seed; slot_offset >= 0; negs_in may be null
+// (draw), prob/alias are then the V-entry alias tables; part has 2
+// w2v_pair_parts(B) floats; out gets (loss, count).
 extern "C" int w2v_pair_step(const float* L0, const float* L1, const int32_t* inputs,
                              const int32_t* targets, int B, int V, int d, int K, float lr,
-                             int64_t key, int epoch, int chunk, const float* prob,
-                             const int32_t* alias, const int32_t* negs_in, int32_t* negs,
+                             int64_t key, int epoch, int chunk, int64_t slot_offset,
+                             const float* prob, const int32_t* alias, const int32_t* negs_in,
+                             int32_t* negs,
                              int32_t* keys1, float* d1, float* d0, int compute_loss, float* part,
                              float* out, void* stream) {
-  if (B < 0 || V < 1 || d < 1 || K < 1 || (!negs_in && (!prob || !alias)))
+  if (B < 0 || V < 1 || d < 1 || K < 1 || slot_offset < 0 ||
+      (!negs_in && (!prob || !alias)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const uint64_t kk = (uint64_t)key;
   const int blocks = w2v_pair_parts(B);
   if (blocks > 0) {
 #define W2V_PAIR(H, W)                                                                      \
-  pair_step<H, W><<<blocks, kThreads, 0, st>>>(L0, L1, inputs, targets, B, V, d, K, lr, \
+  pair_step<H, W><<<blocks, kThreads, 0, st>>>(L0, L1, inputs, targets, B, V, d, K, lr,     \
                                             (uint32_t)kk, (uint32_t)(kk >> 32),             \
-                                            (uint32_t)epoch, (uint32_t)chunk, prob, alias, \
-                                            negs_in, negs, keys1, d1, d0, compute_loss, part)
+                                            (uint32_t)epoch, (uint32_t)chunk, slot_offset,  \
+                                            prob, alias, negs_in, negs, keys1, d1, d0,      \
+                                            compute_loss, part)
     if (d <= 32) W2V_PAIR(1, false);
     else if (d <= 64) W2V_PAIR(2, false);
     else if (d <= 128) W2V_PAIR(4, false);

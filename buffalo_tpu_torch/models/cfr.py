@@ -1,4 +1,4 @@
-"""CoFactor (CFR) on one CUDA device.
+"""CoFactor (CFR) on a CUDA device or a device mesh.
 
 PyTorch counterpart of ``buffalo_tpu.models.cfr``: joint factorization of
 the user-item implicit matrix and the item-context SPPMI matrix with
@@ -11,9 +11,15 @@ pad_rows``), the items with SPPMI entries only in extra batches, and rows
 long on either side as segment pairs over one row list.  Each batch runs
 K17, K3 and K18 (``ops/cfr_kernels.py``; their plain PyTorch versions on
 the CPU); the batches stay on the device when they fit ``resident_mb`` and
-are staged batch by batch otherwise.  More than one device raises
-``NotImplementedError`` at ``train``; negative interaction values raise
-``ValueError`` (the JAX package's implicit term takes their square root).
+are staged batch by batch otherwise.  ``num_devices > 1`` trains on a dp
+mesh (``Algo._select_dp_mesh``, over ``opt.devices`` when given), as the
+JAX package does: the tables replicated, every padded batch's rows padded
+to a multiple of the mesh size with sentinel rows and split over the
+shards, the segment batches run on every replica, each phase's solved
+rows gathered over the mesh (``ops/cfr_kernels.cfr_epoch``); batches past
+``resident_mb`` warn and train on one device.  Negative interaction values
+raise ``ValueError`` (the JAX package's implicit term takes their square
+root).
 
 Reference: Liang et al., Factorization Meets the Item Embedding (RecSys
 2016).
@@ -35,6 +41,7 @@ from buffalo_tpu_torch.evaluate import Evaluable
 from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import CFROption
 from buffalo_tpu_torch.ops import cfr_kernels as K
+from buffalo_tpu_torch.parallelism import Mesh
 
 
 def _stage_entry(entry, dev):
@@ -47,6 +54,43 @@ def _stage_entry(entry, dev):
     b, *block = entry
     return (stage_batch(b, dev),) + tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in block)
+
+
+def _is_segment(entry) -> bool:
+    return isinstance(entry, SegmentBatch) or (
+        not isinstance(entry, PaddedBatch) and isinstance(entry[0],
+                                                          SegmentBatch))
+
+
+def _stage_mesh_entry(entry, mesh, sentinel):
+    """A host entry staged for ``ops.cfr_kernels.cfr_epoch`` on ``mesh``: a
+    segment batch or pair once per local device ({device: entry}); a padded
+    batch or item entry (with its SPPMI block) padded on its row axis to a
+    multiple of the mesh size with sentinel rows (``sentinel``, the table's
+    size, no entries; ``cfr.py:356-384`` of the JAX package) and split into
+    the local shards' row slices, each on its shard's device (a list)."""
+    if _is_segment(entry):
+        return {dev: _stage_entry(entry, dev) for dev in mesh.unique_devices}
+    b, block = (entry, ()) if isinstance(entry, PaddedBatch) \
+        else (entry[0], entry[1:])
+    B = len(b.rows)
+    n = -(-B // mesh.size)
+
+    def pad(a, fill):
+        a = np.asarray(a)
+        more = np.full((n * mesh.size - B,) + a.shape[1:], fill, a.dtype)
+        return np.concatenate([a, more])
+
+    b = PaddedBatch(rows=pad(b.rows, sentinel), lens=pad(b.lens, 0),
+                    cols=pad(b.cols, 0), vals=pad(b.vals, 0))
+    block = [pad(a, 0) for a in block]
+    out = []
+    for g, dev in zip(mesh.shards, mesh.devices):
+        sl = slice(g * n, (g + 1) * n)
+        part = PaddedBatch(*[a[sl] for a in b])
+        out.append(_stage_entry(
+            (part,) + tuple(a[sl] for a in block) if block else part, dev))
+    return out
 
 
 def _entry_bytes(entry) -> int:
@@ -238,10 +282,6 @@ class CFR(Algo, CFROption, Evaluable, Serializable):
         return out
 
     def _check_supported(self):
-        if int(self.opt.get("num_devices") or 0) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet for this model: ROADMAP "
-                "queue 1 item 8b (the data-parallel SGD / EM epochs)")
         val = self.data.get_group("rowwise")["val"]
         if len(val) and float(np.min(val)) < 0:
             raise ValueError(
@@ -256,30 +296,43 @@ class CFR(Algo, CFROption, Evaluable, Serializable):
         opt = self.opt
         dev = self.device
         batches = self._build_batches()
-        U, I, C, Ib, Cb = (torch.from_numpy(t).to(dev, copy=True) for t in
-                           (self.U, self.I, self.C, self.Ib, self.Cb))
         com = dict(optimizer=str(opt.optimizer),
                    cg_iters=int(opt.num_cg_max_iters),
                    cg_tol=float(opt.cg_tolerance),
                    compute_loss=bool(opt.compute_loss_on_training))
         scale = self.compute_scale()
 
-        def to_host():
-            self.U, self.I, self.C = (U.cpu().numpy(), I.cpu().numpy(),
-                                      C.cpu().numpy())
-            self.Ib, self.Cb = Ib.cpu().numpy(), Cb.cpu().numpy()
-            self.P, self.Q = self.U, self.I
-        self._sync_host_factors = to_host
-
         staged_bytes = sum(_entry_bytes(e) for phase in batches.values()
                            for e in phase)
-        if staged_bytes <= int(opt.get("resident_mb", 4096)) * 1024 * 1024:
+        resident = staged_bytes <= int(opt.get("resident_mb", 4096)) \
+            * 1024 * 1024
+        mesh = self._select_dp_mesh(resident, False)
+        if mesh is not None:
+            # the dp mesh (cfr.py:352-400): padded batches row-sharded with
+            # sentinel rows, segment batches on every device
+            sentinel = {"user": self.U.shape[0], "item": self.I.shape[0],
+                        "context": self.C.shape[0]}
+            phases = {k: [_stage_mesh_entry(e, mesh, sentinel[k]) for e in v]
+                      for k, v in batches.items()}
+        elif resident:
             # stage all three phases' batches on the device once
+            mesh = Mesh([dev])
             phases = {k: [_stage_entry(e, dev) for e in v]
                       for k, v in batches.items()}
         else:
             # past resident_mb: each batch is staged as the epoch reaches it
+            mesh = Mesh([dev])
             phases = {k: _Staged(v, dev) for k, v in batches.items()}
+        # one replica of the tables per device; the first is written back
+        tables = {mdev: [torch.from_numpy(t).to(mdev, copy=True) for t in
+                         (self.U, self.I, self.C, self.Ib, self.Cb)]
+                  for mdev in mesh.unique_devices}
+
+        def to_host():
+            self.U, self.I, self.C, self.Ib, self.Cb = (
+                t.cpu().numpy() for t in tables[mesh.devices[0]])
+            self.P, self.Q = self.U, self.I
+        self._sync_host_factors = to_host
 
         best_loss, loss, self.validation_result = float("inf"), None, {}
         full_st = time.time()
@@ -288,7 +341,7 @@ class CFR(Algo, CFROption, Evaluable, Serializable):
         for i in range(opt.num_iters):
             start_t = time.time()
             epoch_loss = K.cfr_epoch(
-                U, I, C, Ib, Cb, phases["user"], phases["item"],
+                mesh, tables, phases["user"], phases["item"],
                 phases["context"], alpha=float(opt.alpha), l=float(opt.l),
                 reg_u=float(opt.reg_u), reg_i=float(opt.reg_i),
                 reg_c=float(opt.reg_c), **com)

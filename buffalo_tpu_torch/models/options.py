@@ -11,9 +11,8 @@ unchanged.  One key is the port's own: ``device`` ("cuda" by default;
 device keys (``num_devices``, ``sharding``, ``resident_mb``,
 ``range_layout``, ``epoch_dispatch``, ``vals_dtype``) keep their
 defaults; more than one device trains ALS, eALS and pLSI over a device
-mesh, BPR-MF and WARP over a dp mesh (replicated tables, batch-sharded
-chunks), and raises ``NotImplementedError`` at ``train`` for CoFactor and
-W2V.
+mesh, and BPR-MF, WARP, CoFactor and W2V over a dp mesh (replicated
+tables, batch-sharded chunks or batches).
 """
 from __future__ import annotations
 
@@ -43,8 +42,8 @@ class AlgoOption(InputOptions):
             fewer than ``num_devices``.
 
         Reference device keys (same defaults): ``num_devices`` (mesh size
-        of ALS, eALS and pLSI; ALS meshes over every card at 0 when there
-        are several; > 1 raises for the other models), ``sharding``
+        of every model's training; ALS meshes over every card at 0 when
+        there are several, the others only past 1), ``sharding``
         ("dp", "dp+tp"), ``resident_mb``
         (budget for keeping the epoch's batches on the device; past it
         they stream), ``range_layout`` (False: the scatter layout),

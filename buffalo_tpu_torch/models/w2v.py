@@ -1,4 +1,4 @@
-"""Skip-gram word2vec over item streams on one CUDA device.
+"""Skip-gram word2vec over item streams on a CUDA device or a device mesh.
 
 PyTorch counterpart of ``buffalo_tpu.models.w2v``: the same vocabulary
 build (``min_count`` cut, the uint32 subsample scale table, the
@@ -9,15 +9,15 @@ table L0 with the vocabulary remap, and the save/load byte format (the
 ``opt``, ``L0`` and ``_vocab`` records).  Two epochs, as in the JAX
 package:
 
-* **device** (``pair_gen`` "device"; "auto" on a CUDA device): per epoch
+* **device** (``pair_gen`` "device"; "auto" on one CUDA device): per epoch
   the host subsamples the cached token stream and draws the half-windows
   (6 bytes a token: int32 word, uint8 sentence start, uint8 half-window);
   the card expands the windows per token chunk with block-shared
   negatives: K8's draws, K21's deltas, K20's capped adds
   (``ops/w2v_kernels.w2v_epoch_stream``).
-* **host** (``pair_gen`` "host"; "auto" on the CPU): the host expands
-  every (input, target) pair (``data.native.w2v_pairs_native``, else
-  numpy) and the card trains fixed-size pair chunks, K19 + K20 each
+* **host** (``pair_gen`` "host"; "auto" on the CPU or a mesh): the host
+  expands every (input, target) pair (``data.native.w2v_pairs_native``,
+  else numpy) and the card trains fixed-size pair chunks, K19 + K20 each
   (``w2v_epoch``), or, past ``resident_mb``, chunk by chunk with a host
   rate (``w2v_step``).
 
@@ -25,8 +25,17 @@ Chunks run in groups of ``max_chunks_per_dispatch`` with the JAX
 package's padding, rates and group structure.  The negatives come from
 the port's own counter-based generator, so a run draws other negatives
 than the JAX package's from the same seed (the tests inject the JAX
-package's to compare the math).  More than one device raises
-``NotImplementedError`` at ``train``.
+package's to compare the math).
+
+``num_devices > 1`` trains on a dp mesh (``Algo._select_dp_mesh``, over
+``opt.devices`` when given), as the JAX package does: the tables
+replicated, each pair chunk split on its batch axis (the chunk rounded up
+to the mesh) or each token chunk on its position axis (T rounded up to
+``neg_block`` x the mesh size); the shards draw the single device's
+negatives, and the union of their delta rows is applied on every replica
+(``ops/w2v_kernels``).  On a mesh "auto" means the host pairs; the stream
+epoch runs there only on ``pair_gen="device"``.  Past ``resident_mb`` the
+host pairs run chunk by chunk on every replica, a single device's steps.
 
 Reference: Mikolov et al., Distributed Representations of Words and
 Phrases and their Compositionality (NIPS 2013).
@@ -45,6 +54,7 @@ from buffalo_tpu_torch.models.base import Algo, Serializable
 from buffalo_tpu_torch.models.options import W2VOption
 from buffalo_tpu_torch.ops import sgd_kernels as S
 from buffalo_tpu_torch.ops import w2v_kernels as W
+from buffalo_tpu_torch.parallelism import Mesh
 from buffalo_tpu_torch.utils import Option
 
 
@@ -259,6 +269,11 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
             inputs.append(words[:-off][m2])
         return (np.concatenate(inputs), np.concatenate(targets), n)
 
+    def _dp_size(self) -> int:
+        """The dp mesh's size: ``num_devices`` past 1, else 1."""
+        n = int(self.opt.get("num_devices") or 0)
+        return n if n > 1 else 1
+
     def _pair_gen(self) -> str:
         pair_gen = str(self.opt.get("pair_gen", "auto"))
         if pair_gen not in ("auto", "host", "device"):
@@ -269,15 +284,10 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
             raise ValueError(f"offset_mode must be scan|unrolled, got "
                              f"{self.opt.offset_mode!r}")
         if pair_gen == "auto":
-            return "device" if self.device.type == "cuda" else "host"
+            # the stream epoch is opt-in on a mesh (w2v.py:495-500)
+            return "device" if self.device.type == "cuda" \
+                and self._dp_size() == 1 else "host"
         return pair_gen
-
-    def _check_supported(self):
-        opt = self.opt
-        if int(opt.get("num_devices") or 0) > 1:
-            raise NotImplementedError(
-                "num_devices > 1 is not ported yet for this model: ROADMAP "
-                "queue 1 item 8b (the data-parallel SGD / EM epochs)")
 
     def _epoch_done(self, i, loss, pairs, start_t, training_callback,
                     **stats):
@@ -293,7 +303,8 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
     def _stream_plan(self):
         """The stream epoch's negative block and chunk width T, by the JAX
         package's rules (``w2v.py:282-298``), on the epoch-invariant token
-        count."""
+        count; T a multiple of ``block`` x the dp mesh's size, so that each
+        shard's slice is block-aligned."""
         opt = self.opt
         n_all = len(self._token_stream()[0])
         # the shared-negative block stays small; auto shrinks it below the
@@ -306,7 +317,8 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
             # >= 16 sequential chunk updates per epoch
             T = 1 << 17
             T = min(T, max(block, -(-n_all // (16 * block)) * block))
-        T = -(-T // block) * block
+        quantum = block * self._dp_size()
+        T = -(-T // quantum) * quantum
         return block, T, n_all
 
     def _stream_host_phase(self, rng_np, T, G):
@@ -339,12 +351,13 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
             .reshape(nchunks, T)
         return wc, bc, hc, nchunks, n
 
-    def _train_stream(self, L0, L1, alias, rng_np, statics, training_callback):
+    def _train_stream(self, mesh, tables, alias, rng_np, statics,
+                      training_callback):
         """The ``pair_gen="device"`` epochs (``w2v.py:250-426``): per epoch
         the host subsamples, compacts and draws the half-windows; the card
-        expands the windows, group by group of token chunks."""
+        expands the windows, group by group of token chunks, each chunk
+        split on its position axis over the mesh."""
         opt = self.opt
-        dev = self.device
         window = int(opt.window)
         assert window < 256, "uint8 half-window wire format"
         block, T, n_all = self._stream_plan()
@@ -364,20 +377,20 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
         upload_prefetch = 2 * epoch_bytes <= int(
             opt.get("resident_mb", 4096)) * 1024 * 1024
 
-        def put(a):
-            return torch.from_numpy(a).to(dev)
+        def put(part):
+            return self._stage_dp_shards(mesh, part)
 
         def stage(arrays):
-            """Every group's chunk slices, on the card when prefetching:
-            the next epoch's uploads queue behind this epoch's kernels."""
+            """Every group's chunk slices (each shard's), on the card when
+            prefetching: the next epoch's uploads queue behind this
+            epoch's kernels."""
             wc, bc, hc, nchunks, n, host_s = arrays
             g_len = min(G, nchunks)
             staged = []
             for g in range(nchunks // g_len):
                 sl = slice(g * g_len, (g + 1) * g_len)
                 part = (wc[sl], bc[sl], hc[sl])
-                staged.append(tuple(put(a) for a in part)
-                              if upload_prefetch else part)
+                staged.append(put(part) if upload_prefetch else part)
             h2d = wc.nbytes + bc.nbytes + hc.nbytes
             return staged, nchunks, g_len, n, host_s, h2d
 
@@ -393,11 +406,11 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
             loss_sums, pair_cnts = [], []
             for g, arrays in enumerate(staged):
                 if not upload_prefetch:
-                    arrays = tuple(put(a) for a in arrays)
+                    arrays = put(arrays)
                 p0 = np.float32(processed_words + g * g_len * wpc)
                 l_, c_ = W.w2v_epoch_stream(
-                    L0, L1, *arrays, alias, p0, seed=seed, epoch=i, group=g,
-                    groups=groups, window=window, block=block,
+                    mesh, tables, *arrays, alias, p0, seed=seed, epoch=i,
+                    group=g, groups=groups, window=window, block=block,
                     lr=float(opt.lr), min_lr=float(opt.min_lr),
                     total_words=float(total_words),
                     words_per_chunk=float(wpc), **statics)
@@ -420,7 +433,6 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
     def train(self, training_callback: Optional[
             Callable[[int, Dict[str, float]], None]] = None) -> Dict[str, float]:
         assert self.data, "Data is not set"
-        self._check_supported()
         opt = self.opt
         dev = self.device
         V = int(self._vocab.size)
@@ -432,12 +444,19 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
             return {}
         pair_gen = self._pair_gen()
         d = int(opt.d)
-        L0 = torch.from_numpy(self.L0).to(dev, copy=True)
-        L1 = torch.from_numpy(self.L1).to(dev, copy=True)
+        # the dp mesh on num_devices > 1 (w2v.py:470), one device being a
+        # mesh of one shard; one replica of the tables (and of the alias
+        # tables) per device, the first device's written back
+        mesh = self._select_dp_mesh(True, False) or Mesh([dev])
         # the model file keeps the int32 CDF; the draws use alias tables
         prob, al = S.build_alias_table(
             np.diff(np.asarray(self._vocab.dist, dtype=np.int64), prepend=0))
-        alias = (torch.from_numpy(prob).to(dev), torch.from_numpy(al).to(dev))
+        tables, alias = {}, {}
+        for mdev in S.replica_shards(mesh):
+            tables[mdev] = tuple(torch.from_numpy(t).to(mdev, copy=True)
+                                 for t in (self.L0, self.L1))
+            alias[mdev] = (torch.from_numpy(prob).to(mdev),
+                           torch.from_numpy(al).to(mdev))
         rng_np = np.random.default_rng(int(opt.random_seed))
         seed = int(opt.random_seed)
         statics = dict(num_negatives=int(opt.num_negative_samples),
@@ -446,11 +465,12 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
                        max_step_norm=float(opt.get("max_step_norm", 0.1)))
         full_st = time.time()
         if pair_gen == "device":
-            loss = self._train_stream(L0, L1, alias, rng_np, statics,
+            loss = self._train_stream(mesh, tables, alias, rng_np, statics,
                                       training_callback)
         else:
-            loss = self._train_pairs(L0, L1, alias, rng_np, seed, statics,
-                                     training_callback)
+            loss = self._train_pairs(mesh, tables, alias, rng_np, seed,
+                                     statics, training_callback)
+        L0, L1 = tables[mesh.devices[0]]
         self.L0 = np.ascontiguousarray(L0.cpu().numpy()[:, :d])
         self.L1 = np.ascontiguousarray(L1.cpu().numpy()[:, :d])
         self.logger.info(
@@ -459,22 +479,24 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
 
     def _pair_chunk(self) -> int:
         """Pairs per chunk (``w2v.py:455-462``): >= 16 sequential steps per
-        epoch, 2^12 to 2^18."""
+        epoch, 2^12 to 2^18; rounded up to a multiple of the dp mesh's size
+        (``w2v.py:476``)."""
         chunk = int(self.opt.get("batch_size") or 0)
         if chunk <= 0:
             est_pairs = self._vocab.total_word_count * int(self.opt.window)
             chunk = 1 << max(12, min(18, int(np.log2(max(est_pairs // 16,
                                                          1)))))
-        return chunk
+        D = self._dp_size()
+        return -(-chunk // D) * D
 
-    def _train_pairs(self, L0, L1, alias, rng_np, seed, statics,
+    def _train_pairs(self, mesh, tables, alias, rng_np, seed, statics,
                      training_callback):
         """The ``pair_gen="host"`` epochs (``w2v.py:506-635``): the pairs in
-        resident groups of chunks, or past ``resident_mb`` chunk by chunk
-        with the host's rate."""
+        resident groups of chunks, each chunk split on its batch axis over
+        the mesh, or past ``resident_mb`` chunk by chunk with the host's
+        rate, a single device's step on every replica."""
         opt = self.opt
         V = int(self._vocab.size)
-        dev = self.device
         chunk = self._pair_chunk()
         raw_words = float(self._vocab.total_word_count)
         total_words = raw_words * opt.num_iters
@@ -527,8 +549,8 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
                     sl = slice(g * g_len, (g + 1) * g_len)
                     p0 = np.float32(processed_words + g * g_len * wpc)
                     l_, c_ = W.w2v_epoch(
-                        L0, L1, torch.from_numpy(inputs2[sl]).to(dev),
-                        torch.from_numpy(targets2[sl]).to(dev), alias, p0,
+                        mesh, tables, *self._stage_dp_shards(
+                            mesh, (inputs2[sl], targets2[sl])), alias, p0,
                         seed=seed, epoch=i, group=g, groups=groups,
                         lr=float(opt.lr), min_lr=float(opt.min_lr),
                         total_words=float(total_words),
@@ -544,12 +566,15 @@ class W2V(Algo, W2VOption, Evaluable, Serializable):
                     lr_t = W.host_rate(float(opt.lr), float(opt.min_lr),
                                        processed_words + ci * wpc,
                                        total_words)
-                    l_, c_ = W.w2v_step(
-                        L0, L1, torch.from_numpy(inputs2[ci]).to(dev),
-                        torch.from_numpy(targets2[ci]).to(dev), lr_t,
-                        seed=seed, epoch=i, chunk=ci, alias=alias, **statics)
-                    losses.append(l_)
-                    counts.append(c_)
+                    for r, (mdev, (L0, L1)) in enumerate(tables.items()):
+                        l_, c_ = W.w2v_step(
+                            L0, L1, torch.from_numpy(inputs2[ci]).to(mdev),
+                            torch.from_numpy(targets2[ci]).to(mdev), lr_t,
+                            seed=seed, epoch=i, chunk=ci, alias=alias[mdev],
+                            **statics)
+                        if r == 0:
+                            losses.append(l_)
+                            counts.append(c_)
             loss_sum = float(np.sum([x.cpu().numpy() for x in losses]))
             pair_cnt = float(np.sum([x.cpu().numpy() for x in counts]))
             loss = loss_sum / max(pair_cnt, 1.0)

@@ -1,13 +1,13 @@
-"""CoFactor (CFR) batch updates on one device.
+"""CoFactor (CFR) batch updates, on one device or a device mesh.
 
-PyTorch counterpart of ``buffalo_tpu.ops.cfr_kernels``'s single-device
-functions (Liang et al., Factorization Meets the Item Embedding, RecSys
-2016): the three-phase epoch — users (implicit ALS scaled by ``l``), items
-(the user-side implicit term plus the SPPMI explicit term with item and
-context biases, then the closed-form item bias) and contexts (SPPMI only,
-then the context bias).  Each batch of a phase goes through two
-hand-written CUDA kernels (``csrc/*.cu``) around K3's solve, each beside
-its plain PyTorch version (``*_plain``):
+PyTorch counterpart of ``buffalo_tpu.ops.cfr_kernels`` (Liang et al.,
+Factorization Meets the Item Embedding, RecSys 2016): the three-phase
+epoch — users (implicit ALS scaled by ``l``), items (the user-side
+implicit term plus the SPPMI explicit term with item and context biases,
+then the closed-form item bias) and contexts (SPPMI only, then the context
+bias).  Each batch of a phase goes through two hand-written CUDA
+kernels (``csrc/*.cu``) around K3's solve, each beside its plain PyTorch
+version (``*_plain``):
 
 * **K17** ``cfr_normal_equations`` — per row the system ``A = l (FF +
   sum alpha v f f^T) [+ sum c c^T] + reg I`` and ``y = l sum (1 + alpha v)
@@ -33,6 +33,10 @@ runs its plain version for CPU tensors and launches its kernel (or raises)
 for CUDA tensors; ``launches`` on each wrapper counts the calls that
 launched it.  Rows of any width (past 128 floats K17 builds A in output
 tiles and K18 reads rows from global memory); values are float32.
+
+``cfr_epoch`` runs over a ``parallelism.Mesh`` (one device is a mesh of one
+shard): the padded batches' rows split over the shards, the tables
+replicated, each phase's solved rows gathered over the mesh once.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ import torch
 from buffalo_tpu_torch.data.batching import StagedSegmentBatch
 from buffalo_tpu_torch.ops.als_kernels import (_check, _ptr, _raise_on,
                                                _solve_into, _stream, gramian)
+from buffalo_tpu_torch.ops.sgd_kernels import replica_shards
 
 _P, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIDE = [_P, _P, _P, _P, _P, _P, _I32]
@@ -370,25 +375,92 @@ def cfr_context_step(C, I, Ib, Cb, batch, *, reg_c, optimizer, cg_iters,
     return loss
 
 
-def cfr_epoch(U, I, C, Ib, Cb, user_batches, item_batches, context_batches,
-              *, alpha, l, reg_u, reg_i, reg_c, optimizer, cg_iters, cg_tol,
+def _entry_rows(entry):
+    """The row ids of a staged padded batch or item entry."""
+    return entry.rows if hasattr(entry, "rows") else entry[0].rows
+
+
+def _phase(mesh, tables, entries, written, step):
+    """One phase of ``cfr_epoch`` over ``entries``, each run by ``step(dev,
+    T, entry)`` on the tables ``T`` of device ``dev`` (a per-row loss
+    back).  On one shard: every entry in order, on the one replica.  On a
+    mesh of several shards: each local shard solves its row slices of the
+    padded entries (lists, one slice per local shard) into its device's
+    replica (the phase reads only the other tables and each row's own
+    entries, and every row is one shard's, so shards sharing a replica do
+    not meet); then the rows each shard solved are gathered over the mesh
+    with their ids, one ``all_gather_rows`` per table the phase writes
+    (``written``, indices into ``T``), and written into every replica, and
+    the loss is summed over the mesh once; then the segment entries
+    ({device: entry}) run on every replica.  Returns the phase's loss, a
+    (1,) tensor on the first local device."""
+    devs = mesh.devices
+    if mesh.size == 1:
+        losses = [step(devs[0], tables[devs[0]], e) for e in entries]
+        return (torch.cat(losses).sum().reshape(1) if losses
+                else tables[devs[0]][0].new_zeros(1))
+    from buffalo_tpu_torch.parallelism import all_gather_rows, all_reduce_sum
+
+    reps = replica_shards(mesh)
+    padded = [e for e in entries if isinstance(e, list)]
+    total = tables[devs[0]][0].new_zeros(1)
+    if padded:
+        losses = [torch.cat([step(dev, tables[dev], e[k]) for e in padded])
+                  .sum().reshape(1) for k, dev in enumerate(devs)]
+        n = tables[devs[0]][written[0]].shape[0]
+        mine = [torch.cat([_entry_rows(e[k]) for e in padded]).long()
+                for k in range(len(devs))]
+        rows = all_gather_rows(mesh, mine)
+        for i in written:
+            got = all_gather_rows(mesh, [tables[dev][i][r.clamp(max=n - 1)]
+                                         for r, dev in zip(mine, devs)])
+            for dev, k in reps.items():
+                keep = rows[k] < n
+                tables[dev][i][rows[k][keep]] = got[k][keep]
+        total = all_reduce_sum(mesh, losses, first_only=True)
+    for e in entries:
+        if isinstance(e, dict):
+            for r, dev in enumerate(reps):
+                loss = step(dev, tables[dev], e[dev])
+                if r == 0:
+                    total = total + loss.sum().to(total.device)
+    return total
+
+
+def cfr_epoch(mesh, tables, user_batches, item_batches, context_batches, *,
+              alpha, l, reg_u, reg_i, reg_c, optimizer, cg_iters, cg_tol,
               compute_loss):
     """The three-phase epoch (``cfr_epoch`` :365 and the streamed loop of
-    ``models/cfr.py:244``) over staged batches, or iterables that stage
-    them; the tables are updated in place.  Returns the epoch's loss (a 0-d
-    tensor)."""
+    ``models/cfr.py:244``), and ``cfr_epoch_dp`` :431 on a mesh of several
+    shards (one device is a mesh of one shard).  ``tables`` {device: [U,
+    I, C, Ib, Cb]} holds one replica per local device, updated in place.
+    On one shard each phase's entries are staged batches or item entries
+    (or iterables that stage them).  On a mesh the tables are replicated
+    and a padded batch or item entry is a list of the local shards' row
+    slices, each on its shard's device (the batch's rows padded to a
+    multiple of the mesh size with sentinel rows past the table, which
+    K17, K3 and K18 leave alone); a segment batch or pair is {device:
+    staged entry}, run on every replica after the phase's padded entries,
+    as the JAX package runs them outside its ``shard_map``.  Per phase
+    (``_phase``): K17, K3 (or Cholesky) and K18 per entry and shard, then
+    the solved rows gathered once per written table (U; I and Ib; C and
+    Cb) and the loss summed once.  The JAX package sums the phase's
+    deltas (``T + psum(T_cur - T)``, an ulp from the row); the gathered
+    rows are the solved rows themselves, so the mesh ends with the single
+    device's tables.  Returns the epoch's loss (a 0-d tensor on the first
+    local device)."""
     com = dict(optimizer=optimizer, cg_iters=cg_iters, cg_tol=cg_tol,
                compute_loss=compute_loss)
-    losses = []
-    FF = gramian(I)
-    for b in user_batches:
-        losses.append(cfr_user_step(U, I, FF, b, alpha=alpha, l=l,
-                                    reg_u=reg_u, **com))
-    FF = gramian(U)
-    for e in item_batches:
-        losses.append(cfr_item_step(I, U, C, Ib, Cb, FF, e, alpha=alpha,
-                                    l=l, reg_i=reg_i, **com))
-    for b in context_batches:
-        losses.append(cfr_context_step(C, I, Ib, Cb, b, reg_c=reg_c, **com))
-    return torch.cat(losses).sum() if losses else U.new_zeros(())
-
+    FF = {dev: gramian(T[1]) for dev, T in tables.items()}
+    loss = _phase(mesh, tables, user_batches, (0,), lambda dev, T, b:
+                  cfr_user_step(T[0], T[1], FF[dev], b, alpha=alpha, l=l,
+                                reg_u=reg_u, **com))
+    FF = {dev: gramian(T[0]) for dev, T in tables.items()}
+    loss = loss + _phase(mesh, tables, item_batches, (1, 3), lambda dev, T, e:
+                         cfr_item_step(T[1], T[0], T[2], T[3], T[4], FF[dev],
+                                       e, alpha=alpha, l=l, reg_i=reg_i,
+                                       **com))
+    loss = loss + _phase(mesh, tables, context_batches, (2, 4),
+                         lambda dev, T, b: cfr_context_step(
+                             T[2], T[1], T[3], T[4], b, reg_c=reg_c, **com))
+    return loss.reshape(())

@@ -1,9 +1,8 @@
-"""Skip-gram negative-sampling (word2vec) kernels on one device.
+"""Skip-gram negative-sampling (word2vec) kernels.
 
-PyTorch counterpart of ``buffalo_tpu.ops.w2v_kernels``'s single-device
-functions.  Each chunk of an epoch goes through hand-written CUDA kernels
-on the card (``csrc/*.cu``), each beside its plain PyTorch version
-(``*_plain``):
+PyTorch counterpart of ``buffalo_tpu.ops.w2v_kernels``.  Each chunk of an
+epoch goes through hand-written CUDA kernels on the card (``csrc/*.cu``),
+each beside its plain PyTorch version (``*_plain``):
 
 * **K19** ``pair_step`` — the SGNS forward of one (input, target) pair
   chunk (the host-pair path): the K negatives (three alias draws that
@@ -26,6 +25,15 @@ threefry stream cannot be reproduced, so the tests replace the hooks
 ``stream_negatives`` (stream path) with the JAX package's draws to
 compare the math.  Sums are deterministic (no float atomics).  Rows of
 any width (past 256 floats the kernels walk them from global memory).
+
+The two epochs, ``w2v_epoch`` (host pairs) and ``w2v_epoch_stream``, run
+over a device mesh (``parallelism.Mesh``; one device is a mesh of one
+shard), as the JAX package's ``w2v_epoch_dp`` and ``w2v_epoch_stream_dp``
+do: the chunks split over the shards, the tables replicated, one replica
+per device.  Each shard draws its slice of the single device's negatives
+(K19 and K8 at its slot offset) and forms its delta rows (K19, K21); the
+shards' rows are gathered in shard order and K20 applies their union on
+every replica, so the cap sees each row's sum over the whole chunk.
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors; ``launches`` on each wrapper counts
@@ -53,8 +61,8 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _SIGNATURES = {
     "w2v_pair_parts": [_I32],
     "w2v_pair_step": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _F32, _I64,
-                      _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _I32, _P, _P,
-                      _P],
+                      _I32, _I32, _I64, _P, _P, _P, _P, _P, _P, _P, _I32, _P,
+                      _P, _P],
     "w2v_apply_workspace": [_I32, _I32, _I32, _P],
     "w2v_row_apply": [_P, _P, _I32, _P, _P, _I32, _P, _I32, _I32, _F32, _F32,
                       _P, _P, _P],
@@ -108,15 +116,18 @@ def row_apply_plain(T, parts, *, scale=1.0, cap=0.0):
 
 
 def w2v_negatives(targets, vocab_size, *, num_negatives, seed, epoch, chunk,
-                  alias, group=0, groups=1, cidx=0):
+                  alias, group=0, groups=1, cidx=0, slot_offset=0):
     """A pair chunk's (B, K) int32 negatives as K19 draws them: slot s =
     b K + k takes the first of ``PAIR_ATTEMPTS`` alias draws (K8's: the
     Philox words of the counter (s, chunk, epoch, attempt)) that is not
-    ``targets[b]``, else ``(targets[b] + 1) % V``.  ``group``, ``groups``
+    ``targets[b]``, else ``(targets[b] + 1) % V``.  A mesh shard passes
+    ``slot_offset``, its first pair of the chunk: its slots are then
+    (slot_offset + b) K + k, the single device's.  ``group``, ``groups``
     and ``cidx`` (the chunk's index in its group) place the chunk in the
     JAX package's key chain; this generator keys by ``chunk`` alone."""
     B, K, V = targets.shape[0], int(num_negatives), int(vocab_size)
-    slot = torch.arange(B * K, device=targets.device, dtype=torch.int64)
+    slot = (torch.arange(B * K, device=targets.device, dtype=torch.int64)
+            + int(slot_offset) * K) & S._U32
     t = targets.long().repeat_interleave(K)
     out = (t + 1) % V
     done = torch.zeros_like(slot, dtype=torch.bool)
@@ -134,16 +145,20 @@ def w2v_negatives(targets, vocab_size, *, num_negatives, seed, epoch, chunk,
 
 
 def stream_negatives(num_blocks, vocab_size, *, num_negatives, seed, epoch,
-                     chunk, alias, device, group=0, groups=1, cidx=0):
+                     chunk, alias, device, group=0, groups=1, cidx=0,
+                     slot_offset=0):
     """A token chunk's (NB, K) int32 block-shared negatives: K8's alias
     draws (one attempt, no bloom filter), slot b K + k from the counter
     (slot, chunk, epoch, 0) — through ``sgd_kernels.sample_negatives``, so
-    on the card one K8 launch.  ``group``, ``groups`` and ``cidx`` as in
+    on the card one K8 launch.  A mesh shard passes ``slot_offset``, its
+    first block of the chunk, and draws the single device's rows of the
+    global (T / block, K) draws.  ``group``, ``groups`` and ``cidx`` as in
     ``w2v_negatives``."""
     users = torch.zeros(num_blocks, dtype=torch.int32, device=device)
     neg, _ = S.sample_negatives(users, int(vocab_size),
                                 num_negatives=int(num_negatives), seed=seed,
-                                epoch=epoch, chunk=chunk, alias=alias)
+                                epoch=epoch, chunk=chunk, alias=alias,
+                                slot_offset=int(slot_offset))
     return neg.reshape(num_blocks, int(num_negatives))
 
 
@@ -271,11 +286,13 @@ def _check_tables(L0, L1, dev):
 
 def pair_step(L0, L1, inputs, targets, lr, *, vocab_size, num_negatives,
               seed, epoch, chunk, alias, group=0, groups=1, cidx=0,
-              negatives=None, compute_loss=True):
+              slot_offset=0, negatives=None, compute_loss=True):
     """K19: one pair chunk's negatives and delta rows (see
-    ``pair_step_plain``; the negatives as ``w2v_negatives`` draws them,
-    unless ``negatives`` (B, K) are given).  Replaces ``_w2v_step_body``
-    :477 and the forward of ``w2v_step`` :462 and ``w2v_epoch`` :48
+    ``pair_step_plain``; the negatives as ``w2v_negatives`` draws them, at
+    a mesh shard's ``slot_offset``, unless ``negatives`` (B, K) are
+    given).  Replaces ``_w2v_step_body`` :477 with its draws at a
+    ``row_offset`` (:503-511) and the forward of ``w2v_step`` :462,
+    ``w2v_epoch`` :48 and ``w2v_epoch_dp`` :87
     (``buffalo_tpu/ops/w2v_kernels.py``).  Returns (negatives (B, K),
     keys1 (B (1 + K),), d1 (B (1 + K), d), d0 (B, d), loss, count), the
     last two 0-d float32 tensors."""
@@ -283,7 +300,8 @@ def pair_step(L0, L1, inputs, targets, lr, *, vocab_size, num_negatives,
     if inputs.device.type == "cpu":
         negs = negatives if negatives is not None else w2v_negatives(
             targets, V, num_negatives=K, seed=seed, epoch=epoch, chunk=chunk,
-            alias=alias, group=group, groups=groups, cidx=cidx)
+            alias=alias, group=group, groups=groups, cidx=cidx,
+            slot_offset=slot_offset)
         return (negs,) + pair_step_plain(L0, L1, inputs, targets, negs, lr,
                                          vocab_size=V,
                                          compute_loss=compute_loss)
@@ -292,9 +310,10 @@ def pair_step(L0, L1, inputs, targets, lr, *, vocab_size, num_negatives,
     _check("inputs", inputs, torch.int32, dev, 1)
     _check("targets", targets, torch.int32, dev, 1)
     B = inputs.shape[0]
-    if targets.shape[0] != B or L0.shape[0] != V or K < 1:
+    if targets.shape[0] != B or L0.shape[0] != V or K < 1 \
+            or slot_offset < 0:
         raise ValueError("inputs, targets, the tables and vocab_size "
-                         "disagree")
+                         f"disagree, or slot_offset {slot_offset} < 0")
     if negatives is not None:
         _check("negatives", negatives, torch.int32, dev, 2)
         if tuple(negatives.shape) != (B, K):
@@ -312,7 +331,7 @@ def pair_step(L0, L1, inputs, targets, lr, *, vocab_size, num_negatives,
     rc = _kernel("w2v_pair_step")(
         _ptr(L0), _ptr(L1), _ptr(inputs), _ptr(targets), B, V, d, K,
         float(lr), S.philox_key(seed), int(epoch), int(chunk),
-        _ptr(None if negatives is not None else alias[0]),
+        int(slot_offset), _ptr(None if negatives is not None else alias[0]),
         _ptr(None if negatives is not None else alias[1]), _ptr(negatives),
         _ptr(negs), _ptr(keys1), _ptr(d1), _ptr(d0), int(bool(compute_loss)),
         _ptr(part), _ptr(out), _stream(dev))
@@ -327,8 +346,11 @@ pair_step.launches = 0
 def row_apply(T, parts, *, scale=1.0, cap=0.0):
     """K20: ``T`` += each row's sum of ``scale`` x its delta rows, capped
     (``row_apply_plain``), in place; ``parts`` one or two (int32 row ids,
-    (n, d) rows) pairs.  Replaces ``_clipped_apply`` :34 with the
-    ``.at[].add(mode="drop")`` scatters feeding it (:221-226, :548-563)."""
+    (n, d) rows) pairs: one chunk's, or on a mesh the union of the
+    shards' (``apply_union``).  Replaces ``_clipped_apply`` :34 with the
+    ``.at[].add(mode="drop")`` scatters feeding it (:221-226, :548-563)
+    and the ``psum`` of the dense deltas before it on a mesh (:554, :562;
+    :427, :433)."""
     if T.device.type == "cpu":
         return row_apply_plain(T, parts, scale=scale, cap=cap)
     dev = T.device
@@ -441,62 +463,129 @@ def w2v_step(L0, L1, inputs, targets, lr, *, seed, epoch, chunk, alias,
     return loss, cnt
 
 
-def w2v_epoch(L0, L1, inputs, targets, alias, processed0, *, seed, epoch,
-              group, groups, num_negatives, vocab_size, compute_loss, lr,
-              min_lr, total_words, words_per_chunk, max_step_norm=0.1):
-    """One group of ``w2v_epoch`` (:48): its (nchunks, N) pair chunks in
-    order, each with the float32 decayed rate of its position, tables
-    updated in place.  Chunk c is the epoch's chunk ``group * nchunks +
-    c``.  Returns (loss, count) summed over the group in float32."""
-    nchunks = inputs.shape[0]
-    loss = torch.zeros((), dtype=torch.float32, device=inputs.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=inputs.device)
+def apply_union(mesh, tables, i, shard_parts, *, scale=1.0, cap=0.0):
+    """K20 on table ``i`` of every replica (``tables`` {device: (L0, L1)})
+    with the union of the mesh's delta rows: ``shard_parts`` holds one
+    list of (keys, rows) parts per local shard; each part is gathered over
+    the mesh in global shard order (``parallelism.all_gather_rows``), so
+    the cap sees each row's sum over every shard, as the JAX package's
+    ``psum`` before ``_clipped_apply``.  A mesh of one shard applies its
+    own parts."""
+    if mesh.size == 1:
+        row_apply(tables[mesh.devices[0]][i], shard_parts[0], scale=scale,
+                  cap=cap)
+        return
+    from buffalo_tpu_torch.parallelism import all_gather_rows
+
+    union = [tuple(all_gather_rows(mesh, [p[j][x] for p in shard_parts])
+                   for x in (0, 1)) for j in range(len(shard_parts[0]))]
+    for dev, k in S.replica_shards(mesh).items():
+        row_apply(tables[dev][i], [(keys[k], rows[k]) for keys, rows in union],
+                  scale=scale, cap=cap)
+
+
+def _mesh_total(mesh, parts):
+    """The sum over the mesh of the local shards' 0-d ``parts``, on the
+    first local device (a single shard's own tensor)."""
+    if mesh.size == 1:
+        return parts[0]
+    from buffalo_tpu_torch.parallelism import all_reduce_sum
+
+    return all_reduce_sum(mesh, [p.reshape(1) for p in parts],
+                          first_only=True).reshape(())
+
+
+def w2v_epoch(mesh, tables, inputs, targets, alias, processed0, *, seed,
+              epoch, group, groups, num_negatives, vocab_size, compute_loss,
+              lr, min_lr, total_words, words_per_chunk, max_step_norm=0.1):
+    """One group of ``w2v_epoch`` (:48), and of ``w2v_epoch_dp`` (:87) on a
+    mesh of several shards: its (nchunks, N) pair chunks in order, each
+    with the float32 decayed rate of its position; chunk c is the epoch's
+    chunk ``group * nchunks + c``.  ``tables`` {device: (L0, L1)} holds one
+    replica per local device, updated in place; ``inputs`` / ``targets``
+    one (nchunks, N / mesh.size) int32 tensor per local shard, on its
+    device; ``alias`` {device: (prob, alias)}.  Per chunk each shard runs
+    K19 on its device's replica at its slot offset (its first global pair,
+    so it draws the single device's negatives), then ``apply_union`` runs
+    K20 on L1 and then on L0, each from the tables before the step: on one
+    shard exactly ``w2v_step``.  The union's entries come in the single
+    device's order (every shard's targets, then every shard's negatives;
+    the inputs), so K20 sums each row as one device does and the mesh
+    holds its tables.  Returns (loss, count) summed over the group and the
+    mesh in float32."""
+    devs = mesh.devices
+    nchunks, N_loc = inputs[0].shape
+    loss = [torch.zeros((), dtype=torch.float32, device=d) for d in devs]
+    cnt = [torch.zeros((), dtype=torch.float32, device=d) for d in devs]
     for c in range(nchunks):
         lr_t = device_rate(lr, min_lr, processed0, c, words_per_chunk,
                            total_words)
-        l_, c_ = w2v_step(L0, L1, inputs[c], targets[c], lr_t, seed=seed,
-                          epoch=epoch, chunk=group * nchunks + c,
-                          alias=alias, num_negatives=num_negatives,
-                          vocab_size=vocab_size, compute_loss=compute_loss,
-                          max_step_norm=max_step_norm, group=group,
-                          groups=groups, cidx=c)
-        loss = loss + l_
-        cnt = cnt + c_
-    return loss, cnt
+        parts1, parts0 = [], []
+        for k, dev in enumerate(devs):
+            L0, L1 = tables[dev]
+            _, keys1, d1, d0, l_, c_ = pair_step(
+                L0, L1, inputs[k][c], targets[k][c], lr_t,
+                vocab_size=vocab_size, num_negatives=num_negatives,
+                seed=seed, epoch=epoch, chunk=group * nchunks + c,
+                alias=alias[dev], group=group, groups=groups, cidx=c,
+                slot_offset=mesh.shards[k] * N_loc, compute_loss=compute_loss)
+            # the targets' rows and the negatives' as two parts: gathered
+            # part by part, the union is the single device's entry order
+            parts1.append([(keys1[:N_loc], d1[:N_loc]),
+                           (keys1[N_loc:], d1[N_loc:])])
+            parts0.append([(inputs[k][c], d0)])
+            loss[k] = loss[k] + l_
+            cnt[k] = cnt[k] + c_
+        apply_union(mesh, tables, 1, parts1, cap=max_step_norm)
+        apply_union(mesh, tables, 0, parts0, cap=max_step_norm)
+    return _mesh_total(mesh, loss), _mesh_total(mesh, cnt)
 
 
-def w2v_epoch_stream(L0, L1, words, bounds, half, alias, processed0, *,
+def w2v_epoch_stream(mesh, tables, words, bounds, half, alias, processed0, *,
                      seed, epoch, group, groups, window, block,
                      num_negatives, vocab_size, compute_loss, lr, min_lr,
                      total_words, words_per_chunk, max_step_norm=0.1):
-    """One group of ``w2v_epoch_stream`` (:141) over (nchunks, T) token
-    chunks (int32 words, uint8 sentence starts and half-windows): per
-    chunk the sentence ids (a cumsum of the starts), the block-shared
-    negatives (``stream_negatives``, K8), K21's deltas, then K20 on L0
-    (the positions) and on L1 (the positions, then the negatives), each
-    scaled by the chunk's float32 rate.  Tables updated in place; returns
-    (loss, count) summed over the group in float32."""
-    nchunks, T = words.shape
-    NB = T // block
-    d = L0.shape[1]
-    loss = torch.zeros((), dtype=torch.float32, device=words.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=words.device)
+    """One group of ``w2v_epoch_stream`` (:141), and of
+    ``w2v_epoch_stream_dp`` (:366) on a mesh of several shards, over
+    (nchunks, T) token chunks (int32 words, uint8 sentence starts and
+    half-windows) split on the position axis: ``words`` / ``bounds`` /
+    ``half`` one (nchunks, T / mesh.size) tensor per local shard, on its
+    device (T / mesh.size a multiple of ``block``); ``tables`` and
+    ``alias`` as in ``w2v_epoch``.  Per chunk each shard takes the
+    sentence ids of its slice (a cumsum of its starts, so no pair crosses
+    a shard's edge: the JAX package drops those pairs too), its rows of
+    the block-shared negatives (``stream_negatives``, K8 at its first
+    block) and K21's deltas; then ``apply_union`` runs K20 on L0 (the
+    positions) and on L1 (the positions, then the negatives), each scaled
+    by the chunk's float32 rate.  Returns (loss, count) summed over the
+    group and the mesh in float32."""
+    devs = mesh.devices
+    nchunks, T_loc = words[0].shape
+    NB = T_loc // block
+    d = tables[devs[0]][0].shape[1]
+    loss = [torch.zeros((), dtype=torch.float32, device=x) for x in devs]
+    cnt = [torch.zeros((), dtype=torch.float32, device=x) for x in devs]
     for c in range(nchunks):
-        wc, hc = words[c], half[c]
-        sc = torch.cumsum(bounds[c], 0, dtype=torch.int32)
         lr_t = device_rate(lr, min_lr, processed0, c, words_per_chunk,
                            total_words)
-        negs = stream_negatives(NB, vocab_size, num_negatives=num_negatives,
-                                seed=seed, epoch=epoch,
-                                chunk=group * nchunks + c, alias=alias,
-                                device=words.device, group=group,
-                                groups=groups, cidx=c)
-        dL0p, dL1p, dLn, l_, c_ = stream_chunk_deltas(
-            L0, L1, wc, sc, hc, negs, window=window, block=block,
-            vocab_size=vocab_size, compute_loss=compute_loss)
-        row_apply(L0, [(wc, dL0p)], scale=lr_t, cap=max_step_norm)
-        row_apply(L1, [(wc, dL1p), (negs.reshape(-1), dLn.reshape(-1, d))],
-                  scale=lr_t, cap=max_step_norm)
-        loss = loss + l_
-        cnt = cnt + c_
-    return loss, cnt
+        parts0, parts1 = [], []
+        for k, dev in enumerate(devs):
+            L0, L1 = tables[dev]
+            wc, hc = words[k][c], half[k][c]
+            sc = torch.cumsum(bounds[k][c], 0, dtype=torch.int32)
+            negs = stream_negatives(
+                NB, vocab_size, num_negatives=num_negatives, seed=seed,
+                epoch=epoch, chunk=group * nchunks + c, alias=alias[dev],
+                device=dev, group=group, groups=groups, cidx=c,
+                slot_offset=mesh.shards[k] * NB)
+            dL0p, dL1p, dLn, l_, c_ = stream_chunk_deltas(
+                L0, L1, wc, sc, hc, negs, window=window, block=block,
+                vocab_size=vocab_size, compute_loss=compute_loss)
+            parts0.append([(wc, dL0p)])
+            parts1.append([(wc, dL1p),
+                           (negs.reshape(-1), dLn.reshape(-1, d))])
+            loss[k] = loss[k] + l_
+            cnt[k] = cnt[k] + c_
+        apply_union(mesh, tables, 0, parts0, scale=lr_t, cap=max_step_norm)
+        apply_union(mesh, tables, 1, parts1, scale=lr_t, cap=max_step_norm)
+    return _mesh_total(mesh, loss), _mesh_total(mesh, cnt)

@@ -282,6 +282,12 @@ MESH_SHARDS, NCCL_SHARDS, MESH_EPOCHS = 4, 2, 2
 # TOL_MESH_X (relative Frobenius norm), its loss within TOL_MESH_LOSS
 # relative (WARP's violation rate one triplet's 1 / n more)
 TOL_MESH_X, TOL_MESH_LOSS = 1e-4, 1e-5
+# mesh_w2v: the stream epoch on a mesh drops the pairs across its shards'
+# edges, so each epoch's loss is held within W2V_MESH_STREAM_LOSS of one
+# device's (the JAX package's rule, tests/models/test_w2v_cfr.py:575-600);
+# the host pairs draw the single device's negatives: L0 and L1 within
+# W2V_MESH_HOST_X (relative Frobenius) after one epoch
+W2V_MESH_STREAM_LOSS, W2V_MESH_HOST_X = 0.02, 1e-5
 # wide_rows: each model WIDE_EPOCHS epochs at d = WIDE_D on the SMALL_*
 # synthetic or a stream corpus of WIDE_LINES lines over WIDE_VOCAB words
 WIDE_EPOCHS = 2
@@ -3628,9 +3634,10 @@ def cfr_path(bt, CK, K, R, torch, data):
               reg_i=float(o.reg_i), reg_c=float(o.reg_c),
               optimizer=str(o.optimizer), cg_iters=int(o.num_cg_max_iters),
               cg_tol=float(o.cg_tolerance), compute_loss=True)
+    one = bt.parallelism.Mesh([model.device])
     prof = profile_call(torch, lambda: float(CK.cfr_epoch(
-        *tabs, staged["user"], staged["item"], staged["context"], **kw)),
-        top=10)
+        one, {model.device: list(tabs)}, staged["user"], staged["item"],
+        staged["context"], **kw)), top=10)
     users = [str(u) for u in range(1, CFR_USERS + 1)]
     par = bt.ParCFR(model)
     reset_counts(R.KERNELS)
@@ -3913,9 +3920,12 @@ def w2v_path(bt, W, S, R, torch, data, build_s):
                total_words=float(model._vocab.total_word_count),
                words_per_chunk=1.0, max_step_norm=float(o.max_step_norm))
 
+    one = bt.parallelism.Mesh([dev])
+
     def epoch():
-        out = [W.w2v_epoch_stream(L0, L1, *arr, alias, np.float32(0), group=g,
-                                  **com) for g, arr in enumerate(staged)]
+        out = [W.w2v_epoch_stream(one, {dev: (L0, L1)}, *([a] for a in arr),
+                                  {dev: alias}, np.float32(0), group=g, **com)
+               for g, arr in enumerate(staged)]
         return float(sum(float(x[0]) for x in out))
 
     prof = profile_call(torch, epoch, top=10)
@@ -4789,16 +4799,25 @@ def sharded_topk(bt, R, torch, trained):
 
 
 # ------------------------------------------------ the dp mesh: BPR and WARP
-def epoch_snapshots(module, name, tables_of):
+def epoch_snapshots(module, name, tables_of, seconds=None):
     """Wrap ``module.name`` (an epoch function) so that each call appends
     the host copies of the tables ``tables_of(args)`` returns after it; the
-    list, and a function that puts the original back."""
+    list, and a function that puts the original back.  With a ``seconds``
+    list, each copy's seconds (after the epoch's work is synchronized) are
+    appended to it: the model's epoch time includes them."""
+    import torch
+
     original = getattr(module, name)
     snaps = []
 
     def wrapped(*args, **kwargs):
         out = original(*args, **kwargs)
+        if seconds is not None:
+            torch.cuda.synchronize()
+            st = time.perf_counter()
         snaps.append([t.cpu().numpy().copy() for t in tables_of(args)])
+        if seconds is not None:
+            seconds.append(time.perf_counter() - st)
         return out
 
     setattr(module, name, wrapped)
@@ -5197,6 +5216,498 @@ def mesh_warp(bt, W, S, torch, data):
           k11_offset=k11)
     del users_c, items_c, bloom, P0, Q0, mesh_model
     torch.cuda.empty_cache()
+
+
+def cfr_entry_counts(host, sizes):
+    """(entries, solved rows) of CFR's host batches: every live entry of
+    both sides of every phase, and the rows with entries (``sizes`` the
+    tables' heights per phase)."""
+    entries = rows = 0
+    for ph, batch_list in host.items():
+        for e in batch_list:
+            if hasattr(e, "lens"):          # a user or context batch
+                lens, ids = e.lens, e.rows
+            elif hasattr(e[1], "lens"):     # a segment pair over one row list
+                lens, ids = e[0].lens + e[1].lens, e[0].rows
+            else:                           # a padded batch + its SPPMI block
+                lens, ids = e[0].lens + e[1], e[0].rows
+            lens = np.asarray(lens, np.int64)
+            entries += int(lens.sum())
+            rows += int(((lens > 0) & (np.asarray(ids) < sizes[ph])).sum())
+    return entries, rows
+
+
+def cfr_epoch_bound(host, sizes, d, cg_iters):
+    """The least time of one CFR epoch's kernel work on its batches: K17's
+    operations, d (d + 1) + 4 d per entry, and K3's, 2 d^2 per CG step and
+    solved row, over the FP32 peak; or the bytes: 8 per entry read, each
+    solved row's system (d^2 + d floats) written by K17 and read by K3.
+    The larger, and which."""
+    entries, rows = cfr_entry_counts(host, sizes)
+    return bound_ms(8 * entries + 8 * rows * (d * d + d),
+                    entries * (d * (d + 1) + 4 * d)
+                    + rows * cg_iters * 2 * d * d)
+
+
+def mesh_cfr(bt, CK, K, torch, data):
+    """CoFactor's dp mesh (``cfr_epoch`` on a mesh) over MESH_SHARDS shards
+    on this card: CFR d = CFR_D with the defaults, MESH_EPOCHS epochs on
+    the brunch data against one device on the same batches, every epoch's
+    five tables held by ``mesh_epochs_rule`` (the mesh gathers the rows
+    its shards solve, so they are expected bit for bit), launches per epoch
+    (K17, K3 and K18 once per shard and padded entry, once per segment
+    entry on the one replica), epoch times (less the tables' host copies
+    the rule reads) beside one device's and the epoch's bound
+    (``cfr_epoch_bound``).  Then K17, K3 and K18 on a shard's
+    slice (shard 1's when it has one) of a padded item entry holding
+    sentinel rows between real rows, against their plain versions at
+    TOL_K17, the CG rule and TOL_K18: the sentinel rows add no loss and no
+    entries, and no row or bias outside the slice's real rows moves."""
+    from buffalo_tpu_torch.models.cfr import _is_segment, _stage_mesh_entry
+    from buffalo_tpu_torch.ops.als_kernels import gramian
+    from buffalo_tpu_torch.ops.cfr_kernels import (LOSS_EXPLICIT,
+                                                   LOSS_IMPLICIT, LOSS_REG,
+                                                   Side)
+
+    par = bt.parallelism
+    kernels = CK.KERNELS + (K.batched_cg_dense,)
+    res = {}
+    for where, more in (("mesh", mesh_opt(MESH_SHARDS)), ("one", {})):
+        opt = bt.CFROption().get_default_option()
+        opt.update(d=CFR_D, num_iters=MESH_EPOCHS, device="cuda",
+                   validation={}, **more)
+        model = bt.CFR(opt, data=data)
+        np.random.seed(0)
+        model.initialize()
+        copy_s = []
+        snaps, restore = epoch_snapshots(CK, "cfr_epoch",
+                                         lambda a: a[1][next(iter(a[1]))],
+                                         copy_s)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            par.reset_counts()
+            model.train()
+            launches = read_counts(kernels)
+        finally:
+            restore()
+        res[where] = dict(
+            tables=snaps, losses=model.iteration_losses,
+            # the epochs' own seconds: the model's less the snapshot copies
+            epoch_seconds=[t - c for t, c in zip(model.iteration_times,
+                                                 copy_s)],
+            snapshot_seconds=copy_s, launches=launches,
+            collective_calls=dict(all_gather_rows=par.all_gather_rows.calls,
+                                  all_reduce_sum=par.all_reduce_sum.calls),
+            max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+            / 2 ** 20)
+        if where == "mesh":
+            mesh_model = model
+    o = mesh_model.opt
+    host = mesh_model._build_batches()
+    n_pad = sum(not _is_segment(e) for v in host.values() for e in v)
+    n_seg = sum(_is_segment(e) for v in host.values() for e in v)
+    per = (MESH_SHARDS * n_pad + n_seg) * MESH_EPOCHS
+    want = {k.__name__: per for k in kernels}
+    ln = res["mesh"]["launches"]
+    check(ln == want, f"the CFR mesh launched {ln}, expected {want}")
+    names = ("U", "I", "C", "Ib", "Cb")
+    epochs = mesh_epochs_rule(res["mesh"]["tables"], res["one"]["tables"],
+                              res["mesh"]["losses"], res["one"]["losses"],
+                              names, "CFR mesh")
+    bitwise = all(np.array_equal(a, b) for mt, ot in zip(
+        res["mesh"]["tables"], res["one"]["tables"]) for a, b in zip(mt, ot))
+    sizes = {"user": mesh_model.U.shape[0], "item": mesh_model.I.shape[0],
+             "context": mesh_model.C.shape[0]}
+    ebound, eby = cfr_epoch_bound(host, sizes, CFR_D, int(o.num_cg_max_iters))
+
+    # ---- K17, K3, K18 on a shard's slice holding sentinel rows
+    mesh = par.get_mesh(MESH_SHARDS, devices=["cuda:0"] * MESH_SHARDS)
+    n = sizes["item"]
+    pick = None
+    for e in host["item"]:
+        if _is_segment(e):
+            continue
+        rows = np.asarray(e[0].rows)
+        m = -(-len(rows) // MESH_SHARDS)
+        rows = np.concatenate([rows, np.full(m * MESH_SHARDS - len(rows), n)])
+        for g in (1, 2, 3, 0)[:MESH_SHARDS]:
+            sl = rows[g * m:(g + 1) * m]
+            if (sl >= n).any() and (sl < n).any():
+                pick = (_stage_mesh_entry(e, mesh, n)[g], g)
+                break
+        if pick is not None:
+            break
+    check(pick is not None, "no padded item entry has a shard slice with "
+          "sentinel rows between real ones")
+    (b, lens_c, cols_c, vals_c), g = pick
+    U, I, C, Ib, Cb = cfr_tables(torch, mesh_model)
+    exp = Side(C, lens_c, cols_c, vals_c)
+    kw = dict(implicit=Side.of(U, b), explicit=exp, FF=gramian(U), rbias=Ib,
+              cbias=Cb, alpha=float(o.alpha), l=float(o.l),
+              reg=float(o.reg_i), loss=LOSS_IMPLICIT | LOSS_EXPLICIT
+              | LOSS_REG)
+    e17, le17, tot, rep, got, ref = k17_check(CK, torch, I, b.rows, kw)
+    check(e17 <= TOL_K17 and le17 <= TOL_K17 and tot and rep,
+          f"K17 on a shard's slice with sentinel rows: A/y {e17:.3g}, loss "
+          f"{le17:.3g} (totals equal {tot}, repeatable {rep})")
+    A, y, loss, total = got
+    sentinel = b.rows >= n
+    check(float(loss[sentinel].abs().sum()) == 0
+          and not bool(total[sentinel].any()),
+          "a sentinel row added loss or entries in K17")
+    live = (total > 0) & ~sentinel
+    idx = b.rows.long()[live]
+    cg = dict(cg_iters=int(o.num_cg_max_iters), cg_tol=float(o.cg_tolerance))
+    ok, solve_fields, short_ok = floor_check(
+        lambda t: K.batched_cg_dense(A, y, t, total, rows=b.rows, **cg),
+        lambda t, it: K.batched_cg_dense_plain(
+            A.to(t.dtype), y.to(t.dtype), t, total, rows=b.rows,
+            cg_iters=it, cg_tol=cg["cg_tol"]), I, idx)
+    check(ok, f"K3 on a shard's slice with sentinel rows: {solve_fields}")
+    I_new = I.clone()
+    K.batched_cg_dense(A, y, I_new, total, rows=b.rows, **cg)
+    bias = [Ib.clone(), Ib.clone()]
+    CK.cfr_bias(I_new, b.rows, total, explicit=exp, bias=bias[0], cbias=Cb)
+    CK.cfr_bias_plain(I_new, b.rows, total, explicit=exp, bias=bias[1],
+                      cbias=Cb)
+    torch.cuda.synchronize()
+    k18_err = rel_err(bias[0][idx], bias[1][idx])[1]
+    check(k18_err <= TOL_K18, f"K18 on a shard's slice with sentinel rows: "
+          f"{k18_err:.3g} from the plain version")
+    outside = torch.ones(n, dtype=torch.bool, device=I.device)
+    outside[b.rows.long()[~sentinel]] = False
+    untouched = (torch.equal(I_new[outside], I[outside])
+                 and torch.equal(bias[0][outside], Ib[outside]))
+    check(untouched, "K3 or K18 wrote a row outside the slice's real rows")
+    phase("mesh_cfr", d=CFR_D, shards=MESH_SHARDS, devices="cuda:0 (shared)",
+          epochs=MESH_EPOCHS, padded_entries=n_pad, segment_entries=n_seg,
+          tol_x=TOL_MESH_X, tol_loss=TOL_MESH_LOSS, epochs_rule=epochs,
+          tables_bitwise_equal=bitwise,
+          epoch_seconds=res["mesh"]["epoch_seconds"],
+          one_device_epoch_seconds=res["one"]["epoch_seconds"],
+          snapshot_seconds=res["mesh"]["snapshot_seconds"],
+          one_device_snapshot_seconds=res["one"]["snapshot_seconds"],
+          epoch_bound_ms=ebound, epoch_bound_by=eby,
+          launches=ln, launches_per_epoch=per_epoch(ln, MESH_EPOCHS),
+          one_device_launches_per_epoch=per_epoch(res["one"]["launches"],
+                                                  MESH_EPOCHS),
+          collective_calls=res["mesh"]["collective_calls"],
+          max_memory_allocated_mb=res["mesh"]["max_memory_allocated_mb"],
+          one_device_max_memory_allocated_mb=res["one"][
+              "max_memory_allocated_mb"],
+          sentinel_slice=dict(shard=g, rows=int(b.rows.shape[0]),
+                              sentinel_rows=int(sentinel.sum()),
+                              k17_rel_err=e17, k17_loss_rel_err=le17,
+                              k3=dict(solve_fields,
+                                      one_step_fewer_passes=short_ok),
+                              k18_rel_err=k18_err),
+          tol_k17=TOL_K17, tol_k18=TOL_K18)
+    del U, I, C, Ib, Cb, A, y, I_new, got, ref, mesh_model
+    torch.cuda.empty_cache()
+
+
+def w2v_epoch_bound(path, stats, d, K, block):
+    """The least time of one W2V epoch's kernel work, from its stats.  The
+    stream epoch: K21's operations, 2 d (3 + 3 K) per pair term, over the
+    FP32 peak; or its bytes: the 6-byte wire format per position, the
+    negatives' ids, and the delta rows (2 per position, K per block) written
+    by K21 and read by K20.  The host pairs: K19's operations, 5 d (K + 1)
+    per pair; or the ids and the 2 + K delta rows per pair written by K19
+    and read by K20.  The larger, and which."""
+    pairs = float(stats["pairs"])
+    if path == "stream":
+        T, chunks = stats["chunk"], stats["chunks"]
+        NB = T // block
+        return bound_ms(chunks * (6 * T + 4 * NB * K
+                                  + 2 * 4 * d * (2 * T + NB * K)),
+                        pairs * 2 * d * (3 + 3 * K))
+    return bound_ms(pairs * (8 + 2 * 4 * d * (2 + K)),
+                    pairs * (K + 1) * 5 * d)
+
+
+def mesh_w2v(bt, W, S, torch, data):
+    """W2V's dp mesh (``w2v_epoch_stream`` and ``w2v_epoch`` on a mesh)
+    over MESH_SHARDS shards on this card, on the brunch stream at
+    ``w2v_path``'s settings.  The stream epoch (``pair_gen="device"``),
+    MESH_EPOCHS epochs against one device at the same T (the same token
+    chunks): each epoch's loss within W2V_MESH_STREAM_LOSS (the JAX
+    package's rule) and its pair count short of one device's by no more
+    than the pairs across the shards' edges (window (window + 1) pair
+    terms per edge and chunk),
+    the tables' distance printed.  Then one host-pair epoch against one
+    device at the same chunk: L0 and L1 within W2V_MESH_HOST_X (relative
+    Frobenius), the loss within TOL_MESH_LOSS.  Launches per epoch (per
+    chunk K8 and K21, or K19, once per shard; K20 twice on the union),
+    epoch times beside one device's and each epoch's bound
+    (``w2v_epoch_bound``).  Then, on shard 1 of the first chunk of the
+    trained mesh model: K19 at its slot offset (its draws bit for bit its
+    plain version's and the single device's rows, the rows at TOL_W2V), K8
+    at its offset (bit for bit both ways), and K20 on the union of the
+    four shards' L1 rows of a token chunk against its plain version, with
+    rows past the cap.  Returns (the kernels line's entries of the two new
+    entry points, their launches in the mesh runs)."""
+    par = bt.parallelism
+    kernels = W.KERNELS + (S.sample_negatives,)
+    runs, mesh_models, mesh_launches = {}, {}, {}
+    for path, kw in (("stream", dict(pair_gen="device",
+                                     num_iters=MESH_EPOCHS)),
+                     ("host", dict(pair_gen="host", num_iters=1))):
+        res, chunk = {}, None
+        for where, more in (("mesh", mesh_opt(MESH_SHARDS)), ("one", {})):
+            opt = w2v_opt(bt, **kw, **more)
+            if chunk is not None:
+                opt.batch_size = chunk
+            model = w2v_model(bt, data, opt)
+            if chunk is None:
+                chunk = (model._stream_plan()[1] if path == "stream"
+                         else model._pair_chunk())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            par.reset_counts()
+            model.train()
+            launches = read_counts(kernels)
+            res[where] = dict(
+                losses=model.iteration_losses, stats=model.epoch_stats,
+                epoch_seconds=model.iteration_times, launches=launches,
+                collective_calls=dict(
+                    all_gather_rows=par.all_gather_rows.calls,
+                    all_reduce_sum=par.all_reduce_sum.calls),
+                max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+                / 2 ** 20, tables=(model.L0, model.L1))
+            if where == "mesh":
+                mesh_models[path] = model
+            else:
+                del model
+        o = mesh_models[path].opt
+        d, K = int(o.d), int(o.num_negative_samples)
+        block = int(o.neg_block)
+        m, one = res["mesh"], res["one"]
+        chunks = sum(s["chunks"] for s in m["stats"])
+        ln = m["launches"]
+        mesh_launches[path] = ln
+        if path == "stream":
+            want = dict(pair_step=0, row_apply=2 * chunks,
+                        stream_chunk_deltas=MESH_SHARDS * chunks,
+                        sample_negatives=MESH_SHARDS * chunks)
+        else:
+            want = dict(pair_step=MESH_SHARDS * chunks, row_apply=2 * chunks,
+                        stream_chunk_deltas=0, sample_negatives=0)
+        check(ln == want, f"the W2V {path} mesh launched {ln}, expected "
+              f"{want}")
+        rel = {t: frob_rel(a, b) for t, a, b in zip(("L0", "L1"), m["tables"],
+                                                      one["tables"])}
+        loss_rel = [abs(a / b - 1) for a, b in zip(m["losses"],
+                                                     one["losses"])]
+        fields = {}
+        if path == "stream":
+            window = int(o.window)
+            for e, (sm, so) in enumerate(zip(m["stats"], one["stats"])):
+                # a shard's edge cuts the window(window + 1) / 2 position
+                # pairs that span it, each a pair term both ways
+                cut = window * (window + 1) * (MESH_SHARDS - 1) * sm["chunks"]
+                # the counts are float32 sums over each group's chunks
+                slack = 2 * sm["chunks"]
+                check(so["pairs"] - cut - slack <= sm["pairs"]
+                      <= so["pairs"] + slack,
+                      f"W2V stream mesh epoch {e + 1}: {sm['pairs']} pairs "
+                      f"against one device's {so['pairs']}, at most {cut} "
+                      "cut at the shards' edges")
+            check(max(loss_rel) <= W2V_MESH_STREAM_LOSS,
+                  f"W2V stream mesh losses {m['losses']} against one "
+                  f"device's {one['losses']}")
+            fields["pairs_dropped"] = [so["pairs"] - sm["pairs"] for sm, so in
+                                       zip(m["stats"], one["stats"])]
+        else:
+            fields["tables_bitwise_equal"] = all(
+                np.array_equal(a, b) for a, b in zip(m["tables"],
+                                                     one["tables"]))
+            check(max(rel.values()) <= W2V_MESH_HOST_X
+                  and max(loss_rel) <= TOL_MESH_LOSS,
+                  f"W2V host-pair mesh epoch parts from one device: tables "
+                  f"{rel}, losses {m['losses']} vs {one['losses']}")
+        bounds = [w2v_epoch_bound(path, s, d, K, block) for s in m["stats"]]
+        runs[path] = dict(
+            chunk=chunk, chunks=[s["chunks"] for s in m["stats"]],
+            pairs=[s["pairs"] for s in m["stats"]],
+            one_device_pairs=[s["pairs"] for s in one["stats"]],
+            losses=m["losses"], one_device_losses=one["losses"],
+            loss_rel=loss_rel, tables_rel=rel, **fields,
+            epoch_seconds=m["epoch_seconds"],
+            one_device_epoch_seconds=one["epoch_seconds"],
+            epoch_bound_ms=[b for b, _ in bounds],
+            epoch_bound_by=[by for _, by in bounds],
+            launches=ln, launches_per_epoch=per_epoch(ln, len(m["losses"])),
+            one_device_launches_per_epoch=per_epoch(one["launches"],
+                                                    len(one["losses"])),
+            collective_calls=m["collective_calls"],
+            max_memory_allocated_mb=m["max_memory_allocated_mb"],
+            one_device_max_memory_allocated_mb=one[
+                "max_memory_allocated_mb"])
+
+    # ---- the new entry points on shard 1 of the first chunk
+    model = mesh_models["stream"]
+    mesh = par.get_mesh(MESH_SHARDS, devices=["cuda:0"] * MESH_SHARDS)
+    dev = mesh.devices[0]
+    o = model.opt
+    V, d, K = int(model._vocab.size), int(o.d), int(o.num_negative_samples)
+    cap, lr, g = float(o.max_step_norm), float(o.lr), 1
+    L0 = torch.from_numpy(model.L0).to(dev, copy=True)
+    L1 = torch.from_numpy(model.L1).to(dev, copy=True)
+    prob, al = S.build_alias_table(np.diff(np.asarray(
+        model._vocab.dist, dtype=np.int64), prepend=0))
+    alias = (torch.from_numpy(prob).to(dev), torch.from_numpy(al).to(dev))
+    # K19 at its slot offset on the first pair chunk of a host-pair epoch
+    chunk = runs["host"]["chunk"]
+    inp_h, tgt_h, _ = model._generate_pairs(np.random.default_rng(0))
+    n_loc = chunk // MESH_SHARDS
+    inputs = torch.from_numpy(inp_h[:chunk].copy()).to(dev)
+    targets = torch.from_numpy(tgt_h[:chunk].copy()).to(dev)
+    sl = slice(g * n_loc, (g + 1) * n_loc)
+    inp_s, tgt_s = inputs[sl].contiguous(), targets[sl].contiguous()
+    pkw = dict(vocab_size=V, num_negatives=K, seed=0, epoch=0, chunk=0,
+               alias=alias, slot_offset=g * n_loc)
+    p_got = W.pair_step(L0, L1, inp_s, tgt_s, lr, **pkw)
+    p_again = W.pair_step(L0, L1, inp_s, tgt_s, lr, **pkw)
+    whole = W.pair_step(L0, L1, inputs, targets, lr,
+                        **dict(pkw, slot_offset=0))[0]
+    p_negs = W.w2v_negatives(tgt_s, V, num_negatives=K, seed=0, epoch=0,
+                             chunk=0, alias=alias, slot_offset=g * n_loc)
+    p_ref = W.pair_step_plain(L0, L1, inp_s, tgt_s, p_negs, lr, vocab_size=V)
+    torch.cuda.synchronize()
+    k19_err = max(rel_err(a, b)[1] for a, b in zip(p_got[2:4], p_ref[1:3]))
+    k19_rep = all(torch.equal(a, b) for a, b in zip(p_got, p_again))
+    check(torch.equal(p_got[0], p_negs) and torch.equal(p_got[0], whole[sl])
+          and torch.equal(p_got[1], p_ref[0]) and k19_err <= TOL_W2V
+          and k19_rep, f"K19 at slot offset {g * n_loc}: draws equal to the "
+          f"plain version's {torch.equal(p_got[0], p_negs)} and the single "
+          f"device's {torch.equal(p_got[0], whole[sl])}, rows {k19_err:.3g} "
+          f"from the plain version, repeatable {k19_rep}")
+    ui = distinct_rows(torch, inp_s, R=V)
+    ut = distinct_rows(torch, tgt_s, p_negs, R=V)
+    bms, by = bound_ms(8 * n_loc + 4 * d * (ui + ut)
+                       + 4 * (n_loc * K + n_loc * (1 + K))
+                       + 4 * d * n_loc * (2 + K), n_loc * (K + 1) * 5 * d)
+    k19 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_pair_step.cu",
+               replaces="buffalo_tpu/ops/w2v_kernels.py:503",
+               max_abs_err=max(float((a - b).abs().max())
+                               for a, b in zip(p_got[2:4], p_ref[1:3])),
+               ms=time_ms(lambda: W.pair_step(L0, L1, inp_s, tgt_s, lr,
+                                              **pkw)),
+               plain_ms=time_ms(lambda: W.pair_step_plain(
+                   L0, L1, inp_s, tgt_s, W.w2v_negatives(
+                       tgt_s, V, num_negatives=K, seed=0, epoch=0, chunk=0,
+                       alias=alias, slot_offset=g * n_loc), lr,
+                   vocab_size=V), reps=5, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               library="none: no call draws the redrawn negatives and forms "
+               "the SGNS rows", rel_err=k19_err, pairs=n_loc,
+               slot_offset=g * n_loc, draws_bitwise=True)
+    # K8 at its offset and K20 on the union, the first token chunk
+    block, T, _ = model._stream_plan()
+    G = int(o.max_chunks_per_dispatch)
+    wc_h, bc_h, hc_h, _, _ = model._stream_host_phase(
+        np.random.default_rng(1), T, G)
+    T_loc, NB = T // MESH_SHARDS, T // (MESH_SHARDS * block)
+    draw = dict(num_negatives=K, seed=0, epoch=0, chunk=0, alias=alias)
+    whole_negs = W.stream_negatives(T // block, V, device=dev, **draw)
+    parts1 = []
+    for k in range(MESH_SHARDS):
+        wc = torch.from_numpy(wc_h[0, k * T_loc:(k + 1) * T_loc].copy()).to(
+            dev)
+        hc = torch.from_numpy(hc_h[0, k * T_loc:(k + 1) * T_loc].copy()).to(
+            dev)
+        sc = torch.cumsum(torch.from_numpy(
+            bc_h[0, k * T_loc:(k + 1) * T_loc].copy()).to(dev), 0,
+            dtype=torch.int32)
+        negs = W.stream_negatives(NB, V, device=dev, slot_offset=k * NB,
+                                  **draw)
+        if k == g:
+            negs_p, _ = S.sample_negatives_plain(
+                torch.zeros(NB, dtype=torch.int32, device=dev), V,
+                slot_offset=k * NB, **draw)
+            check(torch.equal(negs.reshape(-1), negs_p)
+                  and torch.equal(negs, whole_negs[k * NB:(k + 1) * NB]),
+                  "K8 at a shard's first block differs from its plain "
+                  "version or from the single device's rows")
+            k8_kw = dict(draw, slot_offset=k * NB)
+        _, dL1p, dLn, _, _ = W.stream_chunk_deltas(
+            L0, L1, wc, sc, hc, negs, window=int(o.window), block=block,
+            vocab_size=V)
+        parts1.append([(wc, dL1p), (negs.reshape(-1), dLn.reshape(-1, d))])
+    union = [tuple(par.all_gather_rows(mesh, [p[j][x] for p in parts1],
+                                       first_only=True) for x in (0, 1))
+             for j in range(2)]
+    outs = [L1.clone() for _ in range(4)]
+    W.apply_union(mesh, {dev: (L0.clone(), outs[0])}, 1, parts1, scale=lr,
+                  cap=cap)
+    W.row_apply(outs[1], union, scale=lr, cap=cap)
+    W.row_apply_plain(outs[2], union, scale=lr, cap=cap)
+    W.row_apply_plain(outs[3], union, scale=lr, cap=0.0)
+    torch.cuda.synchronize()
+    dT = outs[3] - L1
+    scale = float(dT.abs().max())
+    spacing = 2 * float(torch.finfo(torch.float32).eps) * float(
+        L1.abs().max())
+    k20_err = float((outs[0] - outs[2]).abs().max())
+    k20_rep = torch.equal(outs[0], outs[1])
+    capped = int(((dT * dT).sum(1).sqrt() > cap).sum())
+    check(k20_err <= TOL_W2V * scale + spacing and k20_rep and capped > 0,
+          f"K20 on the union: {k20_err:.3g} from the plain version (row "
+          f"deltas up to {scale:.3g}, repeatable {k20_rep}, rows past the cap "
+          f"{capped})")
+    n20 = int(union[0][0].shape[0] + union[1][0].shape[0])
+    t20 = distinct_rows(torch, union[0][0], union[1][0], R=V)
+    bms, by = bound_ms(4 * n20 + 4 * d * n20 + 8 * d * t20, 2 * d * n20)
+    keys_all = torch.cat([union[0][0], union[1][0]])
+    rows_all = torch.cat([union[0][1], union[1][1]])
+    keep = keys_all < V
+    keys_l, rows_l = keys_all[keep].long(), rows_all[keep]
+
+    def library():
+        Dl = torch.zeros_like(L1).index_add_(0, keys_l, rows_l, alpha=lr)
+        nrm = (Dl * Dl).sum(1, keepdim=True).sqrt()
+        return outs[3].add_(Dl * torch.clamp(cap / nrm.clamp(min=1e-20),
+                                             max=1.0))
+
+    k20 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_row_apply.cu",
+               replaces="buffalo_tpu/ops/w2v_kernels.py:427",
+               max_abs_err=k20_err,
+               ms=time_ms(lambda: W.row_apply(outs[1], union, scale=lr,
+                                              cap=cap)),
+               plain_ms=time_ms(lambda: W.row_apply_plain(
+                   outs[2], union, scale=lr, cap=cap), reps=5, warmup=1),
+               bound_ms=bms, bound_by=by, library_ms=time_ms(library),
+               library="index_add_ of the union's rows + the norm clip",
+               rel_err=k20_err / scale, entries=n20, touched_rows=t20,
+               rows_past_cap=capped, shards=MESH_SHARDS)
+    # K8's work: the block ids read, per draw one Philox4x32-10 (~100
+    # int32 operations) and an alias pick (~4, its prob and alias entries
+    # read), the negative written
+    nb, ops_ = 4 * NB + 12 * NB * K, 104 * NB * K
+    k8 = dict(ms=time_ms(lambda: W.stream_negatives(NB, V, device=dev,
+                                                    **k8_kw)),
+              plain_ms=time_ms(lambda: S.sample_negatives_plain(
+                  torch.zeros(NB, dtype=torch.int32, device=dev), V,
+                  **k8_kw), reps=5, warmup=1),
+              bound_ms=1e3 * max(nb / PEAK_BYTES_S, ops_ / PEAK_INT32_S),
+              bound_by="bytes" if nb / PEAK_BYTES_S >= ops_ / PEAK_INT32_S
+              else "operations", blocks=NB, slot_offset=g * NB,
+              bitwise=True)
+    phase("mesh_w2v", d=d, shards=MESH_SHARDS, devices="cuda:0 (shared)",
+          stream_epochs=MESH_EPOCHS, host_epochs=1,
+          tol_stream_loss=W2V_MESH_STREAM_LOSS, tol_host_x=W2V_MESH_HOST_X,
+          tol_loss=TOL_MESH_LOSS, **runs, k19_offset=k19, k8_offset=k8,
+          k20_union=k20, tol=TOL_W2V)
+    del L0, L1, outs, union, parts1, p_got, p_again, p_ref, whole, dT
+    del mesh_models, model
+    torch.cuda.empty_cache()
+    entries = {"pair_step_offset": k19, "row_apply_union": k20}
+    return entries, {"pair_step_offset": mesh_launches["host"]["pair_step"],
+                     "row_apply_union": mesh_launches["stream"]["row_apply"]
+                     + mesh_launches["host"]["row_apply"]}
 
 
 # ------------------------------------------------------------- wide rows
@@ -6075,7 +6586,13 @@ def main() -> int:
         cfr, cfr_launches, cfr_staged = cfr_path(bt, CK, K, R, torch, brunch)
         path_launches.update(cfr_launches)
         entries.update(cfr_kernels(CK, K, torch, cfr, cfr_staged))
-        del cfr, cfr_staged, brunch
+        del cfr, cfr_staged
+        torch.cuda.empty_cache()
+        # ---- CoFactor's dp mesh on the same data: MESH_SHARDS shards on
+        # this card against one device, K17 / K3 / K18 on a shard's slice
+        # with sentinel rows
+        mesh_cfr(bt, CK, K, torch, brunch)
+        del brunch
         torch.cuda.empty_cache()
 
         # ---- W2V: the brunch corpus as a token stream, W2V's main path
@@ -6094,6 +6611,13 @@ def main() -> int:
             stream_chunk_deltas=w2v_launches["stream_chunk_deltas"],
             pair_step=host_launches["pair_step"])
         w2v_quality(bt, W2, torch)
+        # ---- W2V's dp mesh on the same corpus (the stream epoch, then the
+        # host pairs) against one device, and the new entry points (K19 at
+        # a slot offset, K20 on the union of the shards' rows)
+        w2v_mesh_entries, w2v_mesh_launches = mesh_w2v(bt, W2, S, torch,
+                                                       w2v_data)
+        entries.update(w2v_mesh_entries)
+        path_launches.update(w2v_mesh_launches)
         del w2v_data
         torch.cuda.empty_cache()
 

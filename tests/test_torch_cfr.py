@@ -245,7 +245,9 @@ def test_save_load_both_directions(datasets, tmp_path):
 
 def test_negative_values_and_multi_device_raise(datasets, tmp_path):
     """The JAX package's implicit term takes sqrt(alpha v), NaN for v < 0;
-    the port refuses such data instead.  More than one device raises."""
+    the port refuses such data instead.  More than one device trains on
+    the dp mesh (once ``NotImplementedError``): 2 shards end within 1e-6
+    of one device."""
     data = port.Stream(datasets[1].opt)
     data.open(datasets[1].path)
     vals = np.array(data.handle["rowwise"]["val"])
@@ -253,5 +255,10 @@ def test_negative_values_and_multi_device_raise(datasets, tmp_path):
     data.handle["rowwise"]["val"] = vals
     with pytest.raises(ValueError, match="non-negative"):
         _model(port, data, 1, validation={}).train()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _model(port, datasets[1], 1, num_devices=2).train()
+    two = _model(port, datasets[1], 1, num_devices=2, devices=["cpu"] * 2,
+                 validation={})
+    two.train()
+    one = _model(port, datasets[1], 1, validation={})
+    one.train()
+    for t in TABLES:
+        assert _rel(getattr(two, t), getattr(one, t)) < 1e-6, t

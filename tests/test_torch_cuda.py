@@ -1775,6 +1775,125 @@ def test_capped_add_kernel_matches_plain(dev, shape, cap):
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("d", [32, 300])
+def test_w2v_pair_step_slot_offset_equals_plain(dev, d):
+    """K19 at a mesh shard's slot offset: its draws bit for bit its plain
+    version's and the single device's rows of that shard, the rows 1e-5 of
+    the largest entry."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V, N, K, D = 3000, 8000, 5, 4
+    rng, L0, L1, p, alias = _w2v_problem(dev, d, V, seed=d)
+    inputs = torch.from_numpy(rng.choice(V, N, p=p).astype(np.int32)).to(dev)
+    targets = torch.from_numpy(rng.choice(V, N, p=p).astype(np.int32)).to(dev)
+    kw = dict(vocab_size=V, num_negatives=K, seed=11, epoch=2, chunk=3,
+              alias=alias)
+    whole = W.pair_step(L0, L1, inputs, targets, 0.025, **kw)[0]
+    n = N // D
+    for g in (1, D - 1):
+        sl = slice(g * n, (g + 1) * n)
+        got = W.pair_step(L0, L1, inputs[sl], targets[sl], 0.025,
+                          slot_offset=g * n, **kw)
+        negs = W.w2v_negatives(targets[sl], V, num_negatives=K, seed=11,
+                               epoch=2, chunk=3, alias=alias,
+                               slot_offset=g * n)
+        ref = W.pair_step_plain(L0, L1, inputs[sl], targets[sl], negs, 0.025,
+                                vocab_size=V)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], negs) and torch.equal(got[0], whole[sl])
+        assert torch.equal(got[1], ref[0])
+        for a, b in zip(got[2:4], ref[1:3]):
+            assert _rel_close(a, b, 1e-5)
+        assert float(got[5]) == float(ref[4]) == n
+
+
+@pytest.mark.parametrize("d", [32, 300])
+def test_w2v_row_apply_on_the_union_of_shards(dev, d):
+    """K20 on the union of 4 shards' parts (``apply_union`` on a mesh of 4
+    shards of this card) against ``clipped_apply`` of the summed dense
+    deltas, on a chunk whose head rows pass the cap."""
+    from buffalo_tpu_torch import parallelism
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V, D, cap = 3000, 4, 0.1
+    rng, L0, L1, p, _ = _w2v_problem(dev, d, V, seed=d + 1)
+    mesh = parallelism.get_mesh(D, devices=["cuda:0"] * D)
+    shard_parts = []
+    dense = torch.zeros_like(L1)
+    for _ in range(D):
+        parts = []
+        for n in (5000, 2000):
+            keys = rng.choice(V, n, p=p).astype(np.int32)
+            keys[::9] = V
+            k = torch.from_numpy(keys).to(dev)
+            rows = torch.tensor(rng.normal(size=(n, d)) * 0.01,
+                                dtype=torch.float32, device=dev)
+            parts.append((k, rows))
+            keep = k < V
+            dense.index_add_(0, k[keep].long(), 0.5 * rows[keep])
+        shard_parts.append(parts)
+    tables = {mesh.devices[0]: (L0.clone(), L1.clone())}
+    before = W.row_apply.launches
+    W.apply_union(mesh, tables, 1, shard_parts, scale=0.5, cap=cap)
+    torch.cuda.synchronize()
+    assert W.row_apply.launches == before + 1
+    want = W.clipped_apply(L1, dense, cap)
+    capped = int((dense.norm(dim=1) > cap).sum())
+    assert capped > 0
+    spacing = 2 * torch.finfo(torch.float32).eps * L1.abs().max()
+    err = (tables[mesh.devices[0]][1] - want).abs().max()
+    assert err <= 1e-5 * dense.abs().max() + spacing
+    assert torch.equal(tables[mesh.devices[0]][0], L0)
+
+
+@pytest.mark.parametrize("d", [32, 160])
+def test_cfr_kernels_with_sentinel_rows(dev, d):
+    """K17, K3 and K18 on a shard's slice of a padded item batch whose rows
+    hold sentinel ids (the table's size, no entries) between real rows:
+    each against its plain version, the sentinel rows with no loss, and no
+    row or bias outside the slice's real rows written."""
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
+    from buffalo_tpu_torch.ops.cfr_kernels import (LOSS_EXPLICIT,
+                                                   LOSS_IMPLICIT, LOSS_REG)
+
+    rng, (U, I, C), (Ib, Cb) = _cfr_tables(dev, d, seed=d)
+    n, R = I.shape[0], 48
+    rows = rng.permutation(n)[:R].astype(np.int32)
+    rows[1::3] = n
+    sentinel = torch.from_numpy(rows == n).to(dev)
+    lens_u = np.where(rows < n, rng.integers(1, 40, R), 0).astype(np.int32)
+    lens_c = np.where(rows < n, rng.integers(0, 24, R), 0).astype(np.int32)
+    imp = _cfr_padded_side(dev, rng, U, R, 40, lens_u)
+    exp = _cfr_padded_side(dev, rng, C, R, 24, lens_c)
+    rows_t = torch.from_numpy(rows).to(dev)
+    kw = dict(implicit=imp, explicit=exp, FF=(U.T @ U).contiguous(),
+              rbias=Ib, cbias=Cb, alpha=8.0, l=1.0, reg=0.1,
+              loss=LOSS_IMPLICIT | LOSS_EXPLICIT | LOSS_REG)
+    A, y, loss, total = CK.cfr_normal_equations(I, rows_t, **kw)
+    rA, ry, rloss, rtotal = CK.cfr_normal_equations_plain(I, rows_t, **kw)
+    torch.cuda.synchronize()
+    assert _rel_close(A, rA) and _rel_close(y, ry)
+    assert torch.allclose(loss, rloss, rtol=1e-4, atol=1e-5)
+    assert torch.equal(total, rtotal)
+    assert float(loss[sentinel].abs().sum()) == 0 and not total[sentinel].any()
+    got, ref = I.clone(), I.clone()
+    K.batched_cg_dense(A, y, got, total, rows=rows_t, cg_iters=3,
+                       cg_tol=1e-10)
+    K.batched_cg_dense_plain(A, y, ref, total, rows=rows_t, cg_iters=3,
+                             cg_tol=1e-10)
+    gb, rb = Ib.clone(), Ib.clone()
+    CK.cfr_bias(got, rows_t, total, explicit=exp, bias=gb, cbias=Cb)
+    CK.cfr_bias_plain(ref, rows_t, total, explicit=exp, bias=rb, cbias=Cb)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **TOL)
+    assert _rel_close(gb, rb, 1e-5)
+    real = torch.zeros(n, dtype=torch.bool, device=dev)
+    real[rows_t[~sentinel].long()] = True
+    assert torch.equal(got[~real], I[~real]) and torch.equal(gb[~real],
+                                                             Ib[~real])
+    assert bool((got[real] != I[real]).any(1).all())
+
+
 def test_narrow_widths_keep_their_instantiations(dev):
     """Rows of 40, 64 and 160 floats launch the narrow instantiations the
     kernels ran before they took wide rows; 300 the wide ones (each

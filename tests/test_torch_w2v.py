@@ -130,9 +130,12 @@ def _np_alias(alias):
     return tuple(np.asarray(a) for a in alias)
 
 
-def jax_key_chain(seed):
+def jax_key_chain(seed, shards=1):
     """The port's two hooks, drawing as the JAX package's W2V does from
-    ``PRNGKey(seed)``."""
+    ``PRNGKey(seed)``; on a mesh of ``shards`` shards the draws of the
+    global batch (``shards`` x the shard's rows), sliced at the shard's
+    ``slot_offset`` (``_w2v_step_body`` :503-511, ``w2v_epoch_stream_dp``
+    :405-411)."""
     state = {"rng": jax.random.PRNGKey(seed), "epoch": None}
 
     def chunk_key(epoch, group, groups, cidx):
@@ -145,26 +148,30 @@ def jax_key_chain(seed):
         return jax.random.fold_in(sub, cidx)
 
     def pair(targets, vocab_size, *, num_negatives, seed, epoch, chunk,
-             alias, group, groups, cidx):
+             alias, group, groups, cidx, slot_offset):
         k1, k2, k3 = jax.random.split(chunk_key(epoch, group, groups, cidx),
                                       3)
         prob, al = (jnp.asarray(a) for a in _np_alias(alias))
         t = jnp.asarray(targets.numpy())[:, None]
-        shape = (targets.shape[0], num_negatives)
-        negs = JS.draw_from_alias(k1, shape, prob, al)
-        negs = jnp.where(negs == t, JS.draw_from_alias(k2, shape, prob, al),
-                         negs)
-        negs = jnp.where(negs == t, JS.draw_from_alias(k3, shape, prob, al),
-                         negs)
+        B = targets.shape[0]
+
+        def draw(k):
+            return JS.draw_from_alias(k, (B * shards, num_negatives), prob,
+                                      al)[slot_offset:slot_offset + B]
+
+        negs = draw(k1)
+        negs = jnp.where(negs == t, draw(k2), negs)
+        negs = jnp.where(negs == t, draw(k3), negs)
         negs = jnp.where(negs == t, (t + 1) % vocab_size, negs)
         return torch.from_numpy(np.array(negs))
 
     def stream(num_blocks, vocab_size, *, num_negatives, seed, epoch, chunk,
-               alias, device, group, groups, cidx):
+               alias, device, group, groups, cidx, slot_offset):
         prob, al = (jnp.asarray(a) for a in _np_alias(alias))
         return torch.from_numpy(np.array(JS.draw_from_alias(
             chunk_key(epoch, group, groups, cidx),
-            (num_blocks, num_negatives), prob, al)))
+            (num_blocks * shards, num_negatives), prob, al)
+            [slot_offset:slot_offset + num_blocks]))
 
     return pair, stream
 
@@ -398,11 +405,17 @@ def test_retrieval_matches_jax(clustered, tmp_path):
 
 
 def test_errors_and_options(clustered):
-    """More than one device raises (ROADMAP item 8), as does an unknown
-    ``pair_gen``; the options are the JAX package's plus ``device``."""
-    b = _model(port, clustered["port"], num_devices=2)
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        b.train()
+    """More than one device trains on the dp mesh (once
+    ``NotImplementedError``): 2 shards within 1e-5 of one device on the
+    port's own draws; an unknown ``pair_gen`` raises; the options are the
+    JAX package's plus ``device``."""
+    b = _model(port, clustered["port"], num_devices=2, devices=["cpu"] * 2,
+               num_iters=1)
+    b.train()
+    one = _model(port, clustered["port"], num_iters=1)
+    one.train()
+    np.testing.assert_allclose(b.L0, one.L0, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(b.L1, one.L1, rtol=1e-5, atol=1e-6)
     c = _model(port, clustered["port"], pair_gen="tpu")
     with pytest.raises(ValueError, match="pair_gen"):
         c.train()

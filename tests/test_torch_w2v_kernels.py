@@ -24,8 +24,12 @@ import buffalo_tpu.ops.sgd_kernels as JS
 import buffalo_tpu.ops.w2v_kernels as JW
 import buffalo_tpu_torch.ops.sgd_kernels as S
 import buffalo_tpu_torch.ops.w2v_kernels as W
+from buffalo_tpu_torch.parallelism import Mesh
 
 RTOL = 1e-5
+# the epochs' single device: a mesh of one shard on the CPU
+_CPU = torch.device("cpu")
+_ONE = Mesh([_CPU])
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -260,9 +264,9 @@ def test_w2v_epoch_two_groups_matches_jax(monkeypatch):
                max_step_norm=0.1)
 
     def jax_draws(targets, vocab_size, *, num_negatives, seed, epoch, chunk,
-                  alias, group, groups, cidx):
+                  alias, group, groups, cidx, slot_offset):
         key = jax.random.fold_in(jax.random.fold_in(sub, group), cidx)
-        assert chunk == group * 2 + cidx and groups == 2
+        assert chunk == group * 2 + cidx and groups == 2 and slot_offset == 0
         return _t(jax_pair_negatives(key, targets.numpy(), vocab_size,
                                      num_negatives, dist))
 
@@ -276,8 +280,9 @@ def test_w2v_epoch_two_groups_matches_jax(monkeypatch):
             jl0, jl1, jnp.asarray(inputs[sl]), jnp.asarray(targets[sl]),
             tuple(jnp.asarray(a) for a in dist),
             jax.random.fold_in(sub, g), jnp.float32(proc), **com)
-        loss, cnt = W.w2v_epoch(p0, p1, _t(inputs[sl]), _t(targets[sl]),
-                                (_t(dist[0]), _t(dist[1])),
+        loss, cnt = W.w2v_epoch(_ONE, {_CPU: (p0, p1)}, [_t(inputs[sl])],
+                                [_t(targets[sl])],
+                                {_CPU: (_t(dist[0]), _t(dist[1]))},
                                 np.float32(proc), seed=0, epoch=0, group=g,
                                 groups=2, **com)
         np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
@@ -391,7 +396,8 @@ def test_w2v_epoch_stream_matches_jax(monkeypatch):
                total_words=4096.0, words_per_chunk=512.0, max_step_norm=0.1)
 
     def jax_draws(num_blocks, vocab_size, *, num_negatives, seed, epoch,
-                  chunk, alias, device, group, groups, cidx):
+                  chunk, alias, device, group, groups, cidx, slot_offset):
+        assert slot_offset == 0
         return _t(np.asarray(JS.draw_from_alias(
             jax.random.fold_in(key, cidx), (num_blocks, num_negatives),
             *(jnp.asarray(a) for a in dist))))
@@ -403,8 +409,9 @@ def test_w2v_epoch_stream_matches_jax(monkeypatch):
         tuple(jnp.asarray(a) for a in dist), **com)
     p0, p1 = _t(L0.copy()), _t(L1.copy())
     loss, cnt = W.w2v_epoch_stream(
-        p0, p1, _t(words), _t(bounds), _t(half), (_t(dist[0]), _t(dist[1])),
-        np.float32(100.0), seed=0, epoch=0, group=0, groups=1, **com)
+        _ONE, {_CPU: (p0, p1)}, [_t(words)], [_t(bounds)], [_t(half)],
+        {_CPU: (_t(dist[0]), _t(dist[1]))}, np.float32(100.0), seed=0,
+        epoch=0, group=0, groups=1, **com)
     close(p0.numpy() - L0, np.asarray(jl0) - L0)
     close(p1.numpy() - L1, np.asarray(jl1) - L1)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
