@@ -394,15 +394,23 @@ def warp_violations(P, Q, users, positives, negatives, *, score_func,
 warp_violations.launches = 0
 
 
+_WORKSPACE_SIZES = {}
+
+
 def _workspace(dev, N, U, I, d):
     """K12's scratch (int32 words, float32 words), sized by the C
-    interface's own ``warp_workspace``."""
-    sizes = (ctypes.c_int64 * 2)()
-    rc = _kernel("warp_workspace")(N, U, I, d,
-                                   ctypes.cast(sizes, ctypes.c_void_p))
-    _raise_on(rc, "warp_workspace")
-    return (torch.empty(max(1, sizes[0]), dtype=torch.int32, device=dev),
-            torch.empty(max(1, sizes[1]), dtype=torch.float32, device=dev))
+    interface's own ``warp_workspace`` (asked once per shape: a chunk's
+    call is short, and host work per call shows in its time)."""
+    key = (N, U, I, d)
+    sizes = _WORKSPACE_SIZES.get(key)
+    if sizes is None:
+        out = (ctypes.c_int64 * 2)()
+        rc = _kernel("warp_workspace")(N, U, I, d,
+                                       ctypes.cast(out, ctypes.c_void_p))
+        _raise_on(rc, "warp_workspace")
+        sizes = _WORKSPACE_SIZES[key] = (max(1, out[0]), max(1, out[1]))
+    return (torch.empty(sizes[0], dtype=torch.int32, device=dev),
+            torch.empty(sizes[1], dtype=torch.float32, device=dev))
 
 
 def warp_accumulate(P, Q, gP, gQ, cP, cQ, users, positives, negatives,
@@ -413,7 +421,7 @@ def warp_accumulate(P, Q, gP, gQ, cP, cQ, users, positives, negatives,
     accumulators (see ``warp_accumulate_plain``).  Replaces the scatters of
     ``warp_accumulate_step`` :145-170 and ``warp_epoch`` :295-317.
     ``users_sorted``: users[:n_valid] ascend (a resident chunk), so the
-    user side needs no sort."""
+    user side's runs are summed where they lie, with no grouping."""
     kw = dict(n_valid=n_valid, score_func=score_func, reg_u=reg_u,
               reg_i=reg_i, reg_j=reg_j, update_i=update_i,
               update_j=update_j,

@@ -192,6 +192,8 @@ PEAK_FP64_S = 34e12
 # mode within TOL_K10
 WARP_EPOCHS, WARP_USERS, WARP_STREAM_RESIDENT_MB = 4, 10_000, 64
 TOL_WARP_W, TOL_WARP_STEP, WARP_CHECK_REG = 2 ** -23, 1e-5, 0.05
+# K12's stream operations (kernels and memsets) per call on a resident chunk
+K12_MAX_STREAM_OPS = 6
 # eALS (eals_path, eals_kernels): EALSOption defaults (alpha 8, c0 512,
 # exponent 0.5, reg 0.1) at d = D; K13 within TOL_EALS relative of its
 # plain version (a sweep in Jacobi order must fail that), K14's residuals
@@ -2106,6 +2108,16 @@ def trace_ms(fn, main, reps=10, warmup=2):
     and divided by ``reps``; None unless the trace holds exactly ``reps``
     launches of the kernel named ``main`` (late in a run the trace has
     dropped launches)."""
+    return trace_stats(fn, main, reps, warmup)[0]
+
+
+def trace_stats(fn, main, reps=10, warmup=2):
+    """(``trace_ms``'s device milliseconds per call, or None unless the
+    trace holds exactly ``reps`` launches of ``main``; the device
+    activities (kernels, memsets, copies) per call: each distinct
+    activity's count over the calls, rounded, summed over the activities,
+    so that a few dropped events do not change it; None when the trace
+    holds fewer than half the calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2122,9 +2134,15 @@ def trace_ms(fn, main, reps=10, warmup=2):
         torch.cuda.synchronize()
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {}
+    for e in ev:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    calls = max(counts.values(), default=0)
+    ops = (sum(round(c / calls) for c in counts.values())
+           if reps // 2 <= calls <= reps else None)
     if sum(main in e.name for e in ev) != reps:
-        return None
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3
+        return None, ops
+    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, ops
 
 
 def epoch_chunks(torch, model, batch):
@@ -2639,10 +2657,12 @@ def warp_kernels(W, S, torch, model):
     model's last K and at K = 64, lazy and all, on its own draws and on
     injected candidates; K12 with reg terms WARP_CHECK_REG, bitwise
     repeatable, with its user side presorted (the resident chunk) and
-    radix-sorted (as a streamed chunk is), a plain run without the reg
-    terms failing the check).  Event ms, CUPTI ms, plain and library ms
-    and the bounds; K11's ms at K = 64 and K12's with each user side.
-    Returns the kernels line's K11 and K12 entries."""
+    grouped by row (as a streamed chunk's is), a plain run without the reg
+    terms failing the check; at most K12_MAX_STREAM_OPS stream operations
+    per resident chunk, counted in a CUPTI trace).  Event ms, CUPTI ms,
+    plain and library ms and the bounds; K11's ms at K = 64 and K12's with
+    each user side and its stream operations per call.  Returns the kernels
+    line's K11 and K12 entries."""
     dev = model.device
     users_c, items_c, nnz, indptr, bloom, log2, P0, Q0 = warp_inputs(
         S, torch, model)
@@ -2727,15 +2747,16 @@ def warp_kernels(W, S, torch, model):
     def check12(a, r):
         return step_check(a, r, torch.zeros_like(r), TOL_WARP_STEP)
 
-    got, again, radix = (acc12(W.warp_accumulate), acc12(W.warp_accumulate),
-                         acc12(W.warp_accumulate, users_sorted=False))
+    got, again, grouped = (acc12(W.warp_accumulate),
+                           acc12(W.warp_accumulate),
+                           acc12(W.warp_accumulate, users_sorted=False))
     ref = acc12(W.warp_accumulate_plain)
     noreg = acc12(W.warp_accumulate_plain, reg_u=0.0, reg_i=0.0, reg_j=0.0)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "K12 is not bitwise repeatable")
-    check(all(check12(a, r)[0] for a, r in zip(radix, ref)),
-          "K12 with the user side radix-sorted is off the plain version")
+    check(all(check12(a, r)[0] for a, r in zip(grouped, ref)),
+          "K12 with the user side grouped by row is off the plain version")
     errs, fields = [], {}
     for name, g, r, n0 in zip(("gP", "gQ", "cP", "cQ"), got, ref, noreg):
         ok, err, limit = check12(g, r)
@@ -2774,16 +2795,25 @@ def warp_kernels(W, S, torch, model):
         return W.warp_accumulate(P0, Q0, *acc, users, pos, neg, any_v, w,
                                  **dict(kw12, users_sorted=presorted))
 
-    # the user side presorted and radix-sorted, alternated so that the
-    # spread of the two runs of each shows the noise
+    # the user side presorted and grouped by row (as a streamed chunk's
+    # is), alternated so that the spread of the two runs of each shows the
+    # noise
     sort_ms = {f"{name}_{r}": time_ms(lambda: fn12(flag))
                for r in (1, 2) for name, flag in (("presorted", True),
-                                                  ("radix", False))}
+                                                  ("grouped", False))}
+    # stream operations per call (kernels and memsets in a CUPTI trace):
+    # the resident chunk's at most K12_MAX_STREAM_OPS
+    dev_ms, ops = trace_stats(fn12, "rows_kernel")
+    ops_grouped = trace_stats(lambda: fn12(False), "rows_kernel")[1]
+    check(ops is not None and ops <= K12_MAX_STREAM_OPS,
+          f"K12 makes {ops} stream operations per resident chunk (at most "
+          f"{K12_MAX_STREAM_OPS})")
     k12 = dict(route="cuda",
                source="buffalo_tpu_torch/csrc/warp_accumulate.cu",
                replaces="buffalo_tpu/ops/warp_kernels.py:160",
                max_abs_err=max(errs), ms=time_ms(fn12),
-               device_ms=trace_ms(fn12, "user_runs"),
+               device_ms=dev_ms, stream_ops_per_call=ops,
+               stream_ops_per_call_grouped=ops_grouped,
                plain_ms=time_ms(lambda: W.warp_accumulate_plain(
                    P0, Q0, *acc, users, pos, neg, any_v, w, **kw12),
                    reps=5, warmup=1),
@@ -2824,7 +2854,7 @@ def warp_kernels(W, S, torch, model):
     phase("warp_kernels", d=d, chunk_index=c, chunks=int(users_c.shape[0]),
           k11=k11, k12=k12, k10_projection=proj, tol_w=TOL_WARP_W,
           tol_step=TOL_WARP_STEP, check_reg=WARP_CHECK_REG, tol_k10=TOL_K10)
-    del users_c, items_c, bloom, got, again, radix, ref, noreg, lib, acc, out
+    del users_c, items_c, bloom, got, again, grouped, ref, noreg, lib, acc, out
     torch.cuda.empty_cache()
     return {"warp_search": k11, "warp_accumulate": k12}
 
@@ -3685,6 +3715,27 @@ def k17_check(CK, torch, X, rows, kw):
     return max(errs), loss_err, torch.equal(got[3], ref[3]), same, got, ref
 
 
+def k17_bound(torch, kw, rows, d):
+    """K17's bound on one batch: each side's entries (col, value), each
+    distinct gathered row and the batch's rows of X read once, FF once, A,
+    y, loss and total written once; d (d + 1) + 4 d operations per entry
+    (the symmetric A, y and the loss).  (ms, "bytes" or "operations",
+    entries)."""
+    B = rows.shape[0]
+    n, nbytes = 0, 16 * B + 4 * d * B + 4 * B * (d * d + d + 2)
+    for side in (kw.get("implicit"), kw.get("explicit")):
+        if side is None:
+            continue
+        lens = side.lens if side.chunk_ptr is None else side.chunk_lens
+        m = int(lens.sum())
+        n += m
+        nbytes += 8 * m + 4 * d * distinct(torch, side.cols, lens)
+    if kw.get("implicit") is not None:
+        nbytes += 4 * d * d
+    ms, by = bound_ms(nbytes, n * (d * (d + 1) + 4 * d))
+    return ms, by, n
+
+
 def cfr_kernels(CK, K, torch, model, staged):
     """K17 and K18 against their plain versions on the trained model's
     brunch batches: K17 on the user batch, the padded item entry and the
@@ -3815,6 +3866,8 @@ def cfr_kernels(CK, K, torch, model, staged):
         X, rows, kw = cases[name]
         k17[f"{name}_ms"] = time_ms(
             lambda: CK.cfr_normal_equations(X, rows, **kw))
+        (k17[f"{name}_bound_ms"], k17[f"{name}_bound_by"],
+         k17[f"{name}_entries"]) = k17_bound(torch, kw, rows, d)
     bms, by = bound_ms(8 * n_c + 12 * B + 4 * d * (dist_c + B)
                        + 4 * dist_c + 4 * B, n_c * (2 * d + 3))
     k18 = dict(route="cuda", source="buffalo_tpu_torch/csrc/cfr_bias.cu",

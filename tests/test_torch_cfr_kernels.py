@@ -218,6 +218,179 @@ def test_segment_bodies_match_jax(optimizer):
     _close(loss.sum(), wl)
 
 
+# K17's edge shapes on the padded item body: the widths 13 and 100, rows
+# of 0, 1, 7, 8, 9, 63, 64 and 65 entries on each side, one hot row
+EDGE_ITEMS = {
+    "width13": dict(d=13),
+    "width100": dict(d=100),
+    "tile_edges": dict(lens_u=[0, 1, 7, 8, 9, 63, 64, 65, 2, 0],
+                       lens_c=[65, 64, 63, 9, 8, 7, 1, 0, 0, 3]),
+    "hot_row": dict(lens_u=[300, 2, 0, 5, 1, 0, 7, 0, 3, 0],
+                    lens_c=[280, 0, 1, 4, 0, 9, 2, 0, 6, 0]),
+}
+
+
+@pytest.mark.parametrize("optimizer", ["llt", "manual_cg"])
+@pytest.mark.parametrize("edge", list(EDGE_ITEMS))
+def test_item_body_edge_shapes_match_jax(edge, optimizer):
+    """``_cfr_item_body`` against K17 (plain), the solve and K18 on K17's
+    edge shapes: rows, biases and loss within 1e-4."""
+    case = EDGE_ITEMS[edge]
+    rng, U, I, C, Ib, Cb = _state(6, d=case.get("d", 6), nu=350, ni=330)
+    B = 10
+    rows = _rows(rng, B, I.shape[0])
+    if "lens_u" in case:
+        lens_u = np.asarray(case["lens_u"], np.int32)
+        lens_c = np.asarray(case["lens_c"], np.int32)
+    else:
+        lens_u = rng.integers(0, 12, B).astype(np.int32)
+        lens_c = rng.integers(0, 9, B).astype(np.int32)
+    lens_u[rows == I.shape[0]] = 0
+    lens_c[rows == I.shape[0]] = 0
+    _, cols_u, vals_u = _padded(rng, B, int(lens_u.max()) + 3, U.shape[0],
+                                lens_u)
+    _, cols_c, vals_c = _padded(rng, B, int(lens_c.max()) + 2, C.shape[0],
+                                lens_c)
+    FF = (U.T @ U).astype(np.float32)
+    wI, wIb, wl = JC._cfr_item_body(
+        _j(I), _j(U), _j(C), _j(Ib), _j(Cb), _j(FF), _j(rows), _j(lens_u),
+        _j(cols_u), _j(vals_u), _j(lens_c), _j(cols_c), _j(vals_c),
+        alpha=8.0, l=1.5, reg_i=0.1, optimizer=optimizer, cg_iters=3,
+        cg_tol=1e-10, compute_loss=True)
+    gI, gIb = _t(I).clone(), _t(Ib).clone()
+    entry = (PaddedBatch(*map(_t, (rows, lens_u, cols_u, vals_u))),
+             _t(lens_c), _t(cols_c), _t(vals_c))
+    loss = CK.cfr_item_step(gI, _t(U), _t(C), gIb, _t(Cb), _t(FF), entry,
+                            alpha=8.0, l=1.5, reg_i=0.1, optimizer=optimizer,
+                            **KW)
+    _close(gI, wI)
+    _close(gIb, wIb)
+    _close(loss.sum(), wl)
+
+
+# segment rows of one entry and of many chunks (C = 8) in each segment
+# body: (chunk lengths, the SPPMI side's, each chunk's row; 4 = padding)
+EDGE_SEGMENTS = {
+    "one_entry_rows": ([1, 1, 1, 0], [1, 0, 1, 0], [0, 1, 2, 4]),
+    "many_chunk_rows": ([8] * 9 + [3, 8, 8, 1], [8] * 10 + [8, 1, 5],
+                        [0] * 10 + [1, 1, 1]),
+}
+
+
+@pytest.mark.parametrize("edge", list(EDGE_SEGMENTS))
+def test_segment_bodies_edge_rows_match_jax(edge):
+    """The user, item and context segment bodies on segment rows of one
+    entry and of many chunks, against K17 (plain), the solve and K18."""
+    lens, lens_c, segs = EDGE_SEGMENTS[edge]
+    rng, U, I, C, Ib, Cb = _state(7)
+    nu, ni = U.shape[0], I.shape[0]
+    opt = dict(optimizer="llt", cg_iters=3, cg_tol=1e-10, compute_loss=True)
+    sb = _segment(rng, [4, 9, 13, nu], lens, segs, ni)
+    FF = (I.T @ I).astype(np.float32)
+    wU, wl = JC._cfr_user_segment_body(
+        _j(U), _j(I), _j(FF), JSegmentBatch(*sb), alpha=8.0, l=1.5,
+        reg_u=0.1, **opt)
+    gU = _t(U).clone()
+    loss = CK.cfr_user_step(gU, _t(I), _t(FF), stage_batch(sb, "cpu"),
+                            alpha=8.0, l=1.5, reg_u=0.1, optimizer="llt",
+                            **KW)
+    _close(gU, wU)
+    _close(loss.sum(), wl)
+
+    item_rows = [2, 11, 20, ni]
+    sb_u = _segment(rng, item_rows, lens, segs, nu)
+    sb_c = _segment(rng, item_rows, lens_c, segs, ni)
+    FF = (U.T @ U).astype(np.float32)
+    wI, wIb, wl = JC._cfr_item_segment_body(
+        _j(I), _j(U), _j(C), _j(Ib), _j(Cb), _j(FF), JSegmentBatch(*sb_u),
+        JSegmentBatch(*sb_c), alpha=8.0, l=1.5, reg_i=0.1, **opt)
+    gI, gIb = _t(I).clone(), _t(Ib).clone()
+    loss = CK.cfr_item_step(gI, _t(U), _t(C), gIb, _t(Cb), _t(FF),
+                            (stage_batch(sb_u, "cpu"),
+                             stage_batch(sb_c, "cpu")),
+                            alpha=8.0, l=1.5, reg_i=0.1, optimizer="llt",
+                            **KW)
+    _close(gI, wI)
+    _close(gIb, wIb)
+    _close(loss.sum(), wl)
+
+    sb = _segment(rng, [1, 7, 25, ni], lens, segs, ni)
+    wC, wCb, wl = JC._cfr_context_segment_body(
+        _j(C), _j(I), _j(Ib), _j(Cb), JSegmentBatch(*sb), reg_c=0.1, **opt)
+    gC, gCb = _t(C).clone(), _t(Cb).clone()
+    loss = CK.cfr_context_step(gC, _t(I), _t(Ib), gCb,
+                               stage_batch(sb, "cpu"), reg_c=0.1,
+                               optimizer="llt", **KW)
+    _close(gC, wC)
+    _close(gCb, wCb)
+    _close(loss.sum(), wl)
+
+
+@pytest.mark.parametrize("phase", ["user", "item", "context"])
+def test_row_moved_between_batches_matches_jax(phase):
+    """A row in the middle of one JAX batch and alone (its block trimmed to
+    its own length) or first in a permuted batch of the port: the same
+    updated row (and bias) within 1e-4, whichever batch carries it."""
+    rng, U, I, C, Ib, Cb = _state(8)
+    B, k = 12, 5
+    X = {"user": U, "item": I, "context": C}[phase]
+    rows = rng.permutation(X.shape[0])[:B].astype(np.int32)
+    lens, cols, vals = _padded(rng, B, 10, (I if phase == "user" else
+                                            U if phase == "item" else
+                                            I).shape[0])
+    lens[k] = 9
+    lens_c, cols_c, vals_c = _padded(rng, B, 7, C.shape[0])
+    lens_c[k] = 6
+    if phase == "user":
+        FF = (I.T @ I).astype(np.float32)
+        wX, _ = JC._cfr_user_body(
+            _j(U), _j(I), _j(FF), _j(rows), _j(lens), _j(cols), _j(vals),
+            alpha=8.0, l=1.5, reg_u=0.1, optimizer="llt", cg_iters=3,
+            cg_tol=1e-10, compute_loss=True)
+        wb = None
+    elif phase == "item":
+        FF = (U.T @ U).astype(np.float32)
+        wX, wb, _ = JC._cfr_item_body(
+            _j(I), _j(U), _j(C), _j(Ib), _j(Cb), _j(FF), _j(rows), _j(lens),
+            _j(cols), _j(vals), _j(lens_c), _j(cols_c), _j(vals_c),
+            alpha=8.0, l=1.5, reg_i=0.1, optimizer="llt", cg_iters=3,
+            cg_tol=1e-10, compute_loss=True)
+    else:
+        wX, wb, _ = JC._cfr_context_body(
+            _j(C), _j(I), _j(Ib), _j(Cb), _j(rows), _j(lens), _j(cols),
+            _j(vals), reg_c=0.1, optimizer="llt", cg_iters=3, cg_tol=1e-10,
+            compute_loss=True)
+    perm = np.concatenate([[k], np.delete(np.arange(B), k)[::-1]])
+    for idx in ([k], perm):
+        w_u = int(lens[idx].max())
+        w_c = int(lens_c[idx].max())
+        pick = (lambda a, w: _t(a[idx][:, :w]) if a.ndim == 2  # noqa: E731
+                else _t(a[idx]))
+        batch = PaddedBatch(_t(rows[idx]), pick(lens, 0), pick(cols, w_u),
+                            pick(vals, w_u))
+        gX = _t(X).clone()
+        if phase == "user":
+            CK.cfr_user_step(gX, _t(I), _t(FF), batch, alpha=8.0, l=1.5,
+                             reg_u=0.1, optimizer="llt", **KW)
+            gb = None
+        elif phase == "item":
+            gb = _t(Ib).clone()
+            CK.cfr_item_step(gX, _t(U), _t(C), gb, _t(Cb), _t(FF),
+                             (batch, pick(lens_c, 0), pick(cols_c, w_c),
+                              pick(vals_c, w_c)),
+                             alpha=8.0, l=1.5, reg_i=0.1, optimizer="llt",
+                             **KW)
+        else:
+            gb = _t(Cb).clone()
+            CK.cfr_context_step(gX, _t(I), _t(Ib), gb, batch, reg_c=0.1,
+                                optimizer="llt", **KW)
+        r = rows[k]
+        np.testing.assert_allclose(gX[r].numpy(), np.asarray(wX)[r], **TOL)
+        if wb is not None:
+            np.testing.assert_allclose(float(gb[r]), float(np.asarray(wb)[r]),
+                                       **TOL)
+
+
 def test_item_bias_resets_without_sppmi():
     """``tests/models/test_w2v_cfr.py:334`` on the port: an updated item
     with user entries but no SPPMI entries gets Ib = 0, not its stale

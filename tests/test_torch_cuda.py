@@ -940,6 +940,79 @@ def test_warp_accumulate_kernel_matches_plain(dev, d, score_func,
         assert float((g - r).abs().max()) <= lim
 
 
+def _k12_edge_case(dev, case, d, seed=3):
+    """Chunk inputs of K12 where its design branches: an item row past a
+    warp's sort (5,000 positives on one item), user runs across many
+    32-slot segments, no live slot, n_valid 0 and N, and a 200,000-row table
+    of which the chunk touches a few hundred rows."""
+    rng = np.random.default_rng(seed)
+    U, I, N = 900, 700, 8192
+    if case == "big_table":
+        U = I = 200_000
+    users = np.sort(rng.integers(0, U, N))
+    pos = rng.integers(0, I, N)
+    if case == "hot_item":
+        pos[rng.permutation(N)[:5000]] = 17
+    if case == "long_runs":
+        users = np.sort(np.concatenate([np.full(2000, 5), np.full(100, 40),
+                                        np.full(33, 41), np.full(32, 42),
+                                        rng.integers(0, U, N - 2165)]))
+    if case == "big_table":
+        users = np.sort(rng.choice(U, 300)[rng.integers(0, 300, N)])
+        pos = rng.choice(I, 250)[rng.integers(0, 250, N)]
+    neg = rng.integers(0, I, N)
+    if case == "big_table":
+        neg = rng.choice(I, 250)[rng.integers(0, 250, N)]
+    any_v = rng.random(N) < 0.8
+    if case == "no_live":
+        any_v[:] = False
+    n_valid = {"n_valid_0": 0, "n_valid_N": N}.get(case, N - 37)
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)  # noqa
+    return dict(
+        P=t(0.3 * rng.standard_normal((U, d)), np.float32),
+        Q=t(0.3 * rng.standard_normal((I, d)), np.float32),
+        users=t(users, np.int32), pos=t(pos, np.int32),
+        neg=t(neg, np.int32), any_v=t(any_v, np.bool_),
+        w=t(rng.random(N) * 3, np.float32), n_valid=n_valid)
+
+
+@pytest.mark.parametrize("d", [8, 64, 256, 300])
+@pytest.mark.parametrize("case", ["hot_item", "long_runs", "no_live",
+                                  "n_valid_0", "n_valid_N", "big_table"])
+@pytest.mark.parametrize("sorted_users", [False, True])
+def test_warp_accumulate_kernel_edge_cases(dev, d, case, sorted_users):
+    """K12 against its plain version (1e-5 of the largest entry plus a
+    float32 spacing, bitwise repeatable) where its design branches: rows
+    longer than a warp's sort (a block per row), user runs across segments
+    (partials added by the run's last piece), nothing live, and a table of
+    200,000 rows of which the chunk touches a few hundred."""
+    from buffalo_tpu_torch.ops import warp_kernels as W
+
+    c = _k12_edge_case(dev, case, d)
+    users = c["users"]
+    if not sorted_users:
+        users = users[torch.randperm(users.shape[0], device=dev)].contiguous()
+    kw = dict(n_valid=c["n_valid"], score_func="l2" if d == 64 else "dot",
+              reg_u=0.03, reg_i=0.02, reg_j=0.01, update_i=True,
+              update_j=case != "hot_item", per_coordinate_normalize=True,
+              users_sorted=sorted_users)
+    outs = []
+    for fn in (W.warp_accumulate, W.warp_accumulate, W.warp_accumulate_plain):
+        acc = W.new_accumulators(c["P"], c["Q"])
+        for a in acc:
+            a.fill_(0.5)
+        fn(c["P"], c["Q"], *acc, users, c["pos"], c["neg"], c["any_v"],
+           c["w"], **kw)
+        outs.append(acc)
+    torch.cuda.synchronize()
+    for g, g2, r in zip(*outs):
+        assert torch.equal(g, g2)
+        lim = 1e-5 * float((r - 0.5).abs().max()) + 2 ** -23
+        assert float((g - r).abs().max()) <= lim
+    if case in ("no_live", "n_valid_0"):
+        assert all(bool((g == 0.5).all()) for g in outs[0])
+
+
 def test_warp_violations_kernel_equals_plain(dev):
     from buffalo_tpu_torch.ops import warp_kernels as W
 
@@ -1334,7 +1407,7 @@ def _cfr_phases(dev, d, rng, tabs, biases, segment):
     ]
 
 
-@pytest.mark.parametrize("d", [8, 32, 64, 128, 160, 300])
+@pytest.mark.parametrize("d", [8, 13, 32, 40, 64, 100, 128, 160, 300])
 @pytest.mark.parametrize("segment", [False, True])
 def test_cfr_normal_equations_kernel_matches_plain(dev, d, segment):
     from buffalo_tpu_torch.ops import cfr_kernels as CK
@@ -1358,6 +1431,159 @@ def test_cfr_normal_equations_kernel_matches_plain(dev, d, segment):
             no_exp = CK.cfr_normal_equations_plain(
                 X[name], rows, **dict(kw, explicit=None))
             assert not _rel_close(got[0], no_exp[0], 1e-4)
+
+
+def _cfr_edge_phases(dev, d, rng, tabs, biases, segment):
+    """The three phases on rows of 0, 1, 7, 8, 9, 63, 64 and 65 entries on
+    each side (padded), or on segment rows of one chunk, of one entry and
+    of many chunks (segment), sentinel rows among them."""
+    from buffalo_tpu_torch.ops.cfr_kernels import (LOSS_EXPLICIT,
+                                                   LOSS_IMPLICIT, LOSS_REG)
+
+    U, I, C = tabs
+    Ib, Cb = biases
+    n = U.shape[0]
+    if segment:
+        R = 6
+        rows = np.array([3, 11, n, 250, 71, n], np.int32)
+        # row 0: one chunk; 1: many chunks; 3: one entry; 4: a full chunk
+        # then one entry; sentinels 2 and 5 hold none
+        lens = [64, 64, 64, 64, 64, 64, 64, 9, 1, 64, 1, 0]
+        segs = [0, 1, 1, 1, 1, 1, 1, 1, 3, 4, 4, 6]
+
+        def side(t):
+            return _cfr_segment_side(dev, rng, t, lens, segs, R)
+        imp, exp, ctx = side(U), side(C), side(I)
+    else:
+        lens_u = np.array([0, 1, 7, 8, 9, 63, 64, 65, 0, 33, 1, 0],
+                          np.int32)
+        lens_c = np.array([65, 64, 63, 9, 8, 7, 1, 0, 0, 2, 0, 0], np.int32)
+        R = lens_u.shape[0]
+        rows = rng.permutation(n)[:R].astype(np.int32)
+        rows[[8, 11]] = n
+        imp = _cfr_padded_side(dev, rng, U, R, 70, lens_u)
+        exp = _cfr_padded_side(dev, rng, C, R, 66, lens_c)
+        lens_x = lens_c[::-1].copy()
+        lens_x[[8, 11]] = 0
+        ctx = _cfr_padded_side(dev, rng, I, R, 66, lens_x)
+    rows = torch.from_numpy(rows).to(dev)
+    return [
+        ("user", dict(implicit=imp._replace(table=I), FF=(I.T @ I)
+                      .contiguous(), alpha=8.0, l=1.5, reg=0.1,
+                      loss=LOSS_IMPLICIT | LOSS_REG), rows),
+        ("item", dict(implicit=imp, explicit=exp, FF=(U.T @ U).contiguous(),
+                      rbias=Ib, cbias=Cb, alpha=8.0, l=1.5, reg=0.1,
+                      loss=LOSS_IMPLICIT | LOSS_EXPLICIT | LOSS_REG), rows),
+        ("context", dict(explicit=ctx, rbias=Cb, cbias=Ib, reg=0.1,
+                         loss=LOSS_EXPLICIT | LOSS_REG), rows),
+    ]
+
+
+@pytest.mark.parametrize("d", [8, 13, 32, 40, 64, 100, 128, 160, 300])
+@pytest.mark.parametrize("segment", [False, True])
+def test_cfr_normal_equations_edge_rows(dev, d, segment):
+    """K17 against its plain version on rows of 0, 1, 7, 8, 9, 63, 64 and
+    65 entries (both sides of the tile boundaries), segment rows of one
+    chunk, one entry and many chunks, and sentinel rows (no loss, no
+    total)."""
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
+
+    rng, tabs, biases = _cfr_tables(dev, d, seed=d + 1)
+    X = {"user": tabs[0], "item": tabs[1], "context": tabs[2]}
+    n = tabs[0].shape[0]
+    for name, kw, rows in _cfr_edge_phases(dev, d, rng, tabs, biases,
+                                           segment):
+        got = CK.cfr_normal_equations(X[name], rows, **kw)
+        again = CK.cfr_normal_equations(X[name], rows, **kw)
+        ref = CK.cfr_normal_equations_plain(X[name], rows, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+        for a, b in zip(got[:2], ref[:2]):
+            assert _rel_close(a, b, 1e-4), name
+        assert torch.allclose(got[2], ref[2], rtol=1e-4, atol=1e-5), name
+        assert torch.equal(got[3], ref[3]), name
+        sentinel = rows == n
+        assert float(got[2][sentinel].abs().sum()) == 0
+        assert not bool(got[3][sentinel].any())
+
+
+@pytest.mark.parametrize("d", [8, 13, 32, 64, 128])
+@pytest.mark.parametrize("segment", [False, True])
+def test_cfr_normal_equations_row_bits_follow_the_row(dev, d, segment):
+    """A row's A, y and loss are bitwise the same whether the row is alone
+    in its batch (its block trimmed to its own length), in the middle of a
+    batch, or in the same batch permuted: they depend on its entries
+    alone, as the mesh's bit-for-bit tables need."""
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
+    from buffalo_tpu_torch.ops.cfr_kernels import (LOSS_EXPLICIT,
+                                                   LOSS_IMPLICIT, LOSS_REG)
+
+    rng, (U, I, C), (Ib, Cb) = _cfr_tables(dev, d, seed=7)
+    n = I.shape[0]
+    kw = dict(FF=(U.T @ U).contiguous(), rbias=Ib, cbias=Cb, alpha=8.0,
+              l=1.5, reg=0.1, loss=LOSS_IMPLICIT | LOSS_EXPLICIT | LOSS_REG)
+    if segment:
+        R = 5
+        rows = np.array([9, 31, 77, n, 150], np.int32)
+        lens = [64, 64, 13, 40, 64, 64, 64, 2, 0, 50]
+        segs = [0, 0, 1, 2, 2, 2, 2, 2, 3, 4]
+        imp = _cfr_segment_side(dev, rng, U, lens, segs, R)
+        exp = _cfr_segment_side(dev, rng, C, lens[::-1], segs, R)
+
+        def take(idx):
+            # the rows idx with their chunks, in that order
+            idx = list(idx)
+            ptr = imp.chunk_ptr.cpu().numpy()
+            chunks = [c for r in idx for c in range(ptr[r], ptr[r + 1])]
+            segs2 = [i for i, r in enumerate(idx)
+                     for _ in range(ptr[r], ptr[r + 1])]
+            from buffalo_tpu_torch.data.batching import segment_chunk_ptr
+            ci = torch.tensor(chunks, dtype=torch.long, device=dev)
+            new_ptr = torch.from_numpy(segment_chunk_ptr(
+                np.asarray(segs2, np.int32), len(idx))).to(dev)
+            sides = [s._replace(lens=s.lens[idx].contiguous(),
+                                cols=s.cols[ci].contiguous(),
+                                vals=s.vals[ci].contiguous(),
+                                chunk_ptr=new_ptr,
+                                chunk_lens=s.chunk_lens[ci].contiguous())
+                     for s in (imp, exp)]
+            return torch.from_numpy(rows[idx]).to(dev), sides
+    else:
+        R = 24
+        rows = rng.permutation(n)[:R].astype(np.int32)
+        rows[5] = n
+        lens_u = rng.integers(0, 70, R).astype(np.int32)
+        lens_c = rng.integers(0, 40, R).astype(np.int32)
+        lens_u[5] = lens_c[5] = 0
+        imp = _cfr_padded_side(dev, rng, U, R, 70, lens_u)
+        exp = _cfr_padded_side(dev, rng, C, R, 40, lens_c)
+
+        def take(idx):
+            idx = list(idx)
+            sides = []
+            for s in (imp, exp):
+                width = max(1, int(s.lens[idx].max()))
+                if len(idx) > 1:
+                    width = s.cols.shape[1]
+                sides.append(s._replace(
+                    lens=s.lens[idx].contiguous(),
+                    cols=s.cols[idx, :width].contiguous(),
+                    vals=s.vals[idx, :width].contiguous()))
+            return torch.from_numpy(rows[idx]).to(dev), sides
+
+    def run(idx):
+        r, (si, se) = take(idx)
+        return CK.cfr_normal_equations(I, r, implicit=si, explicit=se, **kw)
+
+    full = run(range(R))
+    perm = rng.permutation(R)
+    permuted = run(perm)
+    torch.cuda.synchronize()
+    for k in range(R):
+        alone = run([k])
+        where = int(np.nonzero(perm == k)[0][0])
+        for a, b, c in zip(full, alone, permuted):
+            assert torch.equal(a[k], b[0]) and torch.equal(a[k], c[where]), k
 
 
 @pytest.mark.parametrize("d", [8, 32, 128, 160, 300])

@@ -153,6 +153,108 @@ def test_step_matches_jax_on_injected_candidates(case, K):
     np.testing.assert_array_equal(acc[3].numpy(), np.asarray(cQ))
 
 
+def _hot(pb, seed):
+    """The chunks' users all one user and 70% of their positives one item
+    (rows far longer than a warp's in-register sort on both sides)."""
+    rng = np.random.default_rng(seed)
+    pb = dict(pb)
+    pb["users"] = np.full_like(pb["users"], 3)
+    pos = pb["pos"].copy()
+    pos[rng.random(pos.shape) < 0.7] = 7
+    pb["pos"] = pos
+    return pb
+
+
+# edge shapes of K12's plain version against the JAX body: a hot user and
+# item row, no slot violating (nothing added), widths 13 and 100
+EDGE_STEPS = {
+    "hot_row": dict(),
+    "all_dead": dict(threshold=-1e30),
+    "width13": dict(d=13),
+    "width100": dict(d=100, scale=0.15),
+}
+
+
+@pytest.mark.parametrize("score_func", ["dot", "l2"])
+@pytest.mark.parametrize("edge", list(EDGE_STEPS))
+def test_step_edge_shapes_match_jax(edge, score_func):
+    """K11 + K12 (plain) against ``warp_accumulate_step`` on K12's edge
+    shapes, with the reg terms and the per-coordinate counts: the same
+    negatives and counts, gradients within 1e-5."""
+    opts = dict(EDGE_STEPS[edge])
+    threshold = opts.pop("threshold", 0.5)
+    pb = _problem(21, N=256, **opts)
+    if edge == "hot_row":
+        pb = _hot(pb, 21)
+    users, pos = pb["users"][0], pb["pos"][0]
+    N, I, K = users.shape[0], pb["I"], 16
+    key = jax.random.PRNGKey(5)
+    cand = _cands(key, N, K, I)
+    kw = dict(update_i=True, update_j=True, reg_u=0.05, reg_i=0.03,
+              reg_j=0.02, per_coordinate_normalize=True,
+              score_func=score_func, probe="lazy")
+    zeros = [jnp.zeros_like(jnp.asarray(pb["P"])),
+             jnp.zeros_like(jnp.asarray(pb["Q"])),
+             jnp.zeros(pb["U"], jnp.float32), jnp.zeros(I, jnp.float32)]
+    want = JW.warp_accumulate_step(
+        jnp.asarray(pb["P"]), jnp.asarray(pb["Q"]), *zeros,
+        jnp.asarray(users), jnp.asarray(pos), jnp.asarray(pb["indptr"]),
+        jnp.asarray(pb["words"]), key, num_items=I, num_candidates=K,
+        threshold=threshold, bloom_log2=pb["log2"], **kw)
+    tP, tQ = torch.from_numpy(pb["P"]), torch.from_numpy(pb["Q"])
+    acc = W.new_accumulators(tP, tQ)
+    W.warp_accumulate_step(
+        tP, tQ, *acc, torch.from_numpy(users), torch.from_numpy(pos),
+        torch.from_numpy(pb["indptr"]),
+        torch.from_numpy(pb["words"].view(np.int32)), seed=0, epoch=0,
+        chunk=0, num_items=I, num_candidates=K, threshold=threshold,
+        bloom_log2=pb["log2"], candidates=torch.from_numpy(cand), **kw)
+    for got, ref in zip(acc[:2], want[:2]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL,
+                                   atol=ATOL)
+    for got, ref in zip(acc[2:], want[2:]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    found = int(acc[2].sum())
+    if edge == "all_dead":
+        assert found == 0 and not acc[0].any() and not acc[1].any()
+    else:
+        assert found > 0
+    if edge == "hot_row":
+        assert int(acc[2][3]) == found and int(acc[3][7]) > 32
+
+
+# the resident epoch's n_valid at 0, inside the first chunk, and on a hot
+# row / a width of 100 with the last chunk part padding
+EDGE_EPOCHS = {
+    "n_valid_0": dict(num_valid=0),
+    "n_valid_in_chunk_0": dict(num_valid=9),
+    "hot_row": dict(hot=True),
+    "width100": dict(d=100, scale=0.3),
+}
+
+
+@pytest.mark.parametrize("edge", list(EDGE_EPOCHS))
+def test_epoch_edge_shapes_match_jax(edge):
+    """One ``warp_epoch`` on K12's edge shapes (adagrad, per-coordinate
+    counts): factors within 1e-5, found_frac equal."""
+    opts = dict(EDGE_EPOCHS[edge])
+    nv = opts.pop("num_valid", 3 * 64 - 17)
+    hot = opts.pop("hot", False)
+    pb = _problem(22, nchunks=3, **dict(dict(scale=1.2), **opts))
+    if hot:
+        pb = _hot(pb, 22)
+    key = jax.random.PRNGKey(11)
+    Pj, Qj, fj = _jax_epoch(pb, 8, "lazy", "adagrad", True, key, step=1,
+                            num_valid=nv)
+    Pp, Qp, fp = _port_epoch(pb, 8, "lazy", "adagrad", True, key, step=1,
+                             num_valid=nv)
+    np.testing.assert_allclose(Pp, Pj, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(Qp, Qj, rtol=RTOL, atol=ATOL)
+    assert fp == fj
+    if nv == 0:
+        assert fp == 0.0
+
+
 def _jax_epoch(pb, K, probe, optimizer, pcn, key, step=0, num_valid=None,
                seen_bits=None):
     st = {n: jnp.zeros_like(jnp.asarray(pb["P" if n[1] == "P" else "Q"]))
@@ -167,7 +269,8 @@ def _jax_epoch(pb, K, probe, optimizer, pcn, key, step=0, num_valid=None,
         num_candidates=K, score_func="dot", threshold=1.0, reg_u=0.01,
         reg_i=0.02, reg_j=0.03, update_i=True, update_j=True,
         per_coordinate_normalize=pcn, lr=0.05, beta1=0.9, beta2=0.999,
-        num_valid=num_valid or nchunks * N, bloom_log2=pb["log2"])
+        num_valid=nchunks * N if num_valid is None else num_valid,
+        bloom_log2=pb["log2"])
     return np.asarray(out[0]), np.asarray(out[1]), float(out[3])
 
 
@@ -194,7 +297,8 @@ def _port_epoch(pb, K, probe, optimizer, pcn, key, step=0, num_valid=None,
         optimizer=optimizer, num_items=pb["I"], num_candidates=K,
         score_func="dot", threshold=1.0, reg_u=0.01, reg_i=0.02, reg_j=0.03,
         update_i=True, update_j=True, per_coordinate_normalize=pcn, lr=0.05,
-        beta1=0.9, beta2=0.999, num_valid=num_valid or nchunks * N,
+        beta1=0.9, beta2=0.999,
+        num_valid=nchunks * N if num_valid is None else num_valid,
         bloom_log2=pb["log2"], probe=probe,
         seen_bits=None if seen_bits is None else [seen_bits],
         candidates=[cands])
