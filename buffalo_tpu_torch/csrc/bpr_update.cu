@@ -18,7 +18,7 @@
 //    :804-846): the sgd step's rows unclipped, added into dense delta tables
 //    dP, dQ and dQb (the bias's positive side), the tables untouched; a
 //    second launch (bpr_delta_bias_neg) adds the negative side's bias step
-//    from the same item groups once Qb has taken the reduced positive side;
+//    from the same item rows once Qb has taken the reduced positive side;
 //    the cap applies to the reduced deltas (K10's capped add);
 // and (bpr_loss) the mean of log(1 + exp(-x)) over fixed triplets.
 //
@@ -28,335 +28,588 @@
 //
 // What bounds it on the card: gathering three rows per sample (p_u, q_i, q_j)
 // and writing the touched rows; at d = 40 about 0.5 KB per sample, so a
-// 524,288-slot chunk moves ~0.25 GB (~0.08 ms at 3.35 TB/s), the operations
-// (~9 d per sample) are far below the FP32 rate.  Design: sums are
-// deterministic, with no float atomics.  A stable LSD radix sort
-// (row_group.cuh) groups the user entries (one
-// per slot) and the item entries (one per slot for the positive, one per
-// sample for the negative) by row; each row's entries are summed in entry
-// order in runs of kRun, one warp per run, and one warp per row adds its runs
-// in order, clips and writes.  Padding slots and sentinel negatives are keyed
-// to a dropped row.  The logits are computed once (one warp per sample) and
-// both sides' run sums finish before either epilogue writes, so every term
-// reads the snapshot.  A lane holds 8 columns of a row (kChunk = 256); wider
-// rows take the wide instantiation of the run and row kernels, which walks a
-// row in 256-column chunks (the clipped step passes twice: its norm first).
+// 524,288-slot chunk moves ~0.25 GB (~0.08 ms at 3.35 TB/s) if every row
+// were read per sample, far less with each touched row read once; the
+// operations (~9 d per sample) are far below the FP32 rate.  What costs is
+// the number of dependent launches and any pass over a whole table.
+// Design: seven stream operations per call, none sized by a table's rows
+// (the entries are grouped by the rows they touch, csrc/touched_rows.cuh).
+//  * One memset zeroes the groupings' hash tables and counters.
+//  * Launch 1, a warp per segment of kSeg slots: lane t computes slot t's
+//    logits (its rows' dot products), writes each item entry's user and
+//    logit (sum) beside its entry id, and counts the item entries (the
+//    positives, entries 0 .. N-1, then the negatives) by row.  A resident
+//    chunk's users ascend (users_sorted): the warp then sums, in slot
+//    order, each user run that lies in its segment into a compact row of
+//    sums, and registers a run that starts here and goes on past it for
+//    launch 5 (in pieces of kRunPiece slots); otherwise the user entries are
+//    counted by row too.
+//  * Launches 2 and 3: the groupings' scans and the placement of each
+//    entry id beside its user and logit.
+//  * Launch 4: a warp per touched row of up to kWarpSort entries puts them
+//    back in entry order (in registers or its shared buffer) and sums them
+//    into its compact row of sums; a longer row is only sorted, by the
+//    block.
+//  * Launch 5: the longer rows and the registered runs in pieces of kPiece
+//    entries (kRunPiece slots), a warp per piece; the row's last piece to
+//    finish adds their partials in piece order into the row's sums.
+//  * Launch 6, a warp per touched row: its epilogue from its sums, the
+//    step with the clip (sgd), the accumulation, or the delta.  Every read
+//    of the tables happens in launches 1-5, so the sgd step reads the
+//    chunk's snapshot while P and Q are written in place.
+// Every sum over a row runs in entry order with no float atomics, so two
+// launches are bitwise equal.  The sums gather their rows in batches whose
+// loads are in flight together (a row per entry, 4-8 at a time), lanes on
+// the columns: 2 columns a lane up to d = 64, 8 up to kChunk = 256; wider
+// rows take the wide instantiation, which walks a row in 256-column
+// chunks.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "row_group.cuh"
+#include "touched_rows.cuh"
 
 namespace {
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
 
 __device__ __forceinline__ float clipped_logit(float x) {
   return x > 6.f ? 0.f : (x < -6.f ? 1.f : 1.f / (1.f + expf(x)));
 }
 
-// One warp per sample k (slot j = k / neg_per): its masked logit.
-__global__ void __launch_bounds__(kThreads)
-forward_kernel(const int32_t* __restrict__ users, const int32_t* __restrict__ pos,
-               const int32_t* __restrict__ neg, int64_t B, int neg_per, int n_valid,
-               const float* __restrict__ P, const float* __restrict__ Q,
-               const float* __restrict__ Qb, int I, int d, int use_bias,
-               float* __restrict__ logit) {
+// The modes of the epilogue
+enum Mode { kStep = 0, kAccumulate = 1, kDelta = 2 };
+
+// Entries per piece of a row longer than kWarpSort: a piece's warp gathers its
+// rows 32 entries at a time, and the row's last piece adds np partials.  A
+// presorted user run across segments goes in pieces of kRunPiece slots.
+constexpr int kPiece = 256, kRunPiece = 64;
+
+// Widths of a compact row of sums: a user's d sums and its slot count; an
+// item's d sums, then its positive and negative logit sums and counts.
+__host__ __device__ __forceinline__ int user_width(int d) { return d + 1; }
+__host__ __device__ __forceinline__ int item_width(int d) { return d + 4; }
+
+struct Bpr {
+  const int32_t *users, *pos, *neg;
+  float *P, *Q, *Qb;  // written by the sgd step only
+  int N, neg_per, n_valid, U, I, d, vec4;
+  int mode, use_bias, upd_i, upd_j, users_sorted;
+  float lr, reg_u, reg_i, reg_j, reg_b, cap;
+  float *gP, *gQ, *gQb, *cP, *cQ;  // the accumulators, or the delta tables
+  float* logit;    // [N neg_per]
+  int2* edat;      // [N (neg_per + 1)]: item entry e's (user, logit sum)
+  int2* pay;       // the same placed beside gi.ids
+  float* res_u;    // [gu.cap][user_width]: each touched user's sums
+  float* res_i;    // [gi.cap][item_width]: each touched item's sums
+  Grouping gu, gi; // the users (any order; compact rows of runs when
+                   // presorted) and the items
+  int nseg, nb_seg, nb_u, nb_i, nt_u, nt_i;
+};
+
+// sum over c < d of p[c] (a[c] - b[c]), by one thread.
+__device__ __forceinline__ float dot_diff(const float* __restrict__ p,
+                                          const float* __restrict__ a,
+                                          const float* __restrict__ b, int d, int vec4) {
+  if (vec4) {
+    const float4 *p4 = reinterpret_cast<const float4*>(p),
+                 *a4 = reinterpret_cast<const float4*>(a),
+                 *b4 = reinterpret_cast<const float4*>(b);
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < d / 4; ++c) {
+      const float4 x = p4[c], y = a4[c], z = b4[c];
+      s0 = fmaf(x.x, y.x - z.x, s0);
+      s1 = fmaf(x.y, y.y - z.y, s1);
+      s2 = fmaf(x.z, y.z - z.z, s2);
+      s3 = fmaf(x.w, y.w - z.w, s3);
+    }
+    return (s0 + s1) + (s2 + s3);
+  }
+  float s = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < d; ++c) s = fmaf(p[c], a[c] - b[c], s);
+  return s;
+}
+
+// acc[h] += c_t (a_t[col] - b_t[col]) (kDiff) or c_t a_t[col] for t in [0,
+// n) in order, col = c0 + lane + 32 h below d; term(t, c, a, b) gives the
+// coefficient and the rows (c = 0: nothing added, the rows not read).
+// Every lane calls with the same n; the loads of a batch of terms are
+// issued before their adds.
+template <int H, bool kDiff, class Term>
+__device__ __forceinline__ void gather_sum(int n, int c0, int d, Term term, float (&acc)[H]) {
+  constexpr int kB = H <= 2 ? 8 : 4;  // rows whose loads are in flight together
   const int lane = threadIdx.x & 31;
-  const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (k >= B) return;
-  const int j = (int)(k / neg_per);
-  const int nk = neg[k];
-  const bool ok = nk >= 0 && nk < I;
-  if (j >= n_valid || !ok) {
-    if (lane == 0) logit[k] = 0.f;
-    return;
-  }
-  const float* p = P + (int64_t)users[j] * d;
-  const float* qi = Q + (int64_t)pos[j] * d;
-  const float* qj = Q + (int64_t)nk * d;
-  float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc = fmaf(p[c], qi[c] - qj[c], acc);
-  float x = warp_sum(acc);
-  if (use_bias) x += Qb[pos[j]] - Qb[nk];
-  if (lane == 0) logit[k] = clipped_logit(x);
-}
-
-// ----------------------------------------------------------- entries + sort
-// User side: entry j = slot j, keyed by its user.  Item side: entry e < N the
-// positive of slot e, entry N + k the negative of sample k.
-__global__ void __launch_bounds__(kThreads)
-make_keys(int item_side, const int32_t* __restrict__ users, const int32_t* __restrict__ pos,
-          const int32_t* __restrict__ neg, int N, int neg_per, int n_valid, int R, int n,
-          int32_t* __restrict__ key, int32_t* __restrict__ idx) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  int k;
-  if (!item_side) {
-    k = e < n_valid ? users[e] : R;
-  } else if (e < N) {
-    k = e < n_valid ? pos[e] : R;
-  } else {
-    const int s = e - N, v = neg[s];
-    k = (s / neg_per < n_valid && v >= 0 && v < R) ? v : R;
-  }
-  key[e] = k;
-  idx[e] = e;
-}
-
-// User runs: part[q] = sum over the run's slots j and their samples k of
-// l_k (q_pos(j) - q_neg(k)).  Wide rows (kWide) are walked in column chunks.
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads)
-user_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
-          const int32_t* __restrict__ run_start, const int32_t* __restrict__ pos,
-          const int32_t* __restrict__ neg, int neg_per, const float* __restrict__ logit,
-          const float* __restrict__ Q, int I, int d, float* __restrict__ part) {
-  const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  int r, m0, m1;
-  if (!find_run(q, R, start, run_start, r, m0, m1)) return;
-  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
-    float acc[kMaxH];
+  for (int t0 = 0; t0 < n; t0 += kB) {
+    float cf[kB];
+    const float* ra[kB];
+    const float* rb[kB];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
-    for (int m = m0; m < m1; ++m) {
-      const int j = idx[m];
-      const float* qi = Q + (int64_t)pos[j] * d;
-      for (int n = 0; n < neg_per; ++n) {
-        const int64_t k = (int64_t)j * neg_per + n;
-        const float w = logit[k];
-        const float* qj = Q + (int64_t)min(neg[k], I - 1) * d;
-#pragma unroll
-        for (int h = 0; h < kMaxH; ++h) {
-          const int c = c0 + lane + 32 * h;
-          if (c < d) acc[h] = fmaf(w, qi[c] - qj[c], acc[h]);
-        }
-      }
+    for (int i = 0; i < kB; ++i) {
+      cf[i] = 0.f;
+      ra[i] = rb[i] = nullptr;
+      if (t0 + i < n) term(t0 + i, cf[i], ra[i], rb[i]);
     }
+    float v[kB][H];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      const int c = c0 + lane + 32 * h;
-      if (c < d) part[(int64_t)q * d + c] = acc[h];
-    }
-  }
-}
-
-// Item runs: part[q] = (sum of c_e p_u, then the positive logit sum, the
-// negative logit sum, the positive and the negative entry counts); c_e is
-// the slot's logit sum for a positive (0 without update_i) and minus the
-// sample's logit for a negative (0 without update_j).
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads)
-item_runs(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
-          const int32_t* __restrict__ run_start, const int32_t* __restrict__ users, int N,
-          int neg_per, const float* __restrict__ logit, const float* __restrict__ P, int d,
-          int upd_i, int upd_j, float* __restrict__ part) {
-  const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  int r, m0, m1;
-  if (!find_run(q, R, start, run_start, r, m0, m1)) return;
-  float* out = part + (int64_t)q * (d + 4);
-  float lpos = 0.f, lneg = 0.f, cpos = 0.f, cneg = 0.f;
-  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
-    float acc[kMaxH];
+    for (int i = 0; i < kB; ++i)
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) acc[h] = 0.f;
-    lpos = lneg = cpos = cneg = 0.f;
-    for (int m = m0; m < m1; ++m) {
-      const int e = idx[m];
-      int u;
-      float coef;
-      if (e < N) {
-        u = users[e];
-        float w = 0.f;
-        for (int n = 0; n < neg_per; ++n) w += logit[(int64_t)e * neg_per + n];
-        lpos += w;
-        cpos += 1.f;
-        coef = upd_i ? w : 0.f;
-      } else {
-        const int64_t k = e - N;
-        u = users[k / neg_per];
-        const float w = logit[k];
-        lneg += w;
-        cneg += 1.f;
-        coef = upd_j ? -w : 0.f;
-      }
-      const float* p = P + (int64_t)u * d;
-#pragma unroll
-      for (int h = 0; h < kMaxH; ++h) {
+      for (int h = 0; h < H; ++h) {
         const int c = c0 + lane + 32 * h;
-        if (c < d) acc[h] = fmaf(coef, p[c], acc[h]);
+        v[i][h] = 0.f;
+        if (cf[i] != 0.f && c < d) v[i][h] = kDiff ? ra[i][c] - rb[i][c] : ra[i][c];
       }
+#pragma unroll
+    for (int i = 0; i < kB; ++i)
+#pragma unroll
+      for (int h = 0; h < H; ++h) acc[h] = fmaf(cf[i], v[i][h], acc[h]);
+  }
+}
+
+// The sums of m user entries (slots slot(0), slot(1), ... in entry order,
+// m up to kPiece):
+// over each slot's samples, l (q_pos - q_neg), sentinels adding nothing;
+// store(c, sum) for every column c, then store(d, m) (the slot count).
+template <int H, bool kWide, class Slot, class Store>
+__device__ __forceinline__ void user_sums(const Bpr& a, int m, Slot slot, Store store) {
+  const int lane = threadIdx.x & 31, d = a.d, np = a.neg_per;
+  auto term = [&](int t, float& c, const float*& ra, const float*& rb) {
+    const int i = np == 1 ? t : t / np;
+    const int j = slot(i);
+    const int64_t k = (int64_t)j * np + (t - i * np);
+    const int nk = a.neg[k];
+    if (nk < 0 || nk >= a.I) return;
+    c = a.logit[k];
+    ra = a.Q + (int64_t)a.pos[j] * d;
+    rb = a.Q + (int64_t)nk * d;
+  };
+  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += 32 * H) {
+    float acc[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) acc[h] = 0.f;
+    gather_sum<H, true>(m * np, c0, d, term, acc);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const int c = c0 + lane + 32 * h;
+      if (c < d) store(c, acc[h]);
+    }
+  }
+  if (lane == 0) store(d, (float)m);
+}
+
+// The sums of m item entries in entry order, fetched 32 at a time:
+// fetch(s0, n, e, u, wb) puts entry s0 + t (t < n) in lane t (its id, its
+// user and its logit sum's bits).  c p_u with c = w for a positive (0
+// without update_i), -w for a negative (0 without update_j); store(c, sum)
+// for every column c, then store(d .. d + 3, the positive and negative
+// logit sums and counts).
+template <int H, bool kWide, class Fetch, class Store>
+__device__ __forceinline__ void item_sums(const Bpr& a, int m, Fetch fetch, Store store) {
+  const int lane = threadIdx.x & 31, d = a.d;
+  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += 32 * H) {
+    float acc[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) acc[h] = 0.f;
+    for (int s0 = 0; s0 < m; s0 += 32) {
+      const int n = min(32, m - s0);
+      int e, u, wb;
+      fetch(s0, n, e, u, wb);
+      gather_sum<H, false>(
+          n, c0, d,
+          [&](int t, float& c, const float*& ra, const float*&) {
+            const int et = __shfl_sync(kFull, e, t), ut = __shfl_sync(kFull, u, t);
+            const float wt = __int_as_float(__shfl_sync(kFull, wb, t));
+            c = et < a.N ? (a.upd_i ? wt : 0.f) : (a.upd_j ? -wt : 0.f);
+            ra = a.P + (int64_t)ut * d;
+          },
+          acc);
     }
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
+    for (int h = 0; h < H; ++h) {
       const int c = c0 + lane + 32 * h;
-      if (c < d) out[c] = acc[h];
+      if (c < d) store(c, acc[h]);
+    }
+  }
+  float lpos = 0.f, lneg = 0.f, cpos = 0.f, cneg = 0.f;
+  for (int s0 = 0; s0 < m; s0 += 32) {
+    const int n = min(32, m - s0);
+    int e, u, wb;
+    fetch(s0, n, e, u, wb);
+    for (int t = 0; t < n; ++t) {
+      const int et = __shfl_sync(kFull, e, t);
+      const float wt = __int_as_float(__shfl_sync(kFull, wb, t));
+      if (et < a.N) {
+        lpos += wt;
+        cpos += 1.f;
+      } else {
+        lneg += wt;
+        cneg += 1.f;
+      }
     }
   }
   if (lane == 0) {
-    out[d] = lpos;
-    out[d + 1] = lneg;
-    out[d + 2] = cpos;
-    out[d + 3] = cneg;
+    store(d, lpos);
+    store(d + 1, lneg);
+    store(d + 2, cpos);
+    store(d + 3, cneg);
   }
 }
 
-// Scale of a row step clipped to L2 norm cap (cap 0: 1), from each lane's
-// partial sum of squares.
-__device__ __forceinline__ float clip_scale(float ss, float cap) {
-  if (cap <= 0.f) return 1.f;
-  ss = warp_sum(ss);
-  return fminf(1.f, cap / fmaxf(sqrtf(ss), 1e-12f));
+// A compact user row for a presorted run (user u): its index.
+__device__ __forceinline__ int new_user_row(const Bpr& a, int u) {
+  int x = 0;
+  if ((threadIdx.x & 31) == 0) {
+    x = atomicAdd(&a.gu.meta[0], 1);
+    a.gu.row[x] = u;
+  }
+  return __shfl_sync(kFull, x, 0);
 }
 
-// The modes of the row kernels
-enum RowMode { kStep = 0, kAccumulate = 1, kDelta = 2 };
-
-// One warp per row of a table T with its runs' sums acc and the reg factor
-// rc = rc_of(the row's scalars): the sgd step T += clip(lr (acc - rc T))
-// (kStep), the accumulation out += acc (kAccumulate), or the unclipped step
-// added to a delta table out (kDelta).  Wide rows take the chunks twice when
-// clipping: the step's norm first.
-template <bool kWide, class RcOf>
-__device__ __forceinline__ void row_update(int mode, int r, const int32_t* __restrict__ run_start,
-                                           const float* __restrict__ part, int d, int W, int lane,
-                                           float lr, RcOf rc_of, float cap, float* __restrict__ T,
-                                           float* __restrict__ out, float (&sc)[4]) {
-  float* t = T ? T + (int64_t)r * d : nullptr;
-  float* o = out ? out + (int64_t)r * d : nullptr;
-  float acc[kMaxH];
-  float s = 1.f;
-  if (kWide && mode == kStep && cap > 0.f) {
-    float ss = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kChunk) {
-      row_sum(r, run_start, part, d, W, lane, acc, sc, c0);
-      const float rc = rc_of(sc);
-#pragma unroll
-      for (int h = 0; h < kMaxH; ++h) {
-        const int c = c0 + lane + 32 * h;
-        const float dl = c < d ? lr * (acc[h] - rc * t[c]) : 0.f;
-        ss = fmaf(dl, dl, ss);
-      }
+// Launch 1: warp `seg` takes slots [seg kSeg, (seg + 1) kSeg).
+template <int H, bool kWide>
+__global__ void __launch_bounds__(kThreads) segment_kernel(const Bpr a) {
+  const int seg = blockIdx.x * kWarps + (int)(threadIdx.x >> 5);
+  if (seg >= a.nseg) return;  // whole warps leave together
+  const int lane = threadIdx.x & 31, d = a.d, N = a.N;
+  const int s0 = seg * kSeg, j = s0 + lane;
+  const bool in = j < N, live = j < a.n_valid;
+  const int u = live ? a.users[j] : -1, pi = live ? a.pos[j] : -1;
+  const float* p = a.P + (int64_t)(live ? u : 0) * d;
+  const float* qi = a.Q + (int64_t)(live ? pi : 0) * d;
+  float w = 0.f;  // the slot's logit sum
+  for (int n = 0; n < a.neg_per; ++n) {
+    const int64_t k = (int64_t)j * a.neg_per + n;
+    const int nk = in ? a.neg[k] : -1;
+    const bool ok = live && nk >= 0 && nk < a.I;
+    float l = 0.f;
+    if (ok) {
+      float x = dot_diff(p, qi, a.Q + (int64_t)nk * d, d, a.vec4);
+      if (a.use_bias) x += a.Qb[pi] - a.Qb[nk];
+      l = clipped_logit(x);
     }
-    s = clip_scale(ss, cap);
+    w += l;
+    if (in) {
+      a.logit[k] = l;
+      a.edat[N + k] = make_int2(u, __float_as_int(l));
+    }
+    count_entry(a.gi, in ? (int)(N + k) : -1, ok ? nk : -1);
   }
-  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
-    row_sum(r, run_start, part, d, W, lane, acc, sc, c0);
-    if (mode == kAccumulate) {
-#pragma unroll
-      for (int h = 0; h < kMaxH; ++h) {
-        const int c = c0 + lane + 32 * h;
-        if (c < d) o[c] += acc[h];
-      }
+  if (in) a.edat[j] = make_int2(u, __float_as_int(w));
+  count_entry(a.gi, in ? j : -1, live && pi >= 0 && pi < a.I ? pi : -1);
+  if (!a.users_sorted) {
+    count_entry(a.gu, in ? j : -1, live && u >= 0 && u < a.U ? u : -1);
+    return;
+  }
+  // the presorted user side: the runs of slots [s0, s1)
+  __syncwarp();  // the warp's logits, read below
+  const int s1 = min(s0 + kSeg, a.n_valid), len = s1 - s0;
+  if (len <= 0) return;
+  const int u_left = __shfl_up_sync(kFull, u, 1);
+  const unsigned starts = __ballot_sync(kFull, lane < len && (lane == 0 || u != u_left));
+  const int before = s0 > 0 ? a.users[s0 - 1] : -1;
+  const int after = s1 < a.n_valid ? a.users[s1] : -1;
+  unsigned rest = starts;
+  while (rest) {
+    const int pa = __ffs(rest) - 1;
+    rest &= rest - 1;
+    const int pb = rest ? __ffs(rest) - 1 : len;
+    const int user = __shfl_sync(kFull, u, pa);
+    if (pa == 0 && user == before) continue;  // begun left of s0: registered there
+    const int x = new_user_row(a, user);
+    if (pb == len && user == after) {
+      // goes on past s1: its end, then its pieces
+      const int r1 = run_end(a.users, user, s1, a.n_valid), r0 = s0 + pa;
+      const int np = (r1 - r0 + kRunPiece - 1) / kRunPiece;
+      if (lane == 0)
+        add_pieces<kRunPiece>(a.gu, atomicAdd(&a.gu.meta[2], np), np, r1 - r0, r0, x);
       continue;
     }
-    const float rc = rc_of(sc);
-    float dl[kMaxH];
-    float ss = 0.f;
+    float* out = a.res_u + (int64_t)x * user_width(d);
+    user_sums<H, kWide>(a, pb - pa, [&](int i) { return s0 + pa + i; },
+                        [&](int c, float v) { out[c] = v; });
+  }
+}
+
+// Launch 2: the scan tiles of the user grouping (users in any order), then
+// of the item grouping; rows longer than kWarpSort are listed, their pieces
+// naming their compact rows.
+__global__ void __launch_bounds__(kScanThreads) scan_kernel(const Bpr a) {
+  scan_rows<true, kPiece, kWarpSort>((int)blockIdx.x < a.nt_u ? a.gu : a.gi);
+}
+
+// Launch 3: the entries placed by row, an item entry's user and logit
+// beside its id.
+__global__ void __launch_bounds__(kThreads) place_kernel(const Bpr a) {
+  const int blk = blockIdx.x;
+  if (blk < a.nb_u) {
+    const int e = blk * kThreads + threadIdx.x;
+    place_entry(a.gu, e < a.N ? e : -1);
+    return;
+  }
+  const int e = (blk - a.nb_u) * kThreads + threadIdx.x;
+  place_entry(a.gi, e < a.gi.n ? e : -1, [&](int at, int id) { a.pay[at] = a.edat[id]; });
+}
+
+// Rows of up to 32 entries: lane k < m gets the k-th smallest id of ids[0,
+// m) and the lane of ids it came from (a bitonic sort across the warp);
+// lanes past m get -1.
+__device__ __forceinline__ int warp_sorted_from(const int32_t* ids, int m, int* from) {
+  const int lane = threadIdx.x & 31;
+  int v = lane < m ? ids[lane] : 0x7fffffff, src = lane;
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      const int c = c0 + lane + 32 * h;
-      dl[h] = c < d ? lr * (acc[h] - rc * t[c]) : 0.f;
-      ss = fmaf(dl[h], dl[h], ss);
-    }
-    if (mode == kDelta) {
+  for (int k = 2; k <= 32; k <<= 1)
 #pragma unroll
-      for (int h = 0; h < kMaxH; ++h) {
-        const int c = c0 + lane + 32 * h;
-        if (c < d) o[c] += dl[h];
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int o = __shfl_xor_sync(kFull, v, j), os = __shfl_xor_sync(kFull, src, j);
+      const bool up = (lane & k) == 0, low = (lane & j) == 0;
+      if (low == up ? o < v : o > v) {
+        v = o;
+        src = os;
       }
+    }
+  *from = src;
+  return lane < m ? v : -1;
+}
+
+// Launch 4: a warp per touched row of up to kWarpSort entries puts them in
+// entry order (in registers up to kShort entries, else in the warp's shared
+// buffer) and sums them into its compact row of sums; a longer row is
+// sorted into entry order (ord) for launch 5 by a block, over a bitmap of
+// kOrderWords words (a window of 2^18 entry ids).
+constexpr int kOrderWords = 8192;
+
+template <int H, bool kWide>
+__global__ void __launch_bounds__(kThreads) rows_kernel(const Bpr a) {
+  __shared__ unsigned bits[kOrderWords + kOrderWords / 32];
+  __shared__ int bufs[kWarps][kWarpSort];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, d = a.d;
+  const int nru = a.users_sorted ? 0 : a.gu.meta[0], nri = a.gi.meta[0];
+  const int nlu = a.users_sorted ? 0 : a.gu.meta[1], nli = a.gi.meta[1];
+  for (int L = blockIdx.x; L < nlu + nli; L += gridDim.x) {
+    const bool item = L >= nlu;
+    const Grouping G = item ? a.gi : a.gu;
+    const int ri = G.longs[item ? L - nlu : L];
+    const int s0 = G.start[ri], m = G.start[ri + 1] - s0;
+    block_order<kOrderWords>(G.ids + s0, m, G.n, G.ord + s0, bits);
+  }
+  int* buf = bufs[warp];
+  for (int q = blockIdx.x * kWarps + warp; q < nru + nri; q += gridDim.x * kWarps) {
+    const bool item = q >= nru;
+    const Grouping G = item ? a.gi : a.gu;
+    const int ri = item ? q - nru : q;
+    const int s0 = G.start[ri], m = G.start[ri + 1] - s0;
+    if (m > kWarpSort) continue;  // sorted by a block above, summed in pieces
+    float* out = item ? a.res_i + (int64_t)ri * item_width(d)
+                      : a.res_u + (int64_t)ri * user_width(d);
+    auto store = [&](int c, float v) { out[c] = v; };
+    if (m > kShort) {
+      warp_sort_buffer(G.ids + s0, m, buf);
+      if (item)
+        item_sums<H, kWide>(
+            a, m,
+            [&](int b0, int n, int& e, int& u, int& wb) {
+              e = lane < n ? buf[b0 + lane] : 0;
+              const int2 ed = lane < n ? a.edat[e] : make_int2(0, 0);
+              u = ed.x;
+              wb = ed.y;
+            },
+            store);
+      else
+        user_sums<H, kWide>(a, m, [&](int i) { return buf[i]; }, store);
+      __syncwarp();  // the warp's buffer is refilled for its next row
       continue;
     }
-    if (!kWide) s = clip_scale(ss, cap);
+    if (!item) {
+      const int e = warp_sorted(G.ids + s0, m);
+      user_sums<H, kWide>(a, m, [&](int i) { return __shfl_sync(kFull, e, i); }, store);
+      continue;
+    }
+    const int2 py = lane < m ? a.pay[s0 + lane] : make_int2(0, 0);
+    int from;
+    const int e = warp_sorted_from(G.ids + s0, m, &from);
+    const int u = __shfl_sync(kFull, py.x, from), wb = __shfl_sync(kFull, py.y, from);
+    item_sums<H, kWide>(
+        a, m,
+        [&](int, int, int& fe, int& fu, int& fw) {
+          fe = e;
+          fu = u;
+          fw = wb;
+        },
+        store);
+  }
+}
+
+// out[0, W) = the sums of n partials stored by column (column c of partial
+// k at col[c * pmax + k]), each column summed by the warp: lane j adds
+// partials j, j + 32, ... in that order, then the lanes' sums meet in a
+// fixed butterfly; kCols columns at a time, so that their loads are in
+// flight together.
+__device__ __forceinline__ void sum_partials(const float* col, int64_t pmax, int n, int W,
+                                             float* out) {
+  constexpr int kCols = 8;
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < W; c0 += kCols) {
+    float v[kCols];
 #pragma unroll
-    for (int h = 0; h < kMaxH; ++h) {
-      const int c = c0 + lane + 32 * h;
-      if (c < d) t[c] += dl[h] * s;
+    for (int j = 0; j < kCols; ++j) v[j] = 0.f;
+    for (int k = lane; k < n; k += 32) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        if (c0 + j < W) v[j] += __ldcg(col + (int64_t)(c0 + j) * pmax + k);
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v[j] += __shfl_xor_sync(kFull, v[j], o);
+      if (lane == j && c0 + j < W) out[c0 + j] = v[j];
     }
   }
 }
 
-// One warp per user row: the sgd step of P (kStep), the accumulation into gP
-// (kAccumulate) or the step added into dP (kDelta).
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads)
-user_rows(int mode, int R, const int32_t* __restrict__ start,
-          const int32_t* __restrict__ run_start, const float* __restrict__ part, int d,
-          int neg_per, float lr, float reg_u, float cap, float* __restrict__ P,
-          float* __restrict__ gP, float* __restrict__ cP) {
-  const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const int n = start[r + 1] - start[r];
-  if (n == 0) return;
-  float sc[4];
-  const float rc = reg_u * (float)(n * neg_per);
-  row_update<kWide>(mode, r, run_start, part, d, d, lane, lr,
-                    [rc](const float(&)[4]) { return rc; }, cap, P, gP, sc);
-  if (mode == kAccumulate && cP && lane == 0) cP[r] += (float)n;
+// Launch 5: a warp per piece of kPiece entries of a row longer than kWarpSort
+// (in entry order, from launch 4), or of a presorted user run across
+// segments (kRunPiece consecutive slots from the run's start): its partial
+// sums, and the row's sums from its last piece, the partials in piece
+// order.
+template <int H, bool kWide>
+__global__ void __launch_bounds__(kThreads) pieces_kernel(const Bpr a) {
+  const int lane = threadIdx.x & 31, d = a.d;
+  const int npu = a.gu.meta[2], npi = a.gi.meta[2];
+  for (int q = blockIdx.x * kWarps + (int)(threadIdx.x >> 5); q < npu + npi;
+       q += gridDim.x * kWarps) {
+    const bool item = q >= npu;
+    const Grouping G = item ? a.gi : a.gu;
+    const int qs = item ? q - npu : q;
+    const int4 pd = G.pdesc[qs];
+    const int span = 2 * (!item && a.users_sorted ? kRunPiece : kPiece);  // add_pieces'
+    const int first = pd.x, np = pd.y / span, nb = pd.y % span, at = pd.z, x = pd.w;
+    // column c of the piece at part[c * pmax] (pieces of a row adjacent)
+    float* part = G.part + qs;
+    const int64_t pmax = G.pmax;
+    auto store = [&](int c, float v) { part[(int64_t)c * pmax] = v; };
+    if (!item) {  // a presorted run's slots, else the sorted entries
+      const int32_t* ord = G.ord + at;
+      if (a.users_sorted) user_sums<H, kWide>(a, nb, [&](int i) { return at + i; }, store);
+      else user_sums<H, kWide>(a, nb, [&](int i) { return ord[i]; }, store);
+    } else {
+      item_sums<H, kWide>(
+          a, nb,
+          [&](int s0, int n, int& e, int& u, int& wb) {
+            e = lane < n ? G.ord[at + s0 + lane] : 0;
+            const int2 ed = lane < n ? a.edat[e] : make_int2(0, 0);
+            u = ed.x;
+            wb = ed.y;
+          },
+          store);
+    }
+    __threadfence();  // this lane's partials before the count
+    __syncwarp();
+    int done = 0;
+    if (lane == 0) done = atomicAdd(&G.fin[first], 1);
+    if (__shfl_sync(kFull, done, 0) != np - 1) continue;  // not the last piece
+    __threadfence();
+    const int W = item ? item_width(d) : user_width(d);
+    sum_partials(G.part + first, pmax, np, W, (item ? a.res_i : a.res_u) + (int64_t)x * W);
+  }
 }
 
-// One warp per item row: the sgd step of Q and Qb (kStep), the accumulation
-// (kAccumulate), or the steps of Q and of Qb's positive side added into dQ
-// and dQb (kDelta; the negative side follows in bias_neg_rows, after the
-// positive side's delta has been applied).
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads)
-item_rows(int mode, int R, const int32_t* __restrict__ start,
-          const int32_t* __restrict__ run_start, const float* __restrict__ part, int d,
-          int neg_per, float lr, float reg_i, float reg_j, float reg_b, float cap, int use_bias,
-          int upd_i, int upd_j, float* __restrict__ Q, float* __restrict__ Qb,
-          float* __restrict__ gQ, float* __restrict__ gQb, float* __restrict__ cQ) {
-  const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= R) return;
-  if (start[r + 1] == start[r]) return;
-  float sc[4];
-  // the reg factor from the counts, the scalars past the row's sums
-  const float ri = upd_i ? reg_i * (float)neg_per : 0.f, rj = upd_j ? reg_j : 0.f;
-  row_update<kWide>(mode, r, run_start, part, d, d + 4, lane, lr,
-                    [=](const float(&x)[4]) {
-                      return (upd_i ? ri * x[2] : 0.f) + (upd_j ? rj * x[3] : 0.f);
-                    },
-                    cap, Q, gQ, sc);
-  const float lpos = sc[0], lneg = sc[1], cpos = sc[2], cneg = sc[3];
-  if (lane != 0) return;
+// Row t's epilogue from its sums s (columns below d) and reg factor rc:
+// the sgd step t += clip(lr (s - rc t)) (kStep), the accumulation o += s
+// (kAccumulate) or the unclipped step added into o (kDelta).  The clip's
+// norm is summed lane by lane, then across the warp.
+__device__ __forceinline__ void row_epilogue(int mode, const float* s, int d, float lr, float rc,
+                                             float cap, float* t, float* o) {
+  const int lane = threadIdx.x & 31;
   if (mode == kAccumulate) {
-    if (use_bias) gQb[r] += (upd_i ? lpos : 0.f) - (upd_j ? lneg : 0.f);
-    if (cQ) cQ[r] += cpos + cneg;
+    for (int c = lane; c < d; c += 32) o[c] += __ldcg(s + c);
     return;
   }
-  if (!use_bias) return;
   if (mode == kDelta) {
-    if (upd_i) gQb[r] += lr * (lpos - reg_b * (float)neg_per * cpos * Qb[r]);
+    for (int c = lane; c < d; c += 32) o[c] += lr * (__ldcg(s + c) - rc * t[c]);
     return;
   }
-  float b = Qb[r];
-  if (upd_i) {
-    float db = lr * (lpos - reg_b * (float)neg_per * cpos * b);
-    if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
-    b += db;
+  float scale = 1.f;
+  if (cap > 0.f) {
+    float ss = 0.f;
+    for (int c = lane; c < d; c += 32) {
+      const float dl = lr * (__ldcg(s + c) - rc * t[c]);
+      ss = fmaf(dl, dl, ss);
+    }
+    scale = fminf(1.f, cap / fmaxf(sqrtf(warp_sum(ss)), 1e-12f));
   }
-  if (upd_j) {
-    float db = lr * (-lneg - reg_b * cneg * b);
-    if (cap > 0.f) db = fminf(fmaxf(db, -cap), cap);
-    b += db;
-  }
-  Qb[r] = b;
+  for (int c = lane; c < d; c += 32) t[c] += lr * (__ldcg(s + c) - rc * t[c]) * scale;
 }
 
-// One thread per item row: the negative side's bias step, -lr (sum of the
-// row's negative logits + reg_b count Qb), added into dQb; Qb is read after
-// the positive side's delta has been applied (the delta path's second
-// launch).
-__global__ void __launch_bounds__(kThreads)
-bias_neg_rows(int R, const int32_t* __restrict__ start, const int32_t* __restrict__ run_start,
-              const float* __restrict__ part, int d, float lr, float reg_b,
-              const float* __restrict__ Qb, float* __restrict__ dQb) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= R || start[r + 1] == start[r]) return;
-  float lneg = 0.f, cneg = 0.f;
-  for (int q = run_start[r]; q < run_start[r + 1]; ++q) {
-    lneg += part[(int64_t)q * (d + 4) + d + 1];
-    cneg += part[(int64_t)q * (d + 4) + d + 3];
+// Launch 6: a warp per touched user row, then per touched item row.
+__global__ void __launch_bounds__(kThreads) epilogue_kernel(const Bpr a) {
+  const int lane = threadIdx.x & 31, d = a.d;
+  const int nu = a.gu.meta[0], ni = a.gi.meta[0];
+  for (int q = blockIdx.x * kWarps + (int)(threadIdx.x >> 5); q < nu + ni;
+       q += gridDim.x * kWarps) {
+    if (q < nu) {
+      const int r = a.gu.row[q];
+      const float* s = a.res_u + (int64_t)q * user_width(d);
+      const float n = __ldcg(s + d);
+      const int64_t o = (int64_t)r * d;
+      row_epilogue(a.mode, s, d, a.lr, a.reg_u * (float)a.neg_per * n, a.cap, a.P + o,
+                   a.gP ? a.gP + o : nullptr);
+      if (a.mode == kAccumulate && a.cP && lane == 0) a.cP[r] += n;
+      continue;
+    }
+    const int ri = q - nu, r = a.gi.row[ri];
+    const float* s = a.res_i + (int64_t)ri * item_width(d);
+    const float lpos = __ldcg(s + d), lneg = __ldcg(s + d + 1), cpos = __ldcg(s + d + 2),
+                cneg = __ldcg(s + d + 3);
+    const float rc = (a.upd_i ? a.reg_i * (float)a.neg_per * cpos : 0.f) +
+                     (a.upd_j ? a.reg_j * cneg : 0.f);
+    const int64_t o = (int64_t)r * d;
+    row_epilogue(a.mode, s, d, a.lr, rc, a.cap, a.Q + o, a.gQ ? a.gQ + o : nullptr);
+    if (lane != 0) continue;
+    if (a.mode == kAccumulate) {
+      if (a.use_bias) a.gQb[r] += (a.upd_i ? lpos : 0.f) - (a.upd_j ? lneg : 0.f);
+      if (a.cQ) a.cQ[r] += cpos + cneg;
+      continue;
+    }
+    if (!a.use_bias) continue;
+    if (a.mode == kDelta) {
+      if (a.upd_i) a.gQb[r] += a.lr * (lpos - a.reg_b * (float)a.neg_per * cpos * a.Qb[r]);
+      continue;
+    }
+    float b = a.Qb[r];
+    if (a.upd_i) {
+      float db = a.lr * (lpos - a.reg_b * (float)a.neg_per * cpos * b);
+      if (a.cap > 0.f) db = fminf(fmaxf(db, -a.cap), a.cap);
+      b += db;
+    }
+    if (a.upd_j) {
+      float db = a.lr * (-lneg - a.reg_b * cneg * b);
+      if (a.cap > 0.f) db = fminf(fmaxf(db, -a.cap), a.cap);
+      b += db;
+    }
+    a.Qb[r] = b;
   }
-  if (cneg > 0.f) dQb[r] += lr * (-lneg - reg_b * cneg * Qb[r]);
+}
+
+// The delta path's second launch: a thread per touched item row, the
+// negative side's bias step -lr (the row's negative logit sum + reg_b
+// count Qb), added into dQb; Qb is read after the positive side's delta
+// has been applied.
+__global__ void __launch_bounds__(kThreads)
+bias_neg_kernel(const Bpr a, const float* __restrict__ Qb, float* __restrict__ dQb) {
+  const int ni = a.gi.meta[0], d = a.d;
+  for (int ri = blockIdx.x * kThreads + threadIdx.x; ri < ni; ri += gridDim.x * kThreads) {
+    const float* s = a.res_i + (int64_t)ri * item_width(d);
+    const float cneg = s[d + 3];
+    if (cneg > 0.f) {
+      const int r = a.gi.row[ri];
+      dQb[r] += a.lr * (-s[d + 1] - a.reg_b * cneg * Qb[r]);
+    }
+  }
 }
 
 // Mean log(1 + exp(-x)) over n triplets: one block, warp w takes triplets w,
@@ -389,94 +642,133 @@ loss_kernel(const int32_t* __restrict__ users, const int32_t* __restrict__ pos,
 }
 
 // ------------------------------------------------------------- host side
-// Carves the workspace: fills the sides and the logits when ibase/fbase are
-// given, returns the int32 and float32 words needed.
-void layout(int N, int neg_per, int U, int I, int d, int32_t* ibase, float* fbase, Side& su,
-            Side& si, float** logit, int64_t* isz, int64_t* fsz) {
+// The workspace: int32 words (the piece descriptors, then the zeroed
+// prefix: the scans' status words, both groupings' counters, the finisher
+// counts, the item then the user hash table; then the groupings' arrays and
+// the item entries' data) and float32 words (the logits, the rows' sums,
+// the pieces' partials).
+struct Layout {
+  int64_t ints, floats;
+  int64_t zero_begin, zero_sorted, zero_any;  // the zeroed words [begin, end)
+};
+
+Layout layout(int N, int neg_per, int U, int I, int d, int32_t* ib, float* fb, Bpr* a) {
   int64_t io = 0, fo = 0;
   auto ints = [&](int64_t m) {
-    int32_t* p = ibase ? ibase + io : nullptr;
+    int32_t* p = ib ? ib + io : nullptr;
     io += m;
     return p;
   };
   auto floats = [&](int64_t m) {
-    float* p = fbase ? fbase + fo : nullptr;
+    float* p = fb ? fb + fo : nullptr;
     fo += m;
     return p;
   };
   const int64_t B = (int64_t)N * neg_per;
-  *logit = floats(B);
-  carve_side(su, N, U, d, ints, floats);
-  carve_side(si, (int)(N + B), I, d + 4, ints, floats);
-  *isz = io;
-  *fsz = fo;
+  const int ni = (int)(N + B), nseg = (N + kSeg - 1) / kSeg;
+  const int64_t hi = hash_size(ni, I), hu = hash_size(N, U);
+  Grouping gi{}, gu{};
+  gi.nlong = max_long_rows(ni);
+  // the user side's long rows, or a presorted side's runs across segments
+  // (at most one starts in each segment)
+  gu.nlong = max_long_rows(N) > nseg ? max_long_rows(N) : nseg;
+  gi.pmax = max_pieces<kPiece>(ni) + gi.nlong;
+  gu.pmax = max_pieces<kRunPiece>(N) + gu.nlong;  // the larger of both sides' pieces
+  // the 16-byte piece descriptors, then the scans' 8-byte status words, at
+  // the workspace's aligned start
+  gi.pdesc = reinterpret_cast<int4*>(ints(4 * gi.pmax));
+  gu.pdesc = reinterpret_cast<int4*>(ints(4 * gu.pmax));
+  Layout L{};
+  L.zero_begin = io;
+  auto words = [&](int cap) {
+    return reinterpret_cast<unsigned long long*>(ints(2 * (int64_t)scan_tiles(cap)));
+  };
+  gi.status = words(ni < I ? ni : I);
+  gu.status = words(N < U ? N : U);
+  gu.meta = ints(4);
+  gi.meta = ints(4);
+  gi.fin = ints(gi.pmax);
+  gu.fin = ints(gu.pmax);
+  gi.hash = ints(2 * hi);
+  L.zero_sorted = io;
+  gu.hash = ints(2 * hu);
+  L.zero_any = io;
+  auto carve = [&](Grouping& G, int n, int rows, int64_t H) {
+    G.n = n;
+    G.cap = n < rows ? n : rows;
+    G.mask = (unsigned)(H - 1);
+    G.slot = ints(n);
+    G.row = ints(G.cap);
+    G.hslot = ints(G.cap);
+    G.start = ints((int64_t)G.cap + 1);
+    G.longs = ints(G.nlong);
+    G.ids = ints(n);
+    G.ord = ints(n);
+  };
+  carve(gi, ni, I, hi);
+  carve(gu, N, U, hu);
+  io += io & 1;  // the 8-byte entry data
+  int2* edat = reinterpret_cast<int2*>(ints(2 * (int64_t)ni));
+  int2* pay = reinterpret_cast<int2*>(ints(2 * (int64_t)ni));
+  float* logit = floats(B);
+  float* res_u = floats((int64_t)gu.cap * user_width(d));
+  float* res_i = floats((int64_t)gi.cap * item_width(d));
+  gu.part = floats(gu.pmax * user_width(d));
+  gi.part = floats(gi.pmax * item_width(d));
+  L.ints = io;
+  L.floats = fo;
+  if (a) {
+    a->gi = gi;
+    a->gu = gu;
+    a->edat = edat;
+    a->pay = pay;
+    a->logit = logit;
+    a->res_u = res_u;
+    a->res_i = res_i;
+    a->nseg = nseg;
+  }
+  return L;
 }
 
-// Keys, the stable sort by row, the row counts and starts of one side.
-cudaError_t group_side(Side& x, int item_side, const int32_t* users, const int32_t* pos,
-                       const int32_t* neg, int N, int neg_per, int n_valid, cudaStream_t st) {
-  x.sorted = 0;
-  if (x.n == 0) return cudaSuccess;
-  make_keys<<<(x.n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      item_side, users, pos, neg, N, neg_per, n_valid, x.R, x.n, x.key[0], x.idx[0]);
-  CHECK_LAUNCH();
-  return sort_side(x, false, st);
-}
-
-// The shared front of every mode: logits, both sides grouped and summed in
-// runs (all reads of the snapshot happen here).
-template <bool kWide>
-cudaError_t front(const int32_t* users, const int32_t* pos, const int32_t* neg, const float* P,
-                  const float* Q, const float* Qb, int N, int neg_per, int n_valid, int U, int I,
-                  int d, int use_bias, int upd_i, int upd_j, int32_t* ws_i, float* ws_f,
-                  Side& su, Side& si, cudaStream_t st) {
-  float* logit;
-  int64_t isz, fsz;
-  layout(N, neg_per, U, I, d, ws_i, ws_f, su, si, &logit, &isz, &fsz);
-  const int64_t B = (int64_t)N * neg_per;
-  forward_kernel<<<warps_grid(B), kThreads, 0, st>>>(users, pos, neg, B, neg_per, n_valid, P, Q,
-                                                     Qb, I, d, use_bias, logit);
-  CHECK_LAUNCH();
-  cudaError_t err = group_side(su, 0, users, pos, neg, N, neg_per, n_valid, st);
+template <int H, bool kWide>
+cudaError_t launch(Bpr& a, const Layout& L, int32_t* ws_i, cudaStream_t st) {
+  cudaError_t err = cudaMemsetAsync(
+      ws_i + L.zero_begin, 0,
+      sizeof(int32_t) * ((a.users_sorted ? L.zero_sorted : L.zero_any) - L.zero_begin), st);
   if (err != cudaSuccess) return err;
-  err = group_side(si, 1, users, pos, neg, N, neg_per, n_valid, st);
-  if (err != cudaSuccess) return err;
-  user_runs<kWide><<<warps_grid(su.max_runs), kThreads, 0, st>>>(
-      su.idx[su.sorted], su.R, su.start, su.run_start, pos, neg, neg_per, logit, Q, I, d,
-      su.part);
+  a.nb_seg = (a.nseg + kWarps - 1) / kWarps;
+  a.nb_u = a.users_sorted ? 0 : (a.N + kThreads - 1) / kThreads;
+  a.nb_i = (a.gi.n + kThreads - 1) / kThreads;
+  segment_kernel<H, kWide><<<a.nb_seg, kThreads, 0, st>>>(a);
   CHECK_LAUNCH();
-  item_runs<kWide><<<warps_grid(si.max_runs), kThreads, 0, st>>>(
-      si.idx[si.sorted], si.R, si.start, si.run_start, users, N, neg_per, logit, P, d, upd_i,
-      upd_j, si.part);
+  a.nt_u = a.users_sorted ? 0 : scan_tiles(a.gu.cap);
+  a.nt_i = scan_tiles(a.gi.cap);
+  scan_kernel<<<a.nt_u + a.nt_i, kScanThreads, 0, st>>>(a);
   CHECK_LAUNCH();
-  return cudaSuccess;
+  place_kernel<<<a.nb_u + a.nb_i, kThreads, 0, st>>>(a);
+  CHECK_LAUNCH();
+  auto grid = [](int64_t warps) {
+    const int64_t blocks = (warps + kWarps - 1) / kWarps;
+    return (unsigned)(blocks < 1 ? 1 : blocks < kRowBlocks ? blocks : kRowBlocks);
+  };
+  // all of L1 as shared memory, so that as many blocks as it holds share
+  // an SM (once per instantiation)
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      rows_kernel<H, kWide>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return carveout;
+  rows_kernel<H, kWide><<<grid((a.users_sorted ? 0 : (int64_t)a.gu.cap) + a.gi.cap),
+                          kThreads, 0, st>>>(a);
+  CHECK_LAUNCH();
+  pieces_kernel<H, kWide><<<grid(a.gu.pmax + a.gi.pmax), kThreads, 0, st>>>(a);
+  CHECK_LAUNCH();
+  epilogue_kernel<<<grid((int64_t)a.gu.cap + a.gi.cap), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
-// The front, then both sides' row kernels in mode `mode`: the tables' sgd
-// step, the accumulation into (gP, gQ, gQb, cP, cQ) or the deltas into (gP,
-// gQ, gQb) = (dP, dQ, dQb).
-template <bool kWide>
-int run(int mode, const int32_t* users, const int32_t* pos, const int32_t* neg, float* P,
-        float* Q, float* Qb, int N, int neg_per, int n_valid, int U, int I, int d, float lr,
-        float reg_u, float reg_i, float reg_j, float reg_b, float cap, int use_bias, int upd_i,
-        int upd_j, float* gP, float* gQ, float* gQb, float* cP, float* cQ, int32_t* ws_i,
-        float* ws_f, cudaStream_t st) {
-  Side su, si;
-  cudaError_t err = front<kWide>(users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d,
-                                 use_bias, upd_i, upd_j, ws_i, ws_f, su, si, st);
-  if (err != cudaSuccess) return (int)err;
-  user_rows<kWide><<<warps_grid(U), kThreads, 0, st>>>(mode, U, su.start, su.run_start, su.part,
-                                                       d, neg_per, lr, reg_u, cap, P, gP, cP);
-  CHECK_LAUNCH();
-  item_rows<kWide><<<warps_grid(I), kThreads, 0, st>>>(mode, I, si.start, si.run_start, si.part,
-                                                       d, neg_per, lr, reg_i, reg_j, reg_b, cap,
-                                                       use_bias, upd_i, upd_j, Q, Qb, gQ, gQb,
-                                                       cQ);
-  return (int)cudaGetLastError();
-}
-
-// The row kernels hold a row in registers up to kChunk columns (narrow);
-// wider rows take the wide instantiation, which walks them in chunks.
+// The sums hold a row in registers, H columns per lane: d <= 64 takes H =
+// 2, d <= kChunk H = 8 (narrow); wider rows take the wide instantiation,
+// which walks them in kChunk-column chunks.
 bool wide(int d) { return d > kChunk; }
 
 bool bad_args(int N, int neg_per, int U, int I, int d) {
@@ -484,77 +776,129 @@ bool bad_args(int N, int neg_per, int U, int I, int d) {
          (int64_t)N * (neg_per + 1) >= (1LL << 31);
 }
 
+Bpr make(int mode, const int32_t* users, const int32_t* pos, const int32_t* neg, const float* P,
+         const float* Q, const float* Qb, int N, int neg_per, int n_valid, int U, int I, int d,
+         int use_bias, int upd_i, int upd_j, int users_sorted) {
+  Bpr a{};
+  a.mode = mode;
+  a.users = users;
+  a.pos = pos;
+  a.neg = neg;
+  a.P = const_cast<float*>(P);
+  a.Q = const_cast<float*>(Q);
+  a.Qb = const_cast<float*>(Qb);
+  a.N = N;
+  a.neg_per = neg_per;
+  a.n_valid = n_valid < 0 ? 0 : n_valid > N ? N : n_valid;
+  a.U = U;
+  a.I = I;
+  a.d = d;
+  a.vec4 = d % 4 == 0 && ((reinterpret_cast<uintptr_t>(P) | reinterpret_cast<uintptr_t>(Q)) & 15) == 0;
+  a.use_bias = use_bias;
+  a.upd_i = upd_i;
+  a.upd_j = upd_j;
+  a.users_sorted = users_sorted;
+  return a;
+}
+
+int run(Bpr& a, int32_t* ws_i, float* ws_f, void* stream) {
+  const Layout L = layout(a.N, a.neg_per, a.U, a.I, a.d, ws_i, ws_f, &a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (wide(a.d)) return (int)launch<8, true>(a, L, ws_i, st);
+  return (int)(a.d <= 64 ? launch<2, false>(a, L, ws_i, st) : launch<8, false>(a, L, ws_i, st));
+}
+
 }  // namespace
 
 // sizes[0]: int32 words, sizes[1]: float32 words of the workspace.
 extern "C" int bpr_workspace(int N, int neg_per, int U, int I, int d, int64_t* sizes) {
-  Side su, si;
-  float* logit;
-  layout(N, neg_per, U, I, d, nullptr, nullptr, su, si, &logit, &sizes[0], &sizes[1]);
+  const Layout L = layout(N, neg_per, U, I, d, nullptr, nullptr, nullptr);
+  sizes[0] = L.ints;
+  sizes[1] = L.floats;
   return 0;
 }
 
-// 1 when rows of d floats take the wide instantiation of the row kernels.
+// 1 when rows of d floats take the wide instantiation of the sums.
 extern "C" int bpr_wide(int d) { return wide(d) ? 1 : 0; }
 
-#define BPR_RUN(...) (wide(d) ? run<true>(__VA_ARGS__) : run<false>(__VA_ARGS__))
-
+// users_sorted (here and below): users[0, n_valid) ascend (a resident
+// chunk), so each user's slots are one run, summed where they lie.
 extern "C" int bpr_update(const int32_t* users, const int32_t* pos, const int32_t* neg, float* P,
                           float* Q, float* Qb, int N, int neg_per, int n_valid, int U, int I,
                           int d, float lr, float reg_u, float reg_i, float reg_j, float reg_b,
-                          float cap, int use_bias, int upd_i, int upd_j, int32_t* ws_i,
-                          float* ws_f, void* stream) {
+                          float cap, int use_bias, int upd_i, int upd_j, int users_sorted,
+                          int32_t* ws_i, float* ws_f, void* stream) {
   if (N == 0) return 0;
   if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
-  return BPR_RUN(kStep, users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, lr, reg_u, reg_i,
-                 reg_j, reg_b, cap, use_bias, upd_i, upd_j, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, ws_i, ws_f, (cudaStream_t)stream);
+  Bpr a = make(kStep, users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, use_bias, upd_i,
+               upd_j, users_sorted);
+  a.lr = lr;
+  a.reg_u = reg_u;
+  a.reg_i = reg_i;
+  a.reg_j = reg_j;
+  a.reg_b = reg_b;
+  a.cap = cap;
+  return run(a, ws_i, ws_f, stream);
 }
 
 extern "C" int bpr_accumulate(const int32_t* users, const int32_t* pos, const int32_t* neg,
                               const float* P, const float* Q, const float* Qb, int N, int neg_per,
                               int n_valid, int U, int I, int d, float* gP, float* gQ, float* gQb,
                               float* cP, float* cQ, int use_bias, int upd_i, int upd_j, int pcn,
-                              int32_t* ws_i, float* ws_f, void* stream) {
+                              int users_sorted, int32_t* ws_i, float* ws_f, void* stream) {
   if (N == 0) return 0;
   if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
-  return BPR_RUN(kAccumulate, users, pos, neg, const_cast<float*>(P), const_cast<float*>(Q),
-                 const_cast<float*>(Qb), N, neg_per, n_valid, U, I, d, 0.f, 0.f, 0.f, 0.f, 0.f,
-                 0.f, use_bias, upd_i, upd_j, gP, gQ, gQb, pcn ? cP : nullptr, pcn ? cQ : nullptr,
-                 ws_i, ws_f, (cudaStream_t)stream);
+  Bpr a = make(kAccumulate, users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, use_bias,
+               upd_i, upd_j, users_sorted);
+  a.gP = gP;
+  a.gQ = gQ;
+  a.gQb = gQb;
+  a.cP = pcn ? cP : nullptr;
+  a.cQ = pcn ? cQ : nullptr;
+  return run(a, ws_i, ws_f, stream);
 }
 
 // The delta path (a mesh shard's sgd chunk): the sgd step's unclipped row
 // sums added into dP, dQ and (with the bias and update_i) the positive
 // side's bias step into dQb; the tables are read, not written.  The
-// workspace keeps the item side's groups for bpr_delta_bias_neg.
+// workspace keeps the item rows' sums for bpr_delta_bias_neg.
 extern "C" int bpr_delta(const int32_t* users, const int32_t* pos, const int32_t* neg,
                          const float* P, const float* Q, const float* Qb, int N, int neg_per,
                          int n_valid, int U, int I, int d, float lr, float reg_u, float reg_i,
                          float reg_j, float reg_b, int use_bias, int upd_i, int upd_j, float* dP,
-                         float* dQ, float* dQb, int32_t* ws_i, float* ws_f, void* stream) {
+                         float* dQ, float* dQb, int users_sorted, int32_t* ws_i, float* ws_f,
+                         void* stream) {
   if (N == 0) return 0;
   if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
-  return BPR_RUN(kDelta, users, pos, neg, const_cast<float*>(P), const_cast<float*>(Q),
-                 const_cast<float*>(Qb), N, neg_per, n_valid, U, I, d, lr, reg_u, reg_i, reg_j,
-                 reg_b, 0.f, use_bias, upd_i, upd_j, dP, dQ, dQb, nullptr, nullptr, ws_i, ws_f,
-                 (cudaStream_t)stream);
+  Bpr a = make(kDelta, users, pos, neg, P, Q, Qb, N, neg_per, n_valid, U, I, d, use_bias, upd_i,
+               upd_j, users_sorted);
+  a.lr = lr;
+  a.reg_u = reg_u;
+  a.reg_i = reg_i;
+  a.reg_j = reg_j;
+  a.reg_b = reg_b;
+  a.gP = dP;
+  a.gQ = dQ;
+  a.gQb = dQb;
+  return run(a, ws_i, ws_f, stream);
 }
 
 // The delta path's second launch: the negative side's bias step, from the
-// same chunk's item groups (the workspace of its bpr_delta call) and Qb as
-// it stands after the positive side's delta, added into dQb.
+// same chunk's item rows (the workspace of its bpr_delta call) and Qb as it
+// stands after the positive side's delta, added into dQb.
 extern "C" int bpr_delta_bias_neg(int N, int neg_per, int U, int I, int d, float lr, float reg_b,
                                   const float* Qb, float* dQb, int32_t* ws_i, float* ws_f,
                                   void* stream) {
   if (N == 0) return 0;
   if (bad_args(N, neg_per, U, I, d)) return (int)cudaErrorInvalidValue;
-  Side su, si;
-  float* logit;
-  int64_t isz, fsz;
-  layout(N, neg_per, U, I, d, ws_i, ws_f, su, si, &logit, &isz, &fsz);
-  bias_neg_rows<<<(I + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      I, si.start, si.run_start, si.part, d, lr, reg_b, Qb, dQb);
+  Bpr a{};
+  a.d = d;
+  a.lr = lr;
+  a.reg_b = reg_b;
+  layout(N, neg_per, U, I, d, ws_i, ws_f, &a);
+  const int64_t blocks = ((int64_t)a.gi.cap + kThreads - 1) / kThreads;
+  bias_neg_kernel<<<(unsigned)(blocks < kRowBlocks ? blocks : kRowBlocks), kThreads, 0,
+                    (cudaStream_t)stream>>>(a, Qb, dQb);
   return (int)cudaGetLastError();
 }
 

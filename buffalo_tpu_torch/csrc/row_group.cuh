@@ -1,5 +1,6 @@
-// Grouping of a chunk's entries by table row, shared by the chunk kernels
-// (K9 csrc/bpr_update.cu, K12 csrc/warp_accumulate.cu): a stable LSD radix
+// Grouping of a chunk's entries by table row (K20 csrc/w2v_row_apply.cu,
+// K15 csrc/plsi_estep.cu; K9 and K12 group by touched rows instead,
+// csrc/touched_rows.cuh): a stable LSD radix
 // sort of (row key, entry id) pairs (8-bit digits, integer shared-memory
 // histograms per tile of kTile entries, their offsets by a three-launch
 // parallel scan, one warp per tile placing its entries in order), the row

@@ -1,5 +1,6 @@
 // Grouping of a chunk's entries by the table rows they touch, sized by the
-// entries and never by the table (K12 csrc/warp_accumulate.cu):
+// entries and never by the table (K12 csrc/warp_accumulate.cu, K9
+// csrc/bpr_update.cu):
 //  1. count: each live entry's row goes into an open-addressing hash table
 //     of H = 2^k >= 2 min(entries, rows) slots (key + 1, count; zeroed by the
 //     caller), the first entry of a row appending it to a compact list of
@@ -33,6 +34,17 @@ constexpr int kShort = 32;          // longest row summed by one warp at once;
                                     // longer rows are summed in pieces of kShort
 constexpr int kWarpSort = 256;      // longest row a warp sorts alone
 constexpr int kWinWords = 2048;     // a long row's bitmap window (65,536 ids)
+constexpr int kMaxH = 8;            // columns per lane of one column chunk
+constexpr int kChunk = 32 * kMaxH;  // a warp's columns per pass
+constexpr int kSeg = 32;            // slots per warp on a presorted side
+constexpr int kRowBlocks = 1024;    // most blocks of the row sums
+
+// The column chunks of a row of d floats: one pass at offset 0 for the
+// narrow instantiation (d <= kChunk), else ceil(d / kChunk) passes.
+template <bool kWide>
+__device__ __forceinline__ int chunk_end(int d) {
+  return kWide ? d : 1;
+}
 
 #define CHECK_LAUNCH()                         \
   do {                                         \
@@ -46,29 +58,34 @@ struct Grouping {
   int cap;        // most touched rows: min(n, rows of the table)
   unsigned mask;  // H - 1
   int32_t* hash;  // [2 H]: key + 1, then count (later the cursor); zeroed
-  int32_t* meta;  // [4]: touched rows, rows longer than kShort, their
+  int32_t* meta;  // [4]: touched rows, long rows (scan_rows' kLong), their
                   // pieces, scan tiles begun; zeroed
   unsigned long long* status;  // [tiles]: a scan tile's published sum; zeroed
   int32_t* slot;  // [n]: the entry's hash slot, -1 for a dead entry
   int32_t* row;   // [cap]: the compact row's table row
   int32_t* hslot; // [cap]: the compact row's hash slot
   int32_t* start; // [cap + 1]
-  int32_t* longs; // [nlong]: compact rows longer than kShort
-  int4* pdesc;    // [pmax]: per piece its row's first piece, (its row's
-                  // pieces) * 64 + its entries, its first entry's place in
-                  // ord (or slot), the table row
+  int32_t* longs; // [nlong]: the long compact rows
+  int4* pdesc;    // [pmax]: per piece (add_pieces) its row's first piece,
+                  // (its row's pieces) * 2 kPiece + its entries, its first
+                  // entry's place in ord (or slot), the table (or compact)
+                  // row
   int32_t* fin;   // [pmax]: pieces done per row, at its first piece; zeroed
   int32_t* ids;   // [n]: the entries placed by row
   int32_t* ord;   // [n]: the long rows' entries in ascending order
-  float* part;    // [d + 1][pmax]: the long rows' piece partials by column
+  float* part;    // [W][pmax]: the long rows' piece partials by column
+                  // (W = d + 1 for K12)
   int64_t pmax;   // most pieces
-  int nlong;      // most rows longer than kShort
+  int nlong;      // most long rows
 };
 
-// Most rows longer than kShort among n entries, and most pieces of kShort
+// Most rows longer than kShort among n entries, and most pieces of kPiece
 // entries they hold.
 inline int max_long_rows(int n) { return n / (kShort + 1) + 1; }
-inline int64_t max_pieces(int n) { return (int64_t)n / kShort + max_long_rows(n); }
+template <int kPiece = kShort>
+inline int64_t max_pieces(int n) {
+  return (int64_t)n / kPiece + max_long_rows(n);
+}
 // Scan tiles of `cap` compact rows at most.
 inline int scan_tiles(int cap) { return (cap + kTileRows - 1) / kTileRows + 1; }
 
@@ -103,12 +120,17 @@ __device__ __forceinline__ void count_entry(const Grouping& G, int e, int key) {
   if (key >= 0) {
     unsigned h = mix32((unsigned)key) & G.mask;
     for (;;) {
-      const int old = atomicCAS(&G.hash[2 * (int64_t)h], 0, key + 1);
+      // a slot that holds a key is read, not swapped: a hot row's entries
+      // do not queue on one atomic
+      int old = __ldcg(&G.hash[2 * (int64_t)h]);
       if (old == 0) {
-        const int r = atomicAdd(&G.meta[0], 1);
-        G.row[r] = key;
-        G.hslot[r] = (int)h;
-        break;
+        old = atomicCAS(&G.hash[2 * (int64_t)h], 0, key + 1);
+        if (old == 0) {
+          const int r = atomicAdd(&G.meta[0], 1);
+          G.row[r] = key;
+          G.hslot[r] = (int)h;
+          break;
+        }
       }
       if (old == key + 1) break;
       h = (h + 1) & G.mask;
@@ -121,8 +143,10 @@ __device__ __forceinline__ void count_entry(const Grouping& G, int e, int key) {
     atomicAdd(&G.hash[2 * (int64_t)s + 1], __popc(peers));
 }
 
-// Step 3 for one entry per lane (e -1: none), every lane calling.
-__device__ __forceinline__ void place_entry(const Grouping& G, int e) {
+// Step 3 for one entry per lane (e -1: none), every lane calling; put(at,
+// e) places whatever goes beside the id at ids[at].
+template <class Put>
+__device__ __forceinline__ void place_entry(const Grouping& G, int e, Put put) {
   const int s = e >= 0 ? G.slot[e] : -1;
   const unsigned peers = __match_any_sync(kFull, s);
   const int leader = __ffs(peers) - 1;
@@ -130,7 +154,15 @@ __device__ __forceinline__ void place_entry(const Grouping& G, int e) {
   if (s >= 0 && (threadIdx.x & 31) == leader)
     base = atomicAdd(&G.hash[2 * (int64_t)s + 1], __popc(peers));
   base = __shfl_sync(kFull, base, leader);
-  if (s >= 0) G.ids[base + __popc(peers & lanes_below())] = e;
+  if (s >= 0) {
+    const int at = base + __popc(peers & lanes_below());
+    G.ids[at] = e;
+    put(at, e);
+  }
+}
+
+__device__ __forceinline__ void place_entry(const Grouping& G, int e) {
+  place_entry(G, e, [](int, int) {});
 }
 
 // Exclusive scan of one value per thread of a block of kT threads, in
@@ -164,18 +196,23 @@ __device__ __forceinline__ int block_scan(int v, int* wsum, int* total) {
   return r;
 }
 
-// The np pieces of kShort entries of a row of m entries from place `at`
-// (table row r), described from piece `first` on.
+// The np pieces of kPiece entries of a row of m entries from place `at`
+// (table row r), described from piece `first` on: (first, np 2 kPiece +
+// the piece's entries, its first place, r).
+template <int kPiece = kShort>
 __device__ __forceinline__ void add_pieces(const Grouping& G, int first, int np, int m, int at,
                                            int r) {
   for (int q = 0; q < np; ++q)
     G.pdesc[first + q] =
-        make_int4(first, np * 64 + min(kShort, m - q * kShort), at + q * kShort, r);
+        make_int4(first, np * 2 * kPiece + min(kPiece, m - q * kPiece), at + q * kPiece, r);
 }
 
 // Step 2: one tile of kTileRows compact rows per block of kScanThreads
 // threads, tiles taken in the order the blocks start (so a tile's
-// predecessors are running or done, and waiting on them ends).
+// predecessors are running or done, and waiting on them ends).  A row
+// longer than kLong entries is listed, and its pieces (of kPiece entries)
+// name its table row, or with kByIndex its compact row.
+template <bool kByIndex = false, int kPiece = kShort, int kLong = kShort>
 __device__ __forceinline__ void scan_rows(const Grouping& G) {
   __shared__ int wsum[33];
   __shared__ int tile, prefix;
@@ -221,13 +258,31 @@ __device__ __forceinline__ void scan_rows(const Grouping& G) {
     if (i >= nr) continue;
     G.start[i] = run;
     G.hash[2 * (int64_t)hs[v] + 1] = run;
-    if (c[v] > kShort) {  // a long row and its range of pieces
-      const int np = (c[v] + kShort - 1) / kShort;
+    if (c[v] > kLong) {  // a long row and its range of pieces
+      const int np = (c[v] + kPiece - 1) / kPiece;
       G.longs[atomicAdd(&G.meta[1], 1)] = i;
-      add_pieces(G, atomicAdd(&G.meta[2], np), np, c[v], run, G.row[i]);
+      add_pieces<kPiece>(G, atomicAdd(&G.meta[2], np), np, c[v], run, kByIndex ? i : G.row[i]);
     }
     run += c[v];
   }
+}
+
+// The end of the run of key u from entry lo (keys ascending, keys[lo] ==
+// u): the first entry in [lo, hi) past it, or hi; a 32-way search by the
+// warp.
+__device__ __forceinline__ int run_end(const int32_t* __restrict__ keys, int u, int lo, int hi) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const int x = lo + lane * step;
+    const unsigned m = __ballot_sync(kFull, x >= hi || keys[x] > u);
+    const int f = m ? __ffs(m) - 1 : 32;  // lane 0 probes lo, inside the run
+    hi = min(hi, lo + f * step);
+    lo += (f - 1) * step + 1;
+  }
+  const int x = lo + lane;
+  const unsigned m = __ballot_sync(kFull, x < hi && keys[x] > u);
+  return m ? lo + __ffs(m) - 1 : hi;
 }
 
 // Step 4, rows of up to 32 entries: lane k < m gets the k-th smallest id of
@@ -271,14 +326,21 @@ __device__ __forceinline__ void warp_sort_buffer(const int32_t* ids, int m, int*
     }
 }
 
+// The shared words of block_order's bitmap of kWords words: word i at
+// bitmap_at(i), one padding word per 32, so that threads scanning their
+// runs of consecutive words read distinct banks.
+__device__ __forceinline__ int bitmap_at(int i) { return i + (i >> 5); }
+
 // Step 4, a row longer than kWarpSort, by the whole block: out[0, m) gets
 // ids[0, m) (entry ids below n) in ascending order, window by window of a
-// bitmap over the ids.  bits holds kWinWords words.
+// bitmap over the ids.  bits holds kWords + kWords / 32 words (a window of
+// 32 kWords ids, at bitmap_at).
+template <int kWords = kWinWords>
 __device__ __forceinline__ void block_order(const int32_t* ids, int m, int n, int32_t* out,
                                             unsigned* bits) {
   __shared__ int wsum[33];
   __shared__ int span[2];
-  constexpr int kPer = kWinWords / kThreads;
+  constexpr int kPer = kWords / kThreads;
   if (threadIdx.x == 0) {
     span[0] = n;
     span[1] = 0;
@@ -296,24 +358,24 @@ __device__ __forceinline__ void block_order(const int32_t* ids, int m, int n, in
   lo = span[0] & ~31;
   hi = span[1];
   int done = 0;
-  for (int w0 = lo; w0 < hi; w0 += 32 * kWinWords) {
-    for (int i = threadIdx.x; i < kWinWords; i += kThreads) bits[i] = 0u;
+  for (int w0 = lo; w0 < hi; w0 += 32 * kWords) {
+    for (int i = threadIdx.x; i < kWords + kWords / 32; i += kThreads) bits[i] = 0u;
     __syncthreads();
 #pragma unroll 8
     for (int i = threadIdx.x; i < m; i += kThreads) {
       const int e = ids[i] - w0;
-      if (e >= 0 && e < 32 * kWinWords) atomicOr(&bits[e >> 5], 1u << (e & 31));
+      if (e >= 0 && e < 32 * kWords) atomicOr(&bits[bitmap_at(e >> 5)], 1u << (e & 31));
     }
     __syncthreads();
     const int q0 = threadIdx.x * kPer;
     int local = 0;
 #pragma unroll
-    for (int q = 0; q < kPer; ++q) local += __popc(bits[q0 + q]);
+    for (int q = 0; q < kPer; ++q) local += __popc(bits[bitmap_at(q0 + q)]);
     int tot;
     int at = done + block_scan<kThreads>(local, wsum, &tot);
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
-      unsigned word = bits[q0 + q];
+      unsigned word = bits[bitmap_at(q0 + q)];
       while (word) {
         const int bit = __ffs(word) - 1;
         word &= word - 1;

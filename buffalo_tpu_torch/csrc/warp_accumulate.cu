@@ -50,18 +50,6 @@
 
 namespace {
 
-constexpr int kMaxH = 8;             // columns per lane of one column chunk
-constexpr int kChunk = 32 * kMaxH;   // a warp's columns per pass
-constexpr int kSeg = 32;             // slots per warp on a presorted user side
-constexpr int kRowBlocks = 1024;     // most blocks of the row sums
-
-// The column chunks of a row of d floats: one pass at offset 0 for the
-// narrow instantiation (d <= kChunk), else ceil(d / kChunk) passes.
-template <bool kWide>
-__device__ __forceinline__ int chunk_end(int d) {
-  return kWide ? d : 1;
-}
-
 struct Acc {
   const int32_t *users, *pos, *neg;
   const uint8_t* anyv;
@@ -177,24 +165,6 @@ __device__ __forceinline__ void add_partials(Col col, int n, int d, float* g, fl
   }
 }
 
-// The end of user u's run from slot lo (users ascending, users[lo] == u):
-// the first slot in [lo, hi) past it, or hi; a 32-way search by the warp.
-__device__ __forceinline__ int run_end(const int32_t* __restrict__ users, int u, int lo,
-                                       int hi) {
-  const int lane = threadIdx.x & 31;
-  while (hi - lo > 32) {
-    const int step = (hi - lo + 31) / 32;
-    const int x = lo + lane * step;
-    const unsigned m = __ballot_sync(kFull, x >= hi || users[x] > u);
-    const int f = m ? __ffs(m) - 1 : 32;  // lane 0 probes lo, inside the run
-    hi = min(hi, lo + f * step);
-    lo += (f - 1) * step + 1;
-  }
-  const int x = lo + lane;
-  const unsigned m = __ballot_sync(kFull, x < hi && users[x] > u);
-  return m ? lo + __ffs(m) - 1 : hi;
-}
-
 // The presorted user side: warp `seg` sums, in slot order, the runs of
 // slots [seg kSeg, (seg + 1) kSeg) below n_valid that lie in the segment
 // and adds each once; a run that starts here and goes on past it is
@@ -288,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) place_kernel(const Acc a) {
 // launch 5, by its warp up to kWarpSort entries, else by a block.
 template <bool kWide>
 __global__ void __launch_bounds__(kThreads) rows_kernel(const Acc a) {
-  __shared__ unsigned bits[kWinWords];
+  __shared__ unsigned bits[kWinWords + kWinWords / 32];
   __shared__ int bufs[kWarps][kWarpSort];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, d = a.d;
   const int nru = a.users_sorted ? 0 : a.gu.meta[0], nri = a.gi.meta[0];

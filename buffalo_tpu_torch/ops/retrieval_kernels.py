@@ -16,8 +16,9 @@ K1–K4 with theirs:
   mean, normalized; empty cells keep their centroid).
 * **K22** ``sharded_topk_merge`` — the merge of a row-sharded table's
   per-shard top-k lists (``ops.topk.sharded_matmul_topk``): the top k of
-  the shard-major concatenation, one warp per query, lane j holding shard
-  j's head.
+  the shard-major concatenation; for small k one warp per query, lane j
+  holding shard j's head, for large k the lists staged in shared memory
+  and merged in pairs by the whole block (``sharded_topk_merge_form``).
 
 Selection everywhere orders entries by score descending, ties to the
 smaller index, as ``lax.top_k`` and ``jnp.argmax`` do; ``torch.topk``
@@ -53,7 +54,15 @@ _SIGNATURES = {
     "kmeans_update": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P,
                       _P, _P, _P],
     "sharded_topk_merge": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _P],
+    "sharded_topk_merge_as": [_I32, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
+                              _P],
+    "sharded_topk_merge_form": [_I32, _I32, _I32],
+    "sharded_topk_merge_tree_fits": [_I32, _I32, _I32],
 }
+# launch functions kept in another kernel's library
+_LIBRARY = {"sharded_topk_merge_as": "sharded_topk_merge",
+            "sharded_topk_merge_form": "sharded_topk_merge",
+            "sharded_topk_merge_tree_fits": "sharded_topk_merge"}
 MAX_K = 1024
 # IVF tile caps the kernel takes (the reference's largest, parallel/ann.py)
 MAX_BQ_CAP, MAX_L_CAP = 256, 1024
@@ -71,7 +80,7 @@ _SIGN = 0x80000000
 def _kernel(name: str):
     from buffalo_tpu_torch.ops._build import launcher
 
-    return launcher(name, _SIGNATURES[name])
+    return launcher(name, _SIGNATURES[name], library=_LIBRARY.get(name))
 
 
 def _check_k(name, k):
@@ -333,14 +342,36 @@ def sharded_topk_merge_plain(vals, idx, k):
     return merge_topk(vals.reshape(B, -1), idx.reshape(B, -1), k)
 
 
-def sharded_topk_merge(vals, idx, k):
+MERGE_FORMS = ("warp", "tree")
+
+
+def sharded_topk_merge_form(D, kl, k):
+    """The form K22 takes for D lists of kl at this k on the card: "warp"
+    (a warp per query, k serial steps) or "tree" (the lists merged in
+    pairs by a block, each thread writing a run of outputs); a function of
+    (D, kl, k) alone, from the crossover measured on the H100
+    (``csrc/sharded_topk_merge.cu``)."""
+    return MERGE_FORMS[_kernel("sharded_topk_merge_form")(D, kl, k)]
+
+
+def sharded_topk_merge_tree_fits(D, kl, k):
+    """Whether K22's tree form takes D lists of kl for the top k on the
+    card: one query's lists fit in a block's shared memory."""
+    return bool(_kernel("sharded_topk_merge_tree_fits")(D, kl, k))
+
+
+def sharded_topk_merge(vals, idx, k, form=None):
     """K22: the top k of per-shard candidate lists, (vals (B, k) float32,
     idx (B, k) int32) by score descending, ties to the smaller index.
 
     ``vals`` (B, D, kl) float32 and ``idx`` (B, D, kl) int32: for each
     query, shard j's top kl with global indices, sorted in that order,
-    every index of shard j below shard j+1's; D >= 1, 1 <= k <= D * kl.  Replaces the all-gathered ``lax.top_k`` merge of
+    every index of shard j below shard j+1's; D >= 1, 1 <= k <= D * kl.
+    Replaces the all-gathered ``lax.top_k`` merge of
     ``sharded_matmul_topk`` (``buffalo_tpu/ops/topk.py:353-365``).
+    ``form`` ("warp" or "tree") forces a form on the card (the tree form
+    only where ``sharded_topk_merge_tree_fits``); by default
+    ``sharded_topk_merge_form`` chooses.
     """
     if vals.device.type == "cpu":
         return sharded_topk_merge_plain(vals, idx, k)
@@ -355,11 +386,17 @@ def sharded_topk_merge(vals, idx, k):
         raise ValueError(f"sharded_topk_merge needs a shard, got D = {D}")
     if not 1 <= k <= D * kl:
         raise ValueError(f"k = {k} outside [1, {D * kl}]")
+    if form is not None and form not in MERGE_FORMS:
+        raise ValueError(f"form {form!r} is not one of {MERGE_FORMS}")
+    if form == "tree" and not sharded_topk_merge_tree_fits(D, kl, k):
+        raise ValueError(f"the tree form does not take {D} lists of {kl} "
+                         f"at k = {k} (past a block's shared memory)")
     out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    rc = _kernel("sharded_topk_merge")(
-        _ptr(vals), _ptr(idx), B, D, kl, int(k), _ptr(out_v), _ptr(out_i),
-        _stream(dev))
+    args = (_ptr(vals), _ptr(idx), B, D, kl, int(k), _ptr(out_v), _ptr(out_i),
+            _stream(dev))
+    rc = (_kernel("sharded_topk_merge")(*args) if form is None else
+          _kernel("sharded_topk_merge_as")(MERGE_FORMS.index(form), *args))
     _raise_on(rc, "sharded_topk_merge")
     sharded_topk_merge.launches += 1
     return out_v, out_i

@@ -29,9 +29,11 @@ K8 and in int64 torch ops masked to 32 bits by its plain version, which
 agree bit for bit.  JAX's threefry stream cannot be reproduced, so the
 tests inject the JAX package's negatives (in place of
 ``sample_negatives``'s) to compare the update math exactly.  Sums are
-deterministic: K9 groups a chunk's slots by row with a stable radix sort
-and adds each row's terms in slot order, with no float atomics.  Rows of any width: the kernels hold up to 256
-columns of a row per warp and walk wider rows in 256-column chunks.
+deterministic: K9 groups a chunk's entries by the rows they touch (a
+resident chunk's users, which ascend, where they lie) and adds each row's
+terms in entry order, with no float atomics.  Rows of any width: the
+kernels hold up to 256 columns of a row per warp and walk wider rows in
+256-column chunks.
 
 ``bpr_epoch`` is the resident epoch over a device mesh (one device is a
 mesh of one shard): the chunks split over the shards, the tables
@@ -69,13 +71,13 @@ _SIGNATURES = {
     "bpr_workspace": [_I32, _I32, _I32, _I32, _I32, _P],
     "bpr_update": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                    _I32, _F32, _F32, _F32, _F32, _F32, _F32, _I32, _I32,
-                   _I32, _P, _P, _P],
+                   _I32, _I32, _P, _P, _P],
     "bpr_accumulate": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
-                       _I32, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P,
-                       _P, _P],
+                       _I32, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                       _I32, _P, _P, _P],
     "bpr_delta": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                   _I32, _F32, _F32, _F32, _F32, _F32, _I32, _I32, _I32, _P,
-                  _P, _P, _P, _P, _P],
+                  _P, _P, _I32, _P, _P, _P],
     "bpr_delta_bias_neg": [_I32, _I32, _I32, _I32, _I32, _F32, _F32, _P, _P,
                            _P, _P, _P],
     "bpr_loss": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _P, _P],
@@ -348,12 +350,13 @@ def capped_add_plain(param, delta, cap):
 
 def chunk_delta_plain(P, Q, Qb, dP, dQ, dQb, users, positives, negatives, *,
                       n_valid, lr, reg_u, reg_i, reg_j, reg_b, num_negatives,
-                      use_bias, update_i, update_j):
+                      use_bias, update_i, update_j, users_sorted=False):
     """Plain version of K9's delta path: the sgd terms of one chunk
     (``bpr_epoch_dp`` :804-821) added into the dense tables dP, dQ and (the
     bias's positive side) dQb, every term from the chunk's snapshot; the
     tables are not written.  Returns what ``chunk_bias_neg_delta_plain``
-    needs for the negative side's bias."""
+    needs for the negative side's bias.  ``users_sorted`` (the kernel's
+    promise that users[:n_valid] ascend) changes nothing here."""
     u, pos, neg, ok, safe, mask, p, qi, qj, logit = _forward(
         P, Q, Qb, users, positives, negatives, num_negatives, n_valid,
         use_bias)
@@ -379,7 +382,8 @@ def chunk_bias_neg_delta_plain(handle, Qb, dQb, *, lr, reg_b):
 
 def chunk_update_plain(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
                        reg_u, reg_i, reg_j, reg_b, max_step_norm,
-                       num_negatives, use_bias, update_i, update_j):
+                       num_negatives, use_bias, update_i, update_j,
+                       users_sorted=False):
     """Plain version of K9's sgd step, in place: the scan body of
     ``bpr_epoch`` (``sgd_kernels.py:603-651``) for one chunk whose first
     ``n_valid`` slots are real, every term from the chunk's snapshot of
@@ -405,7 +409,8 @@ def chunk_update_plain(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
 
 def chunk_accumulate_plain(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
                            negatives, *, n_valid, num_negatives, use_bias,
-                           update_i, update_j, per_coordinate_normalize):
+                           update_i, update_j, per_coordinate_normalize,
+                           users_sorted=False):
     """Plain version of K9's deferred path, in place into the epoch's
     accumulators (``sgd_kernels.py:545-572``): gradients, and with
     ``per_coordinate_normalize`` the counts (the user and the positive
@@ -558,30 +563,41 @@ def _check_chunk(P, Q, Qb, users, positives, negatives, num_negatives):
     return dev, N, d
 
 
+_WORKSPACE_SIZES = {}
+
+
 def _workspace(dev, N, num_negatives, num_users, num_items, d):
     """K9's scratch: (int32 words, float32 words), sized by the C
-    interface's own ``bpr_workspace``."""
-    sizes = (ctypes.c_int64 * 2)()
-    rc = _kernel("bpr_workspace")(N, num_negatives, num_users, num_items, d,
-                                  ctypes.cast(sizes, ctypes.c_void_p))
-    _raise_on(rc, "bpr_workspace")
-    return (torch.empty(max(1, sizes[0]), dtype=torch.int32, device=dev),
-            torch.empty(max(1, sizes[1]), dtype=torch.float32, device=dev))
+    interface's own ``bpr_workspace`` (asked once per shape: host work per
+    call shows in a chunk's time)."""
+    key = (N, num_negatives, num_users, num_items, d)
+    sizes = _WORKSPACE_SIZES.get(key)
+    if sizes is None:
+        out = (ctypes.c_int64 * 2)()
+        rc = _kernel("bpr_workspace")(N, num_negatives, num_users, num_items,
+                                      d, ctypes.cast(out, ctypes.c_void_p))
+        _raise_on(rc, "bpr_workspace")
+        sizes = _WORKSPACE_SIZES[key] = (max(1, out[0]), max(1, out[1]))
+    return (torch.empty(sizes[0], dtype=torch.int32, device=dev),
+            torch.empty(sizes[1], dtype=torch.float32, device=dev))
 
 
 def chunk_update(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
                  reg_u, reg_i, reg_j, reg_b, max_step_norm, num_negatives,
-                 use_bias, update_i, update_j):
+                 use_bias, update_i, update_j, users_sorted=False):
     """K9, sgd: one chunk's update of P, Q and Qb in place (see
     ``chunk_update_plain``).  Replaces ``_bpr_forward`` :336,
     ``clipped_logit`` :272, ``clip_row_norm`` :280, ``bpr_sgd_step`` :390
     and the sgd scan body of ``bpr_epoch`` :600-651
     (``buffalo_tpu/ops/sgd_kernels.py``).  Negatives >= num_items are
-    sentinels; slots from ``n_valid`` on are padding."""
+    sentinels; slots from ``n_valid`` on are padding.  ``users_sorted``:
+    users[:n_valid] ascend (a resident chunk), so each user's slots are
+    summed where they lie, with no grouping."""
     kw = dict(n_valid=n_valid, lr=lr, reg_u=reg_u, reg_i=reg_i, reg_j=reg_j,
               reg_b=reg_b, max_step_norm=max_step_norm,
               num_negatives=num_negatives, use_bias=use_bias,
-              update_i=update_i, update_j=update_j)
+              update_i=update_i, update_j=update_j,
+              users_sorted=users_sorted)
     if P.device.type == "cpu":
         return chunk_update_plain(P, Q, Qb, users, positives, negatives, **kw)
     dev, N, d = _check_chunk(P, Q, Qb, users, positives, negatives,
@@ -592,8 +608,8 @@ def chunk_update(P, Q, Qb, users, positives, negatives, *, n_valid, lr,
         _ptr(Qb), N, num_negatives, int(max(0, min(n_valid, N))), P.shape[0],
         Q.shape[0], d, float(lr), float(reg_u), float(reg_i), float(reg_j),
         float(reg_b), float(max_step_norm), int(bool(use_bias)),
-        int(bool(update_i)), int(bool(update_j)), _ptr(ws_i), _ptr(ws_f),
-        _stream(dev))
+        int(bool(update_i)), int(bool(update_j)), int(bool(users_sorted)),
+        _ptr(ws_i), _ptr(ws_f), _stream(dev))
     _raise_on(rc, "chunk_update")
     chunk_update.launches += 1
 
@@ -603,14 +619,15 @@ chunk_update.launches = 0
 
 def chunk_accumulate(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
                      negatives, *, n_valid, num_negatives, use_bias, update_i,
-                     update_j, per_coordinate_normalize):
+                     update_j, per_coordinate_normalize, users_sorted=False):
     """K9, deferred: one chunk's gradients and counts added into the
     epoch's accumulators (see ``chunk_accumulate_plain``).  Replaces
     ``bpr_accumulate_step`` :355 and the deferred scan body of
-    ``bpr_epoch`` :545-572."""
+    ``bpr_epoch`` :545-572.  ``users_sorted`` as in ``chunk_update``."""
     kw = dict(n_valid=n_valid, num_negatives=num_negatives,
               use_bias=use_bias, update_i=update_i, update_j=update_j,
-              per_coordinate_normalize=per_coordinate_normalize)
+              per_coordinate_normalize=per_coordinate_normalize,
+              users_sorted=users_sorted)
     if P.device.type == "cpu":
         return chunk_accumulate_plain(P, Q, Qb, gP, gQ, gQb, cP, cQ, users,
                                       positives, negatives, **kw)
@@ -630,8 +647,8 @@ def chunk_accumulate(P, Q, Qb, gP, gQ, gQb, cP, cQ, users, positives,
         _ptr(Qb), N, num_negatives, int(max(0, min(n_valid, N))), P.shape[0],
         Q.shape[0], d, _ptr(gP), _ptr(gQ), _ptr(gQb), _ptr(cP), _ptr(cQ),
         int(bool(use_bias)), int(bool(update_i)), int(bool(update_j)),
-        int(bool(per_coordinate_normalize)), _ptr(ws_i), _ptr(ws_f),
-        _stream(dev))
+        int(bool(per_coordinate_normalize)), int(bool(users_sorted)),
+        _ptr(ws_i), _ptr(ws_f), _stream(dev))
     _raise_on(rc, "chunk_accumulate")
     chunk_accumulate.launches += 1
 
@@ -641,15 +658,16 @@ chunk_accumulate.launches = 0
 
 def chunk_delta(P, Q, Qb, dP, dQ, dQb, users, positives, negatives, *,
                 n_valid, lr, reg_u, reg_i, reg_j, reg_b, num_negatives,
-                use_bias, update_i, update_j):
+                use_bias, update_i, update_j, users_sorted=False):
     """K9, delta: one chunk's sgd terms added into the dense delta tables
     dP, dQ and dQb (see ``chunk_delta_plain``); a mesh shard's chunk of
     ``bpr_epoch_dp`` :804-831.  Returns the handle that
     ``chunk_bias_neg_delta`` takes (on the card, the workspace that keeps
-    the chunk's item groups)."""
+    the chunk's item rows).  ``users_sorted`` as in ``chunk_update``."""
     kw = dict(n_valid=n_valid, lr=lr, reg_u=reg_u, reg_i=reg_i, reg_j=reg_j,
               reg_b=reg_b, num_negatives=num_negatives, use_bias=use_bias,
-              update_i=update_i, update_j=update_j)
+              update_i=update_i, update_j=update_j,
+              users_sorted=users_sorted)
     if P.device.type == "cpu":
         return chunk_delta_plain(P, Q, Qb, dP, dQ, dQb, users, positives,
                                  negatives, **kw)
@@ -666,7 +684,8 @@ def chunk_delta(P, Q, Qb, dP, dQ, dQb, users, positives, negatives, *,
         _ptr(Qb), N, num_negatives, int(max(0, min(n_valid, N))), U, I, d,
         float(lr), float(reg_u), float(reg_i), float(reg_j), float(reg_b),
         int(bool(use_bias)), int(bool(update_i)), int(bool(update_j)),
-        _ptr(dP), _ptr(dQ), _ptr(dQb), _ptr(ws_i), _ptr(ws_f), _stream(dev))
+        _ptr(dP), _ptr(dQ), _ptr(dQb), int(bool(users_sorted)), _ptr(ws_i),
+        _ptr(ws_f), _stream(dev))
     _raise_on(rc, "chunk_delta")
     chunk_delta.launches += 1
     return ws_i, ws_f, N, num_negatives, U, I, d
@@ -937,8 +956,9 @@ def bpr_epoch(mesh, tables, opt_states, users, positives, step, *, seed,
     reps = replica_shards(mesh)
     nchunks, N_loc = users[0].shape
     N = N_loc * mesh.size
+    # the chunks are in CSR order: users[:n_valid] ascend on every shard
     rows = dict(num_negatives=num_negatives, use_bias=use_bias,
-                update_i=update_i, update_j=update_j)
+                update_i=update_i, update_j=update_j, users_sorted=True)
 
     def draw(k, c):
         off, n_valid = shard_slots(mesh, k, N_loc, num_valid, c, N)

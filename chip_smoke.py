@@ -171,9 +171,18 @@ BIG_ITEMS, BIG_D, BIG_QUERIES = 5_000_000, 64, 2_048
 # steps are held to its plain version within TOL_BPR_STEP of the largest
 # step (plus two float32 spacings of the table: each side rounds start +
 # step once), and a K9 run with the row clip off must fail that check; K10
-# within TOL_K10 (rtol, elementwise: the same formula, fused or not)
+# within TOL_K10 (rtol, elementwise: the same formula, fused or not).  K9
+# makes at most K9_MAX_STREAM_OPS stream operations (kernels and memsets)
+# per call; a chunk of one user whose positives are HOT_ITEM_SHARE one item
+# is held to the plain version run in float64 (a float32 sum of 10^5 terms
+# in any one order is as far from the exact sum as the tolerance)
 BPR_EPOCHS, BPR_USERS, BPR_STREAM_RESIDENT_MB = 4, 10_000, 64
 TOL_BPR_STEP, TOL_K10 = 1e-5, 1e-6
+K9_MAX_STREAM_OPS, HOT_ITEM_SHARE = 8, 0.7
+K9_MAIN = "epilogue_kernel"   # K9's last launch, once per call
+# the kernels line's keys past the contract's, for the kernels that report
+# them: the form a call took, its CUPTI time and its stream operations
+KERNEL_EXTRAS = ("form", "device_ms", "stream_ops_per_call")
 # H100 SXM int32 rate: 64 INT32 lanes per SM (Hopper white paper) x 132
 # SMs x 1.98 GHz boost; K8's work is integer (Philox, the bloom hashes)
 PEAK_INT32_S = 64 * 132 * 1.98e9
@@ -535,7 +544,12 @@ def device_ms(fn, name, reps=20, warmup=3):
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        try:   # keep every cycle's events (torch.profiler's own advice)
+            prof = profile(activities=[ProfilerActivity.CUDA],
+                           acc_events=True)
+        except TypeError:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof:
             for _ in range(reps + 2):
                 fn()
             torch.cuda.synchronize()
@@ -2104,45 +2118,48 @@ def retrieval_widths(R, torch, dev):
 
 def trace_ms(fn, main, reps=10, warmup=2):
     """Device milliseconds per call of ``fn`` from a torch.profiler (CUPTI)
-    trace: every device activity of the window (kernels, memsets) summed
-    and divided by ``reps``; None unless the trace holds exactly ``reps``
-    launches of the kernel named ``main`` (late in a run the trace has
-    dropped launches)."""
+    trace (``trace_stats``)."""
     return trace_stats(fn, main, reps, warmup)[0]
 
 
-def trace_stats(fn, main, reps=10, warmup=2):
-    """(``trace_ms``'s device milliseconds per call, or None unless the
-    trace holds exactly ``reps`` launches of ``main``; the device
-    activities (kernels, memsets, copies) per call: each distinct
-    activity's count over the calls, rounded, summed over the activities,
-    so that a few dropped events do not change it; None when the trace
-    holds fewer than half the calls)."""
+def trace_stats(fn, main, reps=10, warmup=2, tries=3):
+    """(device milliseconds per call of ``fn`` from a torch.profiler
+    (CUPTI) trace of ``reps`` calls: for each distinct device activity
+    (kernels, memsets, copies) its median duration times its launches per
+    call (its count over the calls, rounded), summed; the device activities
+    per call, the same counts summed).  A trace can drop events (on the
+    H100 one has held 19 of 20 launches of a kernel, and fewer late in a
+    run), so the medians and the rounded counts are what a few dropped
+    events leave unchanged.  A trace that holds fewer than half the
+    calls (counted by the launches of ``main``) is taken again, up to
+    ``tries`` times; then (None, None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    try:   # keep every cycle's events (torch.profiler's own advice)
-        prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
-    except TypeError:
-        prof = profile(activities=[ProfilerActivity.CUDA])
-    with prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    counts = {}
-    for e in ev:
-        counts[e.name] = counts.get(e.name, 0) + 1
-    calls = max(counts.values(), default=0)
-    ops = (sum(round(c / calls) for c in counts.values())
-           if reps // 2 <= calls <= reps else None)
-    if sum(main in e.name for e in ev) != reps:
-        return None, ops
-    return sum(e.time_range.elapsed_us() for e in ev) / reps / 1e3, ops
+    for _ in range(tries):
+        try:   # keep every cycle's events (torch.profiler's own advice)
+            prof = profile(activities=[ProfilerActivity.CUDA],
+                           acc_events=True)
+        except TypeError:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        calls = sum(len(v) for k, v in us.items() if main in k)
+        if reps // 2 <= calls <= reps:
+            per_call = {k: max(1, round(len(v) / calls))
+                        for k, v in us.items()}
+            return (sum(float(np.median(us[k])) * n for k, n in
+                        per_call.items()) / 1e3, sum(per_call.values()))
+    return None, None
 
 
 def epoch_chunks(torch, model, batch):
@@ -2317,15 +2334,66 @@ def step_check(got, ref, start, tol=TOL_BPR_STEP):
     return err <= limit, err, limit
 
 
+def k9_hot_chunk(torch, users, pos):
+    """The chunk of one user (the chunk's first) whose positives are
+    HOT_ITEM_SHARE its first slot's item, the rest as they were: the
+    longest user and item rows a chunk can hold."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    hot = (torch.rand(pos.shape[0], generator=g) < HOT_ITEM_SHARE).to(
+        pos.device)
+    return (torch.full_like(users, int(users[0])),
+            torch.where(hot, pos[:1].expand_as(pos), pos).contiguous())
+
+
+def k9_hot_check(S, torch, fn, tables, users, pos, neg, kw, what):
+    """K9's sgd step (``fn`` chunk_update) or delta (chunk_delta, from zero
+    deltas) on a hot chunk with the users presorted and grouped: each run
+    twice bitwise equal, within TOL_BPR_STEP of the plain version run in
+    float64.  Returns the largest error."""
+    hot_u, hot_p = k9_hot_chunk(torch, users, pos)
+    delta = fn is S.chunk_delta
+
+    def run(f, ts, **over):
+        out = [torch.zeros_like(t) for t in ts] if delta else \
+            [t.clone() for t in ts]
+        if delta:
+            f(*ts, *out, hot_u, hot_p, neg, **dict(kw, **over))
+        else:
+            f(*out, hot_u, hot_p, neg, **dict(kw, **over))
+        return out
+
+    ref = run(S.chunk_delta_plain if delta else S.chunk_update_plain,
+              [t.double() for t in tables])
+    err = 0.0
+    for flag in (True, False):
+        a, b = run(fn, tables, users_sorted=flag), \
+            run(fn, tables, users_sorted=flag)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{what} on the hot chunk (users_sorted={flag}) is not "
+              "bitwise repeatable")
+        for x, r, t in zip(a, ref, tables):
+            ok, e, limit = step_check(x, r.float(),
+                                      torch.zeros_like(t) if delta else t)
+            check(ok, f"{what} on the hot chunk (users_sorted={flag}) is "
+                  f"{e:.3g} from the float64 plain version (limit "
+                  f"{limit:.3g})")
+            err = max(err, e)
+    return err
+
+
 def bpr_kernels(S, torch, model):
     """K8, K9 and K10 against their plain versions on an ML-20M chunk of the
     sgd model's resident epoch (users in CSR order, its trained tables, the
     2^23-word bloom filter): K8 bit for bit; K9's sgd step within
-    TOL_BPR_STEP, bitwise repeatable, and a K9 run with the clip off
-    failing the check; its accumulation and loss; K10's adam and adagrad
-    steps on the item and user tables within TOL_K10.  Event ms, CUPTI ms
-    (``trace_ms``), the plain and library ms and the bounds.  Returns the
-    kernels line's K8-K10 entries."""
+    TOL_BPR_STEP, bitwise repeatable, the users presorted (as the resident
+    epoch calls it) and grouped by row agreeing within TOL_BPR_STEP, a K9
+    run with the clip off failing the check, the hot chunk
+    (``k9_hot_check``), at most K9_MAX_STREAM_OPS stream operations per
+    call; its accumulation (bitwise repeatable) and loss; K10's adam and
+    adagrad steps on the item and user tables within TOL_K10.  Event ms,
+    CUPTI ms (``trace_stats``), the plain and library ms and the bounds.
+    Returns the kernels line's K8-K10 entries."""
     dev = model.device
     batch = model._batch_size()
     users_c, items_c, nnz = epoch_chunks(torch, model, batch)
@@ -2365,7 +2433,8 @@ def bpr_kernels(S, torch, model):
     lr = S.sgd_lr(o.lr, o.min_lr, 0, nnz, c, batch, float(nnz) * o.num_iters)
     kw9 = dict(n_valid=batch, lr=lr, reg_u=o.reg_u, reg_i=o.reg_i,
                reg_j=o.reg_j, reg_b=o.reg_b, max_step_norm=o.max_step_norm,
-               num_negatives=1, use_bias=True, update_i=True, update_j=True)
+               num_negatives=1, use_bias=True, update_i=True, update_j=True,
+               users_sorted=True)
 
     def run(fn, **over):
         t = [P0.clone(), Q0.clone(), Qb0.clone()]
@@ -2374,36 +2443,54 @@ def bpr_kernels(S, torch, model):
 
     got, again, ref = run(S.chunk_update), run(S.chunk_update), \
         run(S.chunk_update_plain)
+    grouped = run(S.chunk_update, users_sorted=False)
     unclipped = run(S.chunk_update, max_step_norm=0.0)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "K9 is not bitwise repeatable")
     fields, errs = {}, []
-    for name, g, r, s0, w in zip(("P", "Q", "Qb"), got, ref, (P0, Q0, Qb0),
-                                 unclipped):
+    for name, g, r, s0, w, gr in zip(("P", "Q", "Qb"), got, ref,
+                                     (P0, Q0, Qb0), unclipped, grouped):
         ok, err, limit = step_check(g, r, s0)
         check(ok, f"K9's {name} step is {err:.3g} from the plain version's "
               f"(limit {limit:.3g})")
+        ok_g, err_g, limit_g = step_check(gr, g, s0)
+        check(ok_g, f"K9's {name} step with the users grouped is {err_g:.3g}"
+              f" from the presorted call's (limit {limit_g:.3g})")
         errs.append(err)
         fields[f"{name}_err"], fields[f"{name}_limit"] = err, limit
+        fields[f"{name}_grouped_vs_presorted"] = err_g
         fields[f"{name}_max_step"] = float((r - s0).abs().max())
         fields[f"{name}_unclipped_err"] = step_check(w, r, s0)[1]
     check(not all(step_check(w, r, s0)[0] for w, r, s0 in
                   zip(unclipped, ref, (P0, Q0, Qb0))),
           "the K9 check passes a run with the row clip off")
+    fields["hot_chunk_err"] = k9_hot_check(
+        S, torch, S.chunk_update, (P0, Q0, Qb0), users, pos, neg,
+        {k: v for k, v in kw9.items() if k != "users_sorted"},
+        "K9's sgd step")
     # the accumulation and the loss
-    acc = [S.new_accumulators(P0, Q0, Qb0) for _ in range(2)]
-    S.chunk_accumulate(P0, Q0, Qb0, *acc[0], users, pos, neg, n_valid=batch,
-                       num_negatives=1, use_bias=True, update_i=True,
-                       update_j=True, per_coordinate_normalize=True)
-    S.chunk_accumulate_plain(P0, Q0, Qb0, *acc[1], users, pos, neg,
-                             n_valid=batch, num_negatives=1, use_bias=True,
-                             update_i=True, update_j=True,
-                             per_coordinate_normalize=True)
-    for name, g, r in zip(("gP", "gQ", "gQb", "cP", "cQ"), *acc):
+    kw9a = dict(n_valid=batch, num_negatives=1, use_bias=True,
+                update_i=True, update_j=True, per_coordinate_normalize=True,
+                users_sorted=True)
+    acc = [S.new_accumulators(P0, Q0, Qb0) for _ in range(4)]
+    for a, fn, over in ((acc[0], S.chunk_accumulate, {}),
+                        (acc[1], S.chunk_accumulate, {}),
+                        (acc[2], S.chunk_accumulate_plain, {}),
+                        (acc[3], S.chunk_accumulate,
+                         {"users_sorted": False})):
+        fn(P0, Q0, Qb0, *a, users, pos, neg, **dict(kw9a, **over))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(acc[0], acc[1])),
+          "K9's accumulation is not bitwise repeatable")
+    for name, g, r, gr in zip(("gP", "gQ", "gQb", "cP", "cQ"), acc[0],
+                              acc[2], acc[3]):
         ok, err, limit = step_check(g, r, torch.zeros_like(r))
         check(ok, f"K9's accumulated {name} is {err:.3g} from the plain "
               f"version's (limit {limit:.3g})")
+        check(step_check(gr, g, torch.zeros_like(r))[0],
+              f"K9's accumulated {name} with the users grouped is off the "
+              "presorted call's")
         errs.append(err)
     sub = [torch.from_numpy(a).to(dev) for a in model._sub_samples]
     loss = float(S.triplet_loss(P0, Q0, Qb0, *sub, use_bias=True))
@@ -2429,18 +2516,58 @@ def bpr_kernels(S, torch, model):
 
     nbytes, flops = k9_work(users, pos, neg, D, I)
     bms, by = bound_ms(nbytes, flops)
+
+    def fn9(presorted=True):
+        S.chunk_update(*t9, users, pos, neg,
+                       **dict(kw9, users_sorted=presorted))
+
+    # stream operations per call (kernels and memsets in a CUPTI trace)
+    dev_ms, ops = trace_stats(fn9, K9_MAIN)
+    ops_grouped = trace_stats(lambda: fn9(False), K9_MAIN)[1]
+    check(ops is not None and ops_grouped is not None
+          and max(ops, ops_grouped) <= K9_MAX_STREAM_OPS,
+          f"K9 makes {ops} (presorted) / {ops_grouped} (grouped) stream "
+          f"operations per call (at most {K9_MAX_STREAM_OPS})")
     k9 = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_update.cu",
               replaces="buffalo_tpu/ops/sgd_kernels.py:390",
-              max_abs_err=max(errs),
-              ms=time_ms(lambda: S.chunk_update(*t9, users, pos, neg, **kw9)),
-              device_ms=trace_ms(lambda: S.chunk_update(*t9, users, pos, neg,
-                                                        **kw9),
-                                 "forward_kernel"),
+              max_abs_err=max(errs), ms=time_ms(fn9), device_ms=dev_ms,
+              stream_ops_per_call=ops, form="presorted",
+              grouped_ms=time_ms(lambda: fn9(False)),
+              stream_ops_per_call_grouped=ops_grouped,
               plain_ms=time_ms(lambda: S.chunk_update_plain(
                   *t9, users, pos, neg, **kw9), reps=5, warmup=1),
               bound_ms=bms, bound_by=by,
               library_ms=time_ms(library, reps=10, warmup=2),
               slots=int(users.shape[0]), lr=lr, loss=loss, **fields)
+    # the accumulation (the adagrad / adam epochs' K9): its bound counts
+    # the gradients and counts read and written, the touched P / Q rows
+    # read once; the library call index_add_ of the gradient rows computed
+    # outside the timing and bincount of the counts
+    g9 = S.new_accumulators(P0, Q0, Qb0)
+    g_rows_p = logit[:, None] * (qi - qj)
+    g_rows_q = torch.cat([logit[:, None] * p_r,
+                          (-logit[:, None] * p_r)[n_ok]])
+
+    def library_acc():
+        g9[0].index_add_(0, u_s, g_rows_p)
+        g9[1].index_add_(0, idx_q, g_rows_q)
+        torch.bincount(u_s, minlength=P0.shape[0])
+        torch.bincount(idx_q, minlength=Q0.shape[0])
+
+    def fn9a():
+        S.chunk_accumulate(P0, Q0, Qb0, *g9, users, pos, neg, **kw9a)
+
+    n_u = int(torch.unique(users).numel())
+    n_i = int(torch.unique(idx_q).numel())
+    abms, aby = bound_ms(8 * users.shape[0] + 4 * neg.shape[0]
+                         + (12 * D + 8) * (n_u + n_i) + 8 * n_i, flops)
+    adev_ms, aops = trace_stats(fn9a, K9_MAIN)
+    k9["accumulate"] = dict(
+        ms=time_ms(fn9a), device_ms=adev_ms, stream_ops_per_call=aops,
+        plain_ms=time_ms(lambda: S.chunk_accumulate_plain(
+            P0, Q0, Qb0, *g9, users, pos, neg, **kw9a), reps=5, warmup=1),
+        bound_ms=abms, bound_by=aby,
+        library_ms=time_ms(library_acc, reps=10, warmup=2))
 
     # K10 on the user and item tables and the bias
     entries = {}
@@ -2497,7 +2624,8 @@ def bpr_kernels(S, torch, model):
     phase("bpr_kernels", d=D, chunk_index=c, chunks=int(users_c.shape[0]),
           k8=k8, k9=k9, k10=k10, tol_step=TOL_BPR_STEP, tol_k10=TOL_K10,
           epoch_profile=prof)
-    del users_c, items_c, bloom, t, t9, got, again, ref, unclipped, acc
+    del users_c, items_c, bloom, t, t9, got, again, ref, unclipped, acc, g9
+    del grouped
     torch.cuda.empty_cache()
     return {"sample_negatives": k8, "bpr_chunk_update": k9,
             "deferred_update": k10}
@@ -4770,15 +4898,48 @@ def k22_bytes(torch, out_idx, D, kl, S):
     return 2 * 32 * int(sectors.sum()) + 8 * B * k, int(n.sum())
 
 
+def merge_lists(R, torch, B, D, kl, seed=0):
+    """(vals, idx) (B, D, kl) on the card as K22 takes them: random scores,
+    each list sorted by the plain version's keys (score descending, ties
+    to the smaller index), shard j's indices in [j S, (j + 1) S), S = 2
+    kl."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S = 2 * kl
+    vals = torch.randn(B, D, kl, generator=g, device="cuda")
+    idx = (torch.argsort(torch.rand(B, D, S, generator=g, device="cuda"),
+                         dim=-1)[..., :kl]
+           + S * torch.arange(D, device="cuda")[None, :, None]).int()
+    keys = torch.sort(R._keys(vals, idx), dim=-1, descending=True).values
+    v, i = R._decode(keys)
+    return v.contiguous(), i.contiguous()
+
+
+def k22_same(R, torch, vals, idx, k, what):
+    """K22 in the form its rule takes and in each form, bit for bit its
+    plain version's; returns the rule's form."""
+    ref = R.sharded_topk_merge_plain(vals, idx, k)
+    for form in (None,) + R.MERGE_FORMS:
+        got = R.sharded_topk_merge(vals, idx, k, form=form)
+        check(torch.equal(got[1], ref[1]) and torch.equal(
+            got[0].view(torch.int32), ref[0].view(torch.int32)),
+            f"K22 ({form or 'its rule'}) differs from its plain version "
+            f"({what})")
+    return R.sharded_topk_merge_form(vals.shape[1], vals.shape[2], k)
+
+
 def sharded_topk(bt, R, torch, trained):
     """batch_topn_sharded over MESH_SHARDS shards on the one card, with
     K22's count set to 0 just before: SHARDED_USERS ML-20M users against
     the trained Q at k = TOPK, the brunch catalog's queries (seed 21, as
     catalog_path) at k = TOPK, and SHARDED_PAST_USERS users at k =
     TOPK_PAST (each shard past K5's limit); each equal to batch_topn.
-    Then K22 on the recorded candidates of the brunch call, bit for bit
-    against its plain version, with its event time, bound and plain time.
-    Returns (K22's kernels-line entry, its launches)."""
+    Then K22 on the recorded candidates of the brunch call and the k =
+    TOPK_PAST call, in both forms and by its rule bit for bit against its
+    plain version, with its event and CUPTI times per form, stream
+    operations per call, bound, plain and library times; and bit for bit
+    on synthetic lists at k = D kl with D odd and at the first k on each
+    side of the crossover between the forms.  Returns (K22's kernels-line
+    entry, its launches)."""
     import buffalo_tpu_torch.ops.topk as T
 
     par = bt.parallelism
@@ -4820,19 +4981,24 @@ def sharded_topk(bt, R, torch, trained):
     k22 = {}
     for name, (vals, idx, k) in (("brunch", seen[2]),
                                  ("ml20m_past_1024", seen[4])):
+        form = k22_same(R, torch, vals, idx, k, name)
         got = R.sharded_topk_merge(vals, idx, k)
-        ref = R.sharded_topk_merge_plain(vals, idx, k)
-        check(torch.equal(got[1], ref[1]) and torch.equal(
-            got[0].view(torch.int32), ref[0].view(torch.int32)),
-            f"K22 differs from its plain version ({name})")
         B, Dn, kl = vals.shape
         flat = vals.reshape(B, -1)
         S = -(-out[name]["items"] // Dn)
         nbytes, entries = k22_bytes(torch, got[1], Dn, kl, S)
         bms, by = bound_ms(nbytes, 0)
+        per_form = {}
+        for f in R.MERGE_FORMS:
+            fn = (lambda: R.sharded_topk_merge(vals, idx, k, form=f))
+            dev_ms, ops = trace_stats(fn, "merge")
+            per_form[f] = dict(ms=time_ms(fn), device_ms=dev_ms,
+                               stream_ops_per_call=ops)
         k22[name] = dict(
             B=B, shards=Dn, k_loc=kl, k=k, entries_read=entries,
-            bytes=nbytes,
+            bytes=nbytes, form=form, forms=per_form,
+            device_ms=per_form[form]["device_ms"],
+            stream_ops_per_call=per_form[form]["stream_ops_per_call"],
             ms=time_ms(lambda: R.sharded_topk_merge(vals, idx, k)),
             plain_ms=time_ms(
                 lambda: R.sharded_topk_merge_plain(vals, idx, k), reps=5,
@@ -4840,14 +5006,29 @@ def sharded_topk(bt, R, torch, trained):
             library_ms=time_ms(lambda: torch.topk(flat, k, dim=1), reps=5,
                                warmup=1),
             bound_ms=bms, bound_by=by)
+    # synthetic lists: every candidate taken (k = D kl) with D odd, and the
+    # first k of each form at D = MESH_SHARDS (kl = k) around the crossover
+    cross = next(k for k in range(1, 1 << 14)
+                 if R.sharded_topk_merge_form(MESH_SHARDS, k, k) == "tree")
+    synthetic = {"k_D_kl_odd_D": k22_same(
+        R, torch, *merge_lists(R, torch, 257, 3, 700, seed=3), 2100,
+        "D = 3, kl = 700, k = 2,100")}
+    for k in (cross - 1, cross):
+        if k >= 1:
+            synthetic[f"k_{k}"] = k22_same(
+                R, torch, *merge_lists(R, torch, SHARDED_PAST_USERS,
+                                       MESH_SHARDS, k, seed=k), k,
+                f"D = {MESH_SHARDS}, kl = k = {k}")
     phase("sharded_topk", shards=MESH_SHARDS, devices="cuda:0 (shared)",
-          **out, k22=k22, k22_launches=launches)
+          **out, k22=k22, k22_launches=launches, k22_crossover_k=cross,
+          k22_synthetic_forms=synthetic)
     main = k22["brunch"]
     entry = dict(route="cuda",
                  source="buffalo_tpu_torch/csrc/sharded_topk_merge.cu",
                  replaces="buffalo_tpu/ops/topk.py:330", max_abs_err=0.0,
-                 **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")})
+                 **{key: main[key] for key in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "form", "device_ms", "stream_ops_per_call")})
     return entry, launches
 
 
@@ -4908,9 +5089,12 @@ def mesh_bpr(bt, S, torch, data):
     device's.  Then, on the first chunk's second shard (a non-zero slot
     offset) of the trained sgd model: K8 bit for bit to its plain version
     and to the single device's slice, K9's delta path (both launches)
-    within TOL_BPR_STEP, K10's capped add within TOL_K10.  Returns (the
-    kernels line's entries of the new entry points, their launches in the
-    sgd mesh run)."""
+    within TOL_BPR_STEP, bitwise repeatable, the users presorted (as the
+    epoch calls it) and grouped agreeing within TOL_BPR_STEP, the hot chunk
+    (``k9_hot_check``), at most K9_MAX_STREAM_OPS stream operations per
+    call; K10's capped add within TOL_K10.  Returns (the kernels line's
+    entries of the new entry points, their launches in the sgd mesh
+    run)."""
     runs, mesh_launches = {}, None
     batch = None
     for name, extra in (("sgd", {}), ("adagrad", dict(optimizer="adagrad"))):
@@ -5007,7 +5191,7 @@ def mesh_bpr(bt, S, torch, data):
     lr = S.sgd_lr(o.lr, o.min_lr, 0, nnz, 0, batch, float(nnz) * o.num_iters)
     kw9 = dict(lr=lr, reg_u=o.reg_u, reg_i=o.reg_i, reg_j=o.reg_j,
                reg_b=o.reg_b, num_negatives=1, use_bias=True, update_i=True,
-               update_j=True)
+               update_j=True, users_sorted=True)
     # the first chunk of an epoch from the trained tables, as the mesh
     # epoch runs it: every shard's K8 at its offset and K9's delta into its
     # own dense deltas, the positive side's bias delta all-reduced and added
@@ -5044,9 +5228,9 @@ def mesh_bpr(bt, S, torch, data):
           "version")
     capped_bias = int((dQb_pos.abs() > cap).sum())
 
-    def delta(fn, fn_neg):
+    def delta(fn, fn_neg, **over):
         dl = [torch.zeros_like(t) for t in (P0, Q0, Qb0)]
-        h = fn(P0, Q0, Qb0, *dl, users, pos, neg, **kw9)
+        h = fn(P0, Q0, Qb0, *dl, users, pos, neg, **dict(kw9, **over))
         dneg = torch.zeros_like(Qb0)
         fn_neg(h, Qb1, dneg, lr=lr, reg_b=o.reg_b)
         return dl + [dneg]
@@ -5054,17 +5238,27 @@ def mesh_bpr(bt, S, torch, data):
     got = delta(S.chunk_delta, S.chunk_bias_neg_delta)
     again = delta(S.chunk_delta, S.chunk_bias_neg_delta)
     ref = delta(S.chunk_delta_plain, S.chunk_bias_neg_delta_plain)
+    grouped = delta(S.chunk_delta, S.chunk_bias_neg_delta,
+                    users_sorted=False)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got[:3], shards[g][4]))
           and all(torch.equal(a, b) for a, b in zip(got, again)),
           "K9's delta path is not bitwise repeatable")
     fields, errs = {}, []
-    for name, a, r in zip(("dP", "dQ", "dQb", "dQb_neg"), got, ref):
+    for name, a, r, gr in zip(("dP", "dQ", "dQb", "dQb_neg"), got, ref,
+                              grouped):
         ok, err, limit = step_check(a, r, torch.zeros_like(r))
         check(ok, f"K9's delta {name} is {err:.3g} from the plain version's "
               f"(limit {limit:.3g})")
+        ok_g, err_g, _ = step_check(gr, a, torch.zeros_like(r))
+        check(ok_g, f"K9's delta {name} with the users grouped is "
+              f"{err_g:.3g} from the presorted call's")
         errs.append(err)
         fields[f"{name}_err"], fields[f"{name}_limit"] = err, limit
+        fields[f"{name}_grouped_vs_presorted"] = err_g
+    fields["hot_chunk_err"] = k9_hot_check(
+        S, torch, S.chunk_delta, (P0, Q0, Qb0), users, pos, neg,
+        {k: v for k, v in kw9.items() if k != "users_sorted"}, "K9's delta")
     # bounds: what the delta must move: the ids, each touched P / Q / Qb
     # row read once and its delta row read and written (it adds); per
     # sample the K9 operations.  The negative side's bias: each valid
@@ -5092,27 +5286,42 @@ def mesh_bpr(bt, S, torch, data):
         dl_t[0].index_add_(0, u_s, rows_p)
         dl_t[1].index_add_(0, idx_q, rows_q)
 
+    def fn9d(presorted=True):
+        return S.chunk_delta(P0, Q0, Qb0, *dl_t, users, pos, neg,
+                             **dict(kw9, users_sorted=presorted))
+
+    dev_ms, ops = trace_stats(fn9d, K9_MAIN)
+    ops_grouped = trace_stats(lambda: fn9d(False), K9_MAIN)[1]
+    check(ops is not None and ops_grouped is not None
+          and max(ops, ops_grouped) <= K9_MAX_STREAM_OPS,
+          f"K9's delta makes {ops} (presorted) / {ops_grouped} (grouped) "
+          f"stream operations per call (at most {K9_MAX_STREAM_OPS})")
     k9d = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_update.cu",
                replaces="buffalo_tpu/ops/sgd_kernels.py:804",
-               max_abs_err=max(errs[:3]),
-               ms=time_ms(lambda: S.chunk_delta(P0, Q0, Qb0, *dl_t, users, pos,
-                                                neg, **kw9)),
+               max_abs_err=max(errs[:3]), ms=time_ms(fn9d), device_ms=dev_ms,
+               stream_ops_per_call=ops, form="presorted",
+               grouped_ms=time_ms(lambda: fn9d(False)),
+               stream_ops_per_call_grouped=ops_grouped,
                plain_ms=time_ms(lambda: S.chunk_delta_plain(
                    P0, Q0, Qb0, *dl_t, users, pos, neg, **kw9), reps=5,
                    warmup=1),
                bound_ms=bms, bound_by=by,
                library_ms=time_ms(library, reps=10, warmup=2),
                slots=N, slot_offset=g * n_loc, lr=lr, **fields)
-    h = S.chunk_delta(P0, Q0, Qb0, *dl_t, users, pos, neg, **kw9)
+    h = fn9d()
     h_plain = S.chunk_delta_plain(P0, Q0, Qb0, *dl_t, users, pos, neg, **kw9)
     neg_rows = (lr * mask * (-logit - o.reg_b * Qb1[safe]))[n_ok]
     neg_idx = neg.long()[n_ok]
     bms, by = bound_ms(8 * int(n_ok.sum()) + 12 * n_n, 4 * int(n_ok.sum()))
+
+    def fn9n():
+        S.chunk_bias_neg_delta(h, Qb1, dl_t[2], lr=lr, reg_b=o.reg_b)
+
+    dev_ms, ops = trace_stats(fn9n, "bias_neg")
     k9n = dict(route="cuda", source="buffalo_tpu_torch/csrc/bpr_update.cu",
                replaces="buffalo_tpu/ops/sgd_kernels.py:832",
-               max_abs_err=errs[3],
-               ms=time_ms(lambda: S.chunk_bias_neg_delta(
-                   h, Qb1, dl_t[2], lr=lr, reg_b=o.reg_b)),
+               max_abs_err=errs[3], ms=time_ms(fn9n), device_ms=dev_ms,
+               stream_ops_per_call=ops,
                plain_ms=time_ms(lambda: S.chunk_bias_neg_delta_plain(
                    h_plain, Qb1, dl_t[2], lr=lr, reg_b=o.reg_b)),
                bound_ms=bms, bound_by=by,
@@ -5147,7 +5356,7 @@ def mesh_bpr(bt, S, torch, data):
           tol_loss=TOL_MESH_LOSS, **runs, k8_offset=k8, k9_delta=k9d,
           k9_bias_neg=k9n, k10_capped_add=k10c, tol_step=TOL_BPR_STEP,
           tol_k10=TOL_K10)
-    del users_c, items_c, bloom, P0, Q0, Qb0, shards, dP, dl_t
+    del users_c, items_c, bloom, P0, Q0, Qb0, shards, dP, dl_t, grouped
     torch.cuda.empty_cache()
     entries = {"chunk_delta": k9d, "chunk_bias_neg_delta": k9n,
                "capped_add": k10c}
@@ -6733,7 +6942,9 @@ def main() -> int:
                         "ms": entry["ms"], "plain_ms": entry["plain_ms"],
                         "bound_ms": entry["bound_ms"],
                         "bound_by": entry["bound_by"],
-                        "library_ms": entry["library_ms"]})
+                        "library_ms": entry["library_ms"],
+                        **{key: entry[key] for key in KERNEL_EXTRAS
+                           if key in entry}})
     print(json.dumps({"kernels": kernels}))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

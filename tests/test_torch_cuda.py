@@ -660,16 +660,20 @@ def test_sample_kernel_equals_plain(dev, alias, verify, neg_per):
 @pytest.mark.parametrize("d", [8, 13, 40, 64, 129, 256, 300])
 @pytest.mark.parametrize("cap", [0.0, 0.1])
 @pytest.mark.parametrize("neg_per", [1, 2])
-def test_chunk_update_kernel_matches_plain(dev, d, cap, neg_per):
+@pytest.mark.parametrize("users_sorted", [False, True])
+def test_chunk_update_kernel_matches_plain(dev, d, cap, neg_per,
+                                           users_sorted):
     """K9's sgd step against its plain version (steps within 1e-5 of the
-    largest), two launches bitwise equal."""
+    largest), two launches bitwise equal; the chunk's users (in CSR order)
+    grouped by row or summed where they lie (presorted)."""
     from buffalo_tpu_torch.ops import sgd_kernels as S
 
     (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, d, neg_per=neg_per,
                                                      seed=d)
     kw = dict(n_valid=n_valid, lr=0.2, reg_u=0.03, reg_i=0.02, reg_j=0.04,
               reg_b=0.05, max_step_norm=cap, num_negatives=neg_per,
-              use_bias=True, update_i=True, update_j=True)
+              use_bias=True, update_i=True, update_j=True,
+              users_sorted=users_sorted)
     runs = []
     for fn in (S.chunk_update, S.chunk_update, S.chunk_update_plain):
         t = [P.clone(), Q.clone(), Qb.clone()]
@@ -701,13 +705,15 @@ def test_chunk_update_kernel_flags_match_plain(dev, flags):
 
 @pytest.mark.parametrize("d", [13, 40, 256, 300])
 @pytest.mark.parametrize("pcn", [False, True])
-def test_chunk_accumulate_kernel_matches_plain(dev, d, pcn):
+@pytest.mark.parametrize("users_sorted", [False, True])
+def test_chunk_accumulate_kernel_matches_plain(dev, d, pcn, users_sorted):
     from buffalo_tpu_torch.ops import sgd_kernels as S
 
     (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, d, neg_per=2,
                                                      seed=d + 1)
     kw = dict(n_valid=n_valid, num_negatives=2, use_bias=True, update_i=True,
-              update_j=True, per_coordinate_normalize=pcn)
+              update_j=True, per_coordinate_normalize=pcn,
+              users_sorted=users_sorted)
     runs = []
     for fn in (S.chunk_accumulate, S.chunk_accumulate,
                S.chunk_accumulate_plain):
@@ -1808,22 +1814,40 @@ def _merge_case(dev, B, D, kl, seed):
     return (torch.from_numpy(v).to(dev), torch.from_numpy(i).to(dev))
 
 
-@pytest.mark.parametrize("D", [1, 2, 4, 8, 32, 33, 100])
-@pytest.mark.parametrize("kl", [1, 7, 64, 1024])
+def _merge_crossover():
+    """The smallest k of D = 4 lists of k that takes the tree form."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    return next(k for k in range(1, 4097)
+                if R.sharded_topk_merge_form(4, k, k) == "tree")
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 8, 32, 33, 100])
+@pytest.mark.parametrize("kl", [1, 7, 64, 1024, 2000])
 def test_sharded_topk_merge_kernel_equals_plain(dev, D, kl):
-    """K22 bit for bit against its plain version, k from 1 to every
-    candidate."""
+    """K22 bit for bit against its plain version in both forms, k from 1
+    to every candidate and on each side of the crossover between them."""
     from buffalo_tpu_torch.ops import retrieval_kernels as R
 
     B = 37 if kl < 1024 else 9
+    if kl == 2000 and D > 4:
+        pytest.skip("kl = 2,000 runs at the mesh's widths")
     vals, idx = _merge_case(dev, B, D, kl, seed=D * 7 + kl)
-    for k in sorted({1, min(10, D * kl), D * kl}):
-        before = R.sharded_topk_merge.launches
-        gv, gi = R.sharded_topk_merge(vals, idx, k)
-        assert R.sharded_topk_merge.launches == before + 1
+    cross = _merge_crossover()
+    for k in sorted({1, min(10, D * kl), min(kl, 2000), cross - 1, cross,
+                     D * kl} & set(range(1, D * kl + 1))):
         pv, pi = R.sharded_topk_merge_plain(vals, idx, k)
-        assert torch.equal(gi, pi), (D, kl, k)
-        assert torch.equal(gv.view(torch.int32), pv.view(torch.int32))
+        for form in (None, "warp", "tree"):
+            if form == "tree" and not R.sharded_topk_merge_tree_fits(D, kl,
+                                                                     k):
+                with pytest.raises(ValueError):
+                    R.sharded_topk_merge(vals, idx, k, form=form)
+                continue
+            before = R.sharded_topk_merge.launches
+            gv, gi = R.sharded_topk_merge(vals, idx, k, form=form)
+            assert R.sharded_topk_merge.launches == before + 1
+            assert torch.equal(gi, pi), (D, kl, k, form)
+            assert torch.equal(gv.view(torch.int32), pv.view(torch.int32))
 
 
 def test_sharded_topk_merge_rejects_what_it_does_not_take(dev):
@@ -1955,9 +1979,10 @@ def test_warp_search_slot_offset_equals_plain(dev, probe):
 @pytest.mark.parametrize("d", [40, 300])
 @pytest.mark.parametrize("flags", [(True, True, True), (True, False, True),
                                    (False, True, True)])
-def test_chunk_delta_kernel_matches_plain(dev, d, flags):
+@pytest.mark.parametrize("users_sorted", [False, True])
+def test_chunk_delta_kernel_matches_plain(dev, d, flags, users_sorted):
     """K9's delta path (both launches) against its plain version at K9's
-    tolerance, and the capped adds composing it equal the sgd step."""
+    tolerance, two launches bitwise equal."""
     from buffalo_tpu_torch.ops import sgd_kernels as S
 
     use_bias, update_i, update_j = flags
@@ -1965,9 +1990,10 @@ def test_chunk_delta_kernel_matches_plain(dev, d, flags):
                                                      seed=d)
     kw = dict(n_valid=n_valid, lr=0.2, reg_u=0.03, reg_i=0.02, reg_j=0.04,
               reg_b=0.05, num_negatives=2, use_bias=use_bias,
-              update_i=update_i, update_j=update_j)
+              update_i=update_i, update_j=update_j, users_sorted=users_sorted)
     outs = []
     for delta, neg_delta in ((S.chunk_delta, S.chunk_bias_neg_delta),
+                             (S.chunk_delta, S.chunk_bias_neg_delta),
                              (S.chunk_delta_plain,
                               S.chunk_bias_neg_delta_plain)):
         dl = [torch.zeros_like(t) for t in (P, Q, Qb)]
@@ -1977,9 +2003,125 @@ def test_chunk_delta_kernel_matches_plain(dev, d, flags):
         neg_delta(h, Qb2, dneg, lr=0.2, reg_b=0.05)
         outs.append(dl + [dneg])
     torch.cuda.synchronize()
-    zero = [torch.zeros_like(t) for t in outs[1]]
-    for got, ref, z in zip(*outs, zero):
+    zero = [torch.zeros_like(t) for t in outs[2]]
+    for got, again, ref, z in zip(*outs, zero):
+        assert torch.equal(got, again)
         _step_close(got, ref, z)
+
+
+def _hot_case(dev, d, N, seed=0):
+    """A chunk of N slots of one user, 70% of the positives on one item and
+    its negatives uniform: the longest user and item rows a chunk holds,
+    each summed in pieces."""
+    (P, Q, Qb, _, pos, neg), _ = _bpr_case(dev, d, N=N, seed=seed)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hot = torch.rand(N, generator=g) < 0.7
+    pos = torch.where(hot.to(dev), torch.full_like(pos, 5), pos)
+    users = torch.full_like(pos, 11)
+    return P, Q, Qb, users, pos, neg
+
+
+@pytest.mark.parametrize("N", [20_000, 140_000])
+@pytest.mark.parametrize("users_sorted", [False, True])
+def test_chunk_update_kernel_hot_rows(dev, N, users_sorted):
+    """K9's sgd step and delta on a chunk of one user whose positives are
+    70% one item (rows past 65,536 entries at N = 140,000: several bitmap
+    windows), bitwise repeatable and within K9's tolerance of the plain
+    version run in float64: a float32 sum of 10^5 terms in any one order
+    is as far from the exact sum as the tolerance."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    P, Q, Qb, users, pos, neg = _hot_case(dev, 40, N)
+    kw = dict(n_valid=N - 3, lr=0.01, reg_u=0.03, reg_i=0.02, reg_j=0.04,
+              reg_b=0.05, num_negatives=1, use_bias=True, update_i=True,
+              update_j=True)
+    runs = []
+    for fn in (S.chunk_update, S.chunk_update):
+        t = [P.clone(), Q.clone(), Qb.clone()]
+        fn(*t, users, pos, neg, max_step_norm=0.0,
+           users_sorted=users_sorted, **kw)
+        runs.append(t)
+    ref = [P.double(), Q.double(), Qb.double()]
+    S.chunk_update_plain(*ref, users, pos, neg, max_step_norm=0.0, **kw)
+    deltas = []
+    for fn in (S.chunk_delta, S.chunk_delta):
+        dl = [torch.zeros_like(t) for t in (P, Q, Qb)]
+        fn(P, Q, Qb, *dl, users, pos, neg, users_sorted=users_sorted, **kw)
+        deltas.append(dl)
+    dref = [torch.zeros_like(t, dtype=torch.float64) for t in (P, Q, Qb)]
+    S.chunk_delta_plain(P.double(), Q.double(), Qb.double(), *dref, users,
+                        pos, neg, **kw)
+    torch.cuda.synchronize()
+    for got, again, r, start in zip(*runs, ref, (P, Q, Qb)):
+        assert torch.equal(got, again)
+        _step_close(got, r.float(), start)
+    for got, again, r in zip(*deltas, dref):
+        assert torch.equal(got, again)
+        _step_close(got, r.float(), torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("d", [13, 40, 300])
+def test_chunk_update_kernel_presorted_equals_grouped(dev, d):
+    """A resident chunk's users summed where they lie and grouped by row
+    (as a streamed chunk's are) agree at K9's tolerance; users in any order
+    take the grouped side."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, d, seed=d + 3)
+    kw = dict(n_valid=n_valid, lr=0.2, reg_u=0.03, reg_i=0.02, reg_j=0.04,
+              reg_b=0.05, max_step_norm=0.1, num_negatives=1, use_bias=True,
+              update_i=True, update_j=True)
+    runs = []
+    for flag in (True, False):
+        t = [P.clone(), Q.clone(), Qb.clone()]
+        S.chunk_update(*t, users, pos, neg, users_sorted=flag, **kw)
+        runs.append(t)
+    perm = torch.randperm(n_valid, generator=torch.Generator().manual_seed(d))
+    perm = torch.cat([perm, torch.arange(n_valid, users.shape[0])]).to(dev)
+    shuffled = [P.clone(), Q.clone(), Qb.clone()]
+    S.chunk_update(*shuffled, users[perm].contiguous(),
+                   pos[perm].contiguous(), neg[perm].contiguous(), **kw)
+    ref = [P.clone(), Q.clone(), Qb.clone()]
+    S.chunk_update_plain(*ref, users[perm], pos[perm], neg[perm], **kw)
+    torch.cuda.synchronize()
+    for a, b, sh, r, start in zip(*runs, shuffled, ref, (P, Q, Qb)):
+        _step_close(a, b, start)
+        _step_close(sh, r, start)
+
+
+@pytest.mark.parametrize("users_sorted", [False, True])
+def test_chunk_bias_neg_delta_kernel_matches_plain(dev, users_sorted):
+    """K9's second delta launch alone: the negative side's bias from a
+    chunk whose negatives are all sentinels but one item's, then from an
+    ordinary chunk, within K9's tolerance and bitwise repeatable."""
+    from buffalo_tpu_torch.ops import sgd_kernels as S
+
+    (P, Q, Qb, users, pos, neg), n_valid = _bpr_case(dev, 40, seed=17)
+    I = Q.shape[0]
+    rare = torch.where(torch.arange(neg.shape[0], device=dev) % 97 == 0,
+                       torch.full_like(neg, 7), torch.full_like(neg, I))
+    for negs in (rare, neg):
+        kw = dict(n_valid=n_valid, lr=0.2, reg_u=0.03, reg_i=0.02,
+                  reg_j=0.04, reg_b=0.05, num_negatives=1, use_bias=True,
+                  update_i=True, update_j=True)
+        outs = []
+        for delta, neg_delta in ((S.chunk_delta, S.chunk_bias_neg_delta),
+                                 (S.chunk_delta, S.chunk_bias_neg_delta),
+                                 (S.chunk_delta_plain,
+                                  S.chunk_bias_neg_delta_plain)):
+            dl = [torch.zeros_like(t) for t in (P, Q, Qb)]
+            extra = ({"users_sorted": users_sorted}
+                     if delta is S.chunk_delta else {})
+            h = delta(P, Q, Qb, *dl, users, pos, negs, **kw, **extra)
+            dneg = torch.zeros_like(Qb)
+            before = S.chunk_bias_neg_delta.launches
+            neg_delta(h, Qb - 0.02, dneg, lr=0.2, reg_b=0.05)
+            if neg_delta is S.chunk_bias_neg_delta:
+                assert S.chunk_bias_neg_delta.launches == before + 1
+            outs.append(dneg)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+        _step_close(outs[0], outs[2], torch.zeros_like(Qb))
 
 
 @pytest.mark.parametrize("shape", [(1000, 40), (500, 300), (777,)])

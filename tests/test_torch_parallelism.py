@@ -177,8 +177,13 @@ def test_sharded_matmul_topk_matches_jax_on_shards():
     np.testing.assert_allclose(pv.numpy(), np.asarray(jv), rtol=SCORE_TOL)
 
 
+# the last five: K22's rank form (k past the crossover, kl = k, odd D,
+# k = D kl) and its warp form at k = 1
 @pytest.mark.parametrize("D,kl,k", [(1, 7, 7), (2, 5, 9), (8, 4, 20),
-                                    (32, 3, 96), (4, 64, 10)])
+                                    (32, 3, 96), (4, 64, 10),
+                                    (4, 512, 2048), (3, 100, 250),
+                                    (5, 64, 1), (33, 16, 400),
+                                    (4, 2000, 2000)])
 def test_k22_plain_matches_jax_merge(D, kl, k):
     """K22's plain version against the JAX program's merge on sorted
     per-shard lists with ties (across and within shards) and -inf."""

@@ -366,3 +366,171 @@ def test_triplet_loss_matches_jax(use_bias):
     got = K.bpr_loss(*(torch.from_numpy(x) for x in (P, Q, Qb, u, p, negs)),
                      use_bias=use_bias)
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+# ------------------------------------------- K9's edge shapes, one step
+def _jax_step(monkeypatch, fn, negs, *args, **kw):
+    """A JAX step (``bpr_sgd_step`` / ``bpr_accumulate_step``) on injected
+    negatives: its sampler replaced, the step run unjitted so that the
+    replacement is the one it calls."""
+    monkeypatch.setattr(J, "sample_verified_negatives",
+                        lambda *a, **k: jnp.asarray(negs))
+    return fn.__wrapped__(*args, **kw)
+
+
+def _edge_chunk(seed, n=300, d=8, neg_per=1, hot_user=0, hot_item=False,
+                sentinels=False, shuffled=False, scale=0.3, users=60,
+                items=40):
+    """Tables and one chunk of n slots, users ascending (CSR order) unless
+    ``shuffled``; ``hot_user`` slots of one user (user 3) in the middle,
+    70% of the positives on item 7 with ``hot_item``, every negative the
+    sentinel (num_items) with ``sentinels``, else about one in 41."""
+    rng = np.random.default_rng(seed)
+    P = rng.normal(0, scale, (users, d)).astype(np.float32)
+    Q = rng.normal(0, scale, (items, d)).astype(np.float32)
+    Qb = rng.normal(0, scale, items).astype(np.float32)
+    u = np.sort(rng.integers(0, users, n)).astype(np.int32)
+    if hot_user:
+        lo = (n - hot_user) // 2
+        u[lo:lo + hot_user] = 3
+        u = np.sort(u)
+    if shuffled:
+        u = rng.permutation(u)
+    p = rng.integers(0, items, n).astype(np.int32)
+    if hot_item:
+        p[rng.random(n) < 0.7] = 7
+    negs = rng.integers(0, items + 1, n * neg_per).astype(np.int32)
+    if sentinels:
+        negs[:] = items
+    return P, Q, Qb, u, p, negs
+
+
+# the redesigned K9's edges: a user row past one warp's sort (33 slots),
+# past a warp's buffer (300) and past one bitmap window (65,600); a hot
+# item; only sentinel negatives; one and three negatives per slot; widths
+# 13, 100 and 300 (past one warp's 256 columns); users in no order
+EDGE_CHUNKS = {
+    "hot_user_33": dict(hot_user=33),
+    "hot_user_300": dict(n=400, hot_user=300),
+    "hot_user_65600": dict(n=65_700, hot_user=65_600, d=4, scale=0.05),
+    "hot_item": dict(n=2000, hot_item=True),
+    "all_sentinels": dict(sentinels=True),
+    "neg_per_1": dict(neg_per=1),
+    "neg_per_3": dict(neg_per=3),
+    "width_13": dict(d=13),
+    "width_100": dict(d=100, scale=0.15),
+    "width_300": dict(d=300, scale=0.08),
+    "users_unsorted": dict(shuffled=True, hot_item=True),
+}
+
+
+@pytest.mark.parametrize("mode", ["sgd", "accumulate"])
+@pytest.mark.parametrize("edge", list(EDGE_CHUNKS))
+def test_step_edge_shapes_match_jax(monkeypatch, edge, mode):
+    """K9's plain versions against ``bpr_sgd_step`` (row cap 0.1) and
+    ``bpr_accumulate_step`` (per-coordinate counts) on the redesigned
+    kernel's edge shapes, the JAX step's negatives injected: tables and
+    accumulators within 1e-5."""
+    opts = EDGE_CHUNKS[edge]
+    neg_per = opts.get("neg_per", 1)
+    P, Q, Qb, u, p, negs = _edge_chunk(11, **opts)
+    nu, ni = P.shape[0], Q.shape[0]
+    flags = dict(num_negatives=neg_per, use_bias=True, update_i=True,
+                 update_j=True)
+    common = dict(num_items=ni, verify_neg=True, use_cum_table=False,
+                  bloom_log2=5, **flags)
+    jargs = (jnp.asarray(u), jnp.asarray(p), jnp.zeros(1, jnp.uint32),
+             jnp.zeros(1, jnp.float32), jax.random.PRNGKey(0))
+    t = [torch.from_numpy(x.copy()) for x in (P, Q, Qb)]
+    tu, tp, tn = (torch.from_numpy(x) for x in (u, p, negs))
+    if mode == "sgd":
+        regs = dict(reg_u=0.03, reg_i=0.02, reg_j=0.04, reg_b=0.05)
+        want = _jax_step(monkeypatch, J.bpr_sgd_step, negs, jnp.array(P),
+                         jnp.array(Q), jnp.array(Qb), *jargs,
+                         jnp.float32(0.3), max_step_norm=0.1, **regs,
+                         **common)
+        K.chunk_update_plain(*t, tu, tp, tn, n_valid=len(u), lr=0.3,
+                             max_step_norm=0.1, **regs, **flags)
+        got = t
+    else:
+        zeros = [jnp.zeros_like(jnp.array(x)) for x in (P, Q, Qb)]
+        want = _jax_step(monkeypatch, J.bpr_accumulate_step, negs,
+                         jnp.array(P), jnp.array(Q), jnp.array(Qb), *zeros,
+                         jnp.zeros(nu, jnp.float32),
+                         jnp.zeros(ni, jnp.float32), *jargs,
+                         per_coordinate_normalize=True, **common)
+        got = K.new_accumulators(*t)
+        K.chunk_accumulate_plain(*t, *got, tu, tp, tn, n_valid=len(u),
+                                 per_coordinate_normalize=True, **flags)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    if edge == "all_sentinels" and mode == "accumulate":
+        assert float(got[4].sum()) == len(u)   # the positives alone counted
+
+
+@pytest.mark.parametrize("mode", ["sgd", "accumulate"])
+def test_step_with_no_real_slot_moves_nothing(monkeypatch, mode):
+    """n_valid = 0: K9's plain versions leave the tables and accumulators
+    as they were, as the JAX step does on a chunk of no slots."""
+    P, Q, Qb, u, p, negs = _edge_chunk(12)
+    flags = dict(num_negatives=1, use_bias=True, update_i=True,
+                 update_j=True)
+    common = dict(num_items=Q.shape[0], verify_neg=True,
+                  use_cum_table=False, bloom_log2=5, **flags)
+    empty = np.zeros(0, np.int32)
+    jargs = (jnp.asarray(empty), jnp.asarray(empty), jnp.zeros(1, jnp.uint32),
+             jnp.zeros(1, jnp.float32), jax.random.PRNGKey(0))
+    t = [torch.from_numpy(x.copy()) for x in (P, Q, Qb)]
+    tu, tp, tn = (torch.from_numpy(x) for x in (u, p, negs))
+    if mode == "sgd":
+        regs = dict(reg_u=0.03, reg_i=0.02, reg_j=0.04, reg_b=0.05)
+        want = _jax_step(monkeypatch, J.bpr_sgd_step, empty, jnp.array(P),
+                         jnp.array(Q), jnp.array(Qb), *jargs,
+                         jnp.float32(0.3), max_step_norm=0.1, **regs,
+                         **common)
+        K.chunk_update_plain(*t, tu, tp, tn, n_valid=0, lr=0.3,
+                             max_step_norm=0.1, **regs, **flags)
+        got = t
+    else:
+        zeros = [jnp.zeros_like(jnp.array(x)) for x in (P, Q, Qb)]
+        want = _jax_step(monkeypatch, J.bpr_accumulate_step, empty,
+                         jnp.array(P), jnp.array(Q), jnp.array(Qb), *zeros,
+                         jnp.zeros(P.shape[0], jnp.float32),
+                         jnp.zeros(Q.shape[0], jnp.float32), *jargs,
+                         per_coordinate_normalize=True, **common)
+        got = K.new_accumulators(*t)
+        K.chunk_accumulate_plain(*t, *got, tu, tp, tn, n_valid=0,
+                                 per_coordinate_normalize=True, **flags)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("edge", ["hot_user_300", "hot_item", "neg_per_3",
+                                  "width_300"])
+def test_delta_from_zero_is_the_uncapped_step(monkeypatch, edge):
+    """K9's delta path from zero deltas (both launches: the negative side's
+    bias from Qb after the positive side's) equals ``bpr_sgd_step`` with
+    no row cap less the tables, within 1e-5."""
+    opts = EDGE_CHUNKS[edge]
+    neg_per = opts.get("neg_per", 1)
+    P, Q, Qb, u, p, negs = _edge_chunk(13, **opts)
+    flags = dict(num_negatives=neg_per, use_bias=True, update_i=True,
+                 update_j=True)
+    regs = dict(reg_u=0.03, reg_i=0.02, reg_j=0.04, reg_b=0.05)
+    want = _jax_step(
+        monkeypatch, J.bpr_sgd_step, negs, jnp.array(P), jnp.array(Q),
+        jnp.array(Qb), jnp.asarray(u), jnp.asarray(p),
+        jnp.zeros(1, jnp.uint32), jnp.zeros(1, jnp.float32),
+        jax.random.PRNGKey(0), jnp.float32(0.3), num_items=Q.shape[0],
+        verify_neg=True, use_cum_table=False, bloom_log2=5,
+        max_step_norm=0.0, **regs, **flags)
+    t = [torch.from_numpy(x) for x in (P, Q, Qb)]
+    dl = [torch.zeros_like(x) for x in t]
+    h = K.chunk_delta_plain(*t, *dl, *(torch.from_numpy(x) for x in
+                                       (u, p, negs)),
+                            n_valid=len(u), lr=0.3, **regs, **flags)
+    dneg = torch.zeros_like(t[2])
+    K.chunk_bias_neg_delta_plain(h, t[2] + dl[2], dneg, lr=0.3,
+                                 reg_b=regs["reg_b"])
+    for g, w, x in zip((dl[0], dl[1], dl[2] + dneg), want, (P, Q, Qb)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w) - x, **TOL)
