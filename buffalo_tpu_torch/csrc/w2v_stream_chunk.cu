@@ -26,18 +26,43 @@
 // block's K rows read once, and the (2 T + NB K) d floats written; at the
 // brunch chunk (T = 131,072, d = 32, K = 5, block 4) ~70 MB, ~20 us of HBM.
 // The work: 2 d (3 + 3 K) operations per (pair, direction) term, ~0.9
-// GFLOP per brunch chunk (740k terms), ~13 us at the FP32 rate.  Design: a
-// block owns a tile of 32 positions (rounded to a multiple of the negative
-// block) and reads the rows of the tile, of the W positions on each side
-// and of their negatives from L0 / L1 (the halo's rows are shared with the
-// neighbouring tiles through L1 and L2).  Its warps take one output row
-// each, lanes on the columns: a position's dL0p and dL1p row, gathering
-// what lands there from the halo (so no two blocks write one row), or a
-// negative's dLn row.  A pair's dot products are recomputed by each row
-// they feed rather than stored.
+// GFLOP per brunch chunk (740k terms), ~13 us at the FP32 rate.
+//
+// The staged form (chunk_deltas_staged; d <= 256 where a tile fits shared
+// memory, w2v_stream_staged_tile): a block owns a tile of P positions (a
+// multiple of the negative block, ~64) and stages once, with cp.async, the
+// L0 and L1 rows of the tile and of the W positions on each side, and the
+// L1 rows of the negatives of every block the tile and its left halo
+// touch, with their words, sentence ids and half-windows.  Phase 1, lanes
+// on terms: one thread per (pair, direction) positive term, per (pair,
+// negative) term of direction A and per (position, negative) dot of
+// direction B (l0[i] . ln does not depend on the offset) computes its dot
+// product from shared memory, with no shuffles, and writes g (0 where the
+// term is dropped) into shared memory, with the loss and the count of the
+// pairs whose left position is in the tile; a direction-B negative's
+// coefficient is its g times the number of offsets that keep it.  Phase 2,
+// lanes on columns: a group of lanes per output row (dL0p and dL1p of each
+// position of the tile, dLn of each negative block inside it), each lane
+// on float4 column chunks, sums its terms' g x row in one fixed order.  The pairs that reach into the tile from the
+// left halo are computed by both tiles; every output row is written by one
+// block, with no float atomics.  The stream path's window 5 and 5 negatives
+// are an instantiation of their own (loops unrolled, indices folded).  Both
+// forms take g and the loss terms from w2v_common.cuh (expf, logf).
+//
+// The warp form (chunk_deltas; the shapes the staged form does not take,
+// and rows past 256 floats in chunk_deltas_wide): a block owns a tile of
+// 32 positions (rounded to a multiple of the negative block) and reads the
+// rows of the tile, of the W positions on each side and of their negatives
+// from L0 / L1 (the halo's rows are shared with the neighbouring tiles
+// through L1 and L2).  Its warps take one output row each, lanes on the
+// columns: a position's dL0p and dL1p row, gathering what lands there from
+// the halo (so no two blocks write one row), or a negative's dLn row.  A
+// pair's dot products are recomputed by each row they feed rather than
+// stored.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "w2v_common.cuh"
 
 namespace {
@@ -298,20 +323,298 @@ cudaError_t launch(const Chunk& c, int compute_loss, float* dL0p, float* dL1p, f
   return cudaGetLastError();
 }
 
+// ----------------------------------------------------------- staged form
+constexpr int kStagedMaxD = 256;
+constexpr int kStagedTile = 64;            // positions per tile, rounded to the block
+constexpr size_t kStagedSmemAim = 100 * 1024;
+constexpr size_t kStagedSmemMax = 226 * 1024;  // 227 KB less the static partials
+
+// The shared-memory plan of a tile of P positions.
+struct Staged {
+  int P, RS;       // positions per tile; row stride (floats, RS / 4 odd)
+  int NR, NI, NB;  // staged rows (P + 2W), left positions (P + W), negative blocks
+  size_t smem;
+};
+
+Staged staged_plan(int P, int d, int K, int W, int blk) {
+  Staged g;
+  g.P = P;
+  g.RS = (d + 3) / 4 * 4;
+  if ((g.RS / 4) % 2 == 0) g.RS += 4;
+  g.NR = P + 2 * W;
+  g.NI = P + W;
+  g.NB = (P + W + blk - 1) / blk + 1;
+  const size_t floats = (size_t)(2 * g.NR + g.NB * K) * g.RS  // rows
+                        + (size_t)g.NI * W * (2 + K)            // gA, gB, gNA
+                        + (size_t)g.NI * K;                     // cNB
+  const size_t ints = 3 * (size_t)g.NR + (size_t)g.NB * K;      // word, sentence, half; negs
+  g.smem = 4 * (floats + ints) + 2 * sizeof(float) * kWarps;
+  return g;
+}
+
+// The tile the staged form takes for this shape: ~kStagedTile positions
+// (a multiple of blk) cut until it fits kStagedSmemAim, else the largest
+// that fits the 227 KB a block may hold; P = 0: the staged form does not
+// take it.
+Staged staged_tile(int d, int K, int W, int blk) {
+  Staged none{};
+  if (d < 1 || d > kStagedMaxD || K < 1 || blk < 1 || W < 0) return none;
+  const int P0 = blk * max(1, kStagedTile / blk);
+  for (int P = P0; P >= blk; P -= blk) {
+    const Staged g = staged_plan(P, d, K, W, blk);
+    if (g.smem <= kStagedSmemAim) return g;
+  }
+  for (int P = P0; P >= blk; P -= blk) {
+    const Staged g = staged_plan(P, d, K, W, blk);
+    if (g.smem <= kStagedSmemMax) return g;
+  }
+  return none;
+}
+
+// x / n for 0 <= x < 2^22 and n >= 1: (x + 1/2) / n lies 1 / (2 n) from
+// the integers around it, and its float32 product with 1 / n is within
+// 2^-23 of it relatively, less than that below 2^22 (a tile's slots fit
+// shared memory, far fewer)
+__device__ __forceinline__ int div_small(int x, float inv_n) {
+  return (int)(((float)x + 0.5f) * inv_n);
+}
+
+__device__ __forceinline__ float dot_rows(const float* __restrict__ a, const float* __restrict__ b,
+                                          int RS) {
+  float s = 0.f;
+  for (int c = 0; c < RS; c += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + c);
+    const float4 y = *reinterpret_cast<const float4*>(b + c);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  }
+  return s;
+}
+
+// kW, kK: the window and the negatives per block when known at compile
+// time (the stream path's 5 and 5), else 0 and the chunk's
+template <int kW, int kK>
+__global__ void __launch_bounds__(kThreads)
+chunk_deltas_staged(Chunk c, Staged g, int compute_loss, int vec, float* __restrict__ dL0p,
+                    float* __restrict__ dL1p, float* __restrict__ dLn, float* __restrict__ part) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = c.d, blk = c.blk, RS = g.RS, P = g.P;
+  const int K = kK ? kK : c.K, W = kW ? kW : c.W;
+  const int p0 = blockIdx.x * P, q0 = p0 - W;           // first staged position
+  const int b_lo = max(q0, 0) / blk;                    // first staged negative block
+  const int b_hi = (min(p0 + P, c.T) - 1) / blk;        // last
+  float* L0s = sm;                                      // [NR][RS]
+  float* L1s = L0s + g.NR * RS;                         // [NR][RS]
+  float* Ns = L1s + g.NR * RS;                          // [NB][K][RS]
+  float* gA = Ns + g.NB * K * RS;                       // [NI][W]
+  float* gB = gA + g.NI * W;                            // [NI][W]
+  float* gNA = gB + g.NI * W;                           // [NI][W][K]
+  float* cNB = gNA + g.NI * W * K;                      // [NI][K]
+  int* wq = reinterpret_cast<int*>(cNB + g.NI * K);     // [NR] word, -1 invalid
+  int* sq = wq + g.NR;                                  // [NR] sentence
+  int* hq = sq + g.NR;                                  // [NR] half-window
+  int* nq = hq + g.NR;                                  // [NB][K] negative words
+
+  // ---- stage: the positions' words, sentences, half-windows and rows, the
+  // negatives' rows; a position outside the chunk or a padding word has
+  // zero rows and word -1
+  for (int r = tid; r < g.NR; r += kThreads) {
+    const int q = q0 + r;
+    const bool in = q >= 0 && q < c.T;
+    const int w = in ? c.w[q] : c.V;
+    wq[r] = w < c.V ? w : -1;
+    sq[r] = in ? c.s[q] : -2;
+    hq[r] = in ? (int)c.h[q] : 0;
+  }
+  const int nb = b_hi - b_lo + 1;
+  for (int i = tid; i < nb * K; i += kThreads)
+    nq[i] = c.negs[(int64_t)b_lo * K + i];
+  __syncthreads();
+  const int W4 = vec ? 4 : 1, per_row = (d + W4 - 1) / W4;
+  for (int i = tid; i < (2 * g.NR + nb * K) * per_row; i += kThreads) {
+    const int row = i / per_row, col = (i - row * per_row) * W4;
+    const float* src;
+    int word;
+    float* dst;
+    if (row < 2 * g.NR) {
+      const int r = row < g.NR ? row : row - g.NR;
+      word = wq[r];
+      src = row < g.NR ? c.L0 : c.L1;
+      dst = (row < g.NR ? L0s : L1s) + r * RS + col;
+    } else {
+      const int n = row - 2 * g.NR;
+      word = nq[n];
+      src = c.L1;
+      dst = Ns + n * RS + col;
+    }
+    const bool ok = word >= 0;
+    const float* from = ok ? src + (int64_t)word * d + col : src;
+    if (vec) cp_async16(dst, from, ok);
+    else cp_async4(dst, from, ok);
+  }
+  cp_async_commit();
+  // columns d .. RS stay zero (the dots read whole float4s)
+  if (RS > d)
+    for (int i = tid; i < (2 * g.NR + nb * K) * (RS - d); i += kThreads) {
+      const int row = i / (RS - d);
+      sm[row * RS + d + (i - row * (RS - d))] = 0.f;
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- phase 1, lanes on terms.  Left position i = q0 + li (li < NI),
+  // offset o, pair (i, i + o); slots: 2 NI W positive terms, NI W K
+  // direction-A negative terms, NI K direction-B negative dots
+  float loss = 0.f, cnt = 0.f;
+  const int n_pos = 2 * g.NI * W, n_na = g.NI * W * K, n_all = n_pos + n_na + g.NI * K;
+  const float inv_k = 1.f / K, inv_w = 1.f / max(W, 1);
+  for (int slot = tid; slot < n_all; slot += kThreads) {
+    if (slot < n_na + n_pos && slot >= n_pos) {
+      // direction A's negative k of pair (i, i + o): l0[i + o] . ln[b(i)][k]
+      const int x = slot - n_pos, po = div_small(x, inv_k), k = x - po * K;
+      const int li = div_small(po, inv_w), o = po - li * W + 1;
+      const int i = q0 + li, lj = li + o, wi = wq[li];
+      const bool va = i >= 0 && wi >= 0 && wq[lj] >= 0 && sq[li] == sq[lj] && o <= hq[li] &&
+                      i + o < c.T;
+      float gk = 0.f;
+      if (va && p0 <= i + o) {
+        const int n = i / blk - b_lo;
+        if (nq[n * K + k] != wi) {
+          const float f = dot_rows(L0s + lj * RS, Ns + (n * K + k) * RS, RS);
+          gk = g_of(0.f, f);
+          if (compute_loss && i >= p0) loss -= logf(1.f - sigm(f) + kEps);
+        }
+      }
+      gNA[po * K + k] = gk;
+    } else if (slot < n_pos) {
+      // a positive term: direction A (centre i) or B (centre i + o)
+      const int dir = slot & 1, po = slot >> 1, li = div_small(po, inv_w), o = po - li * W + 1;
+      const int i = q0 + li, lj = li + o;
+      const bool pair = i >= 0 && wq[li] >= 0 && wq[lj] >= 0 && sq[li] == sq[lj] && i + o < c.T;
+      const bool v = pair && o <= hq[dir ? lj : li];
+      float gv = 0.f;
+      if (v && p0 <= i + o) {
+        const float f = dir ? dot_rows(L0s + li * RS, L1s + lj * RS, RS)
+                            : dot_rows(L0s + lj * RS, L1s + li * RS, RS);
+        gv = g_of(1.f, f);
+        if (i >= p0) {
+          if (compute_loss) loss -= logf(sigm(f) + kEps);
+          cnt += 1.f;
+        }
+      }
+      (dir ? gB : gA)[po] = gv;
+    } else {
+      // direction B's negative k of position i of the tile: l0[i] .
+      // ln[b(i)][k], times the offsets whose pair keeps it (a centre i + o
+      // other than it); the halo's are never read
+      const int x = slot - n_pos - n_na, li = div_small(x, inv_k), k = x - li * K, i = q0 + li;
+      float coef = 0.f;
+      if (i >= p0 && wq[li] >= 0) {
+        const int n = i / blk - b_lo, neg = nq[n * K + k];
+        int keep = 0;
+        for (int o = 1; o <= W; ++o) {
+          const int lj = li + o;
+          keep += wq[lj] >= 0 && sq[lj] == sq[li] && o <= hq[lj] && i + o < c.T &&
+                  neg != wq[lj];
+        }
+        if (keep) {
+          const float f = dot_rows(L0s + li * RS, Ns + (n * K + k) * RS, RS);
+          coef = keep * g_of(0.f, f);
+          if (compute_loss) loss -= keep * logf(1.f - sigm(f) + kEps);
+        }
+      }
+      cNB[li * K + k] = coef;
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 2, lanes on columns: LPR lanes per output row, each on
+  // float4 column chunks (a warp holds 32 / LPR rows), the row's terms in a
+  // fixed order
+  const int C4 = (d + 3) / 4;
+  int LPR = 1;
+  while (LPR < C4 && LPR < 32) LPR *= 2;
+  const int sub = lane & (LPR - 1), rpw = 32 / LPR;
+  const int np = min(P, c.T - p0), nrow = 2 * np + (np / blk) * K;
+  for (int row = warp * rpw + lane / LPR; row < nrow; row += kWarps * rpw) {
+    float* out;
+    for (int c4 = sub; c4 < C4; c4 += LPR) {
+      const int col = 4 * c4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      auto add = [&](float gv, const float* r) {
+        const float4 v = *reinterpret_cast<const float4*>(r + col);
+        acc.x = fmaf(gv, v.x, acc.x);
+        acc.y = fmaf(gv, v.y, acc.y);
+        acc.z = fmaf(gv, v.z, acc.z);
+        acc.w = fmaf(gv, v.w, acc.w);
+      };
+      if (row < 2 * np) {
+        const int kind = row < np ? 0 : 1, pl = kind ? row - np : row, lp = pl + W;
+        out = (kind ? dL1p : dL0p) + (int64_t)(p0 + pl) * d;
+        if (kind == 0) {  // dL0p[p]: B's terms of (p, p + o), then A's of (p - o, p)
+          const int b = (p0 + pl) / blk - b_lo;
+          for (int o = 1; o <= W; ++o) add(gB[lp * W + o - 1], L1s + (lp + o) * RS);
+          for (int k = 0; k < K; ++k) add(cNB[lp * K + k], Ns + (b * K + k) * RS);
+          for (int o = 1; o <= W; ++o) {
+            const int li = lp - o, i = q0 + li;
+            add(gA[li * W + o - 1], L1s + li * RS);
+            if (i >= 0) {
+              const int n = i / blk - b_lo;
+              for (int k = 0; k < K; ++k)
+                add(gNA[(li * W + o - 1) * K + k], Ns + (n * K + k) * RS);
+            }
+          }
+        } else {  // dL1p[p]: A's positive of (p, p + o), then B's of (p - o, p)
+          for (int o = 1; o <= W; ++o) add(gA[lp * W + o - 1], L0s + (lp + o) * RS);
+          for (int o = 1; o <= W; ++o) add(gB[(lp - o) * W + o - 1], L0s + (lp - o) * RS);
+        }
+      } else {  // dLn[b][k]: the block's positions in order, each one's offsets
+        const int x = row - 2 * np, bl = x / K, k = x - bl * K, b = p0 / blk + bl;
+        out = dLn + ((int64_t)b * K + k) * d;
+        for (int i = b * blk; i < (b + 1) * blk; ++i) {
+          const int li = i - q0;
+          for (int o = 1; o <= W; ++o) add(gNA[(li * W + o - 1) * K + k], L0s + (li + o) * RS);
+          add(cNB[li * K + k], L0s + li * RS);
+        }
+      }
+      if (col + 4 <= d && (d & 3) == 0) {
+        *reinterpret_cast<float4*>(out + col) = acc;
+      } else {
+        const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+        for (int e = 0; e < 4 && col + e < d; ++e) out[col + e] = a[e];
+      }
+    }
+  }
+  // the loss and count: each thread's in slot order, the warps in order
+  loss = warp_sum(loss);
+  cnt = warp_sum(cnt);
+  block_partials(loss, cnt, part);
+}
+
 }  // namespace
 
-// 1 when rows of d floats take the wide instantiation.
+// 1 when rows of d floats take the wide instantiation of the warp form.
 extern "C" int w2v_stream_chunk_wide(int d) { return d > 256 ? 1 : 0; }
 
+// Positions per tile of the staged form for this shape, 0 when the staged
+// form does not take it (rows past 256 floats, or no tile fits 227 KB).
+extern "C" int w2v_stream_staged_tile(int d, int K, int window, int blk) {
+  return staged_tile(d, K, window, blk).P;
+}
+
 // Partials the launch needs (2 floats each): one per tile of positions.
-extern "C" int w2v_stream_parts(int T, int blk) {
+extern "C" int w2v_stream_parts(int T, int d, int K, int window, int blk) {
   if (T < 1 || blk < 1) return 0;
-  const int tile = tile_of(blk);
+  const int P = staged_tile(d, K, window, blk).P;
+  const int tile = P > 0 ? P : tile_of(blk);
   return (T + tile - 1) / tile;
 }
 
 // T is a multiple of blk; negs holds (T / blk) K vocab ids; part has
-// 2 w2v_stream_parts(T, blk) floats; out gets (loss, count).
+// 2 w2v_stream_parts(T, d, K, window, blk) floats; out gets (loss, count).
 extern "C" int w2v_stream_chunk(const float* L0, const float* L1, const int32_t* w,
                                 const int32_t* s, const uint8_t* h, const int32_t* negs, int T,
                                 int V, int d, int K, int window, int blk, int compute_loss,
@@ -325,7 +628,18 @@ extern "C" int w2v_stream_chunk(const float* L0, const float* L1, const int32_t*
   const cudaStream_t st = (cudaStream_t)stream;
   const Chunk c{L0, L1, w, s, h, negs, T, V, d, K, window, blk};
   cudaError_t e;
-  if (d <= 32) e = launch<1>(c, compute_loss, dL0p, dL1p, dLn, part, st);
+  const Staged g = staged_tile(d, K, window, blk);
+  if (g.P > 0) {
+    const int vec = d % 4 == 0 && ((uintptr_t)L0 & 15) == 0 && ((uintptr_t)L1 & 15) == 0;
+    auto* kern = window == 5 && K == 5 ? chunk_deltas_staged<5, 5> : chunk_deltas_staged<0, 0>;
+    if (g.smem > 48 * 1024 &&
+        (e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)g.smem)) != cudaSuccess)
+      return (int)e;
+    kern<<<(T + g.P - 1) / g.P, kThreads, g.smem, st>>>(c, g, compute_loss, vec, dL0p, dL1p, dLn,
+                                                        part);
+    e = cudaGetLastError();
+  } else if (d <= 32) e = launch<1>(c, compute_loss, dL0p, dL1p, dLn, part, st);
   else if (d <= 64) e = launch<2>(c, compute_loss, dL0p, dL1p, dLn, part, st);
   else if (d <= 128) e = launch<4>(c, compute_loss, dL0p, dL1p, dLn, part, st);
   else if (d <= 256) e = launch<8>(c, compute_loss, dL0p, dL1p, dLn, part, st);
@@ -336,6 +650,6 @@ extern "C" int w2v_stream_chunk(const float* L0, const float* L1, const int32_t*
     e = cudaGetLastError();
   }
   if (e != cudaSuccess) return (int)e;
-  sum_parts<<<1, 32, 0, st>>>(part, w2v_stream_parts(T, blk), out);
+  sum_parts<<<1, 32, 0, st>>>(part, w2v_stream_parts(T, d, K, window, blk), out);
   return (int)cudaGetLastError();
 }

@@ -12,14 +12,20 @@ Q)^T (C^0.5 Q)`` / ``Sp = P^T P``.  Two hand-written CUDA kernels
   in order, of the rows of one batch: a ``RangeBatch`` (a contiguous range
   of the permuted table), a ``StagedSegmentBatch`` (head rows in chunks)
   or CSR rows with residuals carried in and out (``range_layout=False``).
+  Two forms on the card (``dim_sweep_form``): up to ``GRAM_MAX_D`` floats
+  a range or segment batch takes the Gram form (each row's normal
+  equations on the tensor cores, then one Gauss-Seidel sweep on them,
+  the same d steps); the rows mode and wider rows the sweep form (the
+  steps over the entries).
 * **K14** ``eals_residual`` — the residuals p_u . q_i over the nnz entries
   and the loss's three sums over them.
 
 ``eals_gramian`` and the loss's d x d terms are plain products
 (``torch.matmul``).  Each wrapper runs its plain version for CPU tensors
 and launches its kernel (or raises) for CUDA tensors; ``launches`` on each
-wrapper counts the calls that launched it.  Rows of any width (K13 keeps
-rows past 256 floats in dynamic shared memory); values are float32.  ``eals_epoch_sharded_range`` runs K13
+wrapper counts the calls that launched it.  Rows of any width (K13's
+sweep form keeps rows past 256 floats in dynamic shared memory); values
+are float32.  ``eals_epoch_sharded_range`` runs K13
 per shard of a device mesh (``parallelism``).
 """
 from __future__ import annotations
@@ -35,6 +41,8 @@ from buffalo_tpu_torch.ops.als_kernels import (_check, _flat, _ptr, _raise_on,
 # the longest range-batch row K13 keeps in shared memory (the planner's
 # max_len: longer rows come as segment batches)
 MAX_RANGE_L = 8192
+# the widest rows K13's Gram form takes (csrc/eals_sweep.cu kGramMaxD)
+GRAM_MAX_D = 128
 
 _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
@@ -44,12 +52,19 @@ _SIGNATURES = {
     "eals_sweep": [_I32, _P, _I32, _P, _I32, _P, _P, _I32, _F32, _F32, _I32,
                    _I32, _I32, _P, _P, _I32, _P, _P, _I32, _P, _P, _P, _P,
                    _P],
+    "eals_gram_sweep": [_I32, _P, _I32, _P, _I32, _P, _P, _I32, _F32, _F32,
+                        _I32, _I32, _I32, _P, _P, _I32, _P, _P, _I32, _I32,
+                        _P, _P, _P, _P],
+    "eals_gram_workspace": [_I32, _I32, _I32, _I32],
+    "eals_gram_max_d": [],
     "eals_loss_workspace": [_I64],
     "eals_loss": [_P, _P, _I32, _P, _P, _P, _P, _I64, _F32, _P, _P, _P, _P,
                   _P],
 }
-_LIBRARY = {"eals_sweep": "eals_sweep", "eals_loss_workspace": "eals_loss",
-            "eals_loss": "eals_loss"}
+_LIBRARY = {"eals_sweep": "eals_sweep", "eals_gram_sweep": "eals_sweep",
+            "eals_gram_workspace": "eals_sweep",
+            "eals_gram_max_d": "eals_sweep",
+            "eals_loss_workspace": "eals_loss", "eals_loss": "eals_loss"}
 
 
 def _kernel(name: str):
@@ -215,6 +230,13 @@ def _check_tables(X, Y, S, C, dev):
     return d
 
 
+def dim_sweep_form(d, batch):
+    """K13's form on the card for rows of ``d`` floats: "gram" for a range
+    or segment batch up to ``GRAM_MAX_D``, else "sweep" (the rows mode,
+    ``batch`` None, and wider rows)."""
+    return "gram" if batch is not None and d <= GRAM_MAX_D else "sweep"
+
+
 def dim_sweep(X, Y, S, C, *, item_axis, alpha, reg, batch=None, indptr=None,
               cols=None, vals=None, vhat=None):
     """K13: the eALS dimension sweep of one batch's rows of X, in place.
@@ -224,7 +246,8 @@ def dim_sweep(X, Y, S, C, *, item_axis, alpha, reg, batch=None, indptr=None,
     rows mode: every row of X over CSR ``indptr`` (int64) / ``cols`` /
     ``vals`` with the residuals ``vhat`` carried in place.  ``C``: the
     negative weights, indexed by the fixed side's column (user pass) or
-    X's own row (``item_axis``).  Replaces ``_eals_dim_sweep`` :71,
+    X's own row (``item_axis``).  The form on the card is
+    ``dim_sweep_form``'s.  Replaces ``_eals_dim_sweep`` :71,
     ``_eals_segment_sweep`` :115, ``_eals_apply_batch`` :165 and
     ``eals_half_epoch`` :24 (``buffalo_tpu/ops/eals_kernels.py``)."""
     kw = dict(item_axis=item_axis, alpha=alpha, reg=reg)
@@ -245,6 +268,7 @@ def dim_sweep(X, Y, S, C, *, item_axis, alpha, reg, batch=None, indptr=None,
                         "stage batches with data.batching.stage_batch")
     dev = X.device
     d = _check_tables(X, Y, S, C, dev)
+    form = dim_sweep_form(d, batch)
     args = dict(row_start=0, B=0, L=0, lens=None, rows=None, R=0,
                 chunk_ptr=None, chunk_lens=None, Cw=0, indptr=None)
     if isinstance(batch, RangeBatch):
@@ -262,7 +286,8 @@ def dim_sweep(X, Y, S, C, *, item_axis, alpha, reg, batch=None, indptr=None,
         R = batch.rows.shape[0]
         for name in ("rows", "lens", "chunk_ptr", "chunk_lens"):
             _check(name, getattr(batch, name), torch.int32, dev, 1)
-        vhat = torch.empty(cols.shape, dtype=torch.float32, device=dev)
+        if form == "sweep":
+            vhat = torch.empty(cols.shape, dtype=torch.float32, device=dev)
         args.update(lens=batch.lens, rows=batch.rows, R=R,
                     chunk_ptr=batch.chunk_ptr, chunk_lens=batch.chunk_lens,
                     Cw=cols.shape[1])
@@ -275,13 +300,28 @@ def dim_sweep(X, Y, S, C, *, item_axis, alpha, reg, batch=None, indptr=None,
         args.update(indptr=indptr)
     _check("cols", cols, torch.int32, dev, cols.dim())
     _check("vals", vals, torch.float32, dev, cols.dim())
-    rc = _kernel("eals_sweep")(
-        mode, _ptr(X), X.shape[0], _ptr(Y), d, _ptr(S), _ptr(C),
-        int(bool(item_axis)), float(alpha), float(reg), args["row_start"],
-        args["B"], args["L"], _ptr(args["lens"]), _ptr(args["rows"]),
-        args["R"], _ptr(args["chunk_ptr"]), _ptr(args["chunk_lens"]),
-        args["Cw"], _ptr(args["indptr"]), _ptr(cols), _ptr(vals),
-        _ptr(vhat), _stream(dev))
+    head = (mode, _ptr(X), X.shape[0], _ptr(Y), d, _ptr(S), _ptr(C),
+            int(bool(item_axis)), float(alpha), float(reg), args["row_start"],
+            args["B"], args["L"], _ptr(args["lens"]), _ptr(args["rows"]),
+            args["R"], _ptr(args["chunk_ptr"]), _ptr(args["chunk_lens"]),
+            args["Cw"])
+    if form == "gram":
+        # the pieces' partials of rows past one block (range rows longer
+        # than its piece, segment chunks)
+        units, width = cols.shape
+        n_work = _kernel("eals_gram_workspace")(mode, units, width, d)
+        if n_work < 0:
+            raise ValueError(f"{units} x {width} entries of rows of {d} "
+                             "floats need a workspace past 2^31 floats")
+        work = (torch.empty(n_work, dtype=torch.float32, device=dev)
+                if n_work else None)
+        rc = _kernel("eals_gram_sweep")(
+            *head, units if mode == 1 else 0, _ptr(cols), _ptr(vals),
+            _ptr(work), _stream(dev))
+    else:
+        rc = _kernel("eals_sweep")(
+            *head, _ptr(args["indptr"]), _ptr(cols), _ptr(vals), _ptr(vhat),
+            _stream(dev))
     _raise_on(rc, "dim_sweep")
     dim_sweep.launches += 1
 

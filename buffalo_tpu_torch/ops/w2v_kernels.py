@@ -14,7 +14,11 @@ each beside its plain PyTorch version (``*_plain``):
   past the table are dropped.  Both paths apply through it.
 * **K21** ``stream_chunk_deltas`` — the on-device window expansion of one
   token chunk (the stream path): position-major deltas of L0 and L1 and
-  the block-shared negatives' deltas, the loss and the pair count.
+  the block-shared negatives' deltas, the loss and the pair count.  Its
+  launcher takes the staged form (a tile's rows staged once in shared
+  memory, each term's dot product once) where a tile fits
+  (``w2v_stream_staged_tile``: rows up to 256 floats and moderate
+  windows), the warp form otherwise.
 
 The stream path's negatives are K8's alias draws
 (``sgd_kernels.sample_negatives``, one attempt, no bloom filter).  All
@@ -66,7 +70,8 @@ _SIGNATURES = {
     "w2v_apply_workspace": [_I32, _I32, _I32, _P],
     "w2v_row_apply": [_P, _P, _I32, _P, _P, _I32, _P, _I32, _I32, _F32, _F32,
                       _P, _P, _P],
-    "w2v_stream_parts": [_I32, _I32],
+    "w2v_stream_parts": [_I32, _I32, _I32, _I32, _I32],
+    "w2v_stream_staged_tile": [_I32, _I32, _I32, _I32],
     "w2v_stream_chunk": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                          _I32, _I32, _I32, _P, _P, _P, _P, _P, _P],
 }
@@ -75,6 +80,7 @@ _LIBRARY = {"w2v_pair_parts": "w2v_pair_step",
             "w2v_apply_workspace": "w2v_row_apply",
             "w2v_row_apply": "w2v_row_apply",
             "w2v_stream_parts": "w2v_stream_chunk",
+            "w2v_stream_staged_tile": "w2v_stream_chunk",
             "w2v_stream_chunk": "w2v_stream_chunk"}
 
 
@@ -385,6 +391,15 @@ def row_apply(T, parts, *, scale=1.0, cap=0.0):
 row_apply.launches = 0
 
 
+def stream_staged_tile(d, num_negatives, window, block):
+    """Positions per tile of K21's staged form for rows of ``d`` floats,
+    ``num_negatives`` per block of ``block`` positions and ``window``; 0
+    where the warp form runs (the C launcher's own rule: rows past 256
+    floats, or no tile that fits shared memory)."""
+    return _kernel("w2v_stream_staged_tile")(int(d), int(num_negatives),
+                                             int(window), int(block))
+
+
 def stream_chunk_deltas(L0, L1, wc, sc, hc, negs, *, window, block,
                         vocab_size, compute_loss=True):
     """K21: one token chunk's skip-gram deltas (see
@@ -412,8 +427,8 @@ def stream_chunk_deltas(L0, L1, wc, sc, hc, negs, *, window, block,
     dL0p = torch.empty((T, d), dtype=torch.float32, device=dev)
     dL1p = torch.empty((T, d), dtype=torch.float32, device=dev)
     dLn = torch.empty((NB, K, d), dtype=torch.float32, device=dev)
-    part = torch.empty(2 * max(1, _kernel("w2v_stream_parts")(T, block)),
-                       dtype=torch.float32, device=dev)
+    part = torch.empty(2 * max(1, _kernel("w2v_stream_parts")(
+        T, d, K, kw["window"], kw["block"])), dtype=torch.float32, device=dev)
     out = torch.empty(2, dtype=torch.float32, device=dev)
     rc = _kernel("w2v_stream_chunk")(
         _ptr(L0), _ptr(L1), _ptr(wc), _ptr(sc), _ptr(hc), _ptr(negs), T, V,

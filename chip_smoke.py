@@ -3080,13 +3080,15 @@ def eals_path(bt, E, R, torch, data):
 
 def eals_batch_check(E, torch, X, Y, S, C, batch, rows, item_axis, alpha,
                      reg):
-    """K13 on one batch against its plain version (and the plain version
-    in Jacobi order): (relative error, Jacobi's relative error)."""
+    """K13 on one batch against its plain version (and the plain version in Jacobi order), launched
+    twice: (relative error, Jacobi's relative error, the two launches
+    bitwise equal)."""
     from buffalo_tpu_torch.data.batching import RangeBatch
 
-    outs = [X.clone() for _ in range(3)]
+    outs = [X.clone() for _ in range(4)]
     kw = dict(item_axis=item_axis, alpha=alpha, reg=reg)
     E.dim_sweep(outs[0], Y, S, C, batch=batch, **kw)
+    E.dim_sweep(outs[3], Y, S, C, batch=batch, **kw)
     if isinstance(batch, RangeBatch):
         args = (int(batch.row_start), batch.lens, batch.cols, batch.vals)
         E.range_sweep_plain(outs[1], Y, S, C, *args, **kw)
@@ -3096,7 +3098,8 @@ def eals_batch_check(E, torch, X, Y, S, C, batch, rows, item_axis, alpha,
         E.segment_sweep_plain(outs[2], Y, S, C, batch, jacobi=True, **kw)
     scale = max(float(outs[1][rows].abs().max()), 1e-30)
     return (float((outs[0] - outs[1]).abs().max()) / scale,
-            float((outs[2] - outs[1]).abs().max()) / scale)
+            float((outs[2] - outs[1]).abs().max()) / scale,
+            bool(torch.equal(outs[0], outs[3])))
 
 
 def k13_work(batch, d, item_axis):
@@ -3117,13 +3120,86 @@ def k13_work(batch, d, item_axis):
     return nbytes, n * d * 12
 
 
+def k13_segment_work(batch, d, item_axis, num_rows):
+    """``k13_work`` of a segment batch: its chunks' lens, the live entries'
+    ids and values, the real rows read and written, S, each distinct row
+    of the fixed side (with its C in the user pass) read once."""
+    import torch
+
+    Nc, Cw = batch.cols.shape
+    live = torch.arange(Cw, device=batch.cols.device)[None, :] < \
+        batch.chunk_lens[:, None]
+    n = int(batch.chunk_lens.sum())
+    n_y = int(torch.unique(batch.cols[live]).numel())
+    R = int((batch.rows < num_rows).sum())
+    nbytes = (4 * Nc + 8 * n + 8 * R * d + 4 * d * d
+              + (4 * d + (0 if item_axis else 4)) * n_y)
+    return nbytes, n * d * 12
+
+
+def k13_library(torch, X, Y, S, C, batch, *, item_axis, alpha, reg):
+    """K13's function on one staged batch by library calls (a yardstick,
+    used nowhere in the port): each row's system A = F^T diag(w - C_e) F +
+    c_row S^T + reg I and b = F^T (w v) by ``torch.bmm`` over the gathered
+    rows (a segment batch's chunks added per row with ``index_add_``), then
+    the Gauss-Seidel sweep x = (L_A + D_A)^-1 (b - U_A x) by
+    ``torch.linalg.solve_triangular``; X in place."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+
+    dev, d, n = X.device, X.shape[1], X.shape[0]
+    if isinstance(batch, RangeBatch):
+        rs = int(batch.row_start)
+        B, L = batch.cols.shape
+        rows = torch.arange(rs, rs + B, device=dev)
+        lens = batch.lens
+        c_row = (C[rs:rs + B] if item_axis
+                 else torch.ones(B, dtype=torch.float32, device=dev))
+        seg = None
+    else:
+        R = batch.rows.shape[0]
+        rows = torch.clamp(batch.rows.long(), max=n - 1)
+        lens = batch.chunk_lens
+        seg = torch.clamp(batch.seg_ids.long(), max=R)
+        c_row = (torch.where(batch.lens > 0, C[rows], torch.zeros_like(
+            C[rows])) if item_axis else torch.ones(R, dtype=torch.float32,
+                                                    device=dev))
+    cols = batch.cols.long()
+    Lw = cols.shape[1]
+    mask = (torch.arange(Lw, device=dev)[None, :] < lens[:, None]).float()
+    v = batch.vals.float()
+    w = (1.0 + alpha * v) * mask
+    if item_axis:
+        ce = (c_row if seg is None else torch.cat([c_row, c_row.new_zeros(
+            1)])[seg])[:, None]
+    else:
+        ce = C[cols]
+    F = Y[cols]
+    Ft = F.transpose(1, 2)
+    G = torch.bmm(Ft * (w - ce * mask)[:, None, :], F)
+    b = torch.bmm(Ft, (w * v)[:, :, None])[..., 0]
+    if seg is not None:
+        G = torch.zeros((R + 1, d, d), device=dev).index_add_(0, seg, G)[:R]
+        b = torch.zeros((R + 1, d), device=dev).index_add_(0, seg, b)[:R]
+    A = G + c_row[:, None, None] * S.T[None] + reg * torch.eye(d, device=dev)
+    rhs = b - (torch.triu(A, 1) @ X[rows][..., None])[..., 0]
+    x = torch.linalg.solve_triangular(torch.tril(A), rhs[..., None],
+                                      upper=False)[..., 0]
+    if seg is None:
+        X[rows] = x
+    else:
+        keep = batch.rows.long() < n
+        X[batch.rows.long()[keep]] = x[keep]
+
+
 def eals_kernels(E, torch, model, st):
     """K13 and K14 against their plain versions on the trained model's
     ML-20M layout: K13 on the first range batch of every length bucket of
     both halves, on each segment batch and on the user side's CSR rows
-    (rows mode), within TOL_EALS relative (a Jacobi sweep must fail), and
-    at EALS_WIDTHS on random batches; K14's residuals within TOL_VHAT and
-    sums within TOL_EALS_SUM.  Returns the kernels line's entries."""
+    (rows mode), within TOL_EALS relative (a Jacobi sweep must fail) and
+    bitwise repeatable, and at EALS_WIDTHS on random batches; its times on
+    the largest user and item range batches and item segment batch, beside the bound and the library route (``k13_library``); K14's
+    residuals within TOL_VHAT and sums within TOL_EALS_SUM.  Returns the
+    kernels line's entries."""
     from buffalo_tpu_torch.data.batching import RangeBatch
 
     dev = model.device
@@ -3146,10 +3222,11 @@ def eals_kernels(E, torch, model, st):
                 rows = slice(rs, rs + b.cols.shape[0])
             else:
                 rows = b.rows.long()[b.rows.long() < X.shape[0]]
-            e, j = eals_batch_check(E, torch, X, Y, S, C, b, rows, item,
-                                    alpha, reg)
-            check(e <= TOL_EALS, f"K13 on a {half} batch "
-                  f"{tuple(b.cols.shape)} is {e:.3g} from its plain version")
+            e, j, rep = eals_batch_check(E, torch, X, Y, S, C, b, rows,
+                                         item, alpha, reg)
+            check(e <= TOL_EALS and rep, f"K13 on a {half} batch "
+                  f"{tuple(b.cols.shape)} is {e:.3g} from its plain version "
+                  f"(repeatable: {rep})")
             check(j > TOL_EALS, f"the K13 check passes a Jacobi sweep on a "
                   f"{half} batch {tuple(b.cols.shape)} ({j:.3g})")
             errs.append(e)
@@ -3194,29 +3271,65 @@ def eals_kernels(E, torch, model, st):
                   * (np.arange(L) < lens[:, None])).astype(np.float32)
             bw = RangeBatch(100, *[torch.from_numpy(x).to(dev)
                                    for x in (lens, cols, vv)])
-            e, j = eals_batch_check(E, torch, X, Y, Sw, Cw, bw,
-                                    slice(100, 164), False, alpha, reg)
-            check(e <= TOL_EALS and j > TOL_EALS,
-                  f"K13 at d = {dw}, L = {L}: {e:.3g} (Jacobi {j:.3g})")
-            widths[f"d{dw}_L{L}"] = e
-    # timing on the user half's range batch with the most entries
-    big = max((b for b in st["row_groups"] if isinstance(b, RangeBatch)),
-              key=lambda b: int(b.lens.sum()))
-    Sq = E.eals_gramian(Q, C)
+            e, j, rep = eals_batch_check(E, torch, X, Y, Sw, Cw, bw,
+                                         slice(100, 164), False, alpha, reg)
+            form = E.dim_sweep_form(dw, bw)
+            check(e <= TOL_EALS and j > TOL_EALS and rep,
+                  f"K13's {form} form at d = {dw}, L = {L}: {e:.3g} "
+                  f"(Jacobi {j:.3g}, repeatable {rep})")
+            widths[f"d{dw}_L{L}_{form}"] = e
+    # timing: the user half's and the item half's range batch with the
+    # most entries and the item half's segment batch with the most, each
+    # beside the library route (k13_library)
+    def most(groups, kind):
+        return max((b for b in groups if isinstance(b, RangeBatch) == kind),
+                   key=lambda b: int(b.lens.sum() if kind
+                                     else b.chunk_lens.sum()))
+
+    timed = {}
+    for name, batch, X0, Y, S, item in (
+            ("user_range", most(st["row_groups"], True), P, Q, halves[0][4],
+             False),
+            ("item_range", most(st["col_groups"], True), Q, P, halves[1][4],
+             True),
+            ("item_segment", most(st["col_groups"], False), Q, P,
+             halves[1][4], True)):
+        X = X0.clone()
+        kw = dict(item_axis=item, alpha=alpha, reg=reg)
+        if isinstance(batch, RangeBatch):
+            nbytes, flops = k13_work(batch, D, item)
+            entries = int(batch.lens.sum())
+        else:
+            nbytes, flops = k13_segment_work(batch, D, item, X.shape[0])
+            entries = int(batch.chunk_lens.sum())
+        bms, by = bound_ms(nbytes, flops)
+
+        def fn13(X=X, Y=Y, S=S, batch=batch, kw=kw):
+            E.dim_sweep(X, Y, S, C, batch=batch, **kw)
+
+        timed[name] = dict(
+            batch=list(batch.cols.shape), entries=entries,
+            form=E.dim_sweep_form(D, batch), ms=time_ms(fn13),
+            device_ms=trace_ms(fn13, "sweep"), bound_ms=bms, bound_by=by,
+            library_ms=time_ms(lambda: k13_library(
+                torch, X, Y, S, C, batch, **kw), reps=5, warmup=1))
+    big = most(st["row_groups"], True)
     X = P.clone()
     kw = dict(item_axis=False, alpha=alpha, reg=reg)
     args = (int(big.row_start), big.lens, big.cols, big.vals)
-    nbytes, flops = k13_work(big, D, False)
-    bms, by = bound_ms(nbytes, flops)
-    fn13 = (lambda: E.dim_sweep(X, Q, Sq, C, batch=big, **kw))
+    main = timed["user_range"]
     k13 = dict(route="cuda", source="buffalo_tpu_torch/csrc/eals_sweep.cu",
                replaces="buffalo_tpu/ops/eals_kernels.py:71",
                max_abs_err=max(errs + [rows_err] + list(widths.values())),
-               ms=time_ms(fn13), device_ms=trace_ms(fn13, "sweep_kernel"),
+               ms=main["ms"], device_ms=main["device_ms"],
                plain_ms=time_ms(lambda: E.range_sweep_plain(
-                   X, Q, Sq, C, *args, **kw), reps=3, warmup=1),
-               bound_ms=bms, bound_by=by, library_ms=None,
-               batch=list(big.cols.shape), entries=int(big.lens.sum()),
+                   X, Q, halves[0][4], C, *args, **kw), reps=3, warmup=1),
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=main["library_ms"],
+               library="torch.bmm for A and b, then "
+               "torch.linalg.solve_triangular (k13_library)",
+               batch=main["batch"], entries=main["entries"],
+               form=main["form"], modes=timed,
                checked_batches=checked, max_rel_err=max(errs),
                min_jacobi_rel_err=min(jac), rows_mode_rel_err=rows_err,
                widths=widths)
@@ -4317,12 +4430,16 @@ def w2v_kernels(W, S, torch, model, arrays):
     bms, by = bound_ms(9 * T + 4 * NB * K + 4 * d * (u0 + u1)
                        + 4 * d * (2 * T + NB * K),
                        pairs * 2 * d * (3 + 3 * K))
+
+    def fn21():
+        return W.stream_chunk_deltas(L0, L1, wc, sc, hc, negs, **kw)
+
     k21 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_stream_chunk.cu",
                replaces="buffalo_tpu/ops/w2v_kernels.py:236",
                max_abs_err=max(float((a - b).abs().max())
                                for a, b in zip(got[:3], ref[:3])),
-               ms=time_ms(lambda: W.stream_chunk_deltas(L0, L1, wc, sc, hc,
-                                                        negs, **kw)),
+               staged_tile=W.stream_staged_tile(d, K, window, block),
+               ms=time_ms(fn21), device_ms=trace_ms(fn21, "chunk_deltas"),
                plain_ms=time_ms(lambda: W.stream_chunk_deltas_plain(
                    L0, L1, wc, sc, hc, negs, **kw), reps=5, warmup=1),
                bound_ms=bms, bound_by=by, library_ms=None,

@@ -1144,6 +1144,117 @@ def test_dim_sweep_segment_and_rows_kernels_match_plain(dev, d, item_axis):
     assert _rel_close(a[0], b[0]) and _rel_close(a[1], b[1])
 
 
+@pytest.mark.parametrize("d", [13, 40, 64, 127, 128, 129])
+@pytest.mark.parametrize("L", [8, 96, 1024, 8192])
+@pytest.mark.parametrize("item_axis", [False, True])
+def test_dim_sweep_range_forms_match_plain(dev, d, L, item_axis):
+    """K13 on a range batch in the form its rule picks: the Gram form up
+    to its edge (128), the sweep form at the first width past it; 1e-4
+    relative of the plain version, a Jacobi sweep failing that, repeat
+    launches bitwise equal."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+    from buffalo_tpu_torch.ops import eals_kernels as E
+
+    rng, X, Y, C, S = _eals_case(dev, d, ny=300 if L < 1024 else 20000)
+    B = 40 if L < 8192 else 6
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    lens[:2] = (0, 1)
+    cols = rng.integers(0, Y.shape[0], (B, L)).astype(np.int32)
+    vals = (rng.integers(1, 5, (B, L)) * (np.arange(L) < lens[:, None]))
+    batch = RangeBatch(17, *[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                             for a in (lens, cols, vals.astype(np.float32))])
+    kw = dict(item_axis=item_axis, alpha=8.0, reg=0.1)
+    got, again, ref, jac = X.clone(), X.clone(), X.clone(), X.clone()
+    before = E.dim_sweep.launches
+    E.dim_sweep(got, Y, S, C, batch=batch, **kw)
+    E.dim_sweep(again, Y, S, C, batch=batch, **kw)
+    E.range_sweep_plain(ref, Y, S, C, 17, *batch[1:], **kw)
+    E.range_sweep_plain(jac, Y, S, C, 17, *batch[1:], jacobi=True, **kw)
+    torch.cuda.synchronize()
+    assert E.dim_sweep.launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel_close(got, ref)
+    assert not _rel_close(jac, ref)
+    assert torch.equal(got[:17], X[:17]) and torch.equal(got[17 + B:],
+                                                          X[17 + B:])
+
+
+def _eals_segment(dev, rng, X, Y, chunks, C=256):
+    """A staged segment batch: head rows 5 (chunks[0] full chunks and one
+    of 77 entries), 300 (one chunk of C), 41 (one chunk of 3) and a row
+    past the table (dropped), then two padding chunks."""
+    from buffalo_tpu_torch.data.batching import SegmentBatch, stage_batch
+
+    n = X.shape[0]
+    rows = np.array([5, 300, 41, n + 3], np.int32)
+    per_row = [[C] * chunks + [77], [C], [3], [C]]
+    lens = np.array([sum(r) for r in per_row[:3]] + [0], np.int32)
+    seg_ids = np.array([r for r, cl in enumerate(per_row) for _ in cl]
+                       + [4, 4], np.int32)
+    chunk_lens = np.array([c for cl in per_row for c in cl] + [0, 0],
+                          np.int32)
+    cols = rng.integers(0, Y.shape[0], (len(chunk_lens), C)).astype(np.int32)
+    vals = (rng.integers(1, 5, cols.shape)
+            * (np.arange(C) < chunk_lens[:, None])).astype(np.float32)
+    return stage_batch(SegmentBatch(rows, lens, seg_ids, chunk_lens, cols,
+                                    vals), dev)
+
+
+@pytest.mark.parametrize("d", [13, 40, 128, 129])
+@pytest.mark.parametrize("chunks", [1, 40])
+@pytest.mark.parametrize("width", [256, 4096])
+@pytest.mark.parametrize("item_axis", [False, True])
+def test_dim_sweep_segment_forms_match_plain(dev, d, chunks, width,
+                                             item_axis):
+    """K13's segment mode in the form its rule picks (the Gram form up to
+    128, the sweep form past it): a head row of 1 or 40 full chunks plus a
+    short one, rows of one chunk, a row past the table dropped, chunks
+    that fit one block and chunks cut into pieces; 1e-4 relative, Jacobi
+    failing, repeatable, rows outside the batch untouched."""
+    from buffalo_tpu_torch.ops import eals_kernels as E
+
+    rng, X, Y, C, S = _eals_case(dev, d, ny=3000)
+    batch = _eals_segment(dev, rng, X, Y, chunks, C=width)
+    kw = dict(item_axis=item_axis, alpha=8.0, reg=0.1)
+    ref, jac = X.clone(), X.clone()
+    E.segment_sweep_plain(ref, Y, S, C, batch, **kw)
+    E.segment_sweep_plain(jac, Y, S, C, batch, jacobi=True, **kw)
+    got, again = X.clone(), X.clone()
+    E.dim_sweep(got, Y, S, C, batch=batch, **kw)
+    E.dim_sweep(again, Y, S, C, batch=batch, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _rel_close(got, ref)
+    keep = torch.ones(X.shape[0], dtype=torch.bool, device=dev)
+    keep[[5, 300, 41]] = False
+    assert torch.equal(got[keep], X[keep])
+    assert not _rel_close(jac, ref)
+
+
+def test_dim_sweep_form_rule(dev):
+    """The wrapper's rule and the C launcher agree on the Gram form's
+    widest rows and its workspace; the rows mode and wider rows take the
+    sweep form."""
+    import ctypes
+
+    from buffalo_tpu_torch.ops import eals_kernels as E
+    from buffalo_tpu_torch.ops._build import launcher
+
+    f = launcher("eals_gram_max_d", [], library="eals_sweep")
+    assert f() == E.GRAM_MAX_D
+    ws = launcher("eals_gram_workspace", [ctypes.c_int] * 4,
+                  library="eals_sweep")
+    # range rows that fit one block need none; longer ones and segment
+    # chunks a partial per piece of at least 1,024 entries, more pieces
+    # where the batch has few units
+    assert ws(0, 3, 2048, 40) == 0 and ws(0, 3, 2056, 40) == 3 * 3 * 40 * 41
+    assert ws(1, 3, 8192, 40) == 3 * 8 * 40 * 41 and ws(1, 3, 8192, 129) == 0
+    assert ws(1, 400, 8192, 40) == 400 * 2 * 40 * 41
+    assert [E.dim_sweep_form(d, object()) for d in (1, 128, 129)] == [
+        "gram", "gram", "sweep"]
+    assert E.dim_sweep_form(40, None) == "sweep"
+
+
 @pytest.mark.parametrize("d", [13, 40, 256, 300])
 def test_eals_residual_kernel_matches_plain(dev, d):
     from buffalo_tpu_torch.ops import eals_kernels as E
@@ -1747,6 +1858,104 @@ def test_w2v_stream_chunk_kernel_matches_plain(dev, d, block):
         assert _rel_close(a.cpu(), b, 1e-5)
         assert not _rel_close(a.cpu(), c, 1e-5)
     assert abs(float(got[3]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    assert float(got[4]) == float(ref[4]) > 0
+
+
+def _stream_form(d, K, window, block):
+    """K21's staged tile for this shape (0: the warp form), and the widest
+    window its staged form takes at d, K and block."""
+    from buffalo_tpu_torch.ops.w2v_kernels import stream_staged_tile as f
+
+    widest = [w for w in range(256) if f(d, K, w, block) > 0]
+    return f(d, K, window, block), max(widest) if widest else None
+
+
+@pytest.mark.parametrize("d", [13, 32, 64])
+@pytest.mark.parametrize("block", [1, 4, 16])
+@pytest.mark.parametrize("window", [1, 5, "widest"])
+@pytest.mark.parametrize("tail", ["real", "padding"])
+def test_w2v_stream_chunk_staged_form_edges(dev, d, block, window, tail):
+    """K21's staged form: sentences that end at a tile's edge and inside
+    its halo, negatives equal to their block's centre words, the chunk's
+    last positions real words or padding, windows 1, 5 and the widest the
+    staged form takes; 1e-5 of the largest entry, loss 1e-5, count exact,
+    repeat launches bitwise equal."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V, K = 2000, 5
+    if window == "widest":
+        window = _stream_form(d, K, 5, block)[1]
+    P, _ = _stream_form(d, K, window, block)
+    assert P > 0 and P % block == 0
+    T = block * max(-(-512 // block), -(-6 * P // block))
+    rng, L0, L1, p, alias = _w2v_problem(dev, d, V, seed=window + block)
+    wc = rng.choice(V, T, p=p).astype(np.int32)
+    bnd = (rng.random(T) < 0.05).astype(np.int32)
+    bnd[0] = 1
+    for e in range(P, T, max(P, 64 // P * P)):
+        bnd[e] = 1                          # a sentence ends at a tile edge
+        bnd[min(T - 1, e + window // 2 + 1)] = 1  # and inside a halo
+        bnd[max(1, e - window // 2 - 1)] = 1
+    hc = (window - rng.integers(0, window, T)).astype(np.uint8)
+    if tail == "padding":
+        wc[-3 * block:] = V
+    negs = W.stream_negatives(T // block, V, num_negatives=K, seed=2,
+                              epoch=0, chunk=1, alias=alias, device=dev)
+    ctr = torch.from_numpy(wc[::block].copy()).to(dev)
+    negs[::3, 0] = ctr[::3].clamp(max=V - 1)   # a negative equal to the centre
+    last = np.arange(1, T // block, 3)      # and to a block's last centre
+    negs[last, K - 1] = torch.from_numpy(wc[last * block + block - 1]).to(
+        dev).clamp(max=V - 1)
+    sc = np.cumsum(bnd).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (wc, sc, hc)] + [negs]
+    kw = dict(window=window, block=block, vocab_size=V)
+    got = W.stream_chunk_deltas(L0, L1, *args, **kw)
+    again = W.stream_chunk_deltas(L0, L1, *args, **kw)
+    ref = W.stream_chunk_deltas_plain(L0.cpu(), L1.cpu(),
+                                      *[a.cpu() for a in args], **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, b in zip(got[:3], ref[:3]):
+        assert _rel_close(a.cpu(), b, 1e-5)
+    assert abs(float(got[3]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    assert float(got[4]) == float(ref[4]) > 0
+
+
+def test_w2v_stream_chunk_form_rule(dev):
+    """The staged form takes the stream path's shapes (d = 32, window 5,
+    5 negatives, block 4; tiles a multiple of the block); rows past 256
+    floats and windows past the widest staged one keep the warp form, and
+    the widest window shrinks as rows widen."""
+    t32, w32 = _stream_form(32, 5, 5, 4)
+    t256, w256 = _stream_form(256, 5, 5, 4)
+    assert t32 > 0 and t32 % 4 == 0 and t256 > 0
+    assert _stream_form(300, 5, 5, 4) == (0, None)
+    assert w256 < w32 < 255
+    assert _stream_form(32, 5, w32 + 1, 4)[0] == 0
+
+
+@pytest.mark.parametrize("window", [100, 255])
+def test_w2v_stream_chunk_warp_form_past_staged(dev, window):
+    """Windows past the staged form's widest take the warp form: held to
+    the plain version as the staged form is."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V, T, K, d, block = 1000, 2048, 5, 32, 4
+    assert _stream_form(d, K, window, block)[0] == 0
+    rng, L0, L1, p, alias = _w2v_problem(dev, d, V)
+    wc = rng.choice(V, T, p=p).astype(np.int32)
+    sc = np.cumsum(rng.random(T) < 0.002).astype(np.int32)
+    hc = (window - rng.integers(0, window, T)).astype(np.uint8)
+    negs = W.stream_negatives(T // block, V, num_negatives=K, seed=3,
+                              epoch=0, chunk=0, alias=alias, device=dev)
+    args = [torch.from_numpy(a).to(dev) for a in (wc, sc, hc)] + [negs]
+    kw = dict(window=window, block=block, vocab_size=V)
+    got = W.stream_chunk_deltas(L0, L1, *args, **kw)
+    ref = W.stream_chunk_deltas_plain(L0.cpu(), L1.cpu(),
+                                      *[a.cpu() for a in args], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], ref[:3]):
+        assert _rel_close(a.cpu(), b, 1e-5)
     assert float(got[4]) == float(ref[4]) > 0
 
 

@@ -3,7 +3,10 @@
 inputs.  Tolerance 1e-5 relative (1e-6 absolute near 0): the same float32
 coordinate-descent arithmetic with sums in another order.  A sweep in
 Jacobi order (every dimension from the old row) is shown to miss it, so
-the comparison holds the dimensions' order.
+the comparison holds the dimensions' order.  K13's Gram form (each row's
+normal equations, then one Gauss-Seidel sweep on them) is written here in
+torch and held to the JAX package's dimension loop within 1e-5 of the
+largest row entry.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,6 +139,94 @@ def test_rows_sweep_matches_half_epoch(item_axis):
                       item_axis=item_axis, alpha=ALPHA, reg=REG)
     _close(got.numpy(), np.asarray(Xj))
     _close(v.numpy(), np.asarray(vj))
+
+
+def _gram_form_sweep(p, F, vals, cvals, c_row, mask, S, seg=None, *,
+                     jacobi=False):
+    """K13's Gram form in torch: each row's A = F^T diag(w - C_e) F +
+    c_row S^T + reg I and b = F^T (w v) (entry rows summed per row through
+    ``seg``), then one forward Gauss-Seidel sweep, x = (L_A + D_A)^-1 (b -
+    U_A x), by ``torch.linalg.solve_triangular``; or with ``jacobi`` the
+    Jacobi step x = D_A^-1 (b - (L_A + U_A) x)."""
+    R, d = p.shape
+    w = (1.0 + ALPHA * vals) * mask
+    G = torch.einsum("eld,el,elk->edk", F, w - cvals * mask, F)
+    b = torch.einsum("eld,el->ed", F, w * vals)
+    if seg is not None:
+        G = torch.zeros(R + 1, d, d).index_add_(0, seg, G)[:R]
+        b = torch.zeros(R + 1, d).index_add_(0, seg, b)[:R]
+    A = G + c_row[:, None, None] * S.T[None] + REG * torch.eye(d)
+    if jacobi:
+        diag = torch.diagonal(A, dim1=1, dim2=2)
+        off = A - torch.diag_embed(diag)
+        return (b - (off @ p[..., None])[..., 0]) / diag
+    rhs = b - (torch.triu(A, 1) @ p[..., None])[..., 0]
+    return torch.linalg.solve_triangular(torch.tril(A), rhs[..., None],
+                                         upper=False)[..., 0]
+
+
+@pytest.mark.parametrize("d", [13, 40, 128])
+@pytest.mark.parametrize("item_axis", [False, True])
+@pytest.mark.parametrize("mode", ["range", "segment"])
+def test_gram_form_is_the_dimension_sweep(d, item_axis, mode):
+    """One Gauss-Seidel sweep on each row's normal equations (K13's Gram
+    form on the card) is the JAX package's dimension loop
+    (``_eals_dim_sweep`` / ``_eals_segment_sweep``): within 1e-5 of the
+    largest row entry, where a Jacobi sweep of the same system is not.
+    Range rows of length 0 to L; segment rows of one to three chunks of
+    width 16, a padding chunk last."""
+    rng = np.random.default_rng(100 + d + 2 * item_axis)
+    ny = 3 * d
+    Y = (0.3 * rng.standard_normal((ny, d))).astype(np.float32)
+    A0 = rng.standard_normal((ny, d)).astype(np.float32)
+    S = (A0.T @ A0 / ny).astype(np.float32)
+    Cy = rng.uniform(0.05, 0.6, ny).astype(np.float32)
+    if mode == "range":
+        R, L = 12, 24
+        lens = rng.integers(0, L + 1, R).astype(np.int32)
+        lens[[2, 7]] = 0
+        seg, seg_np = None, None
+        Ew = L
+    else:
+        R, Ew = 3, 16
+        chunk_lens = np.array([16, 16, 5, 16, 16, 9, 0], np.int32)
+        seg_np = np.array([0, 0, 0, 1, 2, 2, R], np.int32)
+        seg = torch.from_numpy(seg_np).long()
+        lens = chunk_lens
+    E = len(lens)
+    mask = (np.arange(Ew)[None, :] < lens[:, None]).astype(np.float32)
+    cols = rng.integers(0, ny, (E, Ew)).astype(np.int32)
+    vals = (rng.integers(1, 5, (E, Ew)) * mask).astype(np.float32)
+    p = (0.3 * rng.standard_normal((R, d))).astype(np.float32)
+    if item_axis:
+        c_row = rng.uniform(0.05, 0.6, R).astype(np.float32)
+        cvals = (c_row[:, None] if seg_np is None
+                 else c_row[np.minimum(seg_np, R - 1)][:, None]) \
+            * np.ones((E, Ew), np.float32)
+    else:
+        c_row = np.ones(R, np.float32)
+        cvals = Cy[cols]
+    if mode == "range":
+        want = np.asarray(JE._eals_dim_sweep(
+            jnp.asarray(p), jnp.asarray(Y[cols]), jnp.asarray(vals),
+            jnp.asarray(cvals), jnp.asarray(c_row), jnp.asarray(lens),
+            jnp.asarray(S), alpha=ALPHA, reg=REG))
+    else:
+        jb = JSegmentBatch(rows=np.arange(R, dtype=np.int32),
+                           lens=np.array([37, 16, 25], np.int32),
+                           seg_ids=seg_np, chunk_lens=chunk_lens, cols=cols,
+                           vals=vals)
+        want = np.asarray(JE._eals_segment_sweep(
+            jnp.asarray(p), jnp.asarray(Y), jb, jnp.asarray(cvals),
+            jnp.asarray(c_row), jnp.asarray(S), alpha=ALPHA, reg=REG))
+    t = [torch.from_numpy(a) for a in (p, Y[cols], vals, cvals, c_row, mask,
+                                       S)]
+    got = _gram_form_sweep(*t, seg=seg).numpy()
+    jac = _gram_form_sweep(*t, seg=seg, jacobi=True).numpy()
+    scale = float(np.abs(want).max())
+    assert np.abs(want - p).max() > 1e-3 * scale
+    assert np.abs(got - want).max() <= 1e-5 * scale
+    assert np.abs(jac - want).max() > 1e-5 * scale
 
 
 def test_residual_and_loss_match_jax():

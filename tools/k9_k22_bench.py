@@ -32,8 +32,8 @@ are and rebuilt
 with one part changed or switched off (``VARIANTS``: source edits of
 ``csrc/bpr_update.cu`` and ``csrc/sharded_topk_merge.cu`` that match their
 text and fail loudly when it changes), each build swapped in for the
-wrapper's C launch function; the switched-off builds compute something
-else and are timed only.
+wrapper's C launch functions (``tools/bench_common.py``); the
+switched-off builds compute something else and are timed only.
 
 One JSON line per case on stdout, all of them in
 ``chiprun_out/k9_k22_bench_<tag>.json``.
@@ -41,27 +41,24 @@ One JSON line per case on stdout, all of them in
 from __future__ import annotations
 
 import argparse
-import ctypes
-import importlib.util
 import inspect
-import json
 import os
-import subprocess
-import sys
 
 import numpy as np
+from bench_common import (ROOT, build_variants, by_kernel, emit, finish,
+                          parse, start, swapped)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAP = 0.1
 K9_BATCH, K9_SHARDS = 524_288, 4
 K22_SHAPES = ((10_000, 4, 10, 10), (1_000, 4, 2_000, 2_000))
 SWEEP_K = (10, 16, 32, 48, 64, 96, 128, 256, 512, 2_000)
 
 
-# tag -> (source, launch function, [(old, new)]): K9 or K22 rebuilt with
-# edits that match csrc's text exactly
-K9_V, K22_V = ("bpr_update.cu", "bpr_update"), ("sharded_topk_merge.cu",
-                                                 "sharded_topk_merge_as")
+# tag -> (source, [launch functions swapped in], [(old, new)]): K9 or K22
+# rebuilt with edits that match csrc's text exactly (a K9 build sizes its
+# own workspace)
+K9_V = ("bpr_update.cu", ["bpr_update", "bpr_delta", "bpr_workspace"])
+K22_V = ("sharded_topk_merge.cu", ["sharded_topk_merge_as"])
 VARIANTS = {
     "k9_as_is": (*K9_V, []),
     **{f"k9_run_piece_{n}": (*K9_V, [(
@@ -83,42 +80,9 @@ VARIANTS = {
 }
 
 
-def build_variants(out_dir):
-    """{tag: the library built with that variant's edits}, the nvcc runs
-    in parallel."""
-    from buffalo_tpu_torch.ops import _build
-
-    procs = {}
-    for tag, (src_name, _, edits) in VARIANTS.items():
-        with open(os.path.join(_build._CSRC, src_name)) as fh:
-            src = fh.read()
-        for old, new in edits:
-            if old not in src:
-                raise SystemExit(f"{tag}: source text not found: {old!r}")
-            src = src.replace(old, new)
-        path = os.path.join(out_dir, f"{tag}.cu")
-        os.makedirs(out_dir, exist_ok=True)
-        with open(path, "w") as fh:
-            fh.write(src)
-        lib = os.path.join(out_dir, f"lib{tag}.so")
-        procs[tag] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build._CSRC, "-o",
-             lib, path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for tag, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {tag}:\n{log}")
-        libs[tag] = ctypes.CDLL(lib)
-    return libs
-
-
 def time_variants(cs, S, R, torch, dev, out):
     """K9's sgd step and delta path (d = 40, presorted) and K22's tree form
     (1,000 x 4 x 2,000) by kernel for each build of ``VARIANTS``."""
-    from buffalo_tpu_torch.ops import _build
-
     users, pos, neg = k9_chunk(cs, torch, dev)
     P0, Q0, Qb0 = tables(torch, dev, 40)
     t = [P0.clone(), Q0.clone(), Qb0.clone()]
@@ -148,34 +112,20 @@ def time_variants(cs, S, R, torch, dev, out):
     delta()
     merge()
     S._kernel("bpr_workspace")  # loaded, so that it can be swapped
-    libs = build_variants(os.path.join(ROOT, "build", "k9_k22_variants"))
+    libs = build_variants(VARIANTS,
+                          os.path.join(ROOT, "build", "k9_k22_variants"))
     for tag, lib in libs.items():
-        k9 = VARIANTS[tag][1] == "bpr_update"
-        # a K9 build sizes its own workspace
-        names = (("bpr_update", "bpr_delta", "bpr_workspace") if k9
-                 else (VARIANTS[tag][1],))
-        real = {n: _build._launchers[n] for n in names}
-        for n in names:
-            fn = getattr(lib, n)
-            fn.argtypes, fn.restype = real[n].argtypes, real[n].restype
-            _build._launchers[n] = fn
+        k9 = tag.startswith("k9")
         S._WORKSPACE_SIZES.clear()
         try:
-            calls = {"step": step, "delta": delta} if k9 else {"merge": merge}
-            for what, call in calls.items():
-                emit(out, variant=tag, call=what, ms=cs.time_ms(call),
-                     by_kernel_ms=by_kernel(cs, torch, call))
+            with swapped(lib, VARIANTS[tag][1]):
+                calls = ({"step": step, "delta": delta} if k9
+                         else {"merge": merge})
+                for what, call in calls.items():
+                    emit(out, variant=tag, call=what, ms=cs.time_ms(call),
+                         by_kernel_ms=by_kernel(cs, torch, call))
         finally:
-            _build._launchers.update(real)
             S._WORKSPACE_SIZES.clear()
-
-
-def load_chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
 
 
 def k9_chunk(cs, torch, dev):
@@ -203,13 +153,6 @@ def tables(torch, dev, d):
     Q = 0.1 * torch.randn(26_744, d, generator=g)
     Qb = 0.1 * torch.randn(26_744, generator=g)
     return P.to(dev), Q.to(dev), Qb.to(dev)
-
-
-def by_kernel(cs, torch, fn, calls=5):
-    """Device milliseconds per call of ``fn`` by kernel name (CUPTI)."""
-    prof = cs.profile_call(torch, lambda: [fn() for _ in range(calls)],
-                           top=16)
-    return {k: v / calls for k, v in prof["device_ms_by_name"].items()}
 
 
 def k9_cases(cs, S, torch, dev, out, widths):
@@ -372,15 +315,8 @@ def k22_cases(cs, R, torch, out, sweep):
                  bound_by=by, library_ms=lib)
 
 
-def emit(out, **line):
-    out.append(line)
-    print(json.dumps(line), flush=True)
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tree", default=None, help="another checkout's root")
-    ap.add_argument("--tag", default="current")
     ap.add_argument("--sweep", action="store_true",
                     help="both K22 forms over k")
     ap.add_argument("--skip-k9", action="store_true")
@@ -389,32 +325,20 @@ def main():
                     help="K9 and K22 rebuilt with parts changed (VARIANTS)")
     ap.add_argument("--d", type=int, nargs="+", default=[40, 300],
                     help="K9's widths")
-    args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.tree) if args.tree else ROOT)
+    args = parse(ap)
+    cs, out = start(args, "k9_k22_bench")
     import torch
 
-    if not torch.cuda.is_available():
-        sys.exit("k9_k22_bench.py needs a card")
-    cs = load_chip_smoke()
     import buffalo_tpu_torch.ops.retrieval_kernels as R
     import buffalo_tpu_torch.ops.sgd_kernels as S
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    out = []
-    emit(out, tree=args.tree or ".", tag=args.tag, card=card.strip(),
-         package=os.path.dirname(S.__file__))
     if args.variants:
         time_variants(cs, S, R, torch, torch.device("cuda"), out)
     elif not args.skip_k9:
         k9_cases(cs, S, torch, torch.device("cuda"), out, args.d)
     if not args.skip_k22:
         k22_cases(cs, R, torch, out, args.sweep)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out",
-                           f"k9_k22_bench_{args.tag}.json"), "w") as fh:
-        json.dump(out, fh, indent=1)
+    finish(out, "k9_k22_bench", args.tag)
 
 
 if __name__ == "__main__":
