@@ -13,170 +13,297 @@
 // block-shared negatives).
 //
 // What bounds it on the card: each entry's row read once (n d floats) and
-// each touched table row read and written once; the sort moves 8 bytes per
-// entry a few times.  The L1 update of a brunch stream chunk (294,912
-// entries of 4 bytes of key and 128 of row, 163,298 touched rows, d = 32)
-// moves ~80 MB, ~24 us of HBM.  Design: row_group.cuh's stable radix
-// grouping (as K9 and K12), so the sums have a fixed order and no float
-// atomics: a warp per run of kRun
-// sorted entries sums its rows (lanes on the columns, the run's entry ids
-// read 32 at a time and the rows loaded four ahead), and a warp per touched
-// row adds its runs in order, eight loads in flight, caps and writes.  A
-// head word with tens of thousands of entries in a chunk is many runs summed
-// in parallel, then a few hundred partial rows added by one warp.  A lane
-// holds H <= 8 columns (rows up to 256 floats); wider rows take the wide
-// instantiation, which walks each row in 256-column chunks (the capped
-// rows twice: the norm of the sum first).
+// each touched table row read and written once.  The L1 update of a brunch
+// stream chunk (294,912 entries of 4 bytes of key and 128 of row, 163,298
+// touched rows, d = 32) moves ~80 MB, ~24 us of HBM; its entries average
+// 1.8 per touched row, so what costs is any pass that is not over the
+// entries: a sort of every entry, a search over the table's rows.  Design:
+// touched_rows.cuh's grouping (as K9 and K12), sized by the entries and
+// never by the table, six stream operations per call:
+//  * a memset of the grouping's hash table and counters;
+//  * count: each live entry's row into the hash table, the touched rows
+//    listed once;
+//  * scan: the touched rows' starts by a decoupled look-back, rows longer
+//    than kShort entries listed with their pieces of kShort entries;
+//  * place: each entry's id into its row's range (integer atomics);
+//  * rows: a warp per touched row of at most kShort entries puts its entry
+//    ids back in ascending order (entry order), sums the scaled rows in that
+//    order with eight rows' loads in flight, caps the sum and adds it to T
+//    in one pass; a longer row is only sorted (by its warp up to kWarpSort
+//    entries, else by the block);
+//  * pieces: a warp per piece of kShort entries of a longer row sums it in
+//    entry order into a partial; the row's last piece to finish (an integer
+//    count) adds the partials in piece order, caps and writes.
+// No float atomics: two launches are bitwise equal.  A lane holds H <= 16
+// columns (rows up to 512 floats) and sums a row in one pass; wider rows
+// take the wide instantiation, which walks each row in 256-column chunks
+// (a capped row twice: the norm of the whole sum first).  The query
+// w2v_row_apply_wide names the instantiations past 256 floats.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "row_group.cuh"
+#include "touched_rows.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-make_keys(const int32_t* __restrict__ ka, int na, const int32_t* __restrict__ kb, int nb, int R,
-          int32_t* __restrict__ key, int32_t* __restrict__ idx) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= na + nb) return;
-  const int k = e < na ? ka[e] : kb[e - na];
-  key[e] = k >= 0 && k < R ? k : R;
-  idx[e] = e;
+
+struct Apply {
+  const int32_t *ka, *kb;
+  const float *ra, *rb;
+  int na, nb, R, d;
+  float scale, cap;
+  float* T;
+  Grouping g;
+};
+
+__device__ __forceinline__ int key_of(const Apply& a, int e) {
+  if (e < 0 || e >= a.na + a.nb) return -1;
+  const int k = e < a.na ? a.ka[e] : a.kb[e - a.na];
+  return k >= 0 && k < a.R ? k : -1;
 }
 
+__device__ __forceinline__ const float* row_of(const Apply& a, int e) {
+  return e < a.na ? a.ra + (int64_t)e * a.d : a.rb + (int64_t)(e - a.na) * a.d;
+}
+
+// acc = scale times the sum of the rows of the entries held one per lane in
+// lanes [0, m) (ascending ids), columns c0 + lane + 32 h, in lane order.
 template <int H>
-__device__ __forceinline__ void add_row(const float* __restrict__ row, int d, int lane, float s,
-                                        float (&acc)[H]) {
-#pragma unroll
-  for (int h = 0; h < H; ++h) {
-    const int c = lane + 32 * h;
-    if (c < d) acc[h] += s * row[c];
-  }
-}
-
-// part[q] = the sum of run q's scaled rows, in entry order.
-template <int H, bool kWide>
-__global__ void __launch_bounds__(kThreads)
-run_sums(const int32_t* __restrict__ idx, int R, const int32_t* __restrict__ start,
-         const int32_t* __restrict__ run_start, const float* __restrict__ ra, int na,
-         const float* __restrict__ rb, int d, float scale, float* __restrict__ part) {
-  const int lane = threadIdx.x & 31, q = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  int r, m0, m1;
-  if (!find_run(q, R, start, run_start, r, m0, m1)) return;
-  for (int k0 = 0; k0 < chunk_end<kWide>(d); k0 += kChunk) {
-    const int dk = d - k0;  // the columns from this chunk on
-    float acc[H];
-#pragma unroll
-    for (int h = 0; h < H; ++h) acc[h] = 0.f;
-    for (int base = m0; base < m1; base += 32) {
-      const int mine = base + lane < m1 ? idx[base + lane] : 0;
-      const int cnt = min(32, m1 - base);
-#pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        const int e = __shfl_sync(kFull, mine, j);
-        const float* row = e < na ? ra + (int64_t)e * d : rb + (int64_t)(e - na) * d;
-        add_row<H>(row + k0, dk, lane, scale, acc);
-      }
-    }
-    float* out = part + (int64_t)q * d + k0;
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
-      const int c = lane + 32 * h;
-      if (c < dk) out[c] = acc[h];
-    }
-  }
-}
-
-// acc = the sum of row r's runs over columns k0 + lane + 32 h, in run order
-// with kAhead loads in flight.
-template <int H>
-__device__ __forceinline__ void sum_runs(int q0, int q1, const float* __restrict__ part, int d,
-                                         int k0, int lane, float (&acc)[H]) {
-  constexpr int kAhead = 8;
+__device__ __forceinline__ void sum_entries(const Apply& a, int e, int m, int c0,
+                                            float (&acc)[H]) {
+  const int lane = threadIdx.x & 31, dk = a.d - c0;
 #pragma unroll
   for (int h = 0; h < H; ++h) acc[h] = 0.f;
+  // rows (or partials) loaded before they are added: fewer for a lane's 16
+  // columns, so that they stay in registers
+  constexpr int kAhead = H <= 8 ? 8 : 4;
+  for (int k0 = 0; k0 < m; k0 += kAhead) {
+    float v[kAhead][H];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int ej = __shfl_sync(kFull, e, (k0 + j) & 31);
+      const float* row = row_of(a, k0 + j < m ? ej : 0) + c0;
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const int c = lane + 32 * h;
+        v[j][h] = k0 + j < m && c < dk ? row[c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+#pragma unroll
+      for (int h = 0; h < H; ++h) acc[h] = fmaf(a.scale, v[j][h], acc[h]);
+  }
+}
+
+// acc = the sum of partials [q0, q1) (rows of d floats), columns c0 + lane +
+// 32 h, in partial order with kAhead loads in flight (from L2: other warps
+// wrote them).
+template <int H>
+__device__ __forceinline__ void sum_partials(const float* __restrict__ part, int q0, int q1,
+                                             int d, int c0, float (&acc)[H]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < H; ++h) acc[h] = 0.f;
+  constexpr int kAhead = H <= 8 ? 8 : 4;
   for (int q = q0; q < q1; q += kAhead) {
     float v[kAhead][H];
 #pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
+    for (int j = 0; j < kAhead; ++j)
 #pragma unroll
       for (int h = 0; h < H; ++h) {
-        const int c = k0 + lane + 32 * h;
-        v[a][h] = q + a < q1 && c < d ? part[(int64_t)(q + a) * d + c] : 0.f;
+        const int c = c0 + lane + 32 * h;
+        v[j][h] = q + j < q1 && c < d ? __ldcg(part + (int64_t)(q + j) * d + c) : 0.f;
       }
-    }
 #pragma unroll
-    for (int a = 0; a < kAhead; ++a) {
-      if (q + a < q1) {
+    for (int j = 0; j < kAhead; ++j)
 #pragma unroll
-        for (int h = 0; h < H; ++h) acc[h] += v[a][h];
-      }
-    }
+      for (int h = 0; h < H; ++h) acc[h] += v[j][h];
   }
 }
 
-// One warp per table row: its runs added in order, the cap, the write.
-template <int H, bool kWide>
-__global__ void __launch_bounds__(kThreads)
-apply_rows(int R, const int32_t* __restrict__ start, const int32_t* __restrict__ run_start,
-           const float* __restrict__ part, int d, float cap, float* __restrict__ T) {
-  const int lane = threadIdx.x & 31, r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= R || start[r + 1] == start[r]) return;
-  const int q0 = run_start[r], q1 = run_start[r + 1];
+// The cap's factor for a sum whose lanes hold the squares ss.
+__device__ __forceinline__ float cap_factor(float ss, float cap) {
+  float t = ss;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(kFull, t, o);
+  return fminf(1.f, cap / fmaxf(sqrtf(t), 1e-20f));
+}
+
+// Row r's sum (sum(c0, acc) gives columns c0 + lane + 32 h), capped and
+// added to T.  The wide instantiation walks 256-column chunks, the norm of
+// the whole sum first when the cap is on.
+template <int H, bool kWide, class Sum>
+__device__ __forceinline__ void cap_and_add(const Apply& a, int r, Sum sum) {
+  const int lane = threadIdx.x & 31, d = a.d;
   float acc[H];
   float s = 1.f;
-  if (kWide && cap > 0.f) {  // the norm of the whole sum first
+  if (kWide && a.cap > 0.f) {
     float ss = 0.f;
-    for (int k0 = 0; k0 < d; k0 += kChunk) {
-      sum_runs<H>(q0, q1, part, d, k0, lane, acc);
+    for (int c0 = 0; c0 < d; c0 += kChunk) {
+      sum(c0, acc);
 #pragma unroll
       for (int h = 0; h < H; ++h) ss += acc[h] * acc[h];
     }
-    s = fminf(1.f, cap / fmaxf(sqrtf(warp_sum(ss)), 1e-20f));
+    s = cap_factor(ss, a.cap);
   }
-  float* tr = T + (int64_t)r * d;
-  for (int k0 = 0; k0 < chunk_end<kWide>(d); k0 += kChunk) {
-    sum_runs<H>(q0, q1, part, d, k0, lane, acc);
-    if (!kWide && cap > 0.f) {
+  float* tr = a.T + (int64_t)r * d;
+  for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
+    sum(c0, acc);
+    if (!kWide && a.cap > 0.f) {
       float ss = 0.f;
 #pragma unroll
       for (int h = 0; h < H; ++h) ss += acc[h] * acc[h];
-      s = fminf(1.f, cap / fmaxf(sqrtf(warp_sum(ss)), 1e-20f));
+      s = cap_factor(ss, a.cap);
     }
 #pragma unroll
     for (int h = 0; h < H; ++h) {
-      const int c = k0 + lane + 32 * h;
-      if (c < d) tr[c] += cap > 0.f ? acc[h] * s : acc[h];
+      const int c = c0 + lane + 32 * h;
+      if (c < d) tr[c] += a.cap > 0.f ? acc[h] * s : acc[h];
     }
   }
 }
 
-void layout(int n, int R, int d, int32_t* ibase, float* fbase, Side& x, int64_t* isz,
-            int64_t* fsz) {
-  int64_t io = 0, fo = 0;
+// warp_sorted for a row of m <= kShort entries, its one or two entries
+// ordered without the sort's network (most rows of a chunk hold one or two).
+__device__ __forceinline__ int rows_sorted(const int32_t* ids, int m) {
+  const int lane = threadIdx.x & 31;
+  if (m > 2) return warp_sorted(ids, m);
+  const int a = ids[0], b = m == 2 ? ids[1] : a;
+  return lane == 0 ? min(a, b) : lane == 1 && m == 2 ? max(a, b) : -1;
+}
+
+// Launch 1: each live entry's row counted.
+__global__ void __launch_bounds__(kThreads) apply_count(const Apply a) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  count_entry(a.g, e < a.na + a.nb ? e : -1, key_of(a, e));
+}
+
+// Launch 2: the touched rows' starts; rows past kShort entries get pieces.
+__global__ void __launch_bounds__(kScanThreads) apply_scan(const Apply a) { scan_rows(a.g); }
+
+// Launch 3: the entries placed by row.
+__global__ void __launch_bounds__(kThreads) apply_place(const Apply a) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  place_entry(a.g, e < a.na + a.nb ? e : -1);
+}
+
+// Launch 4: a warp per touched row of up to kShort entries sums, caps and
+// writes it; a longer row is put in entry order (ord) for launch 5, by its
+// warp up to kWarpSort entries, else by a block.
+template <int H, bool kWide>
+__global__ void __launch_bounds__(kThreads) apply_rows_short(const Apply a) {
+  __shared__ unsigned bits[kWinWords + kWinWords / 32];
+  __shared__ int bufs[kWarps][kWarpSort];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Grouping& G = a.g;
+  const int nr = G.meta[0], nl = G.meta[1];
+  for (int L = blockIdx.x; L < nl; L += gridDim.x) {
+    const int ri = G.longs[L];
+    const int s0 = G.start[ri], m = G.start[ri + 1] - s0;
+    if (m > kWarpSort) block_order(G.ids + s0, m, G.n, G.ord + s0, bits);
+  }
+  for (int q = blockIdx.x * kWarps + warp; q < nr; q += gridDim.x * kWarps) {
+    const int s0 = G.start[q], m = G.start[q + 1] - s0;
+    if (m > kWarpSort) continue;  // sorted by a block above
+    if (m > kShort) {
+      warp_sort_buffer(G.ids + s0, m, bufs[warp]);
+      for (int i = lane; i < m; i += 32) G.ord[s0 + i] = bufs[warp][i];
+      __syncwarp();  // the warp's buffer is refilled for its next row
+      continue;
+    }
+    const int e = rows_sorted(G.ids + s0, m);  // short rows
+    cap_and_add<H, kWide>(a, G.row[q],
+                          [&](int c0, float(&acc)[H]) { sum_entries<H>(a, e, m, c0, acc); });
+  }
+}
+
+// Launch 5: a warp per piece of kShort entries of a longer row (in entry
+// order, from launch 4): its partial; the row's last piece to finish adds
+// the partials in piece order, caps and writes.
+template <int H, bool kWide>
+__global__ void __launch_bounds__(kThreads) apply_pieces(const Apply a) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, d = a.d;
+  const Grouping& G = a.g;
+  const int np = G.meta[2];
+  for (int q = blockIdx.x * kWarps + warp; q < np; q += gridDim.x * kWarps) {
+    const int4 pd = G.pdesc[q];
+    const int first = pd.x, pieces = pd.y >> 6, nbp = pd.y & 63, at = pd.z, r = pd.w;
+    const int e = lane < nbp ? G.ord[at + lane] : -1;
+    float* part = G.part + (int64_t)q * d;
+    for (int c0 = 0; c0 < chunk_end<kWide>(d); c0 += kChunk) {
+      float acc[H];
+      sum_entries<H>(a, e, nbp, c0, acc);
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const int c = c0 + lane + 32 * h;
+        if (c < d) part[c] = acc[h];
+      }
+    }
+    __threadfence();  // this lane's partials before the count
+    __syncwarp();
+    int done = 0;
+    if (lane == 0) done = atomicAdd(&G.fin[first], 1);
+    if (__shfl_sync(kFull, done, 0) != pieces - 1) continue;  // not the last piece
+    __threadfence();
+    cap_and_add<H, kWide>(a, r, [&](int c0, float(&acc)[H]) {
+      sum_partials<H>(G.part, first, first + pieces, d, c0, acc);
+    });
+  }
+}
+
+// The workspace: int32 words (the piece descriptors, then the zeroed words:
+// the scan's status, the counters, the finisher counts, the hash table;
+// then the grouping's arrays) and float32 words (the pieces' partials).
+struct Layout {
+  int64_t ints, floats, zero_begin, zero_end;
+};
+
+Layout layout(int n, int R, int d, int32_t* ib, float* fb, Grouping* out) {
+  int64_t io = 0;
   auto ints = [&](int64_t m) {
-    int32_t* p = ibase ? ibase + io : nullptr;
+    int32_t* p = ib ? ib + io : nullptr;
     io += m;
     return p;
   };
-  auto floats = [&](int64_t m) {
-    float* p = fbase ? fbase + fo : nullptr;
-    fo += m;
-    return p;
-  };
-  carve_side(x, n, R, d, ints, floats);
-  *isz = io;
-  *fsz = fo;
+  Grouping G{};
+  const int64_t H = hash_size(n, R);
+  G.n = n;
+  G.cap = n < R ? n : R;
+  G.mask = (unsigned)(H - 1);
+  G.nlong = max_long_rows(n);
+  G.pmax = max_pieces(n);
+  G.pdesc = reinterpret_cast<int4*>(ints(4 * G.pmax));  // 16-byte aligned
+  Layout L{};
+  L.zero_begin = io;
+  G.status = reinterpret_cast<unsigned long long*>(ints(2 * (int64_t)scan_tiles(G.cap)));
+  G.meta = ints(4);
+  G.fin = ints(G.pmax);
+  G.hash = ints(2 * H);
+  L.zero_end = io;
+  G.slot = ints(n);
+  G.row = ints(G.cap);
+  G.hslot = ints(G.cap);
+  G.start = ints((int64_t)G.cap + 1);
+  G.longs = ints(G.nlong);
+  G.ids = ints(n);
+  G.ord = ints(n);
+  L.ints = io;
+  L.floats = G.pmax * d;
+  G.part = fb;
+  if (out) *out = G;
+  return L;
 }
 
 template <int H, bool kWide = false>
-cudaError_t launch(const Side& x, const float* ra, int na, const float* rb, float* T, int d,
-                   float scale, float cap, cudaStream_t st) {
-  run_sums<H, kWide><<<warps_grid(x.max_runs), kThreads, 0, st>>>(
-      x.idx[x.sorted], x.R, x.start, x.run_start, ra, na, rb, d, scale, x.part);
+cudaError_t launch(const Apply& a, cudaStream_t st) {
+  auto grid = [](int64_t warps) {
+    const int64_t blocks = (warps + kWarps - 1) / kWarps;
+    return (unsigned)(blocks < 1 ? 1 : blocks < kRowBlocks ? blocks : kRowBlocks);
+  };
+  apply_rows_short<H, kWide><<<grid(a.g.cap), kThreads, 0, st>>>(a);
   CHECK_LAUNCH();
-  apply_rows<H, kWide><<<warps_grid(x.R), kThreads, 0, st>>>(x.R, x.start, x.run_start, x.part,
-                                                             d, cap, T);
+  apply_pieces<H, kWide><<<grid(a.g.pmax), kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -185,8 +312,9 @@ cudaError_t launch(const Side& x, const float* ra, int na, const float* rb, floa
 // sizes[0]: int32 words, sizes[1]: float32 words of the workspace for n
 // entries over R rows of d floats.
 extern "C" int w2v_apply_workspace(int n, int R, int d, int64_t* sizes) {
-  Side x;
-  layout(n, R, d, nullptr, nullptr, x, &sizes[0], &sizes[1]);
+  const Layout L = layout(n, R, d, nullptr, nullptr, nullptr);
+  sizes[0] = L.ints;
+  sizes[1] = L.floats;
   return 0;
 }
 
@@ -204,19 +332,23 @@ extern "C" int w2v_row_apply(const int32_t* keys_a, const float* rows_a, int na,
   const int n = na + nb;
   if (n == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  Side x;
-  int64_t isz, fsz;
-  layout(n, R, d, ws_i, ws_f, x, &isz, &fsz);
-  make_keys<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(keys_a, na, keys_b, nb, R,
-                                                                 x.key[0], x.idx[0]);
-  CHECK_LAUNCH();
-  const cudaError_t err = sort_side(x, false, st);
+  Apply a{keys_a, keys_b, rows_a, rows_b, na, nb, R, d, scale, cap, T, {}};
+  const Layout L = layout(n, R, d, ws_i, ws_f, &a.g);
+  cudaError_t err = cudaMemsetAsync(ws_i + L.zero_begin, 0,
+                                    sizeof(int32_t) * (L.zero_end - L.zero_begin), st);
   if (err != cudaSuccess) return (int)err;
-  cudaError_t e;
-  if (d <= 32) e = launch<1>(x, rows_a, na, rows_b, T, d, scale, cap, st);
-  else if (d <= 64) e = launch<2>(x, rows_a, na, rows_b, T, d, scale, cap, st);
-  else if (d <= 128) e = launch<4>(x, rows_a, na, rows_b, T, d, scale, cap, st);
-  else if (d <= kChunk) e = launch<8>(x, rows_a, na, rows_b, T, d, scale, cap, st);
-  else e = launch<kMaxH, true>(x, rows_a, na, rows_b, T, d, scale, cap, st);
-  return (int)e;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  apply_count<<<blocks, kThreads, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  apply_scan<<<scan_tiles(a.g.cap), kScanThreads, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  apply_place<<<blocks, kThreads, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (d <= 32) err = launch<1>(a, st);
+  else if (d <= 64) err = launch<2>(a, st);
+  else if (d <= 128) err = launch<4>(a, st);
+  else if (d <= kChunk) err = launch<8>(a, st);
+  else if (d <= 2 * kChunk) err = launch<16>(a, st);  // one pass, no re-read for the cap
+  else err = launch<kMaxH, true>(a, st);
+  return (int)err;
 }

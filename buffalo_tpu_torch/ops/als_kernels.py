@@ -18,8 +18,12 @@ the card (``csrc/*.cu``):
   written to the row range, or scattered with padding ids skipped.
 * **K4** ``ialspp_solve_batch`` — iALS++ (``optimizer="ialspp"``, auto
   at d >= 128) on every range and padded batch: block subspace CG with
-  the residual cache, loss terms, result written in place.  iALS++
-  segment rows take K2 + K3, as the reference's ``manual_cg`` there.
+  the residual cache, loss terms, result written in place; up to d = 176
+  a row takes one of three forms by its length (``IALSPP_SHORT_MAX``,
+  ``IALSPP_GRAM_MIN``: several short rows a block; the tile form; the
+  Gram form, F^T diag(w) F from one gather on the tensor cores), wider
+  rows the tile form (``ialspp_forms``).  iALS++ segment rows take K2 +
+  K3, as the reference's ``manual_cg`` there.
 
 Values are float32 or bfloat16 (the range layout's at scale); the
 kernels and plain versions read them as float32.  K2-K4 take rows of any
@@ -69,11 +73,25 @@ _SIGNATURES = {
                          _F32, _P],
     "ialspp_solve": [_P, _P, _P, _P, _P, _I64, _P, _P, _I32, _P, _P, _I64,
                      _I32, _I32, _I32, _I32, _F32, _F32, _I32, _F32, _I32,
-                     _F32, _I32, _P],
+                     _F32, _I32, _I32, _I32, _P, _P, _P],
+    "ialspp_forms": [_I32, _I32, _I32, _I32, _I32, _P],
+    "ialspp_gram_workspace": [_I32, _I32, _I32, _I32, _I32, _I32, _P],
 }
 # K1's widest rows (F and FF^T in shared memory); the ALS driver trains
 # d >= 128 with iALS++ (K4), so no model sends K1 wider ones
 K1_MAX_D = 128
+# K4's row classes at widths its short and Gram forms take (d <= 176;
+# ``ialspp_forms`` says which forms a width takes):
+# rows of at most IALSPP_SHORT_MAX entries take the short form (several rows
+# a block, FF's products shared), rows of more than IALSPP_GRAM_MIN the Gram
+# form (one gather into F^T diag(w) F on the tensor cores), the rest the
+# tile form (a block per row, F in shared memory); chosen on the H100 at
+# d = 160 by tools/k4_k20_bench.py --sweep (PERF.md)
+IALSPP_SHORT_MAX = 24
+IALSPP_GRAM_MIN = 304
+# K4's widest block (the wide form keeps a block's vectors in registers of
+# 256 threads, 32 features each)
+IALSPP_MAX_BLOCK = 8192
 VALS_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -81,7 +99,9 @@ def _kernel(name: str):
     """The C launch function of kernel ``name`` (built on first use)."""
     from buffalo_tpu_torch.ops._build import launcher
 
-    return launcher(name, _SIGNATURES[name])
+    return launcher(name, _SIGNATURES[name],
+                    library="ialspp_solve" if name.startswith("ialspp_")
+                    else name)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -528,8 +548,9 @@ def ialspp_solve_batch(table, Bf, FF, lens, cols, vals, *, row_start=0,
         return ialspp_solve_batch_plain(table, Bf, FF, lens, cols, vals, **kw)
     dev = table.device
     d = _check_tables(table, Bf, FF, dev)
-    if block_size < 1:
-        raise ValueError(f"block_size must be at least 1, got {block_size}")
+    if not 1 <= min(block_size, d) <= IALSPP_MAX_BLOCK:
+        raise ValueError(f"block_size must be in [1, {IALSPP_MAX_BLOCK}], "
+                         f"got {block_size}")
     _check("lens", lens, torch.int32, dev, 1)
     _check("cols", cols, torch.int32, dev, 2)
     bf16 = _check_vals(vals, dev)
@@ -537,20 +558,64 @@ def ialspp_solve_batch(table, Bf, FF, lens, cols, vals, *, row_start=0,
     B, L = cols.shape
     nume = torch.zeros(B, device=dev)
     deno = torch.zeros(B, device=dev)
+    bs = min(int(block_size), d)
+    sizes = _ialspp_workspace(d, bs, B, L)
+    # the Gram form's pieces of split rows: partial sums, counts zeroed
+    gws = torch.empty(sizes[0], device=dev) if sizes[0] else None
+    gcnt = (torch.zeros(sizes[1], dtype=torch.int32, device=dev)
+            if sizes[1] else None)
     rc = _kernel("ialspp_solve")(
         _ptr(table), _ptr(Bf), _ptr(FF), _ptr(lens), _ptr(rows),
         0 if rows is not None else int(row_start), _ptr(cols), _ptr(vals),
-        bf16, _ptr(nume), _ptr(deno), table.shape[0], B, L, d,
-        min(int(block_size), d), float(alpha), float(reg),
-        int(bool(adaptive_reg)),
+        bf16, _ptr(nume), _ptr(deno), table.shape[0], B, L, d, bs,
+        float(alpha), float(reg), int(bool(adaptive_reg)),
         float(cg_tol), int(bool(item_axis)), float(num_fixed_rows),
-        int(bool(compute_loss)), _stream(dev))
+        int(bool(compute_loss)), IALSPP_SHORT_MAX, IALSPP_GRAM_MIN,
+        _ptr(gws), _ptr(gcnt), _stream(dev))
     _raise_on(rc, "ialspp_solve")
     ialspp_solve_batch.launches += 1
     return nume, deno
 
 
 ialspp_solve_batch.launches = 0
+
+
+_IALSPP_WS = {}
+
+
+def _ialspp_workspace(d, block_size, B, L):
+    """(float32 words, int32 words) of K4's Gram-form workspace for a batch
+    (the C query ``ialspp_gram_workspace``), cached per shape and class
+    bounds."""
+    key = (d, block_size, B, L, IALSPP_SHORT_MAX, IALSPP_GRAM_MIN)
+    if key not in _IALSPP_WS:
+        sizes = (ctypes.c_int64 * 2)()
+        _raise_on(_kernel("ialspp_gram_workspace")(
+            d, block_size, B, L, IALSPP_SHORT_MAX, IALSPP_GRAM_MIN,
+            ctypes.cast(sizes, ctypes.c_void_p)), "ialspp_gram_workspace")
+        _IALSPP_WS[key] = (int(sizes[0]), int(sizes[1]))
+    return _IALSPP_WS[key]
+
+
+def ialspp_forms(d, block_size, L=None):
+    """K4's forms for rows of ``d`` floats (the C query ``ialspp_forms``):
+    {"form": "short+tile+gram", or "tile" where every row takes the tile
+    form; the class bounds; each form's shared memory (bytes) and blocks
+    per SM, the short form's rows per block}, at a batch of padded length
+    ``L`` (default: one past the Gram bound).  Needs a card."""
+    out = (ctypes.c_int * 8)()
+    lo, hi = IALSPP_SHORT_MAX, IALSPP_GRAM_MIN
+    _raise_on(_kernel("ialspp_forms")(
+        int(d), min(int(block_size), int(d)), int(lo), int(hi),
+        int(L or hi + 1), ctypes.cast(out, ctypes.c_void_p)), "ialspp_forms")
+    tile = dict(tile_smem_bytes=out[6], tile_blocks_per_sm=out[7])
+    if not out[0]:
+        return dict(form="tile", **tile)
+    return dict(form="short+tile+gram", short_max=lo, gram_min=hi,
+                short_smem_bytes=out[1], short_blocks_per_sm=out[2],
+                short_rows_per_block=out[5], gram_smem_bytes=out[3],
+                gram_blocks_per_sm=out[4], **tile)
+
 
 KERNELS = (als_cg_matrix_free, als_normal_equations, batched_cg_dense,
            ialspp_solve_batch)

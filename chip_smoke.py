@@ -1292,9 +1292,13 @@ def wide_kernel_phase(torch, K, data, dev):
                                  cg_tol=CG_TOL, **kw)
 
         res["ms"] = time_ms(run)
-        res["device_ms"] = device_ms(run, "ialspp_solve_kernel")
-        res["device_ms_bf16"] = device_ms(lambda: run(vals16),
-                                          "ialspp_solve_kernel")
+        # every call launches the short form's kernel where the width takes
+        # it (its blocks skip the longer rows), else the tile form's
+        res["forms"] = K.ialspp_forms(d, d, L)
+        main = ("ialspp_tile" if res["forms"]["form"] == "tile"
+                else "ialspp_short")
+        res["device_ms"], res["device_ops_per_call"] = trace_stats(run, main)
+        res["device_ms_bf16"] = trace_ms(lambda: run(vals16), main)
         res["plain_ms"] = time_ms(lambda: K.ialspp_solve_batch_plain(
             scratch, Bf, FF, mb.lens, mb.cols, mb.vals,
             row_start=mb.row_start, block_size=d, cg_tol=CG_TOL, **kw),
@@ -1314,6 +1318,7 @@ def wide_kernel_phase(torch, K, data, dev):
     return dict(route="cuda", source="buffalo_tpu_torch/csrc/ialspp_solve.cu",
                 replaces="buffalo_tpu/ops/als_kernels.py:174",
                 max_abs_err=worst, ms=dense["ms"],
+                form=dense["forms"]["form"], device_ms=dense["device_ms"],
                 plain_ms=dense["plain_ms"], bound_ms=dense["bound_ms"],
                 bound_by=dense["bound_by"], library_ms=None)
 
@@ -4462,11 +4467,14 @@ def w2v_kernels(W, S, torch, model, arrays):
         return outs[3].add_(D * torch.clamp(cap / n.clamp(min=1e-20),
                                             max=1.0))
 
+    def fn20():
+        W.row_apply(outs[1], parts, scale=lr, cap=cap)
+
+    dev20, ops20 = trace_stats(fn20, "apply_pieces")
     k20 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_row_apply.cu",
                replaces="buffalo_tpu/ops/w2v_kernels.py:34",
-               max_abs_err=k20_err,
-               ms=time_ms(lambda: W.row_apply(outs[1], parts, scale=lr,
-                                              cap=cap)),
+               max_abs_err=k20_err, ms=time_ms(fn20), device_ms=dev20,
+               stream_ops_per_call=ops20,
                plain_ms=time_ms(lambda: W.row_apply_plain(
                    outs[2], parts, scale=lr, cap=cap), reps=5, warmup=1),
                bound_ms=bms, bound_by=by, library_ms=time_ms(library),

@@ -286,6 +286,111 @@ def test_ialspp_matches_ialspp_solve_batch(d, block_size, L, adaptive_reg,
     np.testing.assert_allclose(float(d_rows.sum()), float(deno), rtol=1e-5)
 
 
+def _gram_form(p, F, FF, w, lens, *, reg, block_size, steps, cg_tol,
+               adaptive_reg, item_axis, num_fixed_rows):
+    """K4's Gram form in torch, in the dtype of its inputs.  One pass over
+    each row's entries gives G = F^T diag(w) F, Yui = F p0 with the loss
+    terms, and e = F^T ((Yui - 1) w); with A = FF + reg I + G and q = FF p0,
+    each block is b = q[blk] + reg p[blk] + e[blk] + A[blk, :] (p - p0)
+    (the cache's F (p - p0) folded in through G: in exact arithmetic
+    G[blk, :] p - F[:, blk]^T w) and ``steps`` dense CG steps on A[blk,
+    blk].  Returns (rows, nume, deno)."""
+    from buffalo_tpu_torch.ops.solve import cg_loop
+
+    B, d = p.shape
+    mask = (torch.arange(F.shape[1])[None, :] < lens[:, None]).to(p.dtype)
+    real = (lens > 0).to(p.dtype)
+    G = torch.einsum("bl,bld,ble->bde", w, F, F)
+    Yui = torch.einsum("bld,bd->bl", F, p)
+    e = torch.einsum("bl,bld->bd", (Yui - 1) * w, F)
+    A = FF + reg * torch.eye(d, dtype=p.dtype) + G
+    q = p @ FF
+    ada = lens.to(p.dtype) if adaptive_reg else torch.ones_like(real)
+    nume = real * ada * reg * (p * p).sum(-1)
+    deno = torch.zeros_like(nume)
+    if item_axis:
+        pos = mask * (-Yui * Yui + (Yui - 1) ** 2 * (1 + w))
+        nume = nume + real * ((p * q).sum(-1) + pos.sum(-1))
+        deno = real * (num_fixed_rows + w.sum(-1))
+    p0, p = p, p.clone()
+    for beg in range(0, d, block_size):
+        end = min(beg + block_size, d)
+        b = (q[:, beg:end] + reg * p[:, beg:end] + e[:, beg:end]
+             + torch.einsum("bjk,bk->bj", A[:, beg:end], p - p0))
+        Ab = A[:, beg:end, beg:end]
+        x = cg_loop(lambda v: torch.einsum("bjk,bk->bj", Ab, v),
+                    torch.zeros_like(b), b, steps, cg_tol)
+        p[:, beg:end] -= x * real[:, None]
+    return p, nume.sum(), deno.sum()
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+# d / block: the iALS++ path's d = 160 in one block and in blocks of 32,
+# and d = 40 likewise; rows of 0 entries, short ones and ones past the old
+# kernel's 348-entry tile, over columns of the ML-20M synthetic's
+# popularity (rank^-0.9, bench.py synth_ml20m)
+@pytest.mark.parametrize("d", [40, 160])
+@pytest.mark.parametrize("blocks", ["one", "of_32"])
+@pytest.mark.parametrize("item_axis", [False, True])
+def test_gram_form_is_ialspp_solve_batch(d, blocks, item_axis):
+    """K4's Gram form (csrc/ialspp_solve.cu) against the JAX package's
+    ``ialspp_solve_batch``: the same loss terms (1e-4), and factors no
+    further from a float64 run of the block CG than twice the plain
+    float32 runs (the larger distance of the JAX package's and the port's
+    plain version, two summation orders); the Gram form with one CG step
+    fewer is not."""
+    block_size = d if blocks == "one" else 32
+    rng = np.random.default_rng(d + (block_size == 32) + 2 * item_axis)
+    B, L, m = 24, 420, 700
+    lens = np.r_[0, 1, 0, rng.integers(2, 64, 9),
+                 rng.integers(349, L + 1, 12)].astype(np.int32)
+    pop = 1.0 / np.arange(1, m + 1) ** 0.9
+    cols = rng.choice(m, size=(B, L), p=pop / pop.sum()).astype(np.int32)
+    vals = (1.0 + rng.integers(0, 5, size=(B, L))).astype(np.float32)
+    mask = np.arange(L)[None, :] < lens[:, None]
+    cols, vals = np.where(mask, cols, 0), np.where(mask, vals, 0.0)
+    p = np.abs(rng.normal(size=(B, d)) * 0.1).astype(np.float32)
+    Bf = np.abs(rng.normal(size=(m, d)) * 0.1).astype(np.float32)
+    FF = (Bf.T @ Bf).astype(np.float32)
+    kw = dict(alpha=8.0, reg=0.1, adaptive_reg=item_axis,
+              item_axis=item_axis, num_fixed_rows=m, compute_loss=True)
+    x_jax, nume, deno = ref.ialspp_solve_batch(
+        jnp.asarray(p), jnp.asarray(Bf[cols]), jnp.asarray(FF),
+        jnp.asarray(lens), jnp.asarray(vals), block_size=block_size,
+        cg_tol=1e-10, **kw)
+    plain = {}
+    for dt in (torch.float32, torch.float64):
+        plain[dt] = torch.from_numpy(p).to(dt, copy=True)
+        port.ialspp_solve_batch_plain(
+            plain[dt], torch.from_numpy(Bf).to(dt),
+            torch.from_numpy(FF).to(dt), torch.from_numpy(lens),
+            torch.from_numpy(cols), torch.from_numpy(vals).to(dt),
+            block_size=block_size, cg_tol=1e-10, **kw)
+    x64 = plain[torch.float64]
+    F = torch.from_numpy(Bf[cols])
+    w = torch.from_numpy(vals) * kw["alpha"]
+    gram = dict(reg=kw["reg"], block_size=block_size, cg_tol=1e-10,
+                adaptive_reg=kw["adaptive_reg"], item_axis=item_axis,
+                num_fixed_rows=m)
+    args = (torch.from_numpy(p), F, torch.from_numpy(FF), w,
+            torch.from_numpy(lens))
+    x32, n32, d32 = _gram_form(*args, steps=3, **gram)
+    x_short, _, _ = _gram_form(*args, steps=2, **gram)
+    np.testing.assert_allclose(float(n32), float(nume), rtol=1e-4)
+    np.testing.assert_allclose(float(d32), float(deno), rtol=1e-5)
+    floor = max(_rel(np.asarray(x_jax), x64),
+                _rel(plain[torch.float32], x64))
+    assert 0 < floor < 1e-3
+    assert _rel(x32, x64) <= 2 * floor
+    assert _rel(x_short, x64) > 2 * floor
+    real = lens > 0
+    assert np.array_equal(x32.numpy()[~real], p[~real])
+
+
 def _scatter_half():
     """One half's scatter batches, host numpy from both packages'
     planners: PaddedBatches of L <= 96 and > 96 whose last batch per

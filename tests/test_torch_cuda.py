@@ -397,6 +397,57 @@ def test_ialspp_kernel_is_deterministic(dev, L):
         assert torch.equal(a, b)
 
 
+# K4's forms: d = 40, 160 and 176 take the short form (rows of at most
+# IALSPP_SHORT_MAX entries, several a block), the tile form (up to
+# IALSPP_GRAM_MIN) and the Gram form (longer rows; 176 is its widest); 256
+# and 300 the tile form alone.  Each batch mixes the classes: empty rows,
+# one entry, each bound and one past it, rows of one and two ring stages
+# (64-entry stages) and past the tile's 348 entries; B = 37 is no multiple
+# of the short form's rows a block
+@pytest.mark.parametrize("d", [40, 160, 176, 256, 300])
+@pytest.mark.parametrize("blocks", ["one", "of_32"])
+@pytest.mark.parametrize("mode", ["range", "rows"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ialspp_forms_match_plain(dev, d, blocks, mode, bf16):
+    """K4 on a batch whose rows fall in both classes, in range and rows
+    mode, on float32 and bfloat16 values, one block and blocks of 32:
+    within TOL of the plain version, loss terms 1e-4, bitwise repeatable,
+    one wrapper launch; the forms query names the route of the width."""
+    L = 1000
+    table, Bf, FF, (lens, cols, vals) = _case(dev, d, L=L, B=37, seed=d)
+    lo, hi = K.IALSPP_SHORT_MAX, K.IALSPP_GRAM_MIN
+    rng = np.random.default_rng(d)
+    pick = np.r_[0, 1, lo, lo + 1, hi, hi + 1, 64, 65, 129, 349, L,
+                 rng.integers(1, L + 1, 26)].astype(np.int32)
+    lens = torch.from_numpy(pick).to(dev)
+    mask = torch.arange(L, device=dev)[None, :] < lens[:, None]
+    cols, vals = cols * mask, vals * mask
+    where = dict(row_start=3)
+    if mode == "rows":
+        rows, lens = _rows_mode(dev, lens, table.shape[0])
+        where = dict(rows=rows)
+    if bf16:
+        vals = vals.to(torch.bfloat16)
+    kw = dict(_kw(True, adaptive_reg=bf16), cg_tol=1e-10,
+              block_size=d if blocks == "one" else 32, **where)
+    forms = K.ialspp_forms(d, kw["block_size"], L)
+    assert forms["form"] == ("tile" if d > 176 else "short+tile+gram")
+    expect = table.clone()
+    n_ref, d_ref = K.ialspp_solve_batch_plain(expect, Bf, FF, lens, cols,
+                                              vals, **kw)
+    outs = [table.clone(), table.clone()]
+    before = K.ialspp_solve_batch.launches
+    got = [K.ialspp_solve_batch(o, Bf, FF, lens, cols, vals, **kw)
+           for o in outs]
+    torch.cuda.synchronize()
+    assert K.ialspp_solve_batch.launches == before + 2
+    torch.testing.assert_close(outs[0], expect, **TOL)
+    torch.testing.assert_close(got[0][0], n_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(got[0][1], d_ref, rtol=1e-4, atol=1e-3)
+    assert torch.equal(outs[0], outs[1])
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
 def test_streamed_batches_match_host_batches(dev):
     """The staging ring's batches on the card equal the planner's host
     batches, epoch after epoch, and its byte count is theirs."""
@@ -1824,6 +1875,47 @@ def test_w2v_row_apply_kernel_matches_plain(dev, d, cap):
     touched = torch.zeros(V, dtype=torch.bool, device=dev)
     touched[torch.from_numpy(np.concatenate(keys)).to(dev).clamp(max=V - 1)
             .long()] = True
+    assert torch.equal(outs[0][~touched], L0[~touched])
+
+
+# K20's grouping edges: every key dropped, an empty side, one row of
+# 5,000 entries (157 pieces of 32), rows past 256 floats
+@pytest.mark.parametrize("case", ["all_dropped", "empty_side", "one_row"])
+@pytest.mark.parametrize("d", [64, 300])
+def test_w2v_row_apply_edges(dev, case, d):
+    """K20 where the touched-rows grouping has nothing, one side, or one
+    long row: the plain version's rows within 1e-5 of the largest summed
+    delta (+ 2 float32 spacings), the rest bitwise, repeatable."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V = 500
+    rng, L0, _, p, _ = _w2v_problem(dev, d, V, seed=3)
+    n = {"all_dropped": 3000, "empty_side": 4000, "one_row": 5000}[case]
+    keys = rng.choice(V, n, p=p).astype(np.int32)
+    if case == "all_dropped":
+        keys[:] = np.where(np.arange(n) % 2 == 0, V, -1)
+    if case == "one_row":
+        keys[:] = 7
+    k = torch.from_numpy(keys).to(dev)
+    rows = torch.tensor(rng.normal(size=(n, d)) * 0.01, dtype=torch.float32,
+                        device=dev)
+    parts = [(k, rows)]
+    if case == "empty_side":
+        parts = [(k[:0], rows[:0]), (k, rows)]
+    outs = [L0.clone() for _ in range(3)]
+    for cap, out in zip((0.1, 0.1), outs[:2]):
+        W.row_apply(out, parts, scale=0.5, cap=cap)
+    W.row_apply_plain(outs[2], parts, scale=0.5, cap=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    if case == "all_dropped":
+        assert torch.equal(outs[0], L0)
+        return
+    delta = (outs[2] - L0).abs().max()
+    spacing = 2 * torch.finfo(torch.float32).eps * L0.abs().max()
+    assert (outs[0] - outs[2]).abs().max() <= 1e-5 * delta + spacing
+    touched = torch.zeros(V, dtype=torch.bool, device=dev)
+    touched[k.long()] = True
     assert torch.equal(outs[0][~touched], L0[~touched])
 
 

@@ -108,16 +108,24 @@ def test_g_matches_jax_at_the_clamps():
 
 
 # -------------------------------------------------------- _clipped_apply
+# d: a narrow row, the W2V path's 32 and 300 (past 256 floats, the wide
+# instantiation of K20)
+@pytest.mark.parametrize("d", [12, 32, 300])
 @pytest.mark.parametrize("cap", [0.0, 0.1, 1e-3])
-def test_clipped_apply_and_row_apply_match_jax(cap):
+def test_clipped_apply_and_row_apply_match_jax(cap, d):
     """``_clipped_apply`` of the scattered deltas: the dense form and
-    K20's plain version (two parts, keys V dropped, a scale); at cap 1e-3
-    every touched row's step binds."""
+    K20's plain version (two parts, each with keys V dropped, a head key of
+    20,000 entries, a scale); at cap 1e-3 every touched row's step binds."""
     rng = np.random.default_rng(1)
-    V, d, n = 50, 12, 400
-    T = rng.standard_normal((V, d)).astype(np.float32)
-    keys = [_zipf(V, n, rng), _zipf(V, n // 2, rng)]
+    V, n = 400, 400
+    # W2V-sized table entries (its L0 starts as |N(0, 1 / d^2)|), so that
+    # T + step rounds below the check's resolution of the steps
+    T = (rng.standard_normal((V, d)) / d).astype(np.float32)
+    keys = [np.concatenate([_zipf(V, n, rng), np.full(20000, 3, np.int32)]),
+            _zipf(V, n // 2, rng)]
+    keys[0] = keys[0][rng.permutation(len(keys[0]))]
     keys[0][::7] = V       # dropped
+    keys[1][::5] = V
     rows = [(0.05 * rng.standard_normal((len(k), d))).astype(np.float32)
             for k in keys]
     scale = 0.025
@@ -131,6 +139,7 @@ def test_clipped_apply_and_row_apply_match_jax(cap):
                 scale=scale, cap=cap)
     close(got.numpy() - T, want - T)
     untouched = np.setdiff1d(np.arange(V), np.concatenate(keys))
+    assert len(untouched) > 0
     np.testing.assert_array_equal(got.numpy()[untouched], T[untouched])
     if cap == 1e-3:
         steps = np.linalg.norm(want - T, axis=1)
