@@ -1,5 +1,7 @@
-// Scoring and top-k selection shared by K5 (score_topk.cu) and K6
-// (ivf_tile_topk.cu): a block holds a tile of QB queries, streams a range of
+// Scoring and top-k selection shared by K5's FFMA form (score_topk.cu, which
+// also has a tensor-core form of its own) and K6 (ivf_tile_topk.cu), and
+// the keys, merges and flush that K5's tensor-core form selects with: a
+// block holds a tile of QB queries, streams a range of
 // item rows through shared memory in tiles of IT, scores each (query, item)
 // pair with FFMA and keeps, per query, a sorted list of its best KP entries.
 //
@@ -17,9 +19,10 @@
 // query's threshold (the key of its k-th entry so far) to a candidate buffer
 // of KP keys, at ranks from a ballot, so in item order.  When the buffer
 // would overflow, or the scan ends, the warp sorts the buffer (bitonic, in
-// shared memory) and merges it into the list: the top KP of two sorted lists
-// of KP are max(list[i], buf[KP - 1 - i]), a bitonic sequence, sorted by one
-// more bitonic merge.  The threshold then rises to the list's k-th key.
+// registers at KP = 32, else in shared memory) and merges it into the list:
+// the top KP of two sorted lists of KP are max(list[i], buf[KP - 1 - i]), a
+// bitonic sequence, sorted by one more bitonic merge.  The threshold then
+// rises to the list's k-th key.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -113,20 +116,46 @@ __device__ __forceinline__ void warp_bitonic_merge_desc(uint64_t* a, int n) {
   }
 }
 
-// Merge the first cnt keys of buf into the sorted list (one warp).
+// Merge the first cnt keys of buf into the sorted list (one warp).  At KP
+// = 32 in registers: lane i takes the buffer's i-th key (0 past cnt), a
+// bitonic sort across the lanes puts them in descending order, and
+// max(list[i], buf[31 - i]), a bitonic sequence, is sorted by one more
+// bitonic merge; longer lists sort the buffer in shared memory.
 template <int KP>
 __device__ __forceinline__ void flush(uint64_t* list, uint64_t* buf, int cnt) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
-  for (int i = cnt + lane; i < KP; i += 32) buf[i] = 0;
-  __syncwarp();
-  bitonic_sort_desc(buf, KP, lane, 32, [] { __syncwarp(); });
-  for (int i = lane; i < KP; i += 32) {
-    const uint64_t a = list[i], b = buf[KP - 1 - i];
-    list[i] = a > b ? a : b;
+  if constexpr (KP == 32) {
+    uint64_t x = lane < cnt ? buf[lane] : 0ull;
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1) {
+      const bool desc = (lane & size) == 0;
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const uint64_t y = __shfl_xor_sync(kFull, x, stride);
+        x = (((lane & stride) == 0) == desc) ? (x > y ? x : y) : (x < y ? x : y);
+      }
+    }
+    const uint64_t a = list[lane], b = __shfl_sync(kFull, x, 31 - lane);
+    uint64_t z = a > b ? a : b;
+#pragma unroll
+    for (int stride = 16; stride > 0; stride >>= 1) {
+      const uint64_t y = __shfl_xor_sync(kFull, z, stride);
+      z = (lane & stride) == 0 ? (z > y ? z : y) : (z < y ? z : y);
+    }
+    list[lane] = z;
+    __syncwarp();
+  } else {
+    for (int i = cnt + lane; i < KP; i += 32) buf[i] = 0;
+    __syncwarp();
+    bitonic_sort_desc(buf, KP, lane, 32, [] { __syncwarp(); });
+    for (int i = lane; i < KP; i += 32) {
+      const uint64_t a = list[i], b = buf[KP - 1 - i];
+      list[i] = a > b ? a : b;
+    }
+    __syncwarp();
+    warp_bitonic_merge_desc(list, KP);
   }
-  __syncwarp();
-  warp_bitonic_merge_desc(list, KP);
 }
 
 // The block's shared memory, carved from one dynamic allocation.

@@ -38,6 +38,7 @@ the calls that launched it.
 from __future__ import annotations
 
 import ctypes
+from fractions import Fraction
 
 import torch
 
@@ -47,8 +48,9 @@ _P, _I32 = ctypes.c_void_p, ctypes.c_int
 # C signatures of the launch functions (csrc/*.cu), each returning the
 # cudaError_t of its launches
 _SIGNATURES = {
-    "score_topk": [_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32, _P, _P, _P,
-                   _P],
+    "score_topk": [_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P,
+                   _P, _P, _P],
+    "score_topk_tc_blocks": [_I32, _I32],
     "ivf_tile_topk": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
                       _P],
     "kmeans_update": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P,
@@ -60,16 +62,23 @@ _SIGNATURES = {
     "sharded_topk_merge_tree_fits": [_I32, _I32, _I32],
 }
 # launch functions kept in another kernel's library
-_LIBRARY = {"sharded_topk_merge_as": "sharded_topk_merge",
+_LIBRARY = {"score_topk_tc_blocks": "score_topk",
+            "sharded_topk_merge_as": "sharded_topk_merge",
             "sharded_topk_merge_form": "sharded_topk_merge",
             "sharded_topk_merge_tree_fits": "sharded_topk_merge"}
 MAX_K = 1024
 # IVF tile caps the kernel takes (the reference's largest, parallel/ann.py)
 MAX_BQ_CAP, MAX_L_CAP = 256, 1024
 QUERY_DTYPES = (torch.float32, torch.bfloat16)
-# K5's block shapes (csrc/topk_select.cuh Cfg): (list length KP, queries
-# per block, items per tile) for k <= KP
+# K5's FFMA block shapes (csrc/topk_select.cuh Cfg): (list length KP,
+# queries per block, items per tile) for k <= KP
 _K5_SHAPES = ((32, 64, 128), (128, 32, 128), (1024, 8, 256))
+# K5's tensor-core form (csrc/score_topk.cu namespace tc): k and d it
+# takes, queries per block and items per tile; below TC_MIN_ITEMS items the
+# FFMA form was as fast or faster on the card (the k-means assignment's
+# 711 centroids; PERF.md §6)
+TC_MAX_K, TC_MAX_D, TC_QB, TC_IT = 32, 256, 64, 64
+TC_MIN_ITEMS = 2048
 # K7's rows per histogram block and members per partial sum
 # (csrc/kmeans_update.cu kChunk, kRun)
 _K7_CHUNK, _K7_RUN = 2048, 128
@@ -200,14 +209,61 @@ def kmeans_update_plain(unit, assign, cent):
 
 
 # ------------------------------------------------------------- wrappers
+def score_topk_form(k, d, n_items):
+    """K5's form for k entries of n_items rows of d floats: "tc" (3xTF32
+    ``mma.sync`` on the tensor cores) for k <= TC_MAX_K and d <= TC_MAX_D,
+    which its 64 queries' lists and staged rows fit in shared memory, over
+    at least TC_MIN_ITEMS items; else "ffma" (the float32 scan K6 shares:
+    k up to 1024, rows of any width)."""
+    return ("tc" if k <= TC_MAX_K and d <= TC_MAX_D
+            and n_items >= TC_MIN_ITEMS else "ffma")
+
+
 def _k5_splits(B, N, k, device):
-    """K5's item splits: enough blocks for ~8 per SM, each split at least
-    two item tiles, and S k-lists per query that the merge sorts in
+    """K5's FFMA item splits: enough blocks for ~8 per SM, each split at
+    least two item tiles, and S k-lists per query that the merge sorts in
     shared memory."""
     KP, QB, IT = next(s for s in _K5_SHAPES if k <= s[0])
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = (8 * sms) // max(1, -(-B // QB))
     return max(1, min(want, -(-N // IT) // 2, 8192 // KP))
+
+
+def tc_splits(query_blocks, tiles, resident, k):
+    """The tensor-core form's item splits S: the blocks (query_blocks x S)
+    fill ``resident`` blocks (the card's SMs x blocks per SM) in waves as
+    whole as S from a wave's worth to four waves' can make them (the
+    smaller S on a tie), with at least one item tile a split and S k-lists
+    per query that the merge sorts in shared memory."""
+    top = max(1, min(tiles, 16384 // k))
+    lo = max(1, min(top, -(-resident // query_blocks)))
+
+    def fill(S):  # exact: equal fills tie
+        blocks = query_blocks * S
+        return Fraction(blocks, -(-blocks // resident) * resident)
+    return max(range(lo, min(top, 4 * lo) + 1),
+               key=lambda S: (fill(S), -S))
+
+
+_TC_BLOCKS = {}
+
+
+def score_topk_shape(B, N, d, k, dtype, device):
+    """(form, item splits) of K5's launch for B queries of ``dtype`` over
+    N items of d floats at k."""
+    form = score_topk_form(k, d, N)
+    if form == "ffma":
+        return form, _k5_splits(B, N, k, device)
+    bf16 = int(dtype == torch.bfloat16)
+    per_sm = _TC_BLOCKS.get((d, bf16))
+    if per_sm is None:
+        per_sm = _TC_BLOCKS[(d, bf16)] = _kernel("score_topk_tc_blocks")(
+            d, bf16)
+        if per_sm < 1:
+            raise RuntimeError(f"K5's tensor-core form fits no block at "
+                               f"d = {d}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return form, tc_splits(-(-B // TC_QB), -(-N // TC_IT), per_sm * sms, k)
 
 
 def score_topk(p, Q, k, Qb=None):
@@ -217,7 +273,13 @@ def score_topk(p, Q, k, Qb=None):
     Replaces ``_chunked_topn`` / ``_chunked_topn_tiled`` (``buffalo_tpu/
     ops/topk.py:171,195``) and ``IVFIndex.build``'s assignments
     (``parallel/ann.py:220,245``).  ``p`` (B, d) float32 or bfloat16, ``Q``
-    (N, d) float32, ``Qb`` (N,) float32 or None; 1 <= k <= N.
+    (N, d) float32, ``Qb`` (N,) float32 or None; 1 <= k <= N.  The form
+    is routed by shape (``score_topk_form``): the tensor cores take k <=
+    32 at d <= 256 over at least 2,048 items (every ``batch_topn`` top-10
+    and ALS / BPR / WARP top-10); larger k, whose 64 queries' lists do not
+    fit beside the staged rows, wider rows, and catalogs of fewer items
+    (the k-means assignments against 711 centroids, where the FFMA scan
+    was as fast) take the FFMA scan.
     """
     if p.device.type == "cpu":
         return score_topk_plain(p, Q, k, Qb)
@@ -238,12 +300,15 @@ def score_topk(p, Q, k, Qb=None):
     _check_k("score_topk", k)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     idx = torch.empty((B, k), dtype=torch.int32, device=dev)
-    S = _k5_splits(B, N, k, dev)
+    if B == 0:
+        return vals, idx
+    form, S = score_topk_shape(B, N, d, k, p.dtype, dev)
     part = torch.empty(S * B * k if S > 1 else 0, dtype=torch.int64,
                        device=dev)
     rc = _kernel("score_topk")(
         _ptr(p), int(p.dtype == torch.bfloat16), _ptr(Q), _ptr(Qb), B, N, d,
-        int(k), S, _ptr(part), _ptr(vals), _ptr(idx), _stream(dev))
+        int(k), S, int(form == "tc"), _ptr(part), _ptr(vals), _ptr(idx),
+        _stream(dev))
     _raise_on(rc, "score_topk")
     score_topk.launches += 1
     return vals, idx

@@ -26,8 +26,12 @@ threefry stream cannot be reproduced, so the tests replace
 ``warp_candidates`` with the JAX package's draws to compare the math, or
 pass ``candidates=`` explicitly.  Scores are summed in float64 and rounded
 once, in the kernel and in the plain version, so both compare the same
-float32 margins.  Rows of any width: K11 reads rows wider than its
-shared-memory row from global memory, K12 walks them in 256-column chunks.
+float32 margins.  K11 stages each slot's user row once per block (as
+double for dot) and sums ui once per slot; a group of lanes (K rounded up
+to a power of two, at most 16) walks a slot's candidates, so 32 / lanes
+slots share a warp.  Rows of any width: K11 reads rows wider than its
+shared-memory row from global memory, K12 walks them in 256-column
+chunks.
 ``warp_epoch`` is the resident epoch over a device mesh (one device is a
 mesh of one shard).
 

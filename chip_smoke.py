@@ -1803,15 +1803,24 @@ def k5_work(B, N, d, k, bias, p_bytes=4):
 
 def k5_entry(R, torch, p, Q, k, what, Qb=None, plain=None, library=True):
     """K5 on (p, Q, k) against its plain version (``plain``, else
-    ``score_topk_plain``): its event ms, the plain version's ms and
-    (``library``) one torch.matmul + torch.topk per 2048-query chunk, and
-    the bound."""
+    ``score_topk_plain``): its form and splits, event and CUPTI ms (the
+    launch and the split merge) and device operations per call, the plain
+    version's ms and (``library``) one torch.matmul + torch.topk per
+    2048-query chunk, and the bound of the form: the FP32 one for the FFMA
+    form, for the tensor-core form the lesser of that and the 3xTF32 one
+    (two products per pair with bfloat16 queries, which are exact in
+    TF32)."""
     got = R.score_topk(p, Q, k, Qb)
     ref = plain() if plain is not None else R.score_topk_plain(p, Q, k, Qb)
     err, tie_ids = kernel_topk_check(got, ref, what)
     del got, ref
-    ms = time_ms(lambda: R.score_topk(p, Q, k, Qb), reps=10, warmup=2)
-    splits = R._k5_splits(p.shape[0], Q.shape[0], k, p.device)
+
+    def fn():
+        return R.score_topk(p, Q, k, Qb)
+    ms = time_ms(fn, reps=10, warmup=2)
+    dev_ms, ops = trace_stats(fn, "score_topk")
+    form, splits = R.score_topk_shape(p.shape[0], Q.shape[0], Q.shape[1], k,
+                                      p.dtype, p.device)
     plain_ms = time_ms(plain or (lambda: R.score_topk_plain(p, Q, k, Qb)),
                        reps=3, warmup=1)
     lib_ms = None
@@ -1824,9 +1833,16 @@ def k5_entry(R, torch, p, Q, k, what, Qb=None, plain=None, library=True):
     nbytes, flops = k5_work(p.shape[0], Q.shape[0], Q.shape[1], k,
                             Qb is not None, p.element_size())
     bms, by = bound_ms(nbytes, flops)
-    return dict(B=p.shape[0], N=Q.shape[0], d=Q.shape[1], k=k,
+    if form == "tc":
+        products = 2 / 3 if p.dtype == torch.bfloat16 else 1
+        tf32 = bound_tf32_ms(nbytes, flops * products)
+        if tf32 < bms:
+            bms, by = tf32, ("bytes" if 1e3 * nbytes / PEAK_BYTES_S >= tf32
+                             else "operations")
+    return dict(B=p.shape[0], N=Q.shape[0], d=Q.shape[1], k=k, form=form,
                 splits=splits, max_abs_err=err,
-                ids_differing_at_ties=tie_ids, ms=ms, plain_ms=plain_ms,
+                ids_differing_at_ties=tie_ids, ms=ms, device_ms=dev_ms,
+                stream_ops_per_call=ops, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
@@ -1864,6 +1880,7 @@ def k6_entry(R, torch, args):
     check(not bool(torch.isnan(got[0]).any()), "K6 wrote NaN")
     del got, ref
     ms = time_ms(lambda: R.ivf_tile_topk(*args), reps=10, warmup=2)
+    dev_ms = trace_ms(lambda: R.ivf_tile_topk(*args), "ivf_tile_topk")
     plain_ms = time_ms(lambda: R.ivf_tile_topk_plain(*args), reps=3,
                        warmup=1)
     cols = torch.arange(l_cap, device=lo.device)
@@ -1887,7 +1904,8 @@ def k6_entry(R, torch, args):
     bms, by = bound_ms(nbytes, 2 * d * pairs)
     return dict(tiles=T, bq_cap=bq, l_cap=l_cap, kk=kk, live_pairs=pairs,
                 table_rows_read=rows_read, max_abs_err=err,
-                ids_differing_at_ties=tie_ids, ms=ms, plain_ms=plain_ms,
+                ids_differing_at_ties=tie_ids, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
@@ -1905,6 +1923,9 @@ def k7_entry(R, torch, unit, assign, cent):
     check(bool(torch.equal(got, again)), "K7 is not deterministic")
     ms = time_ms(lambda: R.kmeans_update(unit, assign, cent), reps=10,
                  warmup=2)
+    # its six launches; cell_means is the last, once per call
+    dev_ms = trace_ms(lambda: R.kmeans_update(unit, assign, cent),
+                      "cell_means")
     plain_ms = time_ms(lambda: R.kmeans_update_plain(unit, assign, cent),
                        reps=5, warmup=1)
     a = assign.reshape(-1).long()
@@ -1915,7 +1936,7 @@ def k7_entry(R, torch, unit, assign, cent):
     lib_ms = time_ms(lib, reps=5, warmup=1)
     (N, D), C = unit.shape, cent.shape[0]
     bms, by = bound_ms(4 * N * D + 4 * N + 8 * C * D, N * D)
-    return dict(N=N, D=D, cells=C, max_abs_err=err, ms=ms,
+    return dict(N=N, D=D, cells=C, max_abs_err=err, ms=ms, device_ms=dev_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                 bound_by=by)
 
@@ -2057,18 +2078,21 @@ def catalog_path(bt, R, torch, dev):
                             k5_spill["max_abs_err"],
                             big_entry["max_abs_err"]),
             **{f: k5[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}),
+                                  "library_ms", "form", "device_ms",
+                                  "stream_ops_per_call")}),
         "ivf_tile_topk": dict(
             route="cuda", source="buffalo_tpu_torch/csrc/ivf_tile_topk.cu",
             replaces="buffalo_tpu/parallel/ann.py:54",
             max_abs_err=max(e["max_abs_err"] for e in k6.values()),
             **{f: k6[32][f] for f in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")}),
+                                      "bound_by", "library_ms",
+                                      "device_ms")}),
         "kmeans_update": dict(
             route="cuda", source="buffalo_tpu_torch/csrc/kmeans_update.cu",
             replaces="buffalo_tpu/parallel/ann.py:220",
             **{f: k7[f] for f in ("max_abs_err", "ms", "plain_ms",
-                                  "bound_ms", "bound_by", "library_ms")}),
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "device_ms")}),
     }
     return entries, launches
 
@@ -2793,9 +2817,10 @@ def warp_kernels(W, S, torch, model):
     grouped by row (as a streamed chunk's is), a plain run without the reg
     terms failing the check; at most K12_MAX_STREAM_OPS stream operations
     per resident chunk, counted in a CUPTI trace).  Event ms, CUPTI ms,
-    plain and library ms and the bounds; K11's ms at K = 64 and K12's with
-    each user side and its stream operations per call.  Returns the kernels
-    line's K11 and K12 entries."""
+    plain and library ms and the bounds; K11's event and CUPTI ms at K =
+    64, its bytes and FP64 bounds, and K12's with each user side and its
+    stream operations per call.  Returns the kernels line's K11 and K12
+    entries."""
     dev = model.device
     users_c, items_c, nnz, indptr, bloom, log2, P0, Q0 = warp_inputs(
         S, torch, model)
@@ -2857,15 +2882,18 @@ def warp_kernels(W, S, torch, model):
                    users, pos, P0, Q0, **base), reps=3, warmup=1),
                bound_ms=1e3 * max(t_b, t_o, t_i),
                bound_by="bytes" if t_b >= max(t_o, t_i) else "operations",
-               library_ms=None, slots=N, num_candidates=K,
+               library_ms=None, bound_bytes_ms=1e3 * t_b,
+               bound_fp64_ms=1e3 * t_o, slots=N, num_candidates=K,
                candidates_needed=need, user_rows=n_u, item_rows=n_i,
                found={f"K{k}_{p}_{n}": v["found"]
                       for (k, p, n), v in out.items()},
                probe_mode=o.probe_mode)
     for probe in ("lazy", "all"):
-        k11[f"ms_k64_{probe}"] = time_ms(lambda: W.warp_search(
-            users, pos, P0, Q0, **dict(base, num_candidates=64,
-                                       probe=probe)))
+        def fn64():
+            return W.warp_search(users, pos, P0, Q0,
+                                 **dict(base, num_candidates=64, probe=probe))
+        k11[f"ms_k64_{probe}"] = time_ms(fn64)
+        k11[f"device_ms_k64_{probe}"] = trace_ms(fn64, "search_kernel")
 
     kw12 = dict(n_valid=N, score_func=o.score_func, reg_u=WARP_CHECK_REG,
                 reg_i=WARP_CHECK_REG, reg_j=WARP_CHECK_REG, update_i=True,

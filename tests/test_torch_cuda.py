@@ -562,6 +562,68 @@ def test_score_topk_kernel_neg_inf_and_limits(dev):
         R.score_topk(p, torch.zeros(2000, 24, device=dev), 1025)
 
 
+# the list lengths and widths at which K5's wrapper routes between its
+# tensor-core form (k <= 32, d <= 256) and its FFMA form, over 1 to 26,744
+# items (the ML-20M catalog); 100 queries are no multiple of a query block
+@pytest.mark.parametrize("d", [1, 7, 40, 100, 256, 300])
+@pytest.mark.parametrize("k", [1, 10, 32, 33, 128, 129, 1024])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_score_topk_forms_match_plain(dev, monkeypatch, d, k, qdtype, bias):
+    """Each of K5's forms that takes (k, d), forced at every N, against
+    its plain version by chip_smoke's ``kernel_topk_check`` rule (scores
+    within 1e-5, ids equal off ties, equal scores in index order) at N =
+    1, 127, 711, 26,744 (k <= N), every 7th row's bias -inf; two launches
+    bitwise equal; the wrapper's own route by ``score_topk_form``.  The rows,
+    queries and biases are |N(0, 1)|: the rule is relative, and a score
+    that sums terms of both signs to near 0 (a single item's, at N = 1)
+    parts from the plain version's by more than 1e-5 of itself in any
+    two float32 summation orders."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    for N in (1, 127, 711, 26_744):
+        if k > N:
+            continue
+        rng = np.random.default_rng(N + d + k)
+        Q = np.abs(rng.standard_normal((N, d))).astype(np.float32)
+        p = np.abs(rng.standard_normal((100, d))).astype(np.float32)
+        Qb = np.abs(rng.standard_normal(N)).astype(np.float32)
+        Qb[::7] = -np.inf
+        Q, p, Qb = (torch.from_numpy(a).to(dev) for a in (Q, p, Qb))
+        p = p.to(getattr(torch, qdtype))
+        Qb = Qb if bias else None
+        takes_tc = k <= 32 and d <= 256
+        form, _ = R.score_topk_shape(100, N, d, k, p.dtype, dev)
+        assert form == ("tc" if takes_tc and N >= R.TC_MIN_ITEMS else "ffma")
+        ref = R.score_topk_plain(p, Q, k, Qb)
+        for forced in ("tc", "ffma") if takes_tc else ("ffma",):
+            monkeypatch.setattr(R, "score_topk_form", lambda *a: forced)
+            got = R.score_topk(p, Q, k, Qb)
+            again = R.score_topk(p, Q, k, Qb)
+            torch.cuda.synchronize()
+            _topk_close(got, ref)
+            _ties_in_index_order(*got)
+            assert torch.equal(got[0], again[0])
+            assert torch.equal(got[1], again[1])
+            monkeypatch.undo()
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_score_topk_empty_batch(dev, k):
+    """No queries over a catalog the tensor-core form takes (k = 10) and
+    one the FFMA form takes (k = 100): empty (0, k) lists, no launch."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    Q = torch.ones(26_744, 40, device=dev)
+    before = R.score_topk.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        vals, idx = R.score_topk(torch.zeros(0, 40, device=dev, dtype=dtype),
+                                 Q, k)
+        assert vals.shape == idx.shape == (0, k)
+        assert (vals.dtype, idx.dtype) == (torch.float32, torch.int32)
+    assert R.score_topk.launches == before
+
+
 def _ivf_case(dev, d, T=40, bq=64, l_cap=256, seed=0):
     rng = np.random.default_rng(seed)
     B, Nt = 500, 3000
@@ -939,6 +1001,54 @@ def test_warp_search_kernel_equals_plain(dev, d, K, probe, score_func):
             else:
                 assert torch.equal(g, r), name
         assert torch.equal(counts[0], counts[1]) and int(counts[0][1]) > 0
+
+
+# K across the packing edges of the lanes per slot (1, 8, 16 | 17, 32 | 33,
+# 64); d = 4 and 64 on 16-byte loads, 63 on scalar ones, 300 the wide form
+@pytest.mark.parametrize("d", [4, 63, 64, 300])
+@pytest.mark.parametrize("K", [1, 8, 16, 17, 32, 33, 64])
+@pytest.mark.parametrize("probe", ["lazy", "all"])
+@pytest.mark.parametrize("score_func", ["dot", "l2"])
+def test_warp_search_packed_lanes_equal_plain(dev, d, K, probe, score_func):
+    """K11 against its plain version bit for bit (ids, any_v, trials and
+    counts equal, weights within 1 ulp) on its own draws and on injected
+    candidates, with the bloom filter and with seen bits, and at a slot
+    offset; two launches bitwise equal."""
+    from buffalo_tpu_torch.ops import warp_kernels as W
+
+    c = _warp_case(dev, d, scale=0.6 if d < 64 else 0.2)
+    N = c["users"].shape[0]
+    cands = W.warp_candidates(N, K, c["I"], seed=9, epoch=0, chunk=0,
+                              device=dev)
+    for extra, offset, bits in (({}, 0, False), ({}, 0, True),
+                                ({"candidates": cands}, 0, False),
+                                ({"candidates": cands}, 0, True),
+                                ({}, 1000, False)):
+        kw = _search_kw(c, K, probe, score_func, N - 37, slot_offset=offset,
+                        **extra)
+        if bits:
+            kw["seen_bits"] = W.warp_probe_plain(
+                c["users"], num_items=c["I"], num_candidates=K, seed=5,
+                epoch=2, chunk=7, bloom=kw.pop("bloom"),
+                bloom_log2=c["log2"], candidates=extra.get("candidates"))
+        counts = [torch.zeros(3, dtype=torch.int32, device=dev)
+                  for _ in range(3)]
+        got = W.warp_search(c["users"], c["pos"], c["P"], c["Q"],
+                            counts=counts[0], count_index=1, **kw)
+        again = W.warp_search(c["users"], c["pos"], c["P"], c["Q"],
+                              counts=counts[1], count_index=1, **kw)
+        ref = W.warp_search_plain(c["users"], c["pos"], c["P"], c["Q"],
+                                  counts=counts[2], count_index=1, **kw)
+        torch.cuda.synchronize()
+        for name, g, a, r in zip(("neg", "w", "any_v", "trial"), got, again,
+                                 ref):
+            assert torch.equal(g, a), name
+            if name == "w":
+                assert torch.allclose(g, r, rtol=1.2e-7, atol=0), name
+            else:
+                assert torch.equal(g, r), name
+        assert torch.equal(counts[0], counts[2])
+        assert torch.equal(counts[1], counts[2]) and int(counts[0][1]) > 0
 
 
 @pytest.mark.parametrize("K", [5, 64])

@@ -8,6 +8,8 @@ plain versions are held to a float64 numpy reference with the tie order
 checked: duplicated rows score equal in float32 and must come back in
 index order, as ``lax.top_k`` returns them.
 """
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -221,13 +223,30 @@ def _index_order_on_ties(vals, idx):
     assert np.all(~same | (idx[:, 1:] > idx[:, :-1]))
 
 
-@pytest.mark.parametrize("k", [1, 10, 64])
+# (k, d, N): the first three at d = 13 over 400 items; then the list
+# lengths (32 | 33, 128 | 129, 1024) and widths (7, 100, 257) at which
+# K5's wrapper routes between its tensor-core and FFMA forms, over enough
+# items (the bias leaves half of them finite) that the k-th score stays
+# clear of 0, where a float32 sum's error passes 1e-5 of the score
+TOPK_SHAPES = [pytest.param(1, 13, 400, id="1"),
+               pytest.param(10, 13, 400, id="10"),
+               pytest.param(64, 13, 400, id="64"),
+               pytest.param(32, 7, 400, id="32-d7"),
+               pytest.param(32, 257, 400, id="32-d257"),
+               pytest.param(33, 100, 400, id="33-d100"),
+               pytest.param(128, 257, 4096, id="128-d257"),
+               pytest.param(129, 7, 4096, id="129-d7"),
+               pytest.param(1024, 100, 20480, id="1024-d100"),
+               pytest.param(1024, 7, 20480, id="1024-d7")]
+
+
+@pytest.mark.parametrize("k,d,N", TOPK_SHAPES)
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-def test_score_topk_plain_vs_float64(k, bias, qdtype):
-    p, Q, Qb = _tables(k, N=400, d=13, B=50)
+def test_score_topk_plain_vs_float64(k, d, N, bias, qdtype):
+    p, Q, Qb = _tables(k, N=N, d=d, B=50)
     p[0] = Q[2]
-    Qb[200:] = -np.inf if bias else 0.0   # -inf: valid lowest scores
+    Qb[N // 2:] = -np.inf if bias else 0.0   # -inf: valid lowest scores
     pt = torch.from_numpy(p).to(getattr(torch, qdtype))
     vals, idx = R.score_topk(pt, torch.from_numpy(Q), k,
                              torch.from_numpy(Qb) if bias else None)
@@ -241,6 +260,38 @@ def test_score_topk_plain_vs_float64(k, bias, qdtype):
     _index_order_on_ties(vals, idx)
     if k >= 4 and not bias:
         assert idx[0, :4].tolist() == [2, 9, 40, 333]
+
+
+@pytest.mark.parametrize("k,d,n,form", [
+    (10, 100, 505_840, "tc"), (10, 40, 26_744, "tc"), (1, 101, 2048, "tc"),
+    (32, 256, 5000, "tc"), (1, 101, 711, "ffma"), (2, 101, 2047, "ffma"),
+    (33, 40, 26_744, "ffma"), (10, 257, 26_744, "ffma"),
+    (1024, 8, 26_744, "ffma")])
+def test_score_topk_form(k, d, n, form):
+    """K5's route: the tensor cores take k <= 32 at d <= 256 over at least
+    TC_MIN_ITEMS items (not the k-means assignment's 711 centroids)."""
+    assert R.score_topk_form(k, d, n) == form
+
+
+# (query blocks, item tiles, resident blocks, k) -> splits: the brunch call
+# (10,000 queries, 505,840 items at 2 blocks an SM), ML-20M's (26,744 items
+# at 3), the k-means chunk (65,536 against 711), 5M x 64 on 2,048 queries,
+# and a catalog of one tile
+@pytest.mark.parametrize("qb,tiles,resident,k,S", [
+    (157, 7904, 264, 10, 5), (157, 418, 396, 10, 5), (1024, 12, 264, 1, 1),
+    (32, 78125, 264, 10, 33), (2, 1, 264, 10, 1)])
+def test_tc_splits_fill_whole_waves(qb, tiles, resident, k, S):
+    """The tensor-core form's splits: from a wave's worth to four waves',
+    the S whose blocks fill the resident ones best (the smaller on a tie),
+    at most one split per item tile."""
+    got = R.tc_splits(qb, tiles, resident, k)
+    assert got == S
+    fill = Fraction(qb * S, -(-qb * S // resident) * resident)
+    lo = max(1, min(tiles, -(-resident // qb)))
+    for other in range(lo, min(tiles, 4 * lo) + 1):
+        blocks = qb * other
+        f = Fraction(blocks, -(-blocks // resident) * resident)
+        assert f < fill or (f == fill and other >= S)
 
 
 def test_score_topk_plain_neg_inf_rows_in_index_order():

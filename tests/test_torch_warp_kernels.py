@@ -99,8 +99,14 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("K", [3, 16, 40])
-@pytest.mark.parametrize("case", list(CASES))
+# every case at K = 3, 16, 40, and the packing edges of K11's lanes per
+# slot (1, 8, 16 | 17, 32 | 33, 64) on two cases: each K compiles a JAX step
+STEP_CASES = ([(case, K) for K in (3, 16, 40) for case in CASES]
+              + [(case, K) for K in (1, 8, 17, 32, 33, 64)
+                 for case in ("dot_lazy", "l2_all")])
+
+
+@pytest.mark.parametrize("case,K", STEP_CASES)
 def test_step_matches_jax_on_injected_candidates(case, K):
     """K11 + K12 (plain) against ``warp_accumulate_step``: the same
     negatives, trials and counts, gradients within 1e-5."""
