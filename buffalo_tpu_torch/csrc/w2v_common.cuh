@@ -1,7 +1,7 @@
-// What the W2V kernels that work a warp per row share (K19
-// csrc/w2v_pair_step.cu, K21 csrc/w2v_stream_chunk.cu): a row of d <= 32 H
-// floats held by the warp, lane c owning columns c + 32 h; the warp's dot
-// product; g(label, f) = label - sigmoid(f) with the reference's hard clamps
+// What the W2V kernels share (K19 csrc/w2v_pair_step.cu, K21
+// csrc/w2v_stream_chunk.cu): K21's row of d <= 32 H floats held by a warp,
+// lane c owning columns c + 32 h, and the warp's dot product; the warp sum;
+// g(label, f) = label - sigmoid(f) with the reference's hard clamps
 // at +-6 (buffalo_tpu/ops/w2v_kernels.py _g :27); and the (loss, count)
 // partials summed per block in warp order, then over the blocks in a fixed
 // order, with no float atomics.

@@ -26,7 +26,11 @@ version (``*_plain``):
   entries, written wherever the row has entries on either side (``0`` for
   a row without explicit entries), and the user phase's ``reg |x|^2`` loss
   term of the new row (``_cfr_item_body`` :146-154, ``_cfr_context_body``
-  :584-593, the segment bodies' ends, ``_cfr_user_body`` :73).
+  :584-593, the segment bodies' ends, ``_cfr_user_body`` :73).  Up to 128
+  floats a row it cuts the entries into pieces (``bias_launch``): a warp
+  per piece of at most ``BIAS_PIECE`` entries of a padded row or segment
+  chunk, a team of lanes per entry reading its row as float4s; a row
+  spanning pieces has them added in piece order by a second launch.
 
 ``gramian`` (``FF``) is a plain product (``torch.matmul``).  Each wrapper
 runs its plain version for CPU tensors and launches its kernel (or raises)
@@ -58,16 +62,21 @@ _SIGNATURES = {
     "cfr_normal_equations": [_P, _I32, _I32, _P, _I32] + _SIDE
     + [_P, _F32, _F32] + _SIDE + [_P, _P, _F32, _I32, _P, _P, _P, _P, _P],
     "cfr_bias": [_P, _I32, _I32, _P, _I32, _P] + _SIDE
-    + [_P, _P, _F32, _P, _P],
+    + [_I32, _P, _P, _F32, _P, _I32, _P, _P],
+    "cfr_bias_wide": [_I32],
 }
+_LIBRARY = {"cfr_bias_wide": "cfr_bias"}
 # K17's loss terms (of the rows before the solve)
 LOSS_IMPLICIT, LOSS_EXPLICIT, LOSS_REG = 1, 2, 4
+# K18 cuts a side's entries into pieces of at most BIAS_PIECE entries of one
+# padded row or segment chunk, one warp each (csrc/cfr_bias.cu)
+BIAS_PIECE = 256
 
 
 def _kernel(name: str):
     from buffalo_tpu_torch.ops._build import launcher
 
-    return launcher(name, _SIGNATURES[name])
+    return launcher(name, _SIGNATURES[name], library=_LIBRARY.get(name))
 
 
 class Side(NamedTuple):
@@ -276,13 +285,27 @@ def cfr_normal_equations(X, rows, *, implicit=None, explicit=None, FF=None,
 cfr_normal_equations.launches = 0
 
 
+def bias_launch(chunks, width, segment, piece):
+    """K18's launch shape for an explicit side of ``chunks`` padded rows
+    or segment chunks of ``width`` slots cut into pieces of at most
+    ``piece`` entries: (pieces per row or chunk, at least one since piece
+    0 writes the bias of a row without entries; the grid's pieces, one
+    warp each; whether a row can span pieces, so that the pieces' partial
+    sums are kept and a second launch adds them)."""
+    ppr = max(1, -(-int(width) // int(piece)))
+    return ppr, int(chunks) * ppr, bool(segment) or ppr > 1
+
+
 def cfr_bias(X, rows, total, *, explicit=None, bias=None, cbias=None,
              reg_new=0.0, loss=None):
     """K18: the closed-form bias of the new rows and the user phase's loss
     term (see ``cfr_bias_plain``), in place on ``bias`` and ``loss``.
     Replaces the bias and masked write of ``_cfr_item_body`` :146-154,
     ``_cfr_context_body`` :584-593 and the segment bodies' ends, and the
-    loss of ``_cfr_user_body`` :73 (``buffalo_tpu/ops/cfr_kernels.py``)."""
+    loss of ``_cfr_user_body`` :73 (``buffalo_tpu/ops/cfr_kernels.py``).
+    ``launches`` counts the calls; ``device_launches`` the kernels they
+    launched (a row's pieces and the launch that adds them, the loss
+    term's own)."""
     kw = dict(explicit=explicit, bias=bias, cbias=cbias, reg_new=reg_new,
               loss=loss)
     if X.device.type == "cpu":
@@ -298,17 +321,30 @@ def cfr_bias(X, rows, total, *, explicit=None, bias=None, cbias=None,
             raise ValueError("bias must have one entry per row of X")
     if reg_new:
         _check("loss", loss, torch.float32, dev, 1)
+    side = _side_args("explicit", explicit, R, dev, d)
+    chunks = explicit.cols.shape[0] if explicit is not None else 0
+    _, pieces, spans = bias_launch(
+        chunks, side[-1], explicit is not None
+        and explicit.chunk_ptr is not None, BIAS_PIECE)
+    wide = bool(_kernel("cfr_bias_wide")(d))
+    part = (torch.empty(max(1, pieces), dtype=torch.float64, device=dev)
+            if explicit is not None and spans and not wide else None)
     rc = _kernel("cfr_bias")(
-        _ptr(X), X.shape[0], d, _ptr(rows), R, _ptr(total),
-        *_side_args("explicit", explicit, R, dev, d),
+        _ptr(X), X.shape[0], d, _ptr(rows), R, _ptr(total), *side, chunks,
         _ptr(cbias if explicit is not None else None),
         _ptr(bias if explicit is not None else None), float(reg_new),
-        _ptr(loss if reg_new else None), _stream(dev))
+        _ptr(loss if reg_new else None), BIAS_PIECE, _ptr(part),
+        _stream(dev))
     _raise_on(rc, "cfr_bias")
     cfr_bias.launches += 1
+    if R:
+        cfr_bias.device_launches += 1 if wide else (
+            int(bool(reg_new)) + (0 if explicit is None
+                                  else int(pieces > 0) + int(spans)))
 
 
 cfr_bias.launches = 0
+cfr_bias.device_launches = 0
 
 KERNELS = (cfr_normal_equations, cfr_bias)
 

@@ -8,7 +8,9 @@ each beside its plain PyTorch version (``*_plain``):
   chunk (the host-pair path): the K negatives (three alias draws that
   avoid the target, then ``(t + 1) % V``), f, g with the ±6 clamps, the
   loss, and the delta rows of L1 (targets, negatives) and L0 (inputs),
-  each from the tables before the step.
+  each from the tables before the step.  Up to 256 floats a row a team of
+  lanes takes a pair (8 pairs a warp at d = 32), the negatives drawn into
+  registers and every row read as float4s before the first dot.
 * **K20** ``row_apply`` — delta rows grouped by table row, each row's sum
   capped at ``max_step_norm`` (``clipped_apply``) and added; rows keyed
   past the table are dropped.  Both paths apply through it.
@@ -63,7 +65,7 @@ _P, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # C signatures of the launch functions (csrc/w2v_*.cu); each launch returns
 # its cudaError_t, the *_parts / workspace helpers their sizes
 _SIGNATURES = {
-    "w2v_pair_parts": [_I32],
+    "w2v_pair_parts": [_I32, _I32],
     "w2v_pair_step": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _F32, _I64,
                       _I32, _I32, _I64, _P, _P, _P, _P, _P, _P, _P, _I32, _P,
                       _P, _P],
@@ -301,7 +303,8 @@ def pair_step(L0, L1, inputs, targets, lr, *, vocab_size, num_negatives,
     ``w2v_epoch`` :48 and ``w2v_epoch_dp`` :87
     (``buffalo_tpu/ops/w2v_kernels.py``).  Returns (negatives (B, K),
     keys1 (B (1 + K),), d1 (B (1 + K), d), d0 (B, d), loss, count), the
-    last two 0-d float32 tensors."""
+    last two 0-d float32 tensors.  ``launches`` counts the calls;
+    ``device_launches`` the kernels they launched."""
     V, K = int(vocab_size), int(num_negatives)
     if inputs.device.type == "cpu":
         negs = negatives if negatives is not None else w2v_negatives(
@@ -331,8 +334,8 @@ def pair_step(L0, L1, inputs, targets, lr, *, vocab_size, num_negatives,
     keys1 = torch.empty(B * (1 + K), dtype=torch.int32, device=dev)
     d1 = torch.empty((B * (1 + K), d), dtype=torch.float32, device=dev)
     d0 = torch.empty((B, d), dtype=torch.float32, device=dev)
-    part = torch.empty(2 * max(1, _kernel("w2v_pair_parts")(B)),
-                       dtype=torch.float32, device=dev)
+    blocks = _kernel("w2v_pair_parts")(B, d)
+    part = torch.empty(2 * max(1, blocks), dtype=torch.float32, device=dev)
     out = torch.empty(2, dtype=torch.float32, device=dev)
     rc = _kernel("w2v_pair_step")(
         _ptr(L0), _ptr(L1), _ptr(inputs), _ptr(targets), B, V, d, K,
@@ -343,10 +346,12 @@ def pair_step(L0, L1, inputs, targets, lr, *, vocab_size, num_negatives,
         _ptr(part), _ptr(out), _stream(dev))
     _raise_on(rc, "pair_step")
     pair_step.launches += 1
+    pair_step.device_launches += 1 + int(blocks > 0)  # the pairs, the sums
     return negs, keys1, d1, d0, out[0], out[1]
 
 
 pair_step.launches = 0
+pair_step.device_launches = 0
 
 
 def row_apply(T, parts, *, scale=1.0, cap=0.0):

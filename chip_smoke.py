@@ -182,7 +182,9 @@ K9_MAX_STREAM_OPS, HOT_ITEM_SHARE = 8, 0.7
 K9_MAIN = "epilogue_kernel"   # K9's last launch, once per call
 # the kernels line's keys past the contract's, for the kernels that report
 # them: the form a call took, its CUPTI time and its stream operations
-KERNEL_EXTRAS = ("form", "device_ms", "stream_ops_per_call")
+KERNEL_EXTRAS = ("form", "device_ms", "stream_ops_per_call",
+                 "device_launches_per_epoch", "epoch_device_ms",
+                 "epoch_bound_ms")
 # H100 SXM int32 rate: 64 INT32 lanes per SM (Hopper white paper) x 132
 # SMs x 1.98 GHz boost; K8's work is integer (Philox, the bloom hashes)
 PEAK_INT32_S = 64 * 132 * 1.98e9
@@ -3900,7 +3902,7 @@ def cfr_path(bt, CK, K, R, torch, data):
     one K3 and one K18 launch per batch of each phase, the loss finite and
     falling, a profiled epoch; ParCFR top-10 for CFR_USERS users held to
     numpy.  Returns (model, the path's launches, its batches staged on the
-    card)."""
+    card, K18's device launches and busy ms per epoch)."""
     from buffalo_tpu_torch.models.cfr import _stage_entry
 
     opt = bt.CFROption().get_default_option()
@@ -3912,10 +3914,12 @@ def cfr_path(bt, CK, K, R, torch, data):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
+    CK.cfr_bias.device_launches = 0
     st = time.perf_counter()
     model.train()
     train_s = time.perf_counter() - st
     launches = read_counts(kernels)
+    k18_device_launches = CK.cfr_bias.device_launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     losses = model.iteration_losses
     check(len(losses) == CFR_EPOCHS and all(np.isfinite(losses))
@@ -3941,7 +3945,11 @@ def cfr_path(bt, CK, K, R, torch, data):
     one = bt.parallelism.Mesh([model.device])
     prof = profile_call(torch, lambda: float(CK.cfr_epoch(
         one, {model.device: list(tabs)}, staged["user"], staged["item"],
-        staged["context"], **kw)), top=10)
+        staged["context"], **kw)), top=30)
+    k18_epoch = dict(
+        device_launches_per_epoch=k18_device_launches / CFR_EPOCHS,
+        epoch_device_ms=sum(v for k, v in prof["device_ms_by_name"].items()
+                            if k.startswith("bias_")))
     users = [str(u) for u in range(1, CFR_USERS + 1)]
     par = bt.ParCFR(model)
     reset_counts(R.KERNELS)
@@ -3973,7 +3981,7 @@ def cfr_path(bt, CK, K, R, torch, data):
     del tabs
     torch.cuda.empty_cache()
     return model, {k: launches[k] for k in ("cfr_normal_equations",
-                                            "cfr_bias")}, staged
+                                            "cfr_bias")}, staged, k18_epoch
 
 
 def k17_check(CK, torch, X, rows, kw):
@@ -4010,14 +4018,97 @@ def k17_bound(torch, kw, rows, d):
     return ms, by, n
 
 
-def cfr_kernels(CK, K, torch, model, staged):
+def k18_work(torch, rows, side, d):
+    """(bytes, operations) of one K18 call: each live entry's id and value,
+    the rows' ids, totals and lengths, each distinct gathered row and its
+    cbias entry, the batch's rows of X read once, the bias written once;
+    2 d + 3 operations per entry.  The loss term alone (no side): each
+    row's x read, its loss entry read and written, 2 d operations."""
+    B = rows.shape[0]
+    if side is None:
+        return 4 * d * B + 8 * B, 2 * d * B
+    c = live_cols(torch, side)
+    n = int(c.numel())
+    dist = n_distinct(torch, c) if n else 0
+    return (8 * n + 12 * B + 4 * d * (dist + B) + 4 * dist + 4 * B,
+            n * (2 * d + 3))
+
+
+def k18_epoch_bound(CK, torch, staged, d):
+    """K18's bound over one CFR epoch on its staged batches: the sum of its
+    calls' ``k18_work`` (the user batches' loss term, each item entry's
+    SPPMI side, each context batch), as (ms, "bytes" or "operations")."""
+    nbytes = flops = 0
+    calls = [(b.rows, None) for b in staged["user"]]
+    for e in staged["item"]:
+        if len(e) == 2:
+            calls.append((e[0].rows, e[1]))
+        else:
+            calls.append((e[0].rows, CK.Side(None, *e[1:])))
+    calls += [(b.rows, b) for b in staged["context"]]
+    for rows, side in calls:
+        nb, fl = k18_work(torch, rows, side, d)
+        nbytes += nb
+        flops += fl
+    return bound_ms(nbytes, flops)
+
+
+def k18_check(CK, K, torch, X, rows, kw, sys_, cg, own, other):
+    """K18 on the rows K3 solves from K17's systems ``sys_`` (A, y, total)
+    of one batch (K17's arguments ``kw``; ``own`` the bias it writes,
+    ``other`` the bias of its columns): within TOL_K18 of the largest bias
+    of the plain version, bitwise repeatable, and the check failing on the
+    rows before the solve.  Returns (fields: errors, event and CUPTI ms,
+    bound; the four bias runs: kernel, kernel, plain, plain on the old
+    rows; the solved table)."""
+    A, y, total = sys_
+    exp = kw["explicit"]
+    idx = rows.long()[(total > 0) & (rows < X.shape[0])]
+    X_new = X.clone()
+    K.batched_cg_dense(A, y, X_new, total, rows=rows, **cg)
+    runs = [own.clone() for _ in range(4)]
+    CK.cfr_bias(X_new, rows, total, explicit=exp, bias=runs[0], cbias=other)
+    CK.cfr_bias(X_new, rows, total, explicit=exp, bias=runs[1], cbias=other)
+    CK.cfr_bias_plain(X_new, rows, total, explicit=exp, bias=runs[2],
+                      cbias=other)
+    CK.cfr_bias_plain(X, rows, total, explicit=exp, bias=runs[3],
+                      cbias=other)
+    torch.cuda.synchronize()
+    err = rel_err(runs[0][idx], runs[2][idx])[1]
+    old_err = rel_err(runs[3][idx], runs[2][idx])[1]
+    rep = torch.equal(runs[0], runs[1])
+    seg = exp.chunk_ptr is not None
+    what = (f"{rows.shape[0]} rows, {'chunks' if seg else 'L'} "
+            f"{exp.cols.shape[0 if seg else 1]}")
+    check(err <= TOL_K18 and rep, f"K18 ({what}): {err:.3g} from the plain "
+          f"version (repeatable {rep})")
+    check(old_err > TOL_K18, f"the K18 check ({what}) passes the rows "
+          f"before the solve ({old_err:.3g})")
+
+    def fn():
+        CK.cfr_bias(X_new, rows, total, explicit=exp, bias=runs[1],
+                    cbias=other)
+
+    bms, by = bound_ms(*k18_work(torch, rows, exp, X.shape[1]))
+    return (dict(rel_err=err, old_rows_rel_err=old_err, rows=int(rows.shape[0]),
+                 width=int(exp.cols.shape[1]),
+                 chunks=int(exp.cols.shape[0]) if seg else None,
+                 entries=int(live_cols(torch, exp).numel()),
+                 ms=time_ms(fn), device_ms=trace_ms(fn, "bias_kernel"),
+                 bound_ms=bms, bound_by=by), runs, X_new)
+
+
+def cfr_kernels(CK, K, torch, model, staged, k18_epoch):
     """K17 and K18 against their plain versions on the trained model's
     brunch batches: K17 on the user batch, the padded item entry and the
     context batch with the most entries and on the item segment pair with
     the most chunks (a run without the explicit term must fail the item
-    check); K3's solves of the item systems by the CG rule; K18 after that
-    solve (a run on the rows before the solve must fail).  Returns the
-    kernels line's entries."""
+    check); K3's solves of the item systems by the CG rule; K18 after K3's
+    solve of the item entry, the segment pair and the padded context batch
+    with the longest rows (``k18_check``).  Returns the kernels line's
+    entries, K18's with ``k18_epoch`` (``cfr_path``'s device launches and
+    busy ms per epoch) and its bound over an epoch."""
+    from buffalo_tpu_torch.data.batching import StagedSegmentBatch
     from buffalo_tpu_torch.ops.als_kernels import gramian
     from buffalo_tpu_torch.ops.cfr_kernels import (LOSS_EXPLICIT,
                                                    LOSS_IMPLICIT, LOSS_REG,
@@ -4085,24 +4176,29 @@ def cfr_kernels(CK, K, torch, model, staged):
             A.to(t.dtype), y.to(t.dtype), t, total, rows=b.rows,
             cg_iters=it, cg_tol=cg["cg_tol"]), I, idx)
     check(ok, f"K3 on the CFR item systems: {solve_fields}")
-    # K18 after the solve: the new rows' biases; on the old rows it misses
-    I_new = I.clone()
-    K.batched_cg_dense(A, y, I_new, total, rows=b.rows, **cg)
+    # K18 after K3's solve of the item entry's rows, of the item segment
+    # pair's and of the padded context batch with the longest rows: the new
+    # rows' biases; on the rows before the solve each check misses
+    sb_rows, sb_kw = cases["segment_pair"][1], cases["segment_pair"][2]
+    cl = max((e for e in staged["context"]
+              if not isinstance(e, StagedSegmentBatch)),
+             key=lambda e: int(e.lens.max()))
+    cl_kw = dict(explicit=Side.of(I, cl), rbias=Cb, cbias=Ib,
+                 reg=float(o.reg_c), loss=LOSS_REG)
+    k18_cases = {}
+    for name, X, rows, kw, sys_ in (
+            ("item", I, b.rows, item_kw, (A, y, total)),
+            ("segment_pair", I, sb_rows, sb_kw, None),
+            ("context_longest", C, cl.rows, cl_kw, None)):
+        if sys_ is None:
+            sys_ = CK.cfr_normal_equations(X, rows, **kw)
+            sys_ = (sys_[0], sys_[1], sys_[3])
+        k18_cases[name] = k18_check(CK, K, torch, X, rows, kw, sys_, cg,
+                                    *((Ib, Cb) if X is I else (Cb, Ib)))
+        if name != "item":
+            k18_cases[name] = k18_cases[name][0]
     exp = item_kw["explicit"]
-    runs = [Ib.clone() for _ in range(4)]
-    CK.cfr_bias(I_new, b.rows, total, explicit=exp, bias=runs[0], cbias=Cb)
-    CK.cfr_bias(I_new, b.rows, total, explicit=exp, bias=runs[1], cbias=Cb)
-    CK.cfr_bias_plain(I_new, b.rows, total, explicit=exp, bias=runs[2],
-                      cbias=Cb)
-    CK.cfr_bias_plain(I, b.rows, total, explicit=exp, bias=runs[3], cbias=Cb)
-    torch.cuda.synchronize()
-    k18_err = rel_err(runs[0][idx], runs[2][idx])[1]
-    old_err = rel_err(runs[3][idx], runs[2][idx])[1]
-    k18_rep = torch.equal(runs[0], runs[1])
-    check(k18_err <= TOL_K18 and k18_rep, f"K18: {k18_err:.3g} from the "
-          f"plain version (repeatable {k18_rep})")
-    check(old_err > TOL_K18, f"the K18 check passes the rows before the "
-          f"solve ({old_err:.3g})")
+    k18_fields, runs, I_new = k18_cases.pop("item")
     # times, bounds and the library product on the item entry
     n_u = int(b.lens.sum())
     n_c = int(lens_c.sum())
@@ -4142,22 +4238,18 @@ def cfr_kernels(CK, K, torch, model, staged):
             lambda: CK.cfr_normal_equations(X, rows, **kw))
         (k17[f"{name}_bound_ms"], k17[f"{name}_bound_by"],
          k17[f"{name}_entries"]) = k17_bound(torch, kw, rows, d)
-    bms, by = bound_ms(8 * n_c + 12 * B + 4 * d * (dist_c + B)
-                       + 4 * dist_c + 4 * B, n_c * (2 * d + 3))
     k18 = dict(route="cuda", source="buffalo_tpu_torch/csrc/cfr_bias.cu",
                replaces="buffalo_tpu/ops/cfr_kernels.py:146",
                max_abs_err=float((runs[0] - runs[2]).abs().max()),
-               ms=time_ms(lambda: CK.cfr_bias(I_new, b.rows, total,
-                                              explicit=exp, bias=runs[1],
-                                              cbias=Cb)),
                plain_ms=time_ms(lambda: CK.cfr_bias_plain(
                    I_new, b.rows, total, explicit=exp, bias=runs[3],
                    cbias=Cb), reps=5, warmup=1),
-               bound_ms=bms, bound_by=by, library_ms=None, rel_err=k18_err,
-               old_rows_rel_err=old_err, entries=n_c)
+               library_ms=None, **k18_fields,
+               epoch_bound_ms=k18_epoch_bound(CK, torch, staged, d)[0],
+               **k18_epoch, checks=k18_cases)
     phase("cfr_kernels", d=d, k17=k17, k18=k18, tol_k17=TOL_K17,
           tol_k18=TOL_K18)
-    del U, I, C, Ib, Cb, out, got, ref, A, y, I_new, Fg, Fw
+    del U, I, C, Ib, Cb, out, got, ref, A, y, I_new, Fg, Fw, runs
     torch.cuda.empty_cache()
     return {"cfr_normal_equations": k17, "cfr_bias": k18}
 
@@ -4362,6 +4454,18 @@ def distinct_rows(torch, *keys, R):
     return int(torch.unique(k[k < R]).numel())
 
 
+def k19_work(torch, inputs, targets, negs, V, d, K):
+    """(bytes, operations) of one K19 call: the pairs' ids, each distinct
+    input's L0 row and each distinct target's and negative's L1 row read
+    once, the negatives' ids and the keys written, the 2 + K delta rows of
+    each pair written; 5 d (K + 1) operations a pair."""
+    B = inputs.shape[0]
+    ui = distinct_rows(torch, inputs, R=V)
+    ut = distinct_rows(torch, targets, negs, R=V)
+    return (8 * B + 4 * d * (ui + ut) + 4 * (B * K + B * (1 + K))
+            + 4 * d * B * (2 + K), B * (K + 1) * 5 * d)
+
+
 def w2v_kernels(W, S, torch, model, arrays):
     """K19, K20 and K21 against their plain versions at d = W2V_D on the
     brunch data: K21 (with K8's block-shared draws, bit for bit) and K20 on
@@ -4509,17 +4613,16 @@ def w2v_kernels(W, S, torch, model, arrays):
                library="index_add_ of the rows + the norm clip",
                rel_err=k20_err / scale, cap_off_err=off_err,
                entries=n20, touched_rows=t20, rows_past_cap=binding)
-    ui = distinct_rows(torch, inputs, R=V)
-    ut = distinct_rows(torch, targets, p_negs, R=V)
-    bms, by = bound_ms(8 * B + 4 * d * (ui + ut)
-                       + 4 * (B * K + B * (1 + K)) + 4 * d * B * (2 + K),
-                       B * (K + 1) * 5 * d)
+    bms, by = bound_ms(*k19_work(torch, inputs, targets, p_negs, V, d, K))
+
+    def fn19():
+        return W.pair_step(L0, L1, inputs, targets, lr, **pkw)
+
     k19 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_pair_step.cu",
                replaces="buffalo_tpu/ops/w2v_kernels.py:477",
                max_abs_err=max(float((a - b).abs().max())
                                for a, b in zip(p_got[2:4], p_ref[1:3])),
-               ms=time_ms(lambda: W.pair_step(L0, L1, inputs, targets, lr,
-                                              **pkw)),
+               ms=time_ms(fn19), device_ms=trace_ms(fn19, "pair_step"),
                plain_ms=time_ms(lambda: W.pair_step_plain(
                    L0, L1, inputs, targets, W.w2v_negatives(
                        targets, V, num_negatives=K, seed=0, epoch=0, chunk=0,
@@ -4543,9 +4646,11 @@ def w2v_variants(bt, W, S, torch, data, device_first_loss=None):
     the card, the device loss below W2V_DEVICE_BAND x each host loss (the
     JAX package's band), the two host runs (the same pairs and draws, the
     rate in float32 per group or float64 per chunk) within
-    TOL_W2V_STREAMED.  Returns the host path's launches (K19 per pair
-    chunk, two K20)."""
-    runs, launches = {}, None
+    TOL_W2V_STREAMED.  The resident host run is profiled and its K19
+    calls kept: K19's device launches, busy ms (CUPTI) and the sum of its
+    calls' bounds over that epoch.  Returns the host path's launches (K19
+    per pair chunk, two K20) and those K19 figures."""
+    runs, launches, k19_epoch = {}, None, None
     kernels = W.KERNELS + (S.sample_negatives,)
     for name, kw in (("device", {}), ("host", dict(pair_gen="host")),
                      ("host_streamed", dict(pair_gen="host",
@@ -4553,7 +4658,14 @@ def w2v_variants(bt, W, S, torch, data, device_first_loss=None):
         model = w2v_model(bt, data, w2v_opt(bt, num_iters=1, **kw))
         torch.cuda.synchronize()
         reset_counts(kernels)
-        model.train()
+        if name == "host":
+            W.pair_step.device_launches = 0
+            # each call's pairs and negatives (not its delta rows)
+            with EveryCall(torch, (W.pair_step,),
+                           lambda a, k, out: (a[2], a[3], out[0])) as k19:
+                prof = profile_call(torch, model.train, top=64)
+        else:
+            model.train()
         got = read_counts(kernels)
         s = model.epoch_stats[0]
         if name == "host":
@@ -4562,6 +4674,19 @@ def w2v_variants(bt, W, S, torch, data, device_first_loss=None):
                         stream_chunk_deltas=0, sample_negatives=0)
             check(got == want, f"host-pair epoch launched {got}, expected "
                   f"{want}")
+            V, K = int(model._vocab.size), int(model.opt.num_negative_samples)
+            nbytes = flops = 0
+            for inputs, targets, negs in k19.calls["pair_step"]:
+                nb, fl = k19_work(torch, inputs, targets, negs, V, W2V_D, K)
+                nbytes += nb
+                flops += fl
+            k19_epoch = dict(
+                device_launches_per_epoch=W.pair_step.device_launches,
+                epoch_device_ms=sum(
+                    v for k, v in prof["device_ms_by_name"].items()
+                    if k.startswith("pair_step") or k.startswith("sum_parts")),
+                epoch_bound_ms=bound_ms(nbytes, flops)[0])
+            del k19
         runs[name] = dict(loss=model.iteration_losses[0],
                           epoch_seconds=model.iteration_times[0],
                           host_seconds=s["host_seconds"],
@@ -4580,8 +4705,8 @@ def w2v_variants(bt, W, S, torch, data, device_first_loss=None):
     check(gap <= TOL_W2V_STREAMED, f"streamed host epoch {gap:.3g} from the "
           f"resident one")
     phase("w2v_variants", d=W2V_D, band=W2V_DEVICE_BAND,
-          streamed_rel_gap=gap, **runs)
-    return launches
+          streamed_rel_gap=gap, host_k19=k19_epoch, **runs)
+    return launches, k19_epoch
 
 
 def w2v_quality(bt, W, torch):
@@ -6000,17 +6125,16 @@ def mesh_w2v(bt, W, S, torch, data):
           f"plain version's {torch.equal(p_got[0], p_negs)} and the single "
           f"device's {torch.equal(p_got[0], whole[sl])}, rows {k19_err:.3g} "
           f"from the plain version, repeatable {k19_rep}")
-    ui = distinct_rows(torch, inp_s, R=V)
-    ut = distinct_rows(torch, tgt_s, p_negs, R=V)
-    bms, by = bound_ms(8 * n_loc + 4 * d * (ui + ut)
-                       + 4 * (n_loc * K + n_loc * (1 + K))
-                       + 4 * d * n_loc * (2 + K), n_loc * (K + 1) * 5 * d)
+    bms, by = bound_ms(*k19_work(torch, inp_s, tgt_s, p_negs, V, d, K))
+
+    def fn19():
+        return W.pair_step(L0, L1, inp_s, tgt_s, lr, **pkw)
+
     k19 = dict(route="cuda", source="buffalo_tpu_torch/csrc/w2v_pair_step.cu",
                replaces="buffalo_tpu/ops/w2v_kernels.py:503",
                max_abs_err=max(float((a - b).abs().max())
                                for a, b in zip(p_got[2:4], p_ref[1:3])),
-               ms=time_ms(lambda: W.pair_step(L0, L1, inp_s, tgt_s, lr,
-                                              **pkw)),
+               ms=time_ms(fn19), device_ms=trace_ms(fn19, "pair_step"),
                plain_ms=time_ms(lambda: W.pair_step_plain(
                    L0, L1, inp_s, tgt_s, W.w2v_negatives(
                        tgt_s, V, num_negatives=K, seed=0, epoch=0, chunk=0,
@@ -6205,15 +6329,40 @@ def leaves(torch, x):
     return out
 
 
-class FirstCalls:
-    """While open, each of ``kernels`` (kernel wrappers) records its first
-    call that changes something (W2V's first K20 call adds a zero delta:
-    L1 starts at 0): copies of its inputs on the card just before it, and
-    of its inputs and result just after.  The wrapper is replaced in every
-    module of the port that holds it, its launch count carried over."""
+class Swapped:
+    """While open, each of ``kernels`` (kernel wrappers) is replaced by
+    ``self._wrap(fn)`` in every module of the port that holds it, its
+    launch counts carried over both ways: read them after it closes."""
 
     def __init__(self, torch, kernels):
         self.torch, self.kernels, self.calls = torch, kernels, {}
+
+    def __enter__(self):
+        self.patched = []
+        for fn in self.kernels:
+            w = self._wrap(fn)
+            w.__dict__.update(fn.__dict__)  # launches, device_launches
+            for mod in list(sys.modules.values()):
+                if getattr(mod, "__name__", "").startswith(
+                        "buffalo_tpu_torch") and \
+                        getattr(mod, fn.__name__, None) is fn:
+                    setattr(mod, fn.__name__, w)
+                    self.patched.append((mod, fn, w))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, w in self.patched:
+            setattr(mod, fn.__name__, fn)
+            # the wrapper's own count statements name it in its module
+            fn.__dict__.update(w.__dict__)
+        return False
+
+
+class FirstCalls(Swapped):
+    """While open, each of ``kernels`` records its first call that changes
+    something (W2V's first K20 call adds a zero delta: L1 starts at 0):
+    copies of its inputs on the card just before it, and of its inputs and
+    result just after."""
 
     def _wrap(self, fn):
         torch, calls, name = self.torch, self.calls, fn.__name__
@@ -6232,27 +6381,26 @@ class FirstCalls:
                                              lambda t: t.clone()))
             return out
 
-        wrapped.launches = fn.launches
         return wrapped
 
-    def __enter__(self):
-        self.patched = []
-        for fn in self.kernels:
-            w = self._wrap(fn)
-            for mod in list(sys.modules.values()):
-                if getattr(mod, "__name__", "").startswith(
-                        "buffalo_tpu_torch") and \
-                        getattr(mod, fn.__name__, None) is fn:
-                    setattr(mod, fn.__name__, w)
-                    self.patched.append((mod, fn, w))
-        return self
 
-    def __exit__(self, *exc):
-        for mod, fn, w in self.patched:
-            setattr(mod, fn.__name__, fn)
-            # the wrapper's own count statement names it in its module
-            fn.launches = w.launches
-        return False
+class EveryCall(Swapped):
+    """While open, each of ``kernels`` records ``keep(args, kwargs,
+    result)`` of every call, in call order (no copies, no syncs)."""
+
+    def __init__(self, torch, kernels, keep):
+        super().__init__(torch, kernels)
+        self.keep = keep
+
+    def _wrap(self, fn):
+        log, keep = self.calls.setdefault(fn.__name__, []), self.keep
+
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            log.append(keep(args, kwargs, out))
+            return out
+
+        return wrapped
 
 
 def n_distinct(torch, *ids):
@@ -6998,9 +7146,10 @@ def main() -> int:
         # SPPMI group, CFR's entry points on it, then K17 and K18 on its
         # batches
         brunch = stream_build(bt, torch)
-        cfr, cfr_launches, cfr_staged = cfr_path(bt, CK, K, R, torch, brunch)
+        cfr, cfr_launches, cfr_staged, k18_epoch = cfr_path(bt, CK, K, R,
+                                                            torch, brunch)
         path_launches.update(cfr_launches)
-        entries.update(cfr_kernels(CK, K, torch, cfr, cfr_staged))
+        entries.update(cfr_kernels(CK, K, torch, cfr, cfr_staged, k18_epoch))
         del cfr, cfr_staged
         torch.cuda.empty_cache()
         # ---- CoFactor's dp mesh on the same data: MESH_SHARDS shards on
@@ -7019,7 +7168,8 @@ def main() -> int:
         entries.update(w2v_kernels(W2, S, torch, w2v, w2v_arrays))
         del w2v, w2v_arrays
         torch.cuda.empty_cache()
-        host_launches = w2v_variants(bt, W2, S, torch, w2v_data)
+        host_launches, k19_epoch = w2v_variants(bt, W2, S, torch, w2v_data)
+        entries["pair_step"].update(k19_epoch)
         path_launches["sample_negatives"] += w2v_launches["sample_negatives"]
         path_launches.update(
             row_apply=w2v_launches["row_apply"],

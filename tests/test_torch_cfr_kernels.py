@@ -416,3 +416,111 @@ def test_item_bias_resets_without_sppmi():
     assert float(Ib[0]) == 0.0
     assert float(Ib[1]) != 7.0
     assert float(Ib[2]) == 7.0
+
+
+# ------------------------------------------------ K18's launch shape
+P = CK.BIAS_PIECE
+
+
+@pytest.mark.parametrize("segment", [False, True])
+@pytest.mark.parametrize("width,piece", [(8, P), (P - 1, P), (P, P),
+                                         (P + 1, P), (8192, P), (8192, 1024),
+                                         (40, 8), (7, 1)])
+def test_bias_launch_covers_each_entry_once(width, piece, segment):
+    """``bias_launch`` against brute force: rows (or chunks) of 0, 1,
+    piece, piece + 1 and ``width`` entries, each entry in exactly one
+    piece of its own row's, every piece inside the grid, no piece past
+    the last one a row of ``width`` entries needs, and the second launch
+    wherever a row can span pieces (every segment side)."""
+    p = piece
+    lens = sorted({0, 1, min(p, width), min(p + 1, width), width})
+    ppr, pieces, spans = CK.bias_launch(len(lens), width, segment, piece)
+    assert ppr >= 1 and pieces == len(lens) * ppr
+    assert ppr * p >= width and (ppr - 1) * p < max(width, 1)
+    assert spans == (segment or width > p)
+    seen = set()
+    for c, n in enumerate(lens):
+        for e in range(n):
+            j = e // p
+            assert j < ppr
+            seen.add((c, e))
+            assert c * ppr + j < pieces
+        # the second launch adds max(1, ceil(n / piece)) pieces of the row
+        assert max(1, -(-n // p)) <= ppr
+    assert len(seen) == sum(lens)
+
+
+def _bias_by_pieces(X, rows, total, side, cbias, piece):
+    """K18's sum order on the CPU in float64: each piece of at most
+    ``piece`` entries of a padded row or segment chunk summed on its own,
+    a row's pieces added in piece order (chunks in order), then divided in
+    float32 as the kernel does.  Returns {row: bias}."""
+    X64 = X.double()
+    F64 = side.table.double()
+    lens = side.lens.tolist()
+    if side.chunk_ptr is None:
+        spans = [[b] for b in range(rows.shape[0])]
+        chunk_lens = lens
+    else:
+        ptr = side.chunk_ptr.tolist()
+        spans = [list(range(ptr[b], ptr[b + 1])) for b in range(len(ptr) - 1)]
+        chunk_lens = side.chunk_lens.tolist()
+    out = {}
+    for b, row in enumerate(rows.tolist()):
+        if total[b] <= 0 or row >= X.shape[0]:
+            continue
+        parts = []
+        for ch in spans[b]:
+            n = chunk_lens[ch]
+            for j in range(max(1, -(-n // piece))):
+                s = 0.0
+                for e in range(j * piece, min(n, (j + 1) * piece)):
+                    col = int(side.cols[ch, e])
+                    dot = float(X64[row] @ F64[col])
+                    s += float(side.vals[ch, e]) - dot - float(cbias[col])
+                parts.append(s)
+        out[row] = np.float32(sum(parts)) / (np.float32(lens[b])
+                                            + np.float32(1e-10))
+    return out
+
+
+@pytest.mark.parametrize("piece", [1, 4, 256])
+@pytest.mark.parametrize("kind", ["padded", "segment"])
+def test_bias_piece_order_sum_matches_plain(kind, piece):
+    """The float64 piece-order sum (``_bias_by_pieces``) on the item body's
+    fixtures, with sentinel rows and rows whose ``total`` is 0, held to
+    ``cfr_bias_plain`` within 1e-5 of the largest bias: the sum order the
+    kernel takes computes the plain version's bias."""
+    rng, U, I, C, Ib, Cb = _state(8, d=6, nu=60, ni=50)
+    ni = I.shape[0]
+    if kind == "padded":
+        B = 12
+        rows = _rows(rng, B, ni)
+        lens_c = rng.integers(0, 11, B).astype(np.int32)
+        lens_c[[0, 3]] = [0, 10]
+        lens_c[rows == ni] = 0
+        lens_c, cols_c, vals_c = _padded(rng, B, 10, ni, lens_c)
+        side = CK.Side(_t(C), *map(_t, (lens_c, cols_c, vals_c)))
+        total = lens_c.copy()
+        total[[0, 5]] = [3, 0]       # user entries only; no entries at all
+    else:
+        sb = stage_batch(_segment(rng, [2, 11, 20, 33, ni],
+                                  [8, 8, 3, 0, 5, 1, 0, 0],
+                                  [0, 0, 0, 1, 3, 3, 5, 5], ni), "cpu")
+        side = CK.Side.of(_t(C), sb)
+        rows = sb.rows.numpy()
+        total = sb.lens.numpy().copy()
+        total[[1, 2]] = [4, 0]       # no SPPMI entries; nothing on either side
+    rows_t, total_t = _t(rows), _t(total.astype(np.int32))
+    X = _t(I)
+    want = _t(Ib).clone()
+    CK.cfr_bias_plain(X, rows_t, total_t, explicit=side, bias=want,
+                      cbias=_t(Cb))
+    got = _bias_by_pieces(X, rows_t, total_t, side, _t(Cb), piece)
+    assert got, "no row written"
+    scale = float(want.abs().max())
+    for row, bias in got.items():
+        assert abs(float(bias) - float(want[row])) <= 1e-5 * scale, row
+    untouched = [r for r in range(ni) if r not in got]
+    assert torch.equal(want[untouched], _t(Ib)[untouched])
+

@@ -1899,6 +1899,59 @@ def test_cfr_bias_kernel_matches_plain(dev, d, segment):
             assert bool((got[rows[live].long()] == 0).all())
 
 
+@pytest.mark.parametrize("d", [8, 13, 32, 64, 100, 128])
+@pytest.mark.parametrize("kind", ["long_rows", "segment"])
+def test_cfr_bias_pieces_match_plain(dev, d, kind):
+    """K18's pieces on rows that span many: a padded block 8,192 wide with
+    rows of 0 to 8,187 entries (one piece, several, all of them) and a
+    segment side of 8,192-entry chunks (rows of several chunks, one short
+    chunk, none), sentinel rows and rows with ``total`` 0 between them;
+    within 1e-5 of the largest bias of the plain version, bitwise
+    repeatable, one wrapper launch and two device launches a call, no row
+    outside the written ones moved."""
+    from buffalo_tpu_torch.ops import cfr_kernels as CK
+
+    rng, tabs, biases = _cfr_tables(dev, d, n=3000, seed=d)
+    X, F = tabs[1], tabs[2]
+    n = X.shape[0]
+    if kind == "long_rows":
+        lens = np.array([8187, 0, 1, 256, 257, 1800, 4096, 8000, 3, 5000],
+                        np.int32)
+        R = len(lens)
+        side = _cfr_padded_side(dev, rng, F, R, 8192, lens)
+    else:
+        R = 6
+        chunk_lens = [8192, 8192, 3103, 17, 8192, 900, 5, 0]
+        seg_ids = [0, 0, 0, 1, 3, 3, 4, 6]
+        side = _cfr_segment_side(dev, rng, F, chunk_lens, seg_ids, R,
+                                 C=8192)
+    rows = rng.permutation(n)[:R].astype(np.int32)
+    rows[2] = n                       # a sentinel row
+    total = side.lens.cpu().numpy().copy()
+    total[2] = 0
+    total[1] += 4                     # entries on the other side only
+    total[-1] = 0                     # nothing on either side
+    rows, total = (torch.from_numpy(a).to(dev) for a in (rows, total))
+    own, other = biases
+    got, again, ref = own.clone(), own.clone(), own.clone()
+    launches = CK.cfr_bias.launches
+    dev_launches = CK.cfr_bias.device_launches
+    CK.cfr_bias(X, rows, total, explicit=side, bias=got, cbias=other)
+    CK.cfr_bias(X, rows, total, explicit=side, bias=again, cbias=other)
+    CK.cfr_bias_plain(X, rows, total, explicit=side, bias=ref, cbias=other)
+    torch.cuda.synchronize()
+    assert CK.cfr_bias.launches == launches + 2
+    assert CK.cfr_bias.device_launches == dev_launches + 4
+    assert torch.equal(got, again)
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-5 * scale
+    written = rows[(total > 0) & (rows < n)].long()
+    assert bool((got[written] != own[written]).all())
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[written] = False
+    assert torch.equal(got[keep], own[keep])
+
+
 # ---------------------------------------------------------------- W2V
 def _w2v_problem(dev, d, V=3000, seed=0):
     """Tables at a trained scale, Zipf(0.8) words and their unigram^0.75
@@ -2584,6 +2637,58 @@ def test_w2v_pair_step_slot_offset_equals_plain(dev, d):
         for a, b in zip(got[2:4], ref[1:3]):
             assert _rel_close(a, b, 1e-5)
         assert float(got[5]) == float(ref[4]) == n
+
+
+@pytest.mark.parametrize("d", [1, 8, 9, 13, 32, 64, 100, 256, 257, 300])
+def test_w2v_pair_parts_cover_every_pair(dev, d):
+    """K19's C launch shape (``w2v_pair_parts``) against brute force: a
+    team of the fewest lanes, a power of two up to 32, whose two float4s a
+    lane hold the row (a warp past 256 floats), 256 threads a block, so
+    every pair of 0, 1, a block's worth, one more and a 262,144-pair chunk
+    lies in a block of the launch and no block is without a pair."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    lanes = 32 if d > 256 else min(32, 1 << (-(-d // 8) - 1).bit_length())
+    per = 256 // lanes
+    parts = W._kernel("w2v_pair_parts")
+    for B in (0, 1, per - 1, per, per + 1, 7 * per + 3, 262_144):
+        assert parts(B, d) == len({b // per for b in range(B)}), B
+
+
+@pytest.mark.parametrize("d", [1, 4, 13, 32, 64, 100, 128, 129, 256])
+@pytest.mark.parametrize("K", [1, 5, 9])
+def test_w2v_pair_step_teams_at_an_offset(dev, d, K):
+    """K19's team forms at every lane count (1 to 32 lanes a pair, one and
+    two float4s a lane, rows of widths that are not multiples of 4) with K
+    below, at and past a block of 8 negatives, on a shard's pairs at its
+    slot offset (with padding pairs): own draws and keys bit for bit the
+    plain version's, the same draws injected give the same outputs, rows
+    1e-5 of the largest entry, loss 1e-5, count exact, repeatable."""
+    from buffalo_tpu_torch.ops import w2v_kernels as W
+
+    V, N = 3000, 4099
+    rng, L0, L1, p, alias = _w2v_problem(dev, d, V, seed=d + K)
+    inputs = torch.from_numpy(rng.choice(V, N, p=p).astype(np.int32)).to(dev)
+    targets = torch.from_numpy(rng.choice(V, N, p=p).astype(np.int32)).to(dev)
+    inputs[-11:] = V
+    kw = dict(vocab_size=V, num_negatives=K, seed=5, epoch=1, chunk=7,
+              alias=alias, slot_offset=3 * N)
+    got = W.pair_step(L0, L1, inputs, targets, 0.025, **kw)
+    again = W.pair_step(L0, L1, inputs, targets, 0.025, **kw)
+    given = W.pair_step(L0, L1, inputs, targets, 0.025,
+                        negatives=got[0].clone(), **kw)
+    negs = W.w2v_negatives(targets, V, num_negatives=K, seed=5, epoch=1,
+                           chunk=7, alias=alias, slot_offset=3 * N)
+    ref = W.pair_step_plain(L0, L1, inputs, targets, negs, 0.025,
+                            vocab_size=V)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], negs) and torch.equal(got[1], ref[0])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got, given))
+    for a, b in zip(got[2:4], ref[1:3]):
+        assert _rel_close(a, b, 1e-5)
+    assert abs(float(got[4]) - float(ref[3])) <= 1e-5 * abs(float(ref[3]))
+    assert float(got[5]) == float(ref[4]) == N - 11
 
 
 @pytest.mark.parametrize("d", [32, 300])

@@ -425,3 +425,39 @@ def test_w2v_epoch_stream_matches_jax(monkeypatch):
     close(p1.numpy() - L1, np.asarray(jl1) - L1)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
     assert float(cnt) == float(jcnt)
+
+
+@pytest.mark.parametrize("K", [1, 5, 9])
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_pair_step_shards_at_their_offsets_are_the_chunks(shards, K):
+    """A pair chunk cut into ``shards`` shards, each through ``pair_step``
+    at its ``slot_offset`` (its first pair of the chunk, as
+    ``_w2v_step_body`` :503-511 slices the global batch's draws): the
+    negatives and keys bit for bit the single device's for those pairs,
+    the delta rows and loss within 1e-5 of its, the pair counts summing
+    to its count."""
+    V, B, lr = 60, 240, 0.05
+    L0, L1, inputs, targets, dist = _pair_problem(6, V=V, B=B, K=K)
+    kw = dict(vocab_size=V, num_negatives=K, seed=3, epoch=1, chunk=2,
+              alias=(_t(dist[0]), _t(dist[1])))
+    L0, L1 = _t(L0), _t(L1)
+    negs, keys1, d1, d0, loss, cnt = W.pair_step(
+        L0, L1, _t(inputs), _t(targets), lr, **kw)
+    n = B // shards
+    got_loss = got_cnt = 0.0
+    for g in range(shards):
+        sl = slice(g * n, (g + 1) * n)
+        sn, sk, s1, s0, sloss, scnt = W.pair_step(
+            L0, L1, _t(inputs[sl]), _t(targets[sl]), lr, slot_offset=g * n,
+            **kw)
+        assert torch.equal(sn, negs[sl])
+        assert torch.equal(sk[:n], keys1[sl])
+        assert torch.equal(sk[n:], keys1[B:].reshape(B, K)[sl].reshape(-1))
+        close(s1[:n].numpy(), d1[sl].numpy())
+        close(s1[n:].numpy(), d1[B:].reshape(B, K, -1)[sl].reshape(n * K, -1)
+              .numpy())
+        close(s0.numpy(), d0[sl].numpy())
+        got_loss += float(sloss)
+        got_cnt += float(scnt)
+    np.testing.assert_allclose(got_loss, float(loss), rtol=RTOL)
+    assert got_cnt == float(cnt) == B - 20
