@@ -8,7 +8,11 @@ log(norm)``; the M-step smoothing by ``alpha1 / d`` and ``alpha2 / |I|``
 with P's rows and Q's columns normalized.  Two hand-written CUDA kernels
 (``csrc/*.cu``), each beside its plain PyTorch version (``*_plain``):
 
-* **K15** ``plsi_estep`` — the E-step of one staged batch.  Range mode (a
+* **K15** ``plsi_estep`` — the E-step of one staged batch (on the card,
+  in the shape ``estep_shape`` picks: rows of up to 32 floats one lane an
+  entry holding the whole row on batches at least 32 wide, else up to 64
+  floats (128 in segment batches) a team of lanes an entry, four floats a
+  lane; wider rows the lanes on the columns).  Range mode (a
   ``RangeBatch`` of the bucket-order layout) and segment mode (a
   ``StagedSegmentBatch`` of head rows) accumulate one orientation's sums
   ``a * sum_l (w_l / norm_l) f_l`` with the norm floored once at ``d *
@@ -51,7 +55,7 @@ _SIGNATURES = {
     "plsi_estep_workspace": [_I32, _I32, _I32, _P],
     "plsi_estep": [_I32, _P, _I32, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
                    _I32, _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P, _P,
-                   _P],
+                   _I32, _I32, _I32, _I32, _I32, _P],
     "plsi_mstep_workspace": [_I32, _I32],
     "plsi_mstep_sums": [_P, _I32, _P, _I32, _I32, _F32, _F32, _P, _P, _P,
                         _P],
@@ -62,6 +66,19 @@ _LIBRARY = {"plsi_estep_workspace": "plsi_estep", "plsi_estep": "plsi_estep",
             "plsi_mstep_sums": "plsi_mstep", "plsi_mstep_apply": "plsi_mstep"}
 # K15's launch modes
 RANGE, SEGMENT, PADDED_ROWS, PADDED_SEGMENT = 0, 1, 2, 3
+# K15's team form (csrc/plsi_estep.cu): teams of lanes holding TEAM_FLOATS
+# floats of an entry's row each (the C kTeamFloats) for rows of up to
+# TEAM_MAX_D floats (SEGMENT_TEAM_MAX_D in segment batches: past 64 floats
+# the lanes on the columns were as fast or faster on range and padded
+# batches, PERF.md §6); batches at least ENTRIES_MIN_L wide with rows of up
+# to 32 floats put one lane on each entry, holding its whole row (8, 16, 24
+# or 32 floats); a batch of width L <= 16 puts several rows on a warp;
+# range and padded batches wider than PIECE_MIN_L cut their rows into
+# pieces of ROW_PIECE entries, a warp each
+TEAM_FLOATS, TEAM_MAX_D, SEGMENT_TEAM_MAX_D = 4, 64, 128
+ENTRIES_MIN_L = 32
+ENTRY_FLOATS = (8, 16, 24, 32)
+ROW_PIECE, PIECE_MIN_L = 256, 512
 
 
 def _kernel(name: str):
@@ -216,6 +233,45 @@ def mstep_apply_plain(Qn, colsum, *, alpha2, num_items=None, q_mask=None):
 
 
 # ------------------------------------------------------------- wrappers
+def _pow2_at_least(n):
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def estep_shape(d, L, segment=False):
+    """K15's launch shape for rows of d floats in a batch of width L:
+    (team, group, lane_floats, piece).
+    team: the lanes that take one entry, each holding ``lane_floats``
+    floats of its row: one lane and the fewest of ENTRY_FLOATS that hold
+    the row for batches at least ENTRIES_MIN_L wide (d <= 32); else
+    TEAM_FLOATS each and the smallest power of two that covers d; 0 past
+    TEAM_MAX_D (SEGMENT_TEAM_MAX_D for segment batches: the lanes on the
+    columns).  Any load width (``estep_vec``) takes these shapes.  group:
+    the lanes that walk one batch row, so 32 // group rows share a warp:
+    the smallest power of two
+    from team up that holds L entries, at most 32; 32 for segment batches
+    (a block's warps on one chunk) and for one lane an entry.  piece: the entries of a row a warp takes in range
+    and padded batches wider than PIECE_MIN_L (ROW_PIECE; their sums added
+    in piece order by a second launch), else 0 (the whole row)."""
+    if d > (SEGMENT_TEAM_MAX_D if segment else TEAM_MAX_D):
+        return 0, 32, TEAM_FLOATS, 0
+    piece = ROW_PIECE if L > PIECE_MIN_L and not segment else 0
+    if L >= ENTRIES_MIN_L and d <= ENTRY_FLOATS[-1]:
+        return 1, 32, next(f for f in ENTRY_FLOATS if f >= d), piece
+    team = _pow2_at_least(-(-d // TEAM_FLOATS))
+    if segment or piece:
+        return team, 32, TEAM_FLOATS, piece
+    return team, min(32, max(team, _pow2_at_least(L))), TEAM_FLOATS, 0
+
+
+def estep_vec(d, *tables):
+    """The load width (4 or 1 floats) of K15's team form for rows of d
+    floats of every table: 4 where d and each table's address are
+    multiples of 4 floats."""
+    if d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tables):
+        return 4
+    return 1
+
+
 def plsi_estep(An, A, Bf, batch, *, padded=False, Qn=None, with_loss=True):
     """K15: one batch's E-step, accumulated in place.
 
@@ -284,11 +340,14 @@ def plsi_estep(An, A, Bf, batch, *, padded=False, Qn=None, with_loss=True):
         if with_loss or padded else None
     n_entries = cols.numel()
     ws_i = ws_f = norms = seg_part = seg_loss = None
-    if seg:  # the chunks' partial sums, added per row in chunk order
-        seg_part = torch.empty(max(cols.shape[0] * d, 1), dtype=torch.float32,
+    team, group, lane_floats, piece = estep_shape(d, cols.shape[1], seg)
+    # the chunks' (or pieces') partial sums, added per row in order
+    parts = cols.shape[0] if seg else (
+        R * -(-cols.shape[1] // piece) if piece else 0)
+    if seg or piece:
+        seg_part = torch.empty(max(parts * d, 1), dtype=torch.float32,
                                device=dev)
-        seg_loss = torch.empty(max(cols.shape[0], 1), dtype=torch.float64,
-                               device=dev)
+        seg_loss = torch.empty(max(parts, 1), dtype=torch.float64, device=dev)
     if padded:
         sizes = (ctypes.c_int64 * 2)()
         _kernel("plsi_estep_workspace")(n_entries, Qn.shape[0], d,
@@ -302,7 +361,8 @@ def plsi_estep(An, A, Bf, batch, *, padded=False, Qn=None, with_loss=True):
         row_start, R, _ptr(rows), _ptr(lens), cols.shape[1], _ptr(cols),
         _ptr(vals), _ptr(chunk_ptr), _ptr(seg_ids), _ptr(loss), _ptr(Qn),
         cols.shape[0], _ptr(norms), _ptr(ws_i), _ptr(ws_f), _ptr(seg_part),
-        _ptr(seg_loss), _stream(dev))
+        _ptr(seg_loss), team, group, lane_floats, estep_vec(d, An, A, Bf),
+        piece, _stream(dev))
     _raise_on(rc, "plsi_estep")
     plsi_estep.launches += 1
     return loss

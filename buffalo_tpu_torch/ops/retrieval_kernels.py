@@ -53,8 +53,8 @@ _SIGNATURES = {
     "score_topk_tc_blocks": [_I32, _I32],
     "ivf_tile_topk": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
                       _P],
-    "kmeans_update": [_P, _P, _P, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _P],
+    "kmeans_update": [_P, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
+    "kmeans_update_workspace": [_I32, _I32, _I32, _I32, _P],
     "sharded_topk_merge": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _P],
     "sharded_topk_merge_as": [_I32, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
                               _P],
@@ -65,7 +65,8 @@ _SIGNATURES = {
 _LIBRARY = {"score_topk_tc_blocks": "score_topk",
             "sharded_topk_merge_as": "sharded_topk_merge",
             "sharded_topk_merge_form": "sharded_topk_merge",
-            "sharded_topk_merge_tree_fits": "sharded_topk_merge"}
+            "sharded_topk_merge_tree_fits": "sharded_topk_merge",
+            "kmeans_update_workspace": "kmeans_update"}
 MAX_K = 1024
 # IVF tile caps the kernel takes (the reference's largest, parallel/ann.py)
 MAX_BQ_CAP, MAX_L_CAP = 256, 1024
@@ -79,9 +80,9 @@ _K5_SHAPES = ((32, 64, 128), (128, 32, 128), (1024, 8, 256))
 # 711 centroids; PERF.md §6)
 TC_MAX_K, TC_MAX_D, TC_QB, TC_IT = 32, 256, 64, 64
 TC_MIN_ITEMS = 2048
-# K7's rows per histogram block and members per partial sum
-# (csrc/kmeans_update.cu kChunk, kRun)
-_K7_CHUNK, _K7_RUN = 2048, 128
+# K7 (csrc/kmeans_update.cu kChunk, kRun): rows per histogram and placement
+# block, and members a run block sums at most
+_K7_CHUNK, _K7_RUN = 512, 128
 _U32 = 0xFFFFFFFF
 _SIGN = 0x80000000
 
@@ -206,6 +207,26 @@ def kmeans_update_plain(unit, assign, cent):
                       sums / torch.clamp(cnt, min=1.0)[:, None], cent)
     norm = torch.linalg.vector_norm(new, dim=1, keepdim=True)
     return new / torch.clamp(norm, min=1e-12)
+
+
+def kmeans_plan(N, D, C):
+    """K7's launch plan for N rows of D floats in C cells: ``chunks`` (the
+    histogram's and the placement's blocks, ``_K7_CHUNK`` rows each);
+    ``run`` (the members a run block sums: at most ``_K7_RUN`` and the
+    first power of two from twice the mean cell's rows, so that small cells
+    take small blocks); ``run_blocks`` (N // run + C + 1: more than the runs
+    of any assignment, each cell's last run possibly short, so at least one
+    block writes the empty cells); the workspace's ``ints`` (four per run
+    block, the chunks' histogram rows, five arrays per cell, a count per
+    run block, the permutation and a counter) and ``floats`` (a sum of D
+    per run block)."""
+    mean = -(-N // max(C, 1))
+    run = min(_K7_RUN, 1 << max(0, 2 * mean - 1).bit_length())
+    chunks = -(-N // _K7_CHUNK)
+    run_blocks = N // run + C + 1
+    return dict(chunks=chunks, run=run, run_blocks=run_blocks,
+                ints=5 * run_blocks + chunks * C + 4 * C + 2 + N + 1,
+                floats=run_blocks * D)
 
 
 # ------------------------------------------------------------- wrappers
@@ -366,7 +387,9 @@ def kmeans_update(unit, assign, cent):
     (N,) or (N, 1) int32 and the old centroids (C, D): the normalized mean
     of each cell's rows of nonzero norm, the old centroid where there are
     none.  Deterministic: no float atomics; a cell's members are summed in
-    row order in runs of 128, the runs' sums added in order.
+    row order in runs (``kmeans_plan``), the runs' sums added in order.
+    Four launches (a memset more past 58,112 cells); the table is read
+    once.
 
     Replaces ``lloyd``'s segment sums and epilogue (``buffalo_tpu/parallel/
     ann.py:228-241``).
@@ -381,17 +404,12 @@ def kmeans_update(unit, assign, cent):
     (N, D), C = unit.shape, cent.shape[0]
     if cent.shape[1] != D or assign.shape[0] != N:
         raise ValueError("shape mismatch in kmeans_update")
-    nb = -(-N // _K7_CHUNK)
-    i32 = dict(dtype=torch.int32, device=dev)
-    hist, total = torch.empty(nb * C, **i32), torch.empty(C, **i32)
-    start, run_start = torch.empty(C + 1, **i32), torch.empty(C + 1, **i32)
-    perm = torch.empty(N, **i32)
-    member = torch.empty(N, dtype=torch.uint8, device=dev)
-    part = torch.empty((N // _K7_RUN + C + 1) * D, device=dev)
+    plan = kmeans_plan(N, D, C)
+    ws = torch.empty(plan["ints"], dtype=torch.int32, device=dev)
+    part = torch.empty(plan["floats"], device=dev)
     out = torch.empty_like(cent)
     rc = _kernel("kmeans_update")(
-        _ptr(unit), _ptr(assign), _ptr(cent), N, D, C, _ptr(hist),
-        _ptr(total), _ptr(start), _ptr(run_start), _ptr(member), _ptr(perm),
+        _ptr(unit), _ptr(assign), _ptr(cent), N, D, C, plan["run"], _ptr(ws),
         _ptr(part), _ptr(out), _stream(dev))
     _raise_on(rc, "kmeans_update")
     kmeans_update.launches += 1

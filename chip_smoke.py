@@ -153,6 +153,9 @@ TOL_BF16_LOSS = 5e-3
 # K7's centroids within 1e-5.  Top-10 sets equal to numpy's for 99% of
 # queries (near-ties at the 10th place may swap)
 TOL_SCORE, TOL_SCORE_ABS, TOL_CENT, MIN_SAME_TOPK = 1e-5, 1e-6, 1e-5, 0.99
+# K7's kernel launches a call (csrc/kmeans_update.cu: histogram, scan,
+# placement, run sums; a memset more past 58,112 cells)
+K7_MAX_LAUNCHES = 4
 TOPK = 10
 # retrieval_path: ParALS on the d = 40 ML-20M model
 RETRIEVAL_USERS, RETRIEVAL_ITEMS, RETRIEVAL_PROBE = 10_000, 1_000, 32
@@ -233,6 +236,11 @@ TOPK_PAST, TOPK_PAST_USERS = 2_000, 1_000
 # fall below the floors; K16 within TOL_K16.  P's rows and Q's columns sum
 # to 1 within TOL_STOCHASTIC.
 PLSI_EPOCHS, PLSI_USERS = 4, 1_000
+# K15's kernels in a range epoch's trace (csrc/plsi_estep.cu: the range
+# rows, the segment chunks and their rows' sums), and the width under which
+# a range row is short (the team form's groups share a warp there)
+K15_EPOCH_KERNELS = ("rows_kernel", "chunk_kernel", "chunk_rows")
+K15_SHORT_ROW = 32
 TOL_PLSI_X, TOL_PLSI_ABS, TOL_PLSI_LOSS = 1e-4, 1e-6, 1e-5
 TOL_K15, TOL_K16, PLSI_SPARSE_CONC, TOL_STOCHASTIC = 1e-5, 1e-6, 0.02, 1e-5
 # Stream + CoFactor (stream_build, cfr_path, cfr_kernels): the KakaoBrunch12M
@@ -1729,7 +1737,8 @@ def retrieval_path(bt, R, torch, als):
     iterations) serving those items at n_probe RETRIEVAL_PROBE (recall@10
     against the exact scan) and probing every cell (the exact scan up to
     ties).  Host wall ms for each call; then K5 alone at the top-10 call's
-    shape against its plain version, with its times and bound."""
+    shape and K7 on the index's last update against their plain versions,
+    with their times and bounds."""
     out = {}
     reset_counts(R.KERNELS)
     par = bt.ParALS(als)
@@ -1778,6 +1787,11 @@ def retrieval_path(bt, R, torch, als):
     p, Q = (torch.from_numpy(np.ascontiguousarray(a)).to(als.device)
             for a in users_items)
     out["k5"] = k5_entry(R, torch, p, Q, TOPK, "K5 (ML-20M users)")
+    # K7 on the index's last centroids and the assignment to them
+    unit = torch.from_numpy(np.ascontiguousarray(ivf_unit(Qn))).to(als.device)
+    cent = torch.from_numpy(index.centroids).to(als.device)
+    out["k7"] = k7_entry(R, torch, unit, R.score_topk(unit, cent, 1)[1], cent)
+    del unit, cent
     out["ivf"] = dict(cells=cells, spill=2, n_iters=10, build_host_ms=build_ms,
                       n_probe=RETRIEVAL_PROBE, host_ms_first=ms_first,
                       host_ms_warm=ms_warm,
@@ -1911,12 +1925,19 @@ def k6_entry(R, torch, args):
                 library_ms=lib_ms, bound_ms=bms, bound_by=by)
 
 
+def k7_work(N, D, C):
+    """(bytes, operations) of K7's function: the rows, the assignment and
+    the old centroids read once, the new written; one add per row
+    element."""
+    return 4 * N * D + 4 * N + 8 * C * D, N * D
+
+
 def k7_entry(R, torch, unit, assign, cent):
     """K7 on one Lloyd update against its plain version (centroids within
-    TOL_CENT), two launches bitwise equal, its event ms, the plain
-    version's, the library yardstick
-    (index_add_ + bincount) and the bound: the rows, the assignment and the
-    old centroids read once, the new written; one add per row element."""
+    TOL_CENT), two launches bitwise equal, at most K7_MAX_LAUNCHES kernel
+    launches a call; its event ms, CUPTI ms in all and by launch, the plain
+    version's, the library yardstick (index_add_ + bincount) and the bound
+    (``k7_work``)."""
     got = R.kmeans_update(unit, assign, cent)
     again = R.kmeans_update(unit, assign, cent)
     ref = R.kmeans_update_plain(unit, assign, cent)
@@ -1925,9 +1946,14 @@ def k7_entry(R, torch, unit, assign, cent):
     check(bool(torch.equal(got, again)), "K7 is not deterministic")
     ms = time_ms(lambda: R.kmeans_update(unit, assign, cent), reps=10,
                  warmup=2)
-    # its six launches; cell_means is the last, once per call
-    dev_ms = trace_ms(lambda: R.kmeans_update(unit, assign, cent),
-                      "cell_means")
+    # its launches, cell_histogram the first, once per call
+    acts = trace_activities(lambda: R.kmeans_update(unit, assign, cent),
+                            "cell_histogram")
+    check(acts is not None, "K7's trace holds too few calls")
+    launches = sum(n for k, (_, n) in acts.items() if "emset" not in k)
+    check(launches <= K7_MAX_LAUNCHES, f"K7 made {launches} launches a "
+          f"call, more than {K7_MAX_LAUNCHES}: {sorted(acts)}")
+    dev_ms = sum(t * n for t, n in acts.values())
     plain_ms = time_ms(lambda: R.kmeans_update_plain(unit, assign, cent),
                        reps=5, warmup=1)
     a = assign.reshape(-1).long()
@@ -1937,8 +1963,10 @@ def k7_entry(R, torch, unit, assign, cent):
         torch.bincount(a, minlength=cent.shape[0])
     lib_ms = time_ms(lib, reps=5, warmup=1)
     (N, D), C = unit.shape, cent.shape[0]
-    bms, by = bound_ms(4 * N * D + 4 * N + 8 * C * D, N * D)
+    bms, by = bound_ms(*k7_work(N, D, C))
     return dict(N=N, D=D, cells=C, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                launches_per_call=launches,
+                device_ms_by_launch={k: t * n for k, (t, n) in acts.items()},
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                 bound_by=by)
 
@@ -2164,6 +2192,16 @@ def trace_stats(fn, main, reps=10, warmup=2, tries=3):
     events leave unchanged.  A trace that holds fewer than half the
     calls (counted by the launches of ``main``) is taken again, up to
     ``tries`` times; then (None, None)."""
+    acts = trace_activities(fn, main, reps, warmup, tries)
+    if acts is None:
+        return None, None
+    return (sum(ms * n for ms, n in acts.values()),
+            sum(n for _, n in acts.values()))
+
+
+def trace_activities(fn, main, reps=10, warmup=2, tries=3):
+    """``trace_stats``' reading by device activity: {name: (its median
+    milliseconds, its launches per call)}, or None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2186,11 +2224,10 @@ def trace_stats(fn, main, reps=10, warmup=2, tries=3):
                 us.setdefault(e.name, []).append(e.time_range.elapsed_us())
         calls = sum(len(v) for k, v in us.items() if main in k)
         if reps // 2 <= calls <= reps:
-            per_call = {k: max(1, round(len(v) / calls))
-                        for k, v in us.items()}
-            return (sum(float(np.median(us[k])) * n for k, n in
-                        per_call.items()) / 1e3, sum(per_call.values()))
-    return None, None
+            return {k: (float(np.median(v)) / 1e3,
+                        max(1, round(len(v) / calls)))
+                    for k, v in us.items()}
+    return None
 
 
 def epoch_chunks(torch, model, batch):
@@ -3475,9 +3512,9 @@ def plsi_path(bt, PK, R, torch, data):
     epochs in the range layout through the user's entry points: one K15
     launch per batch of both orientations and one K16 per epoch, the loss
     falling every epoch, P's rows and Q's columns stochastic, validation
-    after training, a profiled epoch, top-10 for PLSI_USERS users held to
-    numpy.  Returns (model, its range-layout inputs, the path's
-    launches)."""
+    after training, a profiled epoch (K15's busy ms in it beside its calls'
+    bound), top-10 for PLSI_USERS users held to numpy.  Returns (model, its
+    range-layout inputs, the path's launches, K15's epoch figures)."""
     model = plsi_model(bt, data, plsi_opt(bt))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3509,7 +3546,16 @@ def plsi_path(bt, PK, R, torch, data):
               num_items=ML20M_ITEMS)
     prof = profile_call(torch, lambda: float(PK.plsi_epoch_range(
         P, Q, st["row_groups"], st["col_groups"], st["p_mask"],
-        st["q_mask"], **kw)[2]), top=10)
+        st["q_mask"], **kw)[2]), top=30)
+    # K15's busy ms in that epoch (its range and segment modes' kernels)
+    # beside the bound of its calls
+    from buffalo_tpu_torch.ops.als_kernels import _flat
+    k15_epoch = dict(
+        epoch_device_ms=sum(v for k, v in prof["device_ms_by_name"].items()
+                            if k.startswith(K15_EPOCH_KERNELS)),
+        epoch_bound_ms=sum(bound_ms(*k15_work(torch, b, P.shape[1]))[0]
+                           for g in (st["row_groups"], st["col_groups"])
+                           for b in _flat(g)))
     users = [str(u) for u in range(PLSI_USERS)]
     model.topk_recommendation(users[:10], topk=TOPK)  # warm
     reset_counts(R.KERNELS)
@@ -3530,8 +3576,8 @@ def plsi_path(bt, PK, R, torch, data):
           launches_per_epoch=per_epoch(launches, PLSI_EPOCHS),
           max_memory_allocated_mb=peak_mb, epoch_profile=prof,
           topk_users=PLSI_USERS, topk_k5_launches=k5, topk_host_ms=ms,
-          topk_same_as_numpy=same)
-    return model, st, launches
+          topk_same_as_numpy=same, k15_epoch=k15_epoch)
+    return model, st, launches, k15_epoch
 
 
 def plsi_variants(bt, PK, torch, data, model):
@@ -3632,6 +3678,25 @@ def distinct(torch, cols, lens):
     return int(torch.unique(cols[live]).numel())
 
 
+def k15_work(torch, batch, d, padded=False):
+    """(bytes, operations) of K15 on one batch: each live entry's column
+    and value read once, the distinct gathered rows of the other side, the
+    batch's rows of A read and of An read and written (and in the padded
+    modes the gathered columns' rows of Qn read and written), the lengths
+    and losses; 4 d + 8 operations per entry (5 d + 8 with the element
+    floor)."""
+    from buffalo_tpu_torch.data.batching import StagedSegmentBatch
+
+    seg = isinstance(batch, StagedSegmentBatch)
+    lens = batch.chunk_lens if seg else batch.lens
+    n, R = int(lens.sum()), (batch.rows if seg else lens).shape[0]
+    cols = distinct(torch, batch.cols, lens)
+    if padded:
+        return 12 * R + 8 * n + 4 * d * (3 * R + 3 * cols), n * (5 * d + 8)
+    return ((0 if seg else 8 * R) + 8 * n + 4 * d * (cols + 3 * R),
+            n * (4 * d + 8))
+
+
 def k15_check(PK, torch, An0, A, Bf, batch, *, padded=False, Qn0=None):
     """K15 on one batch against its plain version: (largest absolute error
     of the sums, that relative to the largest sum, the loss's relative
@@ -3661,14 +3726,35 @@ def k15_check(PK, torch, An0, A, Bf, batch, *, padded=False, Qn0=None):
             same)
 
 
-def plsi_kernels(PK, torch, model, st):
+def short_range_batch(st):
+    """(half, the range batch with the most rows of fewer than
+    K15_SHORT_ROW entries, that count): the item half's, or the user
+    half's where the item half has none (the ML-20M synthetic's items all
+    have 32 users or more)."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+    from buffalo_tpu_torch.ops.als_kernels import _flat
+
+    def short(b):
+        return int(((b.lens > 0) & (b.lens < K15_SHORT_ROW)).sum())
+    for half in ("item", "user"):
+        batches = [b for b in _flat(st["col_groups" if half == "item" else
+                                       "row_groups"])
+                   if isinstance(b, RangeBatch)]
+        b = max(batches, key=short)
+        if short(b) > 0 or half == "user":
+            return half, b, short(b)
+
+
+def plsi_kernels(PK, torch, model, st, k15_epoch):
     """K15 and K16 against their plain versions on the trained model's
     ML-20M layout: K15's range mode on the user half's range batch with the
     most entries (and on Dirichlet tables, where the element floor must fail
-    the check), its segment mode on the item half's largest segment batch,
-    its padded mode on the rowwise padded batch with the most entries; K16
-    masked on the permuted tables and unmasked on the model's.  Returns
-    the kernels line's entries."""
+    the check) and on the range batch with the most short rows
+    (``short_range_batch``), its segment mode on the item half's largest
+    segment batch, its padded mode on the rowwise padded batch with the
+    most entries; K16 masked on the permuted tables and unmasked on the
+    model's.  Returns the kernels line's entries, K15's with
+    ``plsi_path``'s epoch figures ``k15_epoch``."""
     import torch.nn.functional as F
     from buffalo_tpu_torch.data.batching import (PaddedBatch, RangeBatch,
                                                  StagedSegmentBatch)
@@ -3697,6 +3783,15 @@ def plsi_kernels(PK, torch, model, st):
           f"plain version (repeatable: {same}, {s_same})")
     check(wrong_err > TOL_K15, f"the K15 check passes the element floor in "
           f"the range mode ({wrong_err:.3g})")
+    # short rows: the team form (four floats a lane)
+    s_half, sb, n_short = short_range_batch(st)
+    A_s, B_s = (P, Q) if s_half == "user" else (Q, P)
+    An_s = torch.zeros_like(A_s)
+    _, sh_err, sh_loss_err, sh_same = k15_check(
+        PK, torch, torch.zeros_like(A_s), A_s, B_s, sb)
+    check(sh_err <= TOL_K15 and sh_loss_err <= TOL_K15 and sh_same,
+          f"K15 range mode on short rows ({s_half} half): {sh_err:.3g}, "
+          f"loss {sh_loss_err:.3g}, repeatable {sh_same}")
     seg = max((b for b in st["col_groups"]
                if isinstance(b, StagedSegmentBatch)),
               key=lambda b: int(b.chunk_lens.sum()), default=None)
@@ -3722,34 +3817,40 @@ def plsi_kernels(PK, torch, model, st):
     # times and bounds: range mode (the kernels line), segment and padded
     An = torch.zeros_like(P)
     n = int(big.lens.sum())
-    nbytes = 4 * B + 8 * n + 4 * d * (distinct(torch, big.cols, big.lens)
-                                      + 3 * B) + 4 * B
-    bms, by = bound_ms(nbytes, n * (4 * d + 8))
+    bms, by = bound_ms(*k15_work(torch, big, d))
     n_seg = int(seg.chunk_lens.sum())
     R_seg = seg.rows.shape[0]
     n_pad = int(pb.lens.sum())
-    cols_pad = distinct(torch, pb.cols, pb.lens)
     AnQ, AnP, Qn = (torch.zeros_like(t) for t in (Q, Pu, Qu))
     k15 = dict(
         route="cuda", source="buffalo_tpu_torch/csrc/plsi_estep.cu",
         replaces="buffalo_tpu/ops/plsi_kernels.py:111", max_abs_err=abs_err,
         ms=time_ms(lambda: PK.plsi_estep(An, P, Q, big)),
+        device_ms=trace_ms(lambda: PK.plsi_estep(An, P, Q, big),
+                           "rows_kernel"),
         plain_ms=time_ms(lambda: PK.estep_range_plain(
             An, P, Q, rs, big.lens, big.cols, big.vals), reps=5, warmup=1),
-        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_ms=bms, bound_by=by, library_ms=None, **k15_epoch,
         batch=list(big.cols.shape), entries=n, rel_err=err,
         loss_rel_err=loss_err, dirichlet_rel_err=s_err,
         dirichlet_loss_rel_err=s_loss_err,
         element_floor_rel_err=wrong_err, repeatable=same and s_same,
+        short_rows=dict(
+            half=s_half, batch=list(sb.cols.shape), rows_under_32=n_short,
+            entries=int(sb.lens.sum()), rel_err=sh_err,
+            loss_rel_err=sh_loss_err, repeatable=sh_same,
+            device_ms=trace_ms(lambda: PK.plsi_estep(An_s, A_s, B_s, sb),
+                               "rows_kernel"),
+            bound_ms=bound_ms(*k15_work(torch, sb, d))[0]),
         segment=dict(
             rows=R_seg, chunks=int(seg.chunk_lens.numel()), entries=n_seg,
             rel_err=g_err, loss_rel_err=g_loss_err,
             ms=time_ms(lambda: PK.plsi_estep(AnQ, Q, P, seg)),
+            device_ms=trace_ms(lambda: PK.plsi_estep(AnQ, Q, P, seg),
+                               "chunk_rows"),
             plain_ms=time_ms(lambda: PK.estep_segment_plain(
                 AnQ, Q, P, seg), reps=5, warmup=1),
-            bound_ms=bound_ms(8 * n_seg + 4 * d * (
-                distinct(torch, seg.cols, seg.chunk_lens) + 3 * R_seg),
-                n_seg * (4 * d + 8))[0]),
+            bound_ms=bound_ms(*k15_work(torch, seg, d))[0]),
         padded=dict(
             batch=list(pb.cols.shape), entries=n_pad, rel_err=p_err,
             loss_rel_err=p_loss_err,
@@ -3757,10 +3858,7 @@ def plsi_kernels(PK, torch, model, st):
                                              Qn=Qn)),
             plain_ms=time_ms(lambda: PK.estep_padded_plain(
                 AnP, Qn, Pu, Qu, pb), reps=5, warmup=1),
-            bound_ms=bound_ms(
-                12 * pb.lens.shape[0] + 8 * n_pad
-                + 4 * d * (3 * pb.lens.shape[0] + 3 * cols_pad),
-                n_pad * (5 * d + 8))[0]))
+            bound_ms=bound_ms(*k15_work(torch, pb, d, padded=True))[0]))
     # K16: masked on the permuted tables after one accumulation, unmasked
     # on the model's
     o = model.opt
@@ -3808,6 +3906,7 @@ def plsi_kernels(PK, torch, model, st):
     phase("plsi_kernels", d=d, k15=k15, k16=k16, tol_k15=TOL_K15,
           tol_k16=TOL_K16)
     del P, Q, Ps, Qs, Pu, Qu, An, AnQ, AnP, Pn, Qn, Qn2, Pt, Qt, wrong, ref
+    del A_s, B_s, An_s
     torch.cuda.empty_cache()
     return {"plsi_estep": k15, "plsi_mstep": k16}
 
@@ -6456,7 +6555,7 @@ def wide_work(torch, name, a, r, d):
                 + 8 * n + 8 * n * a["kk"], 2 * d * pairs, fp32)
     if name == "kmeans_update":
         (N, D_), C = a["unit"].shape, a["cent"].shape[0]
-        return 4 * N * D_ + 4 * N + 8 * C * D_, N * D_, fp32
+        return (*k7_work(N, D_, C), fp32)
     if name == "sharded_topk_merge":
         B, D_, kl = a["vals"].shape
         return (k22_bytes(torch, r[1], D_, kl, a["items_per_shard"])[0], 0,
@@ -6867,6 +6966,10 @@ def wide_rows(bt, torch, dev):
     for fn in (R.kmeans_update, R.ivf_tile_topk):
         kernels[fn.__name__] = dict(hold_first_call(
             torch, fn, rec.calls[fn.__name__], d), run="IVF")
+    # K7's global-counter form on the card: its first call again, against
+    # its plain version there, repeatable, its launches
+    kernels["kmeans_update"]["k7_entry"] = k7_entry(
+        R, torch, *rec.calls["kmeans_update"][0][0])
     del index, rec, table
     mesh = bt.parallelism.get_mesh(WIDE_SHARDS,
                                    devices=[str(dev)] * WIDE_SHARDS)
@@ -7135,10 +7238,11 @@ def main() -> int:
         # ---- pLSI: the user's entry points on the ML-20M data (the range
         # layout, then the other epoch routes), then K15 and K16 on its
         # layout
-        plsi, plsi_state, plsi_launches = plsi_path(bt, PK, R, torch, data)
+        plsi, plsi_state, plsi_launches, k15_epoch = plsi_path(
+            bt, PK, R, torch, data)
         path_launches.update(plsi_launches)
         plsi_variants(bt, PK, torch, data, plsi)
-        entries.update(plsi_kernels(PK, torch, plsi, plsi_state))
+        entries.update(plsi_kernels(PK, torch, plsi, plsi_state, k15_epoch))
         del plsi, plsi_state, data
         torch.cuda.empty_cache()
 

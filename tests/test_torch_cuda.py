@@ -708,6 +708,110 @@ def test_kmeans_update_kernel_many_cells(dev):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("D", [101, 300])
+@pytest.mark.parametrize("run", [None, 1, 7])
+def test_kmeans_update_kernel_runs_match_plain(dev, D, run):
+    """K7 at the brunch and wide_rows widths, with cells of several runs
+    (a run of ``kmeans_plan``'s length, or forced to 1 and 7 members):
+    rows of zero norm and squares that underflow weigh nothing, an empty
+    cell keeps its centroid; at most four launches a call; bitwise
+    repeatable."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    rng = np.random.default_rng(D)
+    N, C = 20_000, 60
+    unit = rng.normal(size=(N, D)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    unit[rng.random(N) < 0.03] = 0.0
+    unit[5] = 1e-23
+    assign = rng.integers(0, C, size=N).astype(np.int32)
+    assign[assign == 11] = 12
+    assign[[5, 6]] = 13
+    cent = rng.normal(size=(C, D)).astype(np.float32)
+    unit, assign, cent = (torch.from_numpy(a).to(dev)
+                          for a in (unit, assign, cent))
+    real = R._K7_RUN
+    if run is not None:
+        R._K7_RUN = run
+    try:
+        got = R.kmeans_update(unit, assign, cent)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = R.kmeans_update(unit, assign, cent)
+            torch.cuda.synchronize()
+    finally:
+        R._K7_RUN = real
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "emset" not in e.name]
+    assert 1 <= len(kernels) <= 4
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, R.kmeans_update_plain(unit, assign, cent),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[11], cent[11] / cent[11].norm(),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_kmeans_update_kernel_on_rows_of_13313_floats(dev):
+    """Rows of 13,313 floats (52 column passes of a run block): the plain
+    version's means, bitwise repeatable."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    rng = np.random.default_rng(3)
+    N, C, D = 1_500, 9, 13_313
+    unit = rng.normal(size=(N, D)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    unit[:40] = 0.0
+    assign = rng.integers(0, C - 1, size=N).astype(np.int32)  # C - 1 empty
+    cent = rng.normal(size=(C, D)).astype(np.float32)
+    unit, assign, cent = (torch.from_numpy(a).to(dev)
+                          for a in (unit, assign, cent))
+    got = R.kmeans_update(unit, assign, cent)
+    assert torch.equal(got, R.kmeans_update(unit, assign, cent))
+    torch.testing.assert_close(got, R.kmeans_update_plain(unit, assign, cent),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kmeans_update_kernel_past_the_counter_cap_at_d_300(dev):
+    """wide_rows' index: 120,000 rows of 301 floats in 60,000 cells (the
+    global counters, runs of kmeans_plan's length 4), empty cells among
+    them; bitwise repeatable, the plain version's means."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    rng = np.random.default_rng(2)
+    N, C, D = 120_000, 60_000, 301
+    unit = rng.normal(size=(N, D)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    assign = rng.integers(0, C, size=N).astype(np.int32)
+    cent = rng.normal(size=(C, D)).astype(np.float32)
+    unit, assign, cent = (torch.from_numpy(a).to(dev)
+                          for a in (unit, assign, cent))
+    assert R.kmeans_plan(N, D, C)["run"] == 4
+    assert int((torch.bincount(assign.long(), minlength=C) == 0).sum()) > 0
+    got = R.kmeans_update(unit, assign, cent)
+    assert torch.equal(got, R.kmeans_update(unit, assign, cent))
+    torch.testing.assert_close(got, R.kmeans_update_plain(unit, assign, cent),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kmeans_plan_is_the_c_workspace(dev):
+    """kmeans_plan's workspace words are the C launcher's carve."""
+    import ctypes
+
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+    from buffalo_tpu_torch.ops._build import launcher
+
+    f = launcher("kmeans_update_workspace", [ctypes.c_int] * 4
+                 + [ctypes.c_void_p], library="kmeans_update")
+    for N, D, C in ((0, 5, 1), (9000, 14, 97), (505_840, 101, 711),
+                    (120_000, 301, 60_000), (1_000, 20_000, 3)):
+        plan = R.kmeans_plan(N, D, C)
+        sizes = (ctypes.c_int64 * 2)()
+        f(N, D, C, plan["run"], ctypes.cast(sizes, ctypes.c_void_p))
+        assert (sizes[0], sizes[1]) == (plan["ints"], plan["floats"])
+
+
 # ---------------------------------------------------------------- K8-K10
 def _bpr_case(dev, d, U=700, I=300, N=5000, neg_per=1, seed=0, scale=0.3):
     """Tables, a chunk sorted by user (CSR order) with a masked tail of 37
@@ -1574,6 +1678,88 @@ def test_plsi_estep_segment_and_padded_kernels_match_plain(dev, d):
             assert _rel_close(a, b, 1e-5)
         assert torch.allclose(l0, l1, rtol=1e-5, atol=1e-6)
         assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[2]))
+
+
+# K15's shape rules patched so that a batch takes one form: the team form
+# (groups sharing warps on short rows), one lane an entry, lanes on the
+# columns
+_K15_FORMS = {"default": {}, "team": {"ENTRIES_MIN_L": 1 << 30},
+              "entries": {"ENTRIES_MIN_L": 1},
+              "columns": {"TEAM_MAX_D": 0, "SEGMENT_TEAM_MAX_D": 0}}
+
+
+def _k15_check(PK, X, Y, batch, padded=False):
+    """K15 twice and its plain version on one batch: sums within 1e-5 of
+    the largest, losses within 1e-5, the two launches bitwise equal."""
+    seg = isinstance(batch, batching.StagedSegmentBatch)
+    runs = [[torch.zeros_like(X), torch.zeros_like(Y)] for _ in range(3)]
+    kw = [dict(padded=True, Qn=r[1]) if padded else {} for r in runs]
+    l0 = PK.plsi_estep(runs[0][0], X, Y, batch, **kw[0])
+    l1 = PK.plsi_estep(runs[1][0], X, Y, batch, **kw[1])
+    if padded:
+        ref = PK.estep_padded_plain(runs[2][0], runs[2][1], X, Y, batch)
+    elif seg:
+        ref = PK.estep_segment_plain(runs[2][0], X, Y, batch)
+    else:
+        ref = PK.estep_range_plain(runs[2][0], X, Y, int(batch.row_start),
+                                   batch.lens, batch.cols, batch.vals)
+    torch.cuda.synchronize()
+    for k in range(2 if padded else 1):
+        assert _rel_close(runs[0][k], runs[2][k], 1e-5)
+        assert torch.equal(runs[0][k], runs[1][k])
+    assert torch.allclose(l0, ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(l0, l1)
+
+
+@pytest.mark.parametrize("d", [13, 20, 64, 128])
+@pytest.mark.parametrize("form", sorted(_K15_FORMS))
+def test_plsi_estep_forms_match_plain(dev, d, form):
+    """Each form of K15 at the widths where the forms change: a range
+    batch of short rows (width 12: up to eight rows a warp), one of rows
+    around a warp (width 40, rows of 0-40 entries), one past
+    ENTRIES_MIN_L, the segment batch and a padded batch."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
+
+    rng, X, Y = _plsi_tables(dev, d, sparse=d == 20)
+    n = X.shape[0]
+    real = {k: getattr(PK, k) for k in _K15_FORMS[form]}
+    for k, v in _K15_FORMS[form].items():
+        setattr(PK, k, v)
+    try:
+        for B, L in ((300, 12), (150, 40), (20, 300)):
+            lens, cols, vals = _plsi_batch(dev, rng, B, L, Y.shape[0])
+            _k15_check(PK, X, Y, RangeBatch(3, lens, cols, vals))
+        _k15_check(PK, X, Y, _plsi_segment(dev, rng, Y.shape[0], n))
+        rows = rng.permutation(n)[:60].astype(np.int32)
+        rows[[3, 9]] = n
+        _k15_check(PK, X, Y, batching.PaddedBatch(*_plsi_batch(
+            dev, rng, 60, 33, Y.shape[0], rows=rows)), padded=True)
+    finally:
+        for k, v in real.items():
+            setattr(PK, k, v)
+
+
+@pytest.mark.parametrize("d", [13, 20, 64])
+def test_plsi_estep_unaligned_tables_take_4_byte_loads(dev, d):
+    """Tables at an address off 16 bytes take the 4-byte loads (of the
+    team form); the same sums."""
+    from buffalo_tpu_torch.data.batching import RangeBatch
+    from buffalo_tpu_torch.ops import plsi_kernels as PK
+
+    rng, X, Y = _plsi_tables(dev, d)
+    buf = torch.zeros(X.numel() + 1, device=dev)
+    Xs = buf[1:].view(X.shape)
+    Xs.copy_(X)
+    assert PK.estep_vec(d, Xs, Y) == 1
+    for B, L in ((300, 12), (20, 300)):
+        lens, cols, vals = _plsi_batch(dev, rng, B, L, Y.shape[0])
+        batch = RangeBatch(3, lens, cols, vals)
+        got, ref = torch.zeros_like(X), torch.zeros_like(X)
+        PK.plsi_estep(got, Xs, Y, batch)
+        PK.estep_range_plain(ref, X, Y, 3, lens, cols, vals)
+        torch.cuda.synchronize()
+        assert _rel_close(got, ref, 1e-5)
 
 
 @pytest.mark.parametrize("d", [8, 20, 64, 256, 300])

@@ -27,6 +27,7 @@ from buffalo_tpu_torch.convert import from_jax_factors
 from buffalo_tpu_torch.data import MatrixMarketOptions as PortMMOptions
 from buffalo_tpu_torch.data import load as port_load
 from buffalo_tpu_torch.parallel import IVFIndex, ParALS, ParBPRMF
+from buffalo_tpu_torch.ops import retrieval_kernels as R
 from buffalo_tpu_torch.parallel.ann import _BQ_CAPS, _L_CAPS, _merge_host, \
     _pick_cap
 
@@ -253,6 +254,147 @@ def test_one_lloyd_step_matches_jax():
     kw = dict(n_clusters=12, n_iters=1, spill=1, seed=3)
     _same_index(IVFIndex.build(table, device="cpu", **kw),
                 RefIVF.build(table, **kw))
+
+
+def test_lloyd_step_with_empty_cells_matches_jax():
+    """Three distinct rows behind six cells: the seeded start draws
+    duplicate centroids, whose later copies win no argmax tie and stay
+    empty; one Lloyd step keeps them (normalized) in both packages."""
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((3, 8)).astype(np.float32)[
+        rng.integers(0, 3, 600)]
+    kw = dict(n_clusters=6, n_iters=1, spill=1, seed=5, mips_augment=False)
+    got = IVFIndex.build(table, device="cpu", **kw)
+    _same_index(got, RefIVF.build(table, **kw))
+    assert (np.diff(got.cell_ptr) == 0).sum() >= 3
+
+
+def _lloyd_update64(unit, assign, cent):
+    """``lloyd``'s update (``buffalo_tpu/parallel/ann.py:228-241``) in
+    float64 numpy, its row weights from the float32 squares as the
+    reference computes them (a row whose squares underflow weighs 0)."""
+    C, D = cent.shape
+    w = (np.sum(unit * unit, axis=1, dtype=np.float32) > 0).astype(
+        np.float64)
+    sums = np.zeros((C, D))
+    np.add.at(sums, assign, unit.astype(np.float64) * w[:, None])
+    cnt = np.bincount(assign, weights=w, minlength=C)
+    new = np.where(cnt[:, None] > 0, sums / np.maximum(cnt, 1.0)[:, None],
+                   cent.astype(np.float64))
+    return new / np.maximum(np.linalg.norm(new, axis=1, keepdims=True),
+                            1e-12)
+
+
+def _lloyd_case(case, N=400, D=12, C=9, seed=0):
+    """(unit rows, cells, old centroids) with the case's cells: 2 and 5
+    empty; 3's rows all of zero norm; 4, 6 and 8 of one row each; 7 two
+    rows and one whose squares underflow in float32."""
+    rng = np.random.default_rng(seed)
+    unit = rng.standard_normal((N, D)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    assign = rng.choice([0, 1], N).astype(np.int32)
+    cent = rng.standard_normal((C, D)).astype(np.float32)
+    if case == "zero_norm_only":
+        unit[:30] = 0.0
+        assign[:30] = 3
+    elif case == "one_member":
+        assign[[10, 20, 30]] = [4, 6, 8]
+    elif case == "underflow":
+        unit[40] = 1e-23  # squares 1e-46: 0 in float32
+        assign[[40, 41, 42]] = 7
+    return unit, assign, cent
+
+
+@pytest.mark.parametrize("case", ["empty_cells", "zero_norm_only",
+                                  "one_member", "underflow"])
+def test_kmeans_update_plain_matches_lloyd(case):
+    """K7's plain version against ``lloyd``'s update: empty cells keep
+    their centroid, rows of zero norm (or squares that underflow) weigh
+    nothing, one-member cells take their row."""
+    import torch
+
+    unit, assign, cent = _lloyd_case(case)
+    got = R.kmeans_update_plain(*map(torch.from_numpy, (unit, assign,
+                                                        cent))).numpy()
+    want = _lloyd_update64(unit, assign, cent)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-6)
+    for c in (2, 5):  # never assigned
+        np.testing.assert_allclose(got[c], cent[c] / np.linalg.norm(cent[c]),
+                                   rtol=RTOL)
+    if case == "zero_norm_only":
+        np.testing.assert_allclose(got[3], cent[3] / np.linalg.norm(cent[3]),
+                                   rtol=RTOL)
+    if case == "one_member":
+        np.testing.assert_allclose(got[[4, 6, 8]], unit[[10, 20, 30]],
+                                   rtol=RTOL, atol=1e-7)
+    if case == "underflow":
+        mean = unit[[41, 42]].astype(np.float64).mean(0)
+        np.testing.assert_allclose(got[7], mean / np.linalg.norm(mean),
+                                   rtol=RTOL, atol=1e-7)
+
+
+@pytest.mark.parametrize("D", [101, 300])
+def test_run_order_sum_matches_plain(D):
+    """The card's order, in float64 on the CPU: each cell's members in row
+    order, the rows of nonzero norm summed in runs of ``kmeans_plan``'s
+    run, the runs' sums and counts added in order; held to the plain
+    version."""
+    import torch
+
+    rng = np.random.default_rng(D)
+    N, C = 6000, 23
+    unit = rng.standard_normal((N, D)).astype(np.float32)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    unit[rng.random(N) < 0.05] = 0.0
+    assign = rng.integers(0, C, N).astype(np.int32)
+    assign[assign == 7] = 8
+    assign[:700] = 3  # several runs
+    cent = rng.standard_normal((C, D)).astype(np.float32)
+    run = R.kmeans_plan(N, D, C)["run"]
+    want = np.empty((C, D))
+    for c in range(C):
+        members = np.flatnonzero(assign == c)
+        total, n = np.zeros(D), 0
+        for lo in range(0, len(members), run):
+            rows = unit[members[lo:lo + run]]
+            keep = np.sum(rows * rows, axis=1, dtype=np.float32) > 0
+            total = total + rows[keep].astype(np.float64).sum(0)
+            n += int(keep.sum())
+        mean = total / n if n else cent[c].astype(np.float64)
+        want[c] = mean / max(np.linalg.norm(mean), 1e-12)
+    got = R.kmeans_update_plain(*map(torch.from_numpy, (unit, assign, cent)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("D", [1, 41, 101, 300, 13_313])
+def test_kmeans_plan_against_brute_force(D):
+    """K7's chunks, run length and workspace: the run is the most rows (at
+    most _K7_RUN) no more than the first power of two from twice the mean
+    cell's rows; the run blocks exceed the runs of any assignment (the
+    worst: cells of one row past a multiple of the run), so one is left for
+    the empty cells; the workspace is the arrays' sum."""
+    rng = np.random.default_rng(D)
+    for N, C in ((0, 1), (1, 1), (777, 5), (9000, 97), (505_840, 711),
+                 (120_000, 60_000), (1_000, 60_000), (3, 1_000)):
+        plan = R.kmeans_plan(N, D, C)
+        run = plan["run"]
+        mean = -(-N // C)
+        cap = min(p for p in (2 ** k for k in range(40)) if p >= 2 * mean)
+        assert run == max(r for r in range(1, R._K7_RUN + 1) if r <= cap)
+        assert plan["chunks"] == len(range(0, N, R._K7_CHUNK))
+        worst = np.zeros(C, np.int64)  # as many runs as N rows allow
+        left = N
+        for c in range(C):
+            take = min(left, (run + 1) if c < C - 1 else left)
+            worst[c], left = take, left - take
+        sizes = [worst, rng.multinomial(N, np.full(C, 1.0 / C))]
+        for size in sizes:
+            assert size.sum() == N
+            assert int(np.ceil(size / run).sum()) < plan["run_blocks"]
+        assert plan["ints"] == (4 * plan["run_blocks"] + plan["chunks"] * C
+                                + C + 2 * (C + 1) + C + plan["run_blocks"]
+                                + N + 1)
+        assert plan["floats"] == plan["run_blocks"] * D
 
 
 @pytest.mark.parametrize("mips_augment", [True, False])

@@ -169,6 +169,123 @@ def test_padded_segment_accumulate_matches_jax():
     _close(loss.sum(), wl)
 
 
+# rows around a warp's 32 lanes: the team form's groups of 1-32 lanes take
+# rows of these lengths whole or across steps
+EDGE_LENS = (0, 1, 31, 32, 33)
+
+
+def _edge_rows(rng, ny, L):
+    lens = np.array(EDGE_LENS, np.int32)
+    cols = rng.integers(0, ny, (len(lens), L)).astype(np.int32)
+    vals = (rng.integers(1, 5, (len(lens), L))
+            * (np.arange(L)[None, :] < lens[:, None])).astype(np.float32)
+    return lens, cols, vals
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("d", [13, 20])
+def test_range_accumulate_on_rows_around_a_warp_matches_jax(d, sparse):
+    """``_range_accumulate`` :143 on rows of 0, 1, 31, 32 and 33 entries."""
+    rng, X, Y = _tables(30 + d, nx=50, d=d, sparse=sparse)
+    rs = 9
+    lens, cols, vals = _edge_rows(rng, Y.shape[0], 33)
+    An = rng.random(X.shape).astype(np.float32)
+    want, want_loss = JP._range_accumulate(
+        jnp.asarray(An), jnp.asarray(X), jnp.asarray(Y),
+        JRangeBatch(row_start=np.int32(rs), lens=lens, cols=cols, vals=vals),
+        with_loss=True)
+    got = _t(An).clone()
+    loss = P.plsi_estep(got, _t(X), _t(Y), stage_batch(
+        RangeBatch(np.int32(rs), lens, cols, vals), "cpu"))
+    _close(got, want)
+    _close(loss.sum(), want_loss)
+    assert float(loss[0]) == 0.0
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("d", [13, 20])
+def test_segment_accumulate_on_rows_around_a_warp_matches_jax(d, sparse):
+    """``_segment_accumulate`` :162 on rows of 0, 1, 31, 32 and 33 entries
+    in chunks of 16 (a row of none, of one short chunk, of two full and one
+    of one entry)."""
+    rng, X, Y = _tables(40 + d, nx=50, d=d, sparse=sparse)
+    C = 16
+    rows = np.array([3, 10, 20, 30, X.shape[0]], np.int32)
+    lens = np.array(EDGE_LENS, np.int32)
+    seg_ids, chunk_lens = [], []
+    for r, n in enumerate(lens):
+        for lo in range(0, n, C):
+            seg_ids.append(r)
+            chunk_lens.append(min(C, n - lo))
+    seg_ids, chunk_lens = (np.array(a, np.int32) for a in (seg_ids,
+                                                          chunk_lens))
+    cols = rng.integers(0, Y.shape[0], (len(seg_ids), C)).astype(np.int32)
+    vals = (rng.integers(1, 5, (len(seg_ids), C))
+            * (np.arange(C) < chunk_lens[:, None])).astype(np.float32)
+    sb = (rows, lens, seg_ids, chunk_lens, cols, vals)
+    An = rng.random(X.shape).astype(np.float32)
+    want, want_loss = JP._segment_accumulate(
+        jnp.asarray(An), jnp.asarray(X), jnp.asarray(Y), JSegmentBatch(*sb),
+        with_loss=True)
+    got = _t(An).clone()
+    loss = P.plsi_estep(got, _t(X), _t(Y),
+                        stage_batch(SegmentBatch(*sb), "cpu"))
+    _close(got, want)
+    _close(loss.sum(), want_loss)
+    assert loss.shape == (5,) and float(loss[0]) == 0.0
+
+
+@pytest.mark.parametrize("segment", [False, True])
+def test_estep_shape_against_brute_force(segment):
+    """K15's launch shape at every width to 300 and batch widths around a
+    warp, ENTRIES_MIN_L and PIECE_MIN_L, in range and segment batches: one
+    lane holding the whole row (the fewest of ENTRY_FLOATS that hold it) on
+    wide batches; else the smallest power-of-two team that covers the row
+    with TEAM_FLOATS floats a lane (none past TEAM_MAX_D, SEGMENT_TEAM_MAX_D
+    for segment batches) and the smallest power-of-two group from the team
+    up that holds a row of the batch, every group a warp's divisor (a whole
+    warp for segment batches and rows cut into pieces); pieces of ROW_PIECE
+    entries past PIECE_MIN_L (not in segment batches, which are cut into
+    chunks)."""
+    pows = (1, 2, 4, 8, 16, 32)
+    for d in range(1, 301):
+        for L in list(range(1, 41)) + [64, 96, 255, 256, 304, 512, 513,
+                                       8192]:
+            team, group, floats, piece = P.estep_shape(d, L, segment)
+            assert 32 % group == 0 and team <= group
+            if d > (P.SEGMENT_TEAM_MAX_D if segment else P.TEAM_MAX_D):
+                assert (team, group, piece) == (0, 32, 0)
+                continue
+            assert team * floats >= d
+            long_rows = L > P.PIECE_MIN_L and not segment
+            assert piece == (P.ROW_PIECE if long_rows else 0)
+            if piece:
+                assert group == 32
+            if L >= P.ENTRIES_MIN_L and d <= 32:
+                assert (team, group) == (1, 32)
+                assert floats == min(f for f in (8, 16, 24, 32) if f >= d)
+                continue
+            assert floats == P.TEAM_FLOATS
+            assert team == min(t for t in pows if t * floats >= d)
+            want = 32 if segment or piece else min(
+                g for g in pows if g >= team and (g >= L or g == 32))
+            assert group == want
+
+
+def test_estep_vec_takes_16_byte_loads_where_aligned():
+    """16-byte loads where d and every table's address are multiples of
+    four floats, else 4-byte loads."""
+    base = torch.zeros(4096)
+    for d in range(1, 13):
+        for off in range(4):
+            t = base[off:off + 4 * d]
+            want = 4 if d % 4 == 0 and off == 0 else 1
+            assert P.estep_vec(d, t) == want
+            assert P.estep_vec(d, base, t) == want
+    assert P.estep_vec(20, base[:20], base[4:24]) == 4
+    assert P.estep_vec(20, base[:20], base[2:22]) == 1
+
+
 @pytest.mark.parametrize("alphas", [(1.0, 1.0), (0.5, 2.0), (0.0, 0.0)])
 def test_mstep_masked_matches_jax(alphas):
     rng = np.random.default_rng(6)
