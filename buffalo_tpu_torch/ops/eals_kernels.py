@@ -360,8 +360,10 @@ def eals_residual(P, Q, row_ids, keys, vals=None, C=None, *, alpha=0.0,
         _check("vals", vals, torch.float32, dev, 1)
         _check("C", C, torch.float32, dev, 1)
         total = torch.empty(3, dtype=torch.float32, device=dev)
-        part = torch.empty(_kernel("eals_loss_workspace")(n),
-                           dtype=torch.float64, device=dev)
+        n_part = _kernel("eals_loss_workspace")(n)
+        if n_part < 0:
+            raise RuntimeError("eals_residual: no grid for this card")
+        part = torch.empty(n_part, dtype=torch.float64, device=dev)
     rc = _kernel("eals_loss")(
         _ptr(P), _ptr(Q), d, _ptr(row_ids), _ptr(keys), _ptr(vals), _ptr(C),
         n, float(alpha), _ptr(vhat), _ptr(out), _ptr(part), _ptr(total),

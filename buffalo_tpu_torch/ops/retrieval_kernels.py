@@ -11,7 +11,9 @@ K1–K4 with theirs:
   ``IVFIndex.build`` (k = 1 and k = spill).
 * **K6** ``ivf_tile_topk`` — ``IVFIndex.search``'s tile scorer: per tile,
   gathered queries against a contiguous slice of the cell-ordered table,
-  masked, top-kk.
+  masked, top-kk; the tiles split by their rows (``ivf_tile_classes``)
+  between a small form (a lane per row, for the few rows most probed cells
+  hold) and the FFMA block scan K5 shares.
 * **K7** ``kmeans_update`` — the spherical k-means cell update (member
   mean, normalized; empty cells keep their centroid).
 * **K22** ``sharded_topk_merge`` — the merge of a row-sharded table's
@@ -40,6 +42,7 @@ from __future__ import annotations
 import ctypes
 from fractions import Fraction
 
+import numpy as np
 import torch
 
 from buffalo_tpu_torch.ops.als_kernels import _check, _ptr, _raise_on, _stream
@@ -51,8 +54,9 @@ _SIGNATURES = {
     "score_topk": [_P, _I32, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P,
                    _P, _P, _P],
     "score_topk_tc_blocks": [_I32, _I32],
-    "ivf_tile_topk": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P, _P,
-                      _P],
+    "ivf_tile_topk": [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                      _P, _I32, _I32, _P, _P, _P],
+    "ivf_small_rows": [_I32, _I32, _I32],
     "kmeans_update": [_P, _P, _P, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     "kmeans_update_workspace": [_I32, _I32, _I32, _I32, _P],
     "sharded_topk_merge": [_P, _P, _I32, _I32, _I32, _I32, _P, _P, _P],
@@ -66,10 +70,18 @@ _LIBRARY = {"score_topk_tc_blocks": "score_topk",
             "sharded_topk_merge_as": "sharded_topk_merge",
             "sharded_topk_merge_form": "sharded_topk_merge",
             "sharded_topk_merge_tree_fits": "sharded_topk_merge",
-            "kmeans_update_workspace": "kmeans_update"}
+            "kmeans_update_workspace": "kmeans_update",
+            "ivf_small_rows": "ivf_tile_topk"}
 MAX_K = 1024
 # IVF tile caps the kernel takes (the reference's largest, parallel/ann.py)
 MAX_BQ_CAP, MAX_L_CAP = 256, 1024
+# K6's small form (csrc/ivf_tile_topk.cu namespace small) takes the tiles of
+# at most IVF_SMALL_MAX_L rows (fewer where its staging passes shared
+# memory: ivf_small_rows) at kk <= 32 and d >= IVF_SMALL_MIN_D; the rest
+# take the scan (at d = 13 the scan was the faster on the brunch searches'
+# small tiles: its selection skips the keys under a slot's threshold, the
+# small form sorts every key)
+IVF_SMALL_MAX_L, IVF_SMALL_MIN_D = 64, 32
 QUERY_DTYPES = (torch.float32, torch.bfloat16)
 # K5's FFMA block shapes (csrc/topk_select.cuh Cfg): (list length KP,
 # queries per block, items per tile) for k <= KP
@@ -191,6 +203,28 @@ def ivf_tile_topk_plain(queries, table, qidx, qmask, lo, ln, kk, l_cap):
         vals.append(v.reshape(-1, bq, kk))
         pos.append(c.reshape(-1, bq, kk) + lo[t0:t0 + 256, None, None])
     return torch.cat(vals), torch.cat(pos).to(torch.int32)
+
+
+def ivf_small_rows(d, kk):
+    """The most rows a tile may have for K6's small form at width ``d`` and
+    ``kk`` (0: it takes none): IVF_SMALL_MAX_L, fewer where its staging
+    passes shared memory (the C query of the same name, which builds the
+    kernel), 0 below IVF_SMALL_MIN_D."""
+    if d < IVF_SMALL_MIN_D:
+        return 0
+    return _kernel("ivf_small_rows")(int(d), int(kk), IVF_SMALL_MAX_L)
+
+
+def ivf_tile_classes(ln, rows):
+    """K6's split of the tiles by their rows ``ln`` (numpy): (the tiles of
+    at most ``rows`` rows, for the small form; the rest, for the scan),
+    each int32 in tile order.  Empty tiles are the small form's (it writes
+    their padding without a read); ``rows`` 0 (``ivf_small_rows`` where
+    the small form does not take kk and d) puts every tile in the scan."""
+    ln = np.asarray(ln)
+    small = (ln <= rows) if rows > 0 else np.zeros(ln.shape, dtype=bool)
+    return (np.flatnonzero(small).astype(np.int32),
+            np.flatnonzero(~small).astype(np.int32))
 
 
 def kmeans_update_plain(unit, assign, cent):
@@ -338,14 +372,20 @@ def score_topk(p, Q, k, Qb=None):
 score_topk.launches = 0
 
 
-def ivf_tile_topk(queries, table, qidx, qmask, lo, ln, kk, l_cap):
+def ivf_tile_topk(queries, table, qidx, qmask, lo, ln, kk, l_cap,
+                  ln_host=None):
     """K6: the IVF tile scorer, (vals (T, bq_cap, kk) float32, pos (T,
     bq_cap, kk) int32): per tile t, ``queries[qidx[t]]`` against table
     rows ``[lo[t], lo[t] + ln[t])``, columns >= ln[t] and slots with
     ``qmask`` False at -inf, ordered top-kk, positions column + lo[t].
 
     Replaces ``_tiled_score`` (``buffalo_tpu/parallel/ann.py:54``).  No
-    table row past ``lo[t] + ln[t]`` is read (``ln[t] <= l_cap``).
+    table row past ``lo[t] + ln[t]`` is read (``ln[t] <= l_cap``).  On the
+    card ``ln_host``, the caller's host copy of ``ln``, is required: the
+    tiles are split by ``ivf_tile_classes`` from it, with no device sync,
+    and each class is launched on its own tile list: the small form and
+    the scan.  ``launches`` counts the calls, ``small_launches`` and
+    ``scan_launches`` each form's launches.
     """
     if queries.device.type == "cpu":
         return ivf_tile_topk_plain(queries, table, qidx, qmask, lo, ln, kk,
@@ -369,17 +409,39 @@ def ivf_tile_topk(queries, table, qidx, qmask, lo, ln, kk, l_cap):
     if not 1 <= kk <= l_cap:
         raise ValueError(f"kk = {kk} outside [1, {l_cap}]")
     _check_k("ivf_tile_topk", kk)
+    if ln_host is None:
+        raise ValueError("ivf_tile_topk: ln_host (ln on the host) is "
+                         "required on the card")
+    ln_host = np.asarray(ln_host)
+    if ln_host.shape != (T,):
+        raise ValueError("ln_host disagrees with ln")
+    small, scan = ivf_tile_classes(ln_host, ivf_small_rows(d, kk))
     vals = torch.empty((T, bq, kk), dtype=torch.float32, device=dev)
     pos = torch.empty((T, bq, kk), dtype=torch.int32, device=dev)
-    rc = _kernel("ivf_tile_topk")(
-        _ptr(queries), _ptr(table), _ptr(qidx), _ptr(qmask), _ptr(lo),
-        _ptr(ln), T, bq, d, int(kk), _ptr(vals), _ptr(pos), _stream(dev))
-    _raise_on(rc, "ivf_tile_topk")
+    tiles = torch.from_numpy(np.concatenate([small, scan])).to(dev)
+    at = tiles.data_ptr()
+    for form, ids in (("small", small), ("scan", scan)):
+        if not len(ids):
+            continue
+        cap = max(1, int(ln_host[ids].max())) if form == "small" else 0
+        rc = _kernel("ivf_tile_topk")(
+            _ptr(queries), _ptr(table), _ptr(qidx), _ptr(qmask), _ptr(lo),
+            _ptr(ln), T, bq, d, int(kk), int(form == "small"),
+            ctypes.c_void_p(at), len(ids), cap, _ptr(vals), _ptr(pos),
+            _stream(dev))
+        _raise_on(rc, "ivf_tile_topk")
+        at += 4 * len(ids)
+        if form == "small":
+            ivf_tile_topk.small_launches += 1
+        else:
+            ivf_tile_topk.scan_launches += 1
     ivf_tile_topk.launches += 1
     return vals, pos
 
 
 ivf_tile_topk.launches = 0
+ivf_tile_topk.small_launches = 0
+ivf_tile_topk.scan_launches = 0
 
 
 def kmeans_update(unit, assign, cent):

@@ -279,6 +279,6 @@ class IVFIndex:
             self._table_dev = up(self.table)
         vals, pos = ivf_tile_topk(up(queries), self._table_dev, up(qidx),
                                   up(qmask), up(lo_t), up(ln_t),
-                                  min(topk, l_cap), l_cap)
+                                  min(topk, l_cap), l_cap, ln_host=ln_t)
         return _merge_host(vals.cpu().numpy(), pos.cpu().numpy(), qidx,
                            qmask, self.ids, B, topk, self.spill)

@@ -165,6 +165,7 @@ RETRIEVAL_USERS, RETRIEVAL_ITEMS, RETRIEVAL_PROBE = 10_000, 1_000, 32
 BRUNCH_ITEMS, BRUNCH_D, BRUNCH_QUERIES = 505_840, 100, 10_000
 BRUNCH_CELLS = 711
 BRUNCH_PROBES = (8, 32)
+BRUNCH_EXACT = 1_000  # queries of the search that probes every cell
 BIG_ITEMS, BIG_D, BIG_QUERIES = 5_000_000, 64, 2_048
 # BPR (bpr_path, bpr_kernels): BPRMF on the ML-20M data at d = D with the
 # default options (sgd, uniform negatives, verify_neg, max_step_norm 0.1):
@@ -1864,13 +1865,13 @@ def k5_entry(R, torch, p, Q, k, what, Qb=None, plain=None, library=True):
 
 def capture_k6(ann, fn):
     """Run ``fn`` with the IVF search's K6 call recorded: (fn's result,
-    the call's arguments)."""
+    the call's (arguments, keyword arguments))."""
     seen = []
     real = ann.ivf_tile_topk
 
-    def spy(*args):
-        seen.append(args)
-        return real(*args)
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
     ann.ivf_tile_topk = spy
     try:
         out = fn()
@@ -1880,23 +1881,57 @@ def capture_k6(ann, fn):
     return out, seen[0]
 
 
-def k6_entry(R, torch, args):
-    """K6 on one search's tiles against its plain version, with its event
-    ms, the plain version's, the library yardstick (one
-    torch.bmm of the gathered queries against the gathered slices + one
-    torch.topk over all tiles) and the bound: 2 d operations per (live
-    slot, real column) pair; the distinct table rows, the queries and the
-    tile arrays read once, the (score, position) pairs written."""
+def k6_main(R, args, kwargs):
+    """The kernel name K6's call launches once (for ``trace_ms``): the
+    small form's where the call has small tiles, else the scan's."""
+    if not hasattr(R, "ivf_tile_classes"):
+        return "ivf_tile_topk_kernel"
+    queries, kk = args[0], args[6]
+    small, _ = R.ivf_tile_classes(kwargs["ln_host"], R.ivf_small_rows(
+        queries.shape[1], kk))
+    return "ivf_tile_topk_small" if len(small) else "ivf_tile_topk_kernel"
+
+
+def k6_forms_of(R, fn):
+    """{form: launches} of K6's forms in one call of ``fn`` (the wrapper's
+    counters; {} where it has none)."""
+    names = ("small_launches", "scan_launches")
+    if not hasattr(R.ivf_tile_topk, names[0]):
+        return {}
+    before = [getattr(R.ivf_tile_topk, n) for n in names]
+    fn()
+    return {n.split("_")[0]: getattr(R.ivf_tile_topk, n) - b
+            for n, b in zip(names, before)}
+
+
+def k6_entry(R, torch, call):
+    """K6 on one search's tiles (``call``: its arguments and keyword
+    arguments) against its plain version, two launches bitwise equal, with
+    its forms' launches, event ms, CUPTI ms (and by kernel), the plain
+    version's ms, the library yardstick (one torch.bmm of the gathered
+    queries against the gathered slices + one torch.topk over all tiles)
+    and the bound: 2 d operations per (live slot, real column) pair; the
+    distinct table rows, the queries and the tile arrays read once, the
+    (score, position) pairs written."""
+    args, kw = call
     queries, table, qidx, qmask, lo, ln, kk, l_cap = args
-    got = R.ivf_tile_topk(*args)
+    got = R.ivf_tile_topk(*args, **kw)
+    again = R.ivf_tile_topk(*args, **kw)
     ref = R.ivf_tile_topk_plain(*args)
     T, bq, _ = ref[0].shape
     err, tie_ids = kernel_topk_check(got, ref,
                                      f"K6 (l_cap {l_cap}, bq {bq})")
     check(not bool(torch.isnan(got[0]).any()), "K6 wrote NaN")
-    del got, ref
-    ms = time_ms(lambda: R.ivf_tile_topk(*args), reps=10, warmup=2)
-    dev_ms = trace_ms(lambda: R.ivf_tile_topk(*args), "ivf_tile_topk")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "K6 is not repeatable")
+    del got, again, ref
+
+    def fn():
+        return R.ivf_tile_topk(*args, **kw)
+    forms = k6_forms_of(R, fn)
+    ms = time_ms(fn, reps=10, warmup=2)
+    acts = trace_activities(fn, k6_main(R, args, kw))
+    dev_ms = None if acts is None else sum(t * n for t, n in acts.values())
     plain_ms = time_ms(lambda: R.ivf_tile_topk_plain(*args), reps=3,
                        warmup=1)
     cols = torch.arange(l_cap, device=lo.device)
@@ -1918,11 +1953,93 @@ def k6_entry(R, torch, args):
     nbytes = (4 * d * (rows_read + queries.shape[0]) + 9 * T * bq + 8 * T
               + 8 * T * bq * kk)
     bms, by = bound_ms(nbytes, 2 * d * pairs)
-    return dict(tiles=T, bq_cap=bq, l_cap=l_cap, kk=kk, live_pairs=pairs,
-                table_rows_read=rows_read, max_abs_err=err,
+    return dict(tiles=T, bq_cap=bq, l_cap=l_cap, kk=kk, d=d,
+                live_slots=int(live.sum()), live_pairs=pairs,
+                table_rows_read=rows_read, forms=forms, max_abs_err=err,
                 ids_differing_at_ties=tie_ids, ms=ms, device_ms=dev_ms,
-                plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bms, bound_by=by)
+                device_ms_by_kernel=None if acts is None else {
+                    k: t * n for k, (t, n) in acts.items()},
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by)
+
+
+def k6_tiles(R, rng, d, kk, l_cap=256, bq=64, B=500, N=3000):
+    """K6 arguments on random rows with tiles at every class edge: empty,
+    one row, fewer rows than kk, the small form's last row count and one
+    past it, l_cap rows, the table's last rows, an all-masked tile, and
+    random ones; 80% of the other slots live.  (args, ln on the host)."""
+    edge = R.ivf_small_rows(d, kk)
+    ln = [0, 1, max(kk - 1, 1), l_cap, 5] + ([edge, edge + 1] if edge else [])
+    T = len(ln) + 24
+    ln = np.array(ln + list(rng.integers(0, l_cap + 1, T - len(ln))),
+                  dtype=np.int32)
+    lo = rng.integers(0, N - l_cap, size=T).astype(np.int32)
+    lo[4] = N - 5
+    qmask = rng.random((T, bq)) < 0.8
+    qmask[-1] = False
+    qidx = rng.integers(0, B, size=(T, bq)).astype(np.int32)
+    args = (rng.standard_normal((B, d), dtype=np.float32),
+            rng.standard_normal((N, d), dtype=np.float32), qidx, qmask, lo,
+            ln)
+    return args, ln
+
+
+def topk_agrees(got, ref):
+    """``kernel_topk_check``'s verdict without failing the run."""
+    import torch
+
+    (gv, gi), (rv, ri) = got, ref
+    close = torch.isclose(gv, rv, rtol=TOL_SCORE, atol=TOL_SCORE_ABS)
+    return bool(close.all()) and bool(((gi == ri) | close).all())
+
+
+def k6_forms(R, torch, dev):
+    """K6's two forms against the plain version on tiles at every class
+    edge (``k6_tiles``), d = 13 (the scan), 100 and 300 at kk = 10 (both
+    forms), each at kk = 100 (the scan): each form launched (its counter),
+    two calls bitwise equal; a mutant that drops each tile's last row (the
+    kernel given ln - 1, against the plain version on ln) must fail, for
+    the tiles of each form."""
+    out = {}
+    for d in (13, 100, 300):
+        for kk in (10, 100):
+            rng = np.random.default_rng(d + kk)
+            host, ln = k6_tiles(R, rng, d, kk)
+            args = [torch.from_numpy(a).to(dev) for a in host]
+            small, scan = R.ivf_tile_classes(ln, R.ivf_small_rows(d, kk))
+            forms = k6_forms_of(R, lambda: R.ivf_tile_topk(
+                *args, kk, 256, ln_host=ln))
+            want = dict(small=int(len(small) > 0), scan=int(len(scan) > 0))
+            check(forms == want and want["scan"] == 1 and want["small"]
+                  == (kk <= 32 and d >= R.IVF_SMALL_MIN_D),
+                  f"K6 at d = {d}, kk = {kk} launched {forms}, expected "
+                  f"{want}")
+            got = R.ivf_tile_topk(*args, kk, 256, ln_host=ln)
+            again = R.ivf_tile_topk(*args, kk, 256, ln_host=ln)
+            ref = R.ivf_tile_topk_plain(*args, kk, 256)
+            err, _ = kernel_topk_check(got, ref, f"K6 forms at d = {d}, "
+                                       f"kk = {kk}")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K6 at d = {d}, kk = {kk} is not repeatable")
+            mutants = {}
+            for form, tiles in (("small", small), ("scan", scan)):
+                cut = ln.copy()
+                sel = tiles[ln[tiles] > 0]
+                if not len(sel):
+                    continue
+                cut[sel] -= 1
+                bad = R.ivf_tile_topk(*args[:5], torch.from_numpy(cut).to(
+                    dev), kk, 256, ln_host=ln)
+                mutants[form] = topk_agrees(bad, ref)
+                check(not mutants[form], f"K6's check at d = {d}, kk = {kk} "
+                      f"passes its {form} tiles' last rows dropped")
+            out[f"d{d}_kk{kk}"] = dict(
+                tiles=len(ln), small_tiles=len(small), scan_tiles=len(scan),
+                small_max_rows=R.ivf_small_rows(d, kk), max_abs_err=err,
+                forms=forms, mutant_passes=mutants)
+    torch.cuda.synchronize()
+    return dict(cases=out, max_abs_err=max(c["max_abs_err"]
+                                           for c in out.values()))
 
 
 def k7_work(N, D, C):
@@ -2021,6 +2138,7 @@ def catalog_path(bt, R, torch, dev):
                             host_ms=build_ms,
                             inverted_file_rows=int(len(index.ids)))
     k6_args = {}
+    R.ivf_tile_topk.small_launches = R.ivf_tile_topk.scan_launches = 0
     for n_probe in BRUNCH_PROBES:
         index.n_probe = n_probe
         (ms, (aids, _)), k6_args[n_probe] = capture_k6(
@@ -2029,9 +2147,27 @@ def catalog_path(bt, R, torch, dev):
         out[f"ivf_search_probe{n_probe}"] = dict(
             host_ms_first=ms, host_ms_warm=ms_warm,
             recall_at_10=recall_at(aids, ids))
+    # the exact search: BRUNCH_EXACT queries probing every cell, whose
+    # tiles carry hundreds of rows
+    index.n_probe = BRUNCH_CELLS
+    exact = queries[:BRUNCH_EXACT]
+    (ms, (aids, ascores)), k6_args["all"] = capture_k6(
+        ann, lambda: wall_ms(lambda: index.search(exact, TOPK)))
+    ms_warm, _ = wall_ms(lambda: index.search(exact, TOPK))
+    same, err = agree_with_numpy(aids[:probe // 10], ascores[:probe // 10],
+                                 *numpy_topk(exact[:probe // 10], table,
+                                             TOPK), "IVF search, every cell")
+    out["ivf_search_all_cells"] = dict(
+        queries=BRUNCH_EXACT, host_ms_first=ms, host_ms_warm=ms_warm,
+        recall_at_10=recall_at(aids, ids[:BRUNCH_EXACT]),
+        same_as_numpy_first=probe // 10, max_abs_score_err=err)
     launches = read_counts(R.KERNELS)
-    check(all(v > 0 for v in launches.values()),
-          f"a retrieval kernel never launched on the catalog: {launches}")
+    k6_forms_run = dict(small=R.ivf_tile_topk.small_launches,
+                        scan=R.ivf_tile_topk.scan_launches)
+    check(all(v > 0 for v in launches.values())
+          and all(v > 0 for v in k6_forms_run.values()),
+          f"a retrieval kernel never launched on the catalog: {launches}, "
+          f"K6's forms {k6_forms_run}")
 
     # ---- each kernel against its plain version at these shapes
     p = torch.from_numpy(queries).to(dev)
@@ -2052,10 +2188,11 @@ def catalog_path(bt, R, torch, dev):
     k5_spill = k5_entry(R, torch, chunk, cent, 2, "K5 (spill, k = 2)",
                         library=False)
     k7 = k7_entry(R, torch, unit, assign(), cent)
-    k6 = {n: k6_entry(R, torch, k6_args[n]) for n in BRUNCH_PROBES}
+    k6 = {n: k6_entry(R, torch, k6_args[n]) for n in (*BRUNCH_PROBES, "all")}
     del unit, cent, chunk, k6_args
     phase("catalog_path", items=BRUNCH_ITEMS, d=BRUNCH_D, **out,
-          launches=launches, k5=k5, k5_kmeans_assign=k5_assign,
+          launches=launches, k6_form_launches=k6_forms_run, k5=k5,
+          k5_kmeans_assign=k5_assign,
           k5_spill_assign=k5_spill, k6=k6, k7=k7)
     del p, Q, index, table, queries
     torch.cuda.empty_cache()
@@ -2116,7 +2253,8 @@ def catalog_path(bt, R, torch, dev):
             max_abs_err=max(e["max_abs_err"] for e in k6.values()),
             **{f: k6[32][f] for f in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms",
-                                      "device_ms")}),
+                                      "device_ms")},
+            form=k6_forms_run),
         "kmeans_update": dict(
             route="cuda", source="buffalo_tpu_torch/csrc/kmeans_update.cu",
             replaces="buffalo_tpu/parallel/ann.py:220",
@@ -2166,7 +2304,7 @@ def retrieval_widths(R, torch, dev):
                 queries, table,
                 rng.integers(0, 500, size=(40, bq)).astype(np.int32),
                 rng.random((40, bq)) < 0.8, lo, ln)]
-            got = R.ivf_tile_topk(*args, k, l_cap)
+            got = R.ivf_tile_topk(*args, k, l_cap, ln_host=ln)
             check(not bool(torch.isnan(got[0]).any()), "K6 wrote NaN")
             out[f"K6_d{d}_k{k}"], _ = kernel_topk_check(
                 got, R.ivf_tile_topk_plain(*args, k, l_cap),
@@ -3046,11 +3184,25 @@ def warp_kernels(W, S, torch, model):
         bms, by = bound_ms((32 if opt_name == "adam" else 24) * n
                            + 4 * P0.shape[0], 17 * n)
         fn = (lambda: S.deferred_update(*a, cnt, **kw10))
-        proj[opt_name] = dict(max_abs_err=err, ms=time_ms(fn),
+        ms = time_ms(fn)
+        # the same update without the projection: what the projection adds
+        # is ms less this, the function torch.renorm computes
+        unprojected_ms = time_ms(lambda: S.deferred_update(
+            *a, cnt, **dict(kw10, project=False)))
+        proj[opt_name] = dict(max_abs_err=err, ms=ms,
                               device_ms=trace_ms(fn, "project_kernel"),
                               plain_ms=time_ms(lambda: S.deferred_update_plain(
                                   *b, cnt, **kw10)),
-                              bound_ms=bms, bound_by=by, elements=n)
+                              bound_ms=bms, bound_by=by, elements=n,
+                              unprojected_ms=unprojected_ms,
+                              projection_ms=ms - unprojected_ms,
+                              # project_unit_ball (X / max(1, |x|)) alone, up
+                              # to renorm's 1e-7 in the divisor: a part of
+                              # the function, beside projection_ms
+                              library_ms=time_ms(lambda: torch.renorm(
+                                  a[0], 2, 0, 1.0)),
+                              library="torch.renorm(P, 2, 0, 1.0), the "
+                                      "projection alone")
     phase("warp_kernels", d=d, chunk_index=c, chunks=int(users_c.shape[0]),
           k11=k11, k12=k12, k10_projection=proj, tol_w=TOL_WARP_W,
           tol_step=TOL_WARP_STEP, check_reg=WARP_CHECK_REG, tol_k10=TOL_K10)
@@ -3405,53 +3557,91 @@ def eals_kernels(E, torch, model, st):
                checked_batches=checked, max_rel_err=max(errs),
                min_jacobi_rel_err=min(jac), rows_mode_rel_err=rows_err,
                widths=widths)
-    # K14 over all the nnz of the permuted COO view
+    # K14 over all the nnz of the permuted COO view, then at d = 13 on
+    # random tables
     rows, keys_p, vals_p = st["u"]
-    v_got = E.compute_vhat(P, Q, rows, keys_p)
-    v_ref, s_ref = E.eals_residual_plain(P, Q, rows, keys_p, vals_p, C,
+    k14 = k14_entry(E, torch, P, Q, rows, keys_p, vals_p, C, alpha,
+                    f"the trained d = {D} tables")
+    rng = np.random.default_rng(13)
+    P13, Q13 = (torch.tensor(0.3 * rng.standard_normal((len(t), 13)),
+                             dtype=torch.float32, device=dev) for t in (P, Q))
+    k14["d13"] = k14_entry(E, torch, P13, Q13, rows, keys_p, vals_p, C,
+                           alpha, "random d = 13 tables", timed=False)
+    k14["max_abs_err"] = max(k14["max_abs_err"], k14["d13"]["max_abs_err"])
+    del P13, Q13
+    phase("eals_kernels", d=D, k13=k13, k14=k14, tol=TOL_EALS,
+          tol_vhat=TOL_VHAT, tol_sums=TOL_EALS_SUM)
+    del P, Q, X, a, b, Pu, Qu
+    torch.cuda.empty_cache()
+    return {"dim_sweep": k13, "eals_residual": k14}
+
+
+def k14_work(torch, rows, keys, d, sums=True, given=False):
+    """(bytes, operations) of K14's function: three 4-byte words per entry
+    in each mode (sums: rows, keys and vals read; residuals only: rows and
+    keys read, vhat written; residuals ``given``: keys, vals and vhat
+    read), each distinct row of P and Q read once unless the residuals are
+    given, C per distinct item with the sums; 2 d + 10 operations an
+    entry."""
+    n = rows.shape[0]
+    n_i = n_distinct(torch, keys)
+    tables = 0 if given else 4 * d * (n_distinct(torch, rows) + n_i)
+    return (12 * n + tables + (4 * n_i if sums else 0),
+            n * (2 * d + 10))
+
+
+def k14_entry(E, torch, P, Q, rows, keys, vals, C, alpha, what, timed=True):
+    """K14 against its plain version: the residuals-only call within
+    TOL_VHAT, the sums within TOL_EALS_SUM, both bitwise repeatable; the
+    check must fail on residuals read with each entry's key shifted to the
+    next column.  With ``timed``, its event and CUPTI ms, the plain
+    version's, the library call's and the bound."""
+    v_got = E.compute_vhat(P, Q, rows, keys)
+    v_again = E.compute_vhat(P, Q, rows, keys)
+    v_ref, s_ref = E.eals_residual_plain(P, Q, rows, keys, vals, C,
                                          alpha=alpha)
-    _, s_got = E.eals_residual(P, Q, rows, keys_p, vals_p, C, alpha=alpha)
-    _, s_again = E.eals_residual(P, Q, rows, keys_p, vals_p, C, alpha=alpha)
+    _, s_got = E.eals_residual(P, Q, rows, keys, vals, C, alpha=alpha)
+    _, s_again = E.eals_residual(P, Q, rows, keys, vals, C, alpha=alpha)
     torch.cuda.synchronize()
     v_err = rel_err(v_got, v_ref)[1]
     s_err = float(((s_got - s_ref).abs() / s_ref.abs()).max())
     check(v_err <= TOL_VHAT and s_err <= TOL_EALS_SUM
-          and torch.equal(s_got, s_again),
-          f"K14: residuals {v_err:.3g}, sums {s_err:.3g} from the plain "
-          "version (or not repeatable)")
-    # ids, values and the residual out per entry; each distinct row of P
-    # and Q, and C per distinct item, read once
-    n = rows.shape[0]
-    n_u = int(torch.unique(rows).numel())
-    n_i = int(torch.unique(keys_p).numel())
-    bms, by = bound_ms(16 * n + 4 * D * (n_u + n_i) + 4 * n_i,
-                       n * (2 * D + 10))
+          and torch.equal(s_got, s_again) and torch.equal(v_got, v_again),
+          f"K14 on {what}: residuals {v_err:.3g}, sums {s_err:.3g} from the "
+          "plain version (or not repeatable)")
+    shifted = ((keys + 1) % Q.shape[0]).to(torch.int32)
+    mutant = rel_err(E.compute_vhat(P, Q, rows, shifted), v_ref)[1]
+    check(mutant > TOL_VHAT, f"K14's check on {what} passes residuals read "
+          f"from the next column's rows ({mutant:.3g})")
+    out = dict(d=P.shape[1], entries=rows.shape[0],
+               max_abs_err=float((v_got - v_ref).abs().max()),
+               vhat_rel_err=v_err, sums_rel_err=s_err,
+               shifted_keys_rel_err=mutant)
+    del v_got, v_again, v_ref, shifted
+    if not timed:
+        return out
+    d = P.shape[1]
+    bms, by = bound_ms(*k14_work(torch, rows, keys, d))
 
     def library():
-        v = (P[rows.long()] * Q[keys_p.long()]).sum(-1)
-        err = vals_p - v
-        return torch.stack([((1 + alpha * vals_p) * err * err).sum(),
-                            (C[keys_p.long()] * v * v).sum(),
+        v = (P[rows.long()] * Q[keys.long()]).sum(-1)
+        err = vals - v
+        return torch.stack([((1 + alpha * vals) * err * err).sum(),
+                            (C[keys.long()] * v * v).sum(),
                             (err * err).sum()])
 
-    fn14 = (lambda: E.eals_residual(P, Q, rows, keys_p, vals_p, C,
-                                    alpha=alpha))
-    k14 = dict(route="cuda", source="buffalo_tpu_torch/csrc/eals_loss.cu",
-               replaces="buffalo_tpu/ops/eals_kernels.py:356",
-               max_abs_err=float((v_got - v_ref).abs().max()),
-               ms=time_ms(fn14), device_ms=trace_ms(fn14, "residual_kernel"),
-               plain_ms=time_ms(lambda: E.eals_residual_plain(
-                   P, Q, rows, keys_p, vals_p, C, alpha=alpha), reps=5,
-                   warmup=1),
-               bound_ms=bms, bound_by=by,
-               library_ms=time_ms(library, reps=5, warmup=1), entries=n,
-               user_rows=n_u, item_rows=n_i, vhat_rel_err=v_err,
-               sums_rel_err=s_err)
-    phase("eals_kernels", d=D, k13=k13, k14=k14, tol=TOL_EALS,
-          tol_vhat=TOL_VHAT, tol_sums=TOL_EALS_SUM)
-    del P, Q, X, a, b, Pu, Qu, v_got, v_ref
-    torch.cuda.empty_cache()
-    return {"dim_sweep": k13, "eals_residual": k14}
+    def fn14():
+        return E.eals_residual(P, Q, rows, keys, vals, C, alpha=alpha)
+    out.update(
+        route="cuda", source="buffalo_tpu_torch/csrc/eals_loss.cu",
+        replaces="buffalo_tpu/ops/eals_kernels.py:356",
+        ms=time_ms(fn14), device_ms=trace_ms(fn14, "total_kernel"),
+        plain_ms=time_ms(lambda: E.eals_residual_plain(
+            P, Q, rows, keys, vals, C, alpha=alpha), reps=5, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(library, reps=5, warmup=1),
+        user_rows=n_distinct(torch, rows), item_rows=n_distinct(torch, keys))
+    return out
 
 
 def topk_past_1024(R, torch, model):
@@ -5128,7 +5318,13 @@ def mesh_eals(bt, E, torch, data):
         model.initialize()
         reset_counts(E.KERNELS)
         par.reset_counts()
+        kept = {}
+        if name == "mesh":  # the state train() builds, for K14 after it
+            build = model._train_state
+            model._train_state = lambda: kept.setdefault("st", build())
         model.train()
+        if name == "mesh":
+            k14 = k14_gathered(bt, E, torch, model, kept["st"])
         runs[name] = dict(P=model.P, Q=model.Q,
                           losses=model.iteration_losses,
                           epoch_seconds=model.iteration_times,
@@ -5156,7 +5352,26 @@ def mesh_eals(bt, E, torch, data):
           epoch_seconds=mesh["epoch_seconds"],
           single_epoch_seconds=single["epoch_seconds"],
           launches=mesh["launches"], collectives=mesh["collectives"],
-          noise_factor=NOISE_FACTOR, tol_rmse=TOL_EALS_SUM)
+          noise_factor=NOISE_FACTOR, tol_rmse=TOL_EALS_SUM,
+          k14_gathered=k14)
+
+
+def k14_gathered(bt, E, torch, model, st):
+    """K14 as the eALS mesh's loss runs it (``st``: the mesh's training
+    state), on the tables gathered to the first shard's device
+    (``k14_entry``)."""
+    from buffalo_tpu_torch.data.batching import permute_table
+
+    par = bt.parallelism
+    dev0 = st["mesh"].devices[0]
+    P, Q = (torch.from_numpy(permute_table(t, st[f"{a}_pos"],
+                                           st[f"{a}_pad"])).to(dev0)
+            for t, a in ((model.P, "u"), (model.Q, "i")))
+    C = par.all_gather_rows(st["mesh"], st["C"], first_only=True)
+    out = k14_entry(E, torch, P, Q, *st["u"], C, float(model.opt.alpha),
+                    "the mesh's gathered tables", timed=False)
+    del P, Q, C
+    return out
 
 
 def k16_halves_check(PK, torch, sums_in, apply_in):
@@ -6608,10 +6823,9 @@ def wide_work(torch, name, a, r, d):
               f"{d} took a {type(b).__name__}, not a range batch")
         return k13_work(b, d, a["item_axis"]) + (fp32,)
     if name == "eals_residual":
-        n = a["row_ids"].shape[0]
-        return (16 * n + 4 * d * (n_distinct(torch, a["row_ids"])
-                                  + n_distinct(torch, a["keys"])),
-                n * (2 * d + 10), fp32)
+        return k14_work(torch, a["row_ids"], a["keys"], d,
+                        a.get("sums", True),
+                        a.get("vhat") is not None) + (fp32,)
     if name == "plsi_estep":
         b = a["batch"]
         cols = live_cols(torch, b)
@@ -7301,6 +7515,7 @@ def main() -> int:
         path_launches.update(ret_launches)
         phase("retrieval_widths", **retrieval_widths(R, torch, dev),
               tol=TOL_SCORE)
+        phase("k6_forms", **k6_forms(R, torch, dev), tol=TOL_SCORE)
 
         # ---- text path: MatrixMarket -> ALS -> save -> load
         mm = os.path.join(WORK, "tiny.mtx")

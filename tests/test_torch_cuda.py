@@ -647,7 +647,7 @@ def test_ivf_tile_kernel_matches_plain(dev, d, kk):
     l_cap, bq = (1024, 256) if kk == 1024 else (256, 64)
     args = _ivf_case(dev, d, bq=bq, l_cap=l_cap, seed=d + kk)
     before = R.ivf_tile_topk.launches
-    got = R.ivf_tile_topk(*args, kk, l_cap)
+    got = R.ivf_tile_topk(*args, kk, l_cap, ln_host=args[5].cpu().numpy())
     torch.cuda.synchronize()
     assert R.ivf_tile_topk.launches == before + 1
     ref = R.ivf_tile_topk_plain(*args, kk, l_cap)
@@ -1544,6 +1544,153 @@ def test_eals_residual_kernel_matches_plain(dev, d):
     assert torch.allclose(s_got, s_ref, rtol=1e-5)
     assert torch.allclose(s_given, s_ref, rtol=1e-5)
     assert torch.equal(s_got, s_again)
+
+
+def _k14_view(dev, rng, nx, ny, n):
+    """A loss view in row order with Zipf-skewed columns (a hot head)."""
+    rows = np.sort(rng.integers(0, nx, n)).astype(np.int32)
+    keys = (rng.zipf(1.3, n) % ny).astype(np.int32)
+    vals = rng.integers(1, 5, n).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (rows, keys, vals)]
+
+
+@pytest.mark.parametrize("d", [1, 13, 40, 64, 256, 300])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_eals_residual_view_matches_plain(dev, d, aligned):
+    """K14 on a row-ordered view with a Zipf head (float4 loads, or floats
+    where d % 4 or a table's address forbids: the same values one float
+    into a larger buffer) against its plain version: residuals 1e-6,
+    sums 1e-5, two launches bitwise equal; the sums from given residuals
+    likewise."""
+    from buffalo_tpu_torch.ops import eals_kernels as E
+
+    rng, P, Q, C, _ = _eals_case(dev, d, nx=2000, ny=3000, seed=d)
+    if not aligned:
+        P, Q = (torch.cat([torch.zeros(1, device=dev), t.reshape(-1)])[1:]
+                .reshape(t.shape) for t in (P, Q))
+    C = torch.tensor(rng.uniform(0.05, 0.5, 3000), dtype=torch.float32,
+                     device=dev)
+    rows, keys, vals = _k14_view(dev, rng, 2000, 3000, 200_003)
+    v_ref, s_ref = E.eals_residual_plain(P, Q, rows, keys, vals, C,
+                                         alpha=8.0)
+    v = [E.compute_vhat(P, Q, rows, keys) for _ in range(2)]
+    s = [E.eals_residual(P, Q, rows, keys, vals, C, alpha=8.0)[1]
+         for _ in range(2)]
+    given = E.eals_residual(P, Q, rows, keys, vals, C, alpha=8.0,
+                            vhat=v_ref)[1]
+    torch.cuda.synchronize()
+    assert _rel_close(v[0], v_ref, 1e-6)
+    assert torch.allclose(s[0], s_ref, rtol=1e-5)
+    assert torch.allclose(given, s_ref, rtol=1e-5)
+    assert torch.equal(v[0], v[1]) and torch.equal(s[0], s[1])
+
+
+def _k6_edges(dev, d, kk, l_cap=256, bq=64, seed=0):
+    """K6 tiles at every class edge (chip_smoke.k6_tiles' shapes): empty,
+    one row, fewer rows than kk, the small form's bound and one past it,
+    l_cap rows, the table's last rows, an all-masked tile, random ones."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    rng = np.random.default_rng(seed)
+    B, N = 500, 3000
+    edge = R.ivf_small_rows(d, kk)
+    ln = [0, 1, max(kk - 1, 1), l_cap, 5] + ([edge, edge + 1] if edge
+                                             else [])
+    T = len(ln) + 24
+    ln = np.array(ln + list(rng.integers(0, l_cap + 1, T - len(ln))),
+                  dtype=np.int32)
+    lo = rng.integers(0, N - l_cap, size=T).astype(np.int32)
+    lo[4] = N - 5
+    qmask = rng.random((T, bq)) < 0.8
+    qmask[-1] = False
+    qidx = rng.integers(0, B, size=(T, bq)).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal((B, d), dtype=np.float32),
+        rng.standard_normal((N, d), dtype=np.float32), qidx, qmask, lo, ln)]
+    return args, ln
+
+
+@pytest.mark.parametrize("d", [1, 4, 13, 40, 100, 256, 300])
+@pytest.mark.parametrize("kk", [1, 10, 32, 33])
+def test_ivf_tile_forms_match_plain(dev, d, kk):
+    """K6's small form and scan, each on its class of tiles (counted per
+    form), against the plain version; two calls bitwise equal; each form's
+    tiles with their last quarter of rows (at least one) dropped fail the
+    check (a last row alone can miss every slot's top 1 at d = 1)."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    args, ln = _k6_edges(dev, d, kk, seed=d + kk)
+    small, scan = R.ivf_tile_classes(ln, R.ivf_small_rows(d, kk))
+    counts = (R.ivf_tile_topk.small_launches, R.ivf_tile_topk.scan_launches)
+    got = R.ivf_tile_topk(*args, kk, 256, ln_host=ln)
+    again = R.ivf_tile_topk(*args, kk, 256, ln_host=ln)
+    with pytest.raises(ValueError, match="ln_host"):
+        R.ivf_tile_topk(*args, kk, 256)  # no host copy of ln: no sync
+    torch.cuda.synchronize()
+    assert (R.ivf_tile_topk.small_launches - counts[0],
+            R.ivf_tile_topk.scan_launches - counts[1]) == (
+                2 * int(len(small) > 0), 2 * int(len(scan) > 0))
+    assert (kk > 32 or d < R.IVF_SMALL_MIN_D) == (len(small) == 0)
+    ref = R.ivf_tile_topk_plain(*args, kk, 256)
+    T = ln.shape[0]
+    _topk_close(*((x.reshape(T * 64, kk) for x in o) for o in (got, ref)))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(torch.isinf(got[0]), torch.isinf(ref[0]))
+    for tiles in (small, scan):
+        sel = tiles[ln[tiles] > 0]
+        if not len(sel):
+            continue
+        cut = ln.copy()
+        cut[sel] -= np.maximum(1, ln[sel] // 4)
+        bad = R.ivf_tile_topk(*args[:5], torch.from_numpy(cut).to(dev), kk,
+                              256, ln_host=ln)
+        t = torch.from_numpy(sel).to(dev).long()
+        assert not torch.allclose(bad[0][t], ref[0][t], rtol=1e-5,
+                                  atol=1e-6) or not torch.equal(
+                                      bad[1][t], ref[1][t])
+
+
+@pytest.mark.parametrize("d", [32, 40, 100, 256])
+def test_ivf_small_form_is_the_scan_bit_for_bit(dev, d, monkeypatch):
+    """The small form sums each score as the scan does (from 0, one fmaf
+    a feature in order): with every tile sent to the scan
+    (IVF_SMALL_MAX_L = 0) the outputs are the same bits."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    args, ln = _k6_edges(dev, d, 10, seed=d)
+    assert len(R.ivf_tile_classes(ln, R.ivf_small_rows(d, 10))[0]) > 0
+    got = R.ivf_tile_topk(*args, 10, 256, ln_host=ln)
+    monkeypatch.setattr(R, "IVF_SMALL_MAX_L", 0)
+    before = R.ivf_tile_topk.small_launches
+    scan = R.ivf_tile_topk(*args, 10, 256, ln_host=ln)
+    assert R.ivf_tile_topk.small_launches == before
+    assert all(torch.equal(a, b) for a, b in zip(got, scan))
+
+
+@pytest.mark.parametrize("max_rows", [0, 1, 64, 256, 4096])
+def test_ivf_small_rows_fits_the_staging(dev, max_rows, monkeypatch):
+    """The small form's row cap (the C query): 0 below IVF_SMALL_MIN_D,
+    past kk = 32 or with a cap of 0; else at most the cap, its staging
+    (the rows and 8 warps x 8 query rows, at the wider of the float and
+    float4 strides, each padded to an odd count of its units) within 227
+    KB of shared memory, and one row more past it or past the cap."""
+    from buffalo_tpu_torch.ops import retrieval_kernels as R
+
+    monkeypatch.setattr(R, "IVF_SMALL_MAX_L", max_rows)
+    for d in (1, 3, 4, 13, 32, 40, 100, 128, 256, 300, 512, 1000, 2000):
+        s = max(d if d % 2 else d + 1,
+                (d if (d // 4) % 2 else d + 4) if d % 4 == 0 else 0)
+
+        def fits(rows):
+            return 4 * s * (rows + 64) <= 227 * 1024
+        for kk in (1, 10, 32, 33):
+            rows = R.ivf_small_rows(d, kk)
+            if d < R.IVF_SMALL_MIN_D or kk > 32 or max_rows == 0 \
+                    or not fits(1):
+                assert rows == 0, (d, kk)
+                continue
+            assert 1 <= rows <= max_rows and fits(rows), (d, kk)
+            assert rows == max_rows or not fits(rows + 1), (d, kk)
 
 
 # ------------------------------------------------------- top-k past 1024

@@ -229,8 +229,9 @@ def test_gram_form_is_the_dimension_sweep(d, item_axis, mode):
     assert np.abs(jac - want).max() > 1e-5 * scale
 
 
-def test_residual_and_loss_match_jax():
-    rng, P, Q, C, _ = _tables(4)
+@pytest.mark.parametrize("d", [13, 40])
+def test_residual_and_loss_match_jax(d):
+    rng, P, Q, C, _ = _tables(4, d=d)
     nnz = 120
     rows = rng.integers(0, P.shape[0], nnz).astype(np.int32)
     keys = rng.integers(0, Q.shape[0], nnz).astype(np.int32)

@@ -404,6 +404,29 @@ def test_ivf_tile_plain_vs_float64():
                 range(lo[t] + ln[t], lo[t] + ln[t] + 8 - n))
 
 
+@pytest.mark.parametrize("rows", [0, 1, 17, 64])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_ivf_tile_classes_partition(rows, seed):
+    """K6's class split at a row cap: every tile in exactly one class, in
+    tile order; the small form's tiles those of at most ``rows`` rows
+    (empty ones included), the scan's the rest; a cap of 0 (no small
+    form) puts every tile in the scan."""
+    rng = np.random.default_rng(seed)
+    ln = np.concatenate([[0, 1, rows, rows + 1, 1024],
+                         rng.integers(0, 80 if seed % 2 else 1025,
+                                      60 * seed)]).astype(np.int32)
+    small, scan = R.ivf_tile_classes(ln, rows)
+    assert small.dtype == scan.dtype == np.int32
+    assert np.array_equal(np.sort(np.concatenate([small, scan])),
+                          np.arange(len(ln)))
+    assert np.all(np.diff(small) > 0) and np.all(np.diff(scan) > 0)
+    if rows == 0:
+        assert len(small) == 0
+        return
+    assert np.all(ln[small] <= rows) and np.all(ln[scan] > rows)
+    assert 0 in small and 2 in small and 3 in scan and 4 in scan
+
+
 def test_kmeans_update_plain_vs_float64():
     rng = np.random.default_rng(11)
     unit = rng.standard_normal((500, 9)).astype(np.float32)
